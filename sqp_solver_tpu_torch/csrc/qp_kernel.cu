@@ -1,0 +1,745 @@
+// Hopper (sm_90a) kernels of the SQP main path, with a plain C interface
+// loaded through ctypes by sqp_solver_tpu_torch/ops/qp_kernel.py.
+//
+//   sqp_step_kernel   replaces sqp_solver_tpu/ops/qp_kernel.py:sqp_step_kernel
+//                     (body _sqp_step_kernel, pallas_call in _sqp_step_call)
+//   polish_kkt_kernel replaces sqp_solver_tpu/ops/qp_kernel.py:polish_kkt_kernel
+//                     (body _polish_kkt_body, pallas_call in _polish_kkt_call)
+//
+// Design.  One thread block per problem, batch-first operands.  The TPU
+// kernels put 128 problems on the VPU lanes and branch once per tile; here
+// every loop exit (ADMM chunk and rho epoch, the posdef retry, skipping an
+// inactive problem) is a per-problem branch.  Every such condition is
+// computed identically by all threads of the block from shared memory or
+// from a block reduction, so it is block-uniform and __syncthreads() never
+// sits under a thread-divergent branch.
+//
+// The three pieces the TPU kernels share are device functions here, shared
+// by both kernels (and by the whole-QP and SPD-inverse kernels later):
+//   schur_build      M = P + sigma I + A' diag(w) A     (_factor_schur_refs)
+//   cholesky_inplace, tri_inv, ltl                      (_chol_inv_ltl)
+//   admm_solve       rho epochs / chunks / adaptive rho (_admm_core)
+//
+// Numerics follow the TPU kernels where they decide a flag or a branch:
+// float32 storage and accumulation; the explicit inverse Minv = L^-T L^-1
+// that ADMM applies (K1) and Li'(Li t) (K2); the pivot clamp max(d, 1e-30)
+// with fail = (d <= 0 | isnan(d)); rho adopted only at factor time so the
+// emitted (Minv, rho) pair stays consistent for SOC reuse; the iteration
+// count advancing by seg only on active problems.
+//
+// Memory.  Vectors live in shared memory.  The per-problem matrices
+// (row stride n+1, which makes the row-per-thread matvecs free of bank
+// conflicts) go to shared memory in a fixed order for as long as they fit
+// in the 227 KB a block may use; the rest go to a per-problem workspace in
+// device memory that the wrapper allocates.  At n = 32 and at n = 128
+// (m = n + 1) every matrix fits; the workspace serves larger n or m.
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxSmemBytes = 232448;  // per block on sm_90
+constexpr int kRedSlots = 8 * 32;      // up to 8 values reduced at once
+constexpr float kRhoMin = 1e-6f;
+constexpr float kRhoMax = 1e6f;
+constexpr float kRhoTol = 1e-4f;
+constexpr float kRhoEqFactor = 1e3f;
+constexpr float kLooseThresh = 1e16f;
+
+// max that propagates NaN like jnp.maximum / torch.maximum
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || isnan(a)) ? a : b;
+}
+
+// clip that propagates NaN like jnp.clip
+__device__ __forceinline__ float clip(float v, float lo, float hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Block-wide reductions of K values at once.  Every thread returns the same
+// result (the partials are summed in the same order by every thread).
+template <int K>
+__device__ void block_sum(float (&v)[K], float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+  __syncthreads();  // the previous reduction's readers are done with red
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k * 32 + w] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float r = 0.f;
+    for (int i = 0; i < nw; ++i) r += red[k * 32 + i];
+    v[k] = r;
+  }
+}
+
+template <int K>
+__device__ void block_max(float (&v)[K], float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    for (int o = 16; o > 0; o >>= 1) v[k] = nan_max(v[k], __shfl_xor_sync(0xffffffffu, v[k], o));
+  __syncthreads();
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k * 32 + w] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float r = red[k * 32];
+    for (int i = 1; i < nw; ++i) r = nan_max(r, red[k * 32 + i]);
+    v[k] = r;
+  }
+}
+
+// y = M x for M (rows x cols, row stride ld); one thread per row.  No sync.
+__device__ __forceinline__ void mv(const float* M, int ld, int rows, int cols,
+                                   const float* x, float* y) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const float* r = M + (size_t)i * ld;
+    float acc = 0.f;
+    for (int j = 0; j < cols; ++j) acc = fmaf(r[j], x[j], acc);
+    y[i] = acc;
+  }
+}
+
+// y = M' x for M (rows x cols, row stride ld); one thread per column.  No sync.
+__device__ __forceinline__ void mtv(const float* M, int ld, int rows, int cols,
+                                    const float* x, float* y) {
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+    float acc = 0.f;
+    for (int i = 0; i < rows; ++i) acc = fmaf(M[(size_t)i * ld + j], x[i], acc);
+    y[j] = acc;
+  }
+}
+
+// W (lower triangle) = P + sigma I + A' diag(w) A.  Twin of _factor_schur_refs.
+__device__ void schur_build(float* W, int ldw, const float* P, int ldp, const float* A,
+                            int lda, const float* w, float sigma, int n, int m) {
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e - i * n;
+    if (j > i) continue;
+    float acc = 0.f;
+    for (int k = 0; k < m; ++k) acc = fmaf(A[k * lda + i] * w[k], A[k * lda + j], acc);
+    W[i * ldw + j] = P[(size_t)i * ldp + j] + (i == j ? sigma : 0.f) + acc;
+  }
+  __syncthreads();
+}
+
+// In-place lower Cholesky of W by columns (right-looking).  A pivot d <= 0
+// or NaN sets the returned fail flag and is clamped to max(d, 1e-30), as
+// in _chol_inv_ltl.  Block-uniform result.
+__device__ bool cholesky_inplace(float* W, int ld, int n) {
+  bool fail = false;
+  for (int j = 0; j < n; ++j) {
+    const float d = W[j * ld + j];
+    fail = fail || (d <= 0.f) || isnan(d);
+    const float dc = nan_max(d, 1e-30f);
+    const float rs = rsqrtf(dc);
+    __syncthreads();  // every thread has read the pivot
+    for (int i = j + 1 + threadIdx.x; i < n; i += blockDim.x) W[i * ld + j] *= rs;
+    if (threadIdx.x == 0) W[j * ld + j] = sqrtf(dc);
+    __syncthreads();
+    const int r = n - j - 1;
+    for (int e = threadIdx.x; e < r * r; e += blockDim.x) {
+      const int a = e / r, b = e - a * r;
+      if (b > a) continue;
+      const int i = j + 1 + a, k = j + 1 + b;
+      W[i * ld + k] = fmaf(-W[i * ld + j], W[k * ld + j], W[i * ld + k]);
+    }
+    __syncthreads();
+  }
+  return fail;
+}
+
+// Li = L^-1 for the lower-triangular L held in the lower triangle of Lm:
+// one thread per column, forward substitution, dividing by max(L_ii, 1e-30).
+__device__ void tri_inv(const float* Lm, int ldl, float* Li, int ldi, int n) {
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    for (int i = 0; i < c; ++i) Li[i * ldi + c] = 0.f;
+    for (int i = c; i < n; ++i) {
+      float acc = 0.f;
+      for (int k = c; k < i; ++k) acc = fmaf(Lm[i * ldl + k], Li[k * ldi + c], acc);
+      Li[i * ldi + c] = ((i == c ? 1.f : 0.f) - acc) / nan_max(Lm[i * ldl + i], 1e-30f);
+    }
+  }
+  __syncthreads();
+}
+
+// W = Li' Li (full symmetric): W[i][j] = sum_{k >= max(i,j)} Li[k][i] Li[k][j].
+__device__ void ltl(const float* Li, int ldi, float* W, int ldw, int n) {
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e - i * n;
+    float acc = 0.f;
+    for (int k = max(i, j); k < n; ++k) acc = fmaf(Li[k * ldi + i], Li[k * ldi + j], acc);
+    W[i * ldw + j] = acc;
+  }
+  __syncthreads();
+}
+
+// Minv (in W) of M = P + sigma I + A' diag(w) A; Li is scratch.  Returns fail.
+__device__ bool factor_minv(float* W, float* Li, int ldm, const float* P, int ldp,
+                            const float* A, const float* w, float sigma, int n, int m) {
+  schur_build(W, ldm, P, ldp, A, ldm, w, sigma, n, m);
+  const bool fail = cholesky_inplace(W, ldm, n);
+  tri_inv(W, ldm, Li, ldm, n);
+  ltl(Li, ldm, W, ldm, n);
+  return fail;
+}
+
+// per-row rho from the scalar rho and the row classes (twin of _rho_from)
+__device__ void set_rho_vec(float* rv, const float* l, const float* u, float rho, int m) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const bool loose = (l[i] < -kLooseThresh) && (u[i] > kLooseThresh);
+    const bool eq = (u[i] - l[i]) < kRhoTol;
+    rv[i] = loose ? kRhoMin : (eq ? kRhoEqFactor * rho : rho);
+  }
+  __syncthreads();
+}
+
+struct StepParams {
+  int n, m;
+  float sigma, alpha, rho0, eps_abs, eps_rel;
+  int n_epochs, chunks_per_epoch, seg, adaptive_rho;
+  float adaptive_rho_tolerance;
+  int do_bfgs;
+  int n_smem_mats;       // leading matrices [W, A, Li] held in shared memory
+  long long ws_floats;   // per-problem workspace for the others
+};
+
+// Matrix placement: the first n_smem of the sizes go to shared memory after
+// the vectors, the rest to this problem's slice of the workspace.
+template <int K>
+__device__ void place(float* (&ptr)[K], const int (&size)[K], float* smem_mats, int n_smem,
+                      float* ws, long long ws_floats) {
+  float* s = smem_mats;
+  float* g = ws ? ws + (size_t)blockIdx.x * ws_floats : nullptr;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < n_smem) { ptr[k] = s; s += size[k]; }
+    else { ptr[k] = g; g += size[k]; }
+  }
+}
+
+struct AdmmState {
+  bool done, fail, pending;
+  int itc, rho_upd, nfact;
+  float rho, rho_est, rp, rd, mz, mq;
+};
+
+// One ADMM iteration in place on (x, z, y).  tn, tm are scratch.
+__device__ void admm_iter(const float* Minv, const float* A, int ld, const float* q,
+                          const float* l, const float* u, const float* rv, float* x,
+                          float* z, float* y, float* bt, float* xt, float* tm,
+                          float sigma, float alpha, int n, int m) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) tm[i] = rv[i] * z[i] - y[i];
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float acc = 0.f;
+    for (int i = 0; i < m; ++i) acc = fmaf(A[i * ld + j], tm[i], acc);
+    bt[j] = sigma * x[j] - q[j] + acc;
+  }
+  __syncthreads();
+  mv(Minv, ld, n, n, bt, xt);
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const float* r = A + i * ld;
+    float zt = 0.f;
+    for (int j = 0; j < n; ++j) zt = fmaf(r[j], xt[j], zt);
+    const float z_pre = alpha * zt + (1.f - alpha) * z[i];
+    const float zn = clip(z_pre + (1.f / rv[i]) * y[i], l[i], u[i]);
+    y[i] = y[i] + rv[i] * (z_pre - zn);
+    z[i] = zn;
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) x[j] = alpha * xt[j] + (1.f - alpha) * x[j];
+  __syncthreads();
+}
+
+// Termination residuals: rp = |Ax - z|, rd = |Px + q + A'y|, and their
+// relative scales (linf norms), as _admm_core's stats().
+__device__ void admm_stats(const float* P, int ldp, const float* A, int ld, const float* q,
+                           const float* x, const float* z, const float* y, float* tm,
+                           float* tn1, float* tn2, float* red, int n, int m,
+                           AdmmState& st) {
+  mv(A, ld, m, n, x, tm);
+  mv(P, ldp, n, n, x, tn1);
+  mtv(A, ld, m, n, y, tn2);
+  __syncthreads();
+  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    v[0] = nan_max(v[0], fabsf(tm[i] - z[i]));
+    v[1] = nan_max(v[1], fabsf(tm[i]));
+    v[2] = nan_max(v[2], fabsf(z[i]));
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    v[3] = nan_max(v[3], fabsf(tn1[j] + q[j] + tn2[j]));
+    v[4] = nan_max(v[4], fabsf(tn1[j]));
+    v[5] = nan_max(v[5], fabsf(tn2[j]));
+    v[6] = nan_max(v[6], fabsf(q[j]));
+  }
+  block_max(v, red);
+  st.rp = v[0];
+  st.mz = nan_max(v[1], v[2]);
+  st.rd = v[3];
+  st.mq = nan_max(v[4], nan_max(v[5], v[6]));
+}
+
+// The warm-started ADMM solve of one problem (twin of _admm_core without
+// Anderson and certificates).  P is the QP Hessian (the factor's source),
+// W holds Minv for the current rho on entry and on exit, Li is scratch.
+__device__ void admm_solve(const StepParams& p, const float* P, int ldp, const float* A,
+                           float* W, float* Li, int ld, const float* q, const float* l,
+                           const float* u, float* rv, float* x, float* z, float* y,
+                           float* bt, float* xt, float* tm, float* tn1, float* tn2,
+                           float* red, AdmmState& st) {
+  const int n = p.n, m = p.m;
+  for (int e = 0; e < p.n_epochs && !st.done && !st.fail; ++e) {
+    if (st.pending) {
+      // adopt the pending rho together with its factorization
+      st.rho = st.rho_est;
+      set_rho_vec(rv, l, u, st.rho, m);
+      st.fail = factor_minv(W, Li, ld, P, ldp, A, rv, p.sigma, n, m);
+      st.nfact += 1;
+    }
+    for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail; ++c) {
+      for (int it = 0; it < p.seg; ++it)
+        admm_iter(W, A, ld, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
+      admm_stats(P, ldp, A, ld, q, x, z, y, tm, tn1, tn2, red, n, m, st);
+      const bool conv = (st.rp <= p.eps_abs + p.eps_rel * st.mz) &&
+                        (st.rd <= p.eps_abs + p.eps_rel * st.mq);
+      st.itc += p.seg;
+      st.done = conv;
+    }
+    if (p.adaptive_rho) {
+      const bool act = !st.done && !st.fail;
+      bool changed = false;
+      if (act) {
+        const float tiny = 1e-30f;
+        const float nrp = st.rp / (st.mz + tiny);
+        const float nrd = st.rd / (st.mq + tiny);
+        const float new_rho = clip(st.rho * sqrtf(nrp / (nrd + tiny)), kRhoMin, kRhoMax);
+        changed = (new_rho < st.rho / p.adaptive_rho_tolerance) ||
+                  (new_rho > st.rho * p.adaptive_rho_tolerance);
+        st.rho_est = new_rho;
+      }
+      st.rho_upd += changed ? 1 : 0;
+      st.pending = changed;
+    }
+  }
+}
+
+// K1.  Replaces sqp_solver_tpu/ops/qp_kernel.py:sqp_step_kernel.
+// Per problem: damped BFGS (Procedure 18.2) into B_out, the posdef fallback
+// (factor; on a failed pivot B := I and refactor), then the warm-started
+// ADMM solve.  With minv_in the factor and rho of a previous solve of the
+// same (B, J) are reused (the SOC re-solve); minv_out emits the final one.
+// What bounds it on this card: at n = 32, B = 4096 it is per-problem
+// latency (4096 blocks of 128 threads, ~31 per SM over 132 SMs; each ADMM
+// iteration is four dependent matvec phases with a barrier between them),
+// at n = 128 the O(n^3) factor loops of one block per SM (208 KB of shared
+// memory, 8 warps to hide shared-memory latency).  The design keeps the operands
+// of the hot loop (A and Minv, padded rows) in shared memory at both
+// sizes, so the ADMM iterations never touch device memory; B_out, read
+// once per chunk, stays in device memory (L1/L2 resident).
+__global__ void __launch_bounds__(256) sqp_step_kernel(
+    StepParams p, const float* __restrict__ Bp, const float* __restrict__ J,
+    const float* __restrict__ g, const float* __restrict__ lg, const float* __restrict__ ug,
+    const float* __restrict__ sg, const float* __restrict__ dglg,
+    const uint8_t* __restrict__ reset, const uint8_t* __restrict__ upd,
+    const uint8_t* __restrict__ active, const float* __restrict__ rho_in,
+    const float* __restrict__ minv_in, const float* __restrict__ x0,
+    const float* __restrict__ z0, const float* __restrict__ y0, float* __restrict__ p_out,
+    float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ B_out,
+    float* __restrict__ stats, float* __restrict__ minv_out, float* __restrict__ ws) {
+  extern __shared__ float smem[];
+  const int n = p.n, m = p.m, ld = n + 1;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+
+  float* q = smem;
+  float* x = q + n;
+  float* bt = x + n;
+  float* xt = bt + n;
+  float* tn1 = xt + n;
+  float* tn2 = tn1 + n;
+  float* s = tn2 + n;
+  float* yv = s + n;
+  float* Bs = yv + n;   // 9 n
+  float* z = Bs + n;
+  float* y = z + m;
+  float* l = y + m;
+  float* u = l + m;
+  float* rv = u + m;
+  float* tm = rv + m;
+  float* tm2 = tm + m;  // 7 m
+  float* red = tm2 + m;
+  float* mats = red + kRedSlots;
+  float* M[3];
+  const int msize[3] = {n * ld, m * ld, n * ld};
+  place(M, msize, mats, p.n_smem_mats, ws, p.ws_floats);
+  float* W = M[0];
+  float* A = M[1];
+  float* Li = M[2];
+  float* Bn = B_out + b * n * n;
+  const float* Bpb = Bp + b * n * n;
+
+  for (int j = tid; j < n; j += T) {
+    q[j] = g[b * n + j];
+    x[j] = x0[b * n + j];
+  }
+  for (int i = tid; i < m; i += T) {
+    z[i] = z0[b * m + i];
+    y[i] = y0[b * m + i];
+    l[i] = lg[b * m + i];
+    u[i] = ug[b * m + i];
+  }
+  for (int e = tid; e < m * n; e += T) {
+    const int i = e / n, j = e - i * n;
+    A[i * ld + j] = J[b * m * n + e];
+  }
+
+  const bool act0 = active[b] != 0;
+  if (p.do_bfgs) {
+    for (int j = tid; j < n; j += T) {
+      s[j] = sg[b * n + j];
+      yv[j] = dglg[b * n + j];
+    }
+    __syncthreads();
+    mv(Bpb, n, n, n, s, Bs);
+    __syncthreads();
+    float v[2] = {0.f, 0.f};
+    for (int j = tid; j < n; j += T) {
+      v[0] = fmaf(s[j], Bs[j], v[0]);
+      v[1] = fmaf(s[j], yv[j], v[1]);
+    }
+    block_sum(v, red);
+    const float sBs = v[0], sy = v[1];
+    const bool damped = sy < 0.2f * sBs;
+    const float theta = 0.8f * sBs / nan_max(sBs - sy, FLT_MIN);
+    float* r = tn1;
+    for (int j = tid; j < n; j += T)
+      r[j] = damped ? theta * yv[j] + (1.f - theta) * Bs[j] : yv[j];
+    const float sr = damped ? theta * sy + (1.f - theta) * sBs : sy;
+    const bool keep = (sr < FLT_EPSILON) || upd[b] == 0;
+    const bool rst = reset[b] != 0;
+    const float isBs = 1.f / nan_max(sBs, FLT_MIN);
+    const float isr = 1.f / nan_max(sr, FLT_MIN);
+    __syncthreads();
+    for (int e = tid; e < n * n; e += T) {
+      const int i = e / n, j = e - i * n;
+      float val;
+      if (rst) val = (i == j) ? 1.f : 0.f;
+      else if (keep) val = Bpb[e];
+      else val = Bpb[e] - (Bs[i] * Bs[j]) * isBs + (r[i] * r[j]) * isr;
+      Bn[e] = val;
+    }
+  } else {
+    for (int e = tid; e < n * n; e += T) Bn[e] = Bpb[e];
+  }
+  __syncthreads();
+
+  AdmmState st;
+  st.done = !act0;
+  st.pending = false;
+  st.itc = 0;
+  st.rho_upd = 1;  // the reference counts the setup rho update
+  st.nfact = 0;
+  st.rp = st.rd = st.mz = st.mq = 0.f;
+  if (minv_in) {
+    const float* mi = minv_in + b * n * n;
+    for (int e = tid; e < n * n; e += T) {
+      const int i = e / n, j = e - i * n;
+      W[i * ld + j] = mi[e];
+    }
+    const float ri = rho_in ? rho_in[b] : 0.f;
+    st.rho = ri > 0.f ? ri : p.rho0;
+    st.fail = false;
+    set_rho_vec(rv, l, u, st.rho, m);
+  } else {
+    st.rho = p.rho0;
+    set_rho_vec(rv, l, u, st.rho, m);
+    bool f = false;
+    if (act0) {
+      f = factor_minv(W, Li, ld, Bn, n, A, rv, p.sigma, n, m);
+      st.nfact = 1;
+      if (f) {  // posdef fallback: B := I and refactor once
+        for (int e = tid; e < n * n; e += T) Bn[e] = (e / n == e % n) ? 1.f : 0.f;
+        __syncthreads();
+        f = factor_minv(W, Li, ld, Bn, n, A, rv, p.sigma, n, m);
+        st.nfact = 2;
+      }
+    }
+    st.fail = f && act0;
+  }
+  st.rho_est = st.rho;
+
+  admm_solve(p, Bn, n, A, W, Li, ld, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, red, st);
+
+  for (int j = tid; j < n; j += T) p_out[b * n + j] = x[j];
+  for (int i = tid; i < m; i += T) {
+    z_out[b * m + i] = z[i];
+    y_out[b * m + i] = y[i];
+  }
+  if (tid == 0) {  // stats is (9, batch): one row per field
+    const size_t B = gridDim.x;
+    stats[0 * B + b] = st.done ? 1.f : 0.f;
+    stats[1 * B + b] = (float)st.itc;
+    stats[2 * B + b] = st.rp;
+    stats[3 * B + b] = st.rd;
+    stats[4 * B + b] = st.fail ? 1.f : 0.f;
+    stats[5 * B + b] = (float)st.rho_upd;
+    stats[6 * B + b] = st.rho_est;
+    stats[7 * B + b] = st.rho;
+    stats[8 * B + b] = (float)st.nfact;
+  }
+  if (minv_out) {
+    const bool have = minv_in != nullptr || st.nfact > 0;
+    float* mo = minv_out + b * n * n;
+    for (int e = tid; e < n * n; e += T) {
+      const int i = e / n, j = e - i * n;
+      mo[e] = have ? W[i * ld + j] : 0.f;
+    }
+  }
+}
+
+// K2.  Replaces sqp_solver_tpu/ops/qp_kernel.py:polish_kkt_kernel.
+// Per problem: mask J by the active rows, L^-1 of M = H + delta I +
+// (1/delta) Jm'Jm, then `sweeps` ideal-operator refinement sweeps that
+// apply M^-1 as Li'(Li t).  What bounds it on this card: the O(n^3)
+// Cholesky and triangular inverse, one block per problem (at n = 128 one
+// block per SM for the 207 KB of shared memory it needs); the sweeps are
+// O(n^2 + mn) each.  The design keeps W, Li and Jm in shared memory and
+// reads H, used by one matvec per sweep, from device memory.
+__global__ void __launch_bounds__(256) polish_kkt_kernel(
+    int n, int m, float delta, int sweeps, int n_smem_mats, long long ws_floats,
+    const float* __restrict__ H, const float* __restrict__ J,
+    const uint8_t* __restrict__ actg, const float* __restrict__ r1g,
+    const float* __restrict__ bg, const float* __restrict__ nu0,
+    const float* __restrict__ x0, float* __restrict__ x_out, float* __restrict__ nu_out,
+    uint8_t* __restrict__ fail_out, float* __restrict__ li_out, float* __restrict__ ws) {
+  extern __shared__ float smem[];
+  const int ld = n + 1;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const float inv_d = 1.f / delta;
+
+  float* r1 = smem;
+  float* x = r1 + n;
+  float* w_n = x + n;
+  float* t = w_n + n;
+  float* v = t + n;
+  float* dx = v + n;
+  float* dw_n = dx + n;  // 7 n
+  float* bb = dw_n + n;
+  float* nu = bb + m;
+  float* w_m = nu + m;
+  float* act = w_m + m;
+  float* res2 = act + m;
+  float* tmp = res2 + m;
+  float* dw_m = tmp + m;
+  float* wrow = dw_m + m;  // 8 m
+  float* red = wrow + m;
+  float* mats = red + kRedSlots;
+  float* M[3];
+  const int msize[3] = {n * ld, n * ld, m * ld};
+  place(M, msize, mats, n_smem_mats, ws, ws_floats);
+  float* W = M[0];
+  float* Li = M[1];
+  float* Jm = M[2];
+  const float* Hb = H + b * n * n;
+
+  for (int i = tid; i < m; i += T) {
+    const float a = actg[b * m + i] ? 1.f : 0.f;
+    act[i] = a;
+    bb[i] = bg[b * m + i];
+    nu[i] = nu0[b * m + i] * a;
+    wrow[i] = a * inv_d;
+  }
+  for (int j = tid; j < n; j += T) r1[j] = r1g[b * n + j];
+  __syncthreads();
+  for (int e = tid; e < m * n; e += T) {
+    const int i = e / n, j = e - i * n;
+    Jm[i * ld + j] = J[b * m * n + e] * act[i];
+  }
+  __syncthreads();
+
+  schur_build(W, ld, Hb, n, Jm, ld, wrow, delta, n, m);
+  const bool fail = cholesky_inplace(W, ld, n);
+  tri_inv(W, ld, Li, ld, n);
+
+  if (x0) {
+    for (int j = tid; j < n; j += T) x[j] = x0[b * n + j];
+    __syncthreads();
+    mv(Hb, n, n, n, x, w_n);
+    mv(Jm, ld, m, n, x, w_m);
+  } else {
+    for (int j = tid; j < n; j += T) x[j] = w_n[j] = 0.f;
+    for (int i = tid; i < m; i += T) w_m[i] = 0.f;
+  }
+  __syncthreads();
+
+  for (int sw = 0; sw < sweeps; ++sw) {
+    for (int i = tid; i < m; i += T) {
+      res2[i] = act[i] * (bb[i] - w_m[i]);
+      tmp[i] = nu[i] - inv_d * res2[i];
+    }
+    __syncthreads();
+    for (int j = tid; j < n; j += T) {
+      float acc = 0.f;
+      for (int i = 0; i < m; ++i) acc = fmaf(Jm[i * ld + j], tmp[i], acc);
+      t[j] = r1[j] - w_n[j] - acc;
+    }
+    __syncthreads();
+    for (int i = tid; i < n; i += T) {  // v = Li t (lower triangular)
+      float acc = 0.f;
+      for (int k = 0; k <= i; ++k) acc = fmaf(Li[i * ld + k], t[k], acc);
+      v[i] = acc;
+    }
+    __syncthreads();
+    for (int j = tid; j < n; j += T) {  // dx = Li' v
+      float acc = 0.f;
+      for (int i = j; i < n; ++i) acc = fmaf(Li[i * ld + j], v[i], acc);
+      dx[j] = acc;
+    }
+    __syncthreads();
+    mv(Hb, n, n, n, dx, dw_n);
+    mv(Jm, ld, m, n, dx, dw_m);
+    __syncthreads();
+    for (int i = tid; i < m; i += T) {
+      nu[i] = nu[i] + act[i] * inv_d * (dw_m[i] - res2[i]);
+      w_m[i] += dw_m[i];
+    }
+    for (int j = tid; j < n; j += T) {
+      x[j] += dx[j];
+      w_n[j] += dw_n[j];
+    }
+    __syncthreads();
+  }
+
+  for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
+  for (int i = tid; i < m; i += T) nu_out[b * m + i] = nu[i];
+  if (tid == 0) fail_out[b] = fail ? 1 : 0;
+  float* lo = li_out + b * n * n;
+  for (int e = tid; e < n * n; e += T) {
+    const int i = e / n, j = e - i * n;
+    lo[e] = Li[i * ld + j];
+  }
+}
+
+struct Layout {
+  size_t smem_bytes;
+  int n_smem_mats;
+  long long ws_floats;
+};
+
+Layout plan(long long vec_floats, const long long (&mats)[3]) {
+  Layout L;
+  L.smem_bytes = (size_t)vec_floats * sizeof(float);
+  L.n_smem_mats = 0;
+  L.ws_floats = 0;
+  bool spill = false;
+  for (int k = 0; k < 3; ++k) {
+    const size_t bytes = (size_t)mats[k] * sizeof(float);
+    if (!spill && L.smem_bytes + bytes <= (size_t)kMaxSmemBytes) {
+      L.smem_bytes += bytes;
+      L.n_smem_mats += 1;
+    } else {
+      spill = true;
+      L.ws_floats += mats[k];
+    }
+  }
+  return L;
+}
+
+Layout step_layout(int n, int m) {
+  const long long ld = n + 1;
+  const long long mats[3] = {n * ld, m * ld, n * ld};
+  return plan(9LL * n + 7LL * m + kRedSlots, mats);
+}
+
+Layout polish_layout(int n, int m) {
+  const long long ld = n + 1;
+  const long long mats[3] = {n * ld, n * ld, m * ld};
+  return plan(7LL * n + 8LL * m + kRedSlots, mats);
+}
+
+int threads_for(int n, int m) { return (n <= 64 && m <= 64) ? 128 : 256; }
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel k, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+long long sqp_step_workspace_floats(int n, int m) { return step_layout(n, m).ws_floats; }
+
+long long polish_kkt_workspace_floats(int n, int m) { return polish_layout(n, m).ws_floats; }
+
+const char* qp_kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+int sqp_step_launch(const float* Bp, const float* J, const float* g, const float* l,
+                    const float* u, const float* s, const float* dgl, const uint8_t* reset,
+                    const uint8_t* upd, const uint8_t* active, const float* rho_in,
+                    const float* minv_in, const float* x0, const float* z0, const float* y0,
+                    float* p_out, float* z_out, float* y_out, float* B_out, float* stats,
+                    float* minv_out, float* ws, int batch, int n, int m, float sigma,
+                    float alpha, float rho0, float eps_abs, float eps_rel, int n_epochs,
+                    int chunks_per_epoch, int seg, int adaptive_rho,
+                    float adaptive_rho_tolerance, int do_bfgs, int device, void* stream) {
+  if (batch <= 0) return 0;
+  const Layout L = step_layout(n, m);
+  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  // this library's runtime keeps its own current device: use the tensors'
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_smem(sqp_step_kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  StepParams p;
+  p.n = n;
+  p.m = m;
+  p.sigma = sigma;
+  p.alpha = alpha;
+  p.rho0 = rho0;
+  p.eps_abs = eps_abs;
+  p.eps_rel = eps_rel;
+  p.n_epochs = n_epochs;
+  p.chunks_per_epoch = chunks_per_epoch;
+  p.seg = seg;
+  p.adaptive_rho = adaptive_rho;
+  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
+  p.do_bfgs = do_bfgs;
+  p.n_smem_mats = L.n_smem_mats;
+  p.ws_floats = L.ws_floats;
+  sqp_step_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+      p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
+      z_out, y_out, B_out, stats, minv_out, ws);
+  return (int)cudaGetLastError();
+}
+
+int polish_kkt_launch(const float* H, const float* J, const uint8_t* act, const float* r1,
+                      const float* b, const float* nu0, const float* x0, float* x_out,
+                      float* nu_out, uint8_t* fail_out, float* li_out, float* ws, int batch,
+                      int n, int m, float delta, int sweeps, int device, void* stream) {
+  if (batch <= 0) return 0;
+  const Layout L = polish_layout(n, m);
+  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_smem(polish_kkt_kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  polish_kkt_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+      n, m, delta, sweeps, L.n_smem_mats, L.ws_floats, H, J, act, r1, b, nu0, x0, x_out,
+      nu_out, fail_out, li_out, ws);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,59 @@
+"""Carrying problem data and solver state across from the JAX package.
+
+A solver has no weights: what crosses over is problem data and solver
+state, as numpy arrays (``np.asarray`` of a JAX array).  The JAX kernels
+keep the batch LAST (``(..., B)``, problems on the TPU lanes); this
+package keeps it first.  Callables cannot cross over, so a problem family
+is rebuilt from its data.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sqp_solver_tpu_torch.models.benchmark import sphere_cap_problem
+from sqp_solver_tpu_torch.qp.types import QPState
+from sqp_solver_tpu_torch.sqp.types import NonlinearProblem
+
+__all__ = [
+    "from_kernel_layout",
+    "to_kernel_layout",
+    "qp_state_from_numpy",
+    "hessian_from_numpy",
+    "sphere_cap_from_arrays",
+]
+
+
+def _tensor(a, dtype, device):
+    # a copy: arrays from JAX are read-only
+    return torch.as_tensor(np.array(a), dtype=dtype).to(device)
+
+
+def from_kernel_layout(a, dtype=None, device=None) -> torch.Tensor:
+    """A (..., B) array of the JAX kernel layout as a (B, ...) tensor."""
+    return _tensor(np.moveaxis(np.asarray(a), -1, 0), dtype, device)
+
+
+def to_kernel_layout(t: torch.Tensor) -> np.ndarray:
+    """A (B, ...) tensor as a (..., B) array of the JAX kernel layout."""
+    return np.ascontiguousarray(np.moveaxis(t.detach().cpu().numpy(), 0, -1))
+
+
+def qp_state_from_numpy(x, z, y, dtype=None, device=None) -> QPState:
+    """A batch-first QP warm start from (B, n), (B, m), (B, m) arrays."""
+    return QPState(x=_tensor(x, dtype, device), z=_tensor(z, dtype, device),
+                   y=_tensor(y, dtype, device))
+
+
+def hessian_from_numpy(Bt, dtype=None, device=None) -> torch.Tensor:
+    """The JAX kernel tier's BFGS state (n, n, B) as a (B, n, n) tensor."""
+    return from_kernel_layout(Bt, dtype, device)
+
+
+def sphere_cap_from_arrays(l, u, r, dtype=None, device=None) -> NonlinearProblem:
+    """A sphere-cap problem from a JAX problem's leaves: ``l``, ``u``
+    (B, n + 1) and ``params`` (the radii, (B,))."""
+    return sphere_cap_problem(
+        _tensor(l, dtype, device), _tensor(u, dtype, device), _tensor(r, dtype, device)
+    )

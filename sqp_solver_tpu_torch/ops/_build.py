@@ -1,0 +1,101 @@
+"""Build ``csrc/*.cu`` with nvcc into a shared library and load it with ctypes.
+
+The library has a plain C interface (no PyTorch headers), so a build takes
+seconds.  It is built at first use into ``build/torch_kernels/`` beside
+the package (a directory that ``.gitignore`` lists), under a name that
+carries a hash of the sources, so an edited source is never served by a
+stale build.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["load", "build_dir", "nvcc_path", "last_build_seconds"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib = None
+last_build_seconds = 0.0  # wall time of the last nvcc run (0 when cached)
+
+_VOID, _INT, _FLOAT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+
+_SIGNATURES = {
+    "sqp_step_launch": (
+        _INT,
+        [_VOID] * 22 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4 + [_FLOAT, _INT, _INT, _VOID],
+    ),
+    "sqp_step_workspace_floats": (_LL, [_INT, _INT]),
+    "polish_kkt_launch": (
+        _INT,
+        [_VOID] * 12 + [_INT] * 3 + [_FLOAT, _INT, _INT, _VOID],
+    ),
+    "polish_kkt_workspace_floats": (_LL, [_INT, _INT]),
+    "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
+}
+
+
+def build_dir() -> Path:
+    return _PKG.parent / "build" / "torch_kernels"
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib, last_build_seconds
+    if _lib is not None:
+        return _lib
+    cu, cuh = _sources()
+    digest = hashlib.sha1()
+    for p in cu + cuh:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"libqp_kernel_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc_path(), *_NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+        last_build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    _lib = lib
+    return lib

@@ -1,0 +1,564 @@
+"""The SQP-step and polish-KKT kernels (twin of ``sqp_solver_tpu/ops/qp_kernel.py``).
+
+Each kernel has three parts here:
+
+* a **plain PyTorch version** (``sqp_step_reference``,
+  ``polish_kkt_reference``): batched tensor code that follows the CUDA
+  kernel's per-problem algorithm step by step, including the column-loop
+  Cholesky with its pivot clamp and fail rule (no library factorization
+  decides a flag).  The CPU path and the tests use it;
+* the **CUDA kernel** in ``csrc/qp_kernel.cu`` (one thread block per
+  problem), built with nvcc at first use (``ops/_build.py``);
+* a **wrapper** (``sqp_step_kernel``, ``polish_kkt_kernel``) that sends
+  CPU tensors to the plain version and CUDA tensors to the kernel.  A
+  CUDA call that the kernel cannot take raises; there is no fallback.
+
+Everything is batch-first: ``(B, n, n)`` Hessians, ``(B, m, n)``
+Jacobians, ``(B, n)`` / ``(B, m)`` vectors, ``bool (B,)`` masks.
+
+Per-problem semantics.  The TPU kernels decide "factor again" and "run
+another chunk" once per tile of 128 problems; here every problem decides
+for itself.  A problem's own results are the same either way (a tile
+refactor recomputes an unchanged factor; frozen problems stay frozen),
+except the factorization count (stats ``n_factor``), which the TPU
+counted per tile and is therefore lower here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from sqp_solver_tpu_torch.qp.classify import (
+    LOOSE_BOUNDS_THRESH,
+    RHO_EQ_FACTOR,
+    RHO_MAX,
+    RHO_MIN,
+    RHO_TOL,
+)
+from sqp_solver_tpu_torch.qp.types import QPSettings
+
+__all__ = [
+    "SQPStepOut",
+    "PolishOut",
+    "sqp_step_kernel",
+    "sqp_step_reference",
+    "polish_kkt_kernel",
+    "polish_kkt_reference",
+    "bfgs_update",
+]
+
+# Launch counters: each wrapper adds one where it launches its CUDA kernel
+# (never on the plain path), so a run can show that it went through them.
+sqp_step_launches = 0
+polish_kkt_launches = 0
+
+
+class SQPStepOut(NamedTuple):
+    """Result of one SQP subproblem step, each field batch-first."""
+
+    p: torch.Tensor  # (B, n) QP primal (the step)
+    z: torch.Tensor  # (B, m)
+    y: torch.Tensor  # (B, m) QP multipliers
+    B: torch.Tensor  # (B, n, n) Hessian after BFGS and posdef fallback
+    done: torch.Tensor  # bool (B,) ADMM converged
+    iter: torch.Tensor  # int32 (B,) ADMM iterations
+    res_prim: torch.Tensor  # (B,)
+    res_dual: torch.Tensor  # (B,)
+    fail: torch.Tensor  # bool (B,) factorization hit a clamped pivot
+    rho_updates: torch.Tensor  # int32 (B,)
+    rho_estimate: torch.Tensor  # (B,)
+    rho_factor: torch.Tensor  # (B,) rho the emitted Minv was factored under
+    n_factor: torch.Tensor  # int32 (B,) factorizations of this problem
+    minv: Optional[torch.Tensor]  # (B, n, n) with want_minv, else None
+
+
+class PolishOut(NamedTuple):
+    x: torch.Tensor  # (B, n) solution (a step from 0 unless x0 was given)
+    nu: torch.Tensor  # (B, m) multipliers on active rows
+    fail: torch.Tensor  # bool (B,) clamped pivot
+    li: torch.Tensor  # (B, n, n) L^-1 of the Schur preconditioner
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _mv(M, v):
+    """(B, r, c) @ (B, c) -> (B, r)"""
+    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+def _mtv(M, v):
+    """(B, r, c)^T @ (B, r) -> (B, c)"""
+    return torch.matmul(v.unsqueeze(-2), M).squeeze(-2)
+
+
+def _linf(v):
+    return v.abs().amax(dim=-1)
+
+
+def _schedule(s: QPSettings):
+    """(seg, chunks_per_epoch, n_epochs) exactly as the JAX kernels derive them."""
+    seg = s.check_termination if s.check_termination > 0 else s.max_iter
+    interval = s.adaptive_rho_interval if s.adaptive_rho else s.max_iter
+    chunks_per_epoch = max(1, -(-min(interval, s.max_iter) // seg))
+    n_epochs = max(1, -(-s.max_iter // (chunks_per_epoch * seg)))
+    return seg, chunks_per_epoch, n_epochs
+
+
+def _rho_from(rho, loose, equality):
+    """Per-row rho (B, m) from the scalar rho (B,) and the row classes."""
+    r = rho.unsqueeze(-1)
+    return torch.where(loose, RHO_MIN, torch.where(equality, RHO_EQ_FACTOR * r, r))
+
+
+def _schur_matrix(P, A, w, sigma):
+    """M = P + sigma I + A' diag(w) A (twin of ``_factor_schur_refs``'s build)."""
+    n = P.shape[-1]
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
+    return P + sigma * eye + torch.matmul(A.mT, A * w.unsqueeze(-1))
+
+
+def _cholesky_clamped(M):
+    """Lower Cholesky by columns with the TPU kernel's pivot rule: a pivot
+    d <= 0 or NaN sets ``fail`` and is clamped to max(d, 1e-30)."""
+    B, n, _ = M.shape
+    W = M.clone()
+    L = torch.zeros_like(M)
+    fail = torch.zeros(B, dtype=torch.bool, device=M.device)
+    for j in range(n):
+        d = W[:, j, j]
+        fail = fail | (d <= 0) | torch.isnan(d)
+        dc = torch.clamp_min(d, 1e-30)  # NaN stays NaN, as jnp.maximum
+        col = W[:, j + 1:, j] * torch.rsqrt(dc).unsqueeze(-1)
+        L[:, j, j] = torch.sqrt(dc)
+        L[:, j + 1:, j] = col
+        W[:, j + 1:, j + 1:] -= col.unsqueeze(-1) * col.unsqueeze(-2)
+    return L, fail
+
+
+def _tri_inv(L):
+    """L^-1 of a lower-triangular batch by forward substitution, dividing by
+    max(L_ii, 1e-30) as the TPU kernel does."""
+    B, n, _ = L.shape
+    Li = torch.zeros_like(L)
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    for i in range(n):
+        acc = torch.matmul(L[:, i:i + 1, :i], Li[:, :i, :]).squeeze(-2)
+        Li[:, i, :] = (eye[i] - acc) / torch.clamp_min(L[:, i, i], 1e-30).unsqueeze(-1)
+    return Li
+
+
+def _chol_inv_ltl(M, ltl=True):
+    """(Minv = L^-T L^-1, fail) or, with ``ltl=False``, (L^-1, fail)
+    (twin of ``_chol_inv_ltl``)."""
+    L, fail = _cholesky_clamped(M)
+    Li = _tri_inv(L)
+    if not ltl:
+        return Li, fail
+    return torch.matmul(Li.mT, Li), fail
+
+
+def _factor(P, A, rho_vec, sigma):
+    """Minv and fail of M = P + sigma I + A' diag(rho) A."""
+    return _chol_inv_ltl(_schur_matrix(P, A, rho_vec, sigma))
+
+
+def bfgs_update(Bm, s, yv, reset, upd):
+    """Damped BFGS (Procedure 18.2, reference bfgs.hpp:14-41), batch-first
+    twin of ``sqp/solver_kernel.py:_bfgs_update_t`` and of the update inside
+    the SQP-step kernel.  ``reset`` -> identity; no update where ``upd`` is
+    False or the damped curvature s'r is below machine epsilon."""
+    dtype = Bm.dtype
+    eps_m = torch.finfo(dtype).eps
+    tiny_pos = torch.finfo(dtype).tiny
+    n = Bm.shape[-1]
+    Bs = _mv(Bm, s)
+    sBs = (s * Bs).sum(-1)
+    sy = (s * yv).sum(-1)
+    damped = sy < 0.2 * sBs
+    theta = 0.8 * sBs / torch.clamp_min(sBs - sy, tiny_pos)
+    th = theta.unsqueeze(-1)
+    r = torch.where(damped.unsqueeze(-1), th * yv + (1.0 - th) * Bs, yv)
+    sr = torch.where(damped, theta * sy + (1.0 - theta) * sBs, sy)
+    Bupd = (
+        Bm
+        - (Bs.unsqueeze(-1) * Bs.unsqueeze(-2))
+        / torch.clamp_min(sBs, tiny_pos)[:, None, None]
+        + (r.unsqueeze(-1) * r.unsqueeze(-2))
+        / torch.clamp_min(sr, tiny_pos)[:, None, None]
+    )
+    keep = (sr < eps_m) | ~upd
+    Bn = torch.where(keep[:, None, None], Bm, Bupd)
+    eye = torch.eye(n, dtype=dtype, device=Bm.device)
+    return torch.where(reset[:, None, None], eye, Bn)
+
+
+def _admm_stats(P, A, q, x, z, y):
+    Ax = _mv(A, x)
+    Px = _mv(P, x)
+    ATy = _mtv(A, y)
+    res_prim = _linf(Ax - z)
+    res_dual = _linf(Px + q + ATy)
+    max_Ax_z = torch.maximum(_linf(Ax), _linf(z))
+    max_Px_ATy_q = torch.maximum(_linf(Px), torch.maximum(_linf(ATy), _linf(q)))
+    return res_prim, res_dual, max_Ax_z, max_Px_ATy_q
+
+
+def _admm_iter(Minv, A, q, l, u, x, z, y, rv, sigma, alpha):
+    rho_inv = 1.0 / rv
+    rhs2 = rv * z - y
+    b = sigma * x - q + _mtv(A, rhs2)
+    xt = _mv(Minv, b)
+    zt = _mv(A, xt)
+    xn = alpha * xt + (1.0 - alpha) * x
+    z_pre = alpha * zt + (1.0 - alpha) * z
+    zn = torch.clamp(z_pre + rho_inv * y, min=l, max=u)
+    yn = y + rv * (z_pre - zn)
+    return xn, zn, yn
+
+
+def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
+               sigma, alpha, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg,
+               adaptive_rho, adaptive_rho_tolerance):
+    """Twin of ``_admm_core`` (without Anderson and certificates, which the
+    SQP step does not use): rho epochs with adoption at factor time, chunks
+    of ``seg`` iterations with per-problem early exit, adaptive rho and the
+    termination residuals.  Returns the updated state as a dict."""
+    B = q.shape[0]
+    dev = q.device
+    loose = (l < -LOOSE_BOUNDS_THRESH) & (u > LOOSE_BOUNDS_THRESH)
+    equality = (u - l) < RHO_TOL
+    itc = torch.zeros(B, dtype=torch.int32, device=dev)
+    # the reference counts the setup rho update (src/qp.cpp:34)
+    rho_upd = torch.ones(B, dtype=torch.int32, device=dev)
+    rho_est = rho.clone()
+    rp, rd, mz, mq = (torch.zeros_like(rho) for _ in range(4))
+    pending = torch.zeros(B, dtype=torch.bool, device=dev)
+    nfact = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(n_epochs):
+        active = ~done & ~failv
+        if not bool(active.any()):
+            break
+        # adopt a pending rho only together with its factorization, so
+        # (Minv, rho) stay paired for factor reuse
+        adopt = pending & active
+        rho = torch.where(adopt, rho_est, rho)
+        if bool(adopt.any()):
+            Minv_new, f = factor_fn(_rho_from(rho, loose, equality))
+            Minv = torch.where(adopt[:, None, None], Minv_new, Minv)
+            failv = failv | (f & adopt)
+            nfact = nfact + adopt.to(torch.int32)
+        rv = _rho_from(rho, loose, equality)
+        for _ in range(chunks_per_epoch):
+            act = ~done & ~failv
+            if not bool(act.any()):
+                break
+            xn, zn, yn = x, z, y
+            for _ in range(seg):
+                xn, zn, yn = _admm_iter(Minv, A, q, l, u, xn, zn, yn, rv, sigma, alpha)
+            a1 = act.unsqueeze(-1)
+            x = torch.where(a1, xn, x)
+            z = torch.where(a1, zn, z)
+            y = torch.where(a1, yn, y)
+            res_prim, res_dual, max_Ax_z, max_Px_ATy_q = _admm_stats(P, A, q, x, z, y)
+            conv = (res_prim <= eps_abs + eps_rel * max_Ax_z) & (
+                res_dual <= eps_abs + eps_rel * max_Px_ATy_q
+            )
+            itc = torch.where(act, itc + seg, itc)
+            rp = torch.where(act, res_prim, rp)
+            rd = torch.where(act, res_dual, rd)
+            mz = torch.where(act, max_Ax_z, mz)
+            mq = torch.where(act, max_Px_ATy_q, mq)
+            done = done | (act & conv)
+        if adaptive_rho:
+            tinyv = 1e-30
+            nrp = rp / (mz + tinyv)
+            nrd = rd / (mq + tinyv)
+            new_rho = torch.clamp(rho * torch.sqrt(nrp / (nrd + tinyv)), RHO_MIN, RHO_MAX)
+            act = ~done & ~failv
+            changed = (
+                (new_rho < rho / adaptive_rho_tolerance)
+                | (new_rho > rho * adaptive_rho_tolerance)
+            ) & act
+            rho_upd = rho_upd + changed.to(torch.int32)
+            rho_est = torch.where(act, new_rho, rho_est)
+            pending = changed
+    return dict(x=x, z=z, y=y, done=done, fail=failv, iter=itc, rho=rho,
+                rho_updates=rho_upd, rho_estimate=rho_est, res_prim=rp,
+                res_dual=rd, n_factor=nfact, minv=Minv)
+
+
+# ---------------------------------------------------------------------------
+# K1: the SQP-step kernel
+# ---------------------------------------------------------------------------
+
+
+def sqp_step_reference(
+    B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
+    settings: QPSettings,
+    do_bfgs: bool = True,
+    rho_in: Optional[torch.Tensor] = None,
+    minv_in: Optional[torch.Tensor] = None,
+    want_minv: bool = False,
+) -> SQPStepOut:
+    """Plain version of the SQP-step kernel: damped BFGS, posdef fallback
+    (factor; on a failed pivot B := I and refactor, at most 2 attempts),
+    then the warm-started ADMM solve of
+
+        min 0.5 p'Bp + g'p   s.t.   l <= J p <= u.
+
+    ``minv_in`` reuses a previous solve's factor (same B, J; new bounds),
+    with ``rho_in`` its ``rho_factor``; ``want_minv`` emits the final
+    factor (zeros for a problem that never factored)."""
+    dtype = g.dtype
+    batch, n = g.shape
+    sigma = float(settings.sigma)
+    rho0 = float(settings.rho)
+    seg, cpe, n_epochs = _schedule(settings)
+    Bn = bfgs_update(B, s, dgl, reset, upd) if do_bfgs else B
+    loose = (l < -LOOSE_BOUNDS_THRESH) & (u > LOOSE_BOUNDS_THRESH)
+    equality = (u - l) < RHO_TOL
+    nfact0 = torch.zeros(batch, dtype=torch.int32, device=g.device)
+    rho = torch.full((batch,), rho0, dtype=dtype, device=g.device)
+    if minv_in is not None:
+        Minv = minv_in
+        if rho_in is not None:
+            rho = torch.where(rho_in > 0, rho_in, rho)
+        failv = torch.zeros(batch, dtype=torch.bool, device=g.device)
+    else:
+        rv0 = _rho_from(rho, loose, equality)
+        Minv = torch.zeros_like(B)
+        f = torch.zeros(batch, dtype=torch.bool, device=g.device)
+        if bool(active.any()):
+            Minv_a, f_a = _factor(Bn, J, rv0, sigma)
+            Minv = torch.where(active[:, None, None], Minv_a, Minv)
+            nfact0 = nfact0 + active.to(torch.int32)
+            f = f_a & active
+            if bool(f.any()):
+                eye = torch.eye(n, dtype=dtype, device=g.device)
+                Bn = torch.where(f[:, None, None], eye, Bn)
+                Minv_b, f_b = _factor(Bn, J, rv0, sigma)
+                Minv = torch.where(f[:, None, None], Minv_b, Minv)
+                nfact0 = nfact0 + f.to(torch.int32)
+                f = torch.where(f, f_b, f)
+        failv = f & active
+    out = _admm_core(
+        Bn, J, g, l, u, x, z, y, ~active, failv, rho, Minv,
+        lambda rv: _factor(Bn, J, rv, sigma),
+        sigma=sigma, alpha=float(settings.alpha),
+        eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
+        n_epochs=n_epochs, chunks_per_epoch=cpe, seg=seg,
+        adaptive_rho=bool(settings.adaptive_rho),
+        adaptive_rho_tolerance=float(settings.adaptive_rho_tolerance),
+    )
+    return SQPStepOut(
+        p=out["x"], z=out["z"], y=out["y"], B=Bn, done=out["done"],
+        iter=out["iter"], res_prim=out["res_prim"], res_dual=out["res_dual"],
+        fail=out["fail"], rho_updates=out["rho_updates"],
+        rho_estimate=out["rho_estimate"], rho_factor=out["rho"],
+        n_factor=nfact0 + out["n_factor"],
+        minv=out["minv"] if want_minv else None,
+    )
+
+
+def _check_cuda_operands(name, named, dtypes):
+    dev = None
+    for key, t in named.items():
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected a CUDA tensor")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, the rest on {dev}")
+        want = dtypes.get(key, torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, the CUDA kernel takes {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    return dev
+
+
+def _check_shape(name, key, t, shape):
+    if t is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _raise_on(lib, rc, name):
+    if rc != 0:
+        msg = lib.qp_kernel_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def sqp_step_kernel(
+    B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
+    settings: QPSettings,
+    do_bfgs: bool = True,
+    rho_in: Optional[torch.Tensor] = None,
+    minv_in: Optional[torch.Tensor] = None,
+    want_minv: bool = False,
+) -> SQPStepOut:
+    """Fused damped BFGS + posdef fallback + warm-started ADMM QP solve, one
+    CUDA thread block per problem (replaces the TPU's
+    ``ops/qp_kernel.py:sqp_step_kernel``).
+
+    Shapes: B (B, n, n), J (B, m, n), g/s/dgl/x (B, n), l/u/z/y (B, m),
+    reset/upd/active bool (B,), rho_in (B,), minv_in (B, n, n).  CPU
+    tensors run :func:`sqp_step_reference`; CUDA tensors must be float32
+    and contiguous and run the kernel."""
+    global sqp_step_launches
+    if settings.acceleration != "none":
+        raise NotImplementedError(
+            "acceleration='anderson' is not ported (ROADMAP Queue 1, accuracy machinery)"
+        )
+    batch, n = g.shape
+    m = l.shape[-1]
+    name = "sqp_step_kernel"
+    for key, t, shape in (
+        ("B", B, (batch, n, n)), ("J", J, (batch, m, n)), ("l", l, (batch, m)),
+        ("u", u, (batch, m)), ("s", s, (batch, n)), ("dgl", dgl, (batch, n)),
+        ("reset", reset, (batch,)), ("upd", upd, (batch,)),
+        ("active", active, (batch,)), ("x", x, (batch, n)), ("z", z, (batch, m)),
+        ("y", y, (batch, m)), ("rho_in", rho_in, (batch,)),
+        ("minv_in", minv_in, (batch, n, n)),
+    ):
+        _check_shape(name, key, t, shape)
+    if not g.is_cuda:
+        return sqp_step_reference(
+            B, J, g, l, u, s, dgl, reset, upd, active, x, z, y, settings,
+            do_bfgs=do_bfgs, rho_in=rho_in, minv_in=minv_in, want_minv=want_minv,
+        )
+    operands = dict(B=B, J=J, g=g, l=l, u=u, s=s, dgl=dgl, reset=reset, upd=upd,
+                    active=active, x=x, z=z, y=y, rho_in=rho_in, minv_in=minv_in)
+    boolean = dict(reset=torch.bool, upd=torch.bool, active=torch.bool)
+    dev = _check_cuda_operands(name, operands, boolean)
+    from sqp_solver_tpu_torch.ops import _build
+
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    p_out = torch.empty((batch, n), **f32)
+    z_out = torch.empty((batch, m), **f32)
+    y_out = torch.empty((batch, m), **f32)
+    B_out = torch.empty((batch, n, n), **f32)
+    stats = torch.empty((9, batch), **f32)  # one contiguous row per field
+    minv_out = torch.empty((batch, n, n), **f32) if want_minv else None
+    ws_floats = int(lib.sqp_step_workspace_floats(n, m))
+    ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
+    seg, cpe, n_epochs = _schedule(settings)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.sqp_step_launch(
+        _ptr(B), _ptr(J), _ptr(g), _ptr(l), _ptr(u), _ptr(s), _ptr(dgl),
+        _ptr(reset), _ptr(upd), _ptr(active), _ptr(rho_in), _ptr(minv_in),
+        _ptr(x), _ptr(z), _ptr(y),
+        _ptr(p_out), _ptr(z_out), _ptr(y_out), _ptr(B_out), _ptr(stats),
+        _ptr(minv_out), _ptr(ws),
+        batch, n, m,
+        float(settings.sigma), float(settings.alpha), float(settings.rho),
+        float(settings.eps_abs), float(settings.eps_rel),
+        n_epochs, cpe, seg, int(bool(settings.adaptive_rho)),
+        float(settings.adaptive_rho_tolerance), int(bool(do_bfgs)),
+        dev.index, ctypes.c_void_p(stream),
+    )
+    _raise_on(lib, rc, name)
+    sqp_step_launches += 1
+    i32 = torch.int32
+    return SQPStepOut(
+        p=p_out, z=z_out, y=y_out, B=B_out,
+        done=stats[0] > 0.5, iter=stats[1].to(i32),
+        res_prim=stats[2], res_dual=stats[3], fail=stats[4] > 0.5,
+        rho_updates=stats[5].to(i32), rho_estimate=stats[6],
+        rho_factor=stats[7], n_factor=stats[8].to(i32), minv=minv_out,
+    )
+
+
+# ---------------------------------------------------------------------------
+# K2: the polish-KKT kernel
+# ---------------------------------------------------------------------------
+
+
+def polish_kkt_reference(H, J, act, r1, b, nu0, delta: float = 1e-2,
+                         sweeps: int = 6, x0=None) -> PolishOut:
+    """Plain version of the polish-KKT kernel: L^-1 of the Schur
+    preconditioner M = H + delta I + (1/delta) Jm'Jm (Jm = J with inactive
+    rows zeroed), then ``sweeps`` ideal-operator refinement sweeps on
+    (x, nu) that apply M^-1 as Li'(Li t).  Same mathematics as the JAX
+    ``_polish_kkt_body`` without its factor-reuse inputs."""
+    dtype = H.dtype
+    actf = act.to(dtype)
+    inv_d = 1.0 / delta
+    Jm = J * actf.unsqueeze(-1)
+    Li, fail = _chol_inv_ltl(_schur_matrix(H, Jm, actf * inv_d, delta), ltl=False)
+    nu = nu0 * actf
+    if x0 is not None:
+        x = x0
+        w_n = _mv(H, x)
+        w_m = _mv(Jm, x)
+    else:
+        x = torch.zeros_like(r1)
+        w_n = torch.zeros_like(r1)
+        w_m = torch.zeros_like(b)
+    for _ in range(sweeps):
+        res2 = actf * (b - w_m)
+        t = r1 - w_n - _mtv(Jm, nu - inv_d * res2)
+        v = _mv(Li, t)
+        dx = _mtv(Li, v)
+        dw_n = _mv(H, dx)
+        dw_m = _mv(Jm, dx)
+        nu = nu + actf * inv_d * (dw_m - res2)
+        x = x + dx
+        w_n = w_n + dw_n
+        w_m = w_m + dw_m
+    return PolishOut(x=x, nu=nu, fail=fail, li=Li)
+
+
+def polish_kkt_kernel(H, J, act, r1, b, nu0, delta: float = 1e-2,
+                      sweeps: int = 6, x0=None) -> PolishOut:
+    """Batched active-set KKT polish solve, one CUDA thread block per problem
+    (replaces the TPU's ``ops/qp_kernel.py:polish_kkt_kernel``).
+
+    H (B, n, n), J (B, m, n) raw Jacobian (masked by ``act`` inside),
+    act bool (B, m), r1 (B, n) stationarity rhs, b (B, m) active-row
+    targets, nu0 (B, m) multiplier warm start, optional x0 (B, n) primal
+    warm start.  CPU tensors run :func:`polish_kkt_reference`."""
+    global polish_kkt_launches
+    batch, n = r1.shape
+    m = b.shape[-1]
+    name = "polish_kkt_kernel"
+    for key, t, shape in (
+        ("H", H, (batch, n, n)), ("J", J, (batch, m, n)), ("act", act, (batch, m)),
+        ("nu0", nu0, (batch, m)), ("x0", x0, (batch, n)),
+    ):
+        _check_shape(name, key, t, shape)
+    if not r1.is_cuda:
+        return polish_kkt_reference(H, J, act, r1, b, nu0, delta, sweeps, x0)
+    operands = dict(H=H, J=J, act=act, r1=r1, b=b, nu0=nu0, x0=x0)
+    dev = _check_cuda_operands(name, operands, dict(act=torch.bool))
+    from sqp_solver_tpu_torch.ops import _build
+
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_out = torch.empty((batch, n), **f32)
+    nu_out = torch.empty((batch, m), **f32)
+    fail_out = torch.empty((batch,), dtype=torch.bool, device=dev)
+    li_out = torch.empty((batch, n, n), **f32)
+    ws_floats = int(lib.polish_kkt_workspace_floats(n, m))
+    ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.polish_kkt_launch(
+        _ptr(H), _ptr(J), _ptr(act), _ptr(r1), _ptr(b), _ptr(nu0), _ptr(x0),
+        _ptr(x_out), _ptr(nu_out), _ptr(fail_out), _ptr(li_out), _ptr(ws),
+        batch, n, m, float(delta), int(sweeps), dev.index, ctypes.c_void_p(stream),
+    )
+    _raise_on(lib, rc, name)
+    polish_kkt_launches += 1
+    return PolishOut(x=x_out, nu=nu_out, fail=fail_out, li=li_out)

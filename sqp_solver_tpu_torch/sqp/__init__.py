@@ -1,0 +1,15 @@
+from sqp_solver_tpu_torch.sqp.types import (
+    NonlinearProblem,
+    SQPInfo,
+    SQPResult,
+    SQPSettings,
+    SQPStatus,
+)
+
+__all__ = [
+    "NonlinearProblem",
+    "SQPSettings",
+    "SQPStatus",
+    "SQPInfo",
+    "SQPResult",
+]

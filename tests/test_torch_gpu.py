@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips where torch sees no CUDA
+device.  The file imports no JAX (``tests/conftest.py`` does), so on the
+card's machine it runs without the conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances.  On inputs shaped like the main path's subproblems (no
+equality rows: an equality row's multiplier integrates rounding with
+rho_eq = 1e3 rho, which makes float32 trajectories part ways), float32
+kernel against float32 plain version, summed in another order:
+atol = rtol = 1e-4, with ADMM iteration counts agreeing on >= 99 % of
+problems and iterates compared where they do.  Where a rho adopted from
+a ratio of residual norms (~1e-3 relative float32 noise) drives a
+refactor, the kernel and the plain version in float32 are both held to
+float32 bars against the plain version in float64.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from sqp_solver_tpu_torch.ops import qp_kernel as qk  # noqa: E402
+from sqp_solver_tpu_torch.qp.types import QPSettings  # noqa: E402
+from sqp_solver_tpu_torch.testing import polish_inputs, step_inputs  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+MAIN_QP = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=50,
+                     check_termination=10, warm_start=True, adaptive_rho=True,
+                     adaptive_rho_interval=50, schedule="fixed")
+# two rho epochs: the adaptive rho is adopted with a refactor, and many
+# problems converge (early exit) part way
+EPOCHS_QP = QPSettings(alpha=1.6, eps_abs=1e-3, eps_rel=1e-3, max_iter=40,
+                       check_termination=10, adaptive_rho=True,
+                       adaptive_rho_interval=20)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with --noconftest -m gpu")
+    return torch.device("cuda")
+
+
+def _to(arrs, device):
+    out = {}
+    for k, v in arrs.items():
+        dt = torch.bool if v.dtype == bool else torch.float32
+        out[k] = torch.as_tensor(v, dtype=dt).to(device)
+    return out
+
+
+def _step(fn, t, settings, **kw):
+    return fn(t["B"], t["J"], t["g"], t["l"], t["u"], t["s"], t["dgl"], t["reset"],
+              t["upd"], t["active"], t["x"], t["z"], t["y"], settings, **kw)
+
+
+def _assert_step_close(ok, ref):
+    assert torch.equal(ok.fail.cpu(), ref.fail.cpu())
+    same = (ok.iter == ref.iter).cpu()
+    assert same.float().mean().item() >= 0.99
+    good = (same & ~ref.fail.cpu()).to(ok.p.device)
+    for name in ("p", "z", "y", "B", "rho_factor"):
+        a, b = getattr(ok, name)[good], getattr(ref, name)[good]
+        torch.testing.assert_close(a, b, **TOL, msg=lambda m, name=name: f"{name}: {m}")
+    if ok.minv is not None:
+        torch.testing.assert_close(ok.minv[good], ref.minv[good], **TOL)
+
+
+@pytest.mark.parametrize(
+    "batch,n,m",
+    [(16, 6, 9), (64, 32, 33), (8, 128, 129), (4, 64, 900)],
+    ids=["small", "n32", "n128", "workspace-spill"],
+)
+@pytest.mark.parametrize("do_bfgs", [True, False])
+def test_sqp_step_kernel_matches_plain(cuda, batch, n, m, do_bfgs):
+    t = _to(step_inputs(batch, n, m, seed=n + m, equality_row=False), cuda)
+    ok = _step(qk.sqp_step_kernel, t, MAIN_QP, do_bfgs=do_bfgs, want_minv=True)
+    ref = _step(qk.sqp_step_reference, t, MAIN_QP, do_bfgs=do_bfgs, want_minv=True)
+    torch.cuda.synchronize()
+    _assert_step_close(ok, ref)
+    assert not ok.fail.any()
+    if batch > 4:  # problem 3's indefinite Hessian took the posdef fallback
+        assert torch.equal(ok.B[3], torch.eye(n, device=cuda))
+        assert int(ok.n_factor[3]) == 2
+
+
+@pytest.mark.parametrize("batch,n,m", [(128, 16, 17), (64, 128, 129)], ids=["n16", "n128"])
+def test_sqp_step_kernel_refactors_match_plain_float64(cuda, batch, n, m):
+    """Rho epochs with refactors and early exits, against the plain version
+    in float64.  An adopted rho carries ~1e-3 relative float32 noise, so
+    the bars are float32's: iterates 1e-4, Minv 1e-3, the adopted rho 5e-2
+    relative; the plain version in float32 must meet them too."""
+    arrs = step_inputs(batch, n, m, seed=7, equality_row=False)
+    arrs = {k: v if v.dtype == bool else v.astype(np.float32) for k, v in arrs.items()}
+    t32 = _to(arrs, cuda)
+    t64 = {k: v if v.dtype == torch.bool else v.double() for k, v in t32.items()}
+    ok = _step(qk.sqp_step_kernel, t32, EPOCHS_QP, want_minv=True)
+    p32 = _step(qk.sqp_step_reference, t32, EPOCHS_QP, want_minv=True)
+    p64 = _step(qk.sqp_step_reference, t64, EPOCHS_QP, want_minv=True)
+    torch.cuda.synchronize()
+    assert int(p64.n_factor.max()) >= 2 and bool(p64.done.any())
+    tols = dict(p=1e-4, z=1e-4, y=1e-4, minv=1e-3)
+    for out in (ok, p32):
+        same = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        assert same.float().mean() >= 0.99
+        for name, tol in tols.items():
+            torch.testing.assert_close(getattr(out, name)[same].double(),
+                                       getattr(p64, name)[same], atol=tol, rtol=tol)
+        torch.testing.assert_close(out.rho_factor[same].double(), p64.rho_factor[same],
+                                   atol=0.0, rtol=5e-2)
+
+
+def test_sqp_step_kernel_factor_reuse(cuda):
+    """want_minv then minv_in with shifted bounds (the SOC re-solve)."""
+    t = _to(step_inputs(32, 16, 17, seed=3, equality_row=False), cuda)
+    first = _step(qk.sqp_step_kernel, t, MAIN_QP, want_minv=True)
+    t2 = dict(t, B=first.B, l=t["l"] - 0.01, u=t["u"] - 0.01, x=first.p, z=first.z,
+              y=first.y)
+    kw = dict(do_bfgs=False, rho_in=first.rho_factor, minv_in=first.minv)
+    ok = _step(qk.sqp_step_kernel, t2, MAIN_QP, **kw)
+    ref = _step(qk.sqp_step_reference, t2, MAIN_QP, **kw)
+    torch.cuda.synchronize()
+    _assert_step_close(ok, ref)
+    # no setup factorization on the reuse path
+    assert int(ok.n_factor.max()) == int(ref.n_factor.max())
+
+
+@pytest.mark.parametrize("batch,n,m", [(16, 8, 11), (64, 32, 33), (8, 128, 129)],
+                         ids=["small", "n32", "n128"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_polish_kkt_kernel_matches_plain(cuda, batch, n, m, warm):
+    t = _to(polish_inputs(batch, n, m, seed=n), cuda)
+    x0 = t["x0"] if warm else None
+    args = (t["H"], t["J"], t["act"], t["r1"], t["b"], t["nu0"])
+    ok = qk.polish_kkt_kernel(*args, delta=1e-2, sweeps=6, x0=x0)
+    ref = qk.polish_kkt_reference(*args, delta=1e-2, sweeps=6, x0=x0)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.fail, ref.fail)
+    assert bool(ok.fail[0]) and not ok.fail[1:].any()
+    good = ~ref.fail
+    torch.testing.assert_close(ok.x[good], ref.x[good], **TOL)
+    torch.testing.assert_close(ok.nu[good], ref.nu[good], **TOL)
+    torch.testing.assert_close(ok.li[good], ref.li[good], **TOL)
+
+
+def test_launch_counters_count_cuda_launches_only(cuda):
+    t = _to(step_inputs(8, 6, 7, seed=1), cuda)
+    tc = {k: v.cpu() for k, v in t.items()}
+    k1, k2 = qk.sqp_step_launches, qk.polish_kkt_launches
+    _step(qk.sqp_step_kernel, tc, MAIN_QP)
+    assert qk.sqp_step_launches == k1
+    _step(qk.sqp_step_kernel, t, MAIN_QP)
+    assert qk.sqp_step_launches == k1 + 1
+    p = _to(polish_inputs(8, 6, 7, seed=1), cuda)
+    qk.polish_kkt_kernel(p["H"], p["J"], p["act"], p["r1"], p["b"], p["nu0"])
+    assert qk.polish_kkt_launches == k2 + 1
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    t = _to(step_inputs(8, 6, 7, seed=1), cuda)
+    with pytest.raises(TypeError):
+        _step(qk.sqp_step_kernel, dict(t, g=t["g"].double()), MAIN_QP)
+    with pytest.raises(ValueError):
+        _step(qk.sqp_step_kernel, dict(t, x=t["x"].cpu()), MAIN_QP)
+    with pytest.raises(ValueError):
+        _step(qk.sqp_step_kernel, dict(t, J=t["J"].mT.contiguous().mT), MAIN_QP)
+
+
+def test_solver_on_cuda_matches_cpu_plain_path(cuda):
+    """The whole slice on the card (kernels) against the same solve on the
+    CPU (plain versions): same statuses, solutions within f32 noise."""
+    from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch
+    from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    settings = SQPSettings(max_iter=3, eps_prim=2e-3, eps_dual=2e-3, termination="kkt",
+                           schedule="fixed", qp_impl="kernel", polish=True,
+                           polish_passes=2, line_search_max_iter=5, qp=MAIN_QP)
+    res = {}
+    for dev in ("cpu", cuda):
+        prob, x0 = sphere_cap_nlp_batch(64, 16, seed=4, dtype=torch.float32, device=dev)
+        res[str(dev)] = sqp_solve_batch(prob, x0, None, settings, impl="fused")
+    a, b = res["cpu"], res["cuda"]
+    np.testing.assert_array_equal(a.info.status.numpy(), b.info.status.cpu().numpy())
+    np.testing.assert_allclose(b.x.cpu().numpy(), a.x.numpy(), atol=1e-5)
