@@ -6,19 +6,35 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device facts: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
-2. build the two CUDA kernels of the main path from ``sqp_solver_tpu_torch/csrc``;
+2. build the four CUDA kernels from ``sqp_solver_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, in float32,
-   at the main path's shapes (n = 32, B = 4096 and n = 128, B = 1024),
-   with both times from CUDA events;
-4. the main path end to end, ``sqp_solve_batch(impl="fused")`` on the
+   at its paths' shapes, with both times from CUDA events: the SQP-step
+   (K1) and polish-KKT (K2) kernels at n = 32, B = 4096 and n = 128,
+   B = 1024; the whole-QP kernel (K3) on random QPs (n = 32, m = 33) and
+   the MPC family (n = 16, m = 32), B = 4096, plus a batch of primal- and
+   dual-infeasible QPs; the SPD-inverse kernel (K4) at n = 32, B = 4096
+   and n = 128, B = 1024, beside ``torch.linalg.cholesky_ex`` +
+   ``torch.cholesky_inverse`` as its library yardstick;
+4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
-   the closed-form optimum and an independent float64 KKT certificate,
-   with the kernels' launch counts asserted.
+   the closed-form optimum and an independent float64 KKT certificate;
+5. one-shot QP serving, ``qp_solve_batch(impl="kernel")`` on random QPs
+   (n = 32, m = 33, B = 4096), unpolished and polished through K2 and
+   through the K4 route, checked by a float64 OSQP termination test and
+   KKT error computed in numpy;
+6. sustained MPC serving, ``qp_solve_sequence``: K = 10 warm-started
+   steps of a B = 4096 double-integrator fleet (n = 16), then a probe
+   sequence of 5 ADMM iterations per step that holds each warm step's
+   residual against a cold solve of the same QP;
+7. sustained NLP serving, ``sqp_solve_sequence``: one cold sphere-cap
+   solve (n = 32, B = 4096) and 8 warm steps, the last step certified in
+   float64.
 
-The line before the last two is ``{"kernels": [...]}``; then the card's
-``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
-The port's package is imported from the directory of this script; no
-JAX is used.
+Each path run starts with every launch counter at 0 and asserts the
+counts it reads right after.  The line before the last two is
+``{"kernels": [...]}``; then the card's ``name, power.limit``; the last
+line is ``{"ok": true, "device": ...}``.  The port's package is imported
+from the directory of this script; no JAX is used.
 """
 
 from __future__ import annotations
@@ -34,8 +50,22 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:1481"
 K2_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:709"
+K3_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:1622"
+K4_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:535"
 CU_SOURCE = "sqp_solver_tpu_torch/csrc/qp_kernel.cu"
 TOL = 1e-4  # atol = rtol for float32 kernel vs float32 plain version
+# atol = rtol where an adapted rho drives refactors: float32 kernel and
+# float32 plain version each against the plain version in float64.  An
+# adopted rho carries ~1e-3 relative float32 noise, and the trajectories
+# part by up to ~1e-4 (the ADMM's own termination tolerance) before they
+# stop at the same iteration
+EPOCH_TOL = 5e-4
+# the card's published peaks (H100 SXM data sheet): float32 outside the
+# tensor cores, and HBM bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+COUNTERS = ("sqp_step_launches", "polish_kkt_launches", "qp_solve_launches",
+            "spd_inverse_launches")
 
 
 def log(msg: str) -> None:
@@ -63,6 +93,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the float32 peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def reset_counts():
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    for c in COUNTERS:
+        setattr(qk, c, 0)
+
+
+def read_counts() -> dict:
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    return {c: getattr(qk, c) for c in COUNTERS}
 
 
 def main_qp_settings():
@@ -149,7 +200,19 @@ def compare_step(batch: int, n: int, dev, reps: int) -> dict:
             f"max |kernel - plain| {max(errs):.3e}")
     ms = cuda_ms(lambda: call(qk.sqp_step_kernel, t), reps)
     plain_ms = cuda_ms(lambda: call(qk.sqp_step_reference, t), max(1, reps // 4))
-    return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    # the work of the timed call: BFGS (6 n^2), each factorization
+    # (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM iteration
+    # (2 n^2 + 4 m n) and each chunk's residuals (2 n^2 + 4 m n)
+    out = call(qk.sqp_step_kernel, t)
+    m = n + 1
+    seg = s.check_termination
+    it = out.iter.double()
+    flops = float((6 * n * n + out.n_factor.double() * (n * n * m + n ** 3)
+                   + it * (2 * n * n + 4 * m * n) + (it / seg) * (2 * n * n + 4 * m * n)).sum())
+    nbytes = batch * (4 * (2 * n * n + m * n + 4 * n + 4 * m + n + 2 * m + 9) + 3)
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
@@ -176,17 +239,408 @@ def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
     ms = cuda_ms(lambda: qk.polish_kkt_kernel(*args, delta=1e-2, sweeps=sweeps), reps)
     plain_ms = cuda_ms(lambda: qk.polish_kkt_reference(*args, delta=1e-2, sweeps=sweeps),
                        max(1, reps // 4))
-    return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    # Gram n^2 m, Cholesky + L^-1 2 n^3 / 3, each sweep 4 n^2 + 4 m n
+    m = n + 1
+    flops = batch * (n * n * m + 2 * n ** 3 / 3 + sweeps * (4 * n * n + 4 * m * n))
+    nbytes = batch * (4 * (2 * n * n + m * n + 2 * n + 3 * m) + m + 1)
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def sphere_cert_1e4(problem, x, lam) -> float:
-    """Independent float64 KKT certificate of a sphere-cap batch at the
-    reference's own tolerance 1e-4 (the numpy twin of bench.py:155): exact
-    stationarity -1 + 2 lam_0 x + lam_rest and feasibility of
-    ||x||^2 <= r^2, 0 <= x <= 1, with no solver code on the path."""
+def qp_bench_settings(**kw):
+    """The QP legs' settings (bench.py:814-818 and :868-872): 200 ADMM
+    iterations checked every 25, adaptive rho every 50 (4 rho epochs)."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    base = dict(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200, check_termination=25,
+                adaptive_rho=True, adaptive_rho_interval=50, schedule="fixed")
+    base.update(kw)
+    return QPSettings(**base)
+
+
+def qp_operands(family: str, batch: int, n: int, dev) -> dict:
+    """float32 operands of one whole-QP call, cold-started."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_batch, random_qp_batch
+
+    if family == "random":
+        qp = random_qp_batch(batch, n, n + 1, seed=n, device=dev)
+    else:
+        qp = mpc_qp_batch(batch, horizon=n, seed=n, device=dev)
+    t = {k: getattr(qp, k) for k in ("P", "q", "A", "l", "u")}
+    m = t["l"].shape[-1]
+    t.update(x=torch.zeros((batch, n), device=dev), z=torch.zeros((batch, m), device=dev),
+             y=torch.zeros((batch, m), device=dev))
+    return t
+
+
+def qp_raw(fn, t, settings):
+    return fn(*(t[k] for k in ("P", "A", "q", "l", "u", "x", "z", "y")), settings)
+
+
+def compare_qp(family: str, batch: int, n: int, dev, reps: int) -> dict:
+    """K3 against its plain version: one rho epoch kernel against plain at
+    atol = rtol = 1e-4; four rho epochs, kernel and plain float32 each
+    against plain float64 at ``EPOCH_TOL``.  Iterates are compared where the iteration
+    counts agree, which they must on >= 99 % of problems."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    t = qp_operands(family, batch, n, dev)
+    m = t["l"].shape[-1]
+    one = qp_bench_settings(adaptive_rho=False)
+    ok = qp_raw(qk._qp_solve_launch, t, one)
+    ref = qp_raw(qk.qp_solve_reference, t, one)
+    torch.cuda.synchronize()
+    if not (torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)):
+        raise AssertionError(f"K3 {family}: fail or certificate flags differ")
+    same = ok.iter == ref.iter
+    frac = float(same.float().mean())
+    if frac < 0.99:
+        raise AssertionError(f"K3 {family} one epoch: iteration counts agree on {frac:.4f}")
+    errs = [check_close(f"K3 {family} {k}", getattr(ok, k)[same], getattr(ref, k)[same])
+            for k in ("x", "z", "y")]
+    s = qp_bench_settings()
+    t64 = {k: v.double() for k, v in t.items()}
+    p64 = qp_raw(qk.qp_solve_reference, t64, s)
+    k32 = qp_raw(qk._qp_solve_launch, t, s)
+    p32 = qp_raw(qk.qp_solve_reference, t, s)
+    torch.cuda.synchronize()
+    epoch_errs = {}
+    for label, out in (("kernel", k32), ("plain", p32)):
+        agree = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        fr = float(agree.float().mean())
+        if fr < 0.99:
+            raise AssertionError(f"K3 {family} epochs: {label} agrees with f64 on {fr:.4f}")
+        e = 0.0
+        for k in ("x", "z", "y"):
+            a, b = getattr(out, k)[agree].double(), getattr(p64, k)[agree]
+            if not torch.allclose(a, b, atol=EPOCH_TOL, rtol=EPOCH_TOL):
+                raise AssertionError(f"K3 {family} epochs: {label} {k} differs from f64 "
+                                     f"by {max_err(a, b):.3e}")
+            e = max(e, max_err(a, b))
+        epoch_errs[label] = e
+    log(f"  K3 {family} n={n} B={batch}: one epoch iter agree {frac:.4f}, max |kernel - "
+        f"plain| {max(errs):.3e}; 4 epochs vs plain f64: kernel {epoch_errs['kernel']:.3e}, "
+        f"plain f32 {epoch_errs['plain']:.3e}")
+    ms = cuda_ms(lambda: qp_raw(qk._qp_solve_launch, t, s), reps)
+    plain_ms = cuda_ms(lambda: qp_raw(qk.qp_solve_reference, t, s), max(1, reps // 4))
+    # the work of the timed call (s): per problem, each factorization
+    # (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM iteration
+    # (2 n^2 + 4 m n), each chunk's residuals and certificate (2 x (2 n^2 + 4 m n))
+    it = k32.iter.double()
+    seg = s.check_termination
+    epochs = torch.clamp_min(torch.ceil(it / s.adaptive_rho_interval), 1)
+    nfact = torch.minimum(k32.rho_updates.double(), epochs)
+    flops = float((nfact * (n * n * m + n ** 3) + it * (2 * n * n + 4 * m * n)
+                   + (it / seg) * 2 * (2 * n * n + 4 * m * n)).sum())
+    # P and A read once; q, l, u and the warm x, z, y read, x, z, y and
+    # the 8 stats written
+    nbytes = batch * 4 * (n * n + m * n + 3 * (n + 2 * m) + 8)
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(family=family, n=n, m=m, batch=batch, max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                mean_iter=float(it.mean()), epochs_err=epoch_errs)
+
+
+def compare_certificates(dev) -> int:
+    """A batch of feasible, primal- and dual-infeasible QPs (B = 256,
+    n = 8): the kernel's statuses must equal the plain version's."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.testing import certificate_qp_inputs
+
+    t = to_device(certificate_qp_inputs(256, 8, seed=1, dtype=np.float32), dev)
+    s = qp_bench_settings()
+    ok = qk.qp_status(qp_raw(qk._qp_solve_launch, t, s))
+    ref = qk.qp_status(qp_raw(qk.qp_solve_reference, t, s))
+    torch.cuda.synchronize()
+    if not torch.equal(ok, ref):
+        raise AssertionError(f"K3 certificates: statuses differ on "
+                             f"{int((ok != ref).sum())} of 256 problems")
+    counts = {int(v): int((ok == v).sum()) for v in torch.unique(ok)}
+    if set(counts) != {0, 5, 6}:
+        raise AssertionError(f"K3 certificates: statuses {counts}, expected solved, "
+                             "primal and dual infeasible")
+    log(f"  K3 certificate batch B=256 n=8: statuses equal, counts by status {counts}")
+    return 0
+
+
+def compare_spd(batch: int, n: int, dev, reps: int) -> dict:
+    """K4 against its plain version on SPD matrices with a non-SPD
+    problem 0, and its library yardstick ``cholesky_ex`` + ``cholesky_inverse``."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.testing import spd_inputs
+
+    M = to_device(spd_inputs(batch, n, seed=n, dtype=np.float32), dev)["M"]
+    Minv, fail = qk.spd_inverse_kernel(M)
+    ref, rfail = qk.spd_inverse_reference(M)
+    torch.cuda.synchronize()
+    if not torch.equal(fail, rfail) or not bool(fail[0]) or bool(fail[1:].any()):
+        raise AssertionError("K4: fail flags wrong or differ from the plain version")
+    err = check_close(f"K4 n={n}", Minv[1:], ref[1:])
+    log(f"  K4 n={n} B={batch}: fail flags agree, max |kernel - plain| {err:.3e}")
+    ms = cuda_ms(lambda: qk.spd_inverse_kernel(M), reps)
+    plain_ms = cuda_ms(lambda: qk.spd_inverse_reference(M), max(1, reps // 4))
+    library_ms = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(M).L), reps)
+    # Cholesky, L^-1 and L^-T L^-1, n^3 / 3 each; M's lower triangle read,
+    # Minv and the fail byte written
+    bound_ms, bound_by = bound(batch * n ** 3, batch * (4 * n * (n + 1) / 2 + 4 * n * n + 1))
+    return dict(n=n, batch=batch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def qp_cert64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
+    """Independent float64 check in numpy, no solver code: the OSQP
+    termination test (primal |Ax - proj(Ax)|, dual |Px + q + A'y|,
+    against eps_abs + eps_rel scale) with ``slack`` times the bars, and
+    the KKT error max(stationarity, bound violation) per problem."""
+    P, q, A, l, u = (getattr(qp, k).double().cpu().numpy() for k in ("P", "q", "A", "l", "u"))
+    x = res.x.double().cpu().numpy()
+    y = res.y.double().cpu().numpy()
+    Ax = np.einsum("bmn,bn->bm", A, x)
+    Px = np.einsum("bij,bj->bi", P, x)
+    ATy = np.einsum("bmn,bm->bn", A, y)
+    z = np.clip(Ax, l, u)
+    inf = lambda v: np.abs(v).max(axis=1)  # noqa: E731
+    rp = inf(Ax - z)
+    rd = inf(Px + q + ATy)
+    ok = (rp <= slack * (eps_abs + eps_rel * np.maximum(inf(Ax), inf(z)))) & (
+        rd <= slack * (eps_abs + eps_rel * np.maximum(np.maximum(inf(Px), inf(ATy)), inf(q))))
+    viol = np.maximum(np.maximum(l - Ax, Ax - u).max(axis=1), 0.0)
+    return float(np.mean(ok)), np.maximum(rd, viol)
+
+
+def run_qp_one_shot(dev, card: str) -> dict:
+    """qp_solve_batch(impl="kernel") on random QPs n = 32, m = 33,
+    B = 4096: unpolished, polished (K2 route) and polished through the K4
+    route, each run with the counters at 0."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp.polish import polish_qp
+    from sqp_solver_tpu_torch.qp.types import QPStatus
+
+    batch, n, m = 4096, 32, 33
+    s = qp_bench_settings()
+    sp = dataclasses.replace(s, polish=True)
+    qp = random_qp_batch(batch, n, m, seed=0, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for seed in (101, 102):  # warm-up
+        qp_solve_batch(random_qp_batch(batch, n, m, seed=seed, device=dev), sp, impl="kernel")
+    runs = {}
+    reset_counts()
+    res, wall = timed(lambda: qp_solve_batch(qp, s, impl="kernel"))
+    runs["unpolished"] = (res, wall, read_counts(), dict(qp_solve_launches=1))
+    reset_counts()
+    pol, wall_p = timed(lambda: qp_solve_batch(qp, sp, impl="kernel"))
+    runs["polished_k2"] = (pol, wall_p, read_counts(),
+                           dict(qp_solve_launches=1, polish_kkt_launches=s.polish_passes))
+    reset_counts()
+    pol4, wall_4 = timed(lambda: polish_qp(qp, res, s, use_kernel=False))
+    runs["polish_k4_route"] = (pol4, wall_4, read_counts(),
+                               dict(spd_inverse_launches=s.polish_passes))
+    out = {}
+    for label, (r, wall_r, counts, want) in runs.items():
+        for c in COUNTERS:
+            if counts[c] != want.get(c, 0):
+                raise AssertionError(f"qp one-shot {label}: launches {counts}, expected {want}")
+        out[label] = dict(wall_ms=wall_r * 1e3, counts=counts)
+    status = res.info.status.cpu().numpy()
+    if res.x.shape != (batch, n) or not torch.isfinite(res.x).all():
+        raise AssertionError("qp one-shot: solution has the wrong shape or is not finite")
+    solved = float(np.mean(status == QPStatus.SOLVED))
+    cert, kkt = qp_cert64(qp, res, s.eps_abs, s.eps_rel)
+    p99 = {"unpolished": float(np.percentile(kkt, 99))}
+    for label in ("polished_k2", "polish_k4_route"):
+        p99[label] = float(np.percentile(qp_cert64(qp, runs[label][0], s.eps_abs,
+                                                   s.eps_rel)[1], 99))
+    times = [wall] + [timed(lambda: qp_solve_batch(
+        random_qp_batch(batch, n, m, seed=10 + r, device=dev), s, impl="kernel"))[1]
+        for r in range(2)]
+    t = min(times)
+    log(f"  one-shot n={n} m={m} B={batch}: solved {solved:.4f}, f64 OSQP test (10x) "
+        f"{cert:.4f}, mean iter {float(res.info.iter.float().mean()):.1f}, wall "
+        f"{t * 1e3:.3f} ms ({batch / t:.1f} solves/s, min of {len(times)}) [{card}]")
+    log(f"  f64 KKT error p99: unpolished {p99['unpolished']:.3e}, polished (K2) "
+        f"{p99['polished_k2']:.3e} in {out['polished_k2']['wall_ms']:.3f} ms, K4 route "
+        f"{p99['polish_k4_route']:.3e} (polish alone {out['polish_k4_route']['wall_ms']:.3f} ms)")
+    if solved < 0.99:
+        raise AssertionError(f"qp one-shot: solved fraction {solved:.4f} < 0.99")
+    if cert < 0.99:
+        raise AssertionError(f"qp one-shot: f64 OSQP test passes on {cert:.4f} < 0.99")
+    for label in ("polished_k2", "polish_k4_route"):
+        if not p99[label] <= p99["unpolished"]:
+            raise AssertionError(f"qp one-shot: {label} KKT p99 {p99[label]:.3e} worse than "
+                                 f"unpolished {p99['unpolished']:.3e}")
+    return dict(runs=out, solved=solved, cert=cert, kkt_p99=p99, ms=t * 1e3,
+                solves_per_s=batch / t)
+
+
+def run_mpc_sequence(dev, card: str) -> dict:
+    """qp_solve_sequence as in bench.py:854-901: K = 10 steps of a
+    B = 4096 double-integrator fleet, n = 16, dt = 0.1, warm-started."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_fleet
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp import qp_solve_sequence
+
+    B, H, K = 4096, 16, 10
+    make_qp, step = mpc_fleet(B, horizon=H, dt=0.1, device=dev)
+    s = qp_bench_settings()
+
+    def advance(st, r):
+        nxt = step(st, r.x[:, 0])
+        return nxt, ((r.info.status == 0).float().mean(), (nxt[:, 0] ** 2).mean().sqrt(),
+                     r.info.iter.float().mean())
+
+    def plants(seed):
+        return torch.as_tensor(np.random.default_rng(seed).uniform(-1.0, 1.0, size=(B, 2)),
+                               dtype=torch.float32).to(dev)
+
+    def rollout(seed):
+        x0 = plants(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, _, _ = qp_solve_sequence(make_qp, advance, x0, K, s, impl="kernel")
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    rollout(100)  # warm-up
+    reset_counts()
+    (solved, rms, iters), wall = rollout(0)
+    counts = read_counts()
+    if counts != dict.fromkeys(COUNTERS, 0) | dict(qp_solve_launches=K):
+        raise AssertionError(f"sustained MPC: launches {counts}, expected {K} of K3 only")
+    solved, rms, iters = (v.cpu().numpy() for v in (solved, rms, iters))
+    times = [wall] + [rollout(1 + r)[1] for r in range(2)]
+    t = min(times)
+    # the sequence threads its warm starts: check_termination = 25 floors
+    # the iteration counts, so they alone cannot tell a warm step from a
+    # cold one.  A probe sequence stopped after 5 ADMM iterations per step
+    # holds each warm step's residual against a cold solve of the same QP
+    probe = dataclasses.replace(s, max_iter=5, check_termination=5, adaptive_rho=False)
+
+    def worst(r):
+        return torch.maximum(r.info.res_prim, r.info.res_dual).median()
+
+    def probe_advance(st, r):
+        cold = qp_solve_batch(make_qp(st), probe, impl="kernel")
+        return step(st, r.x[:, 0]), worst(r) / worst(cold)
+
+    ratio, _, _ = qp_solve_sequence(make_qp, probe_advance, plants(0), K, probe, impl="kernel")
+    ratio = ratio.cpu().numpy()
+    log(f"  sustained MPC K={K} x B={B} n={H}: solved per step min {solved.min():.4f}, "
+        f"pos RMS {rms[0]:.4f} -> {rms[-1]:.4f}, mean iter step 1 {iters[0]:.1f}, steps 2..K "
+        f"{iters[1:].mean():.1f}, wall {t * 1e3:.3f} ms -> {K * B / t:.1f} solves/s "
+        f"sustained (min of {len(times)}) [{card}]")
+    log(f"  after 5 ADMM iterations, median residual warm / cold of the same step: step 1 "
+        f"{ratio[0]:.3f}, steps 2..K mean {ratio[1:].mean():.3f}")
+    if solved.min() < 0.99:
+        raise AssertionError(f"sustained MPC: a step solved {solved.min():.4f} < 0.99")
+    if not rms[-1] < rms[0]:
+        raise AssertionError("sustained MPC: the fleet's position RMS did not fall")
+    if not iters[1:].mean() < iters[0]:
+        raise AssertionError("sustained MPC: warm steps are not cheaper than the cold one")
+    if not ratio[1:].mean() < 0.5:
+        raise AssertionError(f"sustained MPC: warm steps start no closer than cold ones "
+                             f"(residual ratio {ratio[1:].mean():.3f})")
+    return dict(counts=counts, solved_min=float(solved.min()), rms_first=float(rms[0]),
+                rms_last=float(rms[-1]), iter_first=float(iters[0]),
+                iter_warm=float(iters[1:].mean()), probe_ratio_first=float(ratio[0]),
+                probe_ratio_warm=float(ratio[1:].mean()), ms=t * 1e3, solves_per_s=K * B / t)
+
+
+def run_nlp_sequence(dev, card: str) -> dict:
+    """sqp_solve_sequence as in bench.py:945-1029: one cold headline solve
+    of the sphere-cap batch (n = 32, B = 4096), then 8 warm steps at one
+    outer iteration each, every cap radius shrinking 2 % per step; the last
+    step certified in float64 at 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.benchmark import sphere_cap_problem
+    from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
+    from sqp_solver_tpu_torch.sqp import sqp_solve_sequence
+
+    B, N, K = 4096, 32, 8
+    settings = bench_settings(N)
+    warm_settings = dataclasses.replace(settings, max_iter=1)
+
+    def make(r):
+        l = torch.zeros((B, N + 1), device=dev)
+        u = torch.cat([(r ** 2)[:, None], torch.ones((B, N), device=dev)], dim=1)
+        return sphere_cap_problem(l, u, r), torch.full((B, N), 0.25, device=dev)
+
+    def advance(r, res):
+        return 0.98 * r, (res.info.status == 0).float().mean()
+
+    def serve(seed):
+        rng = np.random.default_rng(seed)
+        r0 = torch.as_tensor(rng.uniform(0.55 * np.sqrt(N), 0.9 * np.sqrt(N), B),
+                             dtype=torch.float32).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prob0, x00 = make(r0)
+        res0 = sqp_solve_batch(prob0, x00, None, settings, impl="fused")
+        fr, r_f, warm_f = sqp_solve_sequence(make, advance, 0.98 * r0, K, warm_settings,
+                                             impl="fused", warm0=(res0.x, res0.lam))
+        torch.cuda.synchronize()
+        return fr, r_f, warm_f, time.perf_counter() - t0
+
+    serve(100)  # warm-up
+    reset_counts()
+    fr, r_f, (x_f, lam_f), wall = serve(0)
+    counts = read_counts()
+    want = dict.fromkeys(COUNTERS, 0) | dict(
+        sqp_step_launches=settings.max_iter + K,
+        polish_kkt_launches=settings.polish_passes * (K + 1))
+    if counts != want:
+        raise AssertionError(f"sustained NLP: launches {counts}, expected {want}")
+    fr = fr.cpu().numpy()
+    r_last = r_f.double().cpu().numpy() / 0.98
+    cert = sphere_cert_1e4(r_last ** 2, x_f.cpu().numpy(), lam_f.cpu().numpy())
+    times = [wall] + [serve(1 + r)[3] for r in range(2)]
+    t = min(times)
+    log(f"  sustained NLP 1 cold + {K} warm x B={B} n={N}: warm solved min {fr.min():.4f}, "
+        f"last-step f64 cert(1e-4) {cert:.4f}, wall {t * 1e3:.3f} ms -> "
+        f"{(K + 1) * B / t:.1f} solves/s sustained (min of {len(times)}) [{card}]")
+    if fr.min() < 0.99:
+        raise AssertionError(f"sustained NLP: a warm step solved {fr.min():.4f} < 0.99")
+    if cert < 0.99:
+        raise AssertionError(f"sustained NLP: f64 certificate {cert:.4f} < 0.99")
+    return dict(counts=counts, solved_min=float(fr.min()), cert=cert, ms=t * 1e3,
+                solves_per_s=(K + 1) * B / t)
+
+
+def sphere_cert_1e4(r2, x, lam) -> float:
+    """Independent float64 KKT certificate of a sphere-cap batch with
+    squared radii ``r2`` at the reference's own tolerance 1e-4 (the numpy
+    twin of bench.py:155): exact stationarity -1 + 2 lam_0 x + lam_rest and
+    feasibility of ||x||^2 <= r^2, 0 <= x <= 1, with no solver code on the
+    path."""
     xs = np.asarray(x, np.float64)
     lm = np.asarray(lam, np.float64)
-    r2 = problem.u[:, 0].double().cpu().numpy()
     st = -1.0 + 2.0 * lm[:, 0:1] * xs + lm[:, 1:]
     dr = np.abs(st).max(axis=1)
     pv = np.maximum(np.sum(xs * xs, axis=1) - r2, 0.0)
@@ -214,8 +668,7 @@ def run_main_path(configs, dev, card: str) -> dict:
 
     for n, batch in configs:  # warm-up: torch.func tracing, allocator
         solve(n, batch, seed=100)
-    qk.sqp_step_launches = 0
-    qk.polish_kkt_launches = 0
+    reset_counts()
     results = {}
     for n, batch in configs:
         k1, k2 = qk.sqp_step_launches, qk.polish_kkt_launches
@@ -226,7 +679,9 @@ def run_main_path(configs, dev, card: str) -> dict:
             raise AssertionError(f"n={n}: kernel launches K1 {d1}, K2 {d2}; expected "
                                  f"{s.max_iter} and {s.polish_passes}")
         results[(n, batch)] = (problem, res, wall)
-    launches = dict(sqp_step=qk.sqp_step_launches, polish_kkt=qk.polish_kkt_launches)
+    launches = read_counts()
+    if launches["qp_solve_launches"] or launches["spd_inverse_launches"]:
+        raise AssertionError(f"SQP main path launched a QP-path kernel: {launches}")
 
     summary = {}
     for (n, batch), (problem, res, wall) in results.items():
@@ -237,7 +692,7 @@ def run_main_path(configs, dev, card: str) -> dict:
             raise AssertionError(f"n={n}: solution has the wrong shape or is not finite")
         solved = float(np.mean(status == SQPStatus.SOLVED))
         err_p99 = float(np.percentile(np.abs(x.astype(np.float64) - sphere_cap_solution(problem)), 99))
-        cert = sphere_cert_1e4(problem, x, lam)
+        cert = sphere_cert_1e4(problem.u[:, 0].double().cpu().numpy(), x, lam)
         times = [wall] + [solve(n, batch, seed=10 + r)[2] for r in range(3)]
         t = min(times)
         log(f"  n={n} B={batch}: solved {solved:.4f}, err_p99 {err_p99:.3e}, "
@@ -284,30 +739,53 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) "
         f"into {_build.build_dir()}")
 
-    # 3. each kernel against its plain version at the main path's shapes
+    # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4):")
     k1 = [compare_step(4096, 32, dev, reps=20), compare_step(1024, 128, dev, reps=8)]
     k2 = [compare_polish(4096, 32, 6, dev, reps=20), compare_polish(1024, 128, 4, dev, reps=8)]
-    for name, rows in (("sqp_step", k1), ("polish_kkt", k2)):
+    k3 = [compare_qp("random", 4096, 32, dev, reps=10), compare_qp("mpc", 4096, 16, dev, reps=10)]
+    compare_certificates(dev)
+    k4 = [compare_spd(4096, 32, dev, reps=20), compare_spd(1024, 128, dev, reps=8)]
+    for name, rows in (("sqp_step", k1), ("polish_kkt", k2), ("qp_solve", k3),
+                       ("spd_inverse", k4)):
         for r in rows:
+            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
             log(f"  {name} n={r['n']} B={r['batch']}: kernel {r['ms']:.3f} ms, "
-                f"plain {r['plain_ms']:.3f} ms [{card}]")
+                f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}) [{card}]")
 
-    # 4. the main path end to end
-    log("main path: sqp_solve_batch(impl='fused') on the sphere-cap family:")
+    # 4.-7. the paths end to end, each with the launch counters from 0
+    log("SQP main path: sqp_solve_batch(impl='fused') on the sphere-cap family:")
     main_run = run_main_path([(32, 4096), (128, 1024)], dev, card)
+    log("one-shot QP serving: qp_solve_batch(impl='kernel'):")
+    qp_run = run_qp_one_shot(dev, card)
+    log("sustained MPC serving: qp_solve_sequence:")
+    mpc_run = run_mpc_sequence(dev, card)
+    log("sustained NLP serving: sqp_solve_sequence:")
+    nlp_run = run_nlp_sequence(dev, card)
+    paths = dict(sqp_main=main_run["launches"], nlp_sustained=nlp_run["counts"],
+                 mpc_sustained=mpc_run["counts"],
+                 **{f"qp_one_shot_{k}": v["counts"] for k, v in qp_run["runs"].items()})
 
     def entry(name, replaces, rows):
         head = rows[0]
+        counter = f"{name}_launches"
+        by_path = {p: c[counter] for p, c in paths.items() if c[counter]}
+        if not by_path:
+            raise AssertionError(f"{name}: no path run launched it")
         return dict(
             name=name, route="cuda", source=CU_SOURCE, replaces=replaces,
-            launches=main_run["launches"][name], max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=head["ms"], plain_ms=head["plain_ms"],
-            shape=dict(n=head["n"], batch=head["batch"]), by_shape=rows,
+            launches=sum(by_path.values()), max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            launches_by_path=by_path, shape=dict(n=head["n"], batch=head["batch"]),
+            by_shape=rows,
         )
 
-    kernels = [entry("sqp_step", K1_SOURCE, k1), entry("polish_kkt", K2_SOURCE, k2)]
-    log(json.dumps(dict(main_path=main_run["configs"], card=card)))
+    kernels = [entry("sqp_step", K1_SOURCE, k1), entry("polish_kkt", K2_SOURCE, k2),
+               entry("qp_solve", K3_SOURCE, k3), entry("spd_inverse", K4_SOURCE, k4)]
+    log(json.dumps(dict(main_path=main_run["configs"], qp_one_shot=qp_run,
+                        mpc_sustained=mpc_run, nlp_sustained=nlp_run, card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),

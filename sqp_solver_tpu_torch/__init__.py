@@ -1,32 +1,51 @@
 """sqp_solver_tpu_torch — the PyTorch / CUDA port of ``sqp_solver_tpu``.
 
 A second package beside the JAX one, for one NVIDIA H100.  It holds the
-batched SQP main path: ``parallel.sqp_solve_batch(impl="fused")`` with
-``SQPSettings(qp_impl="kernel")``, whose two kernels (the SQP-step kernel
-and the polish-KKT kernel) are hand-written CUDA for sm_90a in
-``csrc/qp_kernel.cu``, each beside its plain PyTorch version.  Public
-functions are batch-first; settings, statuses and field names are the JAX
-package's.  Parts outside this slice raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+batched SQP main path, ``parallel.sqp_solve_batch(impl="fused")`` with
+``SQPSettings(qp_impl="kernel")``, and the batched QP serving path,
+``parallel.qp_solve_batch(impl="kernel")`` with its polish and the
+sustained ``qp_solve_sequence`` / ``sqp_solve_sequence``.  Their four
+kernels (SQP step, polish KKT, whole QP, SPD inverse) are hand-written
+CUDA for sm_90a in ``csrc/qp_kernel.cu``, each beside its plain PyTorch
+version.  Public functions are batch-first; settings, statuses and field
+names are the JAX package's.  Generators and constructors put their
+tensors on the card unless asked for another device; solvers run on the
+device of their inputs.  Parts outside the port raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
-from sqp_solver_tpu_torch.parallel import sqp_solve_batch
-from sqp_solver_tpu_torch.qp import QPSettings, QPState, QPStatus
+from sqp_solver_tpu_torch.parallel import qp_solve_batch, sqp_solve_batch
+from sqp_solver_tpu_torch.qp import (
+    QPInfo,
+    QPResult,
+    QPSettings,
+    QPState,
+    QPStatus,
+    QuadraticProblem,
+    qp_solve_sequence,
+)
 from sqp_solver_tpu_torch.sqp import (
     NonlinearProblem,
     SQPInfo,
     SQPResult,
     SQPSettings,
     SQPStatus,
+    sqp_solve_sequence,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
     "sqp_solve_batch",
+    "qp_solve_batch",
+    "qp_solve_sequence",
+    "sqp_solve_sequence",
+    "QuadraticProblem",
     "QPSettings",
     "QPState",
     "QPStatus",
+    "QPInfo",
+    "QPResult",
     "NonlinearProblem",
     "SQPSettings",
     "SQPStatus",

@@ -1,10 +1,15 @@
-// Hopper (sm_90a) kernels of the SQP main path, with a plain C interface
-// loaded through ctypes by sqp_solver_tpu_torch/ops/qp_kernel.py.
+// Hopper (sm_90a) kernels of the SQP main path and the QP serving path,
+// with a plain C interface loaded through ctypes by
+// sqp_solver_tpu_torch/ops/qp_kernel.py.
 //
-//   sqp_step_kernel   replaces sqp_solver_tpu/ops/qp_kernel.py:sqp_step_kernel
-//                     (body _sqp_step_kernel, pallas_call in _sqp_step_call)
-//   polish_kkt_kernel replaces sqp_solver_tpu/ops/qp_kernel.py:polish_kkt_kernel
-//                     (body _polish_kkt_body, pallas_call in _polish_kkt_call)
+//   sqp_step_kernel    replaces sqp_solver_tpu/ops/qp_kernel.py:sqp_step_kernel
+//                      (body _sqp_step_kernel, pallas_call in _sqp_step_call)
+//   polish_kkt_kernel  replaces sqp_solver_tpu/ops/qp_kernel.py:polish_kkt_kernel
+//                      (body _polish_kkt_body, pallas_call in _polish_kkt_call)
+//   qp_solve_kernel    replaces sqp_solver_tpu/ops/qp_kernel.py:qp_solve_kernel
+//                      (body _qp_kernel, pallas_call in _qp_kernel_call)
+//   spd_inverse_kernel replaces sqp_solver_tpu/ops/qp_kernel.py:spd_inverse_kernel
+//                      (body _spd_inverse_body, pallas_call in _spd_inverse_call)
 //
 // Design.  One thread block per problem, batch-first operands.  The TPU
 // kernels put 128 problems on the VPU lanes and branch once per tile; here
@@ -15,10 +20,11 @@
 // sits under a thread-divergent branch.
 //
 // The three pieces the TPU kernels share are device functions here, shared
-// by both kernels (and by the whole-QP and SPD-inverse kernels later):
+// by the four kernels:
 //   schur_build      M = P + sigma I + A' diag(w) A     (_factor_schur_refs)
 //   cholesky_inplace, tri_inv, ltl                      (_chol_inv_ltl)
-//   admm_solve       rho epochs / chunks / adaptive rho (_admm_core)
+//   admm_solve       rho epochs / chunks / adaptive rho /
+//                    infeasibility certificates         (_admm_core)
 //
 // Numerics follow the TPU kernels where they decide a flag or a branch:
 // float32 storage and accumulation; the explicit inverse Minv = L^-T L^-1
@@ -52,6 +58,11 @@ constexpr float kLooseThresh = 1e16f;
 // max that propagates NaN like jnp.maximum / torch.maximum
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
+}
+
+// min that propagates NaN like jnp.minimum / torch.minimum
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || isnan(a)) ? a : b;
 }
 
 // clip that propagates NaN like jnp.clip
@@ -210,6 +221,8 @@ struct StepParams {
   int n_epochs, chunks_per_epoch, seg, adaptive_rho;
   float adaptive_rho_tolerance;
   int do_bfgs;
+  int check_infeas;      // infeasibility certificates at every chunk's end
+  float eps_pinf, eps_dinf;
   int n_smem_mats;       // leading matrices [W, A, Li] held in shared memory
   long long ws_floats;   // per-problem workspace for the others
 };
@@ -231,6 +244,7 @@ __device__ void place(float* (&ptr)[K], const int (&size)[K], float* smem_mats, 
 struct AdmmState {
   bool done, fail, pending;
   int itc, rho_upd, nfact;
+  int infs;  // certificate: 0 none, 1 primal infeasible, 2 dual infeasible
   float rho, rho_est, rp, rd, mz, mq;
 };
 
@@ -291,34 +305,90 @@ __device__ void admm_stats(const float* P, int ldp, const float* A, int ld, cons
   st.mq = nan_max(v[4], nan_max(v[5], v[6]));
 }
 
+// Infeasibility certificate (OSQP section 3.4, twin of _admm_core's
+// certificates) from the chunk's deltas, which the caller has left in
+// dx (n) and dy (m).  tn1, tn2 (n) and tm (m) are scratch.  Returns the
+// block-uniform code 0 none, 1 primal infeasible, 2 dual infeasible.
+__device__ int certificate(const StepParams& p, const float* P, int ldp, const float* A,
+                           int ld, const float* q, const float* l, const float* u,
+                           const float* dx, const float* dy, float* tn1, float* tn2,
+                           float* tm, float* red) {
+  const int n = p.n, m = p.m;
+  mtv(A, ld, m, n, dy, tn1);  // A' dy
+  mv(P, ldp, n, n, dx, tn2);  // P dx
+  mv(A, ld, m, n, dx, tm);    // A dx
+  __syncthreads();
+  float mx[6] = {0.f, 0.f, 0.f, 0.f, -INFINITY, -INFINITY};
+  float sm[2] = {0.f, 0.f};
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const bool lo_l = l[i] < -kLooseThresh, lo_u = u[i] > kLooseThresh;
+    const float l_eff = lo_l ? -1e20f : l[i], u_eff = lo_u ? 1e20f : u[i];
+    mx[0] = nan_max(mx[0], fabsf(dy[i]));
+    sm[0] += u_eff * nan_max(dy[i], 0.f) + l_eff * nan_min(dy[i], 0.f);
+    if (!lo_u) mx[4] = nan_max(mx[4], tm[i]);
+    if (!lo_l) mx[5] = nan_max(mx[5], -tm[i]);
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    mx[1] = nan_max(mx[1], fabsf(tn1[j]));
+    mx[2] = nan_max(mx[2], fabsf(dx[j]));
+    mx[3] = nan_max(mx[3], fabsf(tn2[j]));
+    sm[1] = fmaf(q[j], dx[j], sm[1]);
+  }
+  block_max(mx, red);
+  block_sum(sm, red);
+  const float norm_dy = mx[0], norm_dx = mx[2], tol = p.eps_dinf * norm_dx;
+  const bool prim = (norm_dy > 0.f) && (mx[1] <= p.eps_pinf * norm_dy) &&
+                    (sm[0] <= -p.eps_pinf * norm_dy);
+  const bool dual = (norm_dx > 0.f) && (mx[3] <= p.eps_dinf * norm_dx) &&
+                    (sm[1] <= -p.eps_dinf * norm_dx) && (mx[4] <= tol) && (mx[5] <= tol);
+  return prim ? 1 : (dual ? 2 : 0);
+}
+
 // The warm-started ADMM solve of one problem (twin of _admm_core without
-// Anderson and certificates).  P is the QP Hessian (the factor's source),
-// W holds Minv for the current rho on entry and on exit, Li is scratch.
+// Anderson).  P is the QP Hessian (the factor's source), W holds Minv for
+// the current rho on entry and on exit (or is built in the first epoch
+// when st.pending is set on entry), Li is scratch.  With p.check_infeas,
+// xp (n) and yp (m) keep the chunk-start iterates for the certificates; a
+// certified problem commits its chunk and stops.
 __device__ void admm_solve(const StepParams& p, const float* P, int ldp, const float* A,
                            float* W, float* Li, int ld, const float* q, const float* l,
                            const float* u, float* rv, float* x, float* z, float* y,
                            float* bt, float* xt, float* tm, float* tn1, float* tn2,
-                           float* red, AdmmState& st) {
+                           float* xp, float* yp, float* red, AdmmState& st) {
   const int n = p.n, m = p.m;
-  for (int e = 0; e < p.n_epochs && !st.done && !st.fail; ++e) {
-    if (st.pending) {
-      // adopt the pending rho together with its factorization
-      st.rho = st.rho_est;
+  for (int e = 0; e < p.n_epochs && !st.done && !st.fail && st.infs == 0; ++e) {
+    // adopt the pending rho together with its factorization; a NaN
+    // rho_est (NaN residuals) poisons rho, as the TPU's arithmetic select
+    // does, and the refactor reports the fail
+    if (st.pending || isnan(st.rho_est)) st.rho = st.rho_est;
+    if (st.pending || isnan(st.rho)) {
       set_rho_vec(rv, l, u, st.rho, m);
       st.fail = factor_minv(W, Li, ld, P, ldp, A, rv, p.sigma, n, m);
       st.nfact += 1;
     }
-    for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail; ++c) {
+    for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail && st.infs == 0; ++c) {
+      if (p.check_infeas) {
+        for (int j = threadIdx.x; j < n; j += blockDim.x) xp[j] = x[j];
+        for (int i = threadIdx.x; i < m; i += blockDim.x) yp[i] = y[i];
+      }
       for (int it = 0; it < p.seg; ++it)
         admm_iter(W, A, ld, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
       admm_stats(P, ldp, A, ld, q, x, z, y, tm, tn1, tn2, red, n, m, st);
+      if (p.check_infeas) {
+        // the deltas replace the chunk-start copies; the stats' readers of
+        // tm, tn1, tn2 are past the barriers inside block_max
+        for (int j = threadIdx.x; j < n; j += blockDim.x) xp[j] = x[j] - xp[j];
+        for (int i = threadIdx.x; i < m; i += blockDim.x) yp[i] = y[i] - yp[i];
+        __syncthreads();
+        st.infs = certificate(p, P, ldp, A, ld, q, l, u, xp, yp, tn1, tn2, tm, red);
+      }
       const bool conv = (st.rp <= p.eps_abs + p.eps_rel * st.mz) &&
                         (st.rd <= p.eps_abs + p.eps_rel * st.mq);
       st.itc += p.seg;
       st.done = conv;
     }
     if (p.adaptive_rho) {
-      const bool act = !st.done && !st.fail;
+      const bool act = !st.done && !st.fail && st.infs == 0;
       bool changed = false;
       if (act) {
         const float tiny = 1e-30f;
@@ -451,6 +521,7 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
   st.itc = 0;
   st.rho_upd = 1;  // the reference counts the setup rho update
   st.nfact = 0;
+  st.infs = 0;
   st.rp = st.rd = st.mz = st.mq = 0.f;
   if (minv_in) {
     const float* mi = minv_in + b * n * n;
@@ -480,7 +551,8 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
   }
   st.rho_est = st.rho;
 
-  admm_solve(p, Bn, n, A, W, Li, ld, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, red, st);
+  admm_solve(p, Bn, n, A, W, Li, ld, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
+             nullptr, red, st);
 
   for (int j = tid; j < n; j += T) p_out[b * n + j] = x[j];
   for (int i = tid; i < m; i += T) {
@@ -633,6 +705,148 @@ __global__ void __launch_bounds__(256) polish_kkt_kernel(
   }
 }
 
+// K3.  Replaces sqp_solver_tpu/ops/qp_kernel.py:qp_solve_kernel.
+// Per problem: classify the rows, then the ADMM solve entered with a
+// pending rho, so that its first epoch adopts rho0 (rho0 + 0 q_0: a NaN in
+// q reaches the fail flag through the factorization) and factors M = P +
+// sigma I + A' diag(rho) A in the block; rho epochs, chunks with early
+// exit, adaptive rho and the infeasibility certificates, whose
+// chunk-start iterates stay in shared memory (xp, yp).  Output x, z, y
+// and stats (8, B): done, iter, res_prim, res_dual, fail, rho_updates,
+// rho_estimate, infs.
+// What bounds it on this card: as K1, per-problem latency at n = 16-32
+// (each ADMM iteration is four dependent matvec phases with a barrier
+// between them; the factor is a sequence of n column steps), and the
+// O(n^3) factor loops at n = 128 with one block per SM.  The design keeps
+// A, Minv and L^-1 (row stride n + 1) and every vector in shared memory,
+// so the ADMM iterations never touch device memory; P, read once per
+// chunk (residuals, certificates) and by the factor, stays in device
+// memory (L1/L2 resident).
+__global__ void __launch_bounds__(256) qp_solve_kernel(
+    StepParams p, const float* __restrict__ Pg, const float* __restrict__ Ag,
+    const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug,
+    const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0,
+    float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
+    float* __restrict__ stats, float* __restrict__ ws) {
+  extern __shared__ float smem[];
+  const int n = p.n, m = p.m, ld = n + 1;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+
+  float* q = smem;
+  float* x = q + n;
+  float* bt = x + n;
+  float* xt = bt + n;
+  float* tn1 = xt + n;
+  float* tn2 = tn1 + n;
+  float* xp = tn2 + n;  // 7 n
+  float* z = xp + n;
+  float* y = z + m;
+  float* l = y + m;
+  float* u = l + m;
+  float* rv = u + m;
+  float* tm = rv + m;
+  float* yp = tm + m;  // 7 m
+  float* red = yp + m;
+  float* mats = red + kRedSlots;
+  float* M[3];
+  const int msize[3] = {n * ld, m * ld, n * ld};
+  place(M, msize, mats, p.n_smem_mats, ws, p.ws_floats);
+  float* W = M[0];
+  float* A = M[1];
+  float* Li = M[2];
+  const float* Pb = Pg + b * n * n;
+
+  for (int j = tid; j < n; j += T) {
+    q[j] = qg[b * n + j];
+    x[j] = x0[b * n + j];
+  }
+  for (int i = tid; i < m; i += T) {
+    z[i] = z0[b * m + i];
+    y[i] = y0[b * m + i];
+    l[i] = lg[b * m + i];
+    u[i] = ug[b * m + i];
+  }
+  for (int e = tid; e < m * n; e += T) {
+    const int i = e / n, j = e - i * n;
+    A[i * ld + j] = Ag[b * m * n + e];
+  }
+  __syncthreads();
+
+  AdmmState st;
+  st.done = false;
+  st.fail = false;
+  st.pending = true;  // the first epoch factors
+  st.itc = 0;
+  st.rho_upd = 1;  // the reference counts the setup rho update
+  st.nfact = 0;
+  st.infs = 0;
+  st.rp = st.rd = st.mz = st.mq = 0.f;
+  st.rho = p.rho0 + 0.f * q[0];
+  st.rho_est = st.rho;
+
+  admm_solve(p, Pb, n, A, W, Li, ld, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red,
+             st);
+
+  for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
+  for (int i = tid; i < m; i += T) {
+    z_out[b * m + i] = z[i];
+    y_out[b * m + i] = y[i];
+  }
+  if (tid == 0) {  // stats is (8, batch): one row per field
+    const size_t B = gridDim.x;
+    stats[0 * B + b] = st.done ? 1.f : 0.f;
+    stats[1 * B + b] = (float)st.itc;
+    stats[2 * B + b] = st.rp;
+    stats[3 * B + b] = st.rd;
+    stats[4 * B + b] = st.fail ? 1.f : 0.f;
+    stats[5 * B + b] = (float)st.rho_upd;
+    stats[6 * B + b] = st.rho_est;
+    stats[7 * B + b] = (float)st.infs;
+  }
+}
+
+// K4.  Replaces sqp_solver_tpu/ops/qp_kernel.py:spd_inverse_kernel.
+// Per problem: the lower triangle of M into the working buffer, column
+// Cholesky with the pivot clamp max(d, 1e-30) and fail = (d <= 0 | NaN),
+// L^-1 by forward substitution, then Minv = L^-T L^-1.  M is read once and
+// Minv and fail are written once.  What bounds it on this card: the
+// O(n^3) column loops of one block, n barrier-separated column steps
+// (latency at n = 32; at n = 128 about 2/3 n^3 flops per problem over 256
+// threads at one or two blocks per SM).  The design keeps the working
+// matrix and L^-1 (row stride n + 1, 132 KB at n = 128) in shared memory;
+// larger n goes to the per-problem workspace.
+__global__ void __launch_bounds__(256) spd_inverse_kernel(
+    int n, int n_smem_mats, long long ws_floats, const float* __restrict__ Mg,
+    float* __restrict__ minv_out, uint8_t* __restrict__ fail_out, float* __restrict__ ws) {
+  extern __shared__ float smem[];
+  const int ld = n + 1;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  float* red = smem;
+  float* mats = red + kRedSlots;
+  float* M[3];
+  const int msize[3] = {n * ld, n * ld, 0};
+  place(M, msize, mats, n_smem_mats, ws, ws_floats);
+  float* W = M[0];
+  float* Li = M[1];
+  const float* Mb = Mg + b * n * n;
+  for (int e = tid; e < n * n; e += T) {
+    const int i = e / n, j = e - i * n;
+    if (j <= i) W[i * ld + j] = Mb[e];
+  }
+  __syncthreads();
+  const bool fail = cholesky_inplace(W, ld, n);
+  tri_inv(W, ld, Li, ld, n);
+  ltl(Li, ld, W, ld, n);
+  float* mo = minv_out + b * n * n;
+  for (int e = tid; e < n * n; e += T) {
+    const int i = e / n, j = e - i * n;
+    mo[e] = W[i * ld + j];
+  }
+  if (tid == 0) fail_out[b] = fail ? 1 : 0;
+}
+
 struct Layout {
   size_t smem_bytes;
   int n_smem_mats;
@@ -670,6 +884,18 @@ Layout polish_layout(int n, int m) {
   return plan(7LL * n + 8LL * m + kRedSlots, mats);
 }
 
+Layout qp_layout(int n, int m) {
+  const long long ld = n + 1;
+  const long long mats[3] = {n * ld, m * ld, n * ld};
+  return plan(7LL * n + 7LL * m + kRedSlots, mats);
+}
+
+Layout spd_layout(int n) {
+  const long long ld = n + 1;
+  const long long mats[3] = {n * ld, n * ld, 0};
+  return plan(kRedSlots, mats);
+}
+
 int threads_for(int n, int m) { return (n <= 64 && m <= 64) ? 128 : 256; }
 
 template <typename Kernel>
@@ -685,6 +911,10 @@ extern "C" {
 long long sqp_step_workspace_floats(int n, int m) { return step_layout(n, m).ws_floats; }
 
 long long polish_kkt_workspace_floats(int n, int m) { return polish_layout(n, m).ws_floats; }
+
+long long qp_solve_workspace_floats(int n, int m) { return qp_layout(n, m).ws_floats; }
+
+long long spd_inverse_workspace_floats(int n) { return spd_layout(n).ws_floats; }
 
 const char* qp_kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
@@ -718,6 +948,8 @@ int sqp_step_launch(const float* Bp, const float* J, const float* g, const float
   p.adaptive_rho = adaptive_rho;
   p.adaptive_rho_tolerance = adaptive_rho_tolerance;
   p.do_bfgs = do_bfgs;
+  p.check_infeas = 0;
+  p.eps_pinf = p.eps_dinf = 0.f;
   p.n_smem_mats = L.n_smem_mats;
   p.ws_floats = L.ws_floats;
   sqp_step_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
@@ -739,6 +971,56 @@ int polish_kkt_launch(const float* H, const float* J, const uint8_t* act, const 
   polish_kkt_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
       n, m, delta, sweeps, L.n_smem_mats, L.ws_floats, H, J, act, r1, b, nu0, x0, x_out,
       nu_out, fail_out, li_out, ws);
+  return (int)cudaGetLastError();
+}
+
+int qp_solve_launch(const float* P, const float* A, const float* q, const float* l,
+                    const float* u, const float* x0, const float* z0, const float* y0,
+                    float* x_out, float* z_out, float* y_out, float* stats, float* ws,
+                    int batch, int n, int m, float sigma, float alpha, float rho0,
+                    float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch, int seg,
+                    int adaptive_rho, float adaptive_rho_tolerance, int check_infeas,
+                    float eps_pinf, float eps_dinf, int device, void* stream) {
+  if (batch <= 0) return 0;
+  const Layout L = qp_layout(n, m);
+  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_smem(qp_solve_kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  StepParams p;
+  p.n = n;
+  p.m = m;
+  p.sigma = sigma;
+  p.alpha = alpha;
+  p.rho0 = rho0;
+  p.eps_abs = eps_abs;
+  p.eps_rel = eps_rel;
+  p.n_epochs = n_epochs;
+  p.chunks_per_epoch = chunks_per_epoch;
+  p.seg = seg;
+  p.adaptive_rho = adaptive_rho;
+  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
+  p.do_bfgs = 0;
+  p.check_infeas = check_infeas;
+  p.eps_pinf = eps_pinf;
+  p.eps_dinf = eps_dinf;
+  p.n_smem_mats = L.n_smem_mats;
+  p.ws_floats = L.ws_floats;
+  qp_solve_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+      p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws);
+  return (int)cudaGetLastError();
+}
+
+int spd_inverse_launch(const float* M, float* minv_out, uint8_t* fail_out, float* ws,
+                       int batch, int n, int device, void* stream) {
+  if (batch <= 0) return 0;
+  const Layout L = spd_layout(n);
+  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_smem(spd_inverse_kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  spd_inverse_kernel<<<batch, threads_for(n, n), L.smem_bytes, (cudaStream_t)stream>>>(
+      n, L.n_smem_mats, L.ws_floats, M, minv_out, fail_out, ws);
   return (int)cudaGetLastError();
 }
 

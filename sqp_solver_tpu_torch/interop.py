@@ -1,7 +1,8 @@
 """Carrying problem data and solver state across from the JAX package.
 
 A solver has no weights: what crosses over is problem data and solver
-state, as numpy arrays (``np.asarray`` of a JAX array).  The JAX kernels
+state, as numpy arrays (``np.asarray`` of a JAX array), onto ``device``
+(by default the card; ``device="cpu"`` for the plain versions).  The JAX kernels
 keep the batch LAST (``(..., B)``, problems on the TPU lanes); this
 package keeps it first.  Callables cannot cross over, so a problem family
 is rebuilt from its data.
@@ -13,8 +14,9 @@ import numpy as np
 import torch
 
 from sqp_solver_tpu_torch.models.benchmark import sphere_cap_problem
-from sqp_solver_tpu_torch.qp.types import QPState
+from sqp_solver_tpu_torch.qp.types import QPResult, QPState, QuadraticProblem
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem
+from sqp_solver_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "from_kernel_layout",
@@ -22,12 +24,14 @@ __all__ = [
     "qp_state_from_numpy",
     "hessian_from_numpy",
     "sphere_cap_from_arrays",
+    "qp_from_arrays",
+    "qp_result_to_numpy",
 ]
 
 
 def _tensor(a, dtype, device):
     # a copy: arrays from JAX are read-only
-    return torch.as_tensor(np.array(a), dtype=dtype).to(device)
+    return torch.as_tensor(np.array(a), dtype=dtype).to(resolve_device(device))
 
 
 def from_kernel_layout(a, dtype=None, device=None) -> torch.Tensor:
@@ -57,3 +61,17 @@ def sphere_cap_from_arrays(l, u, r, dtype=None, device=None) -> NonlinearProblem
     return sphere_cap_problem(
         _tensor(l, dtype, device), _tensor(u, dtype, device), _tensor(r, dtype, device)
     )
+
+
+def qp_from_arrays(P, q, A, l, u, dtype=None, device=None) -> QuadraticProblem:
+    """A batch-first QP from a JAX ``QuadraticProblem``'s leaves (P (B, n, n),
+    q (B, n), A (B, m, n), l and u (B, m)), which are batch-first as well."""
+    return QuadraticProblem(*(_tensor(a, dtype, device) for a in (P, q, A, l, u)))
+
+
+def qp_result_to_numpy(result: QPResult) -> dict:
+    """A QP result as numpy arrays: x, y, z and the info fields by name."""
+    out = {k: getattr(result, k).detach().cpu().numpy() for k in ("x", "y", "z")}
+    for k in ("status", "iter", "rho_updates", "rho_estimate", "res_prim", "res_dual"):
+        out[k] = getattr(result.info, k).detach().cpu().numpy()
+    return out

@@ -3,5 +3,12 @@ from sqp_solver_tpu_torch.models.benchmark import (
     sphere_cap_problem,
     sphere_cap_solution,
 )
+from sqp_solver_tpu_torch.models.mpc import mpc_qp_batch, random_qp_batch
 
-__all__ = ["sphere_cap_nlp_batch", "sphere_cap_problem", "sphere_cap_solution"]
+__all__ = [
+    "sphere_cap_nlp_batch",
+    "sphere_cap_problem",
+    "sphere_cap_solution",
+    "mpc_qp_batch",
+    "random_qp_batch",
+]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem
+from sqp_solver_tpu_torch.utils.device import resolve_device
 
 __all__ = ["sphere_cap_nlp_batch", "sphere_cap_problem", "sphere_cap_solution"]
 
@@ -58,9 +59,11 @@ def sphere_cap_problem(l: torch.Tensor, u: torch.Tensor, r: torch.Tensor) -> Non
 def sphere_cap_nlp_batch(batch: int, n: int, seed: int = 0, dtype=torch.float32,
                          device=None, r_range=(0.55, 0.9)):
     """Returns (problem with batched data on ``device``, x0 (B, n)).
+    ``device`` defaults to the card (:func:`~sqp_solver_tpu_torch.utils.device.default_device`).
 
     ``r_range`` scales the radii relative to sqrt(n); the default keeps the
     sphere active and away from the degenerate r ~ sqrt(n) boundary."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     r = rng.uniform(r_range[0] * np.sqrt(n), r_range[1] * np.sqrt(n), size=(batch,))
     l = np.concatenate([np.zeros((batch, 1)), np.zeros((batch, n))], axis=1)

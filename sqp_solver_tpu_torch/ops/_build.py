@@ -43,6 +43,14 @@ _SIGNATURES = {
         [_VOID] * 12 + [_INT] * 3 + [_FLOAT, _INT, _INT, _VOID],
     ),
     "polish_kkt_workspace_floats": (_LL, [_INT, _INT]),
+    "qp_solve_launch": (
+        _INT,
+        [_VOID] * 13 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
+    "qp_solve_workspace_floats": (_LL, [_INT, _INT]),
+    "spd_inverse_launch": (_INT, [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+    "spd_inverse_workspace_floats": (_LL, [_INT]),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
 }
 

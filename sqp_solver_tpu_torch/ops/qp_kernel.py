@@ -1,15 +1,19 @@
-"""The SQP-step and polish-KKT kernels (twin of ``sqp_solver_tpu/ops/qp_kernel.py``).
+"""The port's four kernels (twin of ``sqp_solver_tpu/ops/qp_kernel.py``):
+the SQP-step kernel (K1), the polish-KKT kernel (K2), the whole-QP kernel
+(K3) and the SPD-inverse kernel (K4).
 
 Each kernel has three parts here:
 
 * a **plain PyTorch version** (``sqp_step_reference``,
-  ``polish_kkt_reference``): batched tensor code that follows the CUDA
+  ``polish_kkt_reference``, ``qp_solve_reference``,
+  ``spd_inverse_reference``): batched tensor code that follows the CUDA
   kernel's per-problem algorithm step by step, including the column-loop
   Cholesky with its pivot clamp and fail rule (no library factorization
   decides a flag).  The CPU path and the tests use it;
 * the **CUDA kernel** in ``csrc/qp_kernel.cu`` (one thread block per
   problem), built with nvcc at first use (``ops/_build.py``);
-* a **wrapper** (``sqp_step_kernel``, ``polish_kkt_kernel``) that sends
+* a **wrapper** (``sqp_step_kernel``, ``polish_kkt_kernel``,
+  ``qp_solve_kernel``, ``spd_inverse_kernel``) that sends
   CPU tensors to the plain version and CUDA tensors to the kernel.  A
   CUDA call that the kernel cannot take raises; there is no fallback.
 
@@ -38,15 +42,27 @@ from sqp_solver_tpu_torch.qp.classify import (
     RHO_MIN,
     RHO_TOL,
 )
-from sqp_solver_tpu_torch.qp.types import QPSettings
+from sqp_solver_tpu_torch.qp.types import (
+    QPInfo,
+    QPResult,
+    QPSettings,
+    QPState,
+    QPStatus,
+    QuadraticProblem,
+)
 
 __all__ = [
     "SQPStepOut",
     "PolishOut",
+    "QPSolveOut",
     "sqp_step_kernel",
     "sqp_step_reference",
     "polish_kkt_kernel",
     "polish_kkt_reference",
+    "qp_solve_kernel",
+    "qp_solve_reference",
+    "spd_inverse_kernel",
+    "spd_inverse_reference",
     "bfgs_update",
 ]
 
@@ -54,6 +70,8 @@ __all__ = [
 # (never on the plain path), so a run can show that it went through them.
 sqp_step_launches = 0
 polish_kkt_launches = 0
+qp_solve_launches = 0
+spd_inverse_launches = 0
 
 
 class SQPStepOut(NamedTuple):
@@ -80,6 +98,23 @@ class PolishOut(NamedTuple):
     nu: torch.Tensor  # (B, m) multipliers on active rows
     fail: torch.Tensor  # bool (B,) clamped pivot
     li: torch.Tensor  # (B, n, n) L^-1 of the Schur preconditioner
+
+
+class QPSolveOut(NamedTuple):
+    """Raw result of one whole-QP solve, each field batch-first (the eight
+    stats rows of the TPU kernel, in its order, after the iterates)."""
+
+    x: torch.Tensor  # (B, n)
+    z: torch.Tensor  # (B, m)
+    y: torch.Tensor  # (B, m)
+    done: torch.Tensor  # bool (B,) converged
+    iter: torch.Tensor  # int32 (B,) ADMM iterations run
+    res_prim: torch.Tensor  # (B,)
+    res_dual: torch.Tensor  # (B,)
+    fail: torch.Tensor  # bool (B,) factorization hit a clamped pivot
+    rho_updates: torch.Tensor  # int32 (B,)
+    rho_estimate: torch.Tensor  # (B,)
+    infs: torch.Tensor  # int32 (B,) certificate: 0 none, 1 primal, 2 dual
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +257,42 @@ def _admm_iter(Minv, A, q, l, u, x, z, y, rv, sigma, alpha):
     return xn, zn, yn
 
 
+def _certificates(P, A, q, dx, dy, lo_l, lo_u, l_eff, u_eff, eps_pinf, eps_dinf):
+    """Infeasibility certificate code per problem from a chunk's iterate
+    deltas (OSQP section 3.4; twin of ``_admm_core.certificates``):
+    1 = primal infeasible (dy), 2 = dual infeasible (dx), 0 = none."""
+    norm_dy = _linf(dy)
+    sup = (u_eff * torch.clamp_min(dy, 0.0) + l_eff * torch.clamp_max(dy, 0.0)).sum(-1)
+    prim = (
+        (norm_dy > 0.0)
+        & (_linf(_mtv(A, dy)) <= eps_pinf * norm_dy)
+        & (sup <= -eps_pinf * norm_dy)
+    )
+    norm_dx = _linf(dx)
+    Adx = _mv(A, dx)
+    tol = (eps_dinf * norm_dx).unsqueeze(-1)
+    ray_ok = ((lo_u | (Adx <= tol)) & (lo_l | (Adx >= -tol))).all(-1)
+    dual = (
+        (norm_dx > 0.0)
+        & (_linf(_mv(P, dx)) <= eps_dinf * norm_dx)
+        & ((q * dx).sum(-1) <= -eps_dinf * norm_dx)
+        & ray_ok
+    )
+    zero = torch.zeros_like(norm_dx, dtype=torch.int32)
+    return torch.where(prim, 1, torch.where(dual, 2, zero)).to(torch.int32)
+
+
 def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
                sigma, alpha, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg,
-               adaptive_rho, adaptive_rho_tolerance):
-    """Twin of ``_admm_core`` (without Anderson and certificates, which the
-    SQP step does not use): rho epochs with adoption at factor time, chunks
-    of ``seg`` iterations with per-problem early exit, adaptive rho and the
-    termination residuals.  Returns the updated state as a dict."""
+               adaptive_rho, adaptive_rho_tolerance, pending=None,
+               check_infeas=False, eps_pinf=1e-4, eps_dinf=1e-4):
+    """Twin of ``_admm_core`` without Anderson: rho epochs with adoption at
+    factor time, chunks of ``seg`` iterations with per-problem early exit,
+    adaptive rho, the termination residuals and, with ``check_infeas``,
+    the infeasibility certificates.  ``pending`` (bool (B,)) makes the
+    first epoch adopt ``rho`` and factor (the whole-QP solve enters so).
+    A certified problem commits its chunk and is frozen from then on.
+    Returns the updated state as a dict (``infs``: int32 certificate code)."""
     B = q.shape[0]
     dev = q.device
     loose = (l < -LOOSE_BOUNDS_THRESH) & (u > LOOSE_BOUNDS_THRESH)
@@ -238,34 +302,50 @@ def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
     rho_upd = torch.ones(B, dtype=torch.int32, device=dev)
     rho_est = rho.clone()
     rp, rd, mz, mq = (torch.zeros_like(rho) for _ in range(4))
-    pending = torch.zeros(B, dtype=torch.bool, device=dev)
+    if pending is None:
+        pending = torch.zeros(B, dtype=torch.bool, device=dev)
     nfact = torch.zeros(B, dtype=torch.int32, device=dev)
+    infs = torch.zeros(B, dtype=torch.int32, device=dev)
+    if check_infeas:
+        lo_l = l < -LOOSE_BOUNDS_THRESH
+        lo_u = u > LOOSE_BOUNDS_THRESH
+        u_eff = torch.where(lo_u, 1e20, u)
+        l_eff = torch.where(lo_l, -1e20, l)
     for _ in range(n_epochs):
-        active = ~done & ~failv
+        active = ~done & ~failv & (infs == 0)
         if not bool(active.any()):
             break
         # adopt a pending rho only together with its factorization, so
-        # (Minv, rho) stay paired for factor reuse
-        adopt = pending & active
-        rho = torch.where(adopt, rho_est, rho)
-        if bool(adopt.any()):
+        # (Minv, rho) stay paired for factor reuse.  The TPU adopts by the
+        # arithmetic select rho + adopt (rho_est - rho), so a NaN rho_est
+        # (NaN residuals) poisons rho; such a problem refactors here and the
+        # factorization reports the fail
+        adopt = pending & ~done & ~failv
+        rho = torch.where(adopt | torch.isnan(rho_est), rho_est, rho)
+        refactor = (adopt | torch.isnan(rho)) & ~done & ~failv
+        if bool(refactor.any()):
             Minv_new, f = factor_fn(_rho_from(rho, loose, equality))
-            Minv = torch.where(adopt[:, None, None], Minv_new, Minv)
-            failv = failv | (f & adopt)
-            nfact = nfact + adopt.to(torch.int32)
+            Minv = torch.where(refactor[:, None, None], Minv_new, Minv)
+            failv = failv | (f & refactor)
+            nfact = nfact + refactor.to(torch.int32)
         rv = _rho_from(rho, loose, equality)
         for _ in range(chunks_per_epoch):
-            act = ~done & ~failv
+            act = ~done & ~failv & (infs == 0)
             if not bool(act.any()):
                 break
             xn, zn, yn = x, z, y
             for _ in range(seg):
                 xn, zn, yn = _admm_iter(Minv, A, q, l, u, xn, zn, yn, rv, sigma, alpha)
+            x_pre, y_pre = x, y
             a1 = act.unsqueeze(-1)
             x = torch.where(a1, xn, x)
             z = torch.where(a1, zn, z)
             y = torch.where(a1, yn, y)
             res_prim, res_dual, max_Ax_z, max_Px_ATy_q = _admm_stats(P, A, q, x, z, y)
+            if check_infeas:
+                cert = _certificates(P, A, q, xn - x_pre, yn - y_pre, lo_l, lo_u,
+                                     l_eff, u_eff, eps_pinf, eps_dinf)
+                infs = torch.where(act & (cert > 0), cert, infs)
             conv = (res_prim <= eps_abs + eps_rel * max_Ax_z) & (
                 res_dual <= eps_abs + eps_rel * max_Px_ATy_q
             )
@@ -280,7 +360,7 @@ def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
             nrp = rp / (mz + tinyv)
             nrd = rd / (mq + tinyv)
             new_rho = torch.clamp(rho * torch.sqrt(nrp / (nrd + tinyv)), RHO_MIN, RHO_MAX)
-            act = ~done & ~failv
+            act = ~done & ~failv & (infs == 0)
             changed = (
                 (new_rho < rho / adaptive_rho_tolerance)
                 | (new_rho > rho * adaptive_rho_tolerance)
@@ -290,7 +370,7 @@ def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
             pending = changed
     return dict(x=x, z=z, y=y, done=done, fail=failv, iter=itc, rho=rho,
                 rho_updates=rho_upd, rho_estimate=rho_est, res_prim=rp,
-                res_dual=rd, n_factor=nfact, minv=Minv)
+                res_dual=rd, n_factor=nfact, minv=Minv, infs=infs)
 
 
 # ---------------------------------------------------------------------------
@@ -562,3 +642,205 @@ def polish_kkt_kernel(H, J, act, r1, b, nu0, delta: float = 1e-2,
     _raise_on(lib, rc, name)
     polish_kkt_launches += 1
     return PolishOut(x=x_out, nu=nu_out, fail=fail_out, li=li_out)
+
+
+# ---------------------------------------------------------------------------
+# K3: the whole-QP kernel
+# ---------------------------------------------------------------------------
+
+
+def _check_qp_settings(settings: QPSettings) -> None:
+    settings.validate()
+    if settings.check_comp_slack:
+        raise ValueError(
+            "check_comp_slack is not supported on the whole-solve kernel "
+            "tiers (termination is evaluated in-kernel); use the fused or "
+            "per-problem tier"
+        )
+    if settings.linear_solver == "schur_block_tridiag":
+        raise NotImplementedError(
+            "linear_solver='schur_block_tridiag' (the block-tridiagonal whole-QP "
+            "kernel K6) is not ported (ROADMAP Queue 2, K6)"
+        )
+    if settings.acceleration != "none":
+        raise NotImplementedError(
+            "acceleration='anderson' is not ported (ROADMAP Queue 1, item 'Anderson')"
+        )
+
+
+def qp_solve_reference(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveOut:
+    """Plain version of the whole-QP kernel: classify the rows, then the
+    ADMM solve entered with a pending rho, so that the first epoch adopts
+    rho0 and factors M = P + sigma I + A' diag(rho) A; rho epochs, chunks
+    with per-problem early exit, adaptive rho and, with
+    ``settings.check_infeasibility``, the infeasibility certificates."""
+    batch = q.shape[0]
+    seg, cpe, n_epochs = _schedule(settings)
+    sigma = float(settings.sigma)
+    # rho from q: a NaN in q's first entry poisons rho and so reaches the
+    # fail flag through the factorization, as on the TPU
+    rho = float(settings.rho) + 0.0 * q[:, 0]
+    false = torch.zeros(batch, dtype=torch.bool, device=q.device)
+    out = _admm_core(
+        P, A, q, l, u, x, z, y, false, false, rho, torch.zeros_like(P),
+        lambda rv: _factor(P, A, rv, sigma),
+        sigma=sigma, alpha=float(settings.alpha),
+        eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
+        n_epochs=n_epochs, chunks_per_epoch=cpe, seg=seg,
+        adaptive_rho=bool(settings.adaptive_rho),
+        adaptive_rho_tolerance=float(settings.adaptive_rho_tolerance),
+        pending=~false,
+        check_infeas=bool(settings.check_infeasibility),
+        eps_pinf=float(settings.eps_pinf), eps_dinf=float(settings.eps_dinf),
+    )
+    return QPSolveOut(
+        x=out["x"], z=out["z"], y=out["y"], done=out["done"], iter=out["iter"],
+        res_prim=out["res_prim"], res_dual=out["res_dual"], fail=out["fail"],
+        rho_updates=out["rho_updates"], rho_estimate=out["rho_estimate"],
+        infs=out["infs"],
+    )
+
+
+def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveOut:
+    """One launch of the whole-QP CUDA kernel on float32 CUDA operands."""
+    global qp_solve_launches
+    batch, n = q.shape
+    m = l.shape[-1]
+    name = "qp_solve_kernel"
+    operands = dict(P=P, A=A, q=q, l=l, u=u, x=x, z=z, y=y)
+    dev = _check_cuda_operands(name, operands, {})
+    from sqp_solver_tpu_torch.ops import _build
+
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_out = torch.empty((batch, n), **f32)
+    z_out = torch.empty((batch, m), **f32)
+    y_out = torch.empty((batch, m), **f32)
+    stats = torch.empty((8, batch), **f32)  # one contiguous row per field
+    ws_floats = int(lib.qp_solve_workspace_floats(n, m))
+    ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
+    seg, cpe, n_epochs = _schedule(settings)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.qp_solve_launch(
+        _ptr(P), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(x), _ptr(z), _ptr(y),
+        _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats), _ptr(ws),
+        batch, n, m,
+        float(settings.sigma), float(settings.alpha), float(settings.rho),
+        float(settings.eps_abs), float(settings.eps_rel),
+        n_epochs, cpe, seg, int(bool(settings.adaptive_rho)),
+        float(settings.adaptive_rho_tolerance),
+        int(bool(settings.check_infeasibility)),
+        float(settings.eps_pinf), float(settings.eps_dinf),
+        dev.index, ctypes.c_void_p(stream),
+    )
+    _raise_on(lib, rc, name)
+    qp_solve_launches += 1
+    i32 = torch.int32
+    return QPSolveOut(
+        x=x_out, z=z_out, y=y_out, done=stats[0] > 0.5, iter=stats[1].to(i32),
+        res_prim=stats[2], res_dual=stats[3], fail=stats[4] > 0.5,
+        rho_updates=stats[5].to(i32), rho_estimate=stats[6], infs=stats[7].to(i32),
+    )
+
+
+def qp_status(out: QPSolveOut) -> torch.Tensor:
+    """int32 QPStatus per problem, with the TPU kernel's precedence:
+    failed > done > dual infeasible > primal infeasible > max iter."""
+    return torch.where(
+        out.fail, int(QPStatus.NUMERICAL_ISSUES),
+        torch.where(
+            out.done, int(QPStatus.SOLVED),
+            torch.where(
+                out.infs == 2, int(QPStatus.DUAL_INFEASIBLE),
+                torch.where(out.infs == 1, int(QPStatus.PRIMAL_INFEASIBLE),
+                            int(QPStatus.MAX_ITER_EXCEEDED)),
+            ),
+        ),
+    ).to(torch.int32)
+
+
+def qp_solve_kernel(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
+                    state: Optional[QPState] = None) -> QPResult:
+    """Solve a batch of QPs with the whole-solve kernel, one CUDA thread
+    block per problem (replaces the TPU's ``ops/qp_kernel.py:qp_solve_kernel``).
+
+    ``qp`` is batch-first (P (B, n, n), q (B, n), A (B, m, n), l and u
+    (B, m)); ``state`` warm-starts (x, z, y), zeros otherwise.  CPU tensors
+    run :func:`qp_solve_reference`; CUDA tensors must be float32 and
+    contiguous and run the kernel.  With ``settings.polish`` the result goes
+    through :func:`~sqp_solver_tpu_torch.qp.polish.polish_qp`."""
+    _check_qp_settings(settings)
+    P, q, A, l, u = qp.P, qp.q, qp.A, qp.l, qp.u
+    batch, n = q.shape
+    m = A.shape[-2]
+    if state is None:
+        state = QPState.zeros(batch, n, m, dtype=q.dtype, device=q.device)
+    x0, z0, y0 = state.x, state.z, state.y
+    name = "qp_solve_kernel"
+    for key, t, shape in (
+        ("P", P, (batch, n, n)), ("A", A, (batch, m, n)), ("l", l, (batch, m)),
+        ("u", u, (batch, m)), ("x", x0, (batch, n)), ("z", z0, (batch, m)),
+        ("y", y0, (batch, m)),
+    ):
+        _check_shape(name, key, t, shape)
+    if q.is_cuda:
+        out = _qp_solve_launch(P, A, q, l, u, x0, z0, y0, settings)
+    else:
+        out = qp_solve_reference(P, A, q, l, u, x0, z0, y0, settings)
+    info = QPInfo(
+        status=qp_status(out),
+        iter=torch.clamp_max(out.iter, settings.max_iter),
+        rho_updates=out.rho_updates,
+        rho_estimate=out.rho_estimate,
+        res_prim=out.res_prim,
+        res_dual=out.res_dual,
+    )
+    result = QPResult(x=out.x, y=out.y, z=out.z, info=info)
+    if settings.polish:
+        from sqp_solver_tpu_torch.qp.polish import polish_qp
+
+        result = polish_qp(qp, result, settings)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# K4: the SPD-inverse kernel
+# ---------------------------------------------------------------------------
+
+
+def spd_inverse_reference(M):
+    """Plain version of the SPD-inverse kernel: column Cholesky with the
+    pivot clamp and fail rule, L^-1 by forward substitution, then L^-T L^-1.
+    Returns ``(Minv (B, n, n), fail bool (B,))``."""
+    return _chol_inv_ltl(M)
+
+
+def spd_inverse_kernel(M):
+    """Batched SPD inverse with a fail flag, one CUDA thread block per
+    problem (replaces the TPU's ``ops/qp_kernel.py:spd_inverse_kernel``).
+
+    ``M`` is (B, n, n), symmetric (only its lower triangle is read).  CPU
+    tensors run :func:`spd_inverse_reference`; CUDA tensors must be
+    float32 and contiguous and run the kernel."""
+    global spd_inverse_launches
+    name = "spd_inverse_kernel"
+    if M.dim() != 3 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"{name}: M has shape {tuple(M.shape)}, expected (B, n, n)")
+    if not M.is_cuda:
+        return spd_inverse_reference(M)
+    dev = _check_cuda_operands(name, dict(M=M), {})
+    batch, n, _ = M.shape
+    from sqp_solver_tpu_torch.ops import _build
+
+    lib = _build.load()
+    minv = torch.empty((batch, n, n), dtype=torch.float32, device=dev)
+    fail = torch.empty((batch,), dtype=torch.bool, device=dev)
+    ws_floats = int(lib.spd_inverse_workspace_floats(n))
+    ws = (torch.empty((batch * ws_floats,), dtype=torch.float32, device=dev)
+          if ws_floats > 0 else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.spd_inverse_launch(_ptr(M), _ptr(minv), _ptr(fail), _ptr(ws), batch, n,
+                                dev.index, ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    spd_inverse_launches += 1
+    return minv, fail

@@ -1,8 +1,9 @@
 """Batched solves (twin of ``sqp_solver_tpu/parallel/batch.py``).
 
-Only ``sqp_solve_batch(impl="fused")`` is ported.  The per-problem
-``impl="vmap"`` tier and ``qp_solve_batch`` raise ``NotImplementedError``
-naming their ROADMAP items.
+Ported: ``qp_solve_batch(impl="kernel")`` over the whole-QP kernel and
+``sqp_solve_batch(impl="fused")``.  The per-problem ``impl="vmap"`` tiers
+(the JAX default), the fused QP tier and Ruiz scaling raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -11,9 +12,40 @@ from typing import Optional
 
 import torch
 
+from sqp_solver_tpu_torch.qp.types import QPResult, QPSettings, QPState, QuadraticProblem
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem, SQPResult, SQPSettings
 
-__all__ = ["sqp_solve_batch"]
+__all__ = ["qp_solve_batch", "sqp_solve_batch"]
+
+
+def qp_solve_batch(
+    qp: QuadraticProblem,
+    settings: QPSettings = QPSettings(),
+    state: Optional[QPState] = None,
+    impl: str = "vmap",
+) -> QPResult:
+    """Solve a batch of QPs (leading batch axis on every problem field).
+    ``impl="kernel"`` is the whole-QP kernel; the default ``"vmap"`` is the
+    JAX package's semantics-defining tier, which this package does not
+    have yet."""
+    if settings.scaling > 0:
+        raise NotImplementedError(
+            "scaling > 0 (Ruiz equilibration) is not ported "
+            "(ROADMAP Queue 1, item 'scaling')"
+        )
+    if impl == "kernel":
+        from sqp_solver_tpu_torch.ops.qp_kernel import qp_solve_kernel
+
+        return qp_solve_kernel(qp, settings, state)
+    if impl == "fused":
+        raise NotImplementedError(
+            "qp_solve_batch(impl='fused') (the fused QP tier over K5) is not ported "
+            "(ROADMAP Queue 1, item 11 'Fused QP tier')"
+        )
+    raise NotImplementedError(
+        f"qp_solve_batch(impl={impl!r}) is not ported; use impl='kernel' "
+        "(ROADMAP Queue 1, item 9 'qp/admm.py')"
+    )
 
 
 def sqp_solve_batch(

@@ -4,13 +4,34 @@ from sqp_solver_tpu_torch.qp.classify import (
     LOOSE_BOUNDS,
     constr_type_init,
 )
-from sqp_solver_tpu_torch.qp.polish import active_masks, guess_active_set
-from sqp_solver_tpu_torch.qp.types import QPSettings, QPState, QPStatus
+from sqp_solver_tpu_torch.qp.polish import (
+    active_masks,
+    guess_active_set,
+    kkt_solve_schur_refined,
+    polish_qp,
+    reclassify_active_set,
+)
+from sqp_solver_tpu_torch.qp.sequence import qp_solve_sequence
+from sqp_solver_tpu_torch.qp.types import (
+    QPInfo,
+    QPResult,
+    QPSettings,
+    QPState,
+    QPStatus,
+    QuadraticProblem,
+)
 
 __all__ = [
+    "QuadraticProblem",
     "QPSettings",
     "QPStatus",
+    "QPInfo",
     "QPState",
+    "QPResult",
+    "polish_qp",
+    "kkt_solve_schur_refined",
+    "reclassify_active_set",
+    "qp_solve_sequence",
     "constr_type_init",
     "active_masks",
     "guess_active_set",

@@ -14,7 +14,16 @@ import enum
 
 import torch
 
-__all__ = ["QPSettings", "QPState", "QPStatus"]
+from sqp_solver_tpu_torch.utils.device import resolve_device
+
+__all__ = [
+    "QuadraticProblem",
+    "QPSettings",
+    "QPStatus",
+    "QPInfo",
+    "QPState",
+    "QPResult",
+]
 
 
 class QPStatus(enum.IntEnum):
@@ -28,6 +37,30 @@ class QPStatus(enum.IntEnum):
     UNINITIALIZED = 4
     PRIMAL_INFEASIBLE = 5
     DUAL_INFEASIBLE = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticProblem:
+    """``minimize 0.5 x'Px + q'x  s.t.  l <= Ax <= u`` for a batch, batch
+    first: P (B, n, n), q (B, n), A (B, m, n), l and u (B, m).  ``polish_qp``
+    also takes one problem without the batch axis."""
+
+    P: torch.Tensor  # (B, n, n) cost Hessian, PSD
+    q: torch.Tensor  # (B, n) cost linear term
+    A: torch.Tensor  # (B, m, n) constraint matrix
+    l: torch.Tensor  # (B, m) lower bounds (-inf allowed)
+    u: torch.Tensor  # (B, m) upper bounds (+inf allowed)
+
+    @property
+    def n(self) -> int:
+        return self.P.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.A.shape[-2]
+
+    def astype(self, dtype) -> "QuadraticProblem":
+        return QuadraticProblem(*(v.to(dtype) for v in (self.P, self.q, self.A, self.l, self.u)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +159,36 @@ class QPState:
 
     @staticmethod
     def zeros(batch: int, n: int, m: int, dtype=torch.float32, device=None) -> "QPState":
+        """Zeros on ``device``, by default the card."""
+        device = resolve_device(device)
         return QPState(
             x=torch.zeros((batch, n), dtype=dtype, device=device),
             z=torch.zeros((batch, m), dtype=dtype, device=device),
             y=torch.zeros((batch, m), dtype=dtype, device=device),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class QPInfo:
+    """Solve diagnostics, each (B,)."""
+
+    status: torch.Tensor  # int32 QPStatus code
+    iter: torch.Tensor  # int32
+    rho_updates: torch.Tensor  # int32
+    rho_estimate: torch.Tensor
+    res_prim: torch.Tensor
+    res_dual: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class QPResult:
+    """Solution, diagnostics and the warm start for the next solve."""
+
+    x: torch.Tensor  # (B, n) primal solution
+    y: torch.Tensor  # (B, m) dual solution
+    z: torch.Tensor  # (B, m) auxiliary solution (= Ax at convergence)
+    info: QPInfo
+
+    @property
+    def state(self) -> QPState:
+        return QPState(x=self.x, z=self.z, y=self.y)

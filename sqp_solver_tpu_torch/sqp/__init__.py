@@ -1,3 +1,4 @@
+from sqp_solver_tpu_torch.sqp.sequence import sqp_solve_sequence
 from sqp_solver_tpu_torch.sqp.types import (
     NonlinearProblem,
     SQPInfo,
@@ -12,4 +13,5 @@ __all__ = [
     "SQPStatus",
     "SQPInfo",
     "SQPResult",
+    "sqp_solve_sequence",
 ]

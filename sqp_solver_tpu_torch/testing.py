@@ -1,4 +1,4 @@
-"""Seeded numpy inputs for the two kernels, batch-first.
+"""Seeded numpy inputs for the port's kernels, batch-first.
 
 The tests and ``chip_smoke.py`` feed the same arrays to a kernel and to
 its plain version (and, in the CPU tests, to the JAX kernel), so the
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["step_inputs", "polish_inputs"]
+__all__ = ["step_inputs", "polish_inputs", "qp_inputs", "certificate_qp_inputs",
+           "spd_inputs"]
 
 
 def step_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
@@ -80,3 +81,84 @@ def polish_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64) -
     out = {k: v.astype(dtype) for k, v in out.items()}
     out["act"] = act
     return out
+
+
+def qp_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
+              equality_row: bool = False, loose_row: bool = False) -> dict:
+    """One whole-QP kernel call's operands: random strictly convex QPs with
+    feasible bounds (``models.mpc.random_qp_batch``'s construction), with
+    optionally an equality row (row 0) and a loose row (the last), and a
+    warm start (x, z, y) near zero."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(batch, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", M, M) + 0.1 * np.eye(n)
+    q = rng.normal(size=(batch, n))
+    A = rng.normal(size=(batch, m, n)) / np.sqrt(n)
+    Ax = np.einsum("bmn,bn->bm", A, rng.normal(size=(batch, n)))
+    width = rng.uniform(0.1, 2.0, size=(batch, m))
+    l, u = Ax - width, Ax + width
+    if equality_row:
+        l[:, 0] = u[:, 0] = Ax[:, 0]
+    if loose_row:
+        l[:, -1], u[:, -1] = -1e20, 1e20
+    x = 0.1 * rng.standard_normal((batch, n))
+    z = np.clip(0.1 * rng.standard_normal((batch, m)), l, u)
+    y = 0.1 * rng.standard_normal((batch, m))
+    out = dict(P=P, q=q, A=A, l=l, u=u, x=x, z=z, y=y)
+    return {k: v.astype(dtype) for k, v in out.items()}
+
+
+def certificate_qp_inputs(batch: int, n: int, seed: int = 0, dtype=np.float64) -> dict:
+    """A batch of QPs with m = n + 2 rows that cycles feasible, primal
+    infeasible and dual infeasible problems (in that order, problem i of
+    kind i % 3), for the infeasibility certificates.
+
+    * primal infeasible: rows 0 and 1 are the same vector a with
+      a'x <= -1 (row 0, lower bound loose) and a'x >= 1 (row 1, upper
+      bound loose);
+    * dual infeasible: P is PSD with a null direction d, q'd < 0, every
+      row but the last is orthogonal to d and the last row is d itself
+      with d'x >= 0 (upper bound loose): the objective falls without
+      bound along d.
+    """
+    m = n + 2
+    base = qp_inputs(batch, n, m, seed=seed, dtype=np.float64)
+    rng = np.random.default_rng(seed + 1)
+    P, q, A, l, u = (base[k] for k in ("P", "q", "A", "l", "u"))
+    for i in range(batch):
+        kind = i % 3
+        if kind == 1:
+            a = rng.normal(size=n) / np.sqrt(n)
+            A[i, 0] = A[i, 1] = a
+            l[i, 0], u[i, 0] = -1e30, -1.0
+            l[i, 1], u[i, 1] = 1.0, 1e30
+        elif kind == 2:
+            d = rng.normal(size=n)
+            d /= np.linalg.norm(d)
+            proj = np.eye(n) - np.outer(d, d)
+            G = rng.normal(size=(n, n)) / np.sqrt(n)
+            P[i] = proj @ (G @ G.T + 0.1 * np.eye(n)) @ proj
+            q[i] = proj @ q[i] - 1.0 * d
+            A[i, :-1] = A[i, :-1] @ proj
+            A[i, -1] = d
+            x_feas = rng.normal(size=n)
+            Ax = A[i, :-1] @ x_feas
+            w = rng.uniform(0.1, 2.0, size=m - 1)
+            l[i, :-1], u[i, :-1] = Ax - w, Ax + w
+            l[i, -1], u[i, -1] = 0.0, 1e30
+    out = dict(P=P, q=q, A=A, l=l, u=u)
+    zeros = dict(x=np.zeros((batch, n)), z=np.zeros((batch, m)), y=np.zeros((batch, m)))
+    out.update(zeros)
+    return {k: v.astype(dtype) for k, v in out.items()}
+
+
+def spd_inputs(batch: int, n: int, seed: int = 0, dtype=np.float64) -> dict:
+    """SPD-inverse kernel operands: M = G G' / n + 0.5 I per problem
+    (the polish preconditioner's scale), with problem 0 indefinite when
+    batch > 2, to raise the fail flag."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((batch, n, n)) / np.sqrt(n)
+    M = G @ G.transpose(0, 2, 1) + 0.5 * np.eye(n)
+    if batch > 2:
+        M[0] = -np.eye(n)
+    return dict(M=M.astype(dtype))

@@ -1,0 +1,117 @@
+"""Where the time goes on the QP serving path: one traced run per cell.
+
+    python -m sqp_solver_tpu_torch.tools.trace_serving
+
+Runs on the card only.  For each cell, after a warm-up, three
+unprofiled runs timed on the host clock closed by
+``torch.cuda.synchronize()`` and one run under ``torch.profiler`` (CPU
+and CUDA activities).  Prints per cell the wall times, the device busy
+time (sum of the CUDA kernels' times in the profiled run), the idle
+share against the unprofiled and the profiled wall, and the top kernels
+by device time:
+
+* qp_one_shot: ``qp_solve_batch(impl="kernel")``, random QPs n = 32,
+  m = 33, B = 4096, the one-shot leg's settings, unpolished and polished;
+* mpc_sustained: ``qp_solve_sequence``, K = 10 steps of a B = 4096
+  double-integrator fleet, n = 16.
+
+The last line is one JSON object with the same numbers and the card's
+``name, power.limit``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from sqp_solver_tpu_torch.models.mpc import mpc_fleet, random_qp_batch
+from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+from sqp_solver_tpu_torch.qp import QPSettings, qp_solve_sequence
+
+SETTINGS = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200, check_termination=25,
+                      adaptive_rho=True, adaptive_rho_interval=50, schedule="fixed")
+
+
+def _mpc_rollout(dev, B=4096, H=16, K=10):
+    make_qp, step = mpc_fleet(B, horizon=H, dt=0.1, device=dev)
+
+    def advance(st, r):
+        return step(st, r.x[:, 0]), (r.info.status == 0).float().mean()
+
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-1.0, 1.0, size=(B, 2)),
+                         dtype=torch.float32).to(dev)
+    return lambda: qp_solve_sequence(make_qp, advance, x0, K, SETTINGS, impl="kernel")
+
+
+def _trace(fn) -> dict:
+    """Unprofiled wall (min of 3 after a warm-up), then one profiled run:
+    device busy time is the sum over CUDA kernel events only (an aten op's
+    own record would count its kernel twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = min(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return dict(wall_ms=wall * 1e3, walls_ms=[w * 1e3 for w in walls],
+                wall_profiled_ms=wall_prof * 1e3, device_busy_ms=busy_ms,
+                device_launches=sum(r[1] for r in rows),
+                idle_share=1.0 - busy_ms / (wall * 1e3),
+                idle_share_profiled=1.0 - busy_ms / (wall_prof * 1e3),
+                top=[dict(name=k[:60], count=c, ms=us / 1e3) for us, c, k in rows[:6]])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_serving: no CUDA device; this script runs only on the GPU")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    qp = random_qp_batch(4096, 32, 33, seed=0, device=dev)
+    polished = dataclasses.replace(SETTINGS, polish=True)
+    cells = {
+        "qp_one_shot": _trace(lambda: qp_solve_batch(qp, SETTINGS, impl="kernel")),
+        "qp_one_shot_polished": _trace(lambda: qp_solve_batch(qp, polished, impl="kernel")),
+        "mpc_sustained": _trace(_mpc_rollout(dev)),
+    }
+    for name, c in cells.items():
+        print(f"{name}: wall {c['wall_ms']:.3f} ms (min of 3; profiled "
+              f"{c['wall_profiled_ms']:.3f}), device busy {c['device_busy_ms']:.3f} ms in "
+              f"{c['device_launches']} kernels, idle share {c['idle_share']:.3f} of the "
+              f"unprofiled wall ({c['idle_share_profiled']:.3f} of the profiled) [{card}]")
+        for t in c["top"]:
+            print(f"    {t['ms']:8.3f} ms  x{t['count']:<4d} {t['name']}")
+    print(json.dumps(dict(cells=cells, card=card)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,7 +28,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from sqp_solver_tpu_torch.ops import qp_kernel as qk  # noqa: E402
 from sqp_solver_tpu_torch.qp.types import QPSettings  # noqa: E402
-from sqp_solver_tpu_torch.testing import polish_inputs, step_inputs  # noqa: E402
+from sqp_solver_tpu_torch.qp.types import QuadraticProblem, QPState, QPStatus  # noqa: E402
+from sqp_solver_tpu_torch.testing import (  # noqa: E402
+    certificate_qp_inputs,
+    polish_inputs,
+    qp_inputs,
+    spd_inputs,
+    step_inputs,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -192,3 +199,196 @@ def test_solver_on_cuda_matches_cpu_plain_path(cuda):
     a, b = res["cpu"], res["cuda"]
     np.testing.assert_array_equal(a.info.status.numpy(), b.info.status.cpu().numpy())
     np.testing.assert_allclose(b.x.cpu().numpy(), a.x.numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3 whole-QP kernel, K4 SPD-inverse kernel, the QP polish routes
+# ---------------------------------------------------------------------------
+
+# the one-shot QP leg's settings (bench.py:814-818): 4 rho epochs
+QP_BENCH = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200,
+                      check_termination=25, adaptive_rho=True, adaptive_rho_interval=50,
+                      schedule="fixed")
+QP_ONE_EPOCH = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200,
+                          check_termination=25, adaptive_rho=False, schedule="fixed")
+LEAVES = ("P", "q", "A", "l", "u")
+
+
+def _qp(t):
+    return QuadraticProblem(*(t[k] for k in LEAVES)), QPState(t["x"], t["z"], t["y"])
+
+
+def _qp_raw(fn, t, settings):
+    return fn(*(t[k] for k in ("P", "A", "q", "l", "u", "x", "z", "y")), settings)
+
+
+QP_SHAPES = [(64, 32, 33), (64, 16, 32), (8, 128, 129), (4, 64, 900)]
+QP_IDS = ["n32", "n16", "n128", "workspace-spill"]
+
+
+@pytest.mark.parametrize("batch,n,m", QP_SHAPES, ids=QP_IDS)
+def test_qp_solve_kernel_matches_plain_one_epoch(cuda, batch, n, m):
+    """One rho epoch: kernel against plain float32 at 1e-4."""
+    t = _to(qp_inputs(batch, n, m, seed=n + m, loose_row=True), cuda)
+    ok = _qp_raw(qk._qp_solve_launch, t, QP_ONE_EPOCH)
+    ref = _qp_raw(qk.qp_solve_reference, t, QP_ONE_EPOCH)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.fail, ref.fail) and not ok.fail.any()
+    assert torch.equal(ok.infs, ref.infs)
+    same = ok.iter == ref.iter
+    assert same.float().mean().item() >= 0.99
+    for name in ("x", "z", "y"):
+        torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL)
+
+
+@pytest.mark.parametrize("batch,n,m", QP_SHAPES[:3], ids=QP_IDS[:3])
+def test_qp_solve_kernel_epochs_match_plain_float64(cuda, batch, n, m):
+    """Four rho epochs: kernel and plain float32 each against plain
+    float64 at 5e-4 (an adopted rho carries ~1e-3 relative float32 noise;
+    the float32 and float64 trajectories part by up to ~1e-4, the ADMM's
+    termination tolerance, before they stop at the same iteration)."""
+    arrs = qp_inputs(batch, n, m, seed=3 * n, dtype=np.float32)
+    t32 = _to(arrs, cuda)
+    t64 = {k: v.double() for k, v in t32.items()}
+    ok = _qp_raw(qk._qp_solve_launch, t32, QP_BENCH)
+    p32 = _qp_raw(qk.qp_solve_reference, t32, QP_BENCH)
+    p64 = _qp_raw(qk.qp_solve_reference, t64, QP_BENCH)
+    torch.cuda.synchronize()
+    assert p64.done.float().mean() >= 0.9 and int(p64.rho_updates.max()) >= 2
+    for out in (ok, p32):
+        same = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        assert torch.equal(out.done[same], p64.done[same])
+        assert same.float().mean() >= 0.99
+        for name in ("x", "z", "y"):
+            torch.testing.assert_close(getattr(out, name)[same].double(),
+                                       getattr(p64, name)[same], atol=5e-4, rtol=5e-4)
+
+
+def test_qp_certificates_kernel_status_equals_plain(cuda):
+    """Feasible, primal- and dual-infeasible problems: equal statuses."""
+    t = _to(certificate_qp_inputs(96, 8, seed=5), cuda)
+    qp, _ = _qp(t)
+    ok = qk.qp_solve_kernel(qp, QP_BENCH)
+    ref = qk.qp_solve_kernel(QuadraticProblem(*(v.cpu() for v in (qp.P, qp.q, qp.A, qp.l,
+                                                                   qp.u))), QP_BENCH)
+    torch.cuda.synchronize()
+    st = ok.info.status.cpu()
+    assert torch.equal(st, ref.info.status)
+    want = torch.tensor([QPStatus.SOLVED, QPStatus.PRIMAL_INFEASIBLE,
+                         QPStatus.DUAL_INFEASIBLE] * 32, dtype=torch.int32)
+    assert torch.equal(st, want)
+
+
+def test_qp_nan_reaches_the_fail_flag(cuda):
+    a = qp_inputs(4, 6, 7, seed=2, dtype=np.float32)
+    a["q"][0, 0] = np.nan
+    a["q"][1, 3] = np.nan
+    qp, _ = _qp(_to(a, cuda))
+    st = qk.qp_solve_kernel(qp, QP_BENCH).info.status.cpu().tolist()
+    assert st == [QPStatus.NUMERICAL_ISSUES, QPStatus.NUMERICAL_ISSUES, QPStatus.SOLVED,
+                  QPStatus.SOLVED]
+
+
+@pytest.mark.parametrize("batch,n", [(64, 32), (8, 128), (3, 200)],
+                         ids=["n32", "n128", "workspace-spill"])
+def test_spd_inverse_kernel_matches_plain(cuda, batch, n):
+    M = _to(spd_inputs(batch, n, seed=n), cuda)["M"]
+    Minv, fail = qk.spd_inverse_kernel(M)
+    ref, rfail = qk.spd_inverse_reference(M)
+    torch.cuda.synchronize()
+    assert torch.equal(fail, rfail) and bool(fail[0]) and not fail[1:].any()
+    torch.testing.assert_close(Minv[1:], ref[1:], **TOL)
+
+
+def _kkt_err64(qp, res):
+    """float64 max(stationarity, bound violation) per problem."""
+    P, q, A, l, u = (getattr(qp, k).double().cpu() for k in LEAVES)
+    x, y = res.x.double().cpu(), res.y.double().cpu()
+    Ax = (A @ x[..., None])[..., 0]
+    stat = ((P @ x[..., None])[..., 0] + q + (A.mT @ y[..., None])[..., 0]).abs().amax(-1)
+    viol = torch.clamp_min(torch.maximum(l - Ax, Ax - u).amax(-1), 0.0)
+    return torch.maximum(stat, viol)
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+def test_qp_polish_routes_on_cuda(cuda, use_kernel):
+    """polish_qp on the card, one pass: the K2 route (default) or the K4
+    route (kkt_solve_schur_refined(use_kernel=False)), each launched once,
+    against the same call on the CPU (plain versions, float32) where both
+    took the same accept decision (>= 95 % of problems), and the float64
+    KKT error p99 far below the unpolished one."""
+    from sqp_solver_tpu_torch.qp import polish_qp
+
+    arrs = qp_inputs(256, 16, 17, seed=9, loose_row=True, dtype=np.float32)
+    qp, _ = _qp(_to(arrs, cuda))
+    loose = QPSettings(alpha=1.6, eps_abs=1e-3, eps_rel=1e-3, max_iter=200,
+                       check_termination=25, adaptive_rho=True, adaptive_rho_interval=50,
+                       polish_passes=1)
+    res = qk.qp_solve_kernel(qp, loose)
+    k2, k4 = qk.polish_kkt_launches, qk.spd_inverse_launches
+    pol = polish_qp(qp, res, loose, use_kernel=use_kernel)
+    want = (1, 0) if use_kernel is None else (0, 1)
+    assert (qk.polish_kkt_launches - k2, qk.spd_inverse_launches - k4) == want
+    qpc = QuadraticProblem(*(getattr(qp, k).cpu() for k in LEAVES))
+    resc = type(res)(x=res.x.cpu(), y=res.y.cpu(), z=res.z.cpu(), info=res.info)
+    ref = polish_qp(qpc, resc, loose, use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    moved = (pol.x.cpu() != resc.x).any(-1)
+    same = moved == (ref.x != resc.x).any(-1)
+    assert same.float().mean() >= 0.95 and moved.float().mean() >= 0.5
+    torch.testing.assert_close(pol.x.cpu()[same], ref.x[same], atol=1e-3, rtol=1e-3)
+    before = torch.quantile(_kkt_err64(qp, res), 0.99)
+    after = torch.quantile(_kkt_err64(qp, pol), 0.99)
+    assert after < 0.1 * before, (float(before), float(after))
+
+
+def test_qp_launch_counters_count_cuda_launches_only(cuda):
+    t = _to(qp_inputs(8, 6, 7, seed=1), cuda)
+    qp, st = _qp(t)
+    k3, k4 = qk.qp_solve_launches, qk.spd_inverse_launches
+    qk.qp_solve_kernel(QuadraticProblem(*(v.cpu() for v in (qp.P, qp.q, qp.A, qp.l, qp.u))),
+                       QP_BENCH)
+    qk.spd_inverse_kernel(_to(spd_inputs(4, 5), "cpu")["M"])
+    assert (qk.qp_solve_launches, qk.spd_inverse_launches) == (k3, k4)
+    qk.qp_solve_kernel(qp, QP_BENCH, st)
+    qk.spd_inverse_kernel(_to(spd_inputs(4, 5), cuda)["M"])
+    assert (qk.qp_solve_launches, qk.spd_inverse_launches) == (k3 + 1, k4 + 1)
+
+
+def test_qp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    t = _to(qp_inputs(8, 6, 7, seed=1), cuda)
+    qp, st = _qp(t)
+    with pytest.raises(TypeError):
+        qk.qp_solve_kernel(QuadraticProblem(qp.P.double(), qp.q, qp.A, qp.l, qp.u), QP_BENCH)
+    with pytest.raises(ValueError):
+        qk.qp_solve_kernel(QuadraticProblem(qp.P, qp.q, qp.A.cpu(), qp.l, qp.u), QP_BENCH)
+    with pytest.raises(ValueError):
+        qk.qp_solve_kernel(QuadraticProblem(qp.P.mT, qp.q, qp.A, qp.l, qp.u), QP_BENCH)
+    with pytest.raises(ValueError):
+        qk.qp_solve_kernel(qp, QP_BENCH, QPState(st.x[:, :-1], st.z, st.y))
+    M = _to(spd_inputs(4, 5), cuda)["M"]
+    with pytest.raises(TypeError):
+        qk.spd_inverse_kernel(M.double())
+    with pytest.raises(ValueError):
+        qk.spd_inverse_kernel(M.mT)
+    with pytest.raises(ValueError):
+        qk.spd_inverse_kernel(M[:, :, :-1])
+
+
+def test_qp_serving_on_cuda_matches_cpu_plain_path(cuda):
+    """qp_solve_batch(impl="kernel") and a short qp_solve_sequence on the
+    card against the same calls on the CPU: equal statuses, solutions
+    within float32 noise."""
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_batch, random_qp_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+
+    res = {}
+    for dev in ("cpu", cuda):
+        res[str(dev)] = qp_solve_batch(random_qp_batch(128, 32, 33, seed=4, device=dev),
+                                       QP_BENCH, impl="kernel")
+    a, b = res["cpu"], res["cuda"]
+    assert torch.equal(a.info.status, b.info.status.cpu())
+    np.testing.assert_allclose(b.x.cpu().numpy(), a.x.numpy(), atol=1e-4)
+    qp = mpc_qp_batch(128, seed=2, device=cuda)
+    st = qp_solve_batch(qp, QP_BENCH, impl="kernel").info.status
+    assert bool((st == QPStatus.SOLVED).all())

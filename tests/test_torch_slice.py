@@ -76,7 +76,8 @@ def test_solver_entry_pins_float32_matmul_precision():
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("medium")
     try:
-        pp, px0 = port_models.sphere_cap_nlp_batch(2, 3, seed=0, dtype=torch.float64)
+        pp, px0 = port_models.sphere_cap_nlp_batch(2, 3, seed=0, dtype=torch.float64,
+                                               device="cpu")
         settings = dataclasses.replace(HEADLINE, max_iter=1, iteration_callback=lambda *a: seen.append(
             (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)))
         sqp_solve_batch(pp, px0, None, settings, impl="fused")
@@ -88,7 +89,8 @@ def test_solver_entry_pins_float32_matmul_precision():
 
 def test_sphere_cap_data_identical_for_one_seed():
     jp, jx0 = jax_sphere_cap(16, 9, seed=7, dtype=jnp.float64)
-    pp, px0 = port_models.sphere_cap_nlp_batch(16, 9, seed=7, dtype=torch.float64)
+    pp, px0 = port_models.sphere_cap_nlp_batch(16, 9, seed=7, dtype=torch.float64,
+                                               device="cpu")
     for a, b in ((jp.l, pp.l), (jp.u, pp.u), (jp.params, pp.params), (jx0, px0)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     np.testing.assert_array_equal(jax_solution(jp), port_models.sphere_cap_solution(pp))
@@ -107,21 +109,21 @@ def test_sphere_cap_data_identical_for_one_seed():
 def test_interop_round_trips():
     rng = np.random.default_rng(0)
     Bt = rng.standard_normal((5, 5, 3))
-    B = interop.hessian_from_numpy(Bt)
+    B = interop.hessian_from_numpy(Bt, device="cpu")
     assert B.shape == (3, 5, 5)
     np.testing.assert_array_equal(B[1].numpy(), Bt[:, :, 1])
     np.testing.assert_array_equal(interop.to_kernel_layout(B), Bt)
     v = rng.standard_normal((4, 3))
     np.testing.assert_array_equal(
-        interop.to_kernel_layout(interop.from_kernel_layout(v)), v
+        interop.to_kernel_layout(interop.from_kernel_layout(v, device="cpu")), v
     )
     x, z, y = rng.standard_normal((3, 4)), rng.standard_normal((3, 6)), rng.standard_normal((3, 6))
-    st = interop.qp_state_from_numpy(x, z, y, dtype=torch.float32)
+    st = interop.qp_state_from_numpy(x, z, y, dtype=torch.float32, device="cpu")
     assert st.x.dtype == torch.float32 and st.z.shape == (3, 6)
     np.testing.assert_allclose(st.y.numpy(), y, rtol=1e-7)
     jp, _ = jax_sphere_cap(3, 4, seed=1, dtype=jnp.float64)
     pp = interop.sphere_cap_from_arrays(np.asarray(jp.l), np.asarray(jp.u),
-                                        np.asarray(jp.params))
+                                        np.asarray(jp.params), device="cpu")
     xs = rng.uniform(size=(3, 4))
     np.testing.assert_allclose(
         pp.constraint(torch.as_tensor(xs), pp.params).numpy(),
@@ -134,7 +136,7 @@ def _solve_both(batch, n, seed, settings, dtype_np, hooks=True):
     jdt = jnp.float64 if dtype_np == np.float64 else jnp.float32
     tdt = torch.float64 if dtype_np == np.float64 else torch.float32
     jp, jx0 = jax_sphere_cap(batch, n, seed=seed, dtype=jdt)
-    pp, px0 = port_models.sphere_cap_nlp_batch(batch, n, seed=seed, dtype=tdt)
+    pp, px0 = port_models.sphere_cap_nlp_batch(batch, n, seed=seed, dtype=tdt, device="cpu")
     if not hooks:  # derivatives from autodiff in both packages
         jp = JaxNonlinearProblem(l=jp.l, u=jp.u, params=jp.params,
                                  objective=jp.objective, constraint=jp.constraint)
@@ -177,7 +179,8 @@ def test_soc_step_norm_autodiff_and_trace_match_jax_float64():
     for k in ("x", "alpha", "primal_step_norm"):
         np.testing.assert_allclose(pr.trace[k].numpy(), np.asarray(jr.trace[k]),
                                    atol=1e-8, err_msg=k)
-    pp, px0 = port_models.sphere_cap_nlp_batch(4, 6, seed=2, dtype=torch.float64)
+    pp, px0 = port_models.sphere_cap_nlp_batch(4, 6, seed=2, dtype=torch.float64,
+                                               device="cpu")
     sqp_solve_batch(pp, px0, None, dataclasses.replace(
         settings, iteration_callback=lambda x, lam, k: calls.append(k)), impl="fused")
     assert calls[0] == 0 and calls == list(range(len(calls)))
@@ -199,7 +202,8 @@ def test_main_path_float32_meets_the_closed_form():
     ["scaling", "anderson", "qp_impl", "impl", "polish_n"],
 )
 def test_outside_the_slice_raises_not_implemented(kind):
-    pp, px0 = port_models.sphere_cap_nlp_batch(2, 4, seed=0, dtype=torch.float64)
+    pp, px0 = port_models.sphere_cap_nlp_batch(2, 4, seed=0, dtype=torch.float64,
+                                               device="cpu")
     settings, impl = HEADLINE, "fused"
     if kind == "scaling":
         settings = dataclasses.replace(HEADLINE, qp=dataclasses.replace(HEADLINE.qp, scaling=10))
@@ -211,7 +215,8 @@ def test_outside_the_slice_raises_not_implemented(kind):
     elif kind == "impl":
         impl = "vmap"
     else:
-        pp, px0 = port_models.sphere_cap_nlp_batch(2, 129, seed=0, dtype=torch.float64)
+        pp, px0 = port_models.sphere_cap_nlp_batch(2, 129, seed=0, dtype=torch.float64,
+                                                   device="cpu")
         settings = dataclasses.replace(HEADLINE, max_iter=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sqp_solve_batch(pp, px0, None, settings, impl=impl)
