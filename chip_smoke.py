@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device facts: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
-2. build the four CUDA kernels from ``sqp_solver_tpu_torch/csrc``;
+2. build the five CUDA kernels from ``sqp_solver_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card, in float32,
    at its paths' shapes, with both times from CUDA events: the SQP-step
    (K1) and polish-KKT (K2) kernels at n = 32, B = 4096 and n = 128,
@@ -14,18 +15,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    the MPC family (n = 16, m = 32), B = 4096, plus a batch of primal- and
    dual-infeasible QPs; the SPD-inverse kernel (K4) at n = 32, B = 4096
    and n = 128, B = 1024, beside ``torch.linalg.cholesky_ex`` +
-   ``torch.cholesky_inverse`` as its library yardstick;
+   ``torch.cholesky_inverse`` as its library yardstick; the ADMM chunk
+   kernel (K5), one chunk, at n = 32, m = 33, B = 4096 (seg 10 and 25),
+   n = 16, m = 32, B = 4096 (seg 25) and n = 128, m = 129, B = 1024
+   (seg 10, part of W read from device memory); the time of the fused
+   tier's library factorization at n = 32 and n = 128;
 4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
-   the closed-form optimum and an independent float64 KKT certificate;
-5. one-shot QP serving, ``qp_solve_batch(impl="kernel")`` on random QPs
-   (n = 32, m = 33, B = 4096), unpolished and polished through K2 and
-   through the K4 route, checked by a float64 OSQP termination test and
-   KKT error computed in numpy;
+   the closed-form optimum and an independent float64 KKT certificate,
+   with ``qp_impl="kernel"`` (K1, K2) and ``qp_impl="fused"`` (K5, K2);
+5. one-shot QP serving, ``qp_solve_batch`` on random QPs (n = 32, m = 33,
+   B = 4096): ``impl="kernel"`` unpolished and polished through K2 and
+   through the K4 route, ``impl="fused"`` unpolished and polished through
+   K2, each checked by a float64 OSQP termination test and KKT error
+   computed in numpy; then a batch of feasible, primal- and
+   dual-infeasible QPs through the fused tier, whose statuses must equal
+   K3's;
 6. sustained MPC serving, ``qp_solve_sequence``: K = 10 warm-started
-   steps of a B = 4096 double-integrator fleet (n = 16), then a probe
-   sequence of 5 ADMM iterations per step that holds each warm step's
-   residual against a cold solve of the same QP;
+   steps of a B = 4096 double-integrator fleet (n = 16) through K3, then a
+   probe sequence of 5 ADMM iterations per step that holds each warm
+   step's residual against a cold solve of the same QP; the same K = 10
+   steps through the fused tier;
 7. sustained NLP serving, ``sqp_solve_sequence``: one cold sphere-cap
    solve (n = 32, B = 4096) and 8 warm steps, the last step certified in
    float64.
@@ -52,7 +62,9 @@ K1_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:1481"
 K2_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:709"
 K3_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:1622"
 K4_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:535"
+K5_SOURCE = "sqp_solver_tpu/ops/admm_kernel.py:132"
 CU_SOURCE = "sqp_solver_tpu_torch/csrc/qp_kernel.cu"
+K5_CU_SOURCE = "sqp_solver_tpu_torch/csrc/admm_kernel.cu"
 TOL = 1e-4  # atol = rtol for float32 kernel vs float32 plain version
 # atol = rtol where an adapted rho drives refactors: float32 kernel and
 # float32 plain version each against the plain version in float64.  An
@@ -65,7 +77,9 @@ EPOCH_TOL = 5e-4
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 COUNTERS = ("sqp_step_launches", "polish_kkt_launches", "qp_solve_launches",
-            "spd_inverse_launches")
+            "spd_inverse_launches", "admm_chunk_launches")
+CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "yp")
+LEAVES = ("P", "q", "A", "l", "u")
 
 
 def log(msg: str) -> None:
@@ -103,17 +117,25 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def reset_counts():
-    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+def counter_module(name: str):
+    """The module whose launch counter ``name`` is."""
+    from sqp_solver_tpu_torch.ops import admm_kernel, qp_kernel
 
+    return admm_kernel if name == "admm_chunk_launches" else qp_kernel
+
+
+def reset_counts():
     for c in COUNTERS:
-        setattr(qk, c, 0)
+        setattr(counter_module(c), c, 0)
 
 
 def read_counts() -> dict:
-    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    return {c: getattr(counter_module(c), c) for c in COUNTERS}
 
-    return {c: getattr(qk, c) for c in COUNTERS}
+
+def expect(**counts) -> dict:
+    """Every counter at 0 but the ones given."""
+    return dict.fromkeys(COUNTERS, 0) | counts
 
 
 def main_qp_settings():
@@ -125,13 +147,13 @@ def main_qp_settings():
                       adaptive_rho_interval=50, schedule="fixed")
 
 
-def bench_settings(n: int):
+def bench_settings(n: int, qp_impl: str = "kernel"):
     """The benchmark configurations: bench.py:209-233 (n = 32) and
-    bench.py:352-369 (n = 128)."""
+    bench.py:352-369 (n = 128), on the kernel or the fused QP tier."""
     from sqp_solver_tpu_torch.sqp.types import SQPSettings
 
     common = dict(eps_prim=2e-3, eps_dual=2e-3, termination="kkt", schedule="fixed",
-                  qp_impl="kernel", polish=True, line_search_max_iter=5,
+                  qp_impl=qp_impl, polish=True, line_search_max_iter=5,
                   qp=main_qp_settings())
     if n == 32:
         return SQPSettings(max_iter=3, polish_passes=2, **common)
@@ -396,6 +418,52 @@ def compare_spd(batch: int, n: int, dev, reps: int) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
+    """K5 against its plain version: one chunk of ``seg`` iterations and
+    the stats, on the operands of random QPs (``testing.admm_chunk_inputs``)."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    t = to_device(admm_chunk_inputs(batch, n, m, seed=n + seg, dtype=np.float32), dev)
+    args = [t[k] for k in CHUNK_ARGS]
+    ok = ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg)
+    ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=seg)
+    torch.cuda.synchronize()
+    err = max(check_close(f"K5 n={n} seg={seg} {name}", a, b)
+              for name, a, b in zip(("s", "yp", "stats"), ok, ref))
+    rows = ak.admm_chunk_smem_rows(n, m)
+    log(f"  K5 n={n} m={m} B={batch} seg={seg}: max |kernel - plain| {err:.3e}, "
+        f"{rows} of {n + m} rows of W in shared memory")
+    ms = cuda_ms(lambda: ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg), reps)
+    plain_ms = cuda_ms(lambda: ak.admm_chunk_reference(*args, alpha=1.6, seg=seg),
+                       max(1, reps // 4))
+    # each iteration 2 D^2 (the matvec) + 10 D; the stats 2 n^2 + 4 m n.
+    # W, P, A and eight (B, D) vectors read once, s, yp and the stats written
+    D = n + m
+    flops = batch * (seg * (2 * D * D + 10 * D) + 2 * n * n + 4 * m * n)
+    nbytes = 4 * batch * (D * D + n * n + m * n + 10 * D + 4)
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(n=n, m=m, batch=batch, seg=seg, smem_rows=rows, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def time_library_factor(batch: int, n: int, m: int, dev, reps: int) -> dict:
+    """Milliseconds per call of the fused tier's factorization (the plain
+    PyTorch ``schur_cholesky`` factor: ``cholesky_ex``, a triangular solve,
+    one Newton-Schulz step and the matmuls that assemble W) on random QPs,
+    from CUDA events; host launch time is inside it where the card waits."""
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
+    from sqp_solver_tpu_torch.ops.linear_solver import _schur_factor
+
+    qp = random_qp_batch(batch, n, m, seed=n, device=dev)
+    rho_vec = qp.l.new_full((batch, m), 0.1)
+    ms = cuda_ms(lambda: _schur_factor(qp.P, qp.A, 1e-6, rho_vec), reps)
+    log(f"  library factor (schur_cholesky) n={n} m={m} B={batch}: {ms:.3f} ms per call")
+    return dict(n=n, m=m, batch=batch, ms=ms)
+
+
 def qp_cert64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
     """Independent float64 check in numpy, no solver code: the OSQP
     termination test (primal |Ax - proj(Ax)|, dual |Px + q + A'y|,
@@ -417,10 +485,11 @@ def qp_cert64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
     return float(np.mean(ok)), np.maximum(rd, viol)
 
 
-def run_qp_one_shot(dev, card: str) -> dict:
-    """qp_solve_batch(impl="kernel") on random QPs n = 32, m = 33,
-    B = 4096: unpolished, polished (K2 route) and polished through the K4
-    route, each run with the counters at 0."""
+def run_qp_one_shot(dev, card: str, impl: str = "kernel") -> dict:
+    """qp_solve_batch(impl=...) on random QPs n = 32, m = 33, B = 4096:
+    unpolished, polished (K2 route) and, on the kernel tier, polished
+    through the K4 route, each run with the counters at 0.  The fused
+    tier runs 200 iterations as 8 chunks of 25, one K5 launch each."""
     import dataclasses
 
     import torch
@@ -443,24 +512,27 @@ def run_qp_one_shot(dev, card: str) -> dict:
         return out, time.perf_counter() - t0
 
     for seed in (101, 102):  # warm-up
-        qp_solve_batch(random_qp_batch(batch, n, m, seed=seed, device=dev), sp, impl="kernel")
+        qp_solve_batch(random_qp_batch(batch, n, m, seed=seed, device=dev), sp, impl=impl)
+    solve = dict(qp_solve_launches=1) if impl == "kernel" else dict(
+        admm_chunk_launches=-(-s.max_iter // s.check_termination))
     runs = {}
     reset_counts()
-    res, wall = timed(lambda: qp_solve_batch(qp, s, impl="kernel"))
-    runs["unpolished"] = (res, wall, read_counts(), dict(qp_solve_launches=1))
+    res, wall = timed(lambda: qp_solve_batch(qp, s, impl=impl))
+    runs["unpolished"] = (res, wall, read_counts(), solve)
     reset_counts()
-    pol, wall_p = timed(lambda: qp_solve_batch(qp, sp, impl="kernel"))
+    pol, wall_p = timed(lambda: qp_solve_batch(qp, sp, impl=impl))
     runs["polished_k2"] = (pol, wall_p, read_counts(),
-                           dict(qp_solve_launches=1, polish_kkt_launches=s.polish_passes))
-    reset_counts()
-    pol4, wall_4 = timed(lambda: polish_qp(qp, res, s, use_kernel=False))
-    runs["polish_k4_route"] = (pol4, wall_4, read_counts(),
-                               dict(spd_inverse_launches=s.polish_passes))
+                           dict(solve, polish_kkt_launches=s.polish_passes))
+    if impl == "kernel":
+        reset_counts()
+        pol4, wall_4 = timed(lambda: polish_qp(qp, res, s, use_kernel=False))
+        runs["polish_k4_route"] = (pol4, wall_4, read_counts(),
+                                   dict(spd_inverse_launches=s.polish_passes))
     out = {}
     for label, (r, wall_r, counts, want) in runs.items():
-        for c in COUNTERS:
-            if counts[c] != want.get(c, 0):
-                raise AssertionError(f"qp one-shot {label}: launches {counts}, expected {want}")
+        if counts != expect(**want):
+            raise AssertionError(f"qp one-shot {impl} {label}: launches {counts}, "
+                                 f"expected {want}")
         out[label] = dict(wall_ms=wall_r * 1e3, counts=counts)
     status = res.info.status.cpu().numpy()
     if res.x.shape != (batch, n) or not torch.isfinite(res.x).all():
@@ -468,34 +540,67 @@ def run_qp_one_shot(dev, card: str) -> dict:
     solved = float(np.mean(status == QPStatus.SOLVED))
     cert, kkt = qp_cert64(qp, res, s.eps_abs, s.eps_rel)
     p99 = {"unpolished": float(np.percentile(kkt, 99))}
-    for label in ("polished_k2", "polish_k4_route"):
+    polished = [label for label in runs if label != "unpolished"]
+    for label in polished:
         p99[label] = float(np.percentile(qp_cert64(qp, runs[label][0], s.eps_abs,
                                                    s.eps_rel)[1], 99))
     times = [wall] + [timed(lambda: qp_solve_batch(
-        random_qp_batch(batch, n, m, seed=10 + r, device=dev), s, impl="kernel"))[1]
+        random_qp_batch(batch, n, m, seed=10 + r, device=dev), s, impl=impl))[1]
         for r in range(2)]
     t = min(times)
-    log(f"  one-shot n={n} m={m} B={batch}: solved {solved:.4f}, f64 OSQP test (10x) "
-        f"{cert:.4f}, mean iter {float(res.info.iter.float().mean()):.1f}, wall "
+    log(f"  one-shot impl={impl} n={n} m={m} B={batch}: solved {solved:.4f}, f64 OSQP test "
+        f"(10x) {cert:.4f}, mean iter {float(res.info.iter.float().mean()):.1f}, wall "
         f"{t * 1e3:.3f} ms ({batch / t:.1f} solves/s, min of {len(times)}) [{card}]")
     log(f"  f64 KKT error p99: unpolished {p99['unpolished']:.3e}, polished (K2) "
-        f"{p99['polished_k2']:.3e} in {out['polished_k2']['wall_ms']:.3f} ms, K4 route "
-        f"{p99['polish_k4_route']:.3e} (polish alone {out['polish_k4_route']['wall_ms']:.3f} ms)")
+        f"{p99['polished_k2']:.3e} in {out['polished_k2']['wall_ms']:.3f} ms"
+        + ("" if impl != "kernel" else f", K4 route {p99['polish_k4_route']:.3e} (polish "
+           f"alone {out['polish_k4_route']['wall_ms']:.3f} ms)"))
     if solved < 0.99:
-        raise AssertionError(f"qp one-shot: solved fraction {solved:.4f} < 0.99")
+        raise AssertionError(f"qp one-shot {impl}: solved fraction {solved:.4f} < 0.99")
     if cert < 0.99:
-        raise AssertionError(f"qp one-shot: f64 OSQP test passes on {cert:.4f} < 0.99")
-    for label in ("polished_k2", "polish_k4_route"):
+        raise AssertionError(f"qp one-shot {impl}: f64 OSQP test passes on {cert:.4f} < 0.99")
+    for label in polished:
         if not p99[label] <= p99["unpolished"]:
-            raise AssertionError(f"qp one-shot: {label} KKT p99 {p99[label]:.3e} worse than "
+            raise AssertionError(f"qp one-shot {impl}: {label} KKT p99 {p99[label]:.3e} worse than "
                                  f"unpolished {p99['unpolished']:.3e}")
     return dict(runs=out, solved=solved, cert=cert, kkt_p99=p99, ms=t * 1e3,
                 solves_per_s=batch / t)
 
 
-def run_mpc_sequence(dev, card: str) -> dict:
+def run_infeasible_fused(dev) -> dict:
+    """Feasible, primal- and dual-infeasible QPs (B = 256, n = 8) through
+    qp_solve_batch(impl="fused"), counters from 0: 8 K5 launches and the
+    statuses of K3 on the same batch."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp.types import QuadraticProblem
+    from sqp_solver_tpu_torch.testing import certificate_qp_inputs
+
+    t = to_device(certificate_qp_inputs(256, 8, seed=1, dtype=np.float32), dev)
+    s = qp_bench_settings()
+    k3 = qk.qp_status(qp_raw(qk._qp_solve_launch, t, s))
+    reset_counts()
+    st = qp_solve_batch(QuadraticProblem(*(t[k] for k in LEAVES)), s, impl="fused").info.status
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expect(admm_chunk_launches=8):
+        raise AssertionError(f"fused certificate batch: launches {counts}, expected 8 of K5")
+    if not torch.equal(st, k3):
+        raise AssertionError(f"fused certificate batch: statuses differ from K3's on "
+                             f"{int((st != k3).sum())} of 256 problems")
+    by_status = {int(v): int((st == v).sum()) for v in torch.unique(st)}
+    log(f"  fused tier, certificate batch B=256 n=8: statuses equal K3's, counts by status "
+        f"{by_status}")
+    return dict(counts=counts, by_status=by_status)
+
+
+def run_mpc_sequence(dev, card: str, impl: str = "kernel") -> dict:
     """qp_solve_sequence as in bench.py:854-901: K = 10 steps of a
-    B = 4096 double-integrator fleet, n = 16, dt = 0.1, warm-started."""
+    B = 4096 double-integrator fleet, n = 16, dt = 0.1, warm-started,
+    through K3 (``impl="kernel"``, with the warm-start probe) or the fused
+    tier (8 K5 launches per step)."""
     import dataclasses
 
     import torch
@@ -521,7 +626,7 @@ def run_mpc_sequence(dev, card: str) -> dict:
         x0 = plants(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs, _, _ = qp_solve_sequence(make_qp, advance, x0, K, s, impl="kernel")
+        outs, _, _ = qp_solve_sequence(make_qp, advance, x0, K, s, impl=impl)
         torch.cuda.synchronize()
         return outs, time.perf_counter() - t0
 
@@ -529,11 +634,25 @@ def run_mpc_sequence(dev, card: str) -> dict:
     reset_counts()
     (solved, rms, iters), wall = rollout(0)
     counts = read_counts()
-    if counts != dict.fromkeys(COUNTERS, 0) | dict(qp_solve_launches=K):
-        raise AssertionError(f"sustained MPC: launches {counts}, expected {K} of K3 only")
+    want = expect(qp_solve_launches=K) if impl == "kernel" else expect(admm_chunk_launches=8 * K)
+    if counts != want:
+        raise AssertionError(f"sustained MPC {impl}: launches {counts}, expected {want}")
     solved, rms, iters = (v.cpu().numpy() for v in (solved, rms, iters))
     times = [wall] + [rollout(1 + r)[1] for r in range(2)]
     t = min(times)
+    log(f"  sustained MPC impl={impl} K={K} x B={B} n={H}: solved per step min "
+        f"{solved.min():.4f}, pos RMS {rms[0]:.4f} -> {rms[-1]:.4f}, mean iter step 1 "
+        f"{iters[0]:.1f}, steps 2..K {iters[1:].mean():.1f}, wall {t * 1e3:.3f} ms -> "
+        f"{K * B / t:.1f} solves/s sustained (min of {len(times)}) [{card}]")
+    if solved.min() < 0.99:
+        raise AssertionError(f"sustained MPC {impl}: a step solved {solved.min():.4f} < 0.99")
+    if not rms[-1] < rms[0]:
+        raise AssertionError(f"sustained MPC {impl}: the fleet's position RMS did not fall")
+    out = dict(counts=counts, solved_min=float(solved.min()), rms_first=float(rms[0]),
+               rms_last=float(rms[-1]), iter_first=float(iters[0]),
+               iter_warm=float(iters[1:].mean()), ms=t * 1e3, solves_per_s=K * B / t)
+    if impl != "kernel":
+        return out
     # the sequence threads its warm starts: check_termination = 25 floors
     # the iteration counts, so they alone cannot tell a warm step from a
     # cold one.  A probe sequence stopped after 5 ADMM iterations per step
@@ -549,25 +668,14 @@ def run_mpc_sequence(dev, card: str) -> dict:
 
     ratio, _, _ = qp_solve_sequence(make_qp, probe_advance, plants(0), K, probe, impl="kernel")
     ratio = ratio.cpu().numpy()
-    log(f"  sustained MPC K={K} x B={B} n={H}: solved per step min {solved.min():.4f}, "
-        f"pos RMS {rms[0]:.4f} -> {rms[-1]:.4f}, mean iter step 1 {iters[0]:.1f}, steps 2..K "
-        f"{iters[1:].mean():.1f}, wall {t * 1e3:.3f} ms -> {K * B / t:.1f} solves/s "
-        f"sustained (min of {len(times)}) [{card}]")
     log(f"  after 5 ADMM iterations, median residual warm / cold of the same step: step 1 "
         f"{ratio[0]:.3f}, steps 2..K mean {ratio[1:].mean():.3f}")
-    if solved.min() < 0.99:
-        raise AssertionError(f"sustained MPC: a step solved {solved.min():.4f} < 0.99")
-    if not rms[-1] < rms[0]:
-        raise AssertionError("sustained MPC: the fleet's position RMS did not fall")
     if not iters[1:].mean() < iters[0]:
         raise AssertionError("sustained MPC: warm steps are not cheaper than the cold one")
     if not ratio[1:].mean() < 0.5:
         raise AssertionError(f"sustained MPC: warm steps start no closer than cold ones "
                              f"(residual ratio {ratio[1:].mean():.3f})")
-    return dict(counts=counts, solved_min=float(solved.min()), rms_first=float(rms[0]),
-                rms_last=float(rms[-1]), iter_first=float(iters[0]),
-                iter_warm=float(iters[1:].mean()), probe_ratio_first=float(ratio[0]),
-                probe_ratio_warm=float(ratio[1:].mean()), ms=t * 1e3, solves_per_s=K * B / t)
+    return dict(out, probe_ratio_first=float(ratio[0]), probe_ratio_warm=float(ratio[1:].mean()))
 
 
 def run_nlp_sequence(dev, card: str) -> dict:
@@ -648,12 +756,14 @@ def sphere_cert_1e4(r2, x, lam) -> float:
     return float(np.mean((dr <= 1e-4) & (pv <= 1e-4)))
 
 
-def run_main_path(configs, dev, card: str) -> dict:
-    """Both configurations end to end, launch counts asserted."""
+def run_main_path(configs, dev, card: str, qp_impl: str = "kernel") -> dict:
+    """Both configurations end to end on the kernel (K1) or the fused (K5)
+    QP tier, each run with the counters from 0 and its launches asserted:
+    K1 once per outer iteration, or K5 once per chunk of each outer
+    iteration's QP; K2 once per polish pass."""
     import torch
 
     from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch, sphere_cap_solution
-    from sqp_solver_tpu_torch.ops import qp_kernel as qk
     from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
     from sqp_solver_tpu_torch.sqp.types import SQPStatus
 
@@ -662,26 +772,27 @@ def run_main_path(configs, dev, card: str) -> dict:
                                            device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = sqp_solve_batch(problem, x0, None, bench_settings(n), impl="fused")
+        res = sqp_solve_batch(problem, x0, None, bench_settings(n, qp_impl), impl="fused")
         torch.cuda.synchronize()
         return problem, res, time.perf_counter() - t0
 
     for n, batch in configs:  # warm-up: torch.func tracing, allocator
         solve(n, batch, seed=100)
-    reset_counts()
-    results = {}
+    results, launches = {}, {}
     for n, batch in configs:
-        k1, k2 = qk.sqp_step_launches, qk.polish_kkt_launches
+        s = bench_settings(n, qp_impl)
+        if qp_impl == "kernel":
+            want = expect(sqp_step_launches=s.max_iter, polish_kkt_launches=s.polish_passes)
+        else:
+            chunks = -(-s.qp.max_iter // s.qp.check_termination)
+            want = expect(admm_chunk_launches=s.max_iter * chunks,
+                          polish_kkt_launches=s.polish_passes)
+        reset_counts()
         problem, res, wall = solve(n, batch, seed=3)
-        s = bench_settings(n)
-        d1, d2 = qk.sqp_step_launches - k1, qk.polish_kkt_launches - k2
-        if (d1, d2) != (s.max_iter, s.polish_passes):
-            raise AssertionError(f"n={n}: kernel launches K1 {d1}, K2 {d2}; expected "
-                                 f"{s.max_iter} and {s.polish_passes}")
+        launches[n] = read_counts()
+        if launches[n] != want:
+            raise AssertionError(f"{qp_impl} n={n}: launches {launches[n]}, expected {want}")
         results[(n, batch)] = (problem, res, wall)
-    launches = read_counts()
-    if launches["qp_solve_launches"] or launches["spd_inverse_launches"]:
-        raise AssertionError(f"SQP main path launched a QP-path kernel: {launches}")
 
     summary = {}
     for (n, batch), (problem, res, wall) in results.items():
@@ -689,22 +800,23 @@ def run_main_path(configs, dev, card: str) -> dict:
         x = res.x.cpu().numpy()
         lam = res.lam.cpu().numpy()
         if x.shape != (batch, n) or not np.isfinite(x).all() or not np.isfinite(lam).all():
-            raise AssertionError(f"n={n}: solution has the wrong shape or is not finite")
+            raise AssertionError(f"{qp_impl} n={n}: solution has the wrong shape or is not "
+                                 "finite")
         solved = float(np.mean(status == SQPStatus.SOLVED))
         err_p99 = float(np.percentile(np.abs(x.astype(np.float64) - sphere_cap_solution(problem)), 99))
         cert = sphere_cert_1e4(problem.u[:, 0].double().cpu().numpy(), x, lam)
         times = [wall] + [solve(n, batch, seed=10 + r)[2] for r in range(3)]
         t = min(times)
-        log(f"  n={n} B={batch}: solved {solved:.4f}, err_p99 {err_p99:.3e}, "
+        log(f"  qp_impl={qp_impl} n={n} B={batch}: solved {solved:.4f}, err_p99 {err_p99:.3e}, "
             f"f64 cert(1e-4) {cert:.4f}, wall {t * 1e3:.3f} ms per batch "
             f"({t / batch * 1e6:.3f} us per solve, {batch / t:.1f} solves/s) "
             f"[min of {len(times)}; {card}]")
         if solved < 0.99:
-            raise AssertionError(f"n={n}: solved fraction {solved:.4f} < 0.99")
+            raise AssertionError(f"{qp_impl} n={n}: solved fraction {solved:.4f} < 0.99")
         if err_p99 > 1e-6:
-            raise AssertionError(f"n={n}: err_p99 {err_p99:.3e} > 1e-6")
+            raise AssertionError(f"{qp_impl} n={n}: err_p99 {err_p99:.3e} > 1e-6")
         if cert < 0.99:
-            raise AssertionError(f"n={n}: f64 certificate {cert:.4f} < 0.99")
+            raise AssertionError(f"{qp_impl} n={n}: f64 certificate {cert:.4f} < 0.99")
         summary[n] = dict(batch=batch, solved=solved, err_p99=err_p99, cert=cert,
                           ms=t * 1e3, solves_per_s=batch / t)
     return dict(launches=launches, configs=summary)
@@ -746,35 +858,51 @@ def main() -> int:
     k3 = [compare_qp("random", 4096, 32, dev, reps=10), compare_qp("mpc", 4096, 16, dev, reps=10)]
     compare_certificates(dev)
     k4 = [compare_spd(4096, 32, dev, reps=20), compare_spd(1024, 128, dev, reps=8)]
+    k5 = [compare_chunk(4096, 32, 33, 10, dev, reps=20),
+          compare_chunk(4096, 32, 33, 25, dev, reps=20),
+          compare_chunk(4096, 16, 32, 25, dev, reps=20),
+          compare_chunk(1024, 128, 129, 10, dev, reps=8)]
+    factor_ms = [time_library_factor(4096, 32, 33, dev, reps=10),
+                 time_library_factor(1024, 128, 129, dev, reps=5)]
     for name, rows in (("sqp_step", k1), ("polish_kkt", k2), ("qp_solve", k3),
-                       ("spd_inverse", k4)):
+                       ("spd_inverse", k4), ("admm_chunk", k5)):
         for r in rows:
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
-            log(f"  {name} n={r['n']} B={r['batch']}: kernel {r['ms']:.3f} ms, "
+            seg = f" seg={r['seg']}" if "seg" in r else ""
+            log(f"  {name} n={r['n']} B={r['batch']}{seg}: kernel {r['ms']:.3f} ms, "
                 f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}) [{card}]")
 
     # 4.-7. the paths end to end, each with the launch counters from 0
+    configs = [(32, 4096), (128, 1024)]
     log("SQP main path: sqp_solve_batch(impl='fused') on the sphere-cap family:")
-    main_run = run_main_path([(32, 4096), (128, 1024)], dev, card)
-    log("one-shot QP serving: qp_solve_batch(impl='kernel'):")
+    main_run = run_main_path(configs, dev, card)
+    fused_run = run_main_path(configs, dev, card, qp_impl="fused")
+    log("one-shot QP serving: qp_solve_batch(impl='kernel') and (impl='fused'):")
     qp_run = run_qp_one_shot(dev, card)
-    log("sustained MPC serving: qp_solve_sequence:")
+    qp_fused_run = run_qp_one_shot(dev, card, impl="fused")
+    infeas_run = run_infeasible_fused(dev)
+    log("sustained MPC serving: qp_solve_sequence, impl='kernel' and 'fused':")
     mpc_run = run_mpc_sequence(dev, card)
+    mpc_fused_run = run_mpc_sequence(dev, card, impl="fused")
     log("sustained NLP serving: sqp_solve_sequence:")
     nlp_run = run_nlp_sequence(dev, card)
-    paths = dict(sqp_main=main_run["launches"], nlp_sustained=nlp_run["counts"],
-                 mpc_sustained=mpc_run["counts"],
-                 **{f"qp_one_shot_{k}": v["counts"] for k, v in qp_run["runs"].items()})
+    paths = dict(
+        **{f"sqp_main_n{n}": c for n, c in main_run["launches"].items()},
+        **{f"sqp_fused_n{n}": c for n, c in fused_run["launches"].items()},
+        nlp_sustained=nlp_run["counts"], mpc_sustained=mpc_run["counts"],
+        mpc_sustained_fused=mpc_fused_run["counts"], qp_fused_certificates=infeas_run["counts"],
+        **{f"qp_one_shot_{k}": v["counts"] for k, v in qp_run["runs"].items()},
+        **{f"qp_fused_one_shot_{k}": v["counts"] for k, v in qp_fused_run["runs"].items()})
 
-    def entry(name, replaces, rows):
+    def entry(name, replaces, rows, source=CU_SOURCE):
         head = rows[0]
         counter = f"{name}_launches"
         by_path = {p: c[counter] for p, c in paths.items() if c[counter]}
         if not by_path:
             raise AssertionError(f"{name}: no path run launched it")
         return dict(
-            name=name, route="cuda", source=CU_SOURCE, replaces=replaces,
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -783,9 +911,13 @@ def main() -> int:
         )
 
     kernels = [entry("sqp_step", K1_SOURCE, k1), entry("polish_kkt", K2_SOURCE, k2),
-               entry("qp_solve", K3_SOURCE, k3), entry("spd_inverse", K4_SOURCE, k4)]
-    log(json.dumps(dict(main_path=main_run["configs"], qp_one_shot=qp_run,
-                        mpc_sustained=mpc_run, nlp_sustained=nlp_run, card=card)))
+               entry("qp_solve", K3_SOURCE, k3), entry("spd_inverse", K4_SOURCE, k4),
+               entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE)]
+    log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
+                        library_factor=factor_ms,
+                        qp_one_shot=qp_run, qp_fused_one_shot=qp_fused_run,
+                        qp_fused_certificates=infeas_run, mpc_sustained=mpc_run,
+                        mpc_sustained_fused=mpc_fused_run, nlp_sustained=nlp_run, card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),

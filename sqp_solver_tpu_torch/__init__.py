@@ -1,17 +1,20 @@
 """sqp_solver_tpu_torch — the PyTorch / CUDA port of ``sqp_solver_tpu``.
 
 A second package beside the JAX one, for one NVIDIA H100.  It holds the
-batched SQP main path, ``parallel.sqp_solve_batch(impl="fused")`` with
-``SQPSettings(qp_impl="kernel")``, and the batched QP serving path,
-``parallel.qp_solve_batch(impl="kernel")`` with its polish and the
-sustained ``qp_solve_sequence`` / ``sqp_solve_sequence``.  Their four
-kernels (SQP step, polish KKT, whole QP, SPD inverse) are hand-written
-CUDA for sm_90a in ``csrc/qp_kernel.cu``, each beside its plain PyTorch
-version.  Public functions are batch-first; settings, statuses and field
-names are the JAX package's.  Generators and constructors put their
-tensors on the card unless asked for another device; solvers run on the
-device of their inputs.  Parts outside the port raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+batched SQP solve, ``parallel.sqp_solve_batch(impl="fused")`` with
+``SQPSettings(qp_impl="kernel")`` (the main path) or ``qp_impl="fused"``
+(the default), the batched QP serving paths,
+``parallel.qp_solve_batch(impl="kernel")`` and ``(impl="fused")`` with
+their polish, and the sustained ``qp_solve_sequence`` /
+``sqp_solve_sequence`` over either tier.  Their five kernels (SQP step,
+polish KKT, whole QP and SPD inverse in ``csrc/qp_kernel.cu``, the ADMM
+chunk in ``csrc/admm_kernel.cu``) are hand-written CUDA for sm_90a, each
+beside its plain PyTorch version.  Public functions are batch-first;
+settings, statuses and field names are the JAX package's.  Generators
+and constructors put their tensors on the card unless asked for another
+device; solvers run on the device of their inputs.  Parts outside the
+port raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from sqp_solver_tpu_torch.parallel import qp_solve_batch, sqp_solve_batch

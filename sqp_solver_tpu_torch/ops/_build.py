@@ -4,7 +4,9 @@ The library has a plain C interface (no PyTorch headers), so a build takes
 seconds.  It is built at first use into ``build/torch_kernels/`` beside
 the package (a directory that ``.gitignore`` lists), under a name that
 carries a hash of the sources, so an edited source is never served by a
-stale build.  Nothing here runs at import time.
+stale build.  Each source compiles in its own nvcc process, all started
+together, and one more links the objects.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -22,10 +24,8 @@ __all__ = ["load", "build_dir", "nvcc_path", "last_build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 last_build_seconds = 0.0  # wall time of the last nvcc run (0 when cached)
@@ -51,6 +51,10 @@ _SIGNATURES = {
     "qp_solve_workspace_floats": (_LL, [_INT, _INT]),
     "spd_inverse_launch": (_INT, [_VOID] * 4 + [_INT] * 3 + [_VOID]),
     "spd_inverse_workspace_floats": (_LL, [_INT]),
+    "admm_chunk_launch": (
+        _INT, [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
+    ),
+    "admm_chunk_smem_rows": (_INT, [_INT, _INT]),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
 }
 
@@ -73,6 +77,28 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
 
 
+def _run_all(cmds) -> None:
+    """Run the nvcc commands in parallel; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+
+
+def _compile(cu, so: Path) -> None:
+    """Compile the sources ``cu`` into the library ``so``: one nvcc per
+    source, all started together, then one link."""
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{p.stem}.o" for p in cu]
+        _run_all([[nvcc_path(), *_NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(cu, objs)])
+        tmp = Path(tmp_dir) / so.name
+        _run_all([[nvcc_path(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     global _lib, last_build_seconds
@@ -89,16 +115,7 @@ def load() -> ctypes.CDLL:
     so = out_dir / f"libqp_kernel_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc_path(), *_NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
+        _compile(cu, so)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():

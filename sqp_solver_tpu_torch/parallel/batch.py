@@ -1,9 +1,10 @@
 """Batched solves (twin of ``sqp_solver_tpu/parallel/batch.py``).
 
-Ported: ``qp_solve_batch(impl="kernel")`` over the whole-QP kernel and
+Ported: ``qp_solve_batch(impl="fused")`` over the ADMM chunk kernel K5,
+``qp_solve_batch(impl="kernel")`` over the whole-QP kernel and
 ``sqp_solve_batch(impl="fused")``.  The per-problem ``impl="vmap"`` tiers
-(the JAX default), the fused QP tier and Ruiz scaling raise
-``NotImplementedError`` naming their ROADMAP items.
+(the JAX default) and Ruiz scaling raise ``NotImplementedError`` naming
+their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ def qp_solve_batch(
     impl: str = "vmap",
 ) -> QPResult:
     """Solve a batch of QPs (leading batch axis on every problem field).
-    ``impl="kernel"`` is the whole-QP kernel; the default ``"vmap"`` is the
-    JAX package's semantics-defining tier, which this package does not
-    have yet."""
+    ``impl="fused"`` is the fused ADMM tier (chunks of ``check_termination``
+    iterations, one K5 launch each), ``impl="kernel"`` the whole-QP
+    kernel; the default ``"vmap"`` is the JAX package's semantics-defining
+    tier, which this package does not have yet."""
     if settings.scaling > 0:
         raise NotImplementedError(
             "scaling > 0 (Ruiz equilibration) is not ported "
@@ -38,12 +40,11 @@ def qp_solve_batch(
 
         return qp_solve_kernel(qp, settings, state)
     if impl == "fused":
-        raise NotImplementedError(
-            "qp_solve_batch(impl='fused') (the fused QP tier over K5) is not ported "
-            "(ROADMAP Queue 1, item 11 'Fused QP tier')"
-        )
+        from sqp_solver_tpu_torch.qp.admm_batched import qp_solve_fused
+
+        return qp_solve_fused(qp, settings, state)
     raise NotImplementedError(
-        f"qp_solve_batch(impl={impl!r}) is not ported; use impl='kernel' "
+        f"qp_solve_batch(impl={impl!r}) is not ported; use impl='fused' or 'kernel' "
         "(ROADMAP Queue 1, item 9 'qp/admm.py')"
     )
 

@@ -18,6 +18,7 @@ __all__ = [
     "RHO_EQ_FACTOR",
     "LOOSE_BOUNDS_THRESH",
     "constr_type_init",
+    "rho_vec_from_type",
 ]
 
 INEQUALITY_CONSTRAINT = 0
@@ -38,3 +39,16 @@ def constr_type_init(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     equality = (u - l) < RHO_TOL
     codes = torch.where(equality, EQUALITY_CONSTRAINT, INEQUALITY_CONSTRAINT)
     return torch.where(loose, LOOSE_BOUNDS, codes).to(torch.int32)
+
+
+def rho_vec_from_type(constr_type: torch.Tensor, rho0, dtype) -> torch.Tensor:
+    """Per-row rho: RHO_MIN on loose rows, RHO_EQ_FACTOR * rho0 on equality
+    rows, rho0 otherwise (reference ``src/qp.cpp:297-314``).  ``rho0`` is a
+    number or a tensor that broadcasts against ``constr_type``."""
+    r = torch.as_tensor(rho0, dtype=dtype, device=constr_type.device)
+    r = r.expand(torch.broadcast_shapes(r.shape, constr_type.shape))
+    return torch.where(
+        constr_type == LOOSE_BOUNDS,
+        torch.full_like(r, RHO_MIN),
+        torch.where(constr_type == EQUALITY_CONSTRAINT, RHO_EQ_FACTOR * r, r),
+    )

@@ -1,17 +1,29 @@
-"""Batch-explicit SQP entry (twin of ``sqp_solver_tpu/sqp/solver_batched.py``).
+"""Batch-explicit SQP entry and the fused SQP tier (twin of
+``sqp_solver_tpu/sqp/solver_batched.py``).
 
-Only the ``qp_impl="kernel"`` dispatch is ported: the fused QP tier
-(``qp_impl="fused"``) and the structured tier (``"kernel_btd"``) raise
-``NotImplementedError`` naming their ROADMAP items.
+``qp_impl="kernel"`` hands over to the SQP-step kernel tier
+(:mod:`sqp_solver_tpu_torch.sqp.solver_kernel`).  ``qp_impl="fused"``, the
+default, runs Algorithm 18.3 (reference ``src/sqp.cpp:44-101``) through
+the shared outer loop :func:`sqp_solver_tpu_torch.sqp.common.sqp_outer_loop`
+with its own subproblem step: damped BFGS, posdef repair, and the QP
+subproblem (and optional SOC) through the fused ADMM tier
+(:func:`sqp_solver_tpu_torch.qp.admm_batched.qp_solve_fused`, chunks of
+the K5 kernel), warm-started across outer iterations.  ``qp_impl="kernel_btd"``
+(the structured tier) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
+from sqp_solver_tpu_torch.ops.qp_kernel import bfgs_update
+from sqp_solver_tpu_torch.qp.types import QuadraticProblem
+from sqp_solver_tpu_torch.sqp import common
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem, SQPResult, SQPSettings
+from sqp_solver_tpu_torch.utils.precision import pin_precision
 
 __all__ = ["sqp_solve_fused"]
 
@@ -24,11 +36,66 @@ def sqp_solve_fused(
 ) -> SQPResult:
     """Solve a batch of NLPs: ``x0`` is (B, n)."""
     settings.validate()
-    if settings.qp_impl != "kernel":
-        raise NotImplementedError(
-            f"qp_impl={settings.qp_impl!r} is not ported; only 'kernel' is "
-            "(ROADMAP Queue 1, items 'fused QP tier' and 'structured tier')"
-        )
-    from sqp_solver_tpu_torch.sqp.solver_kernel import sqp_solve_kernel_fused
+    if settings.qp_impl == "kernel":
+        from sqp_solver_tpu_torch.sqp.solver_kernel import sqp_solve_kernel_fused
 
-    return sqp_solve_kernel_fused(problem, x0, lam0, settings)
+        return sqp_solve_kernel_fused(problem, x0, lam0, settings)
+    if settings.qp_impl == "kernel_btd":
+        raise NotImplementedError(
+            "qp_impl='kernel_btd' (the structured tier over K7) is not ported "
+            "(ROADMAP Queue 1, item 12 'Structured tier')"
+        )
+    if settings.qp.linear_solver != "schur_cholesky":
+        raise ValueError("sqp_solve_fused requires qp.linear_solver='schur_cholesky'")
+    if settings.qp.scaling > 0:
+        raise NotImplementedError(
+            "qp.scaling > 0 (Ruiz equilibration) is not ported "
+            "(ROADMAP Queue 1, item 'scaling')"
+        )
+    return _sqp_solve_qp_fused(problem, x0, lam0, settings)
+
+
+@pin_precision
+def _sqp_solve_qp_fused(problem, x0, lam0, settings: SQPSettings) -> SQPResult:
+    from sqp_solver_tpu_torch.qp.admm_batched import qp_solve_fused
+
+    eye = torch.eye(x0.shape[-1], dtype=x0.dtype, device=x0.device)
+
+    def not_posdef(M):
+        L, info = torch.linalg.cholesky_ex(M)
+        return (info > 0) | torch.isnan(L).flatten(1).any(-1)
+
+    def posdef_repair(Bm):
+        bad = torch.isnan(Bm).flatten(1).any(-1)
+        Bm = torch.where(bad[:, None, None], eye, Bm)
+        if settings.schedule == "fixed":
+            # one check, reset to the identity where it fails
+            return torch.where(not_posdef(Bm)[:, None, None], eye, Bm)
+        tau = 1e-3
+        for _ in range(40):  # shift by tau I, tau growing 10x, while any fails
+            need = not_posdef(Bm)
+            if not bool(need.any()):
+                break
+            Bm = torch.where(need[:, None, None], Bm + tau * eye, Bm)
+            tau *= 10.0
+        return Bm
+
+    # subproblem infeasibility certificates are off on every SQP tier: a
+    # transiently certified linearized subproblem must not stop early
+    inner = dataclasses.replace(settings.qp, check_infeasibility=False)
+
+    def step(s):
+        B_new = posdef_repair(bfgs_update(s.B, s.step_prev, s.delta_grad_L, s.reset, s.upd))
+        res = qp_solve_fused(QuadraticProblem(P=B_new, q=s.grad_obj, A=s.J, l=s.l - s.c_val,
+                                              u=s.u - s.c_val), inner, s.warm)
+        qp_it = res.info.iter
+        if settings.second_order_correction:
+            d = s.c_of(s.x + res.x) - torch.matmul(s.J, res.x.unsqueeze(-1)).squeeze(-1)
+            warm = res.state if settings.qp_warm_start else s.warm
+            res = qp_solve_fused(QuadraticProblem(P=B_new, q=s.grad_obj, A=s.J, l=s.l - d,
+                                                  u=s.u - d), inner, warm)
+            qp_it = qp_it + res.info.iter
+        B_new = torch.where(s.active[:, None, None], B_new, s.B)
+        return res.x, res.y, B_new, res.state, qp_it
+
+    return common.sqp_outer_loop(problem, x0, lam0, settings, step)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["step_inputs", "polish_inputs", "qp_inputs", "certificate_qp_inputs",
-           "spd_inputs"]
+           "spd_inputs", "admm_chunk_inputs"]
 
 
 def step_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
@@ -162,3 +162,42 @@ def spd_inputs(batch: int, n: int, seed: int = 0, dtype=np.float64) -> dict:
     if batch > 2:
         M[0] = -np.eye(n)
     return dict(M=M.astype(dtype))
+
+
+def admm_chunk_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
+                      rho: float = 0.1, sigma: float = 1e-6, equality_row: bool = False,
+                      loose_row: bool = False) -> dict:
+    """Operands of one ADMM chunk kernel (K5) call, batch-first: the fused
+    operator W of random strictly convex QPs (``qp_inputs``) built in
+    float64 from M = P + sigma I + A' diag(rho) A, the padded vectors
+    (qv = [q; 0], scale1 = [sigma; rho], rhoip = [0; 1/rho], rhop = [0;
+    rho], lp = [-inf; l], up = [+inf; u]) and a state (s = [x; z], yp =
+    [0; y]) near zero.  Optionally row 0 is an equality row (rho_eq =
+    1e3 rho) and the last row loose (rho = 1e-6), as the fused tier's
+    classification gives them; the main path's subproblems have neither."""
+    a = qp_inputs(batch, n, m, seed=seed, dtype=np.float64, equality_row=equality_row,
+                  loose_row=loose_row)
+    P, A = a["P"], a["A"]
+    rho_vec = np.full((batch, m), rho)
+    if equality_row:
+        rho_vec[:, 0] = 1e3 * rho
+    if loose_row:
+        rho_vec[:, -1] = 1e-6
+    M = P + sigma * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho_vec, A)
+    Minv = np.linalg.inv(M)
+    G2 = Minv @ A.transpose(0, 2, 1)
+    W = np.concatenate([np.concatenate([Minv, G2], axis=2),
+                        np.concatenate([A @ Minv, A @ G2], axis=2)], axis=1)
+    zeros_n = np.zeros((batch, n))
+    out = dict(
+        W=W, P=P, A=A,
+        qv=np.concatenate([a["q"], np.zeros((batch, m))], axis=1),
+        scale1=np.concatenate([np.full((batch, n), sigma), rho_vec], axis=1),
+        rhoip=np.concatenate([zeros_n, 1.0 / rho_vec], axis=1),
+        rhop=np.concatenate([zeros_n, rho_vec], axis=1),
+        lp=np.concatenate([np.full((batch, n), -np.inf), a["l"]], axis=1),
+        up=np.concatenate([np.full((batch, n), np.inf), a["u"]], axis=1),
+        s=np.concatenate([a["x"], a["z"]], axis=1),
+        yp=np.concatenate([zeros_n, a["y"]], axis=1),
+    )
+    return {k: v.astype(dtype) for k, v in out.items()}

@@ -12,6 +12,9 @@ by device time:
 
 * qp_one_shot: ``qp_solve_batch(impl="kernel")``, random QPs n = 32,
   m = 33, B = 4096, the one-shot leg's settings, unpolished and polished;
+* qp_fused_one_shot: the same QPs through ``qp_solve_batch(impl="fused")``
+  (8 launches of the chunk kernel K5 between the library factorizations
+  and the per-chunk tensor code);
 * mpc_sustained: ``qp_solve_sequence``, K = 10 steps of a B = 4096
   double-integrator fleet, n = 16.
 
@@ -85,7 +88,7 @@ def _trace(fn) -> dict:
                 device_launches=sum(r[1] for r in rows),
                 idle_share=1.0 - busy_ms / (wall * 1e3),
                 idle_share_profiled=1.0 - busy_ms / (wall_prof * 1e3),
-                top=[dict(name=k[:60], count=c, ms=us / 1e3) for us, c, k in rows[:6]])
+                top=[dict(name=k[:60], count=c, ms=us / 1e3) for us, c, k in rows[:12]])
 
 
 def main() -> int:
@@ -100,6 +103,7 @@ def main() -> int:
     cells = {
         "qp_one_shot": _trace(lambda: qp_solve_batch(qp, SETTINGS, impl="kernel")),
         "qp_one_shot_polished": _trace(lambda: qp_solve_batch(qp, polished, impl="kernel")),
+        "qp_fused_one_shot": _trace(lambda: qp_solve_batch(qp, SETTINGS, impl="fused")),
         "mpc_sustained": _trace(_mpc_rollout(dev)),
     }
     for name, c in cells.items():

@@ -392,3 +392,111 @@ def test_qp_serving_on_cuda_matches_cpu_plain_path(cuda):
     qp = mpc_qp_batch(128, seed=2, device=cuda)
     st = qp_solve_batch(qp, QP_BENCH, impl="kernel").info.status
     assert bool((st == QPStatus.SOLVED).all())
+
+
+# ---------------------------------------------------------------------------
+# K5 ADMM chunk kernel and the fused tier
+# ---------------------------------------------------------------------------
+
+CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "yp")
+
+
+@pytest.mark.parametrize(
+    "batch,n,m,seg",
+    [(256, 32, 33, 10), (256, 32, 33, 25), (256, 16, 32, 25), (64, 128, 129, 10),
+     (8, 400, 401, 5)],
+    ids=["D65-seg10", "D65-seg25", "D48", "D257-rows-in-device-memory", "D801"],
+)
+def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
+    """One chunk, float32 kernel against float32 plain version at 1e-4.
+    At D = 257 and 801 part of W does not fit in shared memory and is read
+    from device memory."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    t = _to(admm_chunk_inputs(batch, n, m, seed=n + seg), cuda)
+    args = [t[k] for k in CHUNK_ARGS]
+    before = ak.admm_chunk_launches
+    ok = ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg)
+    ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=seg)
+    torch.cuda.synchronize()
+    assert ak.admm_chunk_launches == before + 1
+    for name, a, b in zip(("s", "yp", "stats"), ok, ref):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+    rows = ak.admm_chunk_smem_rows(n, m)
+    assert (rows == n + m) == (n + m <= 237)
+
+
+def test_admm_chunk_wrappers(cuda):
+    """CPU tensors take the plain version through admm_chunk (no launch);
+    the launcher refuses float64, a CPU operand and a transposed view."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    t = _to(admm_chunk_inputs(4, 5, 6, seed=1), cuda)
+    args = [t[k] for k in CHUNK_ARGS]
+    before = ak.admm_chunk_launches
+    ak.admm_chunk(*(a.cpu() for a in args), alpha=1.6, seg=3)
+    assert ak.admm_chunk_launches == before
+    ak.admm_chunk(*args, alpha=1.6, seg=3)
+    assert ak.admm_chunk_launches == before + 1
+    with pytest.raises(TypeError):
+        ak.admm_chunk_kernel(args[0].double(), *args[1:], alpha=1.6, seg=3)
+    with pytest.raises(ValueError):
+        ak.admm_chunk_kernel(*args[:-1], args[-1].cpu(), alpha=1.6, seg=3)
+    with pytest.raises(ValueError):
+        ak.admm_chunk_kernel(args[0].mT, *args[1:], alpha=1.6, seg=3)
+
+
+@pytest.mark.parametrize("batch,n,m", [(256, 32, 33), (256, 16, 32), (32, 128, 129)],
+                         ids=["n32", "n16", "n128"])
+def test_qp_solve_fused_on_cuda_matches_plain_float64(cuda, batch, n, m):
+    """qp_solve_batch(impl="fused") on the card (K5 in float32, 4 rho
+    epochs) and the same solve on the CPU in float64: statuses agree, and
+    where iteration and rho-update counts agree (>= 99 % of problems) the
+    iterates agree to 5e-4 (an adopted rho carries ~1e-3 relative float32
+    noise; the trajectories part by up to the ADMM tolerance)."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+
+    arrs = qp_inputs(batch, n, m, seed=5 * n, dtype=np.float32)
+    qp32, _ = _qp(_to(arrs, cuda))
+    qp64 = QuadraticProblem(*(getattr(qp32, k).double().cpu() for k in LEAVES))
+    before = ak.admm_chunk_launches
+    r32 = qp_solve_batch(qp32, QP_BENCH, impl="fused")
+    torch.cuda.synchronize()
+    assert ak.admm_chunk_launches == before + 8  # 200 iterations in chunks of 25
+    r64 = qp_solve_batch(qp64, QP_BENCH, impl="fused")
+    assert int(r64.info.rho_updates.max()) >= 2
+    assert torch.equal(r32.info.status.cpu(), r64.info.status)
+    same = ((r32.info.iter.cpu() == r64.info.iter)
+            & (r32.info.rho_updates.cpu() == r64.info.rho_updates))
+    assert same.float().mean() >= 0.99
+    for k in ("x", "z", "y"):
+        torch.testing.assert_close(getattr(r32, k).cpu()[same].double(),
+                                   getattr(r64, k)[same], atol=5e-4, rtol=5e-4)
+
+
+def test_fused_sqp_on_cuda_matches_cpu_plain_path(cuda):
+    """sqp_solve_batch with qp_impl="fused" on the card (K5, K2) against
+    the same solve on the CPU (plain versions): same statuses, solutions
+    within float32 noise; K5 launched 5 chunks per outer iteration."""
+    from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    settings = SQPSettings(max_iter=3, eps_prim=2e-3, eps_dual=2e-3, termination="kkt",
+                           schedule="fixed", qp_impl="fused", polish=True,
+                           polish_passes=2, line_search_max_iter=5, qp=MAIN_QP)
+    res = {}
+    for dev in ("cpu", cuda):
+        prob, x0 = sphere_cap_nlp_batch(64, 16, seed=4, dtype=torch.float32, device=dev)
+        k5, k2 = ak.admm_chunk_launches, qk.polish_kkt_launches
+        res[str(dev)] = sqp_solve_batch(prob, x0, None, settings, impl="fused")
+        launches = (ak.admm_chunk_launches - k5, qk.polish_kkt_launches - k2)
+        assert launches == ((0, 0) if dev == "cpu" else (15, 2))
+    a, b = res["cpu"], res["cuda"]
+    np.testing.assert_array_equal(a.info.status.numpy(), b.info.status.cpu().numpy())
+    assert (a.info.status == 0).all()
+    np.testing.assert_allclose(b.x.cpu().numpy(), a.x.numpy(), atol=1e-5)

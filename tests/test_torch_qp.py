@@ -230,6 +230,10 @@ def test_qp_path_refuses_what_it_does_not_cover(kind):
         settings = dataclasses.replace(settings, acceleration="anderson")
     elif kind == "scaling":
         settings = dataclasses.replace(settings, scaling=10)
+    elif kind == "fused":  # the fused tier is ported; its structured backends are not
+        settings = dataclasses.replace(settings, linear_solver="schur_block_tridiag",
+                                       block_size=3)
+        impl = kind
     else:
         impl = kind
     with pytest.raises(err, match="ROADMAP|check_comp_slack"):

@@ -202,6 +202,11 @@ def test_main_path_float32_meets_the_closed_form():
     ["scaling", "anderson", "qp_impl", "impl", "polish_n"],
 )
 def test_outside_the_slice_raises_not_implemented(kind):
+    """What the port does not have yet raises, naming its ROADMAP item:
+    scaling and K1's in-kernel Anderson on the kernel tier, the structured
+    tier (``qp_impl="kernel_btd"``), ``impl="vmap"``, and scaling on the
+    fused tier at n = 129 (the fused tier and SQP polish above n = 128 no
+    longer raise: tests/test_torch_fused.py)."""
     pp, px0 = port_models.sphere_cap_nlp_batch(2, 4, seed=0, dtype=torch.float64,
                                                device="cpu")
     settings, impl = HEADLINE, "fused"
@@ -211,12 +216,14 @@ def test_outside_the_slice_raises_not_implemented(kind):
         settings = dataclasses.replace(
             HEADLINE, qp=dataclasses.replace(HEADLINE.qp, acceleration="anderson"))
     elif kind == "qp_impl":
-        settings = dataclasses.replace(HEADLINE, qp_impl="fused")
+        settings = dataclasses.replace(HEADLINE, qp_impl="kernel_btd",
+                                       qp=dataclasses.replace(HEADLINE.qp, block_size=2))
     elif kind == "impl":
         impl = "vmap"
     else:
         pp, px0 = port_models.sphere_cap_nlp_batch(2, 129, seed=0, dtype=torch.float64,
                                                    device="cpu")
-        settings = dataclasses.replace(HEADLINE, max_iter=1)
+        settings = dataclasses.replace(HEADLINE, max_iter=1, qp_impl="fused",
+                                       qp=dataclasses.replace(HEADLINE.qp, scaling=10))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sqp_solve_batch(pp, px0, None, settings, impl=impl)
