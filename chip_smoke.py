@@ -19,7 +19,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel (K5), one chunk, at n = 32, m = 33, B = 4096 (seg 10 and 25),
    n = 16, m = 32, B = 4096 (seg 25) and n = 128, m = 129, B = 1024
    (seg 10, part of W read from device memory); the time of the fused
-   tier's library factorization at n = 32 and n = 128;
+   tier's library factorization at n = 32 and n = 128; the structured
+   kernel's QP entry (K6) on random block-tridiagonal QPs without equality
+   rows (n = 192, m = 320, B = 4096, one rho epoch, atol = rtol = 1e-4)
+   and, with rho epochs, on the stage-wise MPC family at horizon 64
+   (B = 256 and 4096), where the kernel and the plain float32 version are
+   each held against the plain float64 version at ``EPOCH_TOL``; its SQP
+   step entry (K7) likewise on the unicycle NLP's first-iteration QPs at
+   horizons 32 and 48 (B = 64);
 4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
    the closed-form optimum and an independent float64 KKT certificate,
@@ -38,7 +45,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps through the fused tier;
 7. sustained NLP serving, ``sqp_solve_sequence``: one cold sphere-cap
    solve (n = 32, B = 4096) and 8 warm steps, the last step certified in
-   float64.
+   float64;
+8. the structured MPC QP, ``qp_solve_batch(impl="kernel")`` with
+   ``linear_solver="schur_block_tridiag"`` (one K6 launch) on the
+   stage-wise MPC at horizon 64, B = 256 and 4096, against the dense K3 on
+   the same problems: statuses, x where both solved, and the float64 OSQP
+   test of every SOLVED problem;
+9. the structured NLP, ``sqp_solve_batch(qp_impl="kernel_btd")`` on the
+   unicycle family at horizon 32, B = 64 (120 K7 and 3 K2 launches; 240 K7
+   with the second-order correction), against the dense kernel tier (K1),
+   every SOLVED problem certified in float64.
 
 Each path run starts with every launch counter at 0 and asserts the
 counts it reads right after.  The line before the last two is
@@ -63,8 +79,11 @@ K2_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:709"
 K3_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:1622"
 K4_SOURCE = "sqp_solver_tpu/ops/qp_kernel.py:535"
 K5_SOURCE = "sqp_solver_tpu/ops/admm_kernel.py:132"
+K6_SOURCE = "sqp_solver_tpu/ops/qp_kernel_btd.py:402"
+K7_SOURCE = "sqp_solver_tpu/ops/qp_kernel_btd.py:569"
 CU_SOURCE = "sqp_solver_tpu_torch/csrc/qp_kernel.cu"
 K5_CU_SOURCE = "sqp_solver_tpu_torch/csrc/admm_kernel.cu"
+BTD_CU_SOURCE = "sqp_solver_tpu_torch/csrc/qp_kernel_btd.cu"
 TOL = 1e-4  # atol = rtol for float32 kernel vs float32 plain version
 # atol = rtol where an adapted rho drives refactors: float32 kernel and
 # float32 plain version each against the plain version in float64.  An
@@ -72,12 +91,19 @@ TOL = 1e-4  # atol = rtol for float32 kernel vs float32 plain version
 # part by up to ~1e-4 (the ADMM's own termination tolerance) before they
 # stop at the same iteration
 EPOCH_TOL = 5e-4
+# the structured kernels on families with equality rows (the stage-wise
+# MPC, the unicycle NLP's dynamics): float32 trajectories part from the
+# float64 one (ROADMAP Queue 3), so the kernel must agree with float64
+# (iteration and rho-update counts) on at least this share of what the
+# plain float32 version agrees on
+BTD_AGREE = 0.9
 # the card's published peaks (H100 SXM data sheet): float32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 COUNTERS = ("sqp_step_launches", "polish_kkt_launches", "qp_solve_launches",
-            "spd_inverse_launches", "admm_chunk_launches")
+            "spd_inverse_launches", "admm_chunk_launches", "qp_solve_btd_launches",
+            "btd_step_launches")
 CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "yp")
 LEAVES = ("P", "q", "A", "l", "u")
 
@@ -119,9 +145,11 @@ def bound(flops: float, nbytes: float):
 
 def counter_module(name: str):
     """The module whose launch counter ``name`` is."""
-    from sqp_solver_tpu_torch.ops import admm_kernel, qp_kernel
+    from sqp_solver_tpu_torch.ops import admm_kernel, qp_kernel, qp_kernel_btd
 
-    return admm_kernel if name == "admm_chunk_launches" else qp_kernel
+    if name == "admm_chunk_launches":
+        return admm_kernel
+    return qp_kernel_btd if name in ("qp_solve_btd_launches", "btd_step_launches") else qp_kernel
 
 
 def reset_counts():
@@ -465,10 +493,18 @@ def time_library_factor(batch: int, n: int, m: int, dev, reps: int) -> dict:
 
 
 def qp_cert64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
-    """Independent float64 check in numpy, no solver code: the OSQP
-    termination test (primal |Ax - proj(Ax)|, dual |Px + q + A'y|,
-    against eps_abs + eps_rel scale) with ``slack`` times the bars, and
-    the KKT error max(stationarity, bound violation) per problem."""
+    """Independent float64 check in numpy, no solver code: the share of
+    problems passing the OSQP termination test (primal |Ax - proj(Ax)|,
+    dual |Px + q + A'y|, against eps_abs + eps_rel scale) with ``slack``
+    times the bars, and the KKT error max(stationarity, bound violation)
+    per problem."""
+    ok, kkt = qp_osqp64(qp, res, eps_abs, eps_rel, slack)
+    return float(np.mean(ok)), kkt
+
+
+def qp_osqp64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
+    """Per problem: (passes the float64 OSQP test at ``slack`` times the
+    bars, KKT error), as :func:`qp_cert64`."""
     P, q, A, l, u = (getattr(qp, k).double().cpu().numpy() for k in ("P", "q", "A", "l", "u"))
     x = res.x.double().cpu().numpy()
     y = res.y.double().cpu().numpy()
@@ -482,7 +518,7 @@ def qp_cert64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
     ok = (rp <= slack * (eps_abs + eps_rel * np.maximum(inf(Ax), inf(z)))) & (
         rd <= slack * (eps_abs + eps_rel * np.maximum(np.maximum(inf(Px), inf(ATy)), inf(q))))
     viol = np.maximum(np.maximum(l - Ax, Ax - u).max(axis=1), 0.0)
-    return float(np.mean(ok)), np.maximum(rd, viol)
+    return ok, np.maximum(rd, viol)
 
 
 def run_qp_one_shot(dev, card: str, impl: str = "kernel") -> dict:
@@ -756,6 +792,343 @@ def sphere_cert_1e4(r2, x, lam) -> float:
     return float(np.mean((dr <= 1e-4) & (pv <= 1e-4)))
 
 
+def btd_qp_settings(**kw):
+    """The structured MPC cell's QP settings (bench.py:522-524): 100 ADMM
+    iterations, checked every 25 with adaptive rho every 25 (the QPSettings
+    defaults), block size 3."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    base = dict(adaptive_rho=True, max_iter=100, schedule="fixed",
+                linear_solver="schur_block_tridiag", block_size=3)
+    base.update(kw)
+    return QPSettings(**base)
+
+
+def btd_nlp_settings(qp_impl: str = "kernel_btd", soc: bool = False):
+    """The structured NLP cell (bench.py:586-595): 120 fixed outer
+    iterations, polish 3 passes, inner QP 300 ADMM iterations, block 4."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    return SQPSettings(
+        max_iter=120, eps_prim=1e-4, eps_dual=1e-4, termination="kkt", schedule="fixed",
+        polish=True, polish_passes=3, line_search_max_iter=16, qp_impl=qp_impl,
+        second_order_correction=soc,
+        qp=QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=300,
+                      check_termination=25, warm_start=True, adaptive_rho=True,
+                      adaptive_rho_interval=50, block_size=4))
+
+
+def btd_bound(out, settings, batch: int, n: int, m: int, bb: int):
+    """(bound ms, by) of one structured solve from ``_qp_btd_call``'s
+    cost estimate (sqp_solver_tpu/ops/qp_kernel_btd.py:371-376) at the
+    iterations this call took: per problem 2 (4 n bb + 2 m n) flops per
+    ADMM iteration and 2 n (2 m bb + 3 bb^2) per factorization (one per
+    adopted rho, as K3's count); B (m n + 4 n bb) floats moved."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops.qp_kernel import _schedule
+
+    seg, cpe, _ = _schedule(settings)
+    it = out.iter.double()
+    epochs = torch.clamp_min(torch.ceil(it / (cpe * seg)), 1)
+    nfact = torch.minimum(out.rho_updates.double(), epochs) * (it > 0)
+    flops = float((2 * (4 * n * bb + 2 * m * n) * it
+                   + 2 * n * (2 * m * bb + 3 * bb * bb) * nfact).sum())
+    return bound(flops, batch * (m * n + 4 * n * bb) * 4)
+
+
+def btd_raw(fn, t, settings, **kw):
+    return fn(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "x", "z", "y")), settings, **kw)
+
+
+def btd_launch(t, settings, check_infeas: bool):
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    return btd_raw(qb._qp_btd_launch, t, settings, active=t.get("active"),
+                   rho_in=t.get("rho_in"), check_infeas=check_infeas, name="chip_smoke")
+
+
+def btd_plain(t, settings, check_infeas: bool):
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    return btd_raw(qb.qp_btd_reference, t, settings, active=t.get("active"),
+                   rho_in=t.get("rho_in"), check_infeas=check_infeas)
+
+
+def compare_btd_random(batch: int, T: int, bb: int, m: int, dev, reps: int) -> dict:
+    """K6 against its plain version on random block-tridiagonal QPs without
+    equality rows (``testing.btd_qp_inputs``), one rho epoch of 200
+    iterations, at atol = rtol = 1e-4 where the iteration counts agree."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_qp_inputs
+
+    a = to_device(btd_qp_inputs(batch, T, bb, m, seed=T + m, dtype=np.float32), dev)
+    pd, pe = qb.extract_band(a["P"], bb)
+    t = dict(pd=pd, pe=pe, J=a["A"], g=a["q"], l=a["l"], u=a["u"], x=a["x"], z=a["z"],
+             y=a["y"])
+    n = T * bb
+    one = qp_bench_settings(adaptive_rho=False, linear_solver="schur_block_tridiag",
+                            block_size=bb)
+    ok = btd_launch(t, one, True)
+    ref = btd_plain(t, one, True)
+    torch.cuda.synchronize()
+    if not (torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)):
+        raise AssertionError("K6 random: fail or certificate flags differ")
+    same = ok.iter == ref.iter
+    frac = float(same.float().mean())
+    if frac < 0.99:
+        raise AssertionError(f"K6 random: iteration counts agree on {frac:.4f}")
+    err = max(check_close(f"K6 random {k}", getattr(ok, k)[same], getattr(ref, k)[same])
+              for k in ("x", "z", "y"))
+    rows = qb.smem_rows(n, m, bb)
+    log(f"  K6 random band n={n} m={m} bb={bb} B={batch}: iter agree {frac:.4f}, max |kernel - "
+        f"plain| {err:.3e}, {rows} of {m} rows of A in shared memory")
+    ms = cuda_ms(lambda: btd_launch(t, one, True), reps)
+    plain_ms = cuda_ms(lambda: btd_plain(t, one, True), max(1, reps // 4))
+    bound_ms, bound_by = btd_bound(ok, one, batch, n, m, bb)
+    return dict(family="random", n=n, m=m, bb=bb, batch=batch, smem_rows=rows,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, mean_iter=float(ok.iter.float().mean()))
+
+
+def against_f64(label: str, t32, settings, check_infeas: bool) -> dict:
+    """The kernel and the plain version in float32, each against the plain
+    version in float64 at ``EPOCH_TOL`` on the problems that float64 solved
+    and whose iteration and rho-update counts agree with it (an unsolved
+    problem stops mid-flight, where float32 and float64 trajectories that
+    parted are far apart); returns the agreement shares and the largest
+    differences."""
+    import torch
+
+    t64 = {k: (v.double() if v.dtype == torch.float32 else v) for k, v in t32.items()}
+    p64 = btd_plain(t64, settings, check_infeas)
+    outs = (("kernel", btd_launch(t32, settings, check_infeas)),
+            ("plain", btd_plain(t32, settings, check_infeas)))
+    torch.cuda.synchronize()
+    res = {}
+    for name, out in outs:
+        agree = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        cmp = agree & p64.done & ~p64.fail
+        e = 0.0
+        for k in ("x", "z", "y"):
+            a, b = getattr(out, k)[cmp].double(), getattr(p64, k)[cmp]
+            if not torch.allclose(a, b, atol=EPOCH_TOL, rtol=EPOCH_TOL):
+                raise AssertionError(f"{label}: {name} {k} differs from f64 by "
+                                     f"{max_err(a, b):.3e}")
+            e = max(e, max_err(a, b))
+        res[name] = dict(agree=float(agree.float().mean()), max_err=e,
+                         status_agree=float((out.done == p64.done).float().mean()),
+                         solved64=float((p64.done & ~p64.fail).float().mean()))
+    if res["kernel"]["agree"] < BTD_AGREE * res["plain"]["agree"]:
+        raise AssertionError(f"{label}: the kernel agrees with f64 on {res['kernel']['agree']:.4f}"
+                             f", the plain float32 version on {res['plain']['agree']:.4f}")
+    return dict(res, outs=dict(outs))
+
+
+def compare_btd_mpc(batch: int, dev, reps: int) -> dict:
+    """K6 on the stage-wise MPC family at horizon 64 (n = 192, m = 320,
+    equality rows, rho epochs): the kernel and the plain float32 version
+    each against the plain float64 version (``against_f64``)."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    qp, b = mpc_qp_stagewise_batch(batch, horizon=64, seed=batch, device=dev)
+    bb = qb.btd_internal_block(b)
+    pd, pe = qb.extract_band(qp.P, bb)
+    n, m = qp.q.shape[-1], qp.l.shape[-1]
+    t = dict(pd=pd, pe=pe, J=qp.A, g=qp.q, l=qp.l, u=qp.u,
+             x=torch.zeros((batch, n), device=dev), z=torch.zeros((batch, m), device=dev),
+             y=torch.zeros((batch, m), device=dev))
+    s = btd_qp_settings()
+    r = against_f64(f"K6 MPC B={batch}", t, s, True)
+    log(f"  K6 MPC horizon {n // 3} n={n} m={m} B={batch}: vs plain f64, iter and rho agree on "
+        f"kernel {r['kernel']['agree']:.4f} / plain f32 {r['plain']['agree']:.4f}, max diff "
+        f"kernel {r['kernel']['max_err']:.3e} / plain f32 {r['plain']['max_err']:.3e}")
+    ms = cuda_ms(lambda: btd_launch(t, s, True), reps)
+    plain_ms = cuda_ms(lambda: btd_plain(t, s, True), max(1, reps // 4))
+    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, batch, n, m, bb)
+    return dict(family="mpc", n=n, m=m, bb=bb, batch=batch, smem_rows=qb.smem_rows(n, m, bb),
+                max_abs_err=r["kernel"]["max_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
+                mean_iter=float(r["outs"]["kernel"].iter.float().mean()))
+
+
+def compare_btd_step(horizon: int, batch: int, dev, reps: int) -> dict:
+    """K7 on the first outer iteration's QPs of the unicycle NLP
+    (``mpc_nlp_stagewise_batch``, the band reset to I, the Jacobian and
+    gradient at the rollout start), a carried rho on every second problem
+    and the last problem inactive, in the NLP cell's inner-QP settings: the
+    kernel and the plain float32 version against the plain float64 one."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_nlp_stagewise_batch
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.sqp.common import batched_callables
+
+    settings = btd_nlp_settings()
+    problem, x0, b = mpc_nlp_stagewise_batch(batch, horizon=horizon, seed=horizon, device=dev)
+    f_lin, _, _, c_lin, _ = batched_callables(problem, settings)
+    _, g = f_lin(x0)
+    c, J = c_lin(x0)
+    n, m = x0.shape[-1], c.shape[-1]
+    bb = qb.btd_internal_block(b)
+    eye = torch.eye(bb, device=dev).expand(batch, n // bb, bb, bb).contiguous()
+    active = torch.ones(batch, dtype=torch.bool, device=dev)
+    active[-1] = False
+    rho_in = torch.where(torch.arange(batch, device=dev) % 2 == 1, 0.37, 0.0)
+    t = dict(pd=eye, pe=torch.zeros_like(eye), J=J, g=g, l=(problem.l - c).contiguous(),
+             u=(problem.u - c).contiguous(), x=torch.zeros_like(x0),
+             z=torch.zeros_like(c), y=torch.zeros_like(c), active=active, rho_in=rho_in)
+    s = settings.qp
+    r = against_f64(f"K7 horizon {horizon}", t, s, False)
+    log(f"  K7 NLP step horizon {horizon} n={n} m={m} B={batch}: f64 solved "
+        f"{r['kernel']['solved64']:.4f}; vs plain f64, iter and rho agree on kernel "
+        f"{r['kernel']['agree']:.4f} / plain f32 {r['plain']['agree']:.4f}, "
+        f"max diff kernel {r['kernel']['max_err']:.3e} / plain f32 {r['plain']['max_err']:.3e}")
+    ms = cuda_ms(lambda: btd_launch(t, s, False), reps)
+    plain_ms = cuda_ms(lambda: btd_plain(t, s, False), max(1, reps // 4))
+    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, batch, n, m, bb)
+    return dict(family=f"nlp step horizon {horizon}", n=n, m=m, bb=bb, batch=batch,
+                smem_rows=qb.smem_rows(n, m, bb), max_abs_err=r["kernel"]["max_err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
+                mean_iter=float(r["outs"]["kernel"].iter.float().mean()))
+
+
+def run_btd_mpc(dev, card: str, batches=(256, 4096), horizon: int = 64) -> dict:
+    """qp_solve_batch(impl="kernel") with linear_solver="schur_block_tridiag"
+    (bench.py:500-557) on the stage-wise MPC family at horizon 64, B = 256
+    and B = 4096, counters from 0 (one K6 launch per call), then the same
+    problems through the dense K3 (one launch): statuses equal on >= 0.99,
+    x within 2e-4 where both solved, every SOLVED problem passing the
+    float64 OSQP test at 10x the bars."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+
+    s = btd_qp_settings()
+    dense = dataclasses.replace(s, linear_solver="schur_cholesky", block_size=0)
+
+    def timed(batch, settings, seed):
+        qp, _ = mpc_qp_stagewise_batch(batch, horizon=horizon, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = qp_solve_batch(qp, settings, impl="kernel")
+        torch.cuda.synchronize()
+        return qp, res, time.perf_counter() - t0
+
+    out, counts = {}, {}
+    for batch in batches:
+        runs = {}
+        for label, settings, want in (("btd", s, expect(qp_solve_btd_launches=1)),
+                                      ("dense", dense, expect(qp_solve_launches=1))):
+            timed(batch, settings, 100)  # warm-up
+            reset_counts()
+            qp, res, wall = timed(batch, settings, 0)
+            c = read_counts()
+            if c != want:
+                raise AssertionError(f"structured MPC B={batch} {label}: launches {c}, "
+                                     f"expected {want}")
+            times = [wall] + [timed(batch, settings, 10 + r)[2] for r in range(2)]
+            runs[label] = (qp, res, min(times), c)
+        qp, rb, tb, cb = runs["btd"]
+        _, rd, td, cd = runs["dense"]
+        sb, sd = rb.info.status, rd.info.status
+        if rb.x.shape != (batch, 3 * horizon) or not torch.isfinite(rb.x).all():
+            raise AssertionError("structured MPC: x has the wrong shape or is not finite")
+        same = float((sb == sd).float().mean())
+        if same < 0.99:
+            raise AssertionError(f"structured MPC B={batch}: statuses equal K3's on {same:.4f}")
+        both = (sb == 0) & (sd == 0)
+        xerr = max_err(rb.x[both], rd.x[both])
+        if xerr > 2e-4:
+            raise AssertionError(f"structured MPC B={batch}: x differs from K3's by {xerr:.3e}")
+        ok, _ = qp_osqp64(qp, rb, s.eps_abs, s.eps_rel)
+        solved = (sb == 0).cpu().numpy()
+        if not ok[solved].all():
+            raise AssertionError(f"structured MPC B={batch}: {int((~ok[solved]).sum())} SOLVED "
+                                 "problems fail the f64 OSQP test")
+        frac_b, frac_d = float(np.mean(solved)), float((sd == 0).float().mean())
+        log(f"  structured MPC horizon {horizon} n={3 * horizon} m={5 * horizon} B={batch}: K6 "
+            f"{tb * 1e3:.3f} ms, dense K3 "
+            f"{td * 1e3:.3f} ms (dense / structured {td / tb:.2f}x), solved {frac_b:.4f} / "
+            f"{frac_d:.4f}, statuses equal {same:.4f}, max |x_K6 - x_K3| {xerr:.3e}, SOLVED "
+            f"pass the f64 OSQP test (10x) [min of 3; {card}]")
+        counts[f"btd_mpc_b{batch}"] = cb
+        out[batch] = dict(ms=tb * 1e3, dense_ms=td * 1e3, ratio=td / tb, solved=frac_b,
+                          dense_solved=frac_d, status_equal=same, x_err=xerr,
+                          solves_per_s=batch / tb, dense_counts=cd)
+    return dict(runs=out, counts=counts)
+
+
+def run_btd_nlp(dev, card: str, B: int = 64, H: int = 32) -> dict:
+    """sqp_solve_batch(impl="fused") with qp_impl="kernel_btd" (bench.py:
+    559-642) on the unicycle family at horizon 32 (n = 128, m = 224),
+    B = 64, counters from 0: 120 K7 and 3 K2 launches (240 K7 with the
+    second-order correction); the same instances through the dense kernel
+    tier (120 K1, 3 K2).  Certified in float64 with
+    ``mpc_nlp_kkt_residuals`` at 1e-4; every SOLVED problem of the
+    structured tier must certify."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_nlp_kkt_residuals, mpc_nlp_stagewise_batch
+    from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
+
+    def solve(settings, seed):
+        problem, x0, _ = mpc_nlp_stagewise_batch(B, horizon=H, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sqp_solve_batch(problem, x0, None, settings, impl="fused")
+        torch.cuda.synchronize()
+        return problem, res, time.perf_counter() - t0
+
+    out, counts = {}, {}
+    for label, settings, want in (
+        ("btd", btd_nlp_settings(), expect(btd_step_launches=120, polish_kkt_launches=3)),
+        ("dense", btd_nlp_settings("kernel"), expect(sqp_step_launches=120,
+                                                     polish_kkt_launches=3)),
+        ("btd_soc", btd_nlp_settings(soc=True), expect(btd_step_launches=240,
+                                                        polish_kkt_launches=3)),
+    ):
+        solve(settings, 100)  # warm-up
+        reset_counts()
+        problem, res, wall = solve(settings, 0)
+        c = read_counts()
+        if c != want:
+            raise AssertionError(f"structured NLP {label}: launches {c}, expected {want}")
+        times = [wall] + [solve(settings, 1 + r)[2] for r in range(2)]
+        if res.x.shape != (B, 4 * H) or not torch.isfinite(res.x).all():
+            raise AssertionError(f"structured NLP {label}: x has the wrong shape or is not "
+                                 "finite")
+        pv, dr = mpc_nlp_kkt_residuals(problem, res.x, res.lam, H)
+        cert = (pv <= 1e-4) & (dr <= 1e-4)
+        solved = (res.info.status == 0).cpu().numpy()
+        if label != "dense" and not cert[solved].all():
+            raise AssertionError(f"structured NLP {label}: {int((~cert[solved]).sum())} SOLVED "
+                                 "problems fail the f64 certificate at 1e-4")
+        t = min(times)
+        log(f"  structured NLP {label} horizon {H} n={4 * H} m={7 * H} B={B}: solved "
+            f"{solved.mean():.4f}, f64 cert(1e-4) {cert.mean():.4f}, SOLVED certified "
+            f"{cert[solved].mean() if solved.any() else float('nan'):.4f}, wall {t * 1e3:.3f} "
+            f"ms ({B / t:.1f} solves/s) [min of 3; {card}]")
+        out[label] = dict(ms=t * 1e3, solved=float(solved.mean()), cert=float(cert.mean()),
+                          solves_per_s=B / t, counts=c)
+        if label != "dense":
+            counts[f"btd_nlp_{label}" if label != "btd" else "btd_nlp"] = c
+    ratio = out["dense"]["ms"] / out["btd"]["ms"]
+    log(f"  structured NLP: dense kernel tier / structured tier wall {ratio:.2f}x")
+    return dict(runs=out, counts=counts, ratio=ratio)
+
+
 def run_main_path(configs, dev, card: str, qp_impl: str = "kernel") -> dict:
     """Both configurations end to end on the kernel (K1) or the fused (K5)
     QP tier, each run with the counters from 0 and its launches asserted:
@@ -852,7 +1225,9 @@ def main() -> int:
         f"into {_build.build_dir()}")
 
     # 3. each kernel against its plain version at its paths' shapes
-    log("kernels against their plain versions (float32, atol = rtol = 1e-4):")
+    log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
+        "or equality rows, float32 kernel and plain each against plain float64 at "
+        f"{EPOCH_TOL}):")
     k1 = [compare_step(4096, 32, dev, reps=20), compare_step(1024, 128, dev, reps=8)]
     k2 = [compare_polish(4096, 32, 6, dev, reps=20), compare_polish(1024, 128, 4, dev, reps=8)]
     k3 = [compare_qp("random", 4096, 32, dev, reps=10), compare_qp("mpc", 4096, 16, dev, reps=10)]
@@ -864,11 +1239,16 @@ def main() -> int:
           compare_chunk(1024, 128, 129, 10, dev, reps=8)]
     factor_ms = [time_library_factor(4096, 32, 33, dev, reps=10),
                  time_library_factor(1024, 128, 129, dev, reps=5)]
+    k6 = [compare_btd_random(4096, 24, 8, 320, dev, reps=5),
+          compare_btd_mpc(256, dev, reps=10), compare_btd_mpc(4096, dev, reps=5)]
+    k7 = [compare_btd_step(32, 64, dev, reps=10), compare_btd_step(48, 64, dev, reps=10)]
     for name, rows in (("sqp_step", k1), ("polish_kkt", k2), ("qp_solve", k3),
-                       ("spd_inverse", k4), ("admm_chunk", k5)):
+                       ("spd_inverse", k4), ("admm_chunk", k5), ("qp_solve_btd", k6),
+                       ("btd_step", k7)):
         for r in rows:
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
             seg = f" seg={r['seg']}" if "seg" in r else ""
+            seg += f" {r['family']}" if "bb" in r else ""
             log(f"  {name} n={r['n']} B={r['batch']}{seg}: kernel {r['ms']:.3f} ms, "
                 f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}) [{card}]")
@@ -887,15 +1267,21 @@ def main() -> int:
     mpc_fused_run = run_mpc_sequence(dev, card, impl="fused")
     log("sustained NLP serving: sqp_solve_sequence:")
     nlp_run = run_nlp_sequence(dev, card)
+    log("structured MPC QP: qp_solve_batch(impl='kernel', linear_solver="
+        "'schur_block_tridiag') against the dense K3:")
+    btd_mpc_run = run_btd_mpc(dev, card)
+    log("structured NLP: sqp_solve_batch(qp_impl='kernel_btd') against the dense kernel tier:")
+    btd_nlp_run = run_btd_nlp(dev, card)
     paths = dict(
         **{f"sqp_main_n{n}": c for n, c in main_run["launches"].items()},
         **{f"sqp_fused_n{n}": c for n, c in fused_run["launches"].items()},
         nlp_sustained=nlp_run["counts"], mpc_sustained=mpc_run["counts"],
         mpc_sustained_fused=mpc_fused_run["counts"], qp_fused_certificates=infeas_run["counts"],
         **{f"qp_one_shot_{k}": v["counts"] for k, v in qp_run["runs"].items()},
-        **{f"qp_fused_one_shot_{k}": v["counts"] for k, v in qp_fused_run["runs"].items()})
+        **{f"qp_fused_one_shot_{k}": v["counts"] for k, v in qp_fused_run["runs"].items()},
+        **btd_mpc_run["counts"], **btd_nlp_run["counts"])
 
-    def entry(name, replaces, rows, source=CU_SOURCE):
+    def entry(name, replaces, rows, source=CU_SOURCE, **extra):
         head = rows[0]
         counter = f"{name}_launches"
         by_path = {p: c[counter] for p, c in paths.items() if c[counter]}
@@ -907,17 +1293,21 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             launches_by_path=by_path, shape=dict(n=head["n"], batch=head["batch"]),
-            by_shape=rows,
+            by_shape=rows, **extra,
         )
 
+    no_lib = "none: no single PyTorch call computes a whole block-tridiagonal ADMM solve"
     kernels = [entry("sqp_step", K1_SOURCE, k1), entry("polish_kkt", K2_SOURCE, k2),
                entry("qp_solve", K3_SOURCE, k3), entry("spd_inverse", K4_SOURCE, k4),
-               entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE)]
+               entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE),
+               entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib),
+               entry("btd_step", K7_SOURCE, k7, source=BTD_CU_SOURCE, library_note=no_lib)]
     log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
                         library_factor=factor_ms,
                         qp_one_shot=qp_run, qp_fused_one_shot=qp_fused_run,
                         qp_fused_certificates=infeas_run, mpc_sustained=mpc_run,
-                        mpc_sustained_fused=mpc_fused_run, nlp_sustained=nlp_run, card=card)))
+                        mpc_sustained_fused=mpc_fused_run, nlp_sustained=nlp_run,
+                        btd_mpc=btd_mpc_run, btd_nlp=btd_nlp_run, card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),

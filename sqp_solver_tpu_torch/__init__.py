@@ -5,11 +5,15 @@ batched SQP solve, ``parallel.sqp_solve_batch(impl="fused")`` with
 ``SQPSettings(qp_impl="kernel")`` (the main path) or ``qp_impl="fused"``
 (the default), the batched QP serving paths,
 ``parallel.qp_solve_batch(impl="kernel")`` and ``(impl="fused")`` with
-their polish, and the sustained ``qp_solve_sequence`` /
-``sqp_solve_sequence`` over either tier.  Their five kernels (SQP step,
-polish KKT, whole QP and SPD inverse in ``csrc/qp_kernel.cu``, the ADMM
-chunk in ``csrc/admm_kernel.cu``) are hand-written CUDA for sm_90a, each
-beside its plain PyTorch version.  Public functions are batch-first;
+their polish, the sustained ``qp_solve_sequence`` /
+``sqp_solve_sequence`` over either tier, and the structured tier for
+stage-wise problems: ``qp_solve_batch(impl="kernel")`` with
+``linear_solver="schur_block_tridiag"`` and ``sqp_solve_batch`` with
+``qp_impl="kernel_btd"``.  Their kernels (SQP step, polish KKT, whole QP
+and SPD inverse in ``csrc/qp_kernel.cu``, the ADMM chunk in
+``csrc/admm_kernel.cu``, the block-tridiagonal whole QP with its two
+entry points in ``csrc/qp_kernel_btd.cu``) are hand-written CUDA for
+sm_90a, each beside its plain PyTorch version.  Public functions are batch-first;
 settings, statuses and field names are the JAX package's.  Generators
 and constructors put their tensors on the card unless asked for another
 device; solvers run on the device of their inputs.  Parts outside the

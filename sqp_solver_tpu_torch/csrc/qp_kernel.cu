@@ -19,12 +19,14 @@
 // from a block reduction, so it is block-uniform and __syncthreads() never
 // sits under a thread-divergent branch.
 //
-// The three pieces the TPU kernels share are device functions here, shared
-// by the four kernels:
+// The three pieces the TPU kernels share are device functions in
+// admm_core.cuh, shared by the four kernels here and by the structured
+// kernel (qp_kernel_btd.cu):
 //   schur_build      M = P + sigma I + A' diag(w) A     (_factor_schur_refs)
 //   cholesky_inplace, tri_inv, ltl                      (_chol_inv_ltl)
 //   admm_solve       rho epochs / chunks / adaptive rho /
-//                    infeasibility certificates         (_admm_core)
+//                    infeasibility certificates         (_admm_core), run
+//                    here with the dense operator DenseOp
 //
 // Numerics follow the TPU kernels where they decide a flag or a branch:
 // float32 storage and accumulation; the explicit inverse Minv = L^-T L^-1
@@ -40,370 +42,9 @@
 // device memory that the wrapper allocates.  At n = 32 and at n = 128
 // (m = n + 1) every matrix fits; the workspace serves larger n or m.
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "admm_core.cuh"
 
 namespace {
-
-constexpr int kMaxSmemBytes = 232448;  // per block on sm_90
-constexpr int kRedSlots = 8 * 32;      // up to 8 values reduced at once
-constexpr float kRhoMin = 1e-6f;
-constexpr float kRhoMax = 1e6f;
-constexpr float kRhoTol = 1e-4f;
-constexpr float kRhoEqFactor = 1e3f;
-constexpr float kLooseThresh = 1e16f;
-
-// max that propagates NaN like jnp.maximum / torch.maximum
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || isnan(a)) ? a : b;
-}
-
-// min that propagates NaN like jnp.minimum / torch.minimum
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || isnan(a)) ? a : b;
-}
-
-// clip that propagates NaN like jnp.clip
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// Block-wide reductions of K values at once.  Every thread returns the same
-// result (the partials are summed in the same order by every thread).
-template <int K>
-__device__ void block_sum(float (&v)[K], float* red) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
-  __syncthreads();  // the previous reduction's readers are done with red
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[k * 32 + w] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float r = 0.f;
-    for (int i = 0; i < nw; ++i) r += red[k * 32 + i];
-    v[k] = r;
-  }
-}
-
-template <int K>
-__device__ void block_max(float (&v)[K], float* red) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    for (int o = 16; o > 0; o >>= 1) v[k] = nan_max(v[k], __shfl_xor_sync(0xffffffffu, v[k], o));
-  __syncthreads();
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[k * 32 + w] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float r = red[k * 32];
-    for (int i = 1; i < nw; ++i) r = nan_max(r, red[k * 32 + i]);
-    v[k] = r;
-  }
-}
-
-// y = M x for M (rows x cols, row stride ld); one thread per row.  No sync.
-__device__ __forceinline__ void mv(const float* M, int ld, int rows, int cols,
-                                   const float* x, float* y) {
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    const float* r = M + (size_t)i * ld;
-    float acc = 0.f;
-    for (int j = 0; j < cols; ++j) acc = fmaf(r[j], x[j], acc);
-    y[i] = acc;
-  }
-}
-
-// y = M' x for M (rows x cols, row stride ld); one thread per column.  No sync.
-__device__ __forceinline__ void mtv(const float* M, int ld, int rows, int cols,
-                                    const float* x, float* y) {
-  for (int j = threadIdx.x; j < cols; j += blockDim.x) {
-    float acc = 0.f;
-    for (int i = 0; i < rows; ++i) acc = fmaf(M[(size_t)i * ld + j], x[i], acc);
-    y[j] = acc;
-  }
-}
-
-// W (lower triangle) = P + sigma I + A' diag(w) A.  Twin of _factor_schur_refs.
-__device__ void schur_build(float* W, int ldw, const float* P, int ldp, const float* A,
-                            int lda, const float* w, float sigma, int n, int m) {
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e - i * n;
-    if (j > i) continue;
-    float acc = 0.f;
-    for (int k = 0; k < m; ++k) acc = fmaf(A[k * lda + i] * w[k], A[k * lda + j], acc);
-    W[i * ldw + j] = P[(size_t)i * ldp + j] + (i == j ? sigma : 0.f) + acc;
-  }
-  __syncthreads();
-}
-
-// In-place lower Cholesky of W by columns (right-looking).  A pivot d <= 0
-// or NaN sets the returned fail flag and is clamped to max(d, 1e-30), as
-// in _chol_inv_ltl.  Block-uniform result.
-__device__ bool cholesky_inplace(float* W, int ld, int n) {
-  bool fail = false;
-  for (int j = 0; j < n; ++j) {
-    const float d = W[j * ld + j];
-    fail = fail || (d <= 0.f) || isnan(d);
-    const float dc = nan_max(d, 1e-30f);
-    const float rs = rsqrtf(dc);
-    __syncthreads();  // every thread has read the pivot
-    for (int i = j + 1 + threadIdx.x; i < n; i += blockDim.x) W[i * ld + j] *= rs;
-    if (threadIdx.x == 0) W[j * ld + j] = sqrtf(dc);
-    __syncthreads();
-    const int r = n - j - 1;
-    for (int e = threadIdx.x; e < r * r; e += blockDim.x) {
-      const int a = e / r, b = e - a * r;
-      if (b > a) continue;
-      const int i = j + 1 + a, k = j + 1 + b;
-      W[i * ld + k] = fmaf(-W[i * ld + j], W[k * ld + j], W[i * ld + k]);
-    }
-    __syncthreads();
-  }
-  return fail;
-}
-
-// Li = L^-1 for the lower-triangular L held in the lower triangle of Lm:
-// one thread per column, forward substitution, dividing by max(L_ii, 1e-30).
-__device__ void tri_inv(const float* Lm, int ldl, float* Li, int ldi, int n) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    for (int i = 0; i < c; ++i) Li[i * ldi + c] = 0.f;
-    for (int i = c; i < n; ++i) {
-      float acc = 0.f;
-      for (int k = c; k < i; ++k) acc = fmaf(Lm[i * ldl + k], Li[k * ldi + c], acc);
-      Li[i * ldi + c] = ((i == c ? 1.f : 0.f) - acc) / nan_max(Lm[i * ldl + i], 1e-30f);
-    }
-  }
-  __syncthreads();
-}
-
-// W = Li' Li (full symmetric): W[i][j] = sum_{k >= max(i,j)} Li[k][i] Li[k][j].
-__device__ void ltl(const float* Li, int ldi, float* W, int ldw, int n) {
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e - i * n;
-    float acc = 0.f;
-    for (int k = max(i, j); k < n; ++k) acc = fmaf(Li[k * ldi + i], Li[k * ldi + j], acc);
-    W[i * ldw + j] = acc;
-  }
-  __syncthreads();
-}
-
-// Minv (in W) of M = P + sigma I + A' diag(w) A; Li is scratch.  Returns fail.
-__device__ bool factor_minv(float* W, float* Li, int ldm, const float* P, int ldp,
-                            const float* A, const float* w, float sigma, int n, int m) {
-  schur_build(W, ldm, P, ldp, A, ldm, w, sigma, n, m);
-  const bool fail = cholesky_inplace(W, ldm, n);
-  tri_inv(W, ldm, Li, ldm, n);
-  ltl(Li, ldm, W, ldm, n);
-  return fail;
-}
-
-// per-row rho from the scalar rho and the row classes (twin of _rho_from)
-__device__ void set_rho_vec(float* rv, const float* l, const float* u, float rho, int m) {
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const bool loose = (l[i] < -kLooseThresh) && (u[i] > kLooseThresh);
-    const bool eq = (u[i] - l[i]) < kRhoTol;
-    rv[i] = loose ? kRhoMin : (eq ? kRhoEqFactor * rho : rho);
-  }
-  __syncthreads();
-}
-
-struct StepParams {
-  int n, m;
-  float sigma, alpha, rho0, eps_abs, eps_rel;
-  int n_epochs, chunks_per_epoch, seg, adaptive_rho;
-  float adaptive_rho_tolerance;
-  int do_bfgs;
-  int check_infeas;      // infeasibility certificates at every chunk's end
-  float eps_pinf, eps_dinf;
-  int n_smem_mats;       // leading matrices [W, A, Li] held in shared memory
-  long long ws_floats;   // per-problem workspace for the others
-};
-
-// Matrix placement: the first n_smem of the sizes go to shared memory after
-// the vectors, the rest to this problem's slice of the workspace.
-template <int K>
-__device__ void place(float* (&ptr)[K], const int (&size)[K], float* smem_mats, int n_smem,
-                      float* ws, long long ws_floats) {
-  float* s = smem_mats;
-  float* g = ws ? ws + (size_t)blockIdx.x * ws_floats : nullptr;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (k < n_smem) { ptr[k] = s; s += size[k]; }
-    else { ptr[k] = g; g += size[k]; }
-  }
-}
-
-struct AdmmState {
-  bool done, fail, pending;
-  int itc, rho_upd, nfact;
-  int infs;  // certificate: 0 none, 1 primal infeasible, 2 dual infeasible
-  float rho, rho_est, rp, rd, mz, mq;
-};
-
-// One ADMM iteration in place on (x, z, y).  tn, tm are scratch.
-__device__ void admm_iter(const float* Minv, const float* A, int ld, const float* q,
-                          const float* l, const float* u, const float* rv, float* x,
-                          float* z, float* y, float* bt, float* xt, float* tm,
-                          float sigma, float alpha, int n, int m) {
-  for (int i = threadIdx.x; i < m; i += blockDim.x) tm[i] = rv[i] * z[i] - y[i];
-  __syncthreads();
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float acc = 0.f;
-    for (int i = 0; i < m; ++i) acc = fmaf(A[i * ld + j], tm[i], acc);
-    bt[j] = sigma * x[j] - q[j] + acc;
-  }
-  __syncthreads();
-  mv(Minv, ld, n, n, bt, xt);
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const float* r = A + i * ld;
-    float zt = 0.f;
-    for (int j = 0; j < n; ++j) zt = fmaf(r[j], xt[j], zt);
-    const float z_pre = alpha * zt + (1.f - alpha) * z[i];
-    const float zn = clip(z_pre + (1.f / rv[i]) * y[i], l[i], u[i]);
-    y[i] = y[i] + rv[i] * (z_pre - zn);
-    z[i] = zn;
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) x[j] = alpha * xt[j] + (1.f - alpha) * x[j];
-  __syncthreads();
-}
-
-// Termination residuals: rp = |Ax - z|, rd = |Px + q + A'y|, and their
-// relative scales (linf norms), as _admm_core's stats().
-__device__ void admm_stats(const float* P, int ldp, const float* A, int ld, const float* q,
-                           const float* x, const float* z, const float* y, float* tm,
-                           float* tn1, float* tn2, float* red, int n, int m,
-                           AdmmState& st) {
-  mv(A, ld, m, n, x, tm);
-  mv(P, ldp, n, n, x, tn1);
-  mtv(A, ld, m, n, y, tn2);
-  __syncthreads();
-  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    v[0] = nan_max(v[0], fabsf(tm[i] - z[i]));
-    v[1] = nan_max(v[1], fabsf(tm[i]));
-    v[2] = nan_max(v[2], fabsf(z[i]));
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    v[3] = nan_max(v[3], fabsf(tn1[j] + q[j] + tn2[j]));
-    v[4] = nan_max(v[4], fabsf(tn1[j]));
-    v[5] = nan_max(v[5], fabsf(tn2[j]));
-    v[6] = nan_max(v[6], fabsf(q[j]));
-  }
-  block_max(v, red);
-  st.rp = v[0];
-  st.mz = nan_max(v[1], v[2]);
-  st.rd = v[3];
-  st.mq = nan_max(v[4], nan_max(v[5], v[6]));
-}
-
-// Infeasibility certificate (OSQP section 3.4, twin of _admm_core's
-// certificates) from the chunk's deltas, which the caller has left in
-// dx (n) and dy (m).  tn1, tn2 (n) and tm (m) are scratch.  Returns the
-// block-uniform code 0 none, 1 primal infeasible, 2 dual infeasible.
-__device__ int certificate(const StepParams& p, const float* P, int ldp, const float* A,
-                           int ld, const float* q, const float* l, const float* u,
-                           const float* dx, const float* dy, float* tn1, float* tn2,
-                           float* tm, float* red) {
-  const int n = p.n, m = p.m;
-  mtv(A, ld, m, n, dy, tn1);  // A' dy
-  mv(P, ldp, n, n, dx, tn2);  // P dx
-  mv(A, ld, m, n, dx, tm);    // A dx
-  __syncthreads();
-  float mx[6] = {0.f, 0.f, 0.f, 0.f, -INFINITY, -INFINITY};
-  float sm[2] = {0.f, 0.f};
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const bool lo_l = l[i] < -kLooseThresh, lo_u = u[i] > kLooseThresh;
-    const float l_eff = lo_l ? -1e20f : l[i], u_eff = lo_u ? 1e20f : u[i];
-    mx[0] = nan_max(mx[0], fabsf(dy[i]));
-    sm[0] += u_eff * nan_max(dy[i], 0.f) + l_eff * nan_min(dy[i], 0.f);
-    if (!lo_u) mx[4] = nan_max(mx[4], tm[i]);
-    if (!lo_l) mx[5] = nan_max(mx[5], -tm[i]);
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    mx[1] = nan_max(mx[1], fabsf(tn1[j]));
-    mx[2] = nan_max(mx[2], fabsf(dx[j]));
-    mx[3] = nan_max(mx[3], fabsf(tn2[j]));
-    sm[1] = fmaf(q[j], dx[j], sm[1]);
-  }
-  block_max(mx, red);
-  block_sum(sm, red);
-  const float norm_dy = mx[0], norm_dx = mx[2], tol = p.eps_dinf * norm_dx;
-  const bool prim = (norm_dy > 0.f) && (mx[1] <= p.eps_pinf * norm_dy) &&
-                    (sm[0] <= -p.eps_pinf * norm_dy);
-  const bool dual = (norm_dx > 0.f) && (mx[3] <= p.eps_dinf * norm_dx) &&
-                    (sm[1] <= -p.eps_dinf * norm_dx) && (mx[4] <= tol) && (mx[5] <= tol);
-  return prim ? 1 : (dual ? 2 : 0);
-}
-
-// The warm-started ADMM solve of one problem (twin of _admm_core without
-// Anderson).  P is the QP Hessian (the factor's source), W holds Minv for
-// the current rho on entry and on exit (or is built in the first epoch
-// when st.pending is set on entry), Li is scratch.  With p.check_infeas,
-// xp (n) and yp (m) keep the chunk-start iterates for the certificates; a
-// certified problem commits its chunk and stops.
-__device__ void admm_solve(const StepParams& p, const float* P, int ldp, const float* A,
-                           float* W, float* Li, int ld, const float* q, const float* l,
-                           const float* u, float* rv, float* x, float* z, float* y,
-                           float* bt, float* xt, float* tm, float* tn1, float* tn2,
-                           float* xp, float* yp, float* red, AdmmState& st) {
-  const int n = p.n, m = p.m;
-  for (int e = 0; e < p.n_epochs && !st.done && !st.fail && st.infs == 0; ++e) {
-    // adopt the pending rho together with its factorization; a NaN
-    // rho_est (NaN residuals) poisons rho, as the TPU's arithmetic select
-    // does, and the refactor reports the fail
-    if (st.pending || isnan(st.rho_est)) st.rho = st.rho_est;
-    if (st.pending || isnan(st.rho)) {
-      set_rho_vec(rv, l, u, st.rho, m);
-      st.fail = factor_minv(W, Li, ld, P, ldp, A, rv, p.sigma, n, m);
-      st.nfact += 1;
-    }
-    for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail && st.infs == 0; ++c) {
-      if (p.check_infeas) {
-        for (int j = threadIdx.x; j < n; j += blockDim.x) xp[j] = x[j];
-        for (int i = threadIdx.x; i < m; i += blockDim.x) yp[i] = y[i];
-      }
-      for (int it = 0; it < p.seg; ++it)
-        admm_iter(W, A, ld, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
-      admm_stats(P, ldp, A, ld, q, x, z, y, tm, tn1, tn2, red, n, m, st);
-      if (p.check_infeas) {
-        // the deltas replace the chunk-start copies; the stats' readers of
-        // tm, tn1, tn2 are past the barriers inside block_max
-        for (int j = threadIdx.x; j < n; j += blockDim.x) xp[j] = x[j] - xp[j];
-        for (int i = threadIdx.x; i < m; i += blockDim.x) yp[i] = y[i] - yp[i];
-        __syncthreads();
-        st.infs = certificate(p, P, ldp, A, ld, q, l, u, xp, yp, tn1, tn2, tm, red);
-      }
-      const bool conv = (st.rp <= p.eps_abs + p.eps_rel * st.mz) &&
-                        (st.rd <= p.eps_abs + p.eps_rel * st.mq);
-      st.itc += p.seg;
-      st.done = conv;
-    }
-    if (p.adaptive_rho) {
-      const bool act = !st.done && !st.fail && st.infs == 0;
-      bool changed = false;
-      if (act) {
-        const float tiny = 1e-30f;
-        const float nrp = st.rp / (st.mz + tiny);
-        const float nrd = st.rd / (st.mq + tiny);
-        const float new_rho = clip(st.rho * sqrtf(nrp / (nrd + tiny)), kRhoMin, kRhoMax);
-        changed = (new_rho < st.rho / p.adaptive_rho_tolerance) ||
-                  (new_rho > st.rho * p.adaptive_rho_tolerance);
-        st.rho_est = new_rho;
-      }
-      st.rho_upd += changed ? 1 : 0;
-      st.pending = changed;
-    }
-  }
-}
 
 // K1.  Replaces sqp_solver_tpu/ops/qp_kernel.py:sqp_step_kernel.
 // Per problem: damped BFGS (Procedure 18.2) into B_out, the posdef fallback
@@ -551,8 +192,8 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
   }
   st.rho_est = st.rho;
 
-  admm_solve(p, Bn, n, A, W, Li, ld, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
-             nullptr, red, st);
+  const DenseOp op{Bn, n, A, W, Li, ld, n, m, p.sigma};
+  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr, nullptr, red, st);
 
   for (int j = tid; j < n; j += T) p_out[b * n + j] = x[j];
   for (int i = tid; i < m; i += T) {
@@ -785,8 +426,8 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
   st.rho = p.rho0 + 0.f * q[0];
   st.rho_est = st.rho;
 
-  admm_solve(p, Pb, n, A, W, Li, ld, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red,
-             st);
+  const DenseOp op{Pb, n, A, W, Li, ld, n, m, p.sigma};
+  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
 
   for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
   for (int i = tid; i < m; i += T) {

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from sqp_solver_tpu_torch.models.benchmark import sphere_cap_problem
+from sqp_solver_tpu_torch.models.mpc import mpc_nlp_stagewise_problem
 from sqp_solver_tpu_torch.qp.types import QPResult, QPState, QuadraticProblem
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem
 from sqp_solver_tpu_torch.utils.device import resolve_device
@@ -24,6 +25,9 @@ __all__ = [
     "qp_state_from_numpy",
     "hessian_from_numpy",
     "sphere_cap_from_arrays",
+    "mpc_nlp_from_arrays",
+    "band_from_kernel_layout",
+    "band_to_kernel_layout",
     "qp_from_arrays",
     "qp_result_to_numpy",
 ]
@@ -61,6 +65,31 @@ def sphere_cap_from_arrays(l, u, r, dtype=None, device=None) -> NonlinearProblem
     return sphere_cap_problem(
         _tensor(l, dtype, device), _tensor(u, dtype, device), _tensor(r, dtype, device)
     )
+
+
+def band_from_kernel_layout(a, dtype=None, device=None) -> torch.Tensor:
+    """A band of the JAX structured kernels, (n, bb, B) with rows
+    [k bb, (k+1) bb) the k-th block, as the port's (B, T, bb, bb)."""
+    a = np.moveaxis(np.asarray(a), -1, 0)
+    B, n, bb = a.shape
+    return _tensor(a.reshape(B, n // bb, bb, bb), dtype, device)
+
+
+def band_to_kernel_layout(t: torch.Tensor) -> np.ndarray:
+    """A (B, T, bb, bb) band as the JAX structured kernels' (n, bb, B)."""
+    B, T, bb, _ = t.shape
+    return to_kernel_layout(t.reshape(B, T * bb, bb))
+
+
+def mpc_nlp_from_arrays(l, u, params, horizon: int, dtype=None, device=None,
+                        **weights) -> NonlinearProblem:
+    """The unicycle family (``models.mpc.mpc_nlp_stagewise_batch``) from a
+    JAX problem's leaves: ``l``, ``u`` (B, 7 T) and ``params`` (B, 5).
+    ``weights`` (dt, speed, q_weight, r_weight, th_weight) where the
+    generator's defaults were changed."""
+    return mpc_nlp_stagewise_problem(
+        _tensor(l, dtype, device), _tensor(u, dtype, device),
+        _tensor(params, dtype, device), horizon, **weights)
 
 
 def qp_from_arrays(P, q, A, l, u, dtype=None, device=None) -> QuadraticProblem:

@@ -3,7 +3,13 @@ from sqp_solver_tpu_torch.models.benchmark import (
     sphere_cap_problem,
     sphere_cap_solution,
 )
-from sqp_solver_tpu_torch.models.mpc import mpc_qp_batch, random_qp_batch
+from sqp_solver_tpu_torch.models.mpc import (
+    mpc_nlp_kkt_residuals,
+    mpc_nlp_stagewise_batch,
+    mpc_qp_batch,
+    mpc_qp_stagewise_batch,
+    random_qp_batch,
+)
 
 __all__ = [
     "sphere_cap_nlp_batch",
@@ -11,4 +17,7 @@ __all__ = [
     "sphere_cap_solution",
     "mpc_qp_batch",
     "random_qp_batch",
+    "mpc_qp_stagewise_batch",
+    "mpc_nlp_stagewise_batch",
+    "mpc_nlp_kkt_residuals",
 ]

@@ -55,6 +55,12 @@ _SIGNATURES = {
         _INT, [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
     ),
     "admm_chunk_smem_rows": (_INT, [_INT, _INT]),
+    "qp_btd_launch": (
+        _INT,
+        [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
+    "qp_btd_smem_rows": (_INT, [_INT, _INT, _INT]),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
 }
 

@@ -44,9 +44,9 @@ _MAX_D = 1024  # one thread per row of W, at most a block's 1024 threads
 
 def chunk_stats(P, A, q, x, z, y):
     """(B, 4): [res_prim, res_dual, max_Ax_z, max_Px_ATy_q]."""
-    from sqp_solver_tpu_torch.ops.qp_kernel import _admm_stats
+    from sqp_solver_tpu_torch.ops.qp_kernel import _admm_stats, dense_ops
 
-    return torch.stack(_admm_stats(P, A, q, x, z, y), dim=-1)
+    return torch.stack(_admm_stats(dense_ops(P, A), q, x, z, y), dim=-1)
 
 
 def admm_chunk_reference(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg):

@@ -20,6 +20,11 @@ Each kernel has three parts here:
 Everything is batch-first: ``(B, n, n)`` Hessians, ``(B, m, n)``
 Jacobians, ``(B, n)`` / ``(B, m)`` vectors, ``bool (B,)`` masks.
 
+The plain ADMM core ``_admm_core`` takes the JAX core's operator hooks
+(:class:`AdmmOps`: P v, M^-1 b from a factor, A v, A' w), dense here
+(:func:`dense_ops`) and banded in ``ops/qp_kernel_btd.py``, whose kernel
+shares the CUDA core the same way (``csrc/admm_core.cuh``).
+
 Per-problem semantics.  The TPU kernels decide "factor again" and "run
 another chunk" once per tile of 128 problems; here every problem decides
 for itself.  A problem's own results are the same either way (a tile
@@ -31,7 +36,7 @@ counted per tile and is therefore lower here.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -233,10 +238,10 @@ def bfgs_update(Bm, s, yv, reset, upd):
     return torch.where(reset[:, None, None], eye, Bn)
 
 
-def _admm_stats(P, A, q, x, z, y):
-    Ax = _mv(A, x)
-    Px = _mv(P, x)
-    ATy = _mtv(A, y)
+def _admm_stats(ops, q, x, z, y):
+    Ax = ops.amv(x)
+    Px = ops.pmv(x)
+    ATy = ops.atmv(y)
     res_prim = _linf(Ax - z)
     res_dual = _linf(Px + q + ATy)
     max_Ax_z = torch.maximum(_linf(Ax), _linf(z))
@@ -244,12 +249,12 @@ def _admm_stats(P, A, q, x, z, y):
     return res_prim, res_dual, max_Ax_z, max_Px_ATy_q
 
 
-def _admm_iter(Minv, A, q, l, u, x, z, y, rv, sigma, alpha):
+def _admm_iter(ops, factor, q, l, u, x, z, y, rv, sigma, alpha):
     rho_inv = 1.0 / rv
     rhs2 = rv * z - y
-    b = sigma * x - q + _mtv(A, rhs2)
-    xt = _mv(Minv, b)
-    zt = _mv(A, xt)
+    b = sigma * x - q + ops.atmv(rhs2)
+    xt = ops.apply_minv(factor, b)
+    zt = ops.amv(xt)
     xn = alpha * xt + (1.0 - alpha) * x
     z_pre = alpha * zt + (1.0 - alpha) * z
     zn = torch.clamp(z_pre + rho_inv * y, min=l, max=u)
@@ -257,7 +262,7 @@ def _admm_iter(Minv, A, q, l, u, x, z, y, rv, sigma, alpha):
     return xn, zn, yn
 
 
-def _certificates(P, A, q, dx, dy, lo_l, lo_u, l_eff, u_eff, eps_pinf, eps_dinf):
+def _certificates(ops, q, dx, dy, lo_l, lo_u, l_eff, u_eff, eps_pinf, eps_dinf):
     """Infeasibility certificate code per problem from a chunk's iterate
     deltas (OSQP section 3.4; twin of ``_admm_core.certificates``):
     1 = primal infeasible (dy), 2 = dual infeasible (dx), 0 = none."""
@@ -265,16 +270,16 @@ def _certificates(P, A, q, dx, dy, lo_l, lo_u, l_eff, u_eff, eps_pinf, eps_dinf)
     sup = (u_eff * torch.clamp_min(dy, 0.0) + l_eff * torch.clamp_max(dy, 0.0)).sum(-1)
     prim = (
         (norm_dy > 0.0)
-        & (_linf(_mtv(A, dy)) <= eps_pinf * norm_dy)
+        & (_linf(ops.atmv(dy)) <= eps_pinf * norm_dy)
         & (sup <= -eps_pinf * norm_dy)
     )
     norm_dx = _linf(dx)
-    Adx = _mv(A, dx)
+    Adx = ops.amv(dx)
     tol = (eps_dinf * norm_dx).unsqueeze(-1)
     ray_ok = ((lo_u | (Adx <= tol)) & (lo_l | (Adx >= -tol))).all(-1)
     dual = (
         (norm_dx > 0.0)
-        & (_linf(_mv(P, dx)) <= eps_dinf * norm_dx)
+        & (_linf(ops.pmv(dx)) <= eps_dinf * norm_dx)
         & ((q * dx).sum(-1) <= -eps_dinf * norm_dx)
         & ray_ok
     )
@@ -282,17 +287,47 @@ def _certificates(P, A, q, dx, dy, lo_l, lo_u, l_eff, u_eff, eps_pinf, eps_dinf)
     return torch.where(prim, 1, torch.where(dual, 2, zero)).to(torch.int32)
 
 
-def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
+class AdmmOps(NamedTuple):
+    """The operator hooks of :func:`_admm_core` (twin of the JAX core's
+    ``pmv`` / ``apply_minv`` / ``amv`` / ``atmv``): P v, M^-1 b from a
+    factor, A v and A' w, each batch-first."""
+
+    pmv: Callable
+    apply_minv: Callable  # (factor, b) -> M^-1 b
+    amv: Callable
+    atmv: Callable
+
+
+def dense_ops(P, A) -> AdmmOps:
+    """The dense hooks: P and A as (B, n, n) / (B, m, n) matrices and the
+    factor an explicit Minv (B, n, n)."""
+    return AdmmOps(pmv=lambda v: _mv(P, v), apply_minv=_mv,
+                   amv=lambda v: _mv(A, v), atmv=lambda w: _mtv(A, w))
+
+
+def _select(mask, new, old):
+    """torch.where over the batch axis for a factor (a tensor or a tuple
+    of tensors, each batch-first)."""
+    if isinstance(new, tuple):
+        return tuple(_select(mask, a, b) for a, b in zip(new, old))
+    return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def _admm_core(ops, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
                sigma, alpha, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg,
                adaptive_rho, adaptive_rho_tolerance, pending=None,
                check_infeas=False, eps_pinf=1e-4, eps_dinf=1e-4):
     """Twin of ``_admm_core`` without Anderson: rho epochs with adoption at
     factor time, chunks of ``seg`` iterations with per-problem early exit,
     adaptive rho, the termination residuals and, with ``check_infeas``,
-    the infeasibility certificates.  ``pending`` (bool (B,)) makes the
-    first epoch adopt ``rho`` and factor (the whole-QP solve enters so).
-    A certified problem commits its chunk and is frozen from then on.
-    Returns the updated state as a dict (``infs``: int32 certificate code)."""
+    the infeasibility certificates.  ``ops`` are the operator hooks
+    (:func:`dense_ops` for a dense P, A and Minv); ``Minv`` is the entry
+    factor in whatever form ``ops.apply_minv`` reads (a tensor or a tuple
+    of tensors), and ``factor_fn(rho_vec) -> (factor, fail)`` builds a new
+    one.  ``pending`` (bool (B,)) makes the first epoch adopt ``rho`` and
+    factor (the whole-QP solve enters so).  A certified problem commits
+    its chunk and is frozen from then on.  Returns the updated state as a
+    dict (``infs``: int32 certificate code, ``minv``: the final factor)."""
     B = q.shape[0]
     dev = q.device
     loose = (l < -LOOSE_BOUNDS_THRESH) & (u > LOOSE_BOUNDS_THRESH)
@@ -325,7 +360,7 @@ def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
         refactor = (adopt | torch.isnan(rho)) & ~done & ~failv
         if bool(refactor.any()):
             Minv_new, f = factor_fn(_rho_from(rho, loose, equality))
-            Minv = torch.where(refactor[:, None, None], Minv_new, Minv)
+            Minv = _select(refactor, Minv_new, Minv)
             failv = failv | (f & refactor)
             nfact = nfact + refactor.to(torch.int32)
         rv = _rho_from(rho, loose, equality)
@@ -335,15 +370,15 @@ def _admm_core(P, A, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
                 break
             xn, zn, yn = x, z, y
             for _ in range(seg):
-                xn, zn, yn = _admm_iter(Minv, A, q, l, u, xn, zn, yn, rv, sigma, alpha)
+                xn, zn, yn = _admm_iter(ops, Minv, q, l, u, xn, zn, yn, rv, sigma, alpha)
             x_pre, y_pre = x, y
             a1 = act.unsqueeze(-1)
             x = torch.where(a1, xn, x)
             z = torch.where(a1, zn, z)
             y = torch.where(a1, yn, y)
-            res_prim, res_dual, max_Ax_z, max_Px_ATy_q = _admm_stats(P, A, q, x, z, y)
+            res_prim, res_dual, max_Ax_z, max_Px_ATy_q = _admm_stats(ops, q, x, z, y)
             if check_infeas:
-                cert = _certificates(P, A, q, xn - x_pre, yn - y_pre, lo_l, lo_u,
+                cert = _certificates(ops, q, xn - x_pre, yn - y_pre, lo_l, lo_u,
                                      l_eff, u_eff, eps_pinf, eps_dinf)
                 infs = torch.where(act & (cert > 0), cert, infs)
             conv = (res_prim <= eps_abs + eps_rel * max_Ax_z) & (
@@ -428,7 +463,7 @@ def sqp_step_reference(
                 f = torch.where(f, f_b, f)
         failv = f & active
     out = _admm_core(
-        Bn, J, g, l, u, x, z, y, ~active, failv, rho, Minv,
+        dense_ops(Bn, J), g, l, u, x, z, y, ~active, failv, rho, Minv,
         lambda rv: _factor(Bn, J, rv, sigma),
         sigma=sigma, alpha=float(settings.alpha),
         eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
@@ -657,11 +692,6 @@ def _check_qp_settings(settings: QPSettings) -> None:
             "tiers (termination is evaluated in-kernel); use the fused or "
             "per-problem tier"
         )
-    if settings.linear_solver == "schur_block_tridiag":
-        raise NotImplementedError(
-            "linear_solver='schur_block_tridiag' (the block-tridiagonal whole-QP "
-            "kernel K6) is not ported (ROADMAP Queue 2, K6)"
-        )
     if settings.acceleration != "none":
         raise NotImplementedError(
             "acceleration='anderson' is not ported (ROADMAP Queue 1, item 'Anderson')"
@@ -682,7 +712,7 @@ def qp_solve_reference(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveO
     rho = float(settings.rho) + 0.0 * q[:, 0]
     false = torch.zeros(batch, dtype=torch.bool, device=q.device)
     out = _admm_core(
-        P, A, q, l, u, x, z, y, false, false, rho, torch.zeros_like(P),
+        dense_ops(P, A), q, l, u, x, z, y, false, false, rho, torch.zeros_like(P),
         lambda rv: _factor(P, A, rv, sigma),
         sigma=sigma, alpha=float(settings.alpha),
         eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
@@ -743,7 +773,7 @@ def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveOut
     )
 
 
-def qp_status(out: QPSolveOut) -> torch.Tensor:
+def qp_status(out) -> torch.Tensor:
     """int32 QPStatus per problem, with the TPU kernel's precedence:
     failed > done > dual infeasible > primal infeasible > max iter."""
     return torch.where(
@@ -768,7 +798,13 @@ def qp_solve_kernel(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
     (B, m)); ``state`` warm-starts (x, z, y), zeros otherwise.  CPU tensors
     run :func:`qp_solve_reference`; CUDA tensors must be float32 and
     contiguous and run the kernel.  With ``settings.polish`` the result goes
-    through :func:`~sqp_solver_tpu_torch.qp.polish.polish_qp`."""
+    through :func:`~sqp_solver_tpu_torch.qp.polish.polish_qp`.
+    ``linear_solver="schur_block_tridiag"`` routes to the block-tridiagonal
+    whole-QP kernel (:func:`~sqp_solver_tpu_torch.ops.qp_kernel_btd.qp_solve_kernel_btd`)."""
+    if settings.linear_solver == "schur_block_tridiag":
+        from sqp_solver_tpu_torch.ops.qp_kernel_btd import qp_solve_kernel_btd
+
+        return qp_solve_kernel_btd(qp, settings, state)
     _check_qp_settings(settings)
     P, q, A, l, u = qp.P, qp.q, qp.A, qp.l, qp.u
     batch, n = q.shape
@@ -787,6 +823,13 @@ def qp_solve_kernel(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
         out = _qp_solve_launch(P, A, q, l, u, x0, z0, y0, settings)
     else:
         out = qp_solve_reference(P, A, q, l, u, x0, z0, y0, settings)
+    return qp_result(qp, out, settings)
+
+
+def qp_result(qp: QuadraticProblem, out, settings: QPSettings) -> QPResult:
+    """The QPResult of a whole-QP kernel's raw output (``QPSolveOut`` or
+    the structured kernel's): statuses by :func:`qp_status`, x cut to the
+    problem's n, and the polish with ``settings.polish``."""
     info = QPInfo(
         status=qp_status(out),
         iter=torch.clamp_max(out.iter, settings.max_iter),
@@ -795,7 +838,7 @@ def qp_solve_kernel(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
         res_prim=out.res_prim,
         res_dual=out.res_dual,
     )
-    result = QPResult(x=out.x, y=out.y, z=out.z, info=info)
+    result = QPResult(x=out.x[:, :qp.q.shape[-1]], y=out.y, z=out.z, info=info)
     if settings.polish:
         from sqp_solver_tpu_torch.qp.polish import polish_qp
 

@@ -1,0 +1,360 @@
+"""The block-tridiagonal whole-QP kernel (twin of
+``sqp_solver_tpu/ops/qp_kernel_btd.py``) and its two entry points: the
+structured QP solve (K6, :func:`qp_solve_kernel_btd`) and the structured
+SQP step (K7, :func:`btd_step_kernel`).
+
+For stage-wise problems the Schur matrix M = P + sigma I + A' diag(rho) A
+is block-tridiagonal.  The solve runs the same ADMM core as the dense
+whole-QP kernel (``ops/qp_kernel.py:_admm_core``) through its structured
+hooks:
+
+    factor:  the Gram band (A' rho A)_{k,k}, (A' rho A)_{k+1,k} from A's
+             columns, then block-Thomas Cholesky
+             S_k = D_k - F_{k-1} F_{k-1}',  L_k = chol(S_k),
+             F_k = E_k L_k^-T  (F_{T-1} = 0)          O(T bb^3 + m n bb)
+    M^-1 b:  forward and backward block sweeps          O(n bb)
+    P v:     from the band of P only
+
+A stays dense (A v and A' w are dense matvecs).  Entries of M outside the
+band are ignored: the caller guarantees the structure.  ``bb =
+btd_internal_block(block_size)`` fixes which entries are read; it is a
+semantic of the solver (and the block size of the structured SQP tier's
+BFGS), not a layout choice.
+
+Each entry point has a plain PyTorch version (:func:`qp_btd_reference`,
+batched tensor code that follows the kernel's per-problem algorithm, with
+the column Cholesky's pivot clamp and fail rule) and a wrapper that sends
+CPU tensors to it and CUDA tensors to the kernel in ``csrc/qp_kernel_btd.cu``
+(one thread block per problem).  A CUDA call the kernel cannot take
+raises; there is no fallback.
+
+Layouts are batch-first: the band is ``pd``, ``pe`` of shape (B, T, bb, bb)
+with ``pd[:, k]`` the diagonal block M_{k,k}'s P part and ``pe[:, k]`` the
+sub-diagonal block P_{k+1,k} (``pe[:, T-1]`` zero).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from sqp_solver_tpu_torch.ops.qp_kernel import (
+    AdmmOps,
+    _admm_core,
+    _check_cuda_operands,
+    _check_qp_settings,
+    _check_shape,
+    _cholesky_clamped,
+    _mtv,
+    _mv,
+    _ptr,
+    _raise_on,
+    _schedule,
+    _tri_inv,
+    qp_result,
+)
+from sqp_solver_tpu_torch.qp.types import QPResult, QPSettings, QPState, QuadraticProblem
+
+__all__ = [
+    "BtdOut",
+    "btd_internal_block",
+    "extract_band",
+    "qp_btd_reference",
+    "qp_solve_kernel_btd",
+    "btd_step_kernel",
+]
+
+# Launch counters, one per entry point of the one CUDA kernel: each wrapper
+# adds one where it launches the kernel (never on the plain path).
+qp_solve_btd_launches = 0
+btd_step_launches = 0
+
+
+class BtdOut(NamedTuple):
+    """Raw result of one structured solve, each field batch-first (the nine
+    stats rows of the TPU kernel, in its order, after the iterates)."""
+
+    x: torch.Tensor  # (B, n)
+    z: torch.Tensor  # (B, m)
+    y: torch.Tensor  # (B, m)
+    done: torch.Tensor  # bool (B,) converged, or inactive on entry
+    iter: torch.Tensor  # int32 (B,)
+    res_prim: torch.Tensor  # (B,)
+    res_dual: torch.Tensor  # (B,)
+    fail: torch.Tensor  # bool (B,) a block factor hit a clamped pivot
+    rho_updates: torch.Tensor  # int32 (B,)
+    rho_estimate: torch.Tensor  # (B,)
+    infs: torch.Tensor  # int32 (B,) certificate: 0 none, 1 primal, 2 dual
+    rho_factor: torch.Tensor  # (B,) rho the final factor was computed under
+
+
+def btd_internal_block(b: int) -> int:
+    """The block size the band is read at for a declared block size ``b``:
+    ``b`` itself when a multiple of 8, else the smallest multiple of 8
+    covering the half-bandwidth 2 b - 1 that block-tridiagonal at ``b``
+    implies."""
+    if b % 8 == 0:
+        return b
+    return -(-(2 * b - 1) // 8) * 8
+
+
+def extract_band(P: torch.Tensor, bb: int):
+    """(B, n, n) -> ``(pd, pe)``, each (B, T, bb, bb), contiguous:
+    ``pd[:, k]`` = P_{k,k}, ``pe[:, k]`` = P_{k+1,k}, ``pe[:, T-1]`` = 0."""
+    B, n, _ = P.shape
+    T = n // bb
+    Pb = P.reshape(B, T, bb, T, bb).permute(0, 1, 3, 2, 4)  # (B, Trow, Tcol, bb, bb)
+    pd = torch.diagonal(Pb, 0, 1, 2).permute(0, 3, 1, 2)
+    pe = torch.zeros_like(pd)
+    if T > 1:
+        pe[:, :-1] = torch.diagonal(Pb, -1, 1, 2).permute(0, 3, 1, 2)
+    return pd.contiguous(), pe
+
+
+def _band_pmv(pd, pe, v):
+    """P v from the band: (P v)_k = P_{k,k} v_k + P_{k,k-1} v_{k-1} +
+    P_{k+1,k}' v_{k+1}."""
+    B, T, bb, _ = pd.shape
+    vb = v.reshape(B, T, bb)
+    out = _mv(pd, vb)
+    if T > 1:
+        zero = torch.zeros_like(out[:, :1])
+        out = out + torch.cat([zero, _mv(pe[:, :-1], vb[:, :-1])], dim=1)
+        out = out + torch.cat([_mtv(pe[:, :-1], vb[:, 1:]), zero], dim=1)
+    return out.reshape(B, T * bb)
+
+
+def _btd_factor(pd, pe, A, rv, sigma):
+    """Gram band and block-Thomas Cholesky of M = P + sigma I + A' diag(rv) A
+    restricted to the band.  Returns ``((Li, F), fail)``: Li[:, k] = L_k^-1,
+    F[:, k] = E_k L_k^-T; fail if any block's pivot was clamped."""
+    B, T, bb, _ = pd.shape
+    m = A.shape[1]
+    Ab = A.reshape(B, m, T, bb)
+    Aw = Ab * rv[:, :, None, None]
+    eye = torch.eye(bb, dtype=pd.dtype, device=pd.device)
+    D = pd + sigma * eye + torch.einsum("brki,brkj->bkij", Ab, Aw)
+    E = pe.clone()
+    if T > 1:
+        E[:, :-1] += torch.einsum("brki,brkj->bkij", Ab[:, :, 1:], Aw[:, :, :-1])
+    Li = torch.empty_like(pd)
+    F = torch.empty_like(pd)
+    fail = torch.zeros(B, dtype=torch.bool, device=pd.device)
+    FFt = torch.zeros_like(pd[:, 0])
+    for k in range(T):
+        L, f = _cholesky_clamped(D[:, k] - FFt)
+        Lik = _tri_inv(L)
+        Fk = torch.matmul(E[:, k], Lik.mT)
+        Li[:, k] = Lik
+        F[:, k] = Fk
+        FFt = torch.matmul(Fk, Fk.mT)
+        fail = fail | f
+    return (Li, F), fail
+
+
+def _btd_apply(factor, b):
+    """M^-1 b by the block-bidiagonal sweeps: L w = b forward
+    (w_k = L_k^-1 (b_k - F_{k-1} w_{k-1})), then L' x = w backward
+    (x_k = L_k^-T (w_k - F_k' x_{k+1}))."""
+    Li, F = factor
+    B, T, bb, _ = Li.shape
+    bv = b.reshape(B, T, bb)
+    w = []
+    for k in range(T):
+        t = bv[:, k] if k == 0 else bv[:, k] - _mv(F[:, k - 1], w[k - 1])
+        w.append(_mv(Li[:, k], t))
+    x = [None] * T
+    for k in reversed(range(T)):
+        t = w[k] if k == T - 1 else w[k] - _mtv(F[:, k], x[k + 1])
+        x[k] = _mtv(Li[:, k], t)
+    return torch.stack(x, dim=1).reshape(B, T * bb)
+
+
+def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
+                     active: Optional[torch.Tensor] = None,
+                     rho_in: Optional[torch.Tensor] = None,
+                     check_infeas: bool = False) -> BtdOut:
+    """Plain version of the structured kernel: the ADMM solve entered with
+    a pending rho (the first epoch adopts it and factors the band), rho
+    epochs, chunks with per-problem early exit, adaptive rho and, with
+    ``check_infeas``, the infeasibility certificates.  ``active`` (bool
+    (B,), default all) freezes the other problems on entry; ``rho_in``
+    (B,) > 0 replaces rho0 for a problem (an SOC re-solve carries the rho
+    of the first solve's final factor)."""
+    batch = q.shape[0]
+    dev = q.device
+    seg, cpe, n_epochs = _schedule(settings)
+    sigma = float(settings.sigma)
+    # rho from q as the kernels do: a NaN in q's first entry poisons rho
+    rho = float(settings.rho) + 0.0 * q[:, 0]
+    if rho_in is not None:
+        # the TPU kernel's arithmetic select, reproduced to the rounding
+        rho = rho + (rho_in > 0).to(q.dtype) * (rho_in - rho)
+    if active is None:
+        active = torch.ones(batch, dtype=torch.bool, device=dev)
+    ops = AdmmOps(pmv=lambda v: _band_pmv(pd, pe, v), apply_minv=_btd_apply,
+                  amv=lambda v: _mv(A, v), atmv=lambda w: _mtv(A, w))
+    false = torch.zeros(batch, dtype=torch.bool, device=dev)
+    out = _admm_core(
+        ops, q, l, u, x, z, y, ~active, false, rho,
+        (torch.zeros_like(pd), torch.zeros_like(pd)),
+        lambda rv: _btd_factor(pd, pe, A, rv, sigma),
+        sigma=sigma, alpha=float(settings.alpha),
+        eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
+        n_epochs=n_epochs, chunks_per_epoch=cpe, seg=seg,
+        adaptive_rho=bool(settings.adaptive_rho),
+        adaptive_rho_tolerance=float(settings.adaptive_rho_tolerance),
+        pending=active, check_infeas=check_infeas,
+        eps_pinf=float(settings.eps_pinf), eps_dinf=float(settings.eps_dinf),
+    )
+    return BtdOut(
+        x=out["x"], z=out["z"], y=out["y"], done=out["done"], iter=out["iter"],
+        res_prim=out["res_prim"], res_dual=out["res_dual"], fail=out["fail"],
+        rho_updates=out["rho_updates"], rho_estimate=out["rho_estimate"],
+        infs=out["infs"], rho_factor=out["rho"],
+    )
+
+
+def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
+                   active, rho_in, check_infeas: bool, name: str) -> BtdOut:
+    """One launch of the structured CUDA kernel on float32 CUDA operands."""
+    batch, n = q.shape
+    m = l.shape[-1]
+    bb = pd.shape[-1]
+    operands = dict(pd=pd, pe=pe, A=A, q=q, l=l, u=u, x=x, z=z, y=y, active=active,
+                    rho_in=rho_in)
+    dev = _check_cuda_operands(name, operands, dict(active=torch.bool))
+    from sqp_solver_tpu_torch.ops import _build
+
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_out = torch.empty((batch, n), **f32)
+    z_out = torch.empty((batch, m), **f32)
+    y_out = torch.empty((batch, m), **f32)
+    stats = torch.empty((9, batch), **f32)  # one contiguous row per field
+    seg, cpe, n_epochs = _schedule(settings)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.qp_btd_launch(
+        _ptr(pd), _ptr(pe), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(active),
+        _ptr(rho_in), _ptr(x), _ptr(z), _ptr(y),
+        _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats),
+        batch, n, m, bb,
+        float(settings.sigma), float(settings.alpha), float(settings.rho),
+        float(settings.eps_abs), float(settings.eps_rel),
+        n_epochs, cpe, seg, int(bool(settings.adaptive_rho)),
+        float(settings.adaptive_rho_tolerance), int(bool(check_infeas)),
+        float(settings.eps_pinf), float(settings.eps_dinf),
+        dev.index, ctypes.c_void_p(stream),
+    )
+    _raise_on(lib, rc, name)
+    i32 = torch.int32
+    return BtdOut(
+        x=x_out, z=z_out, y=y_out, done=stats[0] > 0.5, iter=stats[1].to(i32),
+        res_prim=stats[2], res_dual=stats[3], fail=stats[4] > 0.5,
+        rho_updates=stats[5].to(i32), rho_estimate=stats[6], infs=stats[7].to(i32),
+        rho_factor=stats[8],
+    )
+
+
+def smem_rows(n: int, m: int, bb: int) -> int:
+    """Rows of A the CUDA kernel keeps in shared memory at these sizes (the
+    rest it reads from device memory); needs the built library."""
+    from sqp_solver_tpu_torch.ops import _build
+
+    return int(_build.load().qp_btd_smem_rows(n, m, bb))
+
+
+def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
+                        state: Optional[QPState] = None) -> QPResult:
+    """Solve a batch of QPs whose Schur matrix is block-tridiagonal at the
+    declared ``settings.block_size`` with the structured whole-solve
+    kernel, one CUDA thread block per problem (replaces the TPU's
+    ``ops/qp_kernel_btd.py:qp_solve_kernel_btd``).
+
+    Same semantics as ``qp_solve_kernel``: entries of M outside the band
+    are ignored.  n is padded to a multiple of the internal block with
+    decoupled identity rows (zero q and A columns, unit P diagonal), which
+    stay at 0.  CPU tensors run :func:`qp_btd_reference`; CUDA tensors
+    must be float32 and contiguous and run the kernel."""
+    global qp_solve_btd_launches
+    _check_qp_settings(settings)
+    name = "qp_solve_kernel_btd"
+    P, q, A, l, u = qp.P, qp.q, qp.A, qp.l, qp.u
+    batch, n0 = q.shape
+    m = A.shape[-2]
+    if state is None:
+        state = QPState.zeros(batch, n0, m, dtype=q.dtype, device=q.device)
+    x0, z0, y0 = state.x, state.z, state.y
+    for key, t, shape in (
+        ("P", P, (batch, n0, n0)), ("A", A, (batch, m, n0)), ("l", l, (batch, m)),
+        ("u", u, (batch, m)), ("x", x0, (batch, n0)), ("z", z0, (batch, m)),
+        ("y", y0, (batch, m)),
+    ):
+        _check_shape(name, key, t, shape)
+    bb = btd_internal_block(int(settings.block_size))
+    n = -(-n0 // bb) * bb
+    if n != n0:
+        pad = n - n0
+        P = torch.nn.functional.pad(P, (0, pad, 0, pad))
+        idx = torch.arange(n0, n, device=P.device)
+        P[:, idx, idx] = 1.0
+        q = torch.nn.functional.pad(q, (0, pad))
+        A = torch.nn.functional.pad(A, (0, pad))
+        x0 = torch.nn.functional.pad(x0, (0, pad))
+    pd, pe = extract_band(P, bb)
+    if q.is_cuda:
+        out = _qp_btd_launch(pd, pe, A, q, l, u, x0, z0, y0, settings, None, None,
+                             bool(settings.check_infeasibility), name)
+        qp_solve_btd_launches += 1
+    else:
+        out = qp_btd_reference(pd, pe, A, q, l, u, x0, z0, y0, settings,
+                               check_infeas=bool(settings.check_infeasibility))
+    return qp_result(qp, out, settings)
+
+
+def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
+                    rho_in: Optional[torch.Tensor] = None) -> BtdOut:
+    """The warm-started structured QP of one SQP outer iteration,
+
+        min 0.5 p'Bp + g'p   s.t.   l <= J p <= u,
+
+    with B given by its band ``pd``, ``pe`` (B, T, bb, bb), one CUDA thread
+    block per problem (replaces the TPU's ``ops/qp_kernel_btd.py:
+    btd_step_kernel``).  ``active`` (bool (B,)) freezes the other problems
+    at their warm start; ``rho_in`` (B,), where > 0, replaces rho0 (0 means
+    none).  No infeasibility certificates (the SQP tiers run without).
+    ``BtdOut.rho_factor`` is the rho of the final factor, which an SOC
+    re-solve feeds back as ``rho_in``.  n must be a multiple of the
+    internal block.  CPU tensors run :func:`qp_btd_reference`; CUDA
+    tensors must be float32 and contiguous and run the kernel."""
+    global btd_step_launches
+    name = "btd_step_kernel"
+    if settings.acceleration != "none":
+        raise NotImplementedError(
+            f"{name}: acceleration='anderson' inside the structured kernel is not "
+            "ported (ROADMAP Queue 1, item 'Anderson')"
+        )
+    batch, n = g.shape
+    m = l.shape[-1]
+    bb = btd_internal_block(int(settings.block_size))
+    if n % bb:
+        raise ValueError(
+            f"{name}: n={n} is not a multiple of the internal block {bb} "
+            f"(declared block_size={settings.block_size})"
+        )
+    T = n // bb
+    for key, t, shape in (
+        ("pd", pd, (batch, T, bb, bb)), ("pe", pe, (batch, T, bb, bb)),
+        ("J", J, (batch, m, n)), ("u", u, (batch, m)), ("active", active, (batch,)),
+        ("x", x, (batch, n)), ("z", z, (batch, m)), ("y", y, (batch, m)),
+        ("rho_in", rho_in, (batch,)),
+    ):
+        _check_shape(name, key, t, shape)
+    if not g.is_cuda:
+        return qp_btd_reference(pd, pe, J, g, l, u, x, z, y, settings, active=active,
+                                rho_in=rho_in)
+    out = _qp_btd_launch(pd, pe, J, g, l, u, x, z, y, settings, active, rho_in, False, name)
+    btd_step_launches += 1
+    return out

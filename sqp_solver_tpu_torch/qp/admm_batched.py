@@ -46,7 +46,7 @@ def _check_settings(settings: QPSettings) -> None:
     if settings.linear_solver in ("schur_block_tridiag", "schur_arrow"):
         raise NotImplementedError(
             f"qp_solve_fused with linear_solver={settings.linear_solver!r} (the structured "
-            "fused tier) is not ported (ROADMAP Queue 1, item 12 'Structured tier')"
+            "fused tier) is not ported (ROADMAP Queue 1, item 10 'Linear-solver backends')"
         )
     if settings.linear_solver != "schur_cholesky":
         raise ValueError(

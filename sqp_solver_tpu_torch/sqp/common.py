@@ -27,6 +27,9 @@ __all__ = [
     "merit_line_search",
     "batched_callables",
     "SubproblemInputs",
+    "StepResult",
+    "HessianForm",
+    "DENSE_HESSIAN",
     "sqp_outer_loop",
     "polish_nlp",
 ]
@@ -177,7 +180,7 @@ class SubproblemInputs(NamedTuple):
     J: torch.Tensor             # (B, m, n)
     l: torch.Tensor             # (B, m) constraint bounds
     u: torch.Tensor
-    B: torch.Tensor             # (B, n, n) Hessian estimate of the last iteration
+    B: torch.Tensor             # Hessian estimate of the last iteration, in the tier's form
     step_prev: torch.Tensor     # (B, n) last accepted step
     delta_grad_L: torch.Tensor  # (B, n) change of the Lagrangian gradient
     reset: torch.Tensor         # (B,) BFGS reset to I, masked by `active`
@@ -186,21 +189,55 @@ class SubproblemInputs(NamedTuple):
     c_of: Callable              # batched c(x), for the second-order correction
 
 
+class StepResult(NamedTuple):
+    """What a tier's subproblem step returns for one outer iteration."""
+
+    p: torch.Tensor             # (B, n) the step
+    lam_qp: torch.Tensor        # (B, m) the QP multipliers
+    B: torch.Tensor             # the Hessian estimate to carry, in the tier's form
+    state: QPState              # the next QP warm start
+    qp_iter: torch.Tensor       # (B,) this iteration's QP iterations
+    ls_fail: Optional[torch.Tensor] = None  # (B,) force a failed line search
+
+
+class HessianForm(NamedTuple):
+    """How a tier holds its Hessian estimate: ``init(B, n, dtype, device)``
+    its value at the first iteration, ``pbp(H, p)`` p'Hp (B,), and
+    ``dense(H)`` the (B, n, n) matrix the polish epilogue falls back to
+    where the true Lagrangian Hessian is NaN."""
+
+    init: Callable
+    pbp: Callable
+    dense: Callable
+
+
+DENSE_HESSIAN = HessianForm(
+    init=lambda B, n, dtype, device: torch.eye(n, dtype=dtype, device=device)
+    .expand(B, n, n).contiguous(),
+    pbp=lambda H, p: _vdot(p, _mv(H, p)),
+    dense=lambda H: H,
+)
+
+
 def sqp_outer_loop(
     problem: NonlinearProblem,
     x0: torch.Tensor,
     lam0: Optional[torch.Tensor],
     settings: SQPSettings,
     step: Callable,
+    hessian: HessianForm = DENSE_HESSIAN,
 ) -> SQPResult:
     """Algorithm 18.3 over a batch ``x0`` (B, n): termination, merit weight,
     line search, the freeze of non-finite problems, masked carry-over,
     trace, ``iteration_callback`` and the polish epilogue, shared by the
-    SQP tiers.  ``step(SubproblemInputs) -> (p, lam_qp, B_new, qp_state,
-    qp_iter)`` is the tier's own part: the BFGS update, the QP subproblem
-    and its optional second-order correction.  ``B_new`` is carried into
-    the next iteration as it comes; ``qp_iter`` (B,) counts this
-    iteration's QP iterations."""
+    SQP tiers.  ``step(SubproblemInputs)`` is the tier's own part (the
+    BFGS update, the QP subproblem and its optional second-order
+    correction) and returns the fields of :class:`StepResult`; its Hessian
+    estimate is carried into the next iteration as it comes, and its
+    ``ls_fail`` marks problems whose line search counts as failed whatever
+    it found (the next iteration then resets their BFGS estimate).
+    ``hessian`` says how the tier holds its estimate (dense (B, n, n) by
+    default)."""
     dtype, dev = x0.dtype, x0.device
     B, n = x0.shape
     m = problem.l.shape[-1]
@@ -216,7 +253,7 @@ def sqp_outer_loop(
         return torch.zeros(shape, dtype=dt, device=dev)
 
     x, lam = x0, lam0
-    Bm = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n).contiguous()
+    Bm = hessian.init(B, n, dtype, dev)
     grad_L = zeros(B, n)
     step_prev = zeros(B, n)
     qp_state = QPState.zeros(B, n, m, dtype=dtype, device=dev)
@@ -257,20 +294,22 @@ def sqp_outer_loop(
         upd = ~tiny_step & active
         warm = qp_state if settings.qp_warm_start else QPState.zeros(
             B, n, m, dtype=dtype, device=dev)
-        p, lam_qp, B_new, qp_state_next, qp_it = step(SubproblemInputs(
+        p, lam_qp, B_new, qp_state_next, qp_it, ls_fail = StepResult(*step(SubproblemInputs(
             k, active, x, grad_obj, c_val, J, l, u, Bm, step_prev, grad_L_here - grad_L,
-            reset, upd, warm, c_of))
+            reset, upd, warm, c_of)))
         qp_iter = qp_iter + torch.where(active, qp_it, 0)
 
         p_lam = lam_qp - lam
         mu = torch.where(
             active,
-            merit_weight(mu, _vdot(grad_obj, p), _vdot(p, _mv(B_new, p)),
+            merit_weight(mu, _vdot(grad_obj, p), hessian.pbp(B_new, p),
                          constraint_norm(c_val, l, u, tiny), lam_qp, settings.rho, tiny),
             mu,
         )
         alpha, ls_ok = merit_line_search(f_of, c_of, l, u, tiny, settings, x, p, mu,
                                          obj, grad_obj, c_val)
+        if ls_fail is not None:
+            ls_ok = ls_ok & ~ls_fail
         x_new = x + alpha.unsqueeze(-1) * p
         lam_new = lam + alpha.unsqueeze(-1) * p_lam
         step_k = alpha.unsqueeze(-1) * p
@@ -314,7 +353,8 @@ def sqp_outer_loop(
         def hess_fn(xx, ll):
             # the true Lagrangian Hessian, the BFGS estimate where it is NaN
             H = hess_raw(xx, ll)
-            return torch.where(torch.isnan(H).flatten(1).any(-1)[:, None, None], Bm, H)
+            bad = torch.isnan(H).flatten(1).any(-1)
+            return torch.where(bad[:, None, None], hessian.dense(Bm), H)
 
         x, lam, kkt_rescued = polish_nlp(x, lam, l, u, f_lin, c_lin, hess_fn, settings)
     else:

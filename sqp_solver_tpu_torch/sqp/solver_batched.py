@@ -9,7 +9,8 @@ with its own subproblem step: damped BFGS, posdef repair, and the QP
 subproblem (and optional SOC) through the fused ADMM tier
 (:func:`sqp_solver_tpu_torch.qp.admm_batched.qp_solve_fused`, chunks of
 the K5 kernel), warm-started across outer iterations.  ``qp_impl="kernel_btd"``
-(the structured tier) raises ``NotImplementedError`` naming its ROADMAP item.
+hands over to the structured tier over the block-tridiagonal step kernel
+(:mod:`sqp_solver_tpu_torch.sqp.solver_btd`).
 """
 
 from __future__ import annotations
@@ -41,10 +42,9 @@ def sqp_solve_fused(
 
         return sqp_solve_kernel_fused(problem, x0, lam0, settings)
     if settings.qp_impl == "kernel_btd":
-        raise NotImplementedError(
-            "qp_impl='kernel_btd' (the structured tier over K7) is not ported "
-            "(ROADMAP Queue 1, item 12 'Structured tier')"
-        )
+        from sqp_solver_tpu_torch.sqp.solver_btd import sqp_solve_kernel_btd
+
+        return sqp_solve_kernel_btd(problem, x0, lam0, settings)
     if settings.qp.linear_solver != "schur_cholesky":
         raise ValueError("sqp_solve_fused requires qp.linear_solver='schur_cholesky'")
     if settings.qp.scaling > 0:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["step_inputs", "polish_inputs", "qp_inputs", "certificate_qp_inputs",
-           "spd_inputs", "admm_chunk_inputs"]
+           "spd_inputs", "admm_chunk_inputs", "btd_qp_inputs", "btd_step_inputs"]
 
 
 def step_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
@@ -201,3 +201,64 @@ def admm_chunk_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float6
         yp=np.concatenate([zeros_n, a["y"]], axis=1),
     )
     return {k: v.astype(dtype) for k, v in out.items()}
+
+
+def btd_qp_inputs(batch: int, T: int, bb: int, m: int, seed: int = 0, dtype=np.float64,
+                  loose_row: bool = False) -> dict:
+    """Random strictly convex QPs whose Schur matrix is block-tridiagonal at
+    block size ``bb`` (n = T bb): P = G G' / 2 + 0.1 I with G block lower
+    bidiagonal, and rows that each touch two adjacent blocks (row r blocks
+    r mod (T - 1) and the next), with feasible bounds around A x_feas and
+    no equality rows (the float32 kernel and plain version part ways on
+    equality rows, ROADMAP Queue 3); optionally a loose last row.  A warm
+    start (x, z, y) near zero."""
+    rng = np.random.default_rng(seed)
+    n = T * bb
+    G = np.zeros((batch, n, n))
+    for k in range(T):
+        o = k * bb
+        G[:, o:o + bb, o:o + bb] = rng.normal(size=(batch, bb, bb)) / np.sqrt(bb)
+        if k > 0:
+            G[:, o:o + bb, o - bb:o] = 0.3 * rng.normal(size=(batch, bb, bb)) / np.sqrt(bb)
+    P = 0.5 * G @ G.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    A = np.zeros((batch, m, n))
+    for r in range(m):
+        k = r % max(T - 1, 1)
+        w = min(2, T) * bb
+        A[:, r, k * bb:k * bb + w] = rng.normal(size=(batch, w)) / np.sqrt(w)
+    q = rng.normal(size=(batch, n))
+    Ax = np.einsum("bmn,bn->bm", A, rng.normal(size=(batch, n)))
+    width = rng.uniform(0.1, 2.0, size=(batch, m))
+    l, u = Ax - width, Ax + width
+    if loose_row:
+        l[:, -1], u[:, -1] = -1e20, 1e20
+    x = 0.1 * rng.standard_normal((batch, n))
+    z = np.clip(0.1 * rng.standard_normal((batch, m)), l, u)
+    y = 0.1 * rng.standard_normal((batch, m))
+    out = dict(P=P, q=q, A=A, l=l, u=u, x=x, z=z, y=y)
+    return {k: v.astype(dtype) for k, v in out.items()}
+
+
+def btd_step_inputs(batch: int, T: int, bb: int, m: int, seed: int = 0,
+                    dtype=np.float64) -> dict:
+    """Operands of one structured step kernel (K7) call, batch-first:
+    the band pd, pe (B, T, bb, bb) of :func:`btd_qp_inputs`'s P as the
+    Hessian estimate, its A as the Jacobian J, q as the gradient g, the
+    bounds and a warm start; ``active`` with the last problem inactive
+    (batch > 2), and ``rho_in`` (B,) carrying a rho on every second
+    problem (0 means none)."""
+    a = btd_qp_inputs(batch, T, bb, m, seed=seed, dtype=np.float64)
+    Pb = a["P"].reshape(batch, T, bb, T, bb)
+    pd = np.stack([Pb[:, k, :, k, :] for k in range(T)], axis=1)
+    pe = np.zeros_like(pd)
+    for k in range(T - 1):
+        pe[:, k] = Pb[:, k + 1, :, k, :]
+    rho_in = np.where(np.arange(batch) % 2 == 1, 0.37, 0.0)
+    out = dict(pd=pd, pe=pe, J=a["A"], g=a["q"], l=a["l"], u=a["u"], x=a["x"], z=a["z"],
+               y=a["y"], rho_in=rho_in)
+    out = {k: v.astype(dtype) for k, v in out.items()}
+    active = np.ones(batch, bool)
+    if batch > 2:
+        active[-1] = False
+    out["active"] = active
+    return out

@@ -1,6 +1,6 @@
-"""Where the time goes on the QP serving path: one traced run per cell.
+"""Where the time goes on the serving paths: one traced run per cell.
 
-    python -m sqp_solver_tpu_torch.tools.trace_serving
+    python -m sqp_solver_tpu_torch.tools.trace_serving [cell ...]
 
 Runs on the card only.  For each cell, after a warm-up, three
 unprofiled runs timed on the host clock closed by
@@ -16,8 +16,16 @@ by device time:
   (8 launches of the chunk kernel K5 between the library factorizations
   and the per-chunk tensor code);
 * mpc_sustained: ``qp_solve_sequence``, K = 10 steps of a B = 4096
-  double-integrator fleet, n = 16.
+  double-integrator fleet, n = 16;
+* btd_mpc: ``qp_solve_batch(impl="kernel")`` with
+  ``linear_solver="schur_block_tridiag"`` (one launch of K6) on the
+  stage-wise MPC QP at horizon 64 (n = 192, m = 320), B = 4096;
+* btd_nlp: ``sqp_solve_batch(qp_impl="kernel_btd")`` on the unicycle NLP
+  at horizon 32 (n = 128, m = 224), B = 64: 120 outer iterations, each one
+  K7 launch among the plain ops of the linearization and line search,
+  then 3 polish passes.
 
+Name cells on the command line to trace only those (all by default).
 The last line is one JSON object with the same numbers and the card's
 ``name, power.limit``.
 """
@@ -33,9 +41,15 @@ import time
 import numpy as np
 import torch
 
-from sqp_solver_tpu_torch.models.mpc import mpc_fleet, random_qp_batch
-from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+from sqp_solver_tpu_torch.models.mpc import (
+    mpc_fleet,
+    mpc_nlp_stagewise_batch,
+    mpc_qp_stagewise_batch,
+    random_qp_batch,
+)
+from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch, sqp_solve_batch
 from sqp_solver_tpu_torch.qp import QPSettings, qp_solve_sequence
+from sqp_solver_tpu_torch.sqp import SQPSettings
 
 SETTINGS = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200, check_termination=25,
                       adaptive_rho=True, adaptive_rho_interval=50, schedule="fixed")
@@ -50,6 +64,18 @@ def _mpc_rollout(dev, B=4096, H=16, K=10):
     x0 = torch.as_tensor(np.random.default_rng(0).uniform(-1.0, 1.0, size=(B, 2)),
                          dtype=torch.float32).to(dev)
     return lambda: qp_solve_sequence(make_qp, advance, x0, K, SETTINGS, impl="kernel")
+
+
+def _btd_nlp(dev):
+    """The structured NLP cell (the JAX package's bench.py:586-595)."""
+    settings = SQPSettings(
+        max_iter=120, eps_prim=1e-4, eps_dual=1e-4, termination="kkt", schedule="fixed",
+        polish=True, polish_passes=3, line_search_max_iter=16, qp_impl="kernel_btd",
+        qp=QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=300,
+                      check_termination=25, warm_start=True, adaptive_rho=True,
+                      adaptive_rho_interval=50, block_size=4))
+    problem, x0, _ = mpc_nlp_stagewise_batch(64, horizon=32, device=dev)
+    return lambda: sqp_solve_batch(problem, x0, None, settings, impl="fused")
 
 
 def _trace(fn) -> dict:
@@ -100,12 +126,22 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     qp = random_qp_batch(4096, 32, 33, seed=0, device=dev)
     polished = dataclasses.replace(SETTINGS, polish=True)
-    cells = {
-        "qp_one_shot": _trace(lambda: qp_solve_batch(qp, SETTINGS, impl="kernel")),
-        "qp_one_shot_polished": _trace(lambda: qp_solve_batch(qp, polished, impl="kernel")),
-        "qp_fused_one_shot": _trace(lambda: qp_solve_batch(qp, SETTINGS, impl="fused")),
-        "mpc_sustained": _trace(_mpc_rollout(dev)),
+    btd = QPSettings(adaptive_rho=True, max_iter=100, schedule="fixed",
+                     linear_solver="schur_block_tridiag", block_size=3)
+    mpc_btd, _ = mpc_qp_stagewise_batch(4096, horizon=64, device=dev)
+    makers = {
+        "qp_one_shot": lambda: (lambda: qp_solve_batch(qp, SETTINGS, impl="kernel")),
+        "qp_one_shot_polished": lambda: (lambda: qp_solve_batch(qp, polished, impl="kernel")),
+        "qp_fused_one_shot": lambda: (lambda: qp_solve_batch(qp, SETTINGS, impl="fused")),
+        "mpc_sustained": lambda: _mpc_rollout(dev),
+        "btd_mpc": lambda: (lambda: qp_solve_batch(mpc_btd, btd, impl="kernel")),
+        "btd_nlp": lambda: _btd_nlp(dev),
     }
+    names = sys.argv[1:] or list(makers)
+    unknown = set(names) - set(makers)
+    if unknown:
+        raise SystemExit(f"trace_serving: unknown cells {sorted(unknown)}; cells: {list(makers)}")
+    cells = {name: _trace(makers[name]()) for name in names}
     for name, c in cells.items():
         print(f"{name}: wall {c['wall_ms']:.3f} ms (min of 3; profiled "
               f"{c['wall_profiled_ms']:.3f}), device busy {c['device_busy_ms']:.3f} ms in "

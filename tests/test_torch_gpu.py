@@ -17,6 +17,7 @@ refactor, the kernel and the plain version in float32 are both held to
 float32 bars against the plain version in float64.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -500,3 +501,106 @@ def test_fused_sqp_on_cuda_matches_cpu_plain_path(cuda):
     np.testing.assert_array_equal(a.info.status.numpy(), b.info.status.cpu().numpy())
     assert (a.info.status == 0).all()
     np.testing.assert_allclose(b.x.cpu().numpy(), a.x.numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the block-tridiagonal whole-QP kernel
+# ---------------------------------------------------------------------------
+
+BTD_QP = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200, check_termination=25,
+                    adaptive_rho=False, schedule="fixed", linear_solver="schur_block_tridiag",
+                    block_size=8)
+BTD_SHAPES = [(64, 2, 8, 12), (128, 24, 8, 320), (16, 4, 16, 40)]
+BTD_IDS = ["small", "n192-A-split", "bb16"]
+
+
+def _btd_raw(fn, t, settings, **kw):
+    return fn(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"], t["x"], t["z"], t["y"],
+              settings, **kw)
+
+
+@pytest.mark.parametrize("batch,T,bb,m", BTD_SHAPES, ids=BTD_IDS)
+def test_btd_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m):
+    """K7's launch (K6's kernel) on random band QPs without equality rows,
+    one rho epoch, a carried rho on every second problem and the last
+    problem inactive: kernel against plain at atol = rtol = 1e-4 where the
+    iteration counts agree (>= 99 %)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_step_inputs
+
+    t = _to(btd_step_inputs(batch, T, bb, m, seed=T + m), cuda)
+    s = dataclasses.replace(BTD_QP, block_size=bb)
+    kw = dict(active=t["active"], rho_in=t["rho_in"])
+    ok = qb._qp_btd_launch(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"], t["x"], t["z"],
+                           t["y"], s, t["active"], t["rho_in"], True, "test")
+    ref = _btd_raw(qb.qp_btd_reference, t, s, check_infeas=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.fail, ref.fail) and not ok.fail.any()
+    assert torch.equal(ok.done, ref.done)
+    same = ok.iter == ref.iter
+    assert same.float().mean().item() >= 0.99
+    for name in ("x", "z", "y", "rho_factor"):
+        torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL,
+                                   msg=lambda msg, name=name: f"{name}: {msg}")
+    assert torch.equal(ok.x[-1], t["x"][-1]) and int(ok.iter[-1]) == 0
+
+
+def test_btd_kernel_fail_flag_and_counters(cuda):
+    """An indefinite diagonal block fails the factor (NUMERICAL_ISSUES) on
+    the card as in the plain version; K6 and K7 count their own launches;
+    float64 and non-contiguous CUDA operands raise."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
+
+    a = btd_qp_inputs(8, 3, 8, 20, seed=2)
+    a["P"][1, 8:16, 8:16] = -10.0 * np.eye(8)
+    t = _to(a, cuda)
+    qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
+    k6, k7 = qb.qp_solve_btd_launches, qb.btd_step_launches
+    res = qb.qp_solve_kernel_btd(qp, BTD_QP)
+    ref = qb.qp_solve_kernel_btd(QuadraticProblem(*(v.cpu() for v in (
+        qp.P, qp.q, qp.A, qp.l, qp.u))), BTD_QP)
+    torch.cuda.synchronize()
+    assert qb.qp_solve_btd_launches == k6 + 1 and qb.btd_step_launches == k7
+    assert torch.equal(res.info.status.cpu(), ref.info.status)
+    assert int(res.info.status[1]) == QPStatus.NUMERICAL_ISSUES
+    s = _to(btd_step_inputs(4, 2, 8, 12, seed=1), cuda)
+    args = [s[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x", "z", "y")]
+    qb.btd_step_kernel(*args, BTD_QP)
+    assert qb.btd_step_launches == k7 + 1
+    with pytest.raises(TypeError):
+        qb.btd_step_kernel(*args[:3], args[3].double(), *args[4:], BTD_QP)
+    with pytest.raises(ValueError):
+        qb.btd_step_kernel(args[0], args[1], args[2].mT.contiguous().mT, *args[3:], BTD_QP)
+
+
+def test_structured_paths_on_cuda_match_cpu_plain(cuda):
+    """The stage-wise MPC QP through K6 and the unicycle NLP through the
+    structured SQP tier (K7), on the card against the plain versions on the
+    CPU: statuses agree on >= 90 % and SOLVED x within 1e-3 (float32
+    trajectories of a family with equality rows part, ROADMAP Queue 3)."""
+    import dataclasses
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_nlp_stagewise_batch, mpc_qp_stagewise_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch, sqp_solve_batch
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    s = QPSettings(adaptive_rho=True, max_iter=100, schedule="fixed",
+                   linear_solver="schur_block_tridiag", block_size=3)
+    out = {}
+    for dev in ("cpu", cuda):
+        qp, _ = mpc_qp_stagewise_batch(64, horizon=16, device=dev)
+        out[str(dev)] = qp_solve_batch(qp, s, impl="kernel")
+    a, b = out["cpu"], out["cuda"]
+    agree = (a.info.status == b.info.status.cpu())
+    assert agree.float().mean().item() >= 0.9
+    both = agree & (a.info.status == 0)
+    torch.testing.assert_close(b.x.cpu()[both], a.x[both], atol=1e-3, rtol=1e-3)
+    settings = SQPSettings(max_iter=20, eps_prim=1e-4, eps_dual=1e-4, termination="kkt",
+                           schedule="fixed", qp_impl="kernel_btd", polish=True,
+                           qp=dataclasses.replace(SQPSettings().qp, block_size=4))
+    res = {}
+    for dev in ("cpu", cuda):
+        prob, x0, _ = mpc_nlp_stagewise_batch(8, horizon=8, seed=1, device=dev)
+        res[str(dev)] = sqp_solve_batch(prob, x0, None, settings, impl="fused")
+    assert res["cuda"].x.shape == (8, 32) and torch.isfinite(res["cuda"].x).all()

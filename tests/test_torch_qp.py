@@ -223,9 +223,9 @@ def test_qp_path_refuses_what_it_does_not_cover(kind):
     settings, impl, err = QPSettings(**BENCH), "kernel", NotImplementedError
     if kind == "comp_slack":
         settings, err = dataclasses.replace(settings, check_comp_slack=True), ValueError
-    elif kind == "btd":
+    elif kind == "btd":  # K6 is ported; Anderson inside it is not
         settings = dataclasses.replace(settings, linear_solver="schur_block_tridiag",
-                                       block_size=3)
+                                       block_size=3, acceleration="anderson")
     elif kind == "anderson":
         settings = dataclasses.replace(settings, acceleration="anderson")
     elif kind == "scaling":

@@ -203,8 +203,9 @@ def test_main_path_float32_meets_the_closed_form():
 )
 def test_outside_the_slice_raises_not_implemented(kind):
     """What the port does not have yet raises, naming its ROADMAP item:
-    scaling and K1's in-kernel Anderson on the kernel tier, the structured
-    tier (``qp_impl="kernel_btd"``), ``impl="vmap"``, and scaling on the
+    scaling and K1's in-kernel Anderson on the kernel tier, Anderson inside
+    the structured tier's K7 (``qp_impl="kernel_btd"``, whose scaling and
+    block checks raise ValueError), ``impl="vmap"``, and scaling on the
     fused tier at n = 129 (the fused tier and SQP polish above n = 128 no
     longer raise: tests/test_torch_fused.py)."""
     pp, px0 = port_models.sphere_cap_nlp_batch(2, 4, seed=0, dtype=torch.float64,
@@ -216,8 +217,19 @@ def test_outside_the_slice_raises_not_implemented(kind):
         settings = dataclasses.replace(
             HEADLINE, qp=dataclasses.replace(HEADLINE.qp, acceleration="anderson"))
     elif kind == "qp_impl":
-        settings = dataclasses.replace(HEADLINE, qp_impl="kernel_btd",
-                                       qp=dataclasses.replace(HEADLINE.qp, block_size=2))
+        # the structured tier is ported: its own limits raise ValueError as
+        # in the JAX package (tests/test_sqp_btd.py::test_validation)
+        btd = dataclasses.replace(HEADLINE, qp_impl="kernel_btd",
+                                  qp=dataclasses.replace(HEADLINE.qp, block_size=2))
+        with pytest.raises(ValueError, match="scaling"):
+            sqp_solve_batch(pp, px0, None, dataclasses.replace(
+                btd, qp=dataclasses.replace(btd.qp, scaling=4)), impl=impl)
+        with pytest.raises(ValueError, match="multiple"):  # n = 4, internal block 8
+            sqp_solve_batch(pp, px0, None, btd, impl=impl)
+        with pytest.raises(ValueError, match="block_size"):
+            dataclasses.replace(btd, qp=dataclasses.replace(btd.qp, block_size=0)).validate()
+        settings = dataclasses.replace(btd, qp=dataclasses.replace(
+            btd.qp, acceleration="anderson"))
     elif kind == "impl":
         impl = "vmap"
     else:
