@@ -26,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B = 256 and 4096), where the kernel and the plain float32 version are
    each held against the plain float64 version at ``EPOCH_TOL``; its SQP
    step entry (K7) likewise on the unicycle NLP's first-iteration QPs at
-   horizons 32 and 48 (B = 64);
+   horizons 32 and 48 (B = 64); for each K6/K7 shape the block layout the
+   launcher took (one block or a cluster of two per problem), the rows of
+   A on chip and the time per ADMM iteration, and the same launch in the
+   other layout held against the same plain version and timed;
 4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
    the closed-form optimum and an independent float64 KKT certificate,
@@ -842,11 +845,12 @@ def btd_raw(fn, t, settings, **kw):
     return fn(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "x", "z", "y")), settings, **kw)
 
 
-def btd_launch(t, settings, check_infeas: bool):
+def btd_launch(t, settings, check_infeas: bool, cluster=None):
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
+    kw = {} if cluster is None else dict(cluster=cluster)
     return btd_raw(qb._qp_btd_launch, t, settings, active=t.get("active"),
-                   rho_in=t.get("rho_in"), check_infeas=check_infeas, name="chip_smoke")
+                   rho_in=t.get("rho_in"), check_infeas=check_infeas, name="chip_smoke", **kw)
 
 
 def btd_plain(t, settings, check_infeas: bool):
@@ -856,12 +860,9 @@ def btd_plain(t, settings, check_infeas: bool):
                    rho_in=t.get("rho_in"), check_infeas=check_infeas)
 
 
-def compare_btd_random(batch: int, T: int, bb: int, m: int, dev, reps: int) -> dict:
-    """K6 against its plain version on random block-tridiagonal QPs without
-    equality rows (``testing.btd_qp_inputs``), one rho epoch of 200
-    iterations, at atol = rtol = 1e-4 where the iteration counts agree."""
-    import torch
-
+def btd_random_case(batch: int, T: int, bb: int, m: int, dev) -> dict:
+    """Random block-tridiagonal QPs without equality rows
+    (``testing.btd_qp_inputs``) in one rho epoch of 200 iterations."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs
 
@@ -869,69 +870,15 @@ def compare_btd_random(batch: int, T: int, bb: int, m: int, dev, reps: int) -> d
     pd, pe = qb.extract_band(a["P"], bb)
     t = dict(pd=pd, pe=pe, J=a["A"], g=a["q"], l=a["l"], u=a["u"], x=a["x"], z=a["z"],
              y=a["y"])
-    n = T * bb
     one = qp_bench_settings(adaptive_rho=False, linear_solver="schur_block_tridiag",
                             block_size=bb)
-    ok = btd_launch(t, one, True)
-    ref = btd_plain(t, one, True)
-    torch.cuda.synchronize()
-    if not (torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)):
-        raise AssertionError("K6 random: fail or certificate flags differ")
-    same = ok.iter == ref.iter
-    frac = float(same.float().mean())
-    if frac < 0.99:
-        raise AssertionError(f"K6 random: iteration counts agree on {frac:.4f}")
-    err = max(check_close(f"K6 random {k}", getattr(ok, k)[same], getattr(ref, k)[same])
-              for k in ("x", "z", "y"))
-    rows = qb.smem_rows(n, m, bb)
-    log(f"  K6 random band n={n} m={m} bb={bb} B={batch}: iter agree {frac:.4f}, max |kernel - "
-        f"plain| {err:.3e}, {rows} of {m} rows of A in shared memory")
-    ms = cuda_ms(lambda: btd_launch(t, one, True), reps)
-    plain_ms = cuda_ms(lambda: btd_plain(t, one, True), max(1, reps // 4))
-    bound_ms, bound_by = btd_bound(ok, one, batch, n, m, bb)
-    return dict(family="random", n=n, m=m, bb=bb, batch=batch, smem_rows=rows,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, mean_iter=float(ok.iter.float().mean()))
+    return dict(label=f"K6 random n={T * bb} B={batch}", family="random", t=t, settings=one,
+                check_infeas=True, n=T * bb, m=m, bb=bb, batch=batch)
 
 
-def against_f64(label: str, t32, settings, check_infeas: bool) -> dict:
-    """The kernel and the plain version in float32, each against the plain
-    version in float64 at ``EPOCH_TOL`` on the problems that float64 solved
-    and whose iteration and rho-update counts agree with it (an unsolved
-    problem stops mid-flight, where float32 and float64 trajectories that
-    parted are far apart); returns the agreement shares and the largest
-    differences."""
-    import torch
-
-    t64 = {k: (v.double() if v.dtype == torch.float32 else v) for k, v in t32.items()}
-    p64 = btd_plain(t64, settings, check_infeas)
-    outs = (("kernel", btd_launch(t32, settings, check_infeas)),
-            ("plain", btd_plain(t32, settings, check_infeas)))
-    torch.cuda.synchronize()
-    res = {}
-    for name, out in outs:
-        agree = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
-        cmp = agree & p64.done & ~p64.fail
-        e = 0.0
-        for k in ("x", "z", "y"):
-            a, b = getattr(out, k)[cmp].double(), getattr(p64, k)[cmp]
-            if not torch.allclose(a, b, atol=EPOCH_TOL, rtol=EPOCH_TOL):
-                raise AssertionError(f"{label}: {name} {k} differs from f64 by "
-                                     f"{max_err(a, b):.3e}")
-            e = max(e, max_err(a, b))
-        res[name] = dict(agree=float(agree.float().mean()), max_err=e,
-                         status_agree=float((out.done == p64.done).float().mean()),
-                         solved64=float((p64.done & ~p64.fail).float().mean()))
-    if res["kernel"]["agree"] < BTD_AGREE * res["plain"]["agree"]:
-        raise AssertionError(f"{label}: the kernel agrees with f64 on {res['kernel']['agree']:.4f}"
-                             f", the plain float32 version on {res['plain']['agree']:.4f}")
-    return dict(res, outs=dict(outs))
-
-
-def compare_btd_mpc(batch: int, dev, reps: int) -> dict:
-    """K6 on the stage-wise MPC family at horizon 64 (n = 192, m = 320,
-    equality rows, rho epochs): the kernel and the plain float32 version
-    each against the plain float64 version (``against_f64``)."""
+def btd_mpc_case(batch: int, dev) -> dict:
+    """The stage-wise MPC family at horizon 64 (n = 192, m = 320) in the
+    structured MPC cell's settings, cold-started."""
     import torch
 
     from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch
@@ -944,27 +891,15 @@ def compare_btd_mpc(batch: int, dev, reps: int) -> dict:
     t = dict(pd=pd, pe=pe, J=qp.A, g=qp.q, l=qp.l, u=qp.u,
              x=torch.zeros((batch, n), device=dev), z=torch.zeros((batch, m), device=dev),
              y=torch.zeros((batch, m), device=dev))
-    s = btd_qp_settings()
-    r = against_f64(f"K6 MPC B={batch}", t, s, True)
-    log(f"  K6 MPC horizon {n // 3} n={n} m={m} B={batch}: vs plain f64, iter and rho agree on "
-        f"kernel {r['kernel']['agree']:.4f} / plain f32 {r['plain']['agree']:.4f}, max diff "
-        f"kernel {r['kernel']['max_err']:.3e} / plain f32 {r['plain']['max_err']:.3e}")
-    ms = cuda_ms(lambda: btd_launch(t, s, True), reps)
-    plain_ms = cuda_ms(lambda: btd_plain(t, s, True), max(1, reps // 4))
-    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, batch, n, m, bb)
-    return dict(family="mpc", n=n, m=m, bb=bb, batch=batch, smem_rows=qb.smem_rows(n, m, bb),
-                max_abs_err=r["kernel"]["max_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
-                mean_iter=float(r["outs"]["kernel"].iter.float().mean()))
+    return dict(label=f"K6 MPC horizon 64 B={batch}", family="mpc", t=t,
+                settings=btd_qp_settings(), check_infeas=True, n=n, m=m, bb=bb, batch=batch)
 
 
-def compare_btd_step(horizon: int, batch: int, dev, reps: int) -> dict:
-    """K7 on the first outer iteration's QPs of the unicycle NLP
+def btd_step_case(horizon: int, batch: int, dev) -> dict:
+    """The first outer iteration's QPs of the unicycle NLP
     (``mpc_nlp_stagewise_batch``, the band reset to I, the Jacobian and
     gradient at the rollout start), a carried rho on every second problem
-    and the last problem inactive, in the NLP cell's inner-QP settings: the
-    kernel and the plain float32 version against the plain float64 one."""
+    and the last problem inactive, in the NLP cell's inner-QP settings."""
     import torch
 
     from sqp_solver_tpu_torch.models.mpc import mpc_nlp_stagewise_batch
@@ -985,20 +920,163 @@ def compare_btd_step(horizon: int, batch: int, dev, reps: int) -> dict:
     t = dict(pd=eye, pe=torch.zeros_like(eye), J=J, g=g, l=(problem.l - c).contiguous(),
              u=(problem.u - c).contiguous(), x=torch.zeros_like(x0),
              z=torch.zeros_like(c), y=torch.zeros_like(c), active=active, rho_in=rho_in)
-    s = settings.qp
-    r = against_f64(f"K7 horizon {horizon}", t, s, False)
-    log(f"  K7 NLP step horizon {horizon} n={n} m={m} B={batch}: f64 solved "
-        f"{r['kernel']['solved64']:.4f}; vs plain f64, iter and rho agree on kernel "
-        f"{r['kernel']['agree']:.4f} / plain f32 {r['plain']['agree']:.4f}, "
-        f"max diff kernel {r['kernel']['max_err']:.3e} / plain f32 {r['plain']['max_err']:.3e}")
-    ms = cuda_ms(lambda: btd_launch(t, s, False), reps)
-    plain_ms = cuda_ms(lambda: btd_plain(t, s, False), max(1, reps // 4))
-    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, batch, n, m, bb)
-    return dict(family=f"nlp step horizon {horizon}", n=n, m=m, bb=bb, batch=batch,
-                smem_rows=qb.smem_rows(n, m, bb), max_abs_err=r["kernel"]["max_err"], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
-                mean_iter=float(r["outs"]["kernel"].iter.float().mean()))
+    return dict(label=f"K7 NLP step horizon {horizon} B={batch}",
+                family=f"nlp step horizon {horizon}", t=t, settings=settings.qp,
+                check_infeas=False, n=n, m=m, bb=bb, batch=batch)
+
+
+def btd_cases(dev) -> list:
+    """Every K6/K7 shape of the kernel phase, in its order."""
+    return [btd_random_case(4096, 24, 8, 320, dev), btd_mpc_case(256, dev),
+            btd_mpc_case(4096, dev), btd_step_case(32, 64, dev), btd_step_case(48, 64, dev)]
+
+
+def btd_other(c: dict):
+    """The block layout the launcher does not take at this case's shape (1
+    or 2 blocks per problem), or None where the kernel has one only."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    if c["bb"] > 16:
+        return None
+    return 3 - qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"])
+
+
+def btd_row(c: dict, out, **fields) -> dict:
+    """One K6/K7 row of the kernel phase: the case's sizes, the variant the
+    launcher took (``block``: one thread block per problem, ``cluster``:
+    two), the rows of A on chip, the mean ADMM iterations of ``out`` and
+    the time per iteration, and the other layout's error and time where
+    ``fields`` has them, logged."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    n, m, bb, batch = c["n"], c["m"], c["bb"], c["batch"]
+    blocks = qb.cluster_size(n, m, bb, batch)
+    rows = qb.smem_rows(n, m, bb, batch)
+    mean_iter = float(out.iter.float().mean())
+    per_iter = fields["ms"] / mean_iter if mean_iter > 0 else float("nan")
+    other = ""
+    if "other_ms" in fields:
+        other = (f"; the other layout ({fields['other_variant']}) {fields['other_ms']:.3f} ms, "
+                 f"max err {fields['other_max_abs_err']:.3e}")
+    log(f"  {c['label']}: {'a cluster of 2 blocks' if blocks > 1 else 'one block'} per "
+        f"problem, {rows} of {m} rows of A on chip, {fields['ms']:.3f} ms over a mean of "
+        f"{mean_iter:.1f} ADMM iterations: {per_iter * 1e3:.3f} us per iteration{other}")
+    return dict(family=c["family"], n=n, m=m, bb=bb, batch=batch,
+                variant=variant_name(blocks), smem_rows=rows, library_ms=None,
+                mean_iter=mean_iter, ms_per_iter=per_iter, **fields)
+
+
+def variant_name(blocks: int) -> str:
+    return "cluster" if blocks > 1 else "block"
+
+
+def btd_against_plain(label: str, ok, ref) -> float:
+    """Flags equal, iteration counts agreeing on >= 0.99, x, z, y at
+    atol = rtol = 1e-4 where they agree; returns the largest difference."""
+    import torch
+
+    if not (torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)):
+        raise AssertionError(f"{label}: fail or certificate flags differ")
+    same = ok.iter == ref.iter
+    frac = float(same.float().mean())
+    if frac < 0.99:
+        raise AssertionError(f"{label}: iteration counts agree on {frac:.4f}")
+    err = max(check_close(f"{label} {k}", getattr(ok, k)[same], getattr(ref, k)[same])
+              for k in ("x", "z", "y"))
+    log(f"  {label}: iter agree {frac:.4f}, max |kernel - plain| {err:.3e}")
+    return err
+
+
+def compare_btd_random(c: dict, reps: int) -> dict:
+    """K6 against its plain version on the random band QPs of
+    ``btd_random_case`` at atol = rtol = 1e-4 where the iteration counts
+    agree, in the launcher's block layout and in the other one."""
+    import torch
+
+    t, one = c["t"], c["settings"]
+    ok = btd_launch(t, one, True)
+    ref = btd_plain(t, one, True)
+    torch.cuda.synchronize()
+    err = btd_against_plain(f"{c['label']} m={c['m']} bb={c['bb']}", ok, ref)
+    other, extra = btd_other(c), {}
+    if other is not None:
+        alt = btd_launch(t, one, True, cluster=other)
+        torch.cuda.synchronize()
+        extra = dict(other_variant=variant_name(other),
+                     other_max_abs_err=btd_against_plain(
+                         f"{c['label']} ({variant_name(other)})", alt, ref),
+                     other_ms=cuda_ms(lambda: btd_launch(t, one, True, cluster=other), reps))
+    ms = cuda_ms(lambda: btd_launch(t, one, True), reps)
+    plain_ms = cuda_ms(lambda: btd_plain(t, one, True), max(1, reps // 4))
+    bound_ms, bound_by = btd_bound(ok, one, c["batch"], c["n"], c["m"], c["bb"])
+    return btd_row(c, ok, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, **extra)
+
+
+def against_f64(label: str, t32, settings, check_infeas: bool, other=None) -> dict:
+    """The kernel (in the launcher's layout and, with ``other``, in that
+    one too) and the plain version in float32, each against the plain
+    version in float64 at ``EPOCH_TOL`` on the problems that float64 solved
+    and whose iteration and rho-update counts agree with it (an unsolved
+    problem stops mid-flight, where float32 and float64 trajectories that
+    parted are far apart); returns the agreement shares and the largest
+    differences."""
+    import torch
+
+    t64 = {k: (v.double() if v.dtype == torch.float32 else v) for k, v in t32.items()}
+    p64 = btd_plain(t64, settings, check_infeas)
+    outs = [("kernel", btd_launch(t32, settings, check_infeas)),
+            ("plain", btd_plain(t32, settings, check_infeas))]
+    if other is not None:
+        outs.append(("other", btd_launch(t32, settings, check_infeas, cluster=other)))
+    torch.cuda.synchronize()
+    res = {}
+    for name, out in outs:
+        agree = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        cmp = agree & p64.done & ~p64.fail
+        e = 0.0
+        for k in ("x", "z", "y"):
+            a, b = getattr(out, k)[cmp].double(), getattr(p64, k)[cmp]
+            if not torch.allclose(a, b, atol=EPOCH_TOL, rtol=EPOCH_TOL):
+                raise AssertionError(f"{label}: {name} {k} differs from f64 by "
+                                     f"{max_err(a, b):.3e}")
+            e = max(e, max_err(a, b))
+        res[name] = dict(agree=float(agree.float().mean()), max_err=e,
+                         status_agree=float((out.done == p64.done).float().mean()),
+                         solved64=float((p64.done & ~p64.fail).float().mean()))
+    for name in [k for k in ("kernel", "other") if k in res]:
+        if res[name]["agree"] < BTD_AGREE * res["plain"]["agree"]:
+            raise AssertionError(f"{label}: the {name} kernel agrees with f64 on "
+                                 f"{res[name]['agree']:.4f}, the plain float32 version on "
+                                 f"{res['plain']['agree']:.4f}")
+    return dict(res, outs=dict(outs))
+
+
+def compare_btd_f64(c: dict, reps: int) -> dict:
+    """K6 on the stage-wise MPC family (equality rows, rho epochs) or K7 on
+    the unicycle NLP's first-iteration QPs: the kernel, in the launcher's
+    block layout and in the other one, and the plain float32 version each
+    against the plain float64 version (``against_f64``)."""
+    t, s, other = c["t"], c["settings"], btd_other(c)
+    r = against_f64(c["label"], t, s, c["check_infeas"], other)
+    log(f"  {c['label']} n={c['n']} m={c['m']}: f64 solved {r['kernel']['solved64']:.4f}; vs "
+        f"plain f64, iter and rho agree on kernel {r['kernel']['agree']:.4f} / plain f32 "
+        f"{r['plain']['agree']:.4f}, max diff kernel {r['kernel']['max_err']:.3e} / plain f32 "
+        f"{r['plain']['max_err']:.3e}")
+    extra = {}
+    if other is not None:
+        log(f"  {c['label']} ({variant_name(other)}): vs plain f64, iter and rho agree on "
+            f"{r['other']['agree']:.4f}, max diff {r['other']['max_err']:.3e}")
+        extra = dict(other_variant=variant_name(other), other_max_abs_err=r["other"]["max_err"],
+                     other_agree=r["other"]["agree"],
+                     other_ms=cuda_ms(lambda: btd_launch(t, s, c["check_infeas"], cluster=other),
+                                      reps))
+    ms = cuda_ms(lambda: btd_launch(t, s, c["check_infeas"]), reps)
+    plain_ms = cuda_ms(lambda: btd_plain(t, s, c["check_infeas"]), max(1, reps // 4))
+    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, c["batch"], c["n"], c["m"], c["bb"])
+    return btd_row(c, r["outs"]["kernel"], max_abs_err=r["kernel"]["max_err"], ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"], **extra)
 
 
 def run_btd_mpc(dev, card: str, batches=(256, 4096), horizon: int = 64) -> dict:
@@ -1239,9 +1317,10 @@ def main() -> int:
           compare_chunk(1024, 128, 129, 10, dev, reps=8)]
     factor_ms = [time_library_factor(4096, 32, 33, dev, reps=10),
                  time_library_factor(1024, 128, 129, dev, reps=5)]
-    k6 = [compare_btd_random(4096, 24, 8, 320, dev, reps=5),
-          compare_btd_mpc(256, dev, reps=10), compare_btd_mpc(4096, dev, reps=5)]
-    k7 = [compare_btd_step(32, 64, dev, reps=10), compare_btd_step(48, 64, dev, reps=10)]
+    random, mpc256, mpc4096, step32, step48 = btd_cases(dev)
+    k6 = [compare_btd_random(random, reps=5), compare_btd_f64(mpc256, reps=10),
+          compare_btd_f64(mpc4096, reps=5)]
+    k7 = [compare_btd_f64(step32, reps=10), compare_btd_f64(step48, reps=10)]
     for name, rows in (("sqp_step", k1), ("polish_kkt", k2), ("qp_solve", k3),
                        ("spd_inverse", k4), ("admm_chunk", k5), ("qp_solve_btd", k6),
                        ("btd_step", k7)):
@@ -1289,7 +1368,8 @@ def main() -> int:
             raise AssertionError(f"{name}: no path run launched it")
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(by_path.values()), max_abs_err=max(r["max_abs_err"] for r in rows),
+            launches=sum(by_path.values()),
+            max_abs_err=max(max(r["max_abs_err"], r.get("other_max_abs_err", 0.0)) for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             launches_by_path=by_path, shape=dict(n=head["n"], batch=head["batch"]),

@@ -11,6 +11,8 @@
 //   op.apply_minv(b, out) out = M^-1 b; the caller syncs after it
 //   op.factor(rv)         build the factor of M = P + sigma I + A' diag(rv) A,
 //                         return the block-uniform fail flag (syncs inside)
+// and, where the defaults below do not do, the reduction hooks op_max,
+// op_sum and op_cols.
 // DenseOp is the dense one (K1, K3): explicit Minv, A and P as matrices.
 // Every branch that guards a __syncthreads() is block-uniform.
 
@@ -30,6 +32,27 @@ constexpr float kRhoMax = 1e6f;
 constexpr float kRhoTol = 1e-4f;
 constexpr float kRhoEqFactor = 1e3f;
 constexpr float kLooseThresh = 1e16f;
+
+// Phase clocks, off unless compiled with -DADMM_PHASE_CLOCKS (as
+// tools/kernel_ab.py builds its instrumented copies): thread 0 of each
+// block adds the clock64() span of each phase, stamped right after the
+// barriers that bound it, to admm_phase_cycles[phase] (a begin subtracts
+// the clock, an end adds it; the sums wrap modulo 2^64 to the spans).
+#ifdef ADMM_PHASE_CLOCKS
+enum AdmmPhase { kPhGram, kPhThomas, kPhAtmv, kPhSweep, kPhAmv, kPhStats, kPhTotal, kNumPhases };
+__device__ unsigned long long admm_phase_cycles[kNumPhases];
+__device__ __forceinline__ void phase_stamp(int p, bool begin) {
+  if (threadIdx.x == 0) {
+    const unsigned long long t = (unsigned long long)clock64();
+    atomicAdd(&admm_phase_cycles[p], begin ? 0ull - t : t);
+  }
+}
+#define ADMM_PHASE_BEGIN(p) phase_stamp(p, true)
+#define ADMM_PHASE_END(p) phase_stamp(p, false)
+#else
+#define ADMM_PHASE_BEGIN(p) ((void)0)
+#define ADMM_PHASE_END(p) ((void)0)
+#endif
 
 // max that propagates NaN like jnp.maximum / torch.maximum
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -191,6 +214,26 @@ __device__ void set_rho_vec(float* rv, const float* l, const float* u, float rho
   __syncthreads();
 }
 
+// Reduction hooks of an operator, called by admm_stats and certificate:
+// the defaults reduce over the block.  An operator whose problem spans a
+// cluster of blocks overloads them (and op_cols) to combine the blocks'
+// partials, so that every block of the cluster gets the same result.
+template <class Op, int K>
+__device__ __forceinline__ void op_max(const Op&, float (&v)[K], float* red) {
+  block_max(v, red);
+}
+template <class Op, int K>
+__device__ __forceinline__ void op_sum(const Op&, float (&v)[K], float* red) {
+  block_sum(v, red);
+}
+// The columns [j0, j1) of the n-vectors whose terms this block adds to a
+// certificate's sums and maxima (the default all).
+template <class Op>
+__device__ __forceinline__ void op_cols(const Op&, int n, int& j0, int& j1) {
+  j0 = 0;
+  j1 = n;
+}
+
 struct StepParams {
   int n, m;
   float sigma, alpha, rho0, eps_abs, eps_rel;
@@ -229,12 +272,17 @@ template <class Op>
 __device__ void admm_iter(const Op& op, const float* q, const float* l, const float* u,
                           const float* rv, float* x, float* z, float* y, float* bt, float* xt,
                           float* tm, float sigma, float alpha, int n, int m) {
+  ADMM_PHASE_BEGIN(kPhAtmv);
   for (int i = threadIdx.x; i < m; i += blockDim.x) tm[i] = rv[i] * z[i] - y[i];
   __syncthreads();
   op.atmv(tm, [&](int j, float acc) { bt[j] = sigma * x[j] - q[j] + acc; });
   __syncthreads();
+  ADMM_PHASE_END(kPhAtmv);
+  ADMM_PHASE_BEGIN(kPhSweep);
   op.apply_minv(bt, xt);
   __syncthreads();
+  ADMM_PHASE_END(kPhSweep);
+  ADMM_PHASE_BEGIN(kPhAmv);
   op.amv(xt, [&](int i, float zt) {
     const float z_pre = alpha * zt + (1.f - alpha) * z[i];
     const float zn = clip(z_pre + (1.f / rv[i]) * y[i], l[i], u[i]);
@@ -243,6 +291,7 @@ __device__ void admm_iter(const Op& op, const float* q, const float* l, const fl
   });
   for (int j = threadIdx.x; j < n; j += blockDim.x) x[j] = alpha * xt[j] + (1.f - alpha) * x[j];
   __syncthreads();
+  ADMM_PHASE_END(kPhAmv);
 }
 
 // Termination residuals: rp = |Ax - z|, rd = |Px + q + A'y|, and their
@@ -267,7 +316,7 @@ __device__ void admm_stats(const Op& op, const float* q, const float* x, const f
     v[5] = nan_max(v[5], fabsf(tn2[j]));
     v[6] = nan_max(v[6], fabsf(q[j]));
   }
-  block_max(v, red);
+  op_max(op, v, red);
   st.rp = v[0];
   st.mz = nan_max(v[1], v[2]);
   st.rd = v[3];
@@ -297,14 +346,16 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
     if (!lo_u) mx[4] = nan_max(mx[4], tm[i]);
     if (!lo_l) mx[5] = nan_max(mx[5], -tm[i]);
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  int j0, j1;
+  op_cols(op, n, j0, j1);
+  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
     mx[1] = nan_max(mx[1], fabsf(tn1[j]));
     mx[2] = nan_max(mx[2], fabsf(dx[j]));
     mx[3] = nan_max(mx[3], fabsf(tn2[j]));
     sm[1] = fmaf(q[j], dx[j], sm[1]);
   }
-  block_max(mx, red);
-  block_sum(sm, red);
+  op_max(op, mx, red);
+  op_sum(op, sm, red);
   const float norm_dy = mx[0], norm_dx = mx[2], tol = p.eps_dinf * norm_dx;
   const bool prim = (norm_dy > 0.f) && (mx[1] <= p.eps_pinf * norm_dy) &&
                     (sm[0] <= -p.eps_pinf * norm_dy);
@@ -331,9 +382,11 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
     // does, and the refactor reports the fail
     if (st.pending || isnan(st.rho_est)) st.rho = st.rho_est;
     if (st.pending || isnan(st.rho)) {
+      ADMM_PHASE_BEGIN(kPhGram);  // the operator's factor marks its Gram / Thomas boundary
       set_rho_vec(rv, l, u, st.rho, m);
       st.fail = op.factor(rv);
       st.nfact += 1;
+      ADMM_PHASE_END(kPhThomas);
     }
     for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail && st.infs == 0; ++c) {
       if (p.check_infeas) {
@@ -342,6 +395,7 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
       }
       for (int it = 0; it < p.seg; ++it)
         admm_iter(op, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
+      ADMM_PHASE_BEGIN(kPhStats);
       admm_stats(op, q, x, z, y, tm, tn1, tn2, red, n, m, st);
       if (p.check_infeas) {
         // the deltas replace the chunk-start copies; the stats' readers of
@@ -355,6 +409,7 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
                         (st.rd <= p.eps_abs + p.eps_rel * st.mq);
       st.itc += p.seg;
       st.done = conv;
+      ADMM_PHASE_END(kPhStats);
     }
     if (p.adaptive_rho) {
       const bool act = !st.done && !st.fail && st.infs == 0;
@@ -410,3 +465,15 @@ struct DenseOp {
 };
 
 }  // namespace
+
+#ifdef ADMM_PHASE_CLOCKS
+// Copies the phase sums out (kNumPhases values) and zeroes them.
+extern "C" int admm_phase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, admm_phase_cycles, sizeof(admm_phase_cycles));
+  const unsigned long long zero[kNumPhases] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(admm_phase_cycles, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

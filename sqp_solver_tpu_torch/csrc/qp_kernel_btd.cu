@@ -8,243 +8,575 @@
 //                        btd_step_kernel
 //   (body _qp_btd_kernel, pallas_call in _qp_btd_call)
 //
-// Design.  One thread block per problem, batch-first operands, the ADMM
-// core of admm_core.cuh (rho epochs, chunks with per-problem early exit,
-// adaptive rho adopted at factor time, certificates) run with BandOp, the
-// structured hooks of the JAX core:
-//   factor      the Gram band (A' rho A)_{k,k} and _{k+1,k} from A's
-//               columns (one thread per band entry; the n x n Schur matrix
-//               is never formed), then block-Thomas: S_k = D_k -
-//               F_{k-1} F_{k-1}', L_k = chol(S_k) (cholesky_inplace, pivot
-//               clamp max(d, 1e-30), fail = d <= 0 | NaN), L_k^-1 (tri_inv),
-//               F_k = E_k L_k^-T, F_{T-1} = 0;
-//   apply_minv  the forward and backward block sweeps, by warp 0 alone with
-//               __syncwarp() between blocks (T dependent steps of bb x bb
-//               work each);
-//   pmv         P v from the band of P only (one thread per row);
-//   amv, atmv   A dense.
+// Design.  One problem per thread block, or per cluster of two blocks
+// (below), batch-first operands, the ADMM core of admm_core.cuh (rho
+// epochs, chunks with per-problem early exit, adaptive rho adopted at
+// factor time, certificates) run with BandOp, the structured hooks of the
+// JAX core:
+//   factor      the Gram band (A' rho A)_{k,k} and _{k+1,k}: one thread per
+//               (band row, slice of A's rows) accumulating a whole row of
+//               both blocks, the slices summed by shuffles; then the
+//               block-Thomas factor by warp 0 alone, row i of each bb x bb
+//               block in lane i's registers, the other rows by shuffles and
+//               a warp-private scratch, no block barrier inside the chain:
+//               S_k = D_k - F_{k-1} F_{k-1}', L_k = chol(S_k) (pivot clamp
+//               max(d, 1e-30), fail = d <= 0 | NaN), L_k^-1, F_k =
+//               E_k L_k^-T, and the sweeps' couplings G_k = L_k^-1 F_{k-1},
+//               H_k = L_k^-T F_k' (F itself is not kept);
+//   apply_minv  c_k = L_k^-1 b_k for all k by the block; the forward chain
+//               w_k = c_k - G_k w_{k-1} by warp 0; d_k = L_k^-T w_k by the
+//               block; the backward chain x_k = d_k - H_k x_{k+1} by warp 0.
+//               A chain step is one bb x bb matvec, lane i holding row i of
+//               the coupling (loaded a step ahead) and taking the previous
+//               block by __shfl_sync: 2 (T - 1) short steps with no barrier
+//               inside a chain (three block barriers between the phases);
+//   amv, atmv   A dense, each dot product split over 4 lanes and reduced by
+//               shuffles, so that every thread works on short chains with
+//               eight loads in flight; the lane-to-entry maps keep a warp's
+//               32 reads of A (row stride n + 1) on 32 banks;
+//   pmv         P v from the band of P only (one thread per row).
 // Problems that enter inactive (K7's `active`) skip the solve and pass
-// their warm start through; every branch that guards a barrier is
-// block-uniform.
+// their warm start through; every branch that guards a block or cluster
+// barrier is uniform over the block or cluster.
 //
-// What bounds it on this card.  The band factor is O(m n bb) for the Gram
-// band and O(T bb^3) for Thomas; each ADMM iteration is two dense matvecs
-// with A (4 m n flops) and the sweeps (4 n bb flops in 2 T dependent
-// steps).  At n = 192, m = 320 the operations bound is far below the
-// latency of the 2 T dependent sweep steps and the barrier-separated
-// phases of one block per problem.  Memory: the band (pd, pe, L_k^-1, F_k:
-// 4 n bb floats) and the vectors live in shared memory, with as many
-// leading rows of A (row stride n + 1) as fit in the 227 KB a block may
-// use; the remaining rows are read from the input in device memory with
-// coalesced loads (one thread per column in A' w, one warp per row in
-// A v), unrolled so that several loads are in flight per thread (with
-// one block per SM nothing else hides their latency).  At n = 128, m = 224 all of A fits; at n = 192, m = 320 about 250
-// of the 320 rows do.
+// Cluster variant (CS = 2).  Block r of the cluster holds rows
+// [r m0, (r + 1) m0) of A, z, y, l, u and rho (m0 = ceil(m / 2)); x and
+// the band are held by both.  A v, the z/y updates and the row parts of
+// the residuals stay local; A' w is summed from the two blocks' partials
+// through distributed shared memory (each block stores its part into both
+// blocks' exchange slot, one cluster barrier per iteration), and so are
+// the Gram band and the residual maxima; both blocks run the
+// Thomas factor and the sweeps, so neither waits for the other's x.  The
+// launcher takes a cluster where one block cannot hold all of A and two
+// hold more of it (n = 192, m = 320 or 336: 160 or 168 rows a block), or
+// where single blocks would leave half of the SMs idle (2 B <= SMs: K7's
+// B = 64); a block (or cluster) that cannot hold all of its rows reads the
+// rest from device memory.  The rule depends on the shape (and the card's
+// SM count) alone; a shape whose band and vectors do not fit, or an
+// internal block other than 8, 16, 24 or 32, is refused.
+//
+// What bounds it on this card.  Each ADMM iteration is two dense matvecs
+// with A (4 m n flops; each FMA reads A and the vector from shared memory,
+// two wavefronts, so a matvec over 160 rows at n = 192 needs ~1,900
+// cycles of the SM's shared-memory bandwidth) and the two sweep chains
+// (2 (T - 1) dependent steps of bb x bb work in one warp, ~130 cycles
+// each); the factor is O(m n bb) for the Gram band and T dependent
+// bb x bb steps for Thomas, also in one warp.  The operations bound of
+// the card is far below both: one problem per block (or cluster) is
+// latency- and shared-memory bound, and the batch fills the card only
+// when B (or 2 B on clusters) >= 132.
+
+#include <cooperative_groups.h>
 
 #include "admm_core.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// The structured operator: A's first rs rows in shared memory (stride ld),
-// the rest in device memory (Ag, stride n, row rs first); the band of P
-// (pd, pe) and the factor (Li, F), each T blocks of bb x bb (stride bb),
-// in shared memory; S, S2 (bb x bb scratch) and tb (bb) for the factor
-// and the sweeps.  BB > 0 fixes the block size at compile time (the
-// instantiations for 8 and 16 unroll the bb-long loops of the sweeps, the
-// band matvec and the Thomas products); BB = 0 reads it from bb_rt.
-template <int BB>
+constexpr int kThreads = 256;
+
+// The structured operator of one block.  This block's rows of A (ml of
+// them) are its first rs in shared memory (stride ld = n + 1), the rest in
+// device memory (Ag, stride n, from row rs); the band of P (pd, pe) and the
+// factor (Li, G, H), each T blocks of BB x BB, in shared memory; Fs, Ls
+// (BB x (BB + 1)) the Thomas chain's scratch, tw (n) the sweeps', flag one
+// slot for the factor's fail flag.  With CS = 2, xch is a ring of two
+// exchange slots, each two halves of xlen floats (rank 0's part, rank 1's
+// part).
+template <int BB, int CS>
 struct BandOp {
   const float* As;
   const float* Ag;
-  int ld, rs;
+  int ld, rs, ml;
   const float* pd;
   const float* pe;
   float* Li;
-  float* F;
-  float* S;
-  float* S2;
-  float* tb;
-  int n, m, bb_rt, T;
+  float* G;
+  float* H;
+  float* Fs;
+  float* Ls;
+  float* tw;
+  float* flag;
+  float* xch;
+  int xlen, rank;
+  int n, T;
   float sigma;
+  mutable int seq;  // exchanges so far (the same in every thread of the cluster)
 
-  __device__ __forceinline__ int block() const { return BB > 0 ? BB : bb_rt; }
+  // ---- cluster exchange (CS = 2) ----------------------------------------
 
+  // The next slot of the exchange ring.  Exchange e writes this block's
+  // part into half `rank` of slot e % 2 of both blocks (the peer's through
+  // distributed shared memory) and reads both halves locally after the
+  // cluster barrier; before exchange e + 2 writes the slot again, both
+  // blocks have passed exchange e + 1's barrier, so both have read it.
+  __device__ float* slot() const { return xch + (seq++ & 1) * 2 * xlen; }
+
+  __device__ float* remote(float* p) const {
+    return cg::this_cluster().map_shared_rank(p, rank ^ 1);
+  }
+
+  // Combines the block results v[0..K) with the peer block's, in rank
+  // order; every thread of both blocks returns the same values.
+  template <int K, bool MAX>
+  __device__ void combine(float (&v)[K]) const {
+    float* s = slot();
+    if (threadIdx.x == 0) {
+      float* mine = s + rank * xlen;
+      float* theirs = remote(mine);
+#pragma unroll
+      for (int k = 0; k < K; ++k) mine[k] = theirs[k] = v[k];
+    }
+    cg::this_cluster().sync();
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = MAX ? nan_max(s[k], s[xlen + k]) : s[k] + s[xlen + k];
+  }
+
+  // ---- the hooks of admm_core.cuh ---------------------------------------
+
+  // A' w over this block's rows, w local.  Lane (jj, c) of a warp task
+  // (span s of 32 columns, pass p) sums column 32 s + 4 jj + p over the
+  // rows r = c mod 4, eight rows a step into four accumulators so that
+  // eight loads are in flight; a warp's reads of one row step fall on the
+  // banks (r + j) mod 32, all different.  With CS = 2 the two blocks'
+  // partial sums meet in distributed shared memory and epi gets their sum.
   template <class Epi>
   __device__ void atmv(const float* w, Epi epi) const {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      float acc = 0.f;
-      for (int i = 0; i < rs; ++i) acc = fmaf(As[(size_t)i * ld + j], w[i], acc);
-#pragma unroll 8
-      for (int i = rs; i < m; ++i) acc = fmaf(Ag[(size_t)(i - rs) * n + j], w[i], acc);
-      epi(j, acc);
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int c = lane & 3, jj = lane >> 2, rsm = min(rs, ml);
+    float* part = nullptr;
+    if constexpr (CS > 1) part = slot();
+    const int tasks = ((n + 31) >> 5) * 4;
+    for (int t = wp; t < tasks; t += nw) {
+      const int j = 32 * (t >> 2) + 4 * jj + (t & 3);
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      if (j < n) {
+        int r = c;
+        for (; r + 28 < rsm; r += 32) {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) a[u & 3] = fmaf(As[(r + 4 * u) * ld + j], w[r + 4 * u], a[u & 3]);
+        }
+        for (; r < rsm; r += 4) a[0] = fmaf(As[r * ld + j], w[r], a[0]);
+        for (; r + 28 < ml; r += 32) {
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            a[u & 3] = fmaf(Ag[(r + 4 * u - rs) * n + j], w[r + 4 * u], a[u & 3]);
+        }
+        for (; r < ml; r += 4) a[1] = fmaf(Ag[(r - rs) * n + j], w[r], a[1]);
+      }
+      float acc = (a[0] + a[1]) + (a[2] + a[3]);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (c == 0 && j < n) {
+        if constexpr (CS > 1) {
+          part[rank * xlen + j] = acc;
+          remote(part)[rank * xlen + j] = acc;
+        } else {
+          epi(j, acc);
+        }
+      }
+    }
+    if constexpr (CS > 1) {
+      cg::this_cluster().sync();
+      for (int j = threadIdx.x; j < n; j += blockDim.x) epi(j, part[j] + part[xlen + j]);
     }
   }
 
+  // A v for this block's rows.  A warp task is 8 rows; lane (ii, c) sums
+  // row ii over columns 32 s + 8 c + e (e < 8) of every span s, eight loads
+  // in flight a span, so a warp's reads fall on the banks (ii + 8 c + e)
+  // mod 32, all different.
   template <class Epi>
   __device__ void amv(const float* v, Epi epi) const {
-    for (int i = threadIdx.x; i < rs; i += blockDim.x) {
-      const float* r = As + (size_t)i * ld;
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j) acc = fmaf(r[j], v[j], acc);
-      epi(i, acc);
-    }
-    // rows in device memory: one warp per row, coalesced, shuffle-reduced
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    for (int i = rs + w; i < m; i += nw) {
-      const float* r = Ag + (size_t)(i - rs) * n;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int j = lane; j < n; j += 32) acc = fmaf(r[j], v[j], acc);
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) epi(i, acc);
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int c = lane & 3, ii = lane >> 2, rsm = min(rs, ml);
+    for (int i0 = 8 * wp; i0 < ml; i0 += 8 * nw) {
+      const int i = i0 + ii;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i < rsm) {
+        const float* r = As + i * ld;
+#pragma unroll 2
+        for (int j = 8 * c; j < n; j += 32) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) a[e & 3] = fmaf(r[j + e], v[j + e], a[e & 3]);
+        }
+      } else if (i < ml) {
+        const float* r = Ag + (i - rs) * n;
+#pragma unroll 2
+        for (int j = 8 * c; j < n; j += 32) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) a[e & 3] = fmaf(r[j + e], v[j + e], a[e & 3]);
+        }
+      }
+      float acc = (a[0] + a[1]) + (a[2] + a[3]);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (c == 0 && i < ml) epi(i, acc);
     }
   }
 
   // (P v)_k = P_{k,k} v_k + P_{k,k-1} v_{k-1} + P_{k+1,k}' v_{k+1}
   __device__ void pmv(const float* v, float* out) const {
-    const int bb = block(), nb2 = bb * bb;
+    constexpr int nb2 = BB * BB;
     for (int r = threadIdx.x; r < n; r += blockDim.x) {
-      const int k = r / bb, i = r - k * bb, o = k * bb;
-      const float* d = pd + (size_t)k * nb2 + i * bb;
+      const int k = r / BB, i = r - k * BB, o = k * BB;
+      const float* d = pd + (size_t)k * nb2 + i * BB;
       float acc = 0.f;
-      #pragma unroll
-      for (int j = 0; j < bb; ++j) acc = fmaf(d[j], v[o + j], acc);
+#pragma unroll
+      for (int j = 0; j < BB; ++j) acc = fmaf(d[j], v[o + j], acc);
       if (k > 0) {
-        const float* e = pe + (size_t)(k - 1) * nb2 + i * bb;
+        const float* e = pe + (size_t)(k - 1) * nb2 + i * BB;
         float a2 = 0.f;
-        #pragma unroll
-        for (int j = 0; j < bb; ++j) a2 = fmaf(e[j], v[o - bb + j], a2);
+#pragma unroll
+        for (int j = 0; j < BB; ++j) a2 = fmaf(e[j], v[o - BB + j], a2);
         acc += a2;
       }
       if (k + 1 < T) {
         const float* e = pe + (size_t)k * nb2 + i;
         float a3 = 0.f;
-        #pragma unroll
-        for (int j = 0; j < bb; ++j) a3 = fmaf(e[j * bb], v[o + bb + j], a3);
+#pragma unroll
+        for (int j = 0; j < BB; ++j) a3 = fmaf(e[j * BB], v[o + BB + j], a3);
         acc += a3;
       }
       out[r] = acc;
     }
   }
 
-  // out = M^-1 b: L w = b forward (w_k = L_k^-1 (b_k - F_{k-1} w_{k-1})),
-  // L' x = w backward (x_k = L_k^-T (w_k - F_k' x_{k+1})), w in place in
-  // out.  Warp 0 alone; the caller's barrier follows.
+  // out = M^-1 b in four phases; the caller's barrier follows.  The block
+  // forms c_k = L_k^-1 b_k (into out); warp 0 runs the forward chain
+  // w_k = c_k - G_k w_{k-1} in place; the block forms d_k = L_k^-T w_k
+  // (into tw); warp 0 runs the backward chain x_k = d_k - H_k x_{k+1}.
+  // In a chain lane i < BB owns row i: the next block's coupling row and
+  // right-hand side are loaded a step ahead, and the previous block comes
+  // by __shfl_sync, so each step waits only for its own matvec.
   __device__ void apply_minv(const float* b, float* out) const {
-    if (threadIdx.x >= 32) return;
-    const int bb = block(), lane = threadIdx.x, nb2 = bb * bb;
-    for (int k = 0; k < T; ++k) {
-      const int o = k * bb;
-      const float* Lk = Li + (size_t)k * nb2;
-      for (int i = lane; i < bb; i += 32) {
-        float t = b[o + i];
-        if (k > 0) {
-          const float* Fp = F + (size_t)(k - 1) * nb2;
-          float acc = 0.f;
-          #pragma unroll
-          for (int j = 0; j < bb; ++j) acc = fmaf(Fp[i * bb + j], out[o - bb + j], acc);
-          t -= acc;
-        }
-        tb[i] = t;
-      }
-      __syncwarp();
-      for (int i = lane; i < bb; i += 32) {
-        float acc = 0.f;
-        #pragma unroll
-        for (int j = 0; j < bb; ++j)
-          if (j <= i) acc = fmaf(Lk[i * bb + j], tb[j], acc);
-        out[o + i] = acc;
-      }
-      __syncwarp();
+    constexpr int nb2 = BB * BB;
+    for (int r = threadIdx.x; r < n; r += blockDim.x) {
+      const int k = r / BB, i = r - k * BB;
+      const float* L = Li + k * nb2 + i * BB;
+      const float* bk = b + k * BB;
+      float c = 0.f;
+#pragma unroll
+      for (int q = 0; q < BB; ++q)
+        if (q <= i) c = fmaf(L[q], bk[q], c);
+      out[r] = c;
     }
-    for (int k = T - 1; k >= 0; --k) {
-      const int o = k * bb;
-      const float* Fk = F + (size_t)k * nb2;
-      const float* Lk = Li + (size_t)k * nb2;
-      for (int i = lane; i < bb; i += 32) {
-        float t = out[o + i];
-        if (k + 1 < T) {
-          float acc = 0.f;
-          #pragma unroll
-          for (int j = 0; j < bb; ++j) acc = fmaf(Fk[j * bb + i], out[o + bb + j], acc);
-          t -= acc;
-        }
-        tb[i] = t;
+    __syncthreads();
+    if (threadIdx.x < 32) chain(G, out, out, 1);
+    __syncthreads();
+    for (int r = threadIdx.x; r < n; r += blockDim.x) {
+      const int k = r / BB, i = r - k * BB;
+      const float* L = Li + k * nb2 + i;
+      const float* wk = out + k * BB;
+      float d = 0.f;
+#pragma unroll
+      for (int q = 0; q < BB; ++q)
+        if (q >= i) d = fmaf(L[q * BB], wk[q], d);
+      tw[r] = d;
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) chain(H, tw, out, -1);
+  }
+
+  // One sweep chain by warp 0: y_k = rhs_k - C_k y_{k-dir} for the blocks
+  // in order dir (1: k = 0 .. T-1 with C = G; -1: k = T-1 .. 0 with
+  // C = H), y_first = rhs_first.  rhs and y may alias.
+  __device__ void chain(const float* C, const float* rhs, float* y, int dir) const {
+    constexpr int nb2 = BB * BB;
+    const int i = threadIdx.x;
+    const bool row = i < BB;
+    const int ir = row ? i : 0, k0 = dir > 0 ? 0 : T - 1;
+    float prev = rhs[k0 * BB + ir];
+    if (row) y[k0 * BB + i] = prev;
+    int k = k0 + dir;
+    const int kc = dir > 0 ? min(k, T - 1) : max(k, 0);
+    float g[BB];
+#pragma unroll
+    for (int j = 0; j < BB; ++j) g[j] = C[kc * nb2 + ir * BB + j];
+    float rk = rhs[kc * BB + ir];
+    for (int s = 1; s < T; ++s, k += dir) {
+      // next step's row and right-hand side (clamped at the end)
+      const int kn = dir > 0 ? min(k + 1, T - 1) : max(k - 1, 0);
+      float gn[BB];
+#pragma unroll
+      for (int j = 0; j < BB; ++j) gn[j] = C[kn * nb2 + ir * BB + j];
+      const float rn = rhs[kn * BB + ir];
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BB; j += 2) {
+        a0 = fmaf(g[j], __shfl_sync(0xffffffffu, prev, j), a0);
+        a1 = fmaf(g[j + 1], __shfl_sync(0xffffffffu, prev, j + 1), a1);
       }
-      __syncwarp();
-      for (int i = lane; i < bb; i += 32) {
-        float acc = 0.f;
-        #pragma unroll
-        for (int j = 0; j < bb; ++j)
-          if (j >= i) acc = fmaf(Lk[j * bb + i], tb[j], acc);
-        out[o + i] = acc;
-      }
-      __syncwarp();
+      prev = rk - (a0 + a1);
+      if (row) y[k * BB + i] = prev;
+#pragma unroll
+      for (int j = 0; j < BB; ++j) g[j] = gn[j];
+      rk = rn;
     }
   }
 
-  // Gram band and block-Thomas factor into Li, F.  Block-uniform fail.
+  // Gram band, then block-Thomas into Li (L_k^-1), G, H.  Returns the
+  // block-uniform (and cluster-uniform) fail flag.
   __device__ bool factor(const float* rv) const {
-    const int bb = block(), nb2 = bb * bb, tot = T * nb2;
-    // D_k (into Li) and E_k (into F), one thread per band entry
-    for (int e = threadIdx.x; e < 2 * tot; e += blockDim.x) {
-      const bool lower = e >= tot;
-      const int rem = lower ? e - tot : e;
-      const int k = rem / nb2, ij = rem - k * nb2, i = ij / bb, j = ij - i * bb;
-      if (lower && k + 1 == T) {
-        F[rem] = pe[rem];
-        continue;
+    constexpr int nb2 = BB * BB;
+    constexpr int S = BB <= 8 ? 4 : (BB <= 16 ? 2 : 1);  // row slices per band row
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+    const int total = n * S, tot = T * nb2, rsm = min(rs, ml);
+    // thread (band row k BB + i, slice c) sums row i of D_k (into Li) and
+    // of E_k (into H) over this block's rows r = c mod S
+    for (int base = 32 * wp; base < total; base += blockDim.x) {
+      const int e = base + lane, c = e % S, rb = e / S, k = rb / BB, i = rb - k * BB;
+      const bool valid = e < total, has_e = valid && k + 1 < T;
+      float d[BB], f[BB];
+#pragma unroll
+      for (int j = 0; j < BB; ++j) d[j] = f[j] = 0.f;
+      if (valid) {
+        const int ca = k * BB;
+        for (int r = c; r < rsm; r += S) {
+          const float* a = As + (size_t)r * ld;
+          const float ai = a[ca + i] * rv[r];
+          const float ei = has_e ? a[ca + BB + i] * rv[r] : 0.f;
+#pragma unroll
+          for (int j = 0; j < BB; ++j) {
+            d[j] = fmaf(ai, a[ca + j], d[j]);
+            f[j] = fmaf(ei, a[ca + j], f[j]);
+          }
+        }
+        for (int r = rsm + ((c - rsm) % S + S) % S; r < ml; r += S) {
+          const float* a = Ag + (size_t)(r - rs) * n;
+          const float ai = a[ca + i] * rv[r];
+          const float ei = has_e ? a[ca + BB + i] * rv[r] : 0.f;
+#pragma unroll
+          for (int j = 0; j < BB; ++j) {
+            d[j] = fmaf(ai, a[ca + j], d[j]);
+            f[j] = fmaf(ei, a[ca + j], f[j]);
+          }
+        }
       }
-      const int ca = (lower ? k + 1 : k) * bb + i, cb = k * bb + j;
-      float acc = 0.f;
-      for (int r = 0; r < rs; ++r) {
-        const float* a = As + (size_t)r * ld;
-        acc = fmaf(a[ca] * rv[r], a[cb], acc);
+#pragma unroll
+      for (int o = 1; o < S; o <<= 1) {
+#pragma unroll
+        for (int j = 0; j < BB; ++j) {
+          d[j] += __shfl_xor_sync(0xffffffffu, d[j], o);
+          f[j] += __shfl_xor_sync(0xffffffffu, f[j], o);
+        }
       }
-#pragma unroll 8
-      for (int r = rs; r < m; ++r) {
-        const float* a = Ag + (size_t)(r - rs) * n;
-        acc = fmaf(a[ca] * rv[r], a[cb], acc);
+      if (valid && c == 0) {
+        const int o = k * nb2 + i * BB;
+#pragma unroll
+        for (int j = 0; j < BB; ++j) {
+          if constexpr (CS > 1) {  // partial sums; combined below
+            Li[o + j] = d[j];
+            H[o + j] = f[j];
+          } else {
+            Li[o + j] = pd[o + j] + (i == j ? sigma : 0.f) + d[j];
+            H[o + j] = pe[o + j] + f[j];
+          }
+        }
       }
-      if (lower) F[rem] = pe[rem] + acc;
-      else Li[rem] = pd[rem] + (i == j ? sigma : 0.f) + acc;
+    }
+    if constexpr (CS > 1) {
+      // each block pushes its partial of D (then of E) into the peer's G
+      // (free until Thomas) and adds the peer's, pushed into its own G
+      cg::cluster_group cl = cg::this_cluster();
+      cl.sync();  // the peer is past its last read of G
+      float* peer_g = remote(G);
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) peer_g[e] = Li[e];
+      cl.sync();
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+        const int ij = e % nb2, i = ij / BB, j = ij - i * BB;
+        Li[e] = pd[e] + (i == j ? sigma : 0.f) + (Li[e] + G[e]);
+      }
+      cl.sync();
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) peer_g[e] = H[e];
+      cl.sync();
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) H[e] = pe[e] + (H[e] + G[e]);
     }
     __syncthreads();
+    ADMM_PHASE_END(kPhGram);
+    ADMM_PHASE_BEGIN(kPhThomas);
+    if (threadIdx.x < 32) {
+      const bool fail = thomas();
+      if (threadIdx.x == 0) flag[0] = fail ? 1.f : 0.f;
+    }
+    __syncthreads();
+    return flag[0] != 0.f;
+  }
+
+  // Block-Thomas by warp 0 (see the header); D_k in Li and E_k in H on
+  // entry.  F_{-1} = 0 (Fs zeroed), so every step runs the same code, and
+  // G_0 = 0.  Returns the warp-uniform fail flag.
+  __device__ bool thomas() const {
+    constexpr int nb2 = BB * BB, LD = BB + 1;
+    const int i = threadIdx.x;
+    const bool row = i < BB;
+    const int ir = row ? i : 0;
+    float f[BB];  // row i of F_{k-1}
+#pragma unroll
+    for (int j = 0; j < BB; ++j) {
+      f[j] = 0.f;
+      if (row) Fs[i * LD + j] = 0.f;
+    }
+    __syncwarp();
     bool fail = false;
-    const int lds = bb + 1;
     for (int k = 0; k < T; ++k) {
-      float* Lk = Li + (size_t)k * nb2;
-      float* Fk = F + (size_t)k * nb2;
-      for (int e = threadIdx.x; e < nb2; e += blockDim.x) {
-        const int i = e / bb, j = e - i * bb;
-        float s = Lk[e];
-        if (k > 0) {
-          const float* Fp = Fk - nb2;
-          float acc = 0.f;
-          #pragma unroll
-          for (int l = 0; l < bb; ++l) acc = fmaf(Fp[i * bb + l], Fp[j * bb + l], acc);
-          s -= acc;
-        }
-        S[i * lds + j] = s;
+      float* Dk = Li + k * nb2;
+      float* Ek = H + k * nb2;
+      float s[BB], e[BB];
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
+        s[j] = Dk[ir * BB + j];
+        e[j] = Ek[ir * BB + j];
       }
-      __syncthreads();
-      fail = cholesky_inplace(S, lds, bb) || fail;
-      tri_inv(S, lds, Lk, bb, bb);  // L_k^-1 replaces D_k
-      for (int e = threadIdx.x; e < nb2; e += blockDim.x) {
-        const int i = e / bb, j = e - i * bb;
+      // S_k = D_k - F_{k-1} F_{k-1}', row i
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
         float acc = 0.f;
-        #pragma unroll
-        for (int l = 0; l < bb; ++l)
-          if (l <= j) acc = fmaf(Fk[i * bb + l], Lk[j * bb + l], acc);
-        S2[e] = acc;  // (E_k L_k^-T)_{ij}
+#pragma unroll
+        for (int l = 0; l < BB; ++l) acc = fmaf(f[l], Fs[j * LD + l], acc);
+        s[j] -= acc;
       }
-      __syncthreads();
-      for (int e = threadIdx.x; e < nb2; e += blockDim.x) Fk[e] = S2[e];
-      __syncthreads();
+      // Cholesky by columns, row i in lane i
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
+        const float dj = __shfl_sync(0xffffffffu, s[j], j);
+        fail = fail || (dj <= 0.f) || isnan(dj);
+        const float dc = nan_max(dj, 1e-30f);
+        s[j] = i > j ? s[j] * rsqrtf(dc) : (i == j ? sqrtf(dc) : s[j]);
+#pragma unroll
+        for (int c = j + 1; c < BB; ++c) {
+          const float lcj = __shfl_sync(0xffffffffu, s[j], c);
+          if (i >= c) s[c] = fmaf(-s[j], lcj, s[c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BB; ++j)
+        if (row && j <= i) Ls[i * LD + j] = s[j];
+      __syncwarp();
+      // L_k^-1 by columns, column i in lane i (forward substitution, each
+      // row scaled by 1 / max(L_rr, 1e-30)), over D_k
+      float rinv[BB], li[BB];
+#pragma unroll
+      for (int r = 0; r < BB; ++r) rinv[r] = 1.f / nan_max(Ls[r * LD + r], 1e-30f);
+#pragma unroll
+      for (int r = 0; r < BB; ++r) {
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < r; ++q)
+          if (q >= i) acc = fmaf(Ls[r * LD + q], li[q], acc);
+        li[r] = r >= i ? ((r == i ? 1.f : 0.f) - acc) * rinv[r] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < BB; ++r)
+        if (row) Dk[r * BB + i] = li[r];
+      __syncwarp();
+      // G_k = L_k^-1 F_{k-1} and F_k = E_k L_k^-T, row i
+      float lr[BB];
+#pragma unroll
+      for (int q = 0; q < BB; ++q) lr[q] = Dk[ir * BB + q];
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < BB; ++q)
+          if (q <= i) acc = fmaf(lr[q], Fs[q * LD + j], acc);
+        if (row) G[k * nb2 + i * BB + j] = acc;
+      }
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q <= j; ++q) acc = fmaf(e[q], Dk[j * BB + q], acc);
+        f[j] = acc;
+      }
+      __syncwarp();  // every lane is done with F_{k-1} in Fs
+#pragma unroll
+      for (int j = 0; j < BB; ++j)
+        if (row) Fs[i * LD + j] = f[j];
+      __syncwarp();
+      // H_k = L_k^-T F_k', row i (over E_k's row i, read above)
+#pragma unroll
+      for (int j = 0; j < BB; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < BB; ++q)
+          if (q >= i) acc = fmaf(Dk[q * BB + ir], Fs[j * LD + q], acc);
+        if (row) Ek[i * BB + j] = acc;
+      }
+      __syncwarp();
     }
     return fail;
   }
 };
+
+// The cluster's reductions: the block's, then combined with the peer's.
+template <int BB, int CS, int K>
+__device__ __forceinline__ void op_max(const BandOp<BB, CS>& op, float (&v)[K], float* red) {
+  block_max(v, red);
+  if constexpr (CS > 1) op.template combine<K, true>(v);
+}
+
+template <int BB, int CS, int K>
+__device__ __forceinline__ void op_sum(const BandOp<BB, CS>& op, float (&v)[K], float* red) {
+  block_sum(v, red);
+  if constexpr (CS > 1) op.template combine<K, false>(v);
+}
+
+// A block of a cluster adds its share of the n-vectors' terms (they are
+// the same in both blocks), so that the combined sums count each once.
+template <int BB, int CS>
+__device__ __forceinline__ void op_cols(const BandOp<BB, CS>& op, int n, int& j0, int& j1) {
+  const int per = (n + CS - 1) / CS;
+  j0 = min(n, op.rank * per);
+  j1 = min(n, j0 + per);
+}
+
+// Shared-memory floats of one block before A's rows: 8 n + 7 m0 vectors
+// (m0 = ceil(m / cs) local rows), the reduction slots, the exchange ring
+// (cs > 1), the five band arrays, the Thomas scratch and the fail slot.
+long long btd_fixed_floats(int n, int m, int bb, int cs) {
+  const long long m0 = (m + cs - 1) / cs;
+  const long long ring = cs > 1 ? 4LL * (n > 16 ? n : 16) : 0;
+  return 8LL * n + 7 * m0 + kRedSlots + ring + 5LL * n * bb + 2LL * bb * (bb + 1) + 1;
+}
+
+// Rows of A each block keeps in shared memory (-1 where the rest does not
+// fit).
+int btd_block_rows(int n, int m, int bb, int cs) {
+  const long long spare = (long long)kMaxSmemBytes / 4 - btd_fixed_floats(n, m, bb, cs);
+  if (spare < 0) return -1;
+  const long long rows = spare / (n + 1), m0 = (m + cs - 1) / cs;
+  return (int)(rows < m0 ? rows : m0);
+}
+
+// Rows of A on chip over the blocks of one problem.
+int btd_rows_on_chip(int n, int m, int bb, int cs) {
+  const int rb = btd_block_rows(n, m, bb, cs);
+  if (rb < 0) return -1;
+  const int m0 = (m + cs - 1) / cs;
+  int rows = 0;
+  for (int r = 0; r < cs; ++r) {
+    const int ml = r * m0 < m ? (m - r * m0 < m0 ? m - r * m0 : m0) : 0;
+    rows += ml < rb ? ml : rb;
+  }
+  return rows;
+}
+
+// The rule: a cluster of two blocks where one block cannot hold all of A
+// in shared memory and two hold more of it, or where the batch in single
+// blocks would leave half of the card's SMs idle (2 B <= SMs) and two
+// blocks hold all of A; else one block.  bb = 8 or 16 only.
+int btd_cluster_size(int n, int m, int bb, int batch) {
+  if (bb > 16) return 1;  // BTD_INSTANCES has no cluster for them
+  const int one = btd_rows_on_chip(n, m, bb, 1), two = btd_rows_on_chip(n, m, bb, 2);
+  if (one < m && two > one) return 2;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return (two == m && 2LL * batch <= sms) ? 2 : 1;
+}
 
 // K6 / K7.  Per problem: load the band, the vectors and the leading rows of
 // A; rho = rho0 + 0 q_0 (a NaN in q reaches the fail flag through the
@@ -252,18 +584,24 @@ struct BandOp {
 // TPU kernel; the ADMM solve entered with a pending rho, so the first
 // epoch factors.  Output x, z, y and stats (9, B): done, iter, res_prim,
 // res_dual, fail, rho_updates, rho_estimate, infs, rho of the final factor.
-template <int BB>
-__global__ void __launch_bounds__(256) qp_btd_kernel(
-    StepParams p, int bb, int rs, const float* __restrict__ pdg, const float* __restrict__ peg,
-    const float* __restrict__ Ag, const float* __restrict__ qg, const float* __restrict__ lg,
-    const float* __restrict__ ug, const uint8_t* __restrict__ active,
-    const float* __restrict__ rho_in, const float* __restrict__ x0,
-    const float* __restrict__ z0, const float* __restrict__ y0, float* __restrict__ x_out,
-    float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ stats) {
+template <int BB, int CS>
+__global__ void __launch_bounds__(kThreads) qp_btd_kernel(
+    StepParams p, int rs, int batch, const float* __restrict__ pdg,
+    const float* __restrict__ peg, const float* __restrict__ Ag, const float* __restrict__ qg,
+    const float* __restrict__ lg, const float* __restrict__ ug,
+    const uint8_t* __restrict__ active, const float* __restrict__ rho_in,
+    const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0,
+    float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
+    float* __restrict__ stats) {
   extern __shared__ float smem[];
-  const int n = p.n, m = p.m, ld = n + 1, T = n / bb, nband = n * bb;
-  const size_t b = blockIdx.x;
+  ADMM_PHASE_BEGIN(kPhTotal);
+  const int n = p.n, m = p.m, ld = n + 1, T = n / BB, nband = n * BB;
+  const size_t b = blockIdx.x / CS;
+  const int rank = CS > 1 ? (int)(blockIdx.x % CS) : 0;
+  const int m0 = (m + CS - 1) / CS, r0 = rank * m0;
+  const int ml = r0 < m ? min(m0, m - r0) : 0;
   const int tid = threadIdx.x, NT = blockDim.x;
+  const int xlen = n > 16 ? n : 16;
 
   float* q = smem;
   float* x = q + n;
@@ -271,40 +609,45 @@ __global__ void __launch_bounds__(256) qp_btd_kernel(
   float* xt = bt + n;
   float* tn1 = xt + n;
   float* tn2 = tn1 + n;
-  float* xp = tn2 + n;  // 7 n
-  float* z = xp + n;
-  float* y = z + m;
-  float* l = y + m;
-  float* u = l + m;
-  float* rv = u + m;
-  float* tm = rv + m;
-  float* yp = tm + m;  // 7 m
-  float* red = yp + m;
-  float* pd = red + kRedSlots;
+  float* xp = tn2 + n;
+  float* tw = xp + n;  // 8 n
+  float* z = tw + n;
+  float* y = z + m0;
+  float* l = y + m0;
+  float* u = l + m0;
+  float* rv = u + m0;
+  float* tm = rv + m0;
+  float* yp = tm + m0;  // 7 m0
+  float* red = yp + m0;
+  float* xch = red + kRedSlots;
+  float* pd = xch + (CS > 1 ? 4 * xlen : 0);
   float* pe = pd + nband;
   float* Li = pe + nband;
-  float* F = Li + nband;
-  float* S = F + nband;          // bb (bb + 1)
-  float* S2 = S + bb * (bb + 1);  // bb bb
-  float* tb = S2 + bb * bb;      // bb
-  float* As = tb + bb;           // rs rows of stride ld
-  const float* Ab = Ag + b * (size_t)m * n;
+  float* G = Li + nband;
+  float* H = G + nband;
+  float* Fs = H + nband;
+  float* Ls = Fs + BB * (BB + 1);
+  float* flag = Ls + BB * (BB + 1);
+  float* As = flag + 1;  // rs rows of stride ld
+  const float* Ab = Ag + (b * (size_t)m + r0) * n;
 
   for (int j = tid; j < n; j += NT) {
     q[j] = qg[b * n + j];
     x[j] = x0[b * n + j];
   }
-  for (int i = tid; i < m; i += NT) {
-    z[i] = z0[b * m + i];
-    y[i] = y0[b * m + i];
-    l[i] = lg[b * m + i];
-    u[i] = ug[b * m + i];
+  for (int i = tid; i < ml; i += NT) {
+    const size_t g = b * m + r0 + i;
+    z[i] = z0[g];
+    y[i] = y0[g];
+    l[i] = lg[g];
+    u[i] = ug[g];
   }
   for (int e = tid; e < nband; e += NT) {
     pd[e] = pdg[b * nband + e];
     pe[e] = peg[b * nband + e];
   }
-  for (int e = tid; e < rs * n; e += NT) {
+  const int rsl = min(rs, ml);
+  for (int e = tid; e < rsl * n; e += NT) {
     const int i = e / n, j = e - i * n;
     As[i * ld + j] = Ab[e];
   }
@@ -328,17 +671,21 @@ __global__ void __launch_bounds__(256) qp_btd_kernel(
   }
   st.rho_est = st.rho;
 
-  const BandOp<BB> op{As, Ab + (size_t)rs * n, ld, rs, pd, pe, Li, F, S, S2, tb, n, m, bb, T,
-                      p.sigma};
-  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
+  const BandOp<BB, CS> op{As, Ab + (size_t)rs * n, ld, rs, ml, pd, pe, Li, G, H, Fs, Ls, tw,
+                          flag, xch, xlen, rank, n, T, p.sigma, 0};
+  StepParams pl = p;
+  pl.m = ml;  // the ADMM core sees this block's rows
+  admm_solve(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
 
-  for (int j = tid; j < n; j += NT) x_out[b * n + j] = x[j];
-  for (int i = tid; i < m; i += NT) {
-    z_out[b * m + i] = z[i];
-    y_out[b * m + i] = y[i];
+  ADMM_PHASE_END(kPhTotal);
+  if (rank == 0)
+    for (int j = tid; j < n; j += NT) x_out[b * n + j] = x[j];
+  for (int i = tid; i < ml; i += NT) {
+    z_out[b * m + r0 + i] = z[i];
+    y_out[b * m + r0 + i] = y[i];
   }
-  if (tid == 0) {  // stats is (9, batch): one row per field
-    const size_t B = gridDim.x;
+  if (rank == 0 && tid == 0) {  // stats is (9, batch): one row per field
+    const size_t B = batch;
     stats[0 * B + b] = st.done ? 1.f : 0.f;
     stats[1 * B + b] = (float)st.itc;
     stats[2 * B + b] = st.rp;
@@ -349,47 +696,74 @@ __global__ void __launch_bounds__(256) qp_btd_kernel(
     stats[7 * B + b] = (float)st.infs;
     stats[8 * B + b] = st.rho;
   }
+  // no block leaves before its peer is past the last exchange into it
+  if constexpr (CS > 1) cg::this_cluster().sync();
 }
 
-// Shared-memory floats before A's rows: 7 n + 7 m vectors, the reduction
-// slots, the four band arrays and the factor/sweep scratch.
-long long btd_fixed_floats(int n, int m, int bb) {
-  return 7LL * n + 7LL * m + kRedSlots + 4LL * n * bb + 2LL * bb * bb + 2LL * bb;
-}
-
-// Rows of A kept in shared memory (-1 where not even the rest fits).
-int btd_rows_smem(int n, int m, int bb) {
-  const long long spare = (long long)kMaxSmemBytes / 4 - btd_fixed_floats(n, m, bb);
-  if (spare < 0) return -1;
-  const long long rows = spare / (n + 1);
-  return (int)(rows < m ? rows : m);
+template <int BB, int CS>
+cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cudaStream_t stream,
+                       const float* pd, const float* pe, const float* A, const float* q,
+                       const float* l, const float* u, const uint8_t* active,
+                       const float* rho_in, const float* x0, const float* z0, const float* y0,
+                       float* x_out, float* z_out, float* y_out, float* stats) {
+  auto kernel = qp_btd_kernel<BB, CS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)batch * CS);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, p, rs, batch, pd, pe, A, q, l, u, active, rho_in, x0,
+                            z0, y0, x_out, z_out, y_out, stats);
 }
 
 }  // namespace
 
+// The kernel's instantiations, X(internal block, blocks per problem); a
+// launch at any other pair is refused.  tools/build_timing.py --instances
+// compiles this file with each alone (a unit that defines the list first
+// and includes the file) to time it.
+#ifndef BTD_INSTANCES
+#define BTD_INSTANCES X(8, 1) X(8, 2) X(16, 1) X(16, 2) X(24, 1) X(32, 1)
+#endif
+
 extern "C" {
 
-int qp_btd_smem_rows(int n, int m, int bb) { return btd_rows_smem(n, m, bb); }
+// Blocks per problem the launcher takes at these sizes (1 or 2).
+int qp_btd_cluster_size(int n, int m, int bb, int batch) {
+  return btd_cluster_size(n, m, bb, batch);
+}
 
-int qp_btd_launch(const float* pd, const float* pe, const float* A, const float* q,
-                  const float* l, const float* u, const uint8_t* active, const float* rho_in,
-                  const float* x0, const float* z0, const float* y0, float* x_out, float* z_out,
-                  float* y_out, float* stats, int batch, int n, int m, int bb, float sigma,
-                  float alpha, float rho0, float eps_abs, float eps_rel, int n_epochs,
-                  int chunks_per_epoch, int seg, int adaptive_rho, float adaptive_rho_tolerance,
-                  int check_infeas, float eps_pinf, float eps_dinf, int device, void* stream) {
+// Rows of A the launch keeps on chip, over the blocks of one problem (-1
+// where the band and vectors do not fit).
+int qp_btd_smem_rows(int n, int m, int bb, int batch) {
+  return btd_rows_on_chip(n, m, bb, btd_cluster_size(n, m, bb, batch));
+}
+
+// One launch with cs blocks per problem (1 or 2, as BTD_INSTANCES has them).
+int qp_btd_launch_as(int cs, const float* pd, const float* pe, const float* A, const float* q,
+                     const float* l, const float* u, const uint8_t* active, const float* rho_in,
+                     const float* x0, const float* z0, const float* y0, float* x_out,
+                     float* z_out, float* y_out, float* stats, int batch, int n, int m, int bb,
+                     float sigma, float alpha, float rho0, float eps_abs, float eps_rel,
+                     int n_epochs, int chunks_per_epoch, int seg, int adaptive_rho,
+                     float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
+                     float eps_dinf, int device, void* stream) {
   if (batch <= 0) return 0;
-  if (bb <= 0 || n % bb != 0) return (int)cudaErrorInvalidValue;
-  const int rs = btd_rows_smem(n, m, bb);
+  if ((cs != 1 && cs != 2) || bb <= 0 || n % bb != 0) return (int)cudaErrorInvalidValue;
+  const int rs = btd_block_rows(n, m, bb, cs);
   if (rs < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(btd_fixed_floats(n, m, bb) + (long long)rs * (n + 1)) * 4;
-  void (*kernel)(StepParams, int, int, const float*, const float*, const float*, const float*,
-                 const float*, const float*, const uint8_t*, const float*, const float*,
-                 const float*, const float*, float*, float*, float*, float*) =
-      bb == 8 ? qp_btd_kernel<8> : (bb == 16 ? qp_btd_kernel<16> : qp_btd_kernel<0>);
+  const size_t smem = (size_t)(btd_fixed_floats(n, m, bb, cs) + (long long)rs * (n + 1)) * 4;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   StepParams p;
   p.n = n;
@@ -410,9 +784,34 @@ int qp_btd_launch(const float* pd, const float* pe, const float* A, const float*
   p.eps_dinf = eps_dinf;
   p.n_smem_mats = 0;
   p.ws_floats = 0;
-  kernel<<<batch, 256, smem, (cudaStream_t)stream>>>(
-      p, bb, rs, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define BTD_ARGS p, rs, batch, smem, st, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, \
+                 z_out, y_out, stats
+  err = cudaErrorInvalidValue;  // unless an instantiation takes (bb, cs)
+#define X(BB_, CS_) \
+  if (bb == BB_ && cs == CS_) err = launch_btd<BB_, CS_>(BTD_ARGS);
+  BTD_INSTANCES
+#undef X
+#undef BTD_ARGS
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// One launch with the blocks per problem of the rule (qp_btd_cluster_size).
+int qp_btd_launch(const float* pd, const float* pe, const float* A, const float* q,
+                  const float* l, const float* u, const uint8_t* active, const float* rho_in,
+                  const float* x0, const float* z0, const float* y0, float* x_out, float* z_out,
+                  float* y_out, float* stats, int batch, int n, int m, int bb, float sigma,
+                  float alpha, float rho0, float eps_abs, float eps_rel, int n_epochs,
+                  int chunks_per_epoch, int seg, int adaptive_rho, float adaptive_rho_tolerance,
+                  int check_infeas, float eps_pinf, float eps_dinf, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);  // the rule reads this card's SM count
+  if (err != cudaSuccess) return (int)err;
+  return qp_btd_launch_as(btd_cluster_size(n, m, bb, batch), pd, pe, A, q, l, u, active, rho_in,
+                          x0, z0, y0, x_out, z_out, y_out, stats, batch, n, m, bb, sigma, alpha,
+                          rho0, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg, adaptive_rho,
+                          adaptive_rho_tolerance, check_infeas, eps_pinf, eps_dinf, device,
+                          stream);
 }
 
 }  // extern "C"

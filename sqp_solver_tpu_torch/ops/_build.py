@@ -20,7 +20,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_dir", "nvcc_path", "last_build_seconds"]
+__all__ = ["load", "build_library", "build_dir", "nvcc_path", "last_build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -60,7 +60,13 @@ _SIGNATURES = {
         [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
     ),
-    "qp_btd_smem_rows": (_INT, [_INT, _INT, _INT]),
+    "qp_btd_launch_as": (
+        _INT,
+        [_INT] + [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
+    "qp_btd_smem_rows": (_INT, [_INT] * 4),
+    "qp_btd_cluster_size": (_INT, [_INT] * 4),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
 }
 
@@ -79,8 +85,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _sources():
-    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+def _sources(csrc: Path = _CSRC):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
 def _run_all(cmds) -> None:
@@ -93,40 +99,50 @@ def _run_all(cmds) -> None:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
 
 
-def _compile(cu, so: Path) -> None:
+def _compile(cu, so: Path, flags=()) -> None:
     """Compile the sources ``cu`` into the library ``so``: one nvcc per
     source, all started together, then one link."""
     with tempfile.TemporaryDirectory(dir=so.parent) as tmp_dir:
         objs = [Path(tmp_dir) / f"{p.stem}.o" for p in cu]
-        _run_all([[nvcc_path(), *_NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+        _run_all([[nvcc_path(), *_NVCC_FLAGS, *flags, "-c", "-o", str(o), str(p)]
                   for p, o in zip(cu, objs)])
         tmp = Path(tmp_dir) / so.name
         _run_all([[nvcc_path(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, so)
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib, last_build_seconds
-    if _lib is not None:
-        return _lib
-    cu, cuh = _sources()
+def build_library(csrc: Path, out_dir: Path, flags=()) -> ctypes.CDLL:
+    """Build the ``*.cu`` of ``csrc`` with nvcc ``flags`` into ``out_dir``
+    (under a name hashed from the sources and flags, so a build is reused
+    only for the same sources) and load it.  Binds the C functions of the
+    interface that the library has (one built from another tree, or from
+    one source alone, may lack some)."""
+    global last_build_seconds
+    cu, cuh = _sources(csrc)
     digest = hashlib.sha1()
     for p in cu + cuh:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
-    out_dir = build_dir()
+    digest.update(" ".join([*_NVCC_FLAGS, *flags]).encode())
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libqp_kernel_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         t0 = time.perf_counter()
-        _compile(cu, so)
+        _compile(cu, so, flags)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
-    _lib = lib
     return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib
+    if _lib is None:
+        _lib = build_library(_CSRC, build_dir())
+    return _lib

@@ -11,8 +11,11 @@ hooks:
     factor:  the Gram band (A' rho A)_{k,k}, (A' rho A)_{k+1,k} from A's
              columns, then block-Thomas Cholesky
              S_k = D_k - F_{k-1} F_{k-1}',  L_k = chol(S_k),
-             F_k = E_k L_k^-T  (F_{T-1} = 0)          O(T bb^3 + m n bb)
-    M^-1 b:  forward and backward block sweeps          O(n bb)
+             F_k = E_k L_k^-T  (F_{T-1} = 0),
+             and the sweeps' couplings G_k = L_k^-1 F_{k-1},
+             H_k = L_k^-T F_k'                          O(T bb^3 + m n bb)
+    M^-1 b:  c_k = L_k^-1 b_k (all k), w_k = c_k - G_k w_{k-1},
+             d_k = L_k^-T w_k (all k), x_k = d_k - H_k x_{k+1}   O(n bb)
     P v:     from the band of P only
 
 A stays dense (A v and A' w are dense matvecs).  Entries of M outside the
@@ -25,8 +28,9 @@ Each entry point has a plain PyTorch version (:func:`qp_btd_reference`,
 batched tensor code that follows the kernel's per-problem algorithm, with
 the column Cholesky's pivot clamp and fail rule) and a wrapper that sends
 CPU tensors to it and CUDA tensors to the kernel in ``csrc/qp_kernel_btd.cu``
-(one thread block per problem).  A CUDA call the kernel cannot take
-raises; there is no fallback.
+(one thread block per problem, or a cluster of two where one block cannot
+hold A in shared memory).  A CUDA call the kernel cannot take raises;
+there is no fallback.
 
 Layouts are batch-first: the band is ``pd``, ``pe`` of shape (B, T, bb, bb)
 with ``pd[:, k]`` the diagonal block M_{k,k}'s P part and ``pe[:, k]`` the
@@ -36,6 +40,7 @@ sub-diagonal block P_{k+1,k} (``pe[:, T-1]`` zero).
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -65,6 +70,10 @@ __all__ = [
     "qp_solve_kernel_btd",
     "btd_step_kernel",
 ]
+
+# The internal blocks the CUDA kernel is built for (a cluster of two blocks
+# per problem for 8 and 16 only).
+KERNEL_BLOCKS = (8, 16, 24, 32)
 
 # Launch counters, one per entry point of the one CUDA kernel: each wrapper
 # adds one where it launches the kernel (never on the plain path).
@@ -128,8 +137,10 @@ def _band_pmv(pd, pe, v):
 
 def _btd_factor(pd, pe, A, rv, sigma):
     """Gram band and block-Thomas Cholesky of M = P + sigma I + A' diag(rv) A
-    restricted to the band.  Returns ``((Li, F), fail)``: Li[:, k] = L_k^-1,
-    F[:, k] = E_k L_k^-T; fail if any block's pivot was clamped."""
+    restricted to the band.  Returns ``((Li, G, H), fail)``: Li[:, k] =
+    L_k^-1, and the sweeps' couplings G[:, k] = L_k^-1 F_{k-1} (G[:, 0] = 0)
+    and H[:, k] = L_k^-T F_k' (H[:, T-1] = 0) of F_k = E_k L_k^-T; fail if
+    any block's pivot was clamped."""
     B, T, bb, _ = pd.shape
     m = A.shape[1]
     Ab = A.reshape(B, m, T, bb)
@@ -139,37 +150,38 @@ def _btd_factor(pd, pe, A, rv, sigma):
     E = pe.clone()
     if T > 1:
         E[:, :-1] += torch.einsum("brki,brkj->bkij", Ab[:, :, 1:], Aw[:, :, :-1])
-    Li = torch.empty_like(pd)
-    F = torch.empty_like(pd)
+    Li, G, H = torch.empty_like(pd), torch.zeros_like(pd), torch.zeros_like(pd)
     fail = torch.zeros(B, dtype=torch.bool, device=pd.device)
-    FFt = torch.zeros_like(pd[:, 0])
+    Fp = torch.zeros_like(pd[:, 0])
     for k in range(T):
-        L, f = _cholesky_clamped(D[:, k] - FFt)
+        L, f = _cholesky_clamped(D[:, k] - torch.matmul(Fp, Fp.mT))
         Lik = _tri_inv(L)
         Fk = torch.matmul(E[:, k], Lik.mT)
         Li[:, k] = Lik
-        F[:, k] = Fk
-        FFt = torch.matmul(Fk, Fk.mT)
+        if k > 0:
+            G[:, k] = torch.matmul(Lik, Fp)
+        if k + 1 < T:
+            H[:, k] = torch.matmul(Lik.mT, Fk.mT)
+        Fp = Fk
         fail = fail | f
-    return (Li, F), fail
+    return (Li, G, H), fail
 
 
 def _btd_apply(factor, b):
-    """M^-1 b by the block-bidiagonal sweeps: L w = b forward
-    (w_k = L_k^-1 (b_k - F_{k-1} w_{k-1})), then L' x = w backward
-    (x_k = L_k^-T (w_k - F_k' x_{k+1}))."""
-    Li, F = factor
+    """M^-1 b in four phases: c_k = L_k^-1 b_k for all k; the forward chain
+    w_k = c_k - G_k w_{k-1}; d_k = L_k^-T w_k for all k; the backward chain
+    x_k = d_k - H_k x_{k+1}."""
+    Li, G, H = factor
     B, T, bb, _ = Li.shape
-    bv = b.reshape(B, T, bb)
-    w = []
-    for k in range(T):
-        t = bv[:, k] if k == 0 else bv[:, k] - _mv(F[:, k - 1], w[k - 1])
-        w.append(_mv(Li[:, k], t))
-    x = [None] * T
-    for k in reversed(range(T)):
-        t = w[k] if k == T - 1 else w[k] - _mtv(F[:, k], x[k + 1])
-        x[k] = _mtv(Li[:, k], t)
-    return torch.stack(x, dim=1).reshape(B, T * bb)
+    c = _mv(Li, b.reshape(B, T, bb))
+    w = [c[:, 0]]
+    for k in range(1, T):
+        w.append(c[:, k] - _mv(G[:, k], w[-1]))
+    d = _mtv(Li, torch.stack(w, dim=1))
+    x = [d[:, T - 1]]
+    for k in reversed(range(T - 1)):
+        x.append(d[:, k] - _mv(H[:, k], x[-1]))
+    return torch.stack(x[::-1], dim=1).reshape(B, T * bb)
 
 
 def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
@@ -199,7 +211,7 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     false = torch.zeros(batch, dtype=torch.bool, device=dev)
     out = _admm_core(
         ops, q, l, u, x, z, y, ~active, false, rho,
-        (torch.zeros_like(pd), torch.zeros_like(pd)),
+        tuple(torch.zeros_like(pd) for _ in range(3)),
         lambda rv: _btd_factor(pd, pe, A, rv, sigma),
         sigma=sigma, alpha=float(settings.alpha),
         eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
@@ -218,11 +230,17 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
 
 
 def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
-                   active, rho_in, check_infeas: bool, name: str) -> BtdOut:
-    """One launch of the structured CUDA kernel on float32 CUDA operands."""
+                   active, rho_in, check_infeas: bool, name: str,
+                   cluster: Optional[int] = None) -> BtdOut:
+    """One launch of the structured CUDA kernel on float32 CUDA operands,
+    with the blocks per problem of the kernel's rule (:func:`cluster_size`)
+    or, for the tests and the measurements, ``cluster`` (1 or 2)."""
     batch, n = q.shape
     m = l.shape[-1]
     bb = pd.shape[-1]
+    if bb not in KERNEL_BLOCKS:
+        raise ValueError(f"{name}: the CUDA kernel takes internal blocks {KERNEL_BLOCKS}, "
+                         f"not {bb}")
     operands = dict(pd=pd, pe=pe, A=A, q=q, l=l, u=u, x=x, z=z, y=y, active=active,
                     rho_in=rho_in)
     dev = _check_cuda_operands(name, operands, dict(active=torch.bool))
@@ -236,7 +254,8 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     stats = torch.empty((9, batch), **f32)  # one contiguous row per field
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qp_btd_launch(
+    launch = lib.qp_btd_launch if cluster is None else partial(lib.qp_btd_launch_as, cluster)
+    rc = launch(
         _ptr(pd), _ptr(pe), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(active),
         _ptr(rho_in), _ptr(x), _ptr(z), _ptr(y),
         _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats),
@@ -258,19 +277,32 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     )
 
 
-def smem_rows(n: int, m: int, bb: int) -> int:
-    """Rows of A the CUDA kernel keeps in shared memory at these sizes (the
-    rest it reads from device memory); needs the built library."""
+def cluster_size(n: int, m: int, bb: int, batch: int) -> int:
+    """Thread blocks per problem the CUDA kernel takes at these sizes on
+    the current card: 2 (a cluster) where one block cannot hold all of A
+    in shared memory and two hold more of it, or where one block per
+    problem would leave half of the SMs idle (2 B <= SMs) and two hold all
+    of A; else 1.  Internal blocks 8 and 16 only; needs the built
+    library."""
     from sqp_solver_tpu_torch.ops import _build
 
-    return int(_build.load().qp_btd_smem_rows(n, m, bb))
+    return int(_build.load().qp_btd_cluster_size(n, m, bb, batch))
+
+
+def smem_rows(n: int, m: int, bb: int, batch: int) -> int:
+    """Rows of A the CUDA kernel keeps in shared memory at these sizes, over
+    the blocks of one problem (the rest it reads from device memory);
+    needs the built library."""
+    from sqp_solver_tpu_torch.ops import _build
+
+    return int(_build.load().qp_btd_smem_rows(n, m, bb, batch))
 
 
 def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
                         state: Optional[QPState] = None) -> QPResult:
     """Solve a batch of QPs whose Schur matrix is block-tridiagonal at the
     declared ``settings.block_size`` with the structured whole-solve
-    kernel, one CUDA thread block per problem (replaces the TPU's
+    kernel, one CUDA thread block or cluster per problem (replaces the TPU's
     ``ops/qp_kernel_btd.py:qp_solve_kernel_btd``).
 
     Same semantics as ``qp_solve_kernel``: entries of M outside the band
@@ -321,7 +353,7 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
         min 0.5 p'Bp + g'p   s.t.   l <= J p <= u,
 
     with B given by its band ``pd``, ``pe`` (B, T, bb, bb), one CUDA thread
-    block per problem (replaces the TPU's ``ops/qp_kernel_btd.py:
+    block or cluster per problem (replaces the TPU's ``ops/qp_kernel_btd.py:
     btd_step_kernel``).  ``active`` (bool (B,)) freezes the other problems
     at their warm start; ``rho_in`` (B,), where > 0, replaces rho0 (0 means
     none).  No infeasibility certificates (the SQP tiers run without).

@@ -8,7 +8,7 @@ route from ``qp_solve_kernel``), the structured SQP step (K7,
 ``sqp_solve_batch(qp_impl="kernel_btd")`` and the stage-wise families.
 
 Tolerances.  Statuses, iteration and rho-update counts are equal.  On the
-random band QPs (no equality rows) x, y and z agree to atol 1e-9
+random band QPs (no equality rows, T = 4) x, y and z agree to atol 1e-9
 (measured worst 7.1e-15), and so they do on the stage-wise MPC QP, whose
 2 T dynamics rows are equalities (measured worst 8.6e-14, cold and warm,
 native and padded blocking); the SQP tier's x and lambda to atol 1e-8.
@@ -81,9 +81,10 @@ def _mpc_arrays(batch, horizon, seed=0):
 
 @pytest.mark.parametrize("warm", [False, True])
 def test_k6_random_band_qps_match_jax(warm):
-    """Random block-tridiagonal QPs (n = 16, bb = 8, m = 12, a loose row),
+    """Random block-tridiagonal QPs at T = 4 blocks (n = 32, bb = 8,
+    m = 24, a loose row), so each sweep chain runs three coupled steps,
     cold and warm-started: K6's plain version against the JAX kernel."""
-    a = btd_qp_inputs(5, 2, 8, 12, seed=3, loose_row=True)
+    a = btd_qp_inputs(5, 4, 8, 24, seed=3, loose_row=True)
     s = dict(BTD, block_size=8)
     jst = JaxQPState(*(jnp.asarray(a[k]) for k in "xzy")) if warm else None
     jr = jax_qp_btd(_jax_qp(a), JaxQPSettings(**s), state=jst)
@@ -91,6 +92,30 @@ def test_k6_random_band_qps_match_jax(warm):
     pr = qb.qp_solve_kernel_btd(_port_qp(a), QPSettings(**s), state=pst)
     _assert_qp_equal(pr, jr, ATOL)
     assert (pr.info.status.numpy() == QPStatus.SOLVED).all()
+
+
+def test_btd_apply_solves_the_band_system():
+    """The four-phase apply of the block-Thomas factor (c = L^-1 b, the
+    forward chain, d = L^-T w, the backward chain) against
+    ``torch.linalg.solve`` of the assembled band M at T = 5, float64."""
+    t = btd_step_inputs(3, 5, 8, 30, seed=6)
+    pd, pe, A = (torch.as_tensor(t[k]) for k in ("pd", "pe", "J"))
+    rv = torch.as_tensor(np.random.default_rng(6).uniform(0.1, 2.0, size=(3, 30)))
+    factor, fail = qb._btd_factor(pd, pe, A, rv, 1e-6)
+    assert not fail.any()
+    n = 40
+    M = 1e-6 * torch.eye(n, dtype=torch.float64) + A.mT @ (A * rv[..., None])
+    for k in range(5):
+        o = slice(8 * k, 8 * k + 8)
+        M[:, o, o] += pd[:, k]
+        if k < 4:
+            p = slice(8 * k + 8, 8 * k + 16)
+            M[:, p, o] += pe[:, k]
+            M[:, o, p] += pe[:, k].mT
+    b = torch.as_tensor(np.random.default_rng(7).normal(size=(3, n)))
+    want = torch.linalg.solve(M, b)
+    np.testing.assert_allclose(qb._btd_apply(factor, b).numpy(), want.numpy(), atol=1e-10,
+                               rtol=0)
 
 
 def test_k6_mpc_family_and_route_match_jax():
@@ -202,6 +227,27 @@ def test_k7_step_matches_jax():
     assert int(out.iter[-1]) == 0 and bool(out.done[-1])
     # a carried rho differs from rho0 in the first factor
     assert not torch.equal(out.rho_factor[1::2], torch.full_like(out.rho_factor[1::2], 0.1))
+
+
+def test_k7_long_chain_matches_jax():
+    """K7 at T = 4 blocks (n = 32, bb = 8, m = 24), a carried rho on every
+    second problem and the last problem inactive: iterates and the nine
+    stats rows against the JAX kernel."""
+    t = btd_step_inputs(3, 4, 8, 24, seed=12)
+    s = dict(BTD, block_size=8, max_iter=100)
+    jp, jz, jy, st = _jax_step(t, s)
+    tt = {k: torch.as_tensor(v) for k, v in t.items()}
+    out = qb.btd_step_kernel(tt["pd"], tt["pe"], tt["J"], tt["g"], tt["l"], tt["u"],
+                             tt["active"], tt["x"], tt["z"], tt["y"], QPSettings(**s),
+                             rho_in=tt["rho_in"])
+    for name, a, b in (("p", out.x, jp), ("z", out.z, jz), ("y", out.y, jy)):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0, err_msg=name)
+    rows = (out.done, out.iter, out.res_prim, out.res_dual, out.fail, out.rho_updates,
+            out.rho_estimate, out.infs, out.rho_factor)
+    for i, r in enumerate(rows):
+        np.testing.assert_allclose(r.double().numpy(), st[i], rtol=1e-6, atol=1e-12,
+                                   err_msg=f"stats row {i}")
+    assert int(out.iter[0]) > 0 and int(out.iter[-1]) == 0
 
 
 def test_band_bfgs_matches_jax():

@@ -510,8 +510,29 @@ def test_fused_sqp_on_cuda_matches_cpu_plain_path(cuda):
 BTD_QP = QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=200, check_termination=25,
                     adaptive_rho=False, schedule="fixed", linear_solver="schur_block_tridiag",
                     block_size=8)
-BTD_SHAPES = [(64, 2, 8, 12), (128, 24, 8, 320), (16, 4, 16, 40)]
-BTD_IDS = ["small", "n192-A-split", "bb16"]
+# (batch, T, bb, m, blocks per problem: None for the launcher's rule,
+# launches).  The first three are the first kernel's shapes, one launch at
+# seed T + m each; the others pool as many launches, each with its own
+# seed, as make at least 100 problems.  The rule takes a cluster of two
+# blocks at n = 192 and where 2 B <= SMs (B <= 66 on a 132-SM card), one
+# block otherwise (T16-B128, bb24, bb32); 1 forces one block.
+BTD_SHAPES = [
+    pytest.param(64, 2, 8, 12, None, 1, id="small"),
+    pytest.param(128, 24, 8, 320, 1, 1, id="n192-A-split"),
+    pytest.param(16, 4, 16, 40, None, 1, id="bb16"),
+    pytest.param(64, 2, 8, 12, 1, 2, id="small-block"),
+    pytest.param(16, 4, 16, 40, 1, 7, id="bb16-block"),
+    pytest.param(128, 24, 8, 320, None, 1, id="n192-m320-B128"),
+    pytest.param(8, 24, 8, 320, None, 13, id="n192-m320-B8"),
+    pytest.param(64, 24, 8, 320, None, 2, id="n192-m320-B64"),
+    pytest.param(8, 24, 8, 336, None, 13, id="n192-m336-B8"),
+    pytest.param(64, 24, 8, 336, None, 2, id="n192-m336-B64"),
+    pytest.param(64, 24, 8, 336, 1, 2, id="n192-m336-B64-block"),
+    pytest.param(32, 16, 8, 224, None, 4, id="T16"),
+    pytest.param(128, 16, 8, 224, None, 1, id="T16-B128"),
+    pytest.param(128, 3, 24, 60, None, 1, id="bb24"),
+    pytest.param(128, 3, 32, 80, None, 1, id="bb32"),
+]
 
 
 def _btd_raw(fn, t, settings, **kw):
@@ -519,42 +540,77 @@ def _btd_raw(fn, t, settings, **kw):
               settings, **kw)
 
 
-@pytest.mark.parametrize("batch,T,bb,m", BTD_SHAPES, ids=BTD_IDS)
-def test_btd_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m):
+@pytest.mark.parametrize("batch,T,bb,m,cluster,launches", BTD_SHAPES)
+def test_btd_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, cluster, launches):
     """K7's launch (K6's kernel) on random band QPs without equality rows,
     one rho epoch, a carried rho on every second problem and the last
-    problem inactive: kernel against plain at atol = rtol = 1e-4 where the
-    iteration counts agree (>= 99 %)."""
+    problem inactive, with the launcher's block layout or one forced:
+    kernel against plain at atol = rtol = 1e-4 where the iteration counts
+    agree (>= 99 % of the problems of the shape's launches)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_step_inputs
 
-    t = _to(btd_step_inputs(batch, T, bb, m, seed=T + m), cuda)
     s = dataclasses.replace(BTD_QP, block_size=bb)
-    kw = dict(active=t["active"], rho_in=t["rho_in"])
-    ok = qb._qp_btd_launch(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"], t["x"], t["z"],
-                           t["y"], s, t["active"], t["rho_in"], True, "test")
-    ref = _btd_raw(qb.qp_btd_reference, t, s, check_infeas=True, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(ok.fail, ref.fail) and not ok.fail.any()
-    assert torch.equal(ok.done, ref.done)
-    same = ok.iter == ref.iter
-    assert same.float().mean().item() >= 0.99
-    for name in ("x", "z", "y", "rho_factor"):
-        torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL,
-                                   msg=lambda msg, name=name: f"{name}: {msg}")
-    assert torch.equal(ok.x[-1], t["x"][-1]) and int(ok.iter[-1]) == 0
+    agree = []
+    for seed in range(T + m, T + m + launches):
+        t = _to(btd_step_inputs(batch, T, bb, m, seed=seed), cuda)
+        kw = dict(active=t["active"], rho_in=t["rho_in"])
+        ok = qb._qp_btd_launch(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"], t["x"],
+                               t["z"], t["y"], s, t["active"], t["rho_in"], True, "test",
+                               cluster=cluster)
+        ref = _btd_raw(qb.qp_btd_reference, t, s, check_infeas=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ok.fail, ref.fail) and not ok.fail.any()
+        assert torch.equal(ok.done, ref.done)
+        same = ok.iter == ref.iter
+        agree.append(same)
+        for name in ("x", "z", "y", "rho_factor"):
+            torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL,
+                                       msg=lambda msg, name=name: f"{name}: {msg}")
+        assert torch.equal(ok.x[-1], t["x"][-1]) and int(ok.iter[-1]) == 0
+    assert torch.cat(agree).float().mean().item() >= 0.99
 
 
-def test_btd_kernel_fail_flag_and_counters(cuda):
+def test_btd_layout_holds_all_of_a_on_chip(cuda):
+    """The launcher's rule: at n = 192 (m = 320 and 336) a cluster of two
+    blocks holds all of A in shared memory at every batch; at n = 128,
+    m = 224 one block does, and a batch that would leave half of the SMs
+    idle takes a cluster; internal blocks 24 and 32 take one block."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    for m in (320, 336):
+        for batch in (8, 64, 4096):
+            assert qb.cluster_size(192, m, 8, batch) == 2
+            assert qb.smem_rows(192, m, 8, batch) == m
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch, blocks in ((sms // 2, 2), (sms // 2 + 1, 1), (1024, 1)):
+        assert qb.cluster_size(128, 224, 8, batch) == blocks
+        assert qb.smem_rows(128, 224, 8, batch) == 224
+    for bb, m in ((24, 60), (32, 80)):
+        assert qb.cluster_size(3 * bb, m, bb, 8) == 1 and qb.smem_rows(3 * bb, m, bb, 8) == m
+
+
+@pytest.mark.parametrize("cluster", [1, 2], ids=["block", "cluster"])
+def test_btd_kernel_fail_flag_and_counters(cuda, cluster):
     """An indefinite diagonal block fails the factor (NUMERICAL_ISSUES) on
-    the card as in the plain version; K6 and K7 count their own launches;
-    float64 and non-contiguous CUDA operands raise."""
+    the card as in the plain version, with one block and with a cluster of
+    two blocks per problem, and through K6's entry point (the launcher's
+    layout); K6 and K7 count their own launches; float64 and non-contiguous
+    CUDA operands raise."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
     a = btd_qp_inputs(8, 3, 8, 20, seed=2)
     a["P"][1, 8:16, 8:16] = -10.0 * np.eye(8)
     t = _to(a, cuda)
+    pd, pe = qb.extract_band(t["P"], 8)
+    zx, zm = torch.zeros_like(t["q"]), torch.zeros_like(t["l"])
+    args = (pd, pe, t["A"], t["q"], t["l"], t["u"], zx, zm, zm)
+    ok = qb._qp_btd_launch(*args, BTD_QP, None, None, True, "test", cluster=cluster)
+    ref = qb.qp_btd_reference(*args, BTD_QP, check_infeas=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.fail, ref.fail) and bool(ok.fail[1]) and not ok.fail[0]
+    assert torch.equal(ok.done, ref.done) and torch.equal(ok.infs, ref.infs)
     qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
     k6, k7 = qb.qp_solve_btd_launches, qb.btd_step_launches
     res = qb.qp_solve_kernel_btd(qp, BTD_QP)
@@ -572,6 +628,33 @@ def test_btd_kernel_fail_flag_and_counters(cuda):
         qb.btd_step_kernel(*args[:3], args[3].double(), *args[4:], BTD_QP)
     with pytest.raises(ValueError):
         qb.btd_step_kernel(args[0], args[1], args[2].mT.contiguous().mT, *args[3:], BTD_QP)
+
+
+def test_btd_kernel_refuses_internal_blocks_over_32(cuda):
+    """The CUDA kernel is built for internal blocks 8, 16, 24 and 32: a
+    declared block size of 17 (internal block 40) raises on the card
+    through both entry points, with no launch counted, where the CPU runs
+    the plain version (ROADMAP Queue 1)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
+
+    s = dataclasses.replace(BTD_QP, block_size=17, max_iter=25)
+    assert qb.btd_internal_block(17) == 40
+    a = btd_qp_inputs(4, 2, 40, 30, seed=3)
+    k6, k7 = qb.qp_solve_btd_launches, qb.btd_step_launches
+    for dev in ("cpu", cuda):
+        t = _to(a, dev)
+        qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
+        if dev == "cpu":
+            assert qb.qp_solve_kernel_btd(qp, s).x.shape == (4, 80)
+            continue
+        with pytest.raises(ValueError, match="internal blocks"):
+            qb.qp_solve_kernel_btd(qp, s)
+    st = _to(btd_step_inputs(4, 2, 40, 30, seed=3), cuda)
+    with pytest.raises(ValueError, match="internal blocks"):
+        qb.btd_step_kernel(*(st[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
+                                             "z", "y")), s)
+    assert (qb.qp_solve_btd_launches, qb.btd_step_launches) == (k6, k7)
 
 
 def test_structured_paths_on_cuda_match_cpu_plain(cuda):
