@@ -6,12 +6,13 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device facts: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
-2. build the five CUDA kernels from ``sqp_solver_tpu_torch/csrc`` (one
-   nvcc per source, all started together);
+2. build the CUDA kernels from ``sqp_solver_tpu_torch/csrc`` (one nvcc
+   per source, all started together), and meanwhile a copy of K1/K2's
+   source with phase clocks (``-DADMM_PHASE_CLOCKS``);
 3. each kernel against its plain PyTorch version on the card, in float32,
    at its paths' shapes, with both times from CUDA events: the SQP-step
    (K1) and polish-KKT (K2) kernels at n = 32, B = 4096 and n = 128,
-   B = 1024; the whole-QP kernel (K3) on random QPs (n = 32, m = 33) and
+   B = 1024, and their phase split in cycles per block; the whole-QP kernel (K3) on random QPs (n = 32, m = 33) and
    the MPC family (n = 16, m = 32), B = 4096, plus a batch of primal- and
    dual-infeasible QPs; the SPD-inverse kernel (K4) at n = 32, B = 4096
    and n = 128, B = 1024, beside ``torch.linalg.cholesky_ex`` +
@@ -210,33 +211,82 @@ def check_close(label: str, a, b) -> float:
     return max_err(a, b)
 
 
+def step_operands(batch: int, n: int, dev) -> dict:
+    """K1's operands at one of its paths' shapes (m = n + 1, no equality row)."""
+    from sqp_solver_tpu_torch.testing import step_inputs
+
+    return to_device(step_inputs(batch, n, n + 1, seed=n, dtype=np.float32,
+                                 equality_row=False), dev)
+
+
+def step_call(fn, t, **kw):
+    """K1 (or its plain version, or a launcher) on the operands ``t``."""
+    return fn(t["B"], t["J"], t["g"], t["l"], t["u"], t["s"], t["dgl"], t["reset"], t["upd"],
+              t["active"], t["x"], t["z"], t["y"], main_qp_settings(), **kw)
+
+
+def polish_operands(batch: int, n: int, dev) -> dict:
+    """K2's operands at one of its paths' shapes (m = n + 1, an indefinite H
+    on problem 0)."""
+    from sqp_solver_tpu_torch.testing import polish_inputs
+
+    return to_device(polish_inputs(batch, n, n + 1, seed=n, dtype=np.float32), dev)
+
+
+def polish_call(fn, t, sweeps: int, x0=None, **kw):
+    """K2 (or its plain version, or a launcher) on the operands ``t``."""
+    return fn(t["H"], t["J"], t["act"], t["r1"], t["b"], t["nu0"], delta=1e-2, sweeps=sweeps,
+              x0=x0, **kw)
+
+
+# the K1 / K2 shapes of the kernel phase: (kernel, batch, n, polish sweeps)
+DENSE_SHAPES = (("K1", 4096, 32, 0), ("K1", 1024, 128, 0), ("K2", 4096, 32, 6),
+                ("K2", 1024, 128, 4))
+
+
+def dense_cases(dev) -> list:
+    """Each K1 / K2 shape of the kernel phase with a launcher that takes a
+    kernel library (None: the package's), for ``tools/kernel_ab.py`` and
+    the phase split."""
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    cases = []
+    for kernel, batch, n, sweeps in DENSE_SHAPES:
+        if kernel == "K1":
+            t = step_operands(batch, n, dev)
+            launch = (lambda lib, t=t: step_call(qk._sqp_step_launch, t, lib=lib))
+            label = f"K1 n={n} B={batch}"
+        else:
+            t = polish_operands(batch, n, dev)
+            launch = (lambda lib, t=t, sw=sweeps: polish_call(qk._polish_kkt_launch, t, sw,
+                                                               lib=lib))
+            label = f"K2 n={n} B={batch} {sweeps} sweeps"
+        cases.append(dict(label=label, kernel=kernel, n=n, batch=batch, sweeps=sweeps,
+                          reps=20 if n <= 32 else 8, launch=launch))
+    return cases
+
+
 def compare_step(batch: int, n: int, dev, reps: int) -> dict:
     """K1 against its plain version: do_bfgs on and off, then the SOC pair
     (want_minv, then minv_in with shifted bounds)."""
     import torch
 
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
-    from sqp_solver_tpu_torch.testing import step_inputs
 
     s = main_qp_settings()
-    t = to_device(step_inputs(batch, n, n + 1, seed=n, dtype=np.float32,
-                              equality_row=False), dev)
-
-    def call(fn, tt, **kw):
-        return fn(tt["B"], tt["J"], tt["g"], tt["l"], tt["u"], tt["s"], tt["dgl"],
-                  tt["reset"], tt["upd"], tt["active"], tt["x"], tt["z"], tt["y"], s, **kw)
+    t = step_operands(batch, n, dev)
 
     errs = []
     cases = [("do_bfgs=True", t, dict(do_bfgs=True, want_minv=True)),
              ("do_bfgs=False", t, dict(do_bfgs=False, want_minv=True))]
-    first = call(qk.sqp_step_kernel, t, want_minv=True)
+    first = step_call(qk.sqp_step_kernel, t, want_minv=True)
     t2 = dict(t, B=first.B, l=(t["l"] - 0.01).contiguous(), u=(t["u"] - 0.01).contiguous(),
               x=first.p, z=first.z, y=first.y)
     cases.append(("minv_in", t2, dict(do_bfgs=False, rho_in=first.rho_factor,
                                       minv_in=first.minv)))
     for label, tt, kw in cases:
-        ok = call(qk.sqp_step_kernel, tt, **kw)
-        ref = call(qk.sqp_step_reference, tt, **kw)
+        ok = step_call(qk.sqp_step_kernel, tt, **kw)
+        ref = step_call(qk.sqp_step_reference, tt, **kw)
         torch.cuda.synchronize()
         if not torch.equal(ok.fail, ref.fail):
             raise AssertionError(f"K1 {label}: fail flags differ")
@@ -251,12 +301,12 @@ def compare_step(batch: int, n: int, dev, reps: int) -> dict:
                 errs.append(check_close(f"K1 n={n} {label} {name}", a[good], b[good]))
         log(f"  K1 n={n} B={batch} {label}: iter agree {frac:.4f}, "
             f"max |kernel - plain| {max(errs):.3e}")
-    ms = cuda_ms(lambda: call(qk.sqp_step_kernel, t), reps)
-    plain_ms = cuda_ms(lambda: call(qk.sqp_step_reference, t), max(1, reps // 4))
+    ms = cuda_ms(lambda: step_call(qk.sqp_step_kernel, t), reps)
+    plain_ms = cuda_ms(lambda: step_call(qk.sqp_step_reference, t), max(1, reps // 4))
     # the work of the timed call: BFGS (6 n^2), each factorization
     # (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM iteration
     # (2 n^2 + 4 m n) and each chunk's residuals (2 n^2 + 4 m n)
-    out = call(qk.sqp_step_kernel, t)
+    out = step_call(qk.sqp_step_kernel, t)
     m = n + 1
     seg = s.check_termination
     it = out.iter.double()
@@ -273,9 +323,8 @@ def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
     import torch
 
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
-    from sqp_solver_tpu_torch.testing import polish_inputs
 
-    t = to_device(polish_inputs(batch, n, n + 1, seed=n, dtype=np.float32), dev)
+    t = polish_operands(batch, n, dev)
     args = (t["H"], t["J"], t["act"], t["r1"], t["b"], t["nu0"])
     errs = []
     for x0 in (None, t["x0"]):
@@ -299,6 +348,19 @@ def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def dense_phase_split(dev, lib, card: str) -> list:
+    """Cycles per block of each phase of K1 and K2 at their shapes, from
+    the build with phase clocks (one launch after a warm-up each)."""
+    from sqp_solver_tpu_torch.tools.kernel_ab import clock_split, format_split
+
+    rows = []
+    for c in dense_cases(dev):
+        cyc, _ = clock_split(lib, lambda: c["launch"](lib), c["batch"])
+        log(f"  {c['label']}: {format_split(cyc)} [{card}]")
+        rows.append(dict(case=c["label"], cycles_per_block=cyc))
+    return rows
 
 
 def qp_bench_settings(**kw):
@@ -845,12 +907,13 @@ def btd_raw(fn, t, settings, **kw):
     return fn(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "x", "z", "y")), settings, **kw)
 
 
-def btd_launch(t, settings, check_infeas: bool, cluster=None):
+def btd_launch(t, settings, check_infeas: bool, cluster=None, lib=None):
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
     kw = {} if cluster is None else dict(cluster=cluster)
     return btd_raw(qb._qp_btd_launch, t, settings, active=t.get("active"),
-                   rho_in=t.get("rho_in"), check_infeas=check_infeas, name="chip_smoke", **kw)
+                   rho_in=t.get("rho_in"), check_infeas=check_infeas, name="chip_smoke",
+                   lib=lib, **kw)
 
 
 def btd_plain(t, settings, check_infeas: bool):
@@ -1298,9 +1361,17 @@ def main() -> int:
     # 2. build
 
     t0 = time.perf_counter()
-    _build.load()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sqp_solver_tpu_torch.tools import kernel_ab
+
+    with ThreadPoolExecutor(1) as pool:  # K1/K2 with phase clocks, built meanwhile
+        phase_build = pool.submit(kernel_ab.phase_library, kernel_ab.ROOT, "smoke",
+                                  "qp_kernel.cu")
+        _build.load()
+        phase_lib = phase_build.result()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) "
-        f"into {_build.build_dir()}")
+        f"into {_build.build_dir()}, with the phase-clock build of K1/K2")
 
     # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
@@ -1308,6 +1379,8 @@ def main() -> int:
         f"{EPOCH_TOL}):")
     k1 = [compare_step(4096, 32, dev, reps=20), compare_step(1024, 128, dev, reps=8)]
     k2 = [compare_polish(4096, 32, 6, dev, reps=20), compare_polish(1024, 128, 4, dev, reps=8)]
+    log("K1/K2 phase split (clock64 spans of thread 0, cycles per block, share of the total):")
+    dense_phases = dense_phase_split(dev, phase_lib, card)
     k3 = [compare_qp("random", 4096, 32, dev, reps=10), compare_qp("mpc", 4096, 16, dev, reps=10)]
     compare_certificates(dev)
     k4 = [compare_spd(4096, 32, dev, reps=20), compare_spd(1024, 128, dev, reps=8)]
@@ -1377,12 +1450,18 @@ def main() -> int:
         )
 
     no_lib = "none: no single PyTorch call computes a whole block-tridiagonal ADMM solve"
-    kernels = [entry("sqp_step", K1_SOURCE, k1), entry("polish_kkt", K2_SOURCE, k2),
+    k1_lib = ("none: no single PyTorch call computes a BFGS update, a Schur factor and a "
+              "whole warm-started ADMM solve")
+    k2_lib = ("none: no single PyTorch call computes a Schur factor's L^-1 and the "
+              "refinement sweeps of an active-set KKT solve")
+    kernels = [entry("sqp_step", K1_SOURCE, k1, library_note=k1_lib),
+               entry("polish_kkt", K2_SOURCE, k2, library_note=k2_lib),
                entry("qp_solve", K3_SOURCE, k3), entry("spd_inverse", K4_SOURCE, k4),
                entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE),
                entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib),
                entry("btd_step", K7_SOURCE, k7, source=BTD_CU_SOURCE, library_note=no_lib)]
     log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
+                        dense_phases=dense_phases,
                         library_factor=factor_ms,
                         qp_one_shot=qp_run, qp_fused_one_shot=qp_fused_run,
                         qp_fused_certificates=infeas_run, mpc_sustained=mpc_run,

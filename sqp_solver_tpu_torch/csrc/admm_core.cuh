@@ -34,12 +34,19 @@ constexpr float kRhoEqFactor = 1e3f;
 constexpr float kLooseThresh = 1e16f;
 
 // Phase clocks, off unless compiled with -DADMM_PHASE_CLOCKS (as
-// tools/kernel_ab.py builds its instrumented copies): thread 0 of each
-// block adds the clock64() span of each phase, stamped right after the
-// barriers that bound it, to admm_phase_cycles[phase] (a begin subtracts
-// the clock, an end adds it; the sums wrap modulo 2^64 to the spans).
+// tools/kernel_ab.py and chip_smoke.py build their instrumented copies):
+// thread 0 of each block adds the clock64() span of each phase, stamped
+// right after the barriers that bound it, to admm_phase_cycles[phase] (a
+// begin subtracts the clock, an end adds it; the sums wrap modulo 2^64 to
+// the spans).  The ADMM core marks its iteration phases; a factor marks
+// its own pieces (Gram, Cholesky, L^-1, L'L for the dense factors; Gram
+// and Thomas for the band); K1 and K2 mark BFGS, K2's refinement sweeps
+// ("polish"), the loads and stores, and the whole kernel.
 #ifdef ADMM_PHASE_CLOCKS
-enum AdmmPhase { kPhGram, kPhThomas, kPhAtmv, kPhSweep, kPhAmv, kPhStats, kPhTotal, kNumPhases };
+enum AdmmPhase {
+  kPhGram, kPhThomas, kPhAtmv, kPhSweep, kPhAmv, kPhStats, kPhTotal,
+  kPhChol, kPhLinv, kPhLtl, kPhBfgs, kPhPolish, kPhLoad, kNumPhases
+};
 __device__ unsigned long long admm_phase_cycles[kNumPhases];
 __device__ __forceinline__ void phase_stamp(int p, bool begin) {
   if (threadIdx.x == 0) {
@@ -133,6 +140,7 @@ __device__ __forceinline__ void mtv(const float* M, int ld, int rows, int cols,
 // W (lower triangle) = P + sigma I + A' diag(w) A.  Twin of _factor_schur_refs.
 __device__ void schur_build(float* W, int ldw, const float* P, int ldp, const float* A,
                             int lda, const float* w, float sigma, int n, int m) {
+  ADMM_PHASE_BEGIN(kPhGram);
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n, j = e - i * n;
     if (j > i) continue;
@@ -141,12 +149,14 @@ __device__ void schur_build(float* W, int ldw, const float* P, int ldp, const fl
     W[i * ldw + j] = P[(size_t)i * ldp + j] + (i == j ? sigma : 0.f) + acc;
   }
   __syncthreads();
+  ADMM_PHASE_END(kPhGram);
 }
 
 // In-place lower Cholesky of W by columns (right-looking).  A pivot d <= 0
 // or NaN sets the returned fail flag and is clamped to max(d, 1e-30), as
 // in _chol_inv_ltl.  Block-uniform result.
 __device__ bool cholesky_inplace(float* W, int ld, int n) {
+  ADMM_PHASE_BEGIN(kPhChol);
   bool fail = false;
   for (int j = 0; j < n; ++j) {
     const float d = W[j * ld + j];
@@ -166,12 +176,14 @@ __device__ bool cholesky_inplace(float* W, int ld, int n) {
     }
     __syncthreads();
   }
+  ADMM_PHASE_END(kPhChol);
   return fail;
 }
 
 // Li = L^-1 for the lower-triangular L held in the lower triangle of Lm:
 // one thread per column, forward substitution, dividing by max(L_ii, 1e-30).
 __device__ void tri_inv(const float* Lm, int ldl, float* Li, int ldi, int n) {
+  ADMM_PHASE_BEGIN(kPhLinv);
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
     for (int i = 0; i < c; ++i) Li[i * ldi + c] = 0.f;
     for (int i = c; i < n; ++i) {
@@ -181,10 +193,12 @@ __device__ void tri_inv(const float* Lm, int ldl, float* Li, int ldi, int n) {
     }
   }
   __syncthreads();
+  ADMM_PHASE_END(kPhLinv);
 }
 
 // W = Li' Li (full symmetric): W[i][j] = sum_{k >= max(i,j)} Li[k][i] Li[k][j].
 __device__ void ltl(const float* Li, int ldi, float* W, int ldw, int n) {
+  ADMM_PHASE_BEGIN(kPhLtl);
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n, j = e - i * n;
     float acc = 0.f;
@@ -192,6 +206,7 @@ __device__ void ltl(const float* Li, int ldi, float* W, int ldw, int n) {
     W[i * ldw + j] = acc;
   }
   __syncthreads();
+  ADMM_PHASE_END(kPhLtl);
 }
 
 // Minv (in W) of M = P + sigma I + A' diag(w) A; Li is scratch.  Returns fail.
@@ -232,6 +247,16 @@ template <class Op>
 __device__ __forceinline__ void op_cols(const Op&, int n, int& j0, int& j1) {
   j0 = 0;
   j1 = n;
+}
+
+// The phase marks around an epoch's refactor in admm_solve: an operator
+// whose factor splits at a Gram / Thomas boundary marks that boundary
+// itself (BandOp); one whose factor pieces mark themselves (the dense
+// operators) overloads this to mark nothing.
+template <class Op>
+__device__ __forceinline__ void op_factor_mark(const Op&, bool begin) {
+  if (begin) ADMM_PHASE_BEGIN(kPhGram);
+  else ADMM_PHASE_END(kPhThomas);
 }
 
 struct StepParams {
@@ -382,11 +407,11 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
     // does, and the refactor reports the fail
     if (st.pending || isnan(st.rho_est)) st.rho = st.rho_est;
     if (st.pending || isnan(st.rho)) {
-      ADMM_PHASE_BEGIN(kPhGram);  // the operator's factor marks its Gram / Thomas boundary
+      op_factor_mark(op, true);
       set_rho_vec(rv, l, u, st.rho, m);
       st.fail = op.factor(rv);
       st.nfact += 1;
-      ADMM_PHASE_END(kPhThomas);
+      op_factor_mark(op, false);
     }
     for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail && st.infs == 0; ++c) {
       if (p.check_infeas) {
@@ -463,6 +488,7 @@ struct DenseOp {
     return factor_minv(W, Li, ld, P, ldp, A, rv, sigma, n, m);
   }
 };
+__device__ __forceinline__ void op_factor_mark(const DenseOp&, bool) {}
 
 }  // namespace
 

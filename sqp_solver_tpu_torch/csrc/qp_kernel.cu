@@ -19,14 +19,20 @@
 // from a block reduction, so it is block-uniform and __syncthreads() never
 // sits under a thread-divergent branch.
 //
-// The three pieces the TPU kernels share are device functions in
-// admm_core.cuh, shared by the four kernels here and by the structured
-// kernel (qp_kernel_btd.cu):
+// The pieces the TPU kernels share are device functions in admm_core.cuh
+// (shared with the structured kernel, qp_kernel_btd.cu) and
+// dense_factor.cuh (K1 and K2 only):
 //   schur_build      M = P + sigma I + A' diag(w) A     (_factor_schur_refs)
 //   cholesky_inplace, tri_inv, ltl                      (_chol_inv_ltl)
+//                    the column factor of K3 and K4
+//   gram_build, chol_blocked, tri_inv_blocked, ltl_tiles
+//                    the blocked, register-tiled factor of K1 and K2, the
+//                    Cholesky in panels of 32 columns with the column
+//                    factor's pivot rule and per-element fmaf chain
 //   admm_solve       rho epochs / chunks / adaptive rho /
 //                    infeasibility certificates         (_admm_core), run
-//                    here with the dense operator DenseOp
+//                    with the dense operator DenseOp (K3) or DenseLaneOp
+//                    (K1, its matvecs split over lanes)
 //
 // Numerics follow the TPU kernels where they decide a flag or a branch:
 // float32 storage and accumulation; the explicit inverse Minv = L^-T L^-1
@@ -36,15 +42,67 @@
 // count advancing by seg only on active problems.
 //
 // Memory.  Vectors live in shared memory.  The per-problem matrices
-// (row stride n+1, which makes the row-per-thread matvecs free of bank
-// conflicts) go to shared memory in a fixed order for as long as they fit
+// (row stride n+1, which makes the row-per-thread matvecs of K3/K4 and
+// the lane-split ones of K1/K2 free of bank conflicts) go to shared memory in a fixed order for as long as they fit
 // in the 227 KB a block may use; the rest go to a per-problem workspace in
 // device memory that the wrapper allocates.  At n = 32 and at n = 128
 // (m = n + 1) every matrix fits; the workspace serves larger n or m.
 
 #include "admm_core.cuh"
+#include "dense_factor.cuh"
 
 namespace {
+
+// K1 and K2 run 128 threads a block with 4 lanes a dot product (n, m <=
+// 64) or 256 with 2.  The small variant caps its registers at 64 a thread
+// (eight blocks an SM, as many as its ~16 KB of shared memory allows at
+// n = 32) and tiles the factor 2 x 2 a quadrant; the large one runs one
+// block an SM at n = 128 and tiles 4 x 4.
+template <int L>
+constexpr int kThreads = L == 4 ? 128 : 256;
+template <int L>
+constexpr int kMinBlocks = L == 4 ? 8 : 1;
+template <int L>
+constexpr int kQuad = L == 4 ? 2 : 4;
+
+// K1's dense operator: A (m x n) and the explicit Minv in W, scratch Li,
+// all with row stride ld; P (the Hessian, in device memory) with stride
+// ldp.  Each dot product split over L lanes with its loads issued
+// together (dense_factor.cuh); each epilogue called once per row or
+// column, from one lane.  factor() is the blocked factor of
+// dense_factor.cuh; sc is 33 floats of scratch (the reduction slots,
+// free while a factor runs).
+template <int L>
+struct DenseLaneOp {
+  const float* P;
+  int ldp;
+  const float* A;
+  float* W;
+  float* Li;
+  float* sc;
+  int ld, n, m;
+  float sigma;
+
+  template <class Epi>
+  __device__ void atmv(const float* w, Epi epi) const {
+    cols_dot<L>(A, ld, m, n, w, epi);
+  }
+  template <class Epi>
+  __device__ void amv(const float* v, Epi epi) const {
+    rows_dot<L>(A, ld, m, n, v, epi);
+  }
+  __device__ void pmv(const float* v, float* out) const {
+    rows_dot<L>(P, ldp, n, n, v, [&](int i, float acc) { out[i] = acc; });
+  }
+  __device__ void apply_minv(const float* b, float* out) const {
+    rows_dot<L>(W, ld, n, n, b, [&](int i, float acc) { out[i] = acc; });
+  }
+  __device__ bool factor(const float* rv) const {
+    return dense_factor_minv<kQuad<L>>(W, Li, ld, P, ldp, A, rv, sigma, n, m, sc);
+  }
+};
+template <int L>
+__device__ __forceinline__ void op_factor_mark(const DenseLaneOp<L>&, bool) {}
 
 // K1.  Replaces sqp_solver_tpu/ops/qp_kernel.py:sqp_step_kernel.
 // Per problem: damped BFGS (Procedure 18.2) into B_out, the posdef fallback
@@ -54,12 +112,17 @@ namespace {
 // What bounds it on this card: at n = 32, B = 4096 it is per-problem
 // latency (4096 blocks of 128 threads, ~31 per SM over 132 SMs; each ADMM
 // iteration is four dependent matvec phases with a barrier between them),
-// at n = 128 the O(n^3) factor loops of one block per SM (208 KB of shared
-// memory, 8 warps to hide shared-memory latency).  The design keeps the operands
-// of the hot loop (A and Minv, padded rows) in shared memory at both
-// sizes, so the ADMM iterations never touch device memory; B_out, read
-// once per chunk, stays in device memory (L1/L2 resident).
-__global__ void __launch_bounds__(256) sqp_step_kernel(
+// at n = 128 the O(n^3) factor of one block per SM (208 KB of shared
+// memory).  The design keeps the operands of the hot loop (A and Minv,
+// padded rows) in shared memory at both sizes, so the ADMM iterations
+// never touch device memory; B_out, read once per chunk, stays in device
+// memory (L1/L2 resident).  The factor (setup, posdef retry, every rho
+// epoch's refactor) is the blocked one of dense_factor.cuh plus L'L in
+// register tiles; the ADMM matvecs split each dot product over L lanes
+// (4 at 128 threads, 2 at 256) so that every thread works on short
+// chains with their loads in flight.  BFGS is the parent's.
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel(
     StepParams p, const float* __restrict__ Bp, const float* __restrict__ J,
     const float* __restrict__ g, const float* __restrict__ lg, const float* __restrict__ ug,
     const float* __restrict__ sg, const float* __restrict__ dglg,
@@ -70,9 +133,12 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
     float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ B_out,
     float* __restrict__ stats, float* __restrict__ minv_out, float* __restrict__ ws) {
   extern __shared__ float smem[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
   const int n = p.n, m = p.m, ld = n + 1;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, wp = tid >> 5, nw = T >> 5;
 
   float* q = smem;
   float* x = q + n;
@@ -111,11 +177,11 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
     l[i] = lg[b * m + i];
     u[i] = ug[b * m + i];
   }
-  for (int e = tid; e < m * n; e += T) {
-    const int i = e / n, j = e - i * n;
-    A[i * ld + j] = J[b * m * n + e];
-  }
+  map_rows(J + b * m * n, n, m, n, false, [&](int i, int j, float a) { A[i * ld + j] = a; });
+  __syncthreads();
+  ADMM_PHASE_END(kPhLoad);
 
+  ADMM_PHASE_BEGIN(kPhBfgs);
   const bool act0 = active[b] != 0;
   if (p.do_bfgs) {
     for (int j = tid; j < n; j += T) {
@@ -155,6 +221,7 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
     for (int e = tid; e < n * n; e += T) Bn[e] = Bpb[e];
   }
   __syncthreads();
+  ADMM_PHASE_END(kPhBfgs);
 
   AdmmState st;
   st.done = !act0;
@@ -166,10 +233,7 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
   st.rp = st.rd = st.mz = st.mq = 0.f;
   if (minv_in) {
     const float* mi = minv_in + b * n * n;
-    for (int e = tid; e < n * n; e += T) {
-      const int i = e / n, j = e - i * n;
-      W[i * ld + j] = mi[e];
-    }
+    map_rows(mi, n, n, n, false, [&](int i, int j, float a) { W[i * ld + j] = a; });
     const float ri = rho_in ? rho_in[b] : 0.f;
     st.rho = ri > 0.f ? ri : p.rho0;
     st.fail = false;
@@ -179,12 +243,13 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
     set_rho_vec(rv, l, u, st.rho, m);
     bool f = false;
     if (act0) {
-      f = factor_minv(W, Li, ld, Bn, n, A, rv, p.sigma, n, m);
+      f = dense_factor_minv<kQuad<L>>(W, Li, ld, Bn, n, A, rv, p.sigma, n, m, red);
       st.nfact = 1;
       if (f) {  // posdef fallback: B := I and refactor once
-        for (int e = tid; e < n * n; e += T) Bn[e] = (e / n == e % n) ? 1.f : 0.f;
+        for (int i = wp; i < n; i += nw)
+          for (int j = lane; j < n; j += 32) Bn[i * n + j] = i == j ? 1.f : 0.f;
         __syncthreads();
-        f = factor_minv(W, Li, ld, Bn, n, A, rv, p.sigma, n, m);
+        f = dense_factor_minv<kQuad<L>>(W, Li, ld, Bn, n, A, rv, p.sigma, n, m, red);
         st.nfact = 2;
       }
     }
@@ -192,9 +257,10 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
   }
   st.rho_est = st.rho;
 
-  const DenseOp op{Bn, n, A, W, Li, ld, n, m, p.sigma};
+  const DenseLaneOp<L> op{Bn, n, A, W, Li, red, ld, n, m, p.sigma};
   admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr, nullptr, red, st);
 
+  ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) p_out[b * n + j] = x[j];
   for (int i = tid; i < m; i += T) {
     z_out[b * m + i] = z[i];
@@ -215,22 +281,29 @@ __global__ void __launch_bounds__(256) sqp_step_kernel(
   if (minv_out) {
     const bool have = minv_in != nullptr || st.nfact > 0;
     float* mo = minv_out + b * n * n;
-    for (int e = tid; e < n * n; e += T) {
-      const int i = e / n, j = e - i * n;
-      mo[e] = have ? W[i * ld + j] : 0.f;
-    }
+    for (int i = wp; i < n; i += nw)
+      for (int j = lane; j < n; j += 32) mo[i * n + j] = have ? W[i * ld + j] : 0.f;
   }
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
 }
 
 // K2.  Replaces sqp_solver_tpu/ops/qp_kernel.py:polish_kkt_kernel.
 // Per problem: mask J by the active rows, L^-1 of M = H + delta I +
 // (1/delta) Jm'Jm, then `sweeps` ideal-operator refinement sweeps that
 // apply M^-1 as Li'(Li t).  What bounds it on this card: the O(n^3)
-// Cholesky and triangular inverse, one block per problem (at n = 128 one
-// block per SM for the 207 KB of shared memory it needs); the sweeps are
-// O(n^2 + mn) each.  The design keeps W, Li and Jm in shared memory and
-// reads H, used by one matvec per sweep, from device memory.
-__global__ void __launch_bounds__(256) polish_kkt_kernel(
+// factor (Gram n^2 m, Cholesky and L^-1 n^3 / 3 each) of one block per
+// problem, one block per SM at n = 128 for the ~207 KB of shared memory.
+// The design: the blocked factor of dense_factor.cuh (register-tiled Gram
+// and SYRK, one warp per diagonal block, a few barriers a panel); L^-1
+// held with its transpose mirrored into the upper triangle, so both
+// triangular products of a sweep read rows; H copied once, by rows, into
+// the slot W's factor leaves; every sweep matvec split over L lanes (4 at
+// 128 threads, 2 at 256; the triangular ones over 2 L lanes, rows i and
+// n - 1 - i together) and reduced by shuffles; the elementwise updates
+// in the matvecs' epilogues, four barriers a sweep.
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
     int n, int m, float delta, int sweeps, int n_smem_mats, long long ws_floats,
     const float* __restrict__ H, const float* __restrict__ J,
     const uint8_t* __restrict__ actg, const float* __restrict__ r1g,
@@ -238,9 +311,12 @@ __global__ void __launch_bounds__(256) polish_kkt_kernel(
     const float* __restrict__ x0, float* __restrict__ x_out, float* __restrict__ nu_out,
     uint8_t* __restrict__ fail_out, float* __restrict__ li_out, float* __restrict__ ws) {
   extern __shared__ float smem[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
   const int ld = n + 1;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, wp = tid >> 5, nw = T >> 5;
   const float inv_d = 1.f / delta;
 
   float* r1 = smem;
@@ -248,16 +324,14 @@ __global__ void __launch_bounds__(256) polish_kkt_kernel(
   float* w_n = x + n;
   float* t = w_n + n;
   float* v = t + n;
-  float* dx = v + n;
-  float* dw_n = dx + n;  // 7 n
-  float* bb = dw_n + n;
+  float* dx = v + n;  // 6 n
+  float* bb = dx + n;
   float* nu = bb + m;
   float* w_m = nu + m;
   float* act = w_m + m;
   float* res2 = act + m;
   float* tmp = res2 + m;
-  float* dw_m = tmp + m;
-  float* wrow = dw_m + m;  // 8 m
+  float* wrow = tmp + m;  // 7 m
   float* red = wrow + m;
   float* mats = red + kRedSlots;
   float* M[3];
@@ -277,73 +351,64 @@ __global__ void __launch_bounds__(256) polish_kkt_kernel(
   }
   for (int j = tid; j < n; j += T) r1[j] = r1g[b * n + j];
   __syncthreads();
-  for (int e = tid; e < m * n; e += T) {
-    const int i = e / n, j = e - i * n;
-    Jm[i * ld + j] = J[b * m * n + e] * act[i];
+  map_rows(J + b * m * n, n, m, n, false,
+           [&](int i, int j, float a) { Jm[i * ld + j] = a * act[i]; });
+  __syncthreads();
+  ADMM_PHASE_END(kPhLoad);
+
+  gram_build<kQuad<L>>(W, ld, Hb, n, Jm, ld, wrow, delta, n, m);
+  const bool fail = chol_blocked<kQuad<L>>(W, ld, n, red);
+  tri_inv_blocked(W, ld, Li, ld, n, true);
+
+  ADMM_PHASE_BEGIN(kPhPolish);
+  // H into the factor's dead slot; the warm start's H x0 and Jm x0
+  map_rows(Hb, n, n, n, false, [&](int i, int j, float h) { W[i * ld + j] = h; });
+  for (int j = tid; j < n; j += T) x[j] = x0 ? x0[b * n + j] : 0.f;
+  __syncthreads();
+  if (x0) {
+    rows_dot<L>(W, ld, n, n, x, [&](int i, float acc) { w_n[i] = acc; });
+    rows_dot<L>(Jm, ld, m, n, x, [&](int i, float acc) { w_m[i] = acc; });
+  } else {
+    for (int j = tid; j < n; j += T) w_n[j] = 0.f;
+    for (int i = tid; i < m; i += T) w_m[i] = 0.f;
   }
   __syncthreads();
-
-  schur_build(W, ld, Hb, n, Jm, ld, wrow, delta, n, m);
-  const bool fail = cholesky_inplace(W, ld, n);
-  tri_inv(W, ld, Li, ld, n);
-
-  if (x0) {
-    for (int j = tid; j < n; j += T) x[j] = x0[b * n + j];
-    __syncthreads();
-    mv(Hb, n, n, n, x, w_n);
-    mv(Jm, ld, m, n, x, w_m);
-  } else {
-    for (int j = tid; j < n; j += T) x[j] = w_n[j] = 0.f;
-    for (int i = tid; i < m; i += T) w_m[i] = 0.f;
+  for (int i = tid; i < m; i += T) {
+    res2[i] = act[i] * (bb[i] - w_m[i]);
+    tmp[i] = nu[i] - inv_d * res2[i];
   }
   __syncthreads();
 
   for (int sw = 0; sw < sweeps; ++sw) {
-    for (int i = tid; i < m; i += T) {
+    cols_dot<L>(Jm, ld, m, n, tmp, [&](int j, float acc) { t[j] = r1[j] - w_n[j] - acc; });
+    __syncthreads();
+    tri_rows_dot<2 * L, false>(Li, ld, n, t, [&](int i, float acc) { v[i] = acc; });
+    __syncthreads();
+    tri_rows_dot<2 * L, true>(Li, ld, n, v, [&](int j, float acc) { dx[j] = acc; });
+    __syncthreads();
+    rows_dot<L>(W, ld, n, n, dx, [&](int j, float acc) {
+      x[j] += dx[j];
+      w_n[j] += acc;
+    });
+    rows_dot<L>(Jm, ld, m, n, dx, [&](int i, float acc) {
+      nu[i] = nu[i] + act[i] * inv_d * (acc - res2[i]);
+      w_m[i] += acc;
       res2[i] = act[i] * (bb[i] - w_m[i]);
       tmp[i] = nu[i] - inv_d * res2[i];
-    }
-    __syncthreads();
-    for (int j = tid; j < n; j += T) {
-      float acc = 0.f;
-      for (int i = 0; i < m; ++i) acc = fmaf(Jm[i * ld + j], tmp[i], acc);
-      t[j] = r1[j] - w_n[j] - acc;
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += T) {  // v = Li t (lower triangular)
-      float acc = 0.f;
-      for (int k = 0; k <= i; ++k) acc = fmaf(Li[i * ld + k], t[k], acc);
-      v[i] = acc;
-    }
-    __syncthreads();
-    for (int j = tid; j < n; j += T) {  // dx = Li' v
-      float acc = 0.f;
-      for (int i = j; i < n; ++i) acc = fmaf(Li[i * ld + j], v[i], acc);
-      dx[j] = acc;
-    }
-    __syncthreads();
-    mv(Hb, n, n, n, dx, dw_n);
-    mv(Jm, ld, m, n, dx, dw_m);
-    __syncthreads();
-    for (int i = tid; i < m; i += T) {
-      nu[i] = nu[i] + act[i] * inv_d * (dw_m[i] - res2[i]);
-      w_m[i] += dw_m[i];
-    }
-    for (int j = tid; j < n; j += T) {
-      x[j] += dx[j];
-      w_n[j] += dw_n[j];
-    }
+    });
     __syncthreads();
   }
+  ADMM_PHASE_END(kPhPolish);
 
+  ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
   for (int i = tid; i < m; i += T) nu_out[b * m + i] = nu[i];
   if (tid == 0) fail_out[b] = fail ? 1 : 0;
   float* lo = li_out + b * n * n;
-  for (int e = tid; e < n * n; e += T) {
-    const int i = e / n, j = e - i * n;
-    lo[e] = Li[i * ld + j];
-  }
+  for (int i = wp; i < n; i += nw)
+    for (int j = lane; j < n; j += 32) lo[(size_t)i * n + j] = j <= i ? Li[i * ld + j] : 0.f;
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
 }
 
 // K3.  Replaces sqp_solver_tpu/ops/qp_kernel.py:qp_solve_kernel.
@@ -522,7 +587,7 @@ Layout step_layout(int n, int m) {
 Layout polish_layout(int n, int m) {
   const long long ld = n + 1;
   const long long mats[3] = {n * ld, n * ld, m * ld};
-  return plan(7LL * n + 8LL * m + kRedSlots, mats);
+  return plan(6LL * n + 7LL * m + kRedSlots, mats);
 }
 
 Layout qp_layout(int n, int m) {
@@ -573,7 +638,11 @@ int sqp_step_launch(const float* Bp, const float* J, const float* g, const float
   if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   // this library's runtime keeps its own current device: use the tensors'
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = set_smem(sqp_step_kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = threads_for(n, m);
+  // 4 lanes a dot product at 128 threads, 2 at 256
+  auto kernel = threads == 128 ? sqp_step_kernel<4> : sqp_step_kernel<2>;
+  err = set_smem(kernel, L.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   StepParams p;
   p.n = n;
@@ -593,7 +662,7 @@ int sqp_step_launch(const float* Bp, const float* J, const float* g, const float
   p.eps_pinf = p.eps_dinf = 0.f;
   p.n_smem_mats = L.n_smem_mats;
   p.ws_floats = L.ws_floats;
-  sqp_step_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+  kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
       p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
       z_out, y_out, B_out, stats, minv_out, ws);
   return (int)cudaGetLastError();
@@ -607,9 +676,13 @@ int polish_kkt_launch(const float* H, const float* J, const uint8_t* act, const 
   const Layout L = polish_layout(n, m);
   if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = set_smem(polish_kkt_kernel, L.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  polish_kkt_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+  const int threads = threads_for(n, m);
+  // 4 lanes a dot product at 128 threads, 2 at 256
+  auto kernel = threads == 128 ? polish_kkt_kernel<4> : polish_kkt_kernel<2>;
+  err = set_smem(kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
       n, m, delta, sweeps, L.n_smem_mats, L.ws_floats, H, J, act, r1, b, nu0, x0, x_out,
       nu_out, fail_out, li_out, ws);
   return (int)cudaGetLastError();

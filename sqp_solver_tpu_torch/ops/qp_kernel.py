@@ -203,6 +203,53 @@ def _chol_inv_ltl(M, ltl=True):
     return torch.matmul(Li.mT, Li), fail
 
 
+def _chol_inv_blocked(M, nb: int = 32, ltl: bool = True):
+    """(Minv = L^-T L^-1, fail) or, with ``ltl=False``, (L^-1, fail) in the
+    order of the CUDA factor of K1 and K2 (``csrc/dense_factor.cuh``):
+    Cholesky in panels of ``nb`` columns (the diagonal block by columns, the
+    rows below it, then the trailing update), with the pivot rule of
+    :func:`_cholesky_clamped`; L^-1 by blocks, the diagonal ones by forward
+    substitution and Li_ij = -Li_ii sum_{k=j}^{i-1} L_ik Li_kj by block
+    distance.  The plain K1 / K2 keep :func:`_chol_inv_ltl`, the oracle they
+    share with K3 / K4; this twin holds the blocked order against it."""
+    B, n, _ = M.shape
+    W = M.clone()
+    L = torch.zeros_like(M)
+    fail = torch.zeros(B, dtype=torch.bool, device=M.device)
+    for c0 in range(0, n, nb):
+        c1 = min(c0 + nb, n)
+        rs = []
+        for j in range(c0, c1):  # the diagonal block, column by column
+            d = W[:, j, j]
+            fail = fail | (d <= 0) | torch.isnan(d)
+            dc = torch.clamp_min(d, 1e-30)
+            rs.append(torch.rsqrt(dc))
+            col = W[:, j + 1:c1, j] * rs[-1].unsqueeze(-1)
+            L[:, j, j] = torch.sqrt(dc)
+            L[:, j + 1:c1, j] = col
+            W[:, j + 1:c1, j + 1:c1] -= col.unsqueeze(-1) * col.unsqueeze(-2)
+        if c1 == n:
+            break
+        X = W[:, c1:, c0:c1].clone()  # the rows below, column by column
+        for j in range(c1 - c0):
+            X[:, :, j] = X[:, :, j] * rs[j].unsqueeze(-1)
+            X[:, :, j + 1:] -= X[:, :, j:j + 1] * L[:, c0 + j + 1:c1, c0 + j].unsqueeze(-2)
+        L[:, c1:, c0:c1] = X
+        W[:, c1:, c1:] -= torch.matmul(X, X.mT)
+    Li = torch.zeros_like(M)
+    blocks = [(o, min(o + nb, n)) for o in range(0, n, nb)]
+    for o, e in blocks:
+        Li[:, o:e, o:e] = _tri_inv(L[:, o:e, o:e])
+    for d in range(1, len(blocks)):
+        for J in range(len(blocks) - d):
+            (oj, ej), (oi, ei) = blocks[J], blocks[J + d]
+            T = torch.matmul(L[:, oi:ei, oj:oi], Li[:, oj:oi, oj:ej])
+            Li[:, oi:ei, oj:ej] = -torch.matmul(Li[:, oi:ei, oi:ei], T)
+    if not ltl:
+        return Li, fail
+    return torch.matmul(Li.mT, Li), fail
+
+
 def _factor(P, A, rho_vec, sigma):
     """Minv and fail of M = P + sigma I + A' diag(rho) A."""
     return _chol_inv_ltl(_schur_matrix(P, A, rho_vec, sigma))
@@ -509,6 +556,12 @@ def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+def _library():
+    from sqp_solver_tpu_torch.ops import _build
+
+    return _build.load()
+
+
 def _raise_on(lib, rc, name):
     if rc != 0:
         msg = lib.qp_kernel_error_string(rc).decode()
@@ -531,10 +584,9 @@ def sqp_step_kernel(
     reset/upd/active bool (B,), rho_in (B,), minv_in (B, n, n).  CPU
     tensors run :func:`sqp_step_reference`; CUDA tensors must be float32
     and contiguous and run the kernel."""
-    global sqp_step_launches
     if settings.acceleration != "none":
         raise NotImplementedError(
-            "acceleration='anderson' is not ported (ROADMAP Queue 1, accuracy machinery)"
+            "acceleration='anderson' is not ported (ROADMAP Queue 1, item 'Anderson')"
         )
     batch, n = g.shape
     m = l.shape[-1]
@@ -553,13 +605,26 @@ def sqp_step_kernel(
             B, J, g, l, u, s, dgl, reset, upd, active, x, z, y, settings,
             do_bfgs=do_bfgs, rho_in=rho_in, minv_in=minv_in, want_minv=want_minv,
         )
+    return _sqp_step_launch(B, J, g, l, u, s, dgl, reset, upd, active, x, z, y, settings,
+                            do_bfgs=do_bfgs, rho_in=rho_in, minv_in=minv_in,
+                            want_minv=want_minv)
+
+
+def _sqp_step_launch(B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
+                     settings: QPSettings, do_bfgs: bool = True, rho_in=None, minv_in=None,
+                     want_minv: bool = False, lib=None) -> SQPStepOut:
+    """One launch of the SQP-step CUDA kernel on CUDA operands, from the
+    package's library or from ``lib`` (another build of the kernels, as
+    ``tools/kernel_ab.py`` passes)."""
+    global sqp_step_launches
+    batch, n = g.shape
+    m = l.shape[-1]
+    name = "sqp_step_kernel"
     operands = dict(B=B, J=J, g=g, l=l, u=u, s=s, dgl=dgl, reset=reset, upd=upd,
                     active=active, x=x, z=z, y=y, rho_in=rho_in, minv_in=minv_in)
     boolean = dict(reset=torch.bool, upd=torch.bool, active=torch.bool)
     dev = _check_cuda_operands(name, operands, boolean)
-    from sqp_solver_tpu_torch.ops import _build
-
-    lib = _build.load()
+    lib = lib or _library()
     f32 = dict(dtype=torch.float32, device=dev)
     p_out = torch.empty((batch, n), **f32)
     z_out = torch.empty((batch, m), **f32)
@@ -645,7 +710,6 @@ def polish_kkt_kernel(H, J, act, r1, b, nu0, delta: float = 1e-2,
     act bool (B, m), r1 (B, n) stationarity rhs, b (B, m) active-row
     targets, nu0 (B, m) multiplier warm start, optional x0 (B, n) primal
     warm start.  CPU tensors run :func:`polish_kkt_reference`."""
-    global polish_kkt_launches
     batch, n = r1.shape
     m = b.shape[-1]
     name = "polish_kkt_kernel"
@@ -656,11 +720,20 @@ def polish_kkt_kernel(H, J, act, r1, b, nu0, delta: float = 1e-2,
         _check_shape(name, key, t, shape)
     if not r1.is_cuda:
         return polish_kkt_reference(H, J, act, r1, b, nu0, delta, sweeps, x0)
+    return _polish_kkt_launch(H, J, act, r1, b, nu0, delta, sweeps, x0)
+
+
+def _polish_kkt_launch(H, J, act, r1, b, nu0, delta: float, sweeps: int, x0=None,
+                       lib=None) -> PolishOut:
+    """One launch of the polish-KKT CUDA kernel on CUDA operands (``lib``
+    as for :func:`_sqp_step_launch`)."""
+    global polish_kkt_launches
+    batch, n = r1.shape
+    m = b.shape[-1]
+    name = "polish_kkt_kernel"
     operands = dict(H=H, J=J, act=act, r1=r1, b=b, nu0=nu0, x0=x0)
     dev = _check_cuda_operands(name, operands, dict(act=torch.bool))
-    from sqp_solver_tpu_torch.ops import _build
-
-    lib = _build.load()
+    lib = lib or _library()
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((batch, n), **f32)
     nu_out = torch.empty((batch, m), **f32)
@@ -731,17 +804,16 @@ def qp_solve_reference(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveO
     )
 
 
-def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveOut:
-    """One launch of the whole-QP CUDA kernel on float32 CUDA operands."""
+def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None) -> QPSolveOut:
+    """One launch of the whole-QP CUDA kernel on float32 CUDA operands
+    (``lib`` as for :func:`_sqp_step_launch`)."""
     global qp_solve_launches
     batch, n = q.shape
     m = l.shape[-1]
     name = "qp_solve_kernel"
     operands = dict(P=P, A=A, q=q, l=l, u=u, x=x, z=z, y=y)
     dev = _check_cuda_operands(name, operands, {})
-    from sqp_solver_tpu_torch.ops import _build
-
-    lib = _build.load()
+    lib = lib or _library()
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((batch, n), **f32)
     z_out = torch.empty((batch, m), **f32)
@@ -865,17 +937,22 @@ def spd_inverse_kernel(M):
     ``M`` is (B, n, n), symmetric (only its lower triangle is read).  CPU
     tensors run :func:`spd_inverse_reference`; CUDA tensors must be
     float32 and contiguous and run the kernel."""
-    global spd_inverse_launches
     name = "spd_inverse_kernel"
     if M.dim() != 3 or M.shape[-1] != M.shape[-2]:
         raise ValueError(f"{name}: M has shape {tuple(M.shape)}, expected (B, n, n)")
     if not M.is_cuda:
         return spd_inverse_reference(M)
+    return _spd_inverse_launch(M)
+
+
+def _spd_inverse_launch(M, lib=None):
+    """One launch of the SPD-inverse CUDA kernel on a CUDA operand (``lib``
+    as for :func:`_sqp_step_launch`)."""
+    global spd_inverse_launches
+    name = "spd_inverse_kernel"
     dev = _check_cuda_operands(name, dict(M=M), {})
     batch, n, _ = M.shape
-    from sqp_solver_tpu_torch.ops import _build
-
-    lib = _build.load()
+    lib = lib or _library()
     minv = torch.empty((batch, n, n), dtype=torch.float32, device=dev)
     fail = torch.empty((batch,), dtype=torch.bool, device=dev)
     ws_floats = int(lib.spd_inverse_workspace_floats(n))

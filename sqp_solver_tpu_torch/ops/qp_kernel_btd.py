@@ -52,6 +52,7 @@ from sqp_solver_tpu_torch.ops.qp_kernel import (
     _check_qp_settings,
     _check_shape,
     _cholesky_clamped,
+    _library,
     _mtv,
     _mv,
     _ptr,
@@ -231,10 +232,12 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
 
 def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
                    active, rho_in, check_infeas: bool, name: str,
-                   cluster: Optional[int] = None) -> BtdOut:
+                   cluster: Optional[int] = None, lib=None) -> BtdOut:
     """One launch of the structured CUDA kernel on float32 CUDA operands,
     with the blocks per problem of the kernel's rule (:func:`cluster_size`)
-    or, for the tests and the measurements, ``cluster`` (1 or 2)."""
+    or, for the tests and the measurements, ``cluster`` (1 or 2); from the
+    package's library or from ``lib`` (another build, as
+    ``tools/kernel_ab.py`` passes)."""
     batch, n = q.shape
     m = l.shape[-1]
     bb = pd.shape[-1]
@@ -244,9 +247,7 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     operands = dict(pd=pd, pe=pe, A=A, q=q, l=l, u=u, x=x, z=z, y=y, active=active,
                     rho_in=rho_in)
     dev = _check_cuda_operands(name, operands, dict(active=torch.bool))
-    from sqp_solver_tpu_torch.ops import _build
-
-    lib = _build.load()
+    lib = lib or _library()
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((batch, n), **f32)
     z_out = torch.empty((batch, m), **f32)
@@ -277,16 +278,14 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     )
 
 
-def cluster_size(n: int, m: int, bb: int, batch: int) -> int:
+def cluster_size(n: int, m: int, bb: int, batch: int, lib=None) -> int:
     """Thread blocks per problem the CUDA kernel takes at these sizes on
     the current card: 2 (a cluster) where one block cannot hold all of A
     in shared memory and two hold more of it, or where one block per
     problem would leave half of the SMs idle (2 B <= SMs) and two hold all
     of A; else 1.  Internal blocks 8 and 16 only; needs the built
-    library."""
-    from sqp_solver_tpu_torch.ops import _build
-
-    return int(_build.load().qp_btd_cluster_size(n, m, bb, batch))
+    library (or ``lib``)."""
+    return int((lib or _library()).qp_btd_cluster_size(n, m, bb, batch))
 
 
 def smem_rows(n: int, m: int, bb: int, batch: int) -> int:

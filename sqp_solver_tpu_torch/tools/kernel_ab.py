@@ -1,29 +1,34 @@
 """This checkout's kernels against another tree's, on the card.
 
-    python -m sqp_solver_tpu_torch.tools.kernel_ab --parent build/parent
+    python -m sqp_solver_tpu_torch.tools.kernel_ab --parent build/parent \
+        [--parts bits,time,phases] [--kernels k1,k2,k6,k7]
 
 ``--parent`` is the root of another checkout (for example the parent
-commit unpacked with ``git archive`` into ``build/parent``).  Both trees'
-``csrc/*.cu`` are built into libraries under ``build/kernel_ab/``; the
-Python around the kernels is this checkout's, which is valid as long as
-the C interface of the kernels compared is the same in both trees.  Three
-parts, in order (``--parts`` picks some):
+commit unpacked with ``git archive`` into ``build/parent``).  Each tree's
+kernel sources are built, with that tree's own headers, into libraries
+under ``build/kernel_ab/`` (only the sources the parts need, all nvcc
+processes started together); the Python around the kernels is this
+checkout's, which passes each library to the launchers explicitly and is
+valid as long as the C interface of the kernels compared is the same in
+both trees.  Three parts, in order (``--parts`` picks some):
 
-``bits``    K1 (``sqp_step_kernel``) and K3 (``qp_solve_kernel``) of both
-            trees on the same seeded inputs (``chip_smoke.py``'s shapes):
-            every output tensor must be equal bit for bit;
-``time``    K6/K7 milliseconds at every ``chip_smoke.py`` shape
-            (``chip_smoke.btd_cases``), CUDA events, in turns parent,
-            change, change, parent;
-``phases``  the phase split of the structured kernel: each tree's
-            ``qp_kernel_btd.cu`` built with ``-DADMM_PHASE_CLOCKS`` against
-            this checkout's ``admm_core.cuh`` (whose ``ADMM_PHASE_*`` marks
-            bound the ADMM core's phases; a kernel source without its own
-            Gram / Thomas and total marks gets them inserted at the anchors
-            of ``_MARKS``), one launch per shape; thread 0 of each block
-            sums the clock64() spans of Gram band, block Thomas, A'w (with
-            tm = rho z - y), the sweeps, A v (with the z, y, x updates), the
-            chunk statistics and the whole kernel.
+``bits``    K3 (``qp_solve_kernel``) and K4 (``spd_inverse_kernel``) of
+            both trees on the same seeded inputs (``chip_smoke.py``'s
+            shapes): every output tensor must be equal bit for bit (K3
+            and K4 keep the column factor of ``admm_core.cuh``);
+``time``    milliseconds of the kernels of ``--kernels`` at every
+            ``chip_smoke.py`` shape (``chip_smoke.dense_cases`` for K1/K2,
+            ``chip_smoke.btd_cases`` for K6/K7), CUDA events, in turns
+            parent, change, change, parent (K6/K7 also the change in the
+            other block layout);
+``phases``  the phase split of the same launches: each tree's kernel
+            source built with ``-DADMM_PHASE_CLOCKS`` against this
+            checkout's headers, whose ``ADMM_PHASE_*`` marks bound the
+            phases (a tree whose kernel source has no marks of its own
+            gets only those of the shared pieces it calls), one launch per
+            shape after a warm-up; thread 0 of each block sums the
+            clock64() spans of each phase (``PHASES``), reported in cycles
+            per block.
 
 The last line of the output is one JSON object with every number.
 """
@@ -36,95 +41,115 @@ import json
 import os
 import shutil
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PHASES = ("gram", "thomas", "atmv", "sweep", "amv", "stats", "total")
-# (anchor, replacement) for a structured kernel source from before the
-# phase marks (the first structured kernel, one block per problem); a tree
-# that has the marks needs none of this
-_MARKS = (
-    ("  extern __shared__ float smem[];\n",
-     "  extern __shared__ float smem[];\n  ADMM_PHASE_BEGIN(kPhTotal);\n"),
-    ("    __syncthreads();\n    bool fail = false;\n",
-     "    __syncthreads();\n    ADMM_PHASE_END(kPhGram);\n    ADMM_PHASE_BEGIN(kPhThomas);\n"
-     "    bool fail = false;\n"),
-    ("  if (tid == 0) {  // stats is (9, batch)",
-     "  ADMM_PHASE_END(kPhTotal);\n  if (tid == 0) {  // stats is (9, batch)"),
-)
+# the AdmmPhase enum of csrc/admm_core.cuh, in its order
+PHASES = ("gram", "thomas", "atmv", "sweep", "amv", "stats", "total",
+          "chol", "linv", "ltl", "bfgs", "polish", "load")
+SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k6": "qp_kernel_btd.cu",
+           "k7": "qp_kernel_btd.cu"}
 
 
-def _lib(tree: Path, label: str):
+def _csrc(tree: Path) -> Path:
+    return tree / "sqp_solver_tpu_torch" / "csrc"
+
+
+def _stage_and_build(cu: list, headers: Path, label: str, flags=()):
+    """Copy the sources ``cu`` and the ``*.cuh`` of ``headers`` into
+    ``build/kernel_ab/<label>`` and build them into one library there."""
     from sqp_solver_tpu_torch.ops import _build
 
-    return _build.build_library(tree / "sqp_solver_tpu_torch" / "csrc",
-                                _build.build_dir().parent / "kernel_ab" / label)
-
-
-def _phase_lib(tree: Path, label: str):
-    """The structured kernel of ``tree`` with phase clocks."""
-    from sqp_solver_tpu_torch.ops import _build
-
-    out = _build.build_dir().parent / "kernel_ab" / f"{label}-phases"
+    out = _build.build_dir().parent / "kernel_ab" / label
     csrc = out / "csrc"
-    csrc.mkdir(parents=True, exist_ok=True)
-    src = (tree / "sqp_solver_tpu_torch" / "csrc" / "qp_kernel_btd.cu").read_text()
-    if "kPhGram" not in src:
-        for anchor, repl in _MARKS:
-            if src.count(anchor) != 1:
-                raise RuntimeError(f"{label}: phase anchor not found once: {anchor!r}")
-            src = src.replace(anchor, repl)
-    (csrc / "qp_kernel_btd.cu").write_text(src)
-    for header in (ROOT / "sqp_solver_tpu_torch" / "csrc").glob("*.cuh"):
-        shutil.copy(header, csrc / header.name)
-    lib = _build.build_library(csrc, out, flags=("-DADMM_PHASE_CLOCKS",))
-    lib.admm_phase_clocks.restype = ctypes.c_int
-    lib.admm_phase_clocks.argtypes = [ctypes.c_void_p]
+    if csrc.exists():
+        shutil.rmtree(csrc)
+    csrc.mkdir(parents=True)
+    for p in cu:
+        shutil.copy(p, csrc / p.name)
+    for h in headers.glob("*.cuh"):
+        shutil.copy(h, csrc / h.name)
+    lib = _build.build_library(csrc, out, flags=flags)
+    if "-DADMM_PHASE_CLOCKS" in flags:
+        lib.admm_phase_clocks.restype = ctypes.c_int
+        lib.admm_phase_clocks.argtypes = [ctypes.c_void_p]
     return lib
 
 
-def _use(lib) -> None:
-    from sqp_solver_tpu_torch.ops import _build
+def kernel_library(tree: Path, label: str, sources) -> ctypes.CDLL:
+    """``tree``'s kernel sources (names in its ``csrc``) with its own headers."""
+    return _stage_and_build([_csrc(tree) / s for s in sorted(sources)], _csrc(tree), label)
 
-    _build._lib = lib
+
+def phase_library(tree: Path, label: str, source: str) -> ctypes.CDLL:
+    """``tree``'s kernel source with this checkout's headers and phase clocks."""
+    return _stage_and_build([_csrc(tree) / source], _csrc(ROOT), f"{label}-phases",
+                            flags=("-DADMM_PHASE_CLOCKS",))
+
+
+def build_all(jobs: dict) -> dict:
+    """Run the library builds ``{key: (fn, *args)}`` at once (each nvcc is a
+    process of its own; the threads only wait on them)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        futs = {k: pool.submit(fn, *args) for k, (fn, *args) in jobs.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def clock_split(lib, launch, blocks: int):
+    """(cycles per block of each marked phase, the output) of one
+    ``launch()`` after a warm-up launch, from a ``-DADMM_PHASE_CLOCKS``
+    library."""
+    import numpy as np
+    import torch
+
+    buf = np.zeros(len(PHASES), dtype=np.uint64)
+    launch()
+    rc = lib.admm_phase_clocks(buf.ctypes.data)
+    out = launch()
+    torch.cuda.synchronize()
+    rc = rc or lib.admm_phase_clocks(buf.ctypes.data)
+    if rc:
+        raise RuntimeError(f"admm_phase_clocks failed ({rc})")
+    return {p: float(buf[i]) / blocks for i, p in enumerate(PHASES) if buf[i]}, out
+
+
+def format_split(cyc: dict) -> str:
+    total = cyc.get("total")
+    return ", ".join(f"{p} {v:.0f}" + (f" ({v / total:.3f})" if total and p != "total" else "")
+                     for p, v in cyc.items())
 
 
 def _tensors(out) -> dict:
     import torch
 
+    if isinstance(out, tuple) and not hasattr(out, "_asdict"):
+        return {str(i): v for i, v in enumerate(out)}
     return {k: v for k, v in out._asdict().items() if isinstance(v, torch.Tensor)}
 
 
 def bits(libs: dict, dev) -> list:
-    """K1 and K3 of both trees on the same inputs; raises unless equal."""
+    """K3 and K4 of both trees on the same inputs; raises unless equal."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
-    from sqp_solver_tpu_torch.testing import step_inputs
+    from sqp_solver_tpu_torch.testing import spd_inputs
 
-    s = cs.main_qp_settings()
     cases = []
-    for batch, n in ((4096, 32), (1024, 128)):
-        t = cs.to_device(step_inputs(batch, n, n + 1, seed=n, dtype=np.float32,
-                                     equality_row=False), dev)
-        for bfgs in (True, False):
-            cases.append((f"K1 n={n} do_bfgs={bfgs}", lambda t=t, bfgs=bfgs: qk.sqp_step_kernel(
-                t["B"], t["J"], t["g"], t["l"], t["u"], t["s"], t["dgl"], t["reset"], t["upd"],
-                t["active"], t["x"], t["z"], t["y"], s, do_bfgs=bfgs, want_minv=True)))
     for family, n in (("random", 32), ("mpc", 16)):
         t = cs.qp_operands(family, 4096, n, dev)
         for label, qs in (("one epoch", cs.qp_bench_settings(adaptive_rho=False)),
                           ("4 epochs", cs.qp_bench_settings())):
-            cases.append((f"K3 {family} n={n} {label}",
-                          lambda t=t, qs=qs: cs.qp_raw(qk._qp_solve_launch, t, qs)))
+            cases.append((f"K3 {family} n={n} {label}", lambda lib, t=t, qs=qs: cs.qp_raw(
+                lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
+    for batch, n in ((4096, 32), (1024, 128)):
+        M = cs.to_device(spd_inputs(batch, n, seed=n, dtype=np.float32), dev)["M"]
+        cases.append((f"K4 n={n} B={batch}", lambda lib, M=M: qk._spd_inverse_launch(M, lib=lib)))
     rows = []
     for label, fn in cases:
-        outs = {}
-        for who, lib in libs.items():
-            _use(lib)
-            outs[who] = _tensors(fn())
+        outs = {who: _tensors(fn(lib)) for who, lib in libs.items()}
         torch.cuda.synchronize()
         differ = [k for k, v in outs["parent"].items() if not torch.equal(v, outs["change"][k])]
         cs.log(f"  {label}: {len(outs['parent'])} outputs, "
@@ -135,26 +160,43 @@ def bits(libs: dict, dev) -> list:
     return rows
 
 
-def timing(libs: dict, cases: list) -> list:
-    """K6/K7 ms of both trees at each shape, in turns parent, change,
-    change, parent; between the change's turns, two turns of the change
-    with the other number of blocks per problem, where it has one."""
+def _turns(libs: dict, launch, reps: int, other=None) -> dict:
+    """ms of ``launch(lib, cluster)`` in turns parent, change, [other,
+    other,] change, parent, listed by turn."""
+    import chip_smoke as cs
+
+    turns = ["parent", "change"] + ["other"] * 2 * (other is not None) + ["change", "parent"]
+    ms = {who: [] for who in turns}
+    for who in turns:
+        lib = libs["parent" if who == "parent" else "change"]
+        ms[who].append(cs.cuda_ms(lambda: launch(lib, other if who == "other" else None), reps))
+    return ms
+
+
+def timing(libs: dict, dense: list, btd: list) -> list:
+    """K1/K2 and K6/K7 ms of both trees at each shape, in turns parent,
+    change, change, parent; for K6/K7, between the change's turns, two
+    turns of the change with the other number of blocks per problem, where
+    it has one."""
     import chip_smoke as cs
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
     rows = []
-    for c in cases:
+    for c in dense:
+        ms = _turns(libs, lambda lib, _: c["launch"](lib), c["reps"])
+        mean = {who: sum(v) / len(v) for who, v in ms.items()}
+        cs.log(f"  {c['label']}: parent {mean['parent']:.3f} ms, change {mean['change']:.3f} ms, "
+               f"parent / change {mean['parent'] / mean['change']:.2f}x (means of 2 turns of "
+               f"{c['reps']} launches: {ms})")
+        rows.append(dict(case=c["label"], n=c["n"], batch=c["batch"], parent_ms=mean["parent"],
+                         change_ms=mean["change"], speedup=mean["parent"] / mean["change"],
+                         turns=ms))
+    for c in btd:
         reps = 3 if "random" in c["label"] else 5
-        _use(libs["change"])
-        rule = qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"])
+        rule = qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=libs["change"])
         other = 3 - rule if c["bb"] <= 16 else None
-        turns = ["parent", "change"] + ["other"] * 2 * (other is not None) + ["change", "parent"]
-        ms = {who: [] for who in turns}
-        for who in turns:
-            _use(libs["parent" if who == "parent" else "change"])
-            cl = other if who == "other" else None
-            ms[who].append(cs.cuda_ms(lambda: cs.btd_launch(
-                c["t"], c["settings"], c["check_infeas"], cluster=cl), reps))
+        ms = _turns(libs, lambda lib, cl: cs.btd_launch(c["t"], c["settings"], c["check_infeas"],
+                                                        cluster=cl, lib=lib), reps, other)
         mean = {who: sum(v) / len(v) for who, v in ms.items()}
         alt = (f", the change with {other} block(s) per problem {mean['other']:.3f} ms"
                if other is not None else "")
@@ -169,38 +211,28 @@ def timing(libs: dict, cases: list) -> list:
     return rows
 
 
-def phases(phase_libs: dict, cases: list) -> list:
-    """Per-block clock64() cycles of each phase, one launch per shape."""
-    import numpy as np
-    import torch
-
+def phases(phase_libs: dict, dense: list, btd: list) -> list:
+    """Per-block clock64() cycles of each phase, one launch per shape and tree."""
     import chip_smoke as cs
 
     rows = []
-    buf = np.zeros(len(PHASES), dtype=np.uint64)
-    for c in cases:
-        for who, lib in phase_libs.items():
-            _use(lib)
-            cs.btd_launch(c["t"], c["settings"], c["check_infeas"])  # warm-up
-            lib.admm_phase_clocks(buf.ctypes.data)
-            out = cs.btd_launch(c["t"], c["settings"], c["check_infeas"])
-            torch.cuda.synchronize()
-            rc = lib.admm_phase_clocks(buf.ctypes.data)
-            if rc:
-                raise RuntimeError(f"admm_phase_clocks failed ({rc})")
-            per = int(lib.qp_btd_cluster_size(c["n"], c["m"], c["bb"], c["batch"])) \
-                if hasattr(lib, "qp_btd_cluster_size") else 1
-            blocks = per * c["batch"]
-            cyc = {p: float(buf[i]) / blocks for i, p in enumerate(PHASES)}
+    for c in dense:
+        for who, lib in phase_libs["qp_kernel.cu"].items():
+            cyc, _ = clock_split(lib, lambda: c["launch"](lib), c["batch"])
+            cs.log(f"  {c['label']} {who}: cycles per block {format_split(cyc)}")
+            rows.append(dict(case=c["label"], tree=who, cycles_per_block=cyc))
+    for c in btd:
+        for who, lib in phase_libs["qp_kernel_btd.cu"].items():
+            per = int(lib.qp_btd_cluster_size(c["n"], c["m"], c["bb"], c["batch"]))
+            cyc, out = clock_split(lib, lambda: cs.btd_launch(
+                c["t"], c["settings"], c["check_infeas"], lib=lib), per * c["batch"])
             iters = float(out.iter.double().mean())
-            share = {p: cyc[p] / cyc["total"] for p in PHASES[:-1]}
-            per_iter = {p: cyc[p] / max(iters, 1.0) for p in ("atmv", "sweep", "amv")}
+            per_iter = {p: cyc.get(p, 0.0) / max(iters, 1.0) for p in ("atmv", "sweep", "amv")}
             cs.log(f"  {c['label']} {who} ({per} block(s) per problem, mean {iters:.1f} "
-                   "iterations): cycles per block " +
-                   ", ".join(f"{p} {cyc[p]:.0f} ({share.get(p, 1.0):.3f})" for p in PHASES) +
-                   "; per iteration " + ", ".join(f"{p} {v:.0f}" for p, v in per_iter.items()))
+                   f"iterations): cycles per block {format_split(cyc)}; per iteration "
+                   + ", ".join(f"{p} {v:.0f}" for p, v in per_iter.items()))
             rows.append(dict(case=c["label"], tree=who, blocks_per_problem=per,
-                             mean_iter=iters, cycles_per_block=cyc, share=share,
+                             mean_iter=iters, cycles_per_block=cyc,
                              cycles_per_iteration=per_iter))
     return rows
 
@@ -209,6 +241,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--parts", default="bits,time,phases")
+    ap.add_argument("--kernels", default="k1,k2,k6,k7")
     args = ap.parse_args(argv)
     import torch
 
@@ -221,21 +254,36 @@ def main(argv=None) -> int:
     card = cs.card_line()
     cs.log(f"card: {card}")
     parts = args.parts.split(",")
+    kernels = args.kernels.split(",")
     trees = {"parent": args.parent.resolve(), "change": ROOT}
-    result = dict(card=card)
+    timed = {SOURCES[k] for k in kernels}
+    jobs = {}
     if "bits" in parts or "time" in parts:
-        libs = {who: _lib(tree, who) for who, tree in trees.items()}
-    cases = cs.btd_cases(dev) if ("time" in parts or "phases" in parts) else []
+        sources = (timed if "time" in parts else set()) | ({"qp_kernel.cu"} if "bits" in parts
+                                                           else set())
+        for who, tree in trees.items():
+            jobs[who] = (kernel_library, tree, who, sources)
+    if "phases" in parts:
+        for src in timed:
+            for who, tree in trees.items():
+                jobs[(src, who)] = (phase_library, tree, f"{who}-{Path(src).stem}", src)
+    built = build_all(jobs)
+    libs = {who: built[who] for who in trees if who in built}
+    dense = cs.dense_cases(dev) if {"k1", "k2"} & set(kernels) else []
+    dense = [c for c in dense if c["kernel"].lower() in kernels]
+    btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
+    btd = [c for c in btd if c["label"][:2].lower() in kernels]
+    result = dict(card=card)
     if "bits" in parts:
-        cs.log("K1 and K3, parent against change:")
+        cs.log("K3 and K4, parent against change:")
         result["bits"] = bits(libs, dev)
     if "time" in parts:
-        cs.log("K6/K7 ms at the chip_smoke.py shapes:")
-        result["time"] = timing(libs, cases)
+        cs.log(f"{', '.join(k.upper() for k in kernels)} ms at the chip_smoke.py shapes:")
+        result["time"] = timing(libs, dense, btd)
     if "phases" in parts:
-        cs.log("structured kernel phase split (clock64, thread 0 of each block):")
-        phase_libs = {who: _phase_lib(tree, who) for who, tree in trees.items()}
-        result["phases"] = phases(phase_libs, cases)
+        cs.log("phase split (clock64, thread 0 of each block):")
+        phase_libs = {src: {who: built[(src, who)] for who in trees} for src in timed}
+        result["phases"] = phases(phase_libs, dense, btd)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -85,8 +85,8 @@ def _assert_step_close(ok, ref):
 
 @pytest.mark.parametrize(
     "batch,n,m",
-    [(16, 6, 9), (64, 32, 33), (8, 128, 129), (4, 64, 900)],
-    ids=["small", "n32", "n128", "workspace-spill"],
+    [(16, 6, 9), (64, 32, 33), (8, 128, 129), (4, 64, 900), (16, 50, 51), (8, 100, 101)],
+    ids=["small", "n32", "n128", "workspace-spill", "n50-partial-panel", "n100-partial-panel"],
 )
 @pytest.mark.parametrize("do_bfgs", [True, False])
 def test_sqp_step_kernel_matches_plain(cuda, batch, n, m, do_bfgs):
@@ -142,8 +142,11 @@ def test_sqp_step_kernel_factor_reuse(cuda):
     assert int(ok.n_factor.max()) == int(ref.n_factor.max())
 
 
-@pytest.mark.parametrize("batch,n,m", [(16, 8, 11), (64, 32, 33), (8, 128, 129)],
-                         ids=["small", "n32", "n128"])
+@pytest.mark.parametrize(
+    "batch,n,m",
+    [(16, 8, 11), (64, 32, 33), (8, 128, 129), (16, 50, 51), (8, 100, 101), (4, 160, 161)],
+    ids=["small", "n32", "n128", "n50-partial-panel", "n100-partial-panel", "workspace-spill"],
+)
 @pytest.mark.parametrize("warm", [False, True])
 def test_polish_kkt_kernel_matches_plain(cuda, batch, n, m, warm):
     t = _to(polish_inputs(batch, n, m, seed=n), cuda)
@@ -158,6 +161,31 @@ def test_polish_kkt_kernel_matches_plain(cuda, batch, n, m, warm):
     torch.testing.assert_close(ok.x[good], ref.x[good], **TOL)
     torch.testing.assert_close(ok.nu[good], ref.nu[good], **TOL)
     torch.testing.assert_close(ok.li[good], ref.li[good], **TOL)
+
+
+def test_dense_factor_matches_blocked_twin(cuda):
+    """K2's L^-1 and K1's emitted Minv against the plain twin of the
+    kernels' blocked order (``_chol_inv_blocked``) at n = 128, on the
+    kernels' own Schur matrices."""
+    n, m = 128, 129
+    p = _to(polish_inputs(8, n, m, seed=5), cuda)
+    ok = qk.polish_kkt_kernel(p["H"], p["J"], p["act"], p["r1"], p["b"], p["nu0"], delta=1e-2,
+                              sweeps=1)
+    actf = p["act"].float()
+    Jm = p["J"] * actf.unsqueeze(-1)
+    Li, fail = qk._chol_inv_blocked(qk._schur_matrix(p["H"], Jm, actf * 1e2, 1e-2), ltl=False)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.fail, fail) and bool(fail[0]) and not fail[1:].any()
+    torch.testing.assert_close(ok.li[1:], Li[1:], **TOL)
+    s = _to(step_inputs(8, n, m, seed=6, equality_row=False), cuda)
+    settings = dataclasses.replace(MAIN_QP, max_iter=10, adaptive_rho=False)
+    out = _step(qk.sqp_step_kernel, s, settings, do_bfgs=False, want_minv=True)
+    rv = qk._rho_from(out.rho_factor, (s["l"] < -1e16) & (s["u"] > 1e16), (s["u"] - s["l"]) < 1e-4)
+    Minv, f = qk._chol_inv_blocked(qk._schur_matrix(out.B, s["J"], rv, settings.sigma))
+    torch.cuda.synchronize()
+    assert not f.any() and int(out.n_factor[3]) == 2  # B := I on problem 3
+    act = s["active"]
+    torch.testing.assert_close(out.minv[act], Minv[act], **TOL)
 
 
 def test_launch_counters_count_cuda_launches_only(cuda):
