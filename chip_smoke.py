@@ -7,19 +7,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device facts: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build the CUDA kernels from ``sqp_solver_tpu_torch/csrc`` (one nvcc
-   per source, all started together), and meanwhile a copy of K1/K2's
-   source with phase clocks (``-DADMM_PHASE_CLOCKS``);
+   per source, all started together), and meanwhile copies of the sources
+   of K1-K3 and of K5 with phase clocks (``-DADMM_PHASE_CLOCKS``);
 3. each kernel against its plain PyTorch version on the card, in float32,
    at its paths' shapes, with both times from CUDA events: the SQP-step
    (K1) and polish-KKT (K2) kernels at n = 32, B = 4096 and n = 128,
-   B = 1024, and their phase split in cycles per block; the whole-QP kernel (K3) on random QPs (n = 32, m = 33) and
-   the MPC family (n = 16, m = 32), B = 4096, plus a batch of primal- and
-   dual-infeasible QPs; the SPD-inverse kernel (K4) at n = 32, B = 4096
-   and n = 128, B = 1024, beside ``torch.linalg.cholesky_ex`` +
+   B = 1024; the whole-QP kernel (K3) on random QPs (n = 32, m = 33) and
+   the MPC family (n = 16, m = 32), B = 4096, in the layout its rule takes
+   there (one warp a problem) and timed in the other (one block a
+   problem), plus a batch of primal- and dual-infeasible QPs; the
+   SPD-inverse kernel (K4) at n = 32, B = 4096 and n = 128, B = 1024,
+   beside ``torch.linalg.cholesky_ex`` +
    ``torch.cholesky_inverse`` as its library yardstick; the ADMM chunk
    kernel (K5), one chunk, at n = 32, m = 33, B = 4096 (seg 10 and 25),
    n = 16, m = 32, B = 4096 (seg 25) and n = 128, m = 129, B = 1024
-   (seg 10, part of W read from device memory); the time of the fused
+   (seg 10, the rows of W that shared memory cannot hold in registers),
+   with the rows of W in shared memory and in registers; the phase split
+   of K1, K2, K3 and K5 in cycles per block; the time of the fused
    tier's library factorization at n = 32 and n = 128; the structured
    kernel's QP entry (K6) on random block-tridiagonal QPs without equality
    rows (n = 192, m = 320, B = 4096, one rho epoch, atol = rtol = 1e-4)
@@ -69,6 +73,7 @@ from the directory of this script; no JAX is used.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -266,6 +271,65 @@ def dense_cases(dev) -> list:
     return cases
 
 
+# the K3 shapes of the kernel phase: (family, batch, n), and the K5 ones:
+# (batch, n, m, seg)
+QP_SHAPES = (("random", 4096, 32), ("mpc", 4096, 16))
+CHUNK_SHAPES = ((4096, 32, 33, 10), (4096, 32, 33, 25), (4096, 16, 32, 25), (1024, 128, 129, 10))
+
+
+def blocks_of(lib, kernel: str, batch: int, n: int, m: int) -> int:
+    """Thread blocks of one K3 or K5 launch: K3 puts several problems in a
+    block where its warp layout applies (``qp_solve_problems_per_block``,
+    absent from a library built before that layout: one)."""
+    per = 1
+    if kernel == "K3" and hasattr(lib, "qp_solve_problems_per_block"):
+        per = int(lib.qp_solve_problems_per_block(n, m))
+    return -(-batch // per)
+
+
+def qp_cases(dev) -> list:
+    """Each K3 shape of the kernel phase (four rho epochs, as timed) with a
+    launcher that takes a kernel library, for ``tools/kernel_ab.py`` and the
+    phase split."""
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    s = qp_bench_settings()
+    cases = []
+    for family, batch, n in QP_SHAPES:
+        t = qp_operands(family, batch, n, dev)
+        m = t["l"].shape[-1]
+        cases.append(dict(label=f"K3 {family} n={n} m={m} B={batch}", kernel="K3", n=n, m=m,
+                          batch=batch, reps=10,
+                          launch=lambda lib, t=t: qp_raw(
+                              lambda *a: qk._qp_solve_launch(*a, lib=lib), t, s)))
+    return cases
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_operands(batch: int, n: int, m: int, seg: int, dev) -> tuple:
+    """K5's operands at one shape (``testing.admm_chunk_inputs``, made once:
+    at n = 128 the host takes seconds to form W)."""
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    t = to_device(admm_chunk_inputs(batch, n, m, seed=n + seg, dtype=np.float32), dev)
+    return tuple(t[k] for k in CHUNK_ARGS)
+
+
+def chunk_cases(dev) -> list:
+    """Each K5 shape of the kernel phase with a launcher that takes a kernel
+    library, on the operands of ``compare_chunk``."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+
+    cases = []
+    for batch, n, m, seg in CHUNK_SHAPES:
+        args = chunk_operands(batch, n, m, seg, dev)
+        cases.append(dict(label=f"K5 n={n} m={m} B={batch} seg={seg}", kernel="K5", n=n, m=m,
+                          batch=batch, seg=seg, reps=20 if n <= 32 else 8,
+                          launch=lambda lib, args=args, seg=seg: ak._admm_chunk_launch(
+                              *args, alpha=1.6, seg=seg, lib=lib)))
+    return cases
+
+
 def compare_step(batch: int, n: int, dev, reps: int) -> dict:
     """K1 against its plain version: do_bfgs on and off, then the SOC pair
     (want_minv, then minv_in with shifted bounds)."""
@@ -350,16 +414,19 @@ def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def dense_phase_split(dev, lib, card: str) -> list:
-    """Cycles per block of each phase of K1 and K2 at their shapes, from
-    the build with phase clocks (one launch after a warm-up each)."""
-    from sqp_solver_tpu_torch.tools.kernel_ab import clock_split, format_split
+def phase_split(dev, libs: dict, card: str) -> list:
+    """Cycles per block of each phase of K1, K2, K3 and K5 at their shapes,
+    from the builds with phase clocks (``libs``: one per source), one launch
+    after a warm-up each."""
+    from sqp_solver_tpu_torch.tools.kernel_ab import SOURCES, clock_split, format_split
 
     rows = []
-    for c in dense_cases(dev):
-        cyc, _ = clock_split(lib, lambda: c["launch"](lib), c["batch"])
-        log(f"  {c['label']}: {format_split(cyc)} [{card}]")
-        rows.append(dict(case=c["label"], cycles_per_block=cyc))
+    for c in dense_cases(dev) + qp_cases(dev) + chunk_cases(dev):
+        lib = libs[SOURCES[c["kernel"].lower()]]
+        blocks = blocks_of(lib, c["kernel"], c["batch"], c["n"], c.get("m", c["n"]))
+        cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
+        log(f"  {c['label']} ({blocks} blocks): {format_split(cyc)} [{card}]")
+        rows.append(dict(case=c["label"], blocks=blocks, cycles_per_block=cyc))
     return rows
 
 
@@ -443,6 +510,14 @@ def compare_qp(family: str, batch: int, n: int, dev, reps: int) -> dict:
         f"plain f32 {epoch_errs['plain']:.3e}")
     ms = cuda_ms(lambda: qp_raw(qk._qp_solve_launch, t, s), reps)
     plain_ms = cuda_ms(lambda: qp_raw(qk.qp_solve_reference, t, s), max(1, reps // 4))
+    per = qk.qp_solve_problems_per_block(n, m)
+    layout = "warp" if per > 1 else "block"
+    # the other layout at the same shape (the block layout: the earlier design)
+    other = "block" if layout == "warp" else None
+    other_ms = (cuda_ms(lambda: qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=other), t, s),
+                        reps) if other else None)
+    log(f"  K3 {family} n={n} m={m}: {layout} layout ({per} problem(s) a block) {ms:.3f} ms"
+        + (f", {other} layout {other_ms:.3f} ms" if other else ""))
     # the work of the timed call (s): per problem, each factorization
     # (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM iteration
     # (2 n^2 + 4 m n), each chunk's residuals and certificate (2 x (2 n^2 + 4 m n))
@@ -458,7 +533,8 @@ def compare_qp(family: str, batch: int, n: int, dev, reps: int) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     return dict(family=family, n=n, m=m, batch=batch, max_abs_err=max(errs), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                mean_iter=float(it.mean()), epochs_err=epoch_errs)
+                mean_iter=float(it.mean()), epochs_err=epoch_errs, layout=layout,
+                other_layout=other, other_layout_ms=other_ms)
 
 
 def compare_certificates(dev) -> int:
@@ -517,18 +593,17 @@ def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
     import torch
 
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
-    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 
-    t = to_device(admm_chunk_inputs(batch, n, m, seed=n + seg, dtype=np.float32), dev)
-    args = [t[k] for k in CHUNK_ARGS]
+    args = chunk_operands(batch, n, m, seg, dev)
     ok = ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg)
     ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=seg)
     torch.cuda.synchronize()
     err = max(check_close(f"K5 n={n} seg={seg} {name}", a, b)
               for name, a, b in zip(("s", "yp", "stats"), ok, ref))
-    rows = ak.admm_chunk_smem_rows(n, m)
-    log(f"  K5 n={n} m={m} B={batch} seg={seg}: max |kernel - plain| {err:.3e}, "
-        f"{rows} of {n + m} rows of W in shared memory")
+    lay = ak.admm_chunk_layout(n, m)
+    log(f"  K5 n={n} m={m} B={batch} seg={seg}: max |kernel - plain| {err:.3e}, of the "
+        f"{n + m} rows of W {lay['smem_rows']} in shared memory, {lay['register_rows']} in "
+        f"registers, {lay['device_rows']} read from device memory")
     ms = cuda_ms(lambda: ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg), reps)
     plain_ms = cuda_ms(lambda: ak.admm_chunk_reference(*args, alpha=1.6, seg=seg),
                        max(1, reps // 4))
@@ -538,7 +613,8 @@ def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
     flops = batch * (seg * (2 * D * D + 10 * D) + 2 * n * n + 4 * m * n)
     nbytes = 4 * batch * (D * D + n * n + m * n + 10 * D + 4)
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(n=n, m=m, batch=batch, seg=seg, smem_rows=rows, max_abs_err=err, ms=ms,
+    return dict(n=n, m=m, batch=batch, seg=seg, smem_rows=lay["smem_rows"],
+                register_rows=lay["register_rows"], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
@@ -1365,13 +1441,15 @@ def main() -> int:
 
     from sqp_solver_tpu_torch.tools import kernel_ab
 
-    with ThreadPoolExecutor(1) as pool:  # K1/K2 with phase clocks, built meanwhile
-        phase_build = pool.submit(kernel_ab.phase_library, kernel_ab.ROOT, "smoke",
-                                  "qp_kernel.cu")
+    phase_sources = ("qp_kernel.cu", "admm_kernel.cu")
+    with ThreadPoolExecutor(len(phase_sources)) as pool:  # with phase clocks, meanwhile
+        phase_builds = {src: pool.submit(kernel_ab.phase_library, kernel_ab.ROOT,
+                                         f"smoke-{src.split('.')[0]}", src)
+                        for src in phase_sources}
         _build.load()
-        phase_lib = phase_build.result()
+        phase_libs = {src: f.result() for src, f in phase_builds.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) "
-        f"into {_build.build_dir()}, with the phase-clock build of K1/K2")
+        f"into {_build.build_dir()}, with the phase-clock builds of K1-K3 and K5")
 
     # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
@@ -1379,8 +1457,6 @@ def main() -> int:
         f"{EPOCH_TOL}):")
     k1 = [compare_step(4096, 32, dev, reps=20), compare_step(1024, 128, dev, reps=8)]
     k2 = [compare_polish(4096, 32, 6, dev, reps=20), compare_polish(1024, 128, 4, dev, reps=8)]
-    log("K1/K2 phase split (clock64 spans of thread 0, cycles per block, share of the total):")
-    dense_phases = dense_phase_split(dev, phase_lib, card)
     k3 = [compare_qp("random", 4096, 32, dev, reps=10), compare_qp("mpc", 4096, 16, dev, reps=10)]
     compare_certificates(dev)
     k4 = [compare_spd(4096, 32, dev, reps=20), compare_spd(1024, 128, dev, reps=8)]
@@ -1388,6 +1464,9 @@ def main() -> int:
           compare_chunk(4096, 32, 33, 25, dev, reps=20),
           compare_chunk(4096, 16, 32, 25, dev, reps=20),
           compare_chunk(1024, 128, 129, 10, dev, reps=8)]
+    log("K1, K2, K3 and K5 phase split (clock64 spans of thread 0, cycles per block, share of "
+        "the total):")
+    phases = phase_split(dev, phase_libs, card)
     factor_ms = [time_library_factor(4096, 32, 33, dev, reps=10),
                  time_library_factor(1024, 128, 129, dev, reps=5)]
     random, mpc256, mpc4096, step32, step48 = btd_cases(dev)
@@ -1461,7 +1540,7 @@ def main() -> int:
                entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib),
                entry("btd_step", K7_SOURCE, k7, source=BTD_CU_SOURCE, library_note=no_lib)]
     log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
-                        dense_phases=dense_phases,
+                        phases=phases,
                         library_factor=factor_ms,
                         qp_one_shot=qp_run, qp_fused_one_shot=qp_fused_run,
                         qp_fused_certificates=infeas_run, mpc_sustained=mpc_run,

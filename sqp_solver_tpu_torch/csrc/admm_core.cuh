@@ -4,7 +4,8 @@
 // and the ADMM core (twin of sqp_solver_tpu/ops/qp_kernel.py:_admm_core)
 // templated on an operator with the JAX core's hooks.
 //
-// An operator `Op` supplies, each called by every thread of the block:
+// An operator `Op` supplies, each called by every thread of its scope (the
+// block, or the warp of K3's warp layout: OpScope below):
 //   op.atmv(w, epi)       A' w: epi(j, (A'w)_j) once per column j   (no sync)
 //   op.amv(v, epi)        A v:  epi(i, (Av)_i) once per row i        (no sync)
 //   op.pmv(v, out)        out = P v                                  (no sync)
@@ -13,8 +14,8 @@
 //                         return the block-uniform fail flag (syncs inside)
 // and, where the defaults below do not do, the reduction hooks op_max,
 // op_sum and op_cols.
-// DenseOp is the dense one (K1, K3): explicit Minv, A and P as matrices.
-// Every branch that guards a __syncthreads() is block-uniform.
+// DenseOp is the dense one (K3's block layout): explicit Minv, A and P as
+// matrices.  Every branch that guards a barrier is uniform over the scope.
 
 #pragma once
 
@@ -41,17 +42,23 @@ constexpr float kLooseThresh = 1e16f;
 // the spans).  The ADMM core marks its iteration phases; a factor marks
 // its own pieces (Gram, Cholesky, L^-1, L'L for the dense factors; Gram
 // and Thomas for the band); K1 and K2 mark BFGS, K2's refinement sweeps
-// ("polish"), the loads and stores, and the whole kernel.
+// ("polish"), the loads and stores, and the whole kernel; K3 its loads
+// and stores and the whole kernel; the core marks the certificates apart
+// from the chunk-end stats; K5 (admm_kernel.cu) marks its load, its
+// iterations ("iter") and its stats.
 #ifdef ADMM_PHASE_CLOCKS
 enum AdmmPhase {
   kPhGram, kPhThomas, kPhAtmv, kPhSweep, kPhAmv, kPhStats, kPhTotal,
-  kPhChol, kPhLinv, kPhLtl, kPhBfgs, kPhPolish, kPhLoad, kNumPhases
+  kPhChol, kPhLinv, kPhLtl, kPhBfgs, kPhPolish, kPhLoad, kPhCert, kPhIter, kNumPhases
 };
-__device__ unsigned long long admm_phase_cycles[kNumPhases];
+// The sums are spread over kPhaseSlots copies (by block), so that the
+// stamps of thousands of blocks do not queue on one address.
+constexpr int kPhaseSlots = 128;
+__device__ unsigned long long admm_phase_cycles[kPhaseSlots][kNumPhases];
 __device__ __forceinline__ void phase_stamp(int p, bool begin) {
   if (threadIdx.x == 0) {
     const unsigned long long t = (unsigned long long)clock64();
-    atomicAdd(&admm_phase_cycles[p], begin ? 0ull - t : t);
+    atomicAdd(&admm_phase_cycles[blockIdx.x % kPhaseSlots][p], begin ? 0ull - t : t);
   }
 }
 #define ADMM_PHASE_BEGIN(p) phase_stamp(p, true)
@@ -75,6 +82,75 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
+
+// ---- asynchronous copies and row strides (K3's warp layout, K5) ----
+// cp.async puts a copy from device to shared memory in flight without
+// holding a register; a thread's copies complete at cp_async_wait_all, and
+// the caller's barrier then makes them visible to the other threads.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Put rows x cols floats of src (row stride cols) in flight to dst (row
+// stride ldd, dst 16-byte aligned): rows over the groups of 32 threads
+// [0, groups), columns over lanes; 16 bytes a copy where every source and
+// destination row is 16-byte aligned (cols and ldd multiples of 4, src
+// aligned), 4 bytes otherwise (a problem's operand at b n m floats is not,
+// for odd n m).
+__device__ __forceinline__ void copy_rows_async(float* dst, int ldd, const float* src, int rows,
+                                                int cols, int group, int groups, int lane) {
+  if ((cols & 3) == 0 && (ldd & 3) == 0 && ((uintptr_t)src & 15) == 0) {
+    const int c4 = cols >> 2;
+    for (int i = group; i < rows; i += groups)
+      for (int k = lane; k < c4; k += 32)
+        cp_async16(dst + i * ldd + 4 * k, src + (size_t)i * cols + 4 * k);
+  } else {
+    for (int i = group; i < rows; i += groups)
+      for (int j = lane; j < cols; j += 32) cp_async4(dst + i * ldd + j, src + (size_t)i * cols + j);
+  }
+}
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ constexpr int round32(int v) { return (v + 31) & ~31; }
+// A row stride of 4 x odd floats: a warp's 16-byte reads of rows i..i+7 at
+// one column (one quarter-warp phase) fall on eight disjoint bank groups.
+__host__ __device__ constexpr int stride4(int cols) {
+  return (round4(cols) & 7) ? round4(cols) : round4(cols) + 4;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---- sync scopes ---------------------------------------------------------
+// The pieces below run on a scope of threads that shares one problem: the
+// whole block (K1, K3's block layout, K4, K6, K7) or one warp (K3's warp
+// layout, several problems a block).  rank() and size() index the scope's
+// threads; sync() is its barrier.  An operator names its scope through
+// OpScope (the block unless specialised).
+struct BlockScope {
+  __device__ static __forceinline__ int rank() { return threadIdx.x; }
+  __device__ static __forceinline__ int size() { return blockDim.x; }
+  __device__ static __forceinline__ void sync() { __syncthreads(); }
+};
+struct WarpScope {
+  __device__ static __forceinline__ int rank() { return threadIdx.x & 31; }
+  __device__ static __forceinline__ int size() { return 32; }
+  __device__ static __forceinline__ void sync() { __syncwarp(); }
+};
+template <class Op>
+struct OpScope {
+  using type = BlockScope;
+};
 
 // Block-wide reductions of K values at once.  Every thread returns the same
 // result (the partials are summed in the same order by every thread).
@@ -220,13 +296,14 @@ __device__ bool factor_minv(float* W, float* Li, int ldm, const float* P, int ld
 }
 
 // per-row rho from the scalar rho and the row classes (twin of _rho_from)
+template <class S = BlockScope>
 __device__ void set_rho_vec(float* rv, const float* l, const float* u, float rho, int m) {
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+  for (int i = S::rank(); i < m; i += S::size()) {
     const bool loose = (l[i] < -kLooseThresh) && (u[i] > kLooseThresh);
     const bool eq = (u[i] - l[i]) < kRhoTol;
     rv[i] = loose ? kRhoMin : (eq ? kRhoEqFactor * rho : rho);
   }
-  __syncthreads();
+  S::sync();
 }
 
 // Reduction hooks of an operator, called by admm_stats and certificate:
@@ -297,15 +374,16 @@ template <class Op>
 __device__ void admm_iter(const Op& op, const float* q, const float* l, const float* u,
                           const float* rv, float* x, float* z, float* y, float* bt, float* xt,
                           float* tm, float sigma, float alpha, int n, int m) {
+  using S = typename OpScope<Op>::type;
   ADMM_PHASE_BEGIN(kPhAtmv);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) tm[i] = rv[i] * z[i] - y[i];
-  __syncthreads();
+  for (int i = S::rank(); i < m; i += S::size()) tm[i] = rv[i] * z[i] - y[i];
+  S::sync();
   op.atmv(tm, [&](int j, float acc) { bt[j] = sigma * x[j] - q[j] + acc; });
-  __syncthreads();
+  S::sync();
   ADMM_PHASE_END(kPhAtmv);
   ADMM_PHASE_BEGIN(kPhSweep);
   op.apply_minv(bt, xt);
-  __syncthreads();
+  S::sync();
   ADMM_PHASE_END(kPhSweep);
   ADMM_PHASE_BEGIN(kPhAmv);
   op.amv(xt, [&](int i, float zt) {
@@ -314,8 +392,8 @@ __device__ void admm_iter(const Op& op, const float* q, const float* l, const fl
     y[i] = y[i] + rv[i] * (z_pre - zn);
     z[i] = zn;
   });
-  for (int j = threadIdx.x; j < n; j += blockDim.x) x[j] = alpha * xt[j] + (1.f - alpha) * x[j];
-  __syncthreads();
+  for (int j = S::rank(); j < n; j += S::size()) x[j] = alpha * xt[j] + (1.f - alpha) * x[j];
+  S::sync();
   ADMM_PHASE_END(kPhAmv);
 }
 
@@ -325,17 +403,18 @@ template <class Op>
 __device__ void admm_stats(const Op& op, const float* q, const float* x, const float* z,
                            const float* y, float* tm, float* tn1, float* tn2, float* red, int n,
                            int m, AdmmState& st) {
+  using S = typename OpScope<Op>::type;
   op.amv(x, [&](int i, float acc) { tm[i] = acc; });
   op.pmv(x, tn1);
   op.atmv(y, [&](int j, float acc) { tn2[j] = acc; });
-  __syncthreads();
+  S::sync();
   float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+  for (int i = S::rank(); i < m; i += S::size()) {
     v[0] = nan_max(v[0], fabsf(tm[i] - z[i]));
     v[1] = nan_max(v[1], fabsf(tm[i]));
     v[2] = nan_max(v[2], fabsf(z[i]));
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  for (int j = S::rank(); j < n; j += S::size()) {
     v[3] = nan_max(v[3], fabsf(tn1[j] + q[j] + tn2[j]));
     v[4] = nan_max(v[4], fabsf(tn1[j]));
     v[5] = nan_max(v[5], fabsf(tn2[j]));
@@ -356,14 +435,15 @@ template <class Op>
 __device__ int certificate(const StepParams& p, const Op& op, const float* q, const float* l,
                            const float* u, const float* dx, const float* dy, float* tn1,
                            float* tn2, float* tm, float* red) {
+  using S = typename OpScope<Op>::type;
   const int n = p.n, m = p.m;
   op.atmv(dy, [&](int j, float acc) { tn1[j] = acc; });  // A' dy
   op.pmv(dx, tn2);                                        // P dx
   op.amv(dx, [&](int i, float acc) { tm[i] = acc; });    // A dx
-  __syncthreads();
+  S::sync();
   float mx[6] = {0.f, 0.f, 0.f, 0.f, -INFINITY, -INFINITY};
   float sm[2] = {0.f, 0.f};
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+  for (int i = S::rank(); i < m; i += S::size()) {
     const bool lo_l = l[i] < -kLooseThresh, lo_u = u[i] > kLooseThresh;
     const float l_eff = lo_l ? -1e20f : l[i], u_eff = lo_u ? 1e20f : u[i];
     mx[0] = nan_max(mx[0], fabsf(dy[i]));
@@ -373,7 +453,7 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
   }
   int j0, j1;
   op_cols(op, n, j0, j1);
-  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+  for (int j = j0 + S::rank(); j < j1; j += S::size()) {
     mx[1] = nan_max(mx[1], fabsf(tn1[j]));
     mx[2] = nan_max(mx[2], fabsf(dx[j]));
     mx[3] = nan_max(mx[3], fabsf(tn2[j]));
@@ -400,6 +480,7 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
                            const float* u, float* rv, float* x, float* z, float* y, float* bt,
                            float* xt, float* tm, float* tn1, float* tn2, float* xp, float* yp,
                            float* red, AdmmState& st) {
+  using S = typename OpScope<Op>::type;
   const int n = p.n, m = p.m;
   for (int e = 0; e < p.n_epochs && !st.done && !st.fail && st.infs == 0; ++e) {
     // adopt the pending rho together with its factorization; a NaN
@@ -408,33 +489,35 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
     if (st.pending || isnan(st.rho_est)) st.rho = st.rho_est;
     if (st.pending || isnan(st.rho)) {
       op_factor_mark(op, true);
-      set_rho_vec(rv, l, u, st.rho, m);
+      set_rho_vec<S>(rv, l, u, st.rho, m);
       st.fail = op.factor(rv);
       st.nfact += 1;
       op_factor_mark(op, false);
     }
     for (int c = 0; c < p.chunks_per_epoch && !st.done && !st.fail && st.infs == 0; ++c) {
       if (p.check_infeas) {
-        for (int j = threadIdx.x; j < n; j += blockDim.x) xp[j] = x[j];
-        for (int i = threadIdx.x; i < m; i += blockDim.x) yp[i] = y[i];
+        for (int j = S::rank(); j < n; j += S::size()) xp[j] = x[j];
+        for (int i = S::rank(); i < m; i += S::size()) yp[i] = y[i];
       }
       for (int it = 0; it < p.seg; ++it)
         admm_iter(op, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
       ADMM_PHASE_BEGIN(kPhStats);
       admm_stats(op, q, x, z, y, tm, tn1, tn2, red, n, m, st);
+      ADMM_PHASE_END(kPhStats);
       if (p.check_infeas) {
+        ADMM_PHASE_BEGIN(kPhCert);
         // the deltas replace the chunk-start copies; the stats' readers of
         // tm, tn1, tn2 are past the barriers inside block_max
-        for (int j = threadIdx.x; j < n; j += blockDim.x) xp[j] = x[j] - xp[j];
-        for (int i = threadIdx.x; i < m; i += blockDim.x) yp[i] = y[i] - yp[i];
-        __syncthreads();
+        for (int j = S::rank(); j < n; j += S::size()) xp[j] = x[j] - xp[j];
+        for (int i = S::rank(); i < m; i += S::size()) yp[i] = y[i] - yp[i];
+        S::sync();
         st.infs = certificate(p, op, q, l, u, xp, yp, tn1, tn2, tm, red);
+        ADMM_PHASE_END(kPhCert);
       }
       const bool conv = (st.rp <= p.eps_abs + p.eps_rel * st.mz) &&
                         (st.rd <= p.eps_abs + p.eps_rel * st.mq);
       st.itc += p.seg;
       st.done = conv;
-      ADMM_PHASE_END(kPhStats);
     }
     if (p.adaptive_rho) {
       const bool act = !st.done && !st.fail && st.infs == 0;
@@ -493,12 +576,17 @@ __device__ __forceinline__ void op_factor_mark(const DenseOp&, bool) {}
 }  // namespace
 
 #ifdef ADMM_PHASE_CLOCKS
-// Copies the phase sums out (kNumPhases values) and zeroes them.
+// Copies the phase sums out (kNumPhases values, summed over the slots)
+// and zeroes them.
 extern "C" int admm_phase_clocks(unsigned long long* out) {
+  static unsigned long long buf[kPhaseSlots][kNumPhases];
   cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(out, admm_phase_cycles, sizeof(admm_phase_cycles));
-  const unsigned long long zero[kNumPhases] = {};
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(buf, admm_phase_cycles, sizeof(buf));
+  for (int p = 0; p < kNumPhases; ++p) {
+    out[p] = 0;
+    for (int k = 0; k < kPhaseSlots; ++k) out[p] += buf[k][p];
+  }
+  static const unsigned long long zero[kPhaseSlots][kNumPhases] = {};
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(admm_phase_cycles, zero, sizeof(zero));
   return (int)err;
 }

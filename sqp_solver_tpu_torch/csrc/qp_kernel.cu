@@ -31,8 +31,10 @@
 //                    factor's pivot rule and per-element fmaf chain
 //   admm_solve       rho epochs / chunks / adaptive rho /
 //                    infeasibility certificates         (_admm_core), run
-//                    with the dense operator DenseOp (K3) or DenseLaneOp
-//                    (K1, its matvecs split over lanes)
+//                    with the dense operator DenseOp (K3's block layout),
+//                    DenseLaneOp (K1, its matvecs split over lanes) or,
+//                    with the warp as its scope, WarpDenseOp (K3's warp
+//                    layout, below, with its own factor in the warp)
 //
 // Numerics follow the TPU kernels where they decide a flag or a branch:
 // float32 storage and accumulation; the explicit inverse Minv = L^-T L^-1
@@ -427,7 +429,8 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
 // A, Minv and L^-1 (row stride n + 1) and every vector in shared memory,
 // so the ADMM iterations never touch device memory; P, read once per
 // chunk (residuals, certificates) and by the factor, stays in device
-// memory (L1/L2 resident).
+// memory (L1/L2 resident).  This block layout serves n > 32 or m > 64;
+// smaller problems take the warp layout (qp_solve_warp_kernel).
 __global__ void __launch_bounds__(256) qp_solve_kernel(
     StepParams p, const float* __restrict__ Pg, const float* __restrict__ Ag,
     const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug,
@@ -435,6 +438,8 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
     float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
     float* __restrict__ stats, float* __restrict__ ws) {
   extern __shared__ float smem[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
   const int n = p.n, m = p.m, ld = n + 1;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
@@ -478,6 +483,7 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
     A[i * ld + j] = Ag[b * m * n + e];
   }
   __syncthreads();
+  ADMM_PHASE_END(kPhLoad);
 
   AdmmState st;
   st.done = false;
@@ -494,6 +500,7 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
   const DenseOp op{Pb, n, A, W, Li, ld, n, m, p.sigma};
   admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
 
+  ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
   for (int i = tid; i < m; i += T) {
     z_out[b * m + i] = z[i];
@@ -510,6 +517,371 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
     stats[6 * B + b] = st.rho_est;
     stats[7 * B + b] = (float)st.infs;
   }
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
+}
+
+// K3's warp layout: one warp a problem, kQpWarps problems a block, for
+// n <= 32 and m <= 64 (qp_warp_layout, the one place that states the
+// rule).  The block layout above gives such a problem 128 threads, of
+// which the matvecs keep 32-33 busy between three barriers an iteration;
+// here every lane works, the iteration waits on __syncwarp() only, and
+// the reductions are shuffles.  The control logic is admm_core.cuh's
+// admm_solve, instantiated with the warp scope (OpScope<WarpDenseOp>).
+constexpr int kQpWarps = 2;  // problems a block
+
+__host__ __device__ constexpr bool qp_warp_layout(int n, int m) { return n <= 32 && m <= 64; }
+
+// The factor in the warp, Minv of M = P + sigma I + A' diag(w) A with the
+// column factor's per-element operations (so the block layout's Minv, and
+// its pivots and fail flag: d clamped to max(d, 1e-30), fail = d <= 0 |
+// NaN), NM >= n columns unrolled, all in W and the lanes' registers:
+//   Gram      lane i builds row i of M in registers, each row of A read
+//             as float4 broadcasts (the fmaf chain of schur_build);
+//   Cholesky  right-looking on those rows; column j goes through cb
+//             (two n-vectors, one a column by turns), one store and one
+//             barrier a column, read back as float4 broadcasts, so that
+//             the column's loads overlap (that of cholesky_inplace);
+//   L^-1      L's rows to W, lane c forms column c of L^-1 in registers by
+//             forward substitution over L's rows as float4 broadcasts
+//             (that of tri_inv);
+//   L^-T L^-1 L^-1's columns to W as rows, lane j forms column j of Minv
+//             in registers (row j: it is symmetric bit for bit), then
+//             stores it (that of ltl).
+// W gets Minv with stride ld4, zero in its padding columns.
+template <int NM>
+__device__ bool warp_factor_minv(float* W, float* cb, int ld4, const float* P, const float* A,
+                                 const float* w, float sigma, int n, int m) {
+  const int lane = threadIdx.x & 31;
+  const int i = min(lane, n - 1);  // lanes past n shadow row n - 1, writing nothing
+  const int n4 = round4(n);
+  float r[NM];
+  ADMM_PHASE_BEGIN(kPhGram);
+#pragma unroll
+  for (int k = 0; k < NM; ++k) r[k] = 0.f;
+  for (int kp = 0; kp < m; ++kp) {
+    const float a = A[kp * ld4 + i] * w[kp];
+    const float4* row = reinterpret_cast<const float4*>(A + kp * ld4);
+#pragma unroll
+    for (int c = 0; c < NM / 4; ++c) {
+      if (4 * c < n) {
+        const float4 v = row[c];
+        r[4 * c] = fmaf(a, v.x, r[4 * c]);
+        r[4 * c + 1] = fmaf(a, v.y, r[4 * c + 1]);
+        r[4 * c + 2] = fmaf(a, v.z, r[4 * c + 2]);
+        r[4 * c + 3] = fmaf(a, v.w, r[4 * c + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NM; ++k)
+    if (k < n && k <= i) r[k] = __ldg(P + (size_t)i * n + k) + (i == k ? sigma : 0.f) + r[k];
+  ADMM_PHASE_END(kPhGram);
+
+  ADMM_PHASE_BEGIN(kPhChol);
+  bool fail = false;
+#pragma unroll
+  for (int j = 0; j < NM; ++j) {
+    if (j < n) {
+      float* col = cb + (j & 1) * n4;  // column j, unscaled
+      if (lane < n) col[lane] = r[j];
+      __syncwarp();
+      const float d = col[j];
+      fail = fail || (d <= 0.f) || isnan(d);
+      const float dc = nan_max(d, 1e-30f);
+      const float rs = rsqrtf(dc);
+      r[j] = i > j ? r[j] * rs : (i == j ? sqrtf(dc) : r[j]);
+      const float4* col4 = reinterpret_cast<const float4*>(col);
+#pragma unroll
+      for (int k4 = (j + 1) / 4; k4 < NM / 4; ++k4) {
+        if (4 * k4 < n) {
+          const float4 v = col4[k4];
+          const float lk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int k = 4 * k4 + t;
+            if (k > j && k < n && k <= i) r[k] = fmaf(-r[j], lk[t] * rs, r[k]);
+          }
+        }
+      }
+    }
+  }
+  // L's rows to W
+  if (lane < n)
+#pragma unroll
+    for (int k = 0; k < NM; ++k)
+      if (k < n) W[lane * ld4 + k] = k <= lane ? r[k] : 0.f;
+  __syncwarp();
+  ADMM_PHASE_END(kPhChol);
+
+  ADMM_PHASE_BEGIN(kPhLinv);
+  const int c = i;  // lane c: column c of L^-1, in r
+#pragma unroll
+  for (int ii = 0; ii < NM; ++ii) {
+    if (ii < n) {
+      const float4* row = reinterpret_cast<const float4*>(W + ii * ld4);
+      float acc = 0.f;
+#pragma unroll
+      for (int k4 = 0; k4 < (ii + 3) / 4; ++k4) {
+        const float4 v = row[k4];
+        const float lk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int k = 4 * k4 + t;
+          if (k < ii && k >= c) acc = fmaf(lk[t], r[k], acc);
+        }
+      }
+      const float dgl = W[ii * ld4 + ii];
+      r[ii] = ii < c ? 0.f : ((ii == c ? 1.f : 0.f) - acc) / nan_max(dgl, 1e-30f);
+    }
+  }
+  __syncwarp();  // every lane is done with L's rows
+  if (lane < n)
+#pragma unroll
+    for (int k = 0; k < NM; ++k)
+      if (k < n) W[lane * ld4 + k] = r[k];
+  __syncwarp();
+  ADMM_PHASE_END(kPhLinv);
+
+  ADMM_PHASE_BEGIN(kPhLtl);
+  const int jc = lane;  // lane j: column j of Minv, from column j of L^-1 (r)
+  float mc[NM];
+#pragma unroll
+  for (int ii = 0; ii < NM; ++ii) {
+    mc[ii] = 0.f;
+    if (ii < n) {
+      const float4* row = reinterpret_cast<const float4*>(W + ii * ld4);  // column ii of L^-1
+      const int k0 = max(ii, jc);
+      float acc = 0.f;
+#pragma unroll
+      for (int k4 = ii / 4; k4 < NM / 4; ++k4) {
+        if (4 * k4 < n) {
+          const float4 v = row[k4];
+          const float lk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int k = 4 * k4 + t;
+            if (k >= k0 && k < n) acc = fmaf(lk[t], r[k], acc);
+          }
+        }
+      }
+      mc[ii] = acc;
+    }
+  }
+  __syncwarp();  // every lane is done with L^-1's columns
+  if (jc < n4)
+#pragma unroll
+    for (int ii = 0; ii < NM; ++ii)
+      if (ii < n) W[ii * ld4 + jc] = jc < n ? mc[ii] : 0.f;
+  __syncwarp();
+  ADMM_PHASE_END(kPhLtl);
+  return fail;
+}
+
+// The warp's operator.  A (m rows, 4-float-padded, stride ld4 = 4 x odd)
+// and Minv (in W, stride ld4) in the warp's slice of shared memory, zero
+// past their columns (and A past its rows), so that a lane reads its row
+// as float4s without bank conflicts and the vector operand as float4
+// broadcasts.  Lane i owns row i of A and Minv, lane j column j of A;
+// rows of A past the 32nd go lane-split with a warp sum while there are
+// at most kSplitRows of them (m = 33: one), else one lane a row.  Each
+// lane's dot product is one fmaf chain in the block layout's order
+// (DenseOp, mv), the padding adding exact zeros, so that with m <= 32 the
+// warp layout's iterates are the block layout's bit for bit (past the
+// 32nd row, the lane-split rows and the certificates' sums take another
+// order).  P (read per chunk and per factor) stays in device memory.
+constexpr int kSplitRows = 4;
+
+// sum_k row[k] v[k], k < 4 n4, in one fmaf chain in k order; row and v
+// 16-byte aligned and zero past their length.  Unrolled by four, so that
+// the loads of four steps go first.
+__device__ __forceinline__ float dot4_chain(const float* row, const float* v, int n4) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float acc = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < n4; ++k) {
+    const float4 r = r4[k], x = v4[k];
+    acc = fmaf(r.x, x.x, acc);
+    acc = fmaf(r.y, x.y, acc);
+    acc = fmaf(r.z, x.z, acc);
+    acc = fmaf(r.w, x.w, acc);
+  }
+  return acc;
+}
+
+template <int NM>
+struct WarpDenseOp {
+  const float* P;
+  const float* A;
+  float* W;
+  float* cb;  // 2 n4 floats of scratch for the factor's columns
+  int ld4, n, m;
+  float sigma;
+
+  template <class Epi>
+  __device__ void atmv(const float* w, Epi epi) const {
+    const int j = min((int)(threadIdx.x & 31), n - 1);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < round4(m) >> 2; ++k) {
+      const float4 x = w4[k];
+      const float* c = A + 4 * k * ld4 + j;
+      acc = fmaf(c[0], x.x, acc);
+      acc = fmaf(c[ld4], x.y, acc);
+      acc = fmaf(c[2 * ld4], x.z, acc);
+      acc = fmaf(c[3 * ld4], x.w, acc);
+    }
+    if ((int)(threadIdx.x & 31) < n) epi(j, acc);
+  }
+  template <class Epi>
+  __device__ void amv(const float* v, Epi epi) const {
+    const int lane = threadIdx.x & 31, n4 = round4(n) >> 2;
+    if (lane < m) epi(lane, dot4_chain(A + lane * ld4, v, n4));
+    if (m - 32 > kSplitRows) {
+      if (32 + lane < m) epi(32 + lane, dot4_chain(A + (32 + lane) * ld4, v, n4));
+    } else {
+      for (int i = 32; i < m; ++i) {
+        const float a = warp_sum(lane < n ? A[i * ld4 + lane] * v[lane] : 0.f);
+        if (lane == (i & 31)) epi(i, a);
+      }
+    }
+  }
+  __device__ void pmv(const float* v, float* out) const {
+    const int i = threadIdx.x & 31;
+    if (i < n) {
+      const float* r = P + (size_t)i * n;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) acc = fmaf(__ldg(r + j), v[j], acc);
+      out[i] = acc;
+    }
+  }
+  __device__ void apply_minv(const float* b, float* out) const {
+    const int i = threadIdx.x & 31;
+    if (i < n) out[i] = dot4_chain(W + i * ld4, b, round4(n) >> 2);
+  }
+  __device__ bool factor(const float* rv) const {
+    return warp_factor_minv<NM>(W, cb, ld4, P, A, rv, sigma, n, m);
+  }
+};
+template <int NM>
+struct OpScope<WarpDenseOp<NM>> {
+  using type = WarpScope;
+};
+template <int NM>
+__device__ __forceinline__ void op_factor_mark(const WarpDenseOp<NM>&, bool) {}
+// Reductions over the warp by shuffles; a sum is taken from lane 0, so
+// that every lane holds the same value.
+template <int NM, int K>
+__device__ __forceinline__ void op_max(const WarpDenseOp<NM>&, float (&v)[K], float*) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    for (int o = 16; o > 0; o >>= 1) v[k] = nan_max(v[k], __shfl_xor_sync(kFull, v[k], o));
+}
+template <int NM, int K>
+__device__ __forceinline__ void op_sum(const WarpDenseOp<NM>&, float (&v)[K], float*) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = __shfl_sync(kFull, warp_sum(v[k]), 0);
+}
+
+// Floats of one warp's slice: seven n-vectors and seven m-vectors (padded
+// to 4), then A (m rounded to 4 rows) and W (n rows), with stride ld4.
+__host__ __device__ constexpr int qp_warp_floats(int n, int m) {
+  return 7 * round4(n) + 7 * round4(m) + (round4(m) + n) * stride4(n);
+}
+
+// K3, warp layout: the same computation as qp_solve_kernel per problem;
+// NM (16 or 32) >= n unrolls the factor's registers.
+template <int NM>
+__global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(
+    StepParams p, int batch, const float* __restrict__ Pg, const float* __restrict__ Ag,
+    const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug,
+    const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0,
+    float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
+    float* __restrict__ stats) {
+  extern __shared__ float4 smem4[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
+  const int n = p.n, m = p.m, ld4 = stride4(n);
+  const int n4 = round4(n), m4 = round4(m);
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const size_t b = (size_t)blockIdx.x * kQpWarps + wp;
+  if (b >= (size_t)batch) return;  // no block barrier below: a warp may leave
+  float* q = reinterpret_cast<float*>(smem4) + (size_t)wp * qp_warp_floats(n, m);
+  float* x = q + n4;
+  float* bt = x + n4;
+  float* xt = bt + n4;
+  float* tn1 = xt + n4;
+  float* tn2 = tn1 + n4;
+  float* xp = tn2 + n4;  // 7 n4
+  float* z = xp + n4;
+  float* y = z + m4;
+  float* l = y + m4;
+  float* u = l + m4;
+  float* rv = u + m4;
+  float* tm = rv + m4;
+  float* yp = tm + m4;  // 7 m4
+  float* A = yp + m4;
+  float* W = A + m4 * ld4;
+
+  copy_rows_async(A, ld4, Ag + b * m * n, m, n, 0, 1, lane);
+  for (int i = 0; i < m4; ++i)  // A's padding: the columns past n, the rows past m
+    for (int j = (i < m ? n : 0) + lane; j < n4; j += 32) A[i * ld4 + j] = 0.f;
+  for (int j = lane; j < n4; j += 32) {
+    const bool in = j < n;
+    q[j] = in ? qg[b * n + j] : 0.f;
+    x[j] = in ? x0[b * n + j] : 0.f;
+    bt[j] = xt[j] = tn1[j] = tn2[j] = xp[j] = 0.f;
+  }
+  for (int i = lane; i < m4; i += 32) {
+    const bool in = i < m;
+    z[i] = in ? z0[b * m + i] : 0.f;
+    y[i] = in ? y0[b * m + i] : 0.f;
+    l[i] = in ? lg[b * m + i] : 0.f;
+    u[i] = in ? ug[b * m + i] : 0.f;
+    rv[i] = tm[i] = yp[i] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncwarp();
+  ADMM_PHASE_END(kPhLoad);
+
+  AdmmState st;
+  st.done = false;
+  st.fail = false;
+  st.pending = true;  // the first epoch factors
+  st.itc = 0;
+  st.rho_upd = 1;  // the reference counts the setup rho update
+  st.nfact = 0;
+  st.infs = 0;
+  st.rp = st.rd = st.mz = st.mq = 0.f;
+  st.rho = p.rho0 + 0.f * q[0];
+  st.rho_est = st.rho;
+
+  // the factor's column buffer: tn1 and tn2, free while it runs
+  const WarpDenseOp<NM> op{Pg + b * n * n, A, W, tn1, ld4, n, m, p.sigma};
+  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, nullptr, st);
+
+  ADMM_PHASE_BEGIN(kPhLoad);
+  for (int j = lane; j < n; j += 32) x_out[b * n + j] = x[j];
+  for (int i = lane; i < m; i += 32) {
+    z_out[b * m + i] = z[i];
+    y_out[b * m + i] = y[i];
+  }
+  if (lane == 0) {  // stats is (8, batch): one row per field
+    const size_t B = batch;
+    stats[0 * B + b] = st.done ? 1.f : 0.f;
+    stats[1 * B + b] = (float)st.itc;
+    stats[2 * B + b] = st.rp;
+    stats[3 * B + b] = st.rd;
+    stats[4 * B + b] = st.fail ? 1.f : 0.f;
+    stats[5 * B + b] = (float)st.rho_upd;
+    stats[6 * B + b] = st.rho_est;
+    stats[7 * B + b] = (float)st.infs;
+  }
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
 }
 
 // K4.  Replaces sqp_solver_tpu/ops/qp_kernel.py:spd_inverse_kernel.
@@ -688,18 +1060,27 @@ int polish_kkt_launch(const float* H, const float* J, const uint8_t* act, const 
   return (int)cudaGetLastError();
 }
 
-int qp_solve_launch(const float* P, const float* A, const float* q, const float* l,
-                    const float* u, const float* x0, const float* z0, const float* y0,
-                    float* x_out, float* z_out, float* y_out, float* stats, float* ws,
-                    int batch, int n, int m, float sigma, float alpha, float rho0,
-                    float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch, int seg,
-                    int adaptive_rho, float adaptive_rho_tolerance, int check_infeas,
-                    float eps_pinf, float eps_dinf, int device, void* stream) {
+// layout: 0 by qp_warp_layout, 1 the block layout, 2 the warp layout
+// (which refuses a shape outside its range).
+int qp_solve_launch_as(int layout, const float* P, const float* A, const float* q,
+                       const float* l, const float* u, const float* x0, const float* z0,
+                       const float* y0, float* x_out, float* z_out, float* y_out, float* stats,
+                       float* ws, int batch, int n, int m, float sigma, float alpha,
+                       float rho0, float eps_abs, float eps_rel, int n_epochs,
+                       int chunks_per_epoch, int seg, int adaptive_rho,
+                       float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
+                       float eps_dinf, int device, void* stream) {
   if (batch <= 0) return 0;
+  if (layout < 0 || layout > 2 || (layout == 2 && !qp_warp_layout(n, m)))
+    return (int)cudaErrorInvalidValue;
+  const bool warp = layout == 2 || (layout == 0 && qp_warp_layout(n, m));
   const Layout L = qp_layout(n, m);
-  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (!warp && L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t warp_bytes = (size_t)kQpWarps * qp_warp_floats(n, m) * sizeof(float);
+  auto warp_kernel = n <= 16 ? qp_solve_warp_kernel<16> : qp_solve_warp_kernel<32>;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = set_smem(qp_solve_kernel, L.smem_bytes);
+  if (err == cudaSuccess)
+    err = warp ? set_smem(warp_kernel, warp_bytes) : set_smem(qp_solve_kernel, L.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   StepParams p;
   p.n = n;
@@ -720,10 +1101,31 @@ int qp_solve_launch(const float* P, const float* A, const float* q, const float*
   p.eps_dinf = eps_dinf;
   p.n_smem_mats = L.n_smem_mats;
   p.ws_floats = L.ws_floats;
-  qp_solve_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
-      p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws);
+  if (warp) {
+    const int blocks = (batch + kQpWarps - 1) / kQpWarps;
+    warp_kernel<<<blocks, 32 * kQpWarps, warp_bytes, (cudaStream_t)stream>>>(
+        p, batch, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats);
+  } else {
+    qp_solve_kernel<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+        p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws);
+  }
   return (int)cudaGetLastError();
 }
+
+int qp_solve_launch(const float* P, const float* A, const float* q, const float* l,
+                    const float* u, const float* x0, const float* z0, const float* y0,
+                    float* x_out, float* z_out, float* y_out, float* stats, float* ws,
+                    int batch, int n, int m, float sigma, float alpha, float rho0,
+                    float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch, int seg,
+                    int adaptive_rho, float adaptive_rho_tolerance, int check_infeas,
+                    float eps_pinf, float eps_dinf, int device, void* stream) {
+  return qp_solve_launch_as(0, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws,
+                            batch, n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                            chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
+                            check_infeas, eps_pinf, eps_dinf, device, stream);
+}
+
+int qp_solve_problems_per_block(int n, int m) { return qp_warp_layout(n, m) ? kQpWarps : 1; }
 
 int spd_inverse_launch(const float* M, float* minv_out, uint8_t* fail_out, float* ws,
                        int batch, int n, int device, void* stream) {

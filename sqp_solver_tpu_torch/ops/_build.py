@@ -48,6 +48,12 @@ _SIGNATURES = {
         [_VOID] * 13 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
     ),
+    "qp_solve_launch_as": (
+        _INT,
+        [_INT] + [_VOID] * 13 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
+    "qp_solve_problems_per_block": (_INT, [_INT, _INT]),
     "qp_solve_workspace_floats": (_LL, [_INT, _INT]),
     "spd_inverse_launch": (_INT, [_VOID] * 4 + [_INT] * 3 + [_VOID]),
     "spd_inverse_workspace_floats": (_LL, [_INT]),
@@ -55,6 +61,7 @@ _SIGNATURES = {
         _INT, [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
     ),
     "admm_chunk_smem_rows": (_INT, [_INT, _INT]),
+    "admm_chunk_reg_rows": (_INT, [_INT, _INT]),
     "qp_btd_launch": (
         _INT,
         [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4

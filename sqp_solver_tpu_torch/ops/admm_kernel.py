@@ -19,7 +19,8 @@ Three parts:
 * :func:`admm_chunk_reference`, the plain PyTorch version (twin of
   ``admm_chunk_xla``): the CPU path and the card's oracle;
 * the CUDA kernel in ``csrc/admm_kernel.cu``, one thread block per
-  problem with W in shared memory for the whole chunk;
+  problem with W on chip for the whole chunk (shared memory, and
+  registers for the rows that do not fit there);
 * :func:`admm_chunk_kernel`, the wrapper that launches it on float32 CUDA
   operands and raises on anything else, and :func:`admm_chunk`, which
   sends CPU tensors to the plain version and CUDA tensors to the kernel.
@@ -34,7 +35,8 @@ import ctypes
 
 import torch
 
-__all__ = ["admm_chunk", "admm_chunk_kernel", "admm_chunk_reference", "admm_chunk_smem_rows"]
+__all__ = ["admm_chunk", "admm_chunk_kernel", "admm_chunk_layout", "admm_chunk_reference",
+           "admm_chunk_smem_rows"]
 
 # Launch counter: the wrapper adds one where it launches the CUDA kernel.
 admm_chunk_launches = 0
@@ -83,6 +85,14 @@ def admm_chunk_kernel(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha,
     one CUDA thread block per problem.  Every operand must be a float32,
     contiguous CUDA tensor: W (B, D, D), P (B, n, n), A (B, m, n) and the
     eight (B, D) vectors, D = n + m <= 1024.  Returns ``(s, yp, stats)``."""
+    return _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, alpha=alpha,
+                              seg=seg)
+
+
+def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg,
+                       lib=None):
+    """One launch of K5 (``lib``: a kernel library other than the package's,
+    as ``tools/kernel_ab.py`` passes)."""
     global admm_chunk_launches
     from sqp_solver_tpu_torch.ops.qp_kernel import _check_cuda_operands, _ptr, _raise_on
 
@@ -92,9 +102,10 @@ def admm_chunk_kernel(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha,
     dev = _check_cuda_operands(name, dict(W=W, P=P, A=A, **vecs), {})
     if n + m > _MAX_D:
         raise ValueError(f"{name}: D = n + m = {n + m} exceeds {_MAX_D}")
-    from sqp_solver_tpu_torch.ops import _build
+    if lib is None:
+        from sqp_solver_tpu_torch.ops import _build
 
-    lib = _build.load()
+        lib = _build.load()
     s_out = torch.empty_like(s)
     yp_out = torch.empty_like(yp)
     stats = torch.empty((batch, 4), dtype=torch.float32, device=dev)
@@ -122,7 +133,17 @@ def admm_chunk(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg):
 
 def admm_chunk_smem_rows(n: int, m: int) -> int:
     """Rows of W that K5 holds in shared memory at this shape (all D
-    rows while they fit; the rest it reads from device memory)."""
+    rows while they fit)."""
+    return admm_chunk_layout(n, m)["smem_rows"]
+
+
+def admm_chunk_layout(n: int, m: int) -> dict:
+    """Where K5 keeps the D = n + m rows of W at this shape: in shared
+    memory, in registers (split over the block's lanes, where shared
+    memory cannot hold them all and D <= 288), and read from device memory
+    each iteration (the rest)."""
     from sqp_solver_tpu_torch.ops import _build
 
-    return int(_build.load().admm_chunk_smem_rows(n, m))
+    lib = _build.load()
+    smem, reg = int(lib.admm_chunk_smem_rows(n, m)), int(lib.admm_chunk_reg_rows(n, m))
+    return dict(smem_rows=smem, register_rows=reg, device_rows=n + m - smem - reg)

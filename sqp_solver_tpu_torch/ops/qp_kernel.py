@@ -11,7 +11,8 @@ Each kernel has three parts here:
   Cholesky with its pivot clamp and fail rule (no library factorization
   decides a flag).  The CPU path and the tests use it;
 * the **CUDA kernel** in ``csrc/qp_kernel.cu`` (one thread block per
-  problem), built with nvcc at first use (``ops/_build.py``);
+  problem; K3 one warp per problem where n <= 32 and m <= 64), built with
+  nvcc at first use (``ops/_build.py``);
 * a **wrapper** (``sqp_step_kernel``, ``polish_kkt_kernel``,
   ``qp_solve_kernel``, ``spd_inverse_kernel``) that sends
   CPU tensors to the plain version and CUDA tensors to the kernel.  A
@@ -36,6 +37,7 @@ counted per tile and is therefore lower here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -804,9 +806,23 @@ def qp_solve_reference(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveO
     )
 
 
-def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None) -> QPSolveOut:
+# K3's layouts: one warp a problem (n <= 32 and m <= 64, the rule of
+# csrc/qp_kernel.cu:qp_warp_layout) or one block a problem (the rest)
+QP_LAYOUTS = {"block": 1, "warp": 2}
+
+
+def qp_solve_problems_per_block(n: int, m: int, lib=None) -> int:
+    """Problems in one thread block of K3 at this shape: several under its
+    warp layout (one warp a problem), else 1."""
+    return int((lib or _library()).qp_solve_problems_per_block(n, m))
+
+
+def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None,
+                     layout: Optional[str] = None) -> QPSolveOut:
     """One launch of the whole-QP CUDA kernel on float32 CUDA operands
-    (``lib`` as for :func:`_sqp_step_launch`)."""
+    (``lib`` as for :func:`_sqp_step_launch`).  ``layout`` ("block" or
+    "warp") overrides the kernel's own rule, for the card's tests; the warp
+    layout refuses a shape outside its range."""
     global qp_solve_launches
     batch, n = q.shape
     m = l.shape[-1]
@@ -823,7 +839,12 @@ def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None) -> 
     ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qp_solve_launch(
+    launch = lib.qp_solve_launch
+    if layout is not None:
+        if layout not in QP_LAYOUTS:
+            raise ValueError(f"{name}: layout {layout!r} is not one of {sorted(QP_LAYOUTS)}")
+        launch = functools.partial(lib.qp_solve_launch_as, QP_LAYOUTS[layout])
+    rc = launch(
         _ptr(P), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(x), _ptr(z), _ptr(y),
         _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats), _ptr(ws),
         batch, n, m,
@@ -863,8 +884,9 @@ def qp_status(out) -> torch.Tensor:
 
 def qp_solve_kernel(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
                     state: Optional[QPState] = None) -> QPResult:
-    """Solve a batch of QPs with the whole-solve kernel, one CUDA thread
-    block per problem (replaces the TPU's ``ops/qp_kernel.py:qp_solve_kernel``).
+    """Solve a batch of QPs with the whole-solve kernel, one CUDA warp per
+    problem where n <= 32 and m <= 64, else one thread block per problem
+    (replaces the TPU's ``ops/qp_kernel.py:qp_solve_kernel``).
 
     ``qp`` is batch-first (P (B, n, n), q (B, n), A (B, m, n), l and u
     (B, m)); ``state`` warm-starts (x, z, y), zeros otherwise.  CPU tensors

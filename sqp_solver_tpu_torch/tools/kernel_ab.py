@@ -1,7 +1,7 @@
 """This checkout's kernels against another tree's, on the card.
 
     python -m sqp_solver_tpu_torch.tools.kernel_ab --parent build/parent \
-        [--parts bits,time,phases] [--kernels k1,k2,k6,k7]
+        [--parts bits,time,phases] [--kernels k3,k5]
 
 ``--parent`` is the root of another checkout (for example the parent
 commit unpacked with ``git archive`` into ``build/parent``).  Each tree's
@@ -12,15 +12,16 @@ checkout's, which passes each library to the launchers explicitly and is
 valid as long as the C interface of the kernels compared is the same in
 both trees.  Three parts, in order (``--parts`` picks some):
 
-``bits``    K3 (``qp_solve_kernel``) and K4 (``spd_inverse_kernel``) of
-            both trees on the same seeded inputs (``chip_smoke.py``'s
-            shapes): every output tensor must be equal bit for bit (K3
-            and K4 keep the column factor of ``admm_core.cuh``);
-``time``    milliseconds of the kernels of ``--kernels`` at every
-            ``chip_smoke.py`` shape (``chip_smoke.dense_cases`` for K1/K2,
-            ``chip_smoke.btd_cases`` for K6/K7), CUDA events, in turns
-            parent, change, change, parent (K6/K7 also the change in the
-            other block layout);
+``bits``    K1, K2, K4, K6 and K7 of both trees at their ``chip_smoke.py``
+            shapes, and K3 at shapes its warp layout does not take
+            (n > 32 or m > 64), on the same seeded inputs: every output
+            tensor must be equal bit for bit;
+``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
+            k3, k5, k6, k7) at every ``chip_smoke.py`` shape
+            (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
+            ``chunk_cases`` for K5, ``btd_cases`` for K6/K7), CUDA events,
+            in turns parent, change, change, parent (K6/K7 also the change
+            in the other block layout);
 ``phases``  the phase split of the same launches: each tree's kernel
             source built with ``-DADMM_PHASE_CLOCKS`` against this
             checkout's headers, whose ``ADMM_PHASE_*`` marks bound the
@@ -28,7 +29,9 @@ both trees.  Three parts, in order (``--parts`` picks some):
             gets only those of the shared pieces it calls), one launch per
             shape after a warm-up; thread 0 of each block sums the
             clock64() spans of each phase (``PHASES``), reported in cycles
-            per block.
+            per block (under K3's warp layout, those of the block's first
+            problem).  A tree whose source has no marks at all (K5 before
+            they were added) gets no split.
 
 The last line of the output is one JSON object with every number.
 """
@@ -47,9 +50,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 # the AdmmPhase enum of csrc/admm_core.cuh, in its order
 PHASES = ("gram", "thomas", "atmv", "sweep", "amv", "stats", "total",
-          "chol", "linv", "ltl", "bfgs", "polish", "load")
-SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k6": "qp_kernel_btd.cu",
+          "chol", "linv", "ltl", "bfgs", "polish", "load", "cert", "iter")
+SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
+           "k4": "qp_kernel.cu", "k5": "admm_kernel.cu", "k6": "qp_kernel_btd.cu",
            "k7": "qp_kernel_btd.cu"}
+# the kernels that ``bits`` holds equal to the parent's
+BITS = ("k1", "k2", "k3", "k4", "k6", "k7")
 
 
 def _csrc(tree: Path) -> Path:
@@ -71,7 +77,7 @@ def _stage_and_build(cu: list, headers: Path, label: str, flags=()):
     for h in headers.glob("*.cuh"):
         shutil.copy(h, csrc / h.name)
     lib = _build.build_library(csrc, out, flags=flags)
-    if "-DADMM_PHASE_CLOCKS" in flags:
+    if "-DADMM_PHASE_CLOCKS" in flags and hasattr(lib, "admm_phase_clocks"):
         lib.admm_phase_clocks.restype = ctypes.c_int
         lib.admm_phase_clocks.argtypes = [ctypes.c_void_p]
     return lib
@@ -128,30 +134,50 @@ def _tensors(out) -> dict:
     return {k: v for k, v in out._asdict().items() if isinstance(v, torch.Tensor)}
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit: float tensors by their bit patterns, so that the
+    NaN a failed factor leaves in an output equals the same NaN."""
+    import torch
+
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def bits(libs: dict, dev) -> list:
-    """K3 and K4 of both trees on the same inputs; raises unless equal."""
+    """K1, K2, K4, K6 and K7 of both trees at their ``chip_smoke.py``
+    shapes, and K3 at shapes outside its warp layout (n > 32 or m > 64),
+    on the same inputs; raises unless every output is equal bit for bit."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
     from sqp_solver_tpu_torch.testing import spd_inputs
 
-    cases = []
-    for family, n in (("random", 32), ("mpc", 16)):
-        t = cs.qp_operands(family, 4096, n, dev)
+    cases = [(c["label"], c["launch"]) for c in cs.dense_cases(dev)]
+    for batch, n, m in ((1024, 64, 65), (1024, 32, 80)):
+        qp = random_qp_batch(batch, n, m, seed=n + m, device=dev)
+        t = {k: getattr(qp, k) for k in cs.LEAVES}
+        t.update(x=torch.zeros((batch, n), device=dev), z=torch.zeros((batch, m), device=dev),
+                 y=torch.zeros((batch, m), device=dev))
         for label, qs in (("one epoch", cs.qp_bench_settings(adaptive_rho=False)),
                           ("4 epochs", cs.qp_bench_settings())):
-            cases.append((f"K3 {family} n={n} {label}", lambda lib, t=t, qs=qs: cs.qp_raw(
-                lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
+            cases.append((f"K3 random n={n} m={m} B={batch} {label}",
+                          lambda lib, t=t, qs=qs: cs.qp_raw(
+                              lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
     for batch, n in ((4096, 32), (1024, 128)):
         M = cs.to_device(spd_inputs(batch, n, seed=n, dtype=np.float32), dev)["M"]
         cases.append((f"K4 n={n} B={batch}", lambda lib, M=M: qk._spd_inverse_launch(M, lib=lib)))
+    for c in cs.btd_cases(dev):
+        cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
+            c["t"], c["settings"], c["check_infeas"], lib=lib)))
     rows = []
     for label, fn in cases:
         outs = {who: _tensors(fn(lib)) for who, lib in libs.items()}
         torch.cuda.synchronize()
-        differ = [k for k, v in outs["parent"].items() if not torch.equal(v, outs["change"][k])]
+        differ = [k for k, v in outs["parent"].items() if not same_bits(v, outs["change"][k])]
         cs.log(f"  {label}: {len(outs['parent'])} outputs, "
                f"{'bit for bit equal' if not differ else 'DIFFER: ' + ', '.join(differ)}")
         if differ:
@@ -174,7 +200,7 @@ def _turns(libs: dict, launch, reps: int, other=None) -> dict:
 
 
 def timing(libs: dict, dense: list, btd: list) -> list:
-    """K1/K2 and K6/K7 ms of both trees at each shape, in turns parent,
+    """K1/K2/K3/K5 and K6/K7 ms of both trees at each shape, in turns parent,
     change, change, parent; for K6/K7, between the change's turns, two
     turns of the change with the other number of blocks per problem, where
     it has one."""
@@ -217,10 +243,15 @@ def phases(phase_libs: dict, dense: list, btd: list) -> list:
 
     rows = []
     for c in dense:
-        for who, lib in phase_libs["qp_kernel.cu"].items():
-            cyc, _ = clock_split(lib, lambda: c["launch"](lib), c["batch"])
-            cs.log(f"  {c['label']} {who}: cycles per block {format_split(cyc)}")
-            rows.append(dict(case=c["label"], tree=who, cycles_per_block=cyc))
+        for who, lib in phase_libs[SOURCES[c["kernel"].lower()]].items():
+            if not hasattr(lib, "admm_phase_clocks"):
+                cs.log(f"  {c['label']} {who}: the source has no phase marks")
+                continue
+            blocks = cs.blocks_of(lib, c["kernel"], c["batch"], c["n"], c.get("m", c["n"]))
+            cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
+            cs.log(f"  {c['label']} {who} ({blocks} blocks): cycles per block "
+                   f"{format_split(cyc)}")
+            rows.append(dict(case=c["label"], tree=who, blocks=blocks, cycles_per_block=cyc))
     for c in btd:
         for who, lib in phase_libs["qp_kernel_btd.cu"].items():
             per = int(lib.qp_btd_cluster_size(c["n"], c["m"], c["bb"], c["batch"]))
@@ -241,7 +272,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--parts", default="bits,time,phases")
-    ap.add_argument("--kernels", default="k1,k2,k6,k7")
+    ap.add_argument("--kernels", default="k3,k5")
+    ap.add_argument("--trees", default="parent,change",
+                    help="the trees whose phase split ``phases`` takes")
     args = ap.parse_args(argv)
     import torch
 
@@ -259,30 +292,38 @@ def main(argv=None) -> int:
     timed = {SOURCES[k] for k in kernels}
     jobs = {}
     if "bits" in parts or "time" in parts:
-        sources = (timed if "time" in parts else set()) | ({"qp_kernel.cu"} if "bits" in parts
-                                                           else set())
+        sources = (timed if "time" in parts else set()) | (
+            {SOURCES[k] for k in BITS} if "bits" in parts else set())
         for who, tree in trees.items():
             jobs[who] = (kernel_library, tree, who, sources)
+    split_trees = args.trees.split(",")
     if "phases" in parts:
         for src in timed:
             for who, tree in trees.items():
+                if who not in split_trees:
+                    continue
                 jobs[(src, who)] = (phase_library, tree, f"{who}-{Path(src).stem}", src)
     built = build_all(jobs)
     libs = {who: built[who] for who in trees if who in built}
-    dense = cs.dense_cases(dev) if {"k1", "k2"} & set(kernels) else []
-    dense = [c for c in dense if c["kernel"].lower() in kernels]
+    dense = []
+    if {"k1", "k2"} & set(kernels):
+        dense += [c for c in cs.dense_cases(dev) if c["kernel"].lower() in kernels]
+    if "k3" in kernels:
+        dense += cs.qp_cases(dev)
+    if "k5" in kernels:
+        dense += cs.chunk_cases(dev)
     btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     result = dict(card=card)
     if "bits" in parts:
-        cs.log("K3 and K4, parent against change:")
+        cs.log("K1, K2, K4, K6, K7 and K3 outside its warp layout, parent against change:")
         result["bits"] = bits(libs, dev)
     if "time" in parts:
         cs.log(f"{', '.join(k.upper() for k in kernels)} ms at the chip_smoke.py shapes:")
         result["time"] = timing(libs, dense, btd)
     if "phases" in parts:
         cs.log("phase split (clock64, thread 0 of each block):")
-        phase_libs = {src: {who: built[(src, who)] for who in trees} for src in timed}
+        phase_libs = {src: {who: built[(src, who)] for who in split_trees} for src in timed}
         result["phases"] = phases(phase_libs, dense, btd)
     print(json.dumps(result), flush=True)
     return 0

@@ -318,6 +318,80 @@ def test_qp_nan_reaches_the_fail_flag(cuda):
                   QPStatus.SOLVED]
 
 
+@pytest.mark.parametrize(
+    "batch,n,m,warp",
+    [(64, 32, 33, True), (64, 16, 32, True), (63, 32, 64, True), (33, 5, 40, True),
+     (32, 33, 34, False), (32, 16, 65, False)],
+    ids=["n32-m33", "n16-m32", "n32-m64", "n5-m40-odd-batch", "n33-block", "m65-block"],
+)
+def test_qp_solve_layouts_match_plain_one_epoch(cuda, batch, n, m, warp):
+    """K3's warp layout (one warp a problem, n <= 32 and m <= 64) and its
+    block layout: the rule picks the expected one, and each layout the shape
+    takes agrees with the plain version at 1e-4 on one rho epoch."""
+    t = _to(qp_inputs(batch, n, m, seed=n + 2 * m, loose_row=True), cuda)
+    per = qk.qp_solve_problems_per_block(n, m)
+    assert (per > 1) == warp
+    ref = _qp_raw(qk.qp_solve_reference, t, QP_ONE_EPOCH)
+    layouts = ["block", "warp"] if warp else ["block"]
+    outs = [_qp_raw(qk._qp_solve_launch, t, QP_ONE_EPOCH)]
+    outs += [_qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=lay), t, QP_ONE_EPOCH)
+             for lay in layouts]
+    torch.cuda.synchronize()
+    for ok in outs:
+        assert torch.equal(ok.fail, ref.fail) and not ok.fail.any()
+        assert torch.equal(ok.infs, ref.infs)
+        same = ok.iter == ref.iter
+        assert same.float().mean().item() >= 0.99
+        for name in ("x", "z", "y"):
+            torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL)
+    if not warp:
+        with pytest.raises(RuntimeError):
+            _qp_raw(lambda *a: qk._qp_solve_launch(*a, layout="warp"), t, QP_ONE_EPOCH)
+
+
+@pytest.mark.parametrize("batch,n,m", [(64, 16, 32), (64, 6, 7), (64, 32, 64), (96, 8, 10)],
+                         ids=["n16-m32", "n6-m7", "n32-m64", "certificates"])
+def test_qp_warp_layout_equals_block_layout_bit_for_bit(cuda, batch, n, m):
+    """Four rho epochs with early exits: the warp layout runs the block
+    layout's per-element operations (the factor's, and each dot product's
+    fmaf chain) and so returns its outputs bit for bit, where no row of A
+    goes lane-split (m <= 32 or m > 36)."""
+    if m == n + 2:
+        t = _to(certificate_qp_inputs(batch, n, seed=5), cuda)
+    else:
+        t = _to(qp_inputs(batch, n, m, seed=n * m, loose_row=True), cuda)
+    outs = [_qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=lay), t, QP_BENCH)
+            for lay in ("warp", "block")]
+    torch.cuda.synchronize()
+    for name, a, b in zip(outs[0]._fields, *outs):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("layout", ["block", "warp"])
+def test_qp_certificates_and_nan_in_both_layouts(cuda, layout):
+    """The certificate batch and the NaN-to-fail-flag case through each
+    layout of K3: statuses equal the plain version's."""
+    t = _to(certificate_qp_inputs(96, 8, seed=5), cuda)
+    ok = qk.qp_status(_qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout), t, QP_BENCH))
+    ref = qk.qp_status(_qp_raw(qk.qp_solve_reference, {k: v.cpu() for k, v in t.items()},
+                               QP_BENCH))
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), ref)
+    assert set(ref.tolist()) == {QPStatus.SOLVED, QPStatus.PRIMAL_INFEASIBLE,
+                                 QPStatus.DUAL_INFEASIBLE}
+    a = qp_inputs(4, 6, 7, seed=2, dtype=np.float32)
+    a["q"][0, 0] = np.nan
+    a["q"][1, 3] = np.nan
+    a.update(x=np.zeros((4, 6), np.float32), z=np.zeros((4, 7), np.float32),
+             y=np.zeros((4, 7), np.float32))
+    st = qk.qp_status(_qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout),
+                              _to(a, cuda), QP_BENCH)).cpu().tolist()
+    assert st == [QPStatus.NUMERICAL_ISSUES, QPStatus.NUMERICAL_ISSUES, QPStatus.SOLVED,
+                  QPStatus.SOLVED]
+
+
 @pytest.mark.parametrize("batch,n", [(64, 32), (8, 128), (3, 200)],
                          ids=["n32", "n128", "workspace-spill"])
 def test_spd_inverse_kernel_matches_plain(cuda, batch, n):
@@ -433,13 +507,16 @@ CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "
 @pytest.mark.parametrize(
     "batch,n,m,seg",
     [(256, 32, 33, 10), (256, 32, 33, 25), (256, 16, 32, 25), (64, 128, 129, 10),
-     (8, 400, 401, 5)],
-    ids=["D65-seg10", "D65-seg25", "D48", "D257-rows-in-device-memory", "D801"],
+     (8, 400, 401, 5), (33, 17, 20, 7), (17, 32, 33, 0), (17, 32, 33, 1), (9, 128, 129, 1),
+     (12, 100, 180, 3)],
+    ids=["D65-seg10", "D65-seg25", "D48", "D257-rows-in-registers", "D801", "D37-odd-batch",
+         "seg0", "seg1", "D257-seg1", "D280-rows-in-registers"],
 )
 def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
     """One chunk, float32 kernel against float32 plain version at 1e-4.
-    At D = 257 and 801 part of W does not fit in shared memory and is read
-    from device memory."""
+    At D = 257 and 280 part of W does not fit in shared memory and is held
+    in registers; at D = 801 the rest is read from device memory.  At an
+    odd D no problem's W starts 16-byte aligned (4-byte copies)."""
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
     from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 
@@ -452,8 +529,14 @@ def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
     assert ak.admm_chunk_launches == before + 1
     for name, a, b in zip(("s", "yp", "stats"), ok, ref):
         torch.testing.assert_close(a, b, **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
-    rows = ak.admm_chunk_smem_rows(n, m)
-    assert (rows == n + m) == (n + m <= 237)
+    lay = ak.admm_chunk_layout(n, m)
+    assert lay["smem_rows"] == ak.admm_chunk_smem_rows(n, m)
+    assert lay["smem_rows"] + lay["register_rows"] + lay["device_rows"] == n + m
+    if n + m <= 288:  # what shared memory cannot hold, registers do
+        assert lay["device_rows"] == 0
+        assert (lay["register_rows"] > 0) == (n + m in (257, 280))
+    else:
+        assert lay["register_rows"] == 0 and lay["device_rows"] > 0
 
 
 def test_admm_chunk_wrappers(cuda):
