@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device facts: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build the CUDA kernels from ``sqp_solver_tpu_torch/csrc`` (one nvcc
    per source, all started together), and meanwhile copies of the sources
-   of K1-K3 and of K5 with phase clocks (``-DADMM_PHASE_CLOCKS``);
+   of K1-K4 and of K5 with phase clocks (``-DADMM_PHASE_CLOCKS``);
 3. each kernel against its plain PyTorch version on the card, in float32,
    at its paths' shapes, with both times from CUDA events: the SQP-step
    (K1) and polish-KKT (K2) kernels at n = 32, B = 4096 and n = 128,
@@ -16,14 +16,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    the MPC family (n = 16, m = 32), B = 4096, in the layout its rule takes
    there (one warp a problem) and timed in the other (one block a
    problem), plus a batch of primal- and dual-infeasible QPs; the
-   SPD-inverse kernel (K4) at n = 32, B = 4096 and n = 128, B = 1024,
-   beside ``torch.linalg.cholesky_ex`` +
-   ``torch.cholesky_inverse`` as its library yardstick; the ADMM chunk
+   SPD-inverse kernel (K4) at n = 32, B = 4096 (one warp a problem) and
+   n = 128, B = 1024 (the blocked factor in place, also held against the
+   plain twin of its blocked order), its launch's registers, shared
+   memory and blocks an SM as the runtime reports them, timed in turns
+   with ``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse``, its
+   library yardstick (median and spread of the turns); the ADMM chunk
    kernel (K5), one chunk, at n = 32, m = 33, B = 4096 (seg 10 and 25),
    n = 16, m = 32, B = 4096 (seg 25) and n = 128, m = 129, B = 1024
    (seg 10, the rows of W that shared memory cannot hold in registers),
    with the rows of W in shared memory and in registers; the phase split
-   of K1, K2, K3 and K5 in cycles per block; the time of the fused
+   of K1, K2, K3, K4 and K5 in cycles per block; the time of the fused
    tier's library factorization at n = 32 and n = 128; the structured
    kernel's QP entry (K6) on random block-tridiagonal QPs without equality
    rows (n = 192, m = 320, B = 4096, one rho epoch, atol = rtol = 1e-4)
@@ -278,13 +281,43 @@ CHUNK_SHAPES = ((4096, 32, 33, 10), (4096, 32, 33, 25), (4096, 16, 32, 25), (102
 
 
 def blocks_of(lib, kernel: str, batch: int, n: int, m: int) -> int:
-    """Thread blocks of one K3 or K5 launch: K3 puts several problems in a
-    block where its warp layout applies (``qp_solve_problems_per_block``,
-    absent from a library built before that layout: one)."""
+    """Thread blocks of one launch of K1-K5: K3 and K4 put several problems
+    in a block where their warp layouts apply (``qp_solve_problems_per_block``,
+    ``spd_inverse_problems_per_block``; absent from a library built before
+    that layout: one)."""
     per = 1
     if kernel == "K3" and hasattr(lib, "qp_solve_problems_per_block"):
         per = int(lib.qp_solve_problems_per_block(n, m))
+    elif kernel == "K4" and hasattr(lib, "spd_inverse_problems_per_block"):
+        per = int(lib.spd_inverse_problems_per_block(n))
     return -(-batch // per)
+
+
+# the K4 shapes of the kernel phase: (batch, n)
+SPD_SHAPES = ((4096, 32), (1024, 128))
+
+
+@functools.lru_cache(maxsize=None)
+def spd_operands(batch: int, n: int, dev):
+    """K4's operand at one shape (``testing.spd_inputs``: SPD, problem 0
+    not), made once."""
+    from sqp_solver_tpu_torch.testing import spd_inputs
+
+    return to_device(spd_inputs(batch, n, seed=n, dtype=np.float32), dev)["M"]
+
+
+def spd_cases(dev) -> list:
+    """Each K4 shape of the kernel phase with a launcher that takes a kernel
+    library, for ``tools/kernel_ab.py`` and the phase split."""
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    cases = []
+    for batch, n in SPD_SHAPES:
+        M = spd_operands(batch, n, dev)
+        cases.append(dict(label=f"K4 n={n} B={batch}", kernel="K4", n=n, batch=batch,
+                          reps=20 if n <= 32 else 8,
+                          launch=lambda lib, M=M: qk._spd_inverse_launch(M, lib=lib)))
+    return cases
 
 
 def qp_cases(dev) -> list:
@@ -415,13 +448,13 @@ def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
 
 
 def phase_split(dev, libs: dict, card: str) -> list:
-    """Cycles per block of each phase of K1, K2, K3 and K5 at their shapes,
+    """Cycles per block of each phase of K1-K5 at their shapes,
     from the builds with phase clocks (``libs``: one per source), one launch
     after a warm-up each."""
     from sqp_solver_tpu_torch.tools.kernel_ab import SOURCES, clock_split, format_split
 
     rows = []
-    for c in dense_cases(dev) + qp_cases(dev) + chunk_cases(dev):
+    for c in dense_cases(dev) + qp_cases(dev) + spd_cases(dev) + chunk_cases(dev):
         lib = libs[SOURCES[c["kernel"].lower()]]
         blocks = blocks_of(lib, c["kernel"], c["batch"], c["n"], c.get("m", c["n"]))
         cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
@@ -563,28 +596,50 @@ def compare_certificates(dev) -> int:
 
 def compare_spd(batch: int, n: int, dev, reps: int) -> dict:
     """K4 against its plain version on SPD matrices with a non-SPD
-    problem 0, and its library yardstick ``cholesky_ex`` + ``cholesky_inverse``."""
+    problem 0 and, in its blocked layout (one problem a block), against the
+    plain twin of that layout's blocked order (``_chol_inv_blocked``); then
+    timed in turns with its library yardstick ``cholesky_ex`` +
+    ``cholesky_inverse`` (kernel, library, library, kernel, three times),
+    each reported as the median and the spread of its turns."""
     import torch
 
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
-    from sqp_solver_tpu_torch.testing import spd_inputs
 
-    M = to_device(spd_inputs(batch, n, seed=n, dtype=np.float32), dev)["M"]
+    M = spd_operands(batch, n, dev)
     Minv, fail = qk.spd_inverse_kernel(M)
-    ref, rfail = qk.spd_inverse_reference(M)
+    info = qk.spd_inverse_arm_info(n, device=dev.index)
+    refs = {"plain": qk.spd_inverse_reference(M)}
+    if info["problems_per_block"] == 1:
+        refs["blocked twin"] = qk._chol_inv_blocked(M)
     torch.cuda.synchronize()
-    if not torch.equal(fail, rfail) or not bool(fail[0]) or bool(fail[1:].any()):
-        raise AssertionError("K4: fail flags wrong or differ from the plain version")
-    err = check_close(f"K4 n={n}", Minv[1:], ref[1:])
-    log(f"  K4 n={n} B={batch}: fail flags agree, max |kernel - plain| {err:.3e}")
-    ms = cuda_ms(lambda: qk.spd_inverse_kernel(M), reps)
+    errs = {}
+    for label, (ref, rfail) in refs.items():
+        if not torch.equal(fail, rfail) or not bool(fail[0]) or bool(fail[1:].any()):
+            raise AssertionError(f"K4 n={n}: fail flags wrong or differ from the {label} version")
+        errs[label] = check_close(f"K4 n={n} against the {label} version", Minv[1:], ref[1:])
+    log(f"  K4 n={n} B={batch}: arm {info['arm']} ({info['problems_per_block']} problem(s), "
+        f"{info['threads']} threads, {info['smem_bytes']} B of shared memory a block, "
+        f"{info['registers']} registers and {info['local_bytes']} B of local memory a "
+        f"thread, {info['blocks_per_sm']} blocks an SM); fail flags agree, max |kernel - "
+        + ", ".join(f"{k}| {v:.3e}" for k, v in errs.items()))
+    turns = {"kernel": [], "library": []}
+    calls = {"kernel": lambda: qk.spd_inverse_kernel(M),
+             "library": lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(M).L)}
+    for _ in range(3):
+        for who in ("kernel", "library", "library", "kernel"):
+            turns[who].append(cuda_ms(calls[who], reps))
+    ms, library_ms = (float(np.median(turns[k])) for k in ("kernel", "library"))
+    log(f"  K4 n={n} B={batch} in turns: kernel {ms:.4f} ms (median; {min(turns['kernel']):.4f}"
+        f"-{max(turns['kernel']):.4f}), library {library_ms:.4f} ms (median; "
+        f"{min(turns['library']):.4f}-{max(turns['library']):.4f})")
     plain_ms = cuda_ms(lambda: qk.spd_inverse_reference(M), max(1, reps // 4))
-    library_ms = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(M).L), reps)
     # Cholesky, L^-1 and L^-T L^-1, n^3 / 3 each; M's lower triangle read,
     # Minv and the fail byte written
     bound_ms, bound_by = bound(batch * n ** 3, batch * (4 * n * (n + 1) / 2 + 4 * n * n + 1))
-    return dict(n=n, batch=batch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return dict(n=n, batch=batch, max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                kernel_turns=turns["kernel"], library_turns=turns["library"],
+                library_spread=[min(turns["library"]), max(turns["library"])], layout=info)
 
 
 def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
@@ -1449,7 +1504,7 @@ def main() -> int:
         _build.load()
         phase_libs = {src: f.result() for src, f in phase_builds.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) "
-        f"into {_build.build_dir()}, with the phase-clock builds of K1-K3 and K5")
+        f"into {_build.build_dir()}, with the phase-clock builds of K1-K5")
 
     # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
@@ -1464,8 +1519,7 @@ def main() -> int:
           compare_chunk(4096, 32, 33, 25, dev, reps=20),
           compare_chunk(4096, 16, 32, 25, dev, reps=20),
           compare_chunk(1024, 128, 129, 10, dev, reps=8)]
-    log("K1, K2, K3 and K5 phase split (clock64 spans of thread 0, cycles per block, share of "
-        "the total):")
+    log("K1-K5 phase split (clock64 spans of thread 0, cycles per block, share of the total):")
     phases = phase_split(dev, phase_libs, card)
     factor_ms = [time_library_factor(4096, 32, 33, dev, reps=10),
                  time_library_factor(1024, 128, 129, dev, reps=5)]
@@ -1478,6 +1532,8 @@ def main() -> int:
                        ("btd_step", k7)):
         for r in rows:
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+            if "library_spread" in r:
+                lib += " (median of turns, spread {:.3f}-{:.3f})".format(*r["library_spread"])
             seg = f" seg={r['seg']}" if "seg" in r else ""
             seg += f" {r['family']}" if "bb" in r else ""
             log(f"  {name} n={r['n']} B={r['batch']}{seg}: kernel {r['ms']:.3f} ms, "

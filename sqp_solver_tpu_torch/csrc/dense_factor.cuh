@@ -1,7 +1,7 @@
 // The blocked, register-tiled dense factor and the lane-split matvecs of
-// the SQP-step (K1) and polish-KKT (K2) kernels in qp_kernel.cu.  The
-// whole-QP (K3) and SPD-inverse (K4) kernels keep the column factor of
-// admm_core.cuh.
+// the SQP-step (K1) and polish-KKT (K2) kernels in qp_kernel.cu, and the
+// in-place factor of the SPD-inverse kernel's (K4) blocked layout.  K3's
+// block layout keeps the column factor of admm_core.cuh.
 //
 //   gram_build      M = P + sigma I + A' diag(w) A (lower triangle): each
 //                   thread a register tile of 3 Q^2 entries (48 at Q = 4),
@@ -23,6 +23,12 @@
 //                   then read both triangles by rows)
 //   ltl_tiles       Minv = Li' Li, register tiles of the lower triangle,
 //                   mirrored into the upper (K1's explicit Minv)
+//   tri_inv_inplace, ltl_inplace
+//                   the same two steps in the one matrix that holds L, as
+//                   LAPACK's trtri and lauum: L^-1 by 32-row block rows
+//                   (each block row's sums read L before its L^-1 replaces
+//                   it), then L^-T L^-1 by block rows; per element the
+//                   fmaf chains of tri_inv_blocked and ltl_tiles
 //   rows_dot, tri_rows_dot, cols_dot
 //                   M x and M' w with each dot product split over L lanes
 //                   (eight or more loads in flight) and reduced by
@@ -245,6 +251,74 @@ __device__ bool chol_blocked(float* W, int ld, int n, float* sc) {
   return fail;
 }
 
+// One warp's half of L^-1's off-diagonal block (I, J), I > J: rows
+// 16 half .. 16 half + 15 of it in 4 x 4 register tiles (lane / 8, lane % 8
+// tile row and column).
+//   li_sum_task    T = sum_{k=oj}^{oi-1} L_ik Li_kj, read from L's block row
+//                  I and Li's block rows J .. I - 1, into the upper block
+//                  (J, I) of Li, transposed (free until Li is done);
+//   li_scale_task  Li_IJ = -Li_II T, from Li_II and that T.
+// No sync.
+__device__ __forceinline__ void li_sum_task(const float* Lm, int ldl, float* Li, int ldi, int n,
+                                            int I, int J, int half) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 4 * (4 * half + (lane >> 3)), c0 = 4 * (lane & 7);
+  const int oi = kPanel * I, oj = kPanel * J;
+  int rows[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) rows[a] = min(oi + r0 + a, n - 1);
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  for (int k = oj; k < oi; ++k) {
+    float x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      x[a] = Lm[rows[a] * ldl + k];
+      y[a] = Li[k * ldi + oj + c0 + a];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a * 4 + b] = fmaf(x[a], y[b], acc[a * 4 + b]);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (oi + r0 + a < n) Li[(oj + c0 + b) * ldi + oi + r0 + a] = acc[a * 4 + b];
+}
+
+__device__ __forceinline__ void li_scale_task(float* Li, int ldi, int n, int I, int J, int half) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 4 * (4 * half + (lane >> 3)), c0 = 4 * (lane & 7);
+  const int oi = kPanel * I, oj = kPanel * J;
+  const int smax = min(r0 + 4, n - oi);  // T has n - oi rows
+  int rows[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) rows[a] = min(oi + r0 + a, n - 1);
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  for (int s = 0; s < smax; ++s) {
+    float x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      x[a] = Li[rows[a] * ldi + oi + s];
+      y[a] = Li[(oj + c0 + a) * ldi + oi + s];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a * 4 + b] = fmaf(x[a], y[b], acc[a * 4 + b]);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (oi + r0 + a < n) Li[(oi + r0 + a) * ldi + oj + c0 + b] = -acc[a * 4 + b];
+}
+
 // Li = L^-1 for L in the lower triangle of Lm, in blocks of 32 (NB
 // blocks a side; the last one may be partial).  The strictly upper
 // triangle of Li serves as scratch and ends zeroed or, with mirror, as
@@ -271,69 +345,14 @@ __device__ void tri_inv_blocked(const float* Lm, int ldl, float* Li, int ldi, in
     }
   }
   __syncthreads();
-  // off-diagonal blocks by distance d: T = sum_{k=j}^{i-1} L_ik Li_kj into
-  // the (free) upper block (j, i), transposed; then Li_ij = -Li_ii T.  A
-  // warp task is half a 32 x 32 block in 4 x 4 register tiles (lane / 8,
-  // lane % 8 tile row and column).
+  // off-diagonal blocks by distance d: T into the (free) upper block
+  // (j, i), then Li_ij = -Li_ii T.  A warp task is half a 32 x 32 block.
   for (int d = 1; d < NB; ++d) {
-    for (int q = wp; q < 2 * (NB - d); q += nw) {
-      const int J = q >> 1, I = J + d;
-      const int r0 = 4 * (4 * (q & 1) + (lane >> 3)), c0 = 4 * (lane & 7);
-      const int oi = kPanel * I, oj = kPanel * J;
-      int rows[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) rows[a] = min(oi + r0 + a, n - 1);
-      float acc[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[e] = 0.f;
-      for (int k = oj; k < oi; ++k) {
-        float x[4], y[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          x[a] = Lm[rows[a] * ldl + k];
-          y[a] = Li[k * ldi + oj + c0 + a];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a * 4 + b] = fmaf(x[a], y[b], acc[a * 4 + b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (oi + r0 + a < n) Li[(oj + c0 + b) * ldi + oi + r0 + a] = acc[a * 4 + b];
-    }
+    for (int q = wp; q < 2 * (NB - d); q += nw)
+      li_sum_task(Lm, ldl, Li, ldi, n, (q >> 1) + d, q >> 1, q & 1);
     __syncthreads();
-    for (int q = wp; q < 2 * (NB - d); q += nw) {
-      const int J = q >> 1, I = J + d;
-      const int r0 = 4 * (4 * (q & 1) + (lane >> 3)), c0 = 4 * (lane & 7);
-      const int oi = kPanel * I, oj = kPanel * J;
-      const int smax = min(r0 + 4, n - oi);  // T has n - oi rows
-      int rows[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) rows[a] = min(oi + r0 + a, n - 1);
-      float acc[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[e] = 0.f;
-      for (int s = 0; s < smax; ++s) {
-        float x[4], y[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          x[a] = Li[rows[a] * ldi + oi + s];
-          y[a] = Li[(oj + c0 + a) * ldi + oi + s];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a * 4 + b] = fmaf(x[a], y[b], acc[a * 4 + b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (oi + r0 + a < n) Li[(oi + r0 + a) * ldi + oj + c0 + b] = -acc[a * 4 + b];
-    }
+    for (int q = wp; q < 2 * (NB - d); q += nw)
+      li_scale_task(Li, ldi, n, (q >> 1) + d, q >> 1, q & 1);
     __syncthreads();
   }
   // the strictly upper triangle: zeros, or Li'
@@ -365,6 +384,130 @@ __device__ bool dense_factor_minv(float* W, float* Li, int ld, const float* P, i
   tri_inv_blocked(W, ld, Li, ld, n, false);
   ltl_tiles<Q>(Li, ld, W, ld, n);
   return fail;
+}
+
+// ---- the factor in one matrix (K4's blocked layout) ----------------------
+
+// The diagonal block D (bq <= 32 rows, stride ld) of L^-1 in place of L's:
+// lane c forms column c in registers by tri_inv_blocked's forward
+// substitution (the same fmaf chain, L's rows read as broadcasts), then
+// stores it, zeros above the diagonal.  One warp; no block sync.
+__device__ __forceinline__ void li_diag_inplace(float* D, int ld, int bq) {
+  const int c = threadIdx.x & 31;
+  float x[kPanel];
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i) {
+    if (i < bq) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < i; ++k)
+        if (k >= c) acc = fmaf(D[i * ld + k], x[k], acc);
+      x[i] = i < c ? 0.f : ((i == c ? 1.f : 0.f) - acc) / nan_max(D[i * ld + i], 1e-30f);
+    }
+  }
+  __syncwarp();  // every lane has read L's rows
+  if (c < bq) {
+#pragma unroll
+    for (int i = 0; i < kPanel; ++i)
+      if (i < bq) D[i * ld + c] = x[i];
+  }
+}
+
+// L^-1 in place of L (lower triangle of W, stride ld): the diagonal blocks
+// at once, one warp each; then block row I = 1, 2, ...: its sums T from
+// L's block row I and Li's rows above it (li_sum_task, into the upper
+// blocks (J, I)), a barrier, then Li_IJ = -Li_II T over L's block row,
+// whose L no one reads again.  Per element tri_inv_blocked's chain.  The
+// diagonal blocks' upper triangles end zero, the other upper blocks hold
+// the dead sums.  Ends with a barrier.
+__device__ void tri_inv_inplace(float* W, int ld, int n) {
+  ADMM_PHASE_BEGIN(kPhLinv);
+  const int wp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int NB = (n + kPanel - 1) / kPanel;
+  for (int q = wp; q < NB; q += nw)
+    li_diag_inplace(W + kPanel * q * (ld + 1), ld, min(kPanel, n - kPanel * q));
+  __syncthreads();
+  for (int I = 1; I < NB; ++I) {
+    for (int q = wp; q < 2 * I; q += nw) li_sum_task(W, ld, W, ld, n, I, q >> 1, q & 1);
+    __syncthreads();
+    for (int q = wp; q < 2 * I; q += nw) li_scale_task(W, ld, n, I, q >> 1, q & 1);
+    __syncthreads();
+  }
+  ADMM_PHASE_END(kPhLinv);
+}
+
+// Minv = Li' Li in place of Li (tri_inv_inplace's output), by block rows
+// I = 0, 1, ...: one warp a 32 x 32 block (I, J), J <= I, lane (lr, lc)
+// rows lr + 8a and columns lc + 4b of it; each entry the fmaf chain of
+// ltl_tiles from k = 32 I (the terms below max(i, j) read the diagonal
+// block's zeros and add exact zeros).  A block (I, J < I) is read by its
+// own task alone once the rows above are done, so its warp stores it (and
+// its mirror, into the dead upper block (J, I)) as soon as it is summed;
+// the diagonal block, which every task of the row reads, is stored by its
+// warp (its last task) after the row's barrier.  W ends holding the full
+// Minv.  Ends with a barrier.
+__device__ void ltl_inplace(float* W, int ld, int n) {
+  ADMM_PHASE_BEGIN(kPhLtl);
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int NB = (n + kPanel - 1) / kPanel;
+  const int lr = lane >> 2, lc = lane & 3;
+  for (int I = 0; I < NB; ++I) {
+    const int oi = kPanel * I;
+    int rows[4], rowc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      rows[a] = oi + lr + 8 * a;
+      rowc[a] = min(rows[a], n - 1);
+    }
+    float acc[32];
+    bool diag = false;
+    for (int J = wp; J <= I; J += nw) {
+      const int oj = kPanel * J;
+      int cols[8], colc[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        cols[b] = oj + lc + 4 * b;
+        colc[b] = min(cols[b], n - 1);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      for (int k = oi; k < n; ++k) {
+        const float* wk = W + (size_t)k * ld;
+        float x[4], y[8];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) x[a] = wk[rowc[a]];
+#pragma unroll
+        for (int b = 0; b < 8; ++b) y[b] = wk[colc[b]];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 8; ++b) acc[a * 8 + b] = fmaf(x[a], y[b], acc[a * 8 + b]);
+      }
+      if (J < I) {
+        __syncwarp();  // the warp is done reading block (I, J)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            if (rows[a] < n) {
+              W[rows[a] * ld + cols[b]] = acc[a * 8 + b];
+              W[cols[b] * ld + rows[a]] = acc[a * 8 + b];
+            }
+      } else {
+        diag = true;
+      }
+    }
+    __syncthreads();  // every task of the row has read the diagonal block
+    if (diag) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (rows[a] < n && oi + lc + 4 * b < n) W[rows[a] * ld + oi + lc + 4 * b] = acc[a * 8 + b];
+    }
+  }
+  __syncthreads();
+  ADMM_PHASE_END(kPhLtl);
 }
 
 // ---- lane-split matvecs ---------------------------------------------------

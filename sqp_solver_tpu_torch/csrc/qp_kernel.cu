@@ -532,12 +532,11 @@ constexpr int kQpWarps = 2;  // problems a block
 
 __host__ __device__ constexpr bool qp_warp_layout(int n, int m) { return n <= 32 && m <= 64; }
 
-// The factor in the warp, Minv of M = P + sigma I + A' diag(w) A with the
-// column factor's per-element operations (so the block layout's Minv, and
-// its pivots and fail flag: d clamped to max(d, 1e-30), fail = d <= 0 |
-// NaN), NM >= n columns unrolled, all in W and the lanes' registers:
-//   Gram      lane i builds row i of M in registers, each row of A read
-//             as float4 broadcasts (the fmaf chain of schur_build);
+// The factor in the warp (K3's warp layout and K4's): lane i holds row i
+// of the lower triangle of M in r (NM >= n columns unrolled), and the
+// Cholesky, L^-1 and L^-T L^-1 run with the column factor's per-element
+// operations (so the column factor's Minv, pivots and fail flag: d clamped
+// to max(d, 1e-30), fail = d <= 0 | NaN), in W and the lanes' registers:
 //   Cholesky  right-looking on those rows; column j goes through cb
 //             (two n-vectors, one a column by turns), one store and one
 //             barrier a column, read back as float4 broadcasts, so that
@@ -548,36 +547,14 @@ __host__ __device__ constexpr bool qp_warp_layout(int n, int m) { return n <= 32
 //   L^-T L^-1 L^-1's columns to W as rows, lane j forms column j of Minv
 //             in registers (row j: it is symmetric bit for bit), then
 //             stores it (that of ltl).
-// W gets Minv with stride ld4, zero in its padding columns.
+// W (n rows, stride ld4) gets Minv, zero in its padding columns; it may
+// hold M on entry (it is first written after the Cholesky's barriers).
 template <int NM>
-__device__ bool warp_factor_minv(float* W, float* cb, int ld4, const float* P, const float* A,
-                                 const float* w, float sigma, int n, int m) {
+__device__ __forceinline__ bool warp_chol_inv_ltl(float (&r)[NM], float* W, float* cb, int ld4,
+                                                  int n) {
   const int lane = threadIdx.x & 31;
   const int i = min(lane, n - 1);  // lanes past n shadow row n - 1, writing nothing
   const int n4 = round4(n);
-  float r[NM];
-  ADMM_PHASE_BEGIN(kPhGram);
-#pragma unroll
-  for (int k = 0; k < NM; ++k) r[k] = 0.f;
-  for (int kp = 0; kp < m; ++kp) {
-    const float a = A[kp * ld4 + i] * w[kp];
-    const float4* row = reinterpret_cast<const float4*>(A + kp * ld4);
-#pragma unroll
-    for (int c = 0; c < NM / 4; ++c) {
-      if (4 * c < n) {
-        const float4 v = row[c];
-        r[4 * c] = fmaf(a, v.x, r[4 * c]);
-        r[4 * c + 1] = fmaf(a, v.y, r[4 * c + 1]);
-        r[4 * c + 2] = fmaf(a, v.z, r[4 * c + 2]);
-        r[4 * c + 3] = fmaf(a, v.w, r[4 * c + 3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < NM; ++k)
-    if (k < n && k <= i) r[k] = __ldg(P + (size_t)i * n + k) + (i == k ? sigma : 0.f) + r[k];
-  ADMM_PHASE_END(kPhGram);
-
   ADMM_PHASE_BEGIN(kPhChol);
   bool fail = false;
 #pragma unroll
@@ -676,6 +653,39 @@ __device__ bool warp_factor_minv(float* W, float* cb, int ld4, const float* P, c
   __syncwarp();
   ADMM_PHASE_END(kPhLtl);
   return fail;
+}
+
+// K3's factor in the warp: Minv of M = P + sigma I + A' diag(w) A.  Lane i
+// builds row i of M in registers, each row of A read as float4 broadcasts
+// (the fmaf chain of schur_build), then warp_chol_inv_ltl.
+template <int NM>
+__device__ bool warp_factor_minv(float* W, float* cb, int ld4, const float* P, const float* A,
+                                 const float* w, float sigma, int n, int m) {
+  const int lane = threadIdx.x & 31;
+  const int i = min(lane, n - 1);  // lanes past n shadow row n - 1, writing nothing
+  float r[NM];
+  ADMM_PHASE_BEGIN(kPhGram);
+#pragma unroll
+  for (int k = 0; k < NM; ++k) r[k] = 0.f;
+  for (int kp = 0; kp < m; ++kp) {
+    const float a = A[kp * ld4 + i] * w[kp];
+    const float4* row = reinterpret_cast<const float4*>(A + kp * ld4);
+#pragma unroll
+    for (int c = 0; c < NM / 4; ++c) {
+      if (4 * c < n) {
+        const float4 v = row[c];
+        r[4 * c] = fmaf(a, v.x, r[4 * c]);
+        r[4 * c + 1] = fmaf(a, v.y, r[4 * c + 1]);
+        r[4 * c + 2] = fmaf(a, v.z, r[4 * c + 2]);
+        r[4 * c + 3] = fmaf(a, v.w, r[4 * c + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NM; ++k)
+    if (k < n && k <= i) r[k] = __ldg(P + (size_t)i * n + k) + (i == k ? sigma : 0.f) + r[k];
+  ADMM_PHASE_END(kPhGram);
+  return warp_chol_inv_ltl<NM>(r, W, cb, ld4, n);
 }
 
 // The warp's operator.  A (m rows, 4-float-padded, stride ld4 = 4 x odd)
@@ -885,19 +895,38 @@ __global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(
 }
 
 // K4.  Replaces sqp_solver_tpu/ops/qp_kernel.py:spd_inverse_kernel.
-// Per problem: the lower triangle of M into the working buffer, column
-// Cholesky with the pivot clamp max(d, 1e-30) and fail = (d <= 0 | NaN),
-// L^-1 by forward substitution, then Minv = L^-T L^-1.  M is read once and
-// Minv and fail are written once.  What bounds it on this card: the
-// O(n^3) column loops of one block, n barrier-separated column steps
-// (latency at n = 32; at n = 128 about 2/3 n^3 flops per problem over 256
-// threads at one or two blocks per SM).  The design keeps the working
-// matrix and L^-1 (row stride n + 1, 132 KB at n = 128) in shared memory;
-// larger n goes to the per-problem workspace.
-__global__ void __launch_bounds__(256) spd_inverse_kernel(
+// Per problem: the lower triangle of M, Cholesky with the pivot clamp
+// max(d, 1e-30) and fail = (d <= 0 | NaN), L^-1, then Minv = L^-T L^-1,
+// written in full.  M is read once and Minv and fail are written once.
+// What bounds it on this card: per-problem latency at n <= 32 (a chain of
+// n column steps; 4 KB in, 4 KB out), the O(n^3) factor at n = 128 (about
+// n^3 flops a problem, one block each).  The design has two layouts, by
+// spd_rule_arm:
+//   n <= 32   one warp a problem, several a block (spd_inverse_warp_kernel):
+//             M's lower triangle in flight by cp.async into the warp's
+//             slice, lane i's row into registers, then K3's warp factor
+//             (warp_chol_inv_ltl: the column factor's per-element
+//             operations, so the outputs are the column kernel's bit for
+//             bit), Minv stored by rows as float4s;
+//   n > 32    one block of 128 threads a problem
+//             (spd_inverse_blocked_kernel): the blocked factor of
+//             dense_factor.cuh (chol_blocked, the panels' order of K1 and
+//             K2), L^-1 and L^-T L^-1 in place in the same one matrix
+//             (tri_inv_inplace, ltl_inplace), so that a block holds
+//             n (n + 1) floats: 66 KB at n = 128, three blocks an SM, and
+//             shared memory up to n = 240; larger n works in the
+//             per-problem workspace.
+// The column kernel (the earlier design: cholesky_inplace, tri_inv, ltl
+// over two matrices, 256 threads a problem) and the two-buffer blocked
+// factor (K1's calls) stay as the two arms the raw launcher can force:
+// the references that the warp layout and the in-place factor equal bit
+// for bit, for the A/B tool and the card's tests.
+__global__ void __launch_bounds__(256) spd_inverse_column_kernel(
     int n, int n_smem_mats, long long ws_floats, const float* __restrict__ Mg,
     float* __restrict__ minv_out, uint8_t* __restrict__ fail_out, float* __restrict__ ws) {
   extern __shared__ float smem[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
   const int ld = n + 1;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
@@ -914,16 +943,151 @@ __global__ void __launch_bounds__(256) spd_inverse_kernel(
     if (j <= i) W[i * ld + j] = Mb[e];
   }
   __syncthreads();
+  ADMM_PHASE_END(kPhLoad);
   const bool fail = cholesky_inplace(W, ld, n);
   tri_inv(W, ld, Li, ld, n);
   ltl(Li, ld, W, ld, n);
+  ADMM_PHASE_BEGIN(kPhLoad);
   float* mo = minv_out + b * n * n;
   for (int e = tid; e < n * n; e += T) {
     const int i = e / n, j = e - i * n;
     mo[e] = W[i * ld + j];
   }
   if (tid == 0) fail_out[b] = fail ? 1 : 0;
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
 }
+
+// Floats of one warp's slice in K4's warp layout: M, then L, L^-1 and
+// Minv in turn (n rows, stride ld4), and the factor's column buffer.
+__host__ __device__ constexpr int spd_warp_floats(int n) { return n * stride4(n) + 2 * round4(n); }
+
+// K4, warp layout: kSpdWarps problems a block, NM (16 or 32) >= n
+// unrolling the factor's registers.  On an H100 at n = 32, 2, 4 and 8
+// problems a block ran within 5 % of each other.
+constexpr int kSpdWarps = 8;
+
+template <int NM>
+__global__ void __launch_bounds__(32 * kSpdWarps) spd_inverse_warp_kernel(
+    int n, int batch, const float* __restrict__ Mg, float* __restrict__ minv_out,
+    uint8_t* __restrict__ fail_out) {
+  extern __shared__ float4 smem4[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
+  const int ld4 = stride4(n);
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const size_t b = (size_t)blockIdx.x * kSpdWarps + wp;
+  if (b >= (size_t)batch) return;  // no block barrier below: a warp may leave
+  float* W = reinterpret_cast<float*>(smem4) + (size_t)wp * spd_warp_floats(n);
+  float* cb = W + n * ld4;
+  const float* Mb = Mg + b * n * n;
+  // the lower triangle in flight at once: 16 bytes a copy where every row
+  // is 16-byte aligned, else 4
+  if ((n & 3) == 0 && ((uintptr_t)Mb & 15) == 0) {
+    const int c4 = n >> 2;
+    for (int e = lane; e < n * c4; e += 32) {
+      const int i = e / c4, k = e - i * c4;
+      if (4 * k <= i) cp_async16(W + i * ld4 + 4 * k, Mb + (size_t)i * n + 4 * k);
+    }
+  } else {
+    for (int e = lane; e < n * n; e += 32) {
+      const int i = e / n, j = e - i * n;
+      if (j <= i) cp_async4(W + i * ld4 + j, Mb + e);
+    }
+  }
+  cp_async_wait_all();
+  __syncwarp();
+  const int i = min(lane, n - 1);  // lanes past n shadow row n - 1
+  float r[NM];
+  const float4* row = reinterpret_cast<const float4*>(W + i * ld4);
+#pragma unroll
+  for (int c = 0; c < NM / 4; ++c) {
+    const float4 v = 4 * c < n ? row[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float e4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) r[4 * c + t] = (4 * c + t < n && 4 * c + t <= i) ? e4[t] : 0.f;
+  }
+  ADMM_PHASE_END(kPhLoad);
+  const bool fail = warp_chol_inv_ltl<NM>(r, W, cb, ld4, n);
+  ADMM_PHASE_BEGIN(kPhLoad);
+  float* mo = minv_out + b * n * n;
+  if ((n & 3) == 0) {  // by rows, 16 bytes a lane
+    const int c4 = n >> 2;
+    for (int e = lane; e < n * c4; e += 32) {
+      const int ii = e / c4, k = e - ii * c4;
+      reinterpret_cast<float4*>(mo + (size_t)ii * n)[k] =
+          reinterpret_cast<const float4*>(W + ii * ld4)[k];
+    }
+  } else {
+    for (int e = lane; e < n * n; e += 32) {
+      const int ii = e / n, j = e - ii * n;
+      mo[e] = W[ii * ld4 + j];
+    }
+  }
+  if (lane == 0) fail_out[b] = fail ? 1 : 0;
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
+}
+
+// K4, blocked layout: one block of kSpdThreads threads a problem, Q = 2
+// register tiles in chol_blocked's SYRK, registers capped for three blocks
+// an SM.  On an H100 at n = 128 this beat 256 threads with Q = 4 at two or
+// three blocks an SM (whose register caps spill) and the two-buffer
+// factor (one block an SM).  kInPlace: L^-1 and Minv in the one matrix W;
+// else L^-1 in a second (the two-buffer arm: K1's tri_inv_blocked and
+// ltl_tiles).
+constexpr int kSpdThreads = 128;
+
+template <bool kInPlace>
+__global__ void __launch_bounds__(kSpdThreads, 3) spd_inverse_blocked_kernel(
+    int n, int n_smem_mats, long long ws_floats, const float* __restrict__ Mg,
+    float* __restrict__ minv_out, uint8_t* __restrict__ fail_out, float* __restrict__ ws) {
+  extern __shared__ float smem[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
+  const int ld = n + 1;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5, nw = kSpdThreads >> 5;
+  float* red = smem;
+  float* M[2];
+  const int msize[2] = {n * ld, kInPlace ? 0 : n * ld};
+  place(M, msize, smem + kRedSlots, n_smem_mats, ws, ws_floats);
+  float* W = M[0];
+  const float* Mb = Mg + b * n * n;
+  if (n_smem_mats > 0) {  // the lower triangle in flight at once
+    for (int i = wp; i < n; i += nw)
+      for (int j = lane; j <= i; j += 32) cp_async4(W + i * ld + j, Mb + (size_t)i * n + j);
+    cp_async_wait_all();
+  } else {
+    map_rows(Mb, n, n, n, true, [&](int i, int j, float a) { W[i * ld + j] = a; });
+  }
+  __syncthreads();
+  ADMM_PHASE_END(kPhLoad);
+  const bool fail = chol_blocked<2>(W, ld, n, red);
+  if (kInPlace) {
+    tri_inv_inplace(W, ld, n);
+    ltl_inplace(W, ld, n);
+  } else {
+    tri_inv_blocked(W, ld, M[1], ld, n, false);
+    ltl_tiles<2>(M[1], ld, W, ld, n);
+  }
+  ADMM_PHASE_BEGIN(kPhLoad);
+  float* mo = minv_out + b * n * n;
+  for (int i = wp; i < n; i += nw)
+    for (int j = lane; j < n; j += 32) mo[(size_t)i * n + j] = W[i * ld + j];
+  if (tid == 0) fail_out[b] = fail ? 1 : 0;
+  ADMM_PHASE_END(kPhLoad);
+  ADMM_PHASE_END(kPhTotal);
+}
+
+// K4's arms: the rule's, or one of the two forced by the raw launcher's
+// A/B argument (the column kernel, the two-buffer blocked factor), and the
+// two that the rule picks.
+enum SpdArm { kSpdRule, kSpdColumn, kSpdTwoBuffer, kSpdWarp, kSpdBlocked };
+
+// The rule, its one place: the warp layout where the warp factor's
+// registers hold a row (n <= 32), else the blocked layout in place.
+constexpr int spd_rule_arm(int n) { return n <= 32 ? kSpdWarp : kSpdBlocked; }
 
 struct Layout {
   size_t smem_bytes;
@@ -968,9 +1132,12 @@ Layout qp_layout(int n, int m) {
   return plan(7LL * n + 7LL * m + kRedSlots, mats);
 }
 
-Layout spd_layout(int n) {
+// K4's blocked layouts: W alone (in place), or W and L^-1 (the column
+// kernel, the two-buffer arm).  The warp layout has no workspace.
+Layout spd_layout(int arm, int n) {
   const long long ld = n + 1;
-  const long long mats[3] = {n * ld, n * ld, 0};
+  const bool two = arm == kSpdColumn || arm == kSpdTwoBuffer;
+  const long long mats[3] = {n * ld, two ? n * ld : 0, 0};
   return plan(kRedSlots, mats);
 }
 
@@ -980,6 +1147,58 @@ template <typename Kernel>
 cudaError_t set_smem(Kernel k, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// A K4 arm's kernel and launch shape at n.
+struct SpdLaunch {
+  const void* kernel;
+  int threads, per_block;
+  size_t smem_bytes;
+  Layout L;
+};
+
+// The arm's launch (arm already resolved from the rule).
+SpdLaunch spd_launch_of(int arm, int n) {
+  SpdLaunch s;
+  s.per_block = 1;
+  s.threads = kSpdThreads;
+  if (arm == kSpdWarp) {
+    s.kernel = n <= 16 ? (const void*)spd_inverse_warp_kernel<16>
+                       : (const void*)spd_inverse_warp_kernel<32>;
+    s.threads = 32 * kSpdWarps;
+    s.per_block = kSpdWarps;
+    s.smem_bytes = (size_t)kSpdWarps * spd_warp_floats(n) * sizeof(float);
+    s.L = Layout{s.smem_bytes, 0, 0};
+    return s;
+  }
+  if (arm == kSpdColumn) {
+    s.kernel = (const void*)spd_inverse_column_kernel;
+    s.threads = threads_for(n, n);
+  } else {
+    s.kernel = arm == kSpdBlocked ? (const void*)spd_inverse_blocked_kernel<true>
+                                  : (const void*)spd_inverse_blocked_kernel<false>;
+  }
+  s.L = spd_layout(arm, n);
+  s.smem_bytes = s.L.smem_bytes;
+  return s;
+}
+
+// The launch of a caller's arm (the rule's, or a forced one): kernel null
+// for any other code.
+SpdLaunch spd_launch_as(int arm, int n) {
+  if (arm == kSpdRule) return spd_launch_of(spd_rule_arm(n), n);
+  if (arm == kSpdColumn || arm == kSpdTwoBuffer) return spd_launch_of(arm, n);
+  SpdLaunch none{};
+  return none;
+}
+
+// An arm's kernel attributes: shared memory past 48 KB, and the largest
+// shared-memory carveout, so that as many blocks an SM fit as it allows.
+cudaError_t spd_prepare(const SpdLaunch& s) {
+  cudaError_t err = set_smem(s.kernel, s.smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(s.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -992,7 +1211,11 @@ long long polish_kkt_workspace_floats(int n, int m) { return polish_layout(n, m)
 
 long long qp_solve_workspace_floats(int n, int m) { return qp_layout(n, m).ws_floats; }
 
-long long spd_inverse_workspace_floats(int n) { return spd_layout(n).ws_floats; }
+long long spd_inverse_workspace_floats(int n) { return spd_launch_as(kSpdRule, n).L.ws_floats; }
+
+long long spd_inverse_workspace_floats_as(int arm, int n) {
+  return spd_launch_as(arm, n).L.ws_floats;
+}
 
 const char* qp_kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
@@ -1127,17 +1350,62 @@ int qp_solve_launch(const float* P, const float* A, const float* q, const float*
 
 int qp_solve_problems_per_block(int n, int m) { return qp_warp_layout(n, m) ? kQpWarps : 1; }
 
+// arm: kSpdRule (0) by spd_rule_arm, or kSpdColumn / kSpdTwoBuffer forced.
+int spd_inverse_launch_as(int arm, const float* M, float* minv_out, uint8_t* fail_out, float* ws,
+                          int batch, int n, int device, void* stream) {
+  if (batch <= 0) return 0;
+  const SpdLaunch s = spd_launch_as(arm, n);
+  if (s.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (s.L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = spd_prepare(s);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (batch + s.per_block - 1) / s.per_block;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s.per_block > 1) {
+    int nn = n, bb = batch;
+    void* args[] = {&nn, &bb, &M, &minv_out, &fail_out};
+    err = cudaLaunchKernel(s.kernel, dim3(blocks), dim3(s.threads), args, s.smem_bytes, st);
+  } else {
+    int nn = n, nsm = s.L.n_smem_mats;
+    long long wsf = s.L.ws_floats;
+    void* args[] = {&nn, &nsm, &wsf, &M, &minv_out, &fail_out, &ws};
+    err = cudaLaunchKernel(s.kernel, dim3(blocks), dim3(s.threads), args, s.smem_bytes, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 int spd_inverse_launch(const float* M, float* minv_out, uint8_t* fail_out, float* ws,
                        int batch, int n, int device, void* stream) {
-  if (batch <= 0) return 0;
-  const Layout L = spd_layout(n);
-  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  return spd_inverse_launch_as(kSpdRule, M, minv_out, fail_out, ws, batch, n, device, stream);
+}
+
+int spd_inverse_problems_per_block(int n) { return spd_launch_as(kSpdRule, n).per_block; }
+
+// What the rule's launch at n takes, for the records: out = [its arm,
+// problems a block, threads a block, dynamic shared memory bytes, registers
+// a thread, local (spill) bytes a thread, blocks an SM by the occupancy
+// calculator].  Returns a CUDA error code.
+int spd_inverse_arm_info(int n, int device, int* out) {
+  const SpdLaunch s = spd_launch_as(kSpdRule, n);
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = set_smem(spd_inverse_kernel, L.smem_bytes);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, s.kernel);
+  if (err == cudaSuccess) err = spd_prepare(s);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s.kernel, s.threads,
+                                                        s.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  spd_inverse_kernel<<<batch, threads_for(n, n), L.smem_bytes, (cudaStream_t)stream>>>(
-      n, L.n_smem_mats, L.ws_floats, M, minv_out, fail_out, ws);
-  return (int)cudaGetLastError();
+  out[0] = spd_rule_arm(n);
+  out[1] = s.per_block;
+  out[2] = s.threads;
+  out[3] = (int)s.smem_bytes;
+  out[4] = fa.numRegs;
+  out[5] = (int)fa.localSizeBytes;
+  out[6] = per_sm;
+  return 0;
 }
 
 }  // extern "C"

@@ -56,7 +56,11 @@ _SIGNATURES = {
     "qp_solve_problems_per_block": (_INT, [_INT, _INT]),
     "qp_solve_workspace_floats": (_LL, [_INT, _INT]),
     "spd_inverse_launch": (_INT, [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+    "spd_inverse_launch_as": (_INT, [_INT] + [_VOID] * 4 + [_INT] * 3 + [_VOID]),
     "spd_inverse_workspace_floats": (_LL, [_INT]),
+    "spd_inverse_workspace_floats_as": (_LL, [_INT, _INT]),
+    "spd_inverse_problems_per_block": (_INT, [_INT]),
+    "spd_inverse_arm_info": (_INT, [_INT, _INT, _VOID]),
     "admm_chunk_launch": (
         _INT, [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
     ),

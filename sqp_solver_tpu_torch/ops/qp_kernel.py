@@ -11,8 +11,8 @@ Each kernel has three parts here:
   Cholesky with its pivot clamp and fail rule (no library factorization
   decides a flag).  The CPU path and the tests use it;
 * the **CUDA kernel** in ``csrc/qp_kernel.cu`` (one thread block per
-  problem; K3 one warp per problem where n <= 32 and m <= 64), built with
-  nvcc at first use (``ops/_build.py``);
+  problem; K3 one warp per problem where n <= 32 and m <= 64, K4 where
+  n <= 32), built with nvcc at first use (``ops/_build.py``);
 * a **wrapper** (``sqp_step_kernel``, ``polish_kkt_kernel``,
   ``qp_solve_kernel``, ``spd_inverse_kernel``) that sends
   CPU tensors to the plain version and CUDA tensors to the kernel.  A
@@ -70,6 +70,9 @@ __all__ = [
     "qp_solve_reference",
     "spd_inverse_kernel",
     "spd_inverse_reference",
+    "spd_inverse_problems_per_block",
+    "spd_inverse_arm_info",
+    "SPD_ARMS",
     "bfgs_update",
 ]
 
@@ -207,7 +210,9 @@ def _chol_inv_ltl(M, ltl=True):
 
 def _chol_inv_blocked(M, nb: int = 32, ltl: bool = True):
     """(Minv = L^-T L^-1, fail) or, with ``ltl=False``, (L^-1, fail) in the
-    order of the CUDA factor of K1 and K2 (``csrc/dense_factor.cuh``):
+    order of the CUDA factor of K1, K2 and K4's blocked layout
+    (``csrc/dense_factor.cuh``, whose in-place steps sum every element as
+    the two-buffer ones do):
     Cholesky in panels of ``nb`` columns (the diagonal block by columns, the
     rows below it, then the trailing update), with the pivot rule of
     :func:`_cholesky_clamped`; L^-1 by blocks, the diagonal ones by forward
@@ -953,8 +958,10 @@ def spd_inverse_reference(M):
 
 
 def spd_inverse_kernel(M):
-    """Batched SPD inverse with a fail flag, one CUDA thread block per
-    problem (replaces the TPU's ``ops/qp_kernel.py:spd_inverse_kernel``).
+    """Batched SPD inverse with a fail flag (replaces the TPU's
+    ``ops/qp_kernel.py:spd_inverse_kernel``): one CUDA warp a problem, eight
+    a block, at n <= 32, else one thread block a problem over the blocked
+    factor in place (``csrc/qp_kernel.cu``).
 
     ``M`` is (B, n, n), symmetric (only its lower triangle is read).  CPU
     tensors run :func:`spd_inverse_reference`; CUDA tensors must be
@@ -967,22 +974,61 @@ def spd_inverse_kernel(M):
     return _spd_inverse_launch(M)
 
 
-def _spd_inverse_launch(M, lib=None):
+# K4's arms (csrc/qp_kernel.cu:SpdArm): the two that the raw launcher can
+# force in place of the rule's, the column kernel (the earlier design,
+# which the warp layout equals bit for bit) and the two-buffer blocked
+# factor (K1's calls, which the blocked layout in place equals bit for
+# bit), and the two that the rule (spd_rule_arm) picks, the warp layout at
+# n <= 32 and the blocked layout in place above
+SPD_ARMS = {"column": 1, "two-buffer": 2}
+_SPD_ARM_NAMES = {1: "column", 2: "two-buffer", 3: "warp", 4: "blocked"}
+
+
+def spd_inverse_problems_per_block(n: int, lib=None) -> int:
+    """Problems in one thread block of K4 at n under its rule: several in
+    the warp layout (one warp a problem), else 1."""
+    return int((lib or _library()).spd_inverse_problems_per_block(n))
+
+
+def spd_inverse_arm_info(n: int, device: int = 0, lib=None) -> dict:
+    """What K4's launch at n takes under its rule, as the CUDA runtime
+    reports it: the arm ("warp" or "blocked"), problems and threads a
+    block, dynamic shared memory, registers and local (spill) bytes a
+    thread, and blocks an SM by the occupancy calculator."""
+    lib = lib or _library()
+    out = (ctypes.c_int * 7)()
+    rc = lib.spd_inverse_arm_info(n, device, out)
+    _raise_on(lib, rc, "spd_inverse_arm_info")
+    keys = ("arm", "problems_per_block", "threads", "smem_bytes", "registers",
+            "local_bytes", "blocks_per_sm")
+    info = dict(zip(keys, list(out)))
+    info["arm"] = _SPD_ARM_NAMES[info["arm"]]
+    return info
+
+
+def _spd_inverse_launch(M, lib=None, arm: Optional[str] = None):
     """One launch of the SPD-inverse CUDA kernel on a CUDA operand (``lib``
-    as for :func:`_sqp_step_launch`)."""
+    as for :func:`_sqp_step_launch`).  ``arm`` (a key of ``SPD_ARMS``)
+    overrides the kernel's own rule, for the A/B tool and the card's
+    tests."""
     global spd_inverse_launches
     name = "spd_inverse_kernel"
     dev = _check_cuda_operands(name, dict(M=M), {})
     batch, n, _ = M.shape
     lib = lib or _library()
+    if arm is not None and arm not in SPD_ARMS:
+        raise ValueError(f"{name}: arm {arm!r} is not one of {sorted(SPD_ARMS)}")
     minv = torch.empty((batch, n, n), dtype=torch.float32, device=dev)
     fail = torch.empty((batch,), dtype=torch.bool, device=dev)
-    ws_floats = int(lib.spd_inverse_workspace_floats(n))
+    ws_floats = int(lib.spd_inverse_workspace_floats(n) if arm is None
+                    else lib.spd_inverse_workspace_floats_as(SPD_ARMS[arm], n))
     ws = (torch.empty((batch * ws_floats,), dtype=torch.float32, device=dev)
           if ws_floats > 0 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.spd_inverse_launch(_ptr(M), _ptr(minv), _ptr(fail), _ptr(ws), batch, n,
-                                dev.index, ctypes.c_void_p(stream))
+    args = (_ptr(M), _ptr(minv), _ptr(fail), _ptr(ws), batch, n, dev.index,
+            ctypes.c_void_p(stream))
+    rc = (lib.spd_inverse_launch(*args) if arm is None
+          else lib.spd_inverse_launch_as(SPD_ARMS[arm], *args))
     _raise_on(lib, rc, name)
     spd_inverse_launches += 1
     return minv, fail

@@ -12,16 +12,23 @@ checkout's, which passes each library to the launchers explicitly and is
 valid as long as the C interface of the kernels compared is the same in
 both trees.  Three parts, in order (``--parts`` picks some):
 
-``bits``    K1, K2, K4, K6 and K7 of both trees at their ``chip_smoke.py``
-            shapes, and K3 at shapes its warp layout does not take
-            (n > 32 or m > 64), on the same seeded inputs: every output
-            tensor must be equal bit for bit;
+``bits``    K1, K2, K6 and K7 of both trees at their ``chip_smoke.py``
+            shapes, K3 at those shapes (its warp layout) and at two that
+            its warp layout does not take (n > 32 or m > 64), and K4 at
+            n = 32 (its warp layout), on the same seeded inputs: every
+            output tensor must be equal bit for bit.  K4 at n = 128 sums
+            in the blocked order, so there the change alone must have the
+            fail flags of ``_chol_inv_blocked`` and of
+            ``spd_inverse_reference``, lie within ``chip_smoke.TOL``
+            of both, and equal its own two-buffer arm bit for bit;
 ``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
-            k3, k5, k6, k7) at every ``chip_smoke.py`` shape
+            k3, k4, k5, k6, k7) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
-            ``chunk_cases`` for K5, ``btd_cases`` for K6/K7), CUDA events,
-            in turns parent, change, change, parent (K6/K7 also the change
-            in the other block layout);
+            ``spd_cases`` for K4, ``chunk_cases`` for K5, ``btd_cases``
+            for K6/K7), CUDA events, in turns parent, change, change,
+            parent (K6/K7 also the change in the other block layout);
+            with k4, also the host wall of the K4 polish route on the
+            one-shot QP cell with each tree's K4 (:func:`polish_route`);
 ``phases``  the phase split of the same launches: each tree's kernel
             source built with ``-DADMM_PHASE_CLOCKS`` against this
             checkout's headers, whose ``ADMM_PHASE_*`` marks bound the
@@ -145,18 +152,19 @@ def same_bits(a, b) -> bool:
 
 
 def bits(libs: dict, dev) -> list:
-    """K1, K2, K4, K6 and K7 of both trees at their ``chip_smoke.py``
-    shapes, and K3 at shapes outside its warp layout (n > 32 or m > 64),
-    on the same inputs; raises unless every output is equal bit for bit."""
-    import numpy as np
+    """K1, K2, K6 and K7 of both trees at their ``chip_smoke.py`` shapes,
+    K3 at its ``chip_smoke.py`` shapes (the warp layout) and at two outside
+    its warp layout (n > 32 or m > 64), and K4 at n = 32, on the same
+    inputs; raises unless every output is equal bit for bit.  Then K4 at
+    n = 128 (:func:`blocked_k4`)."""
     import torch
 
     import chip_smoke as cs
     from sqp_solver_tpu_torch.models.mpc import random_qp_batch
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
-    from sqp_solver_tpu_torch.testing import spd_inputs
 
     cases = [(c["label"], c["launch"]) for c in cs.dense_cases(dev)]
+    cases += [(f"{c['label']} (warp layout)", c["launch"]) for c in cs.qp_cases(dev)]
     for batch, n, m in ((1024, 64, 65), (1024, 32, 80)):
         qp = random_qp_batch(batch, n, m, seed=n + m, device=dev)
         t = {k: getattr(qp, k) for k in cs.LEAVES}
@@ -167,9 +175,7 @@ def bits(libs: dict, dev) -> list:
             cases.append((f"K3 random n={n} m={m} B={batch} {label}",
                           lambda lib, t=t, qs=qs: cs.qp_raw(
                               lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
-    for batch, n in ((4096, 32), (1024, 128)):
-        M = cs.to_device(spd_inputs(batch, n, seed=n, dtype=np.float32), dev)["M"]
-        cases.append((f"K4 n={n} B={batch}", lambda lib, M=M: qk._spd_inverse_launch(M, lib=lib)))
+    cases += [(c["label"], c["launch"]) for c in cs.spd_cases(dev) if c["n"] <= 32]
     for c in cs.btd_cases(dev):
         cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
             c["t"], c["settings"], c["check_infeas"], lib=lib)))
@@ -183,7 +189,42 @@ def bits(libs: dict, dev) -> list:
         if differ:
             raise AssertionError(f"{label}: outputs differ from the parent's: {differ}")
         rows.append(dict(case=label, outputs=len(outs["parent"]), equal=True))
+    rows.append(blocked_k4(libs["change"], dev))
     return rows
+
+
+def blocked_k4(lib, dev) -> dict:
+    """K4 of ``lib`` at n = 128, which sums in the blocked order: its fail
+    flags must equal those of the plain twin of that order
+    (``_chol_inv_blocked``) and of the plain version
+    (``spd_inverse_reference``), its Minv lie within ``chip_smoke.TOL``
+    of both on the problems that do not fail, and its outputs equal bit
+    for bit those of ``lib``'s two-buffer arm (K1's calls of the blocked
+    factor, whose order the twin follows)."""
+    import torch
+
+    import chip_smoke as cs
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    c = [c for c in cs.spd_cases(dev) if c["n"] > 32][0]
+    M = cs.spd_operands(c["batch"], c["n"], dev)
+    Minv, fail = c["launch"](lib)
+    errs = {}
+    for label, (ref, rfail) in (("_chol_inv_blocked", qk._chol_inv_blocked(M)),
+                                ("spd_inverse_reference", qk.spd_inverse_reference(M))):
+        torch.cuda.synchronize()
+        if not torch.equal(fail, rfail):
+            raise AssertionError(f"{c['label']}: fail flags differ from {label}'s")
+        good = ~rfail
+        errs[label] = cs.check_close(f"{c['label']} against {label}", Minv[good], ref[good])
+    two = qk._spd_inverse_launch(M, lib=lib, arm="two-buffer")
+    differ = [k for k, a, b in zip(("Minv", "fail"), (Minv, fail), two) if not same_bits(a, b)]
+    if differ:
+        raise AssertionError(f"{c['label']}: {differ} differ from the two-buffer arm's")
+    cs.log(f"  {c['label']} (blocked order): fail flags equal, max |change - "
+           + ", ".join(f"{k}| {v:.3e}" for k, v in errs.items())
+           + "; bit for bit the two-buffer arm")
+    return dict(case=c["label"], fail_equal=True, max_abs_err=errs, two_buffer_equal=True)
 
 
 def _turns(libs: dict, launch, reps: int, other=None) -> dict:
@@ -200,7 +241,7 @@ def _turns(libs: dict, launch, reps: int, other=None) -> dict:
 
 
 def timing(libs: dict, dense: list, btd: list) -> list:
-    """K1/K2/K3/K5 and K6/K7 ms of both trees at each shape, in turns parent,
+    """K1-K5 and K6/K7 ms of both trees at each shape, in turns parent,
     change, change, parent; for K6/K7, between the change's turns, two
     turns of the change with the other number of blocks per problem, where
     it has one."""
@@ -235,6 +276,51 @@ def timing(libs: dict, dense: list, btd: list) -> list:
                          speedup=mean["parent"] / mean["change"],
                          other_cluster=other, other_ms=mean.get("other"), turns=ms))
     return rows
+
+
+def polish_route(libs: dict, dev, runs: int = 5) -> dict:
+    """The K4 polish route on ``chip_smoke.py``'s one-shot QP cell (random
+    QPs n = 32, m = 33, B = 4096, solved once by K3; then
+    ``polish_qp(use_kernel=False)``, two passes, each one K4 launch and
+    plain PyTorch ops) with each tree's K4, in turns parent, change, change,
+    parent: the host wall closed by a synchronize, the median of ``runs``
+    runs a turn."""
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp.polish import polish_qp
+
+    s = cs.qp_bench_settings()
+    qp = random_qp_batch(4096, 32, 33, seed=0, device=dev)
+    res = qp_solve_batch(qp, s, impl="kernel")
+    package_library = qk._library
+    walls = {"parent": [], "change": []}
+    try:
+        for who in ("parent", "change", "change", "parent"):
+            qk._library = lambda lib=libs[who]: lib  # the route's K4 launch takes this tree's
+            polish_qp(qp, res, s, use_kernel=False)  # warm-up
+            runs_ms = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                polish_qp(qp, res, s, use_kernel=False)
+                torch.cuda.synchronize()
+                runs_ms.append((time.perf_counter() - t0) * 1e3)
+            walls[who].append(float(np.median(runs_ms)))
+    finally:
+        qk._library = package_library
+    mean = {who: sum(v) / len(v) for who, v in walls.items()}
+    cs.log(f"  K4 polish route, one-shot QP n=32 m=33 B=4096, {s.polish_passes} passes: parent "
+           f"{mean['parent']:.3f} ms, change {mean['change']:.3f} ms (host wall, medians of "
+           f"{runs} runs a turn: {walls})")
+    return dict(case="K4 polish route n=32 m=33 B=4096", parent_ms=mean["parent"],
+                change_ms=mean["change"], turns=walls)
 
 
 def phases(phase_libs: dict, dense: list, btd: list) -> list:
@@ -310,17 +396,21 @@ def main(argv=None) -> int:
         dense += [c for c in cs.dense_cases(dev) if c["kernel"].lower() in kernels]
     if "k3" in kernels:
         dense += cs.qp_cases(dev)
+    if "k4" in kernels:
+        dense += cs.spd_cases(dev)
     if "k5" in kernels:
         dense += cs.chunk_cases(dev)
     btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     result = dict(card=card)
     if "bits" in parts:
-        cs.log("K1, K2, K4, K6, K7 and K3 outside its warp layout, parent against change:")
+        cs.log("K1, K2, K3 in both layouts, K4 at n = 32, K6 and K7, parent against change:")
         result["bits"] = bits(libs, dev)
     if "time" in parts:
         cs.log(f"{', '.join(k.upper() for k in kernels)} ms at the chip_smoke.py shapes:")
         result["time"] = timing(libs, dense, btd)
+        if "k4" in kernels:
+            result["polish_route"] = polish_route(libs, dev)
     if "phases" in parts:
         cs.log("phase split (clock64, thread 0 of each block):")
         phase_libs = {src: {who: built[(src, who)] for who in split_trees} for src in timed}

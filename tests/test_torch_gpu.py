@@ -392,15 +392,86 @@ def test_qp_certificates_and_nan_in_both_layouts(cuda, layout):
                   QPStatus.SOLVED]
 
 
-@pytest.mark.parametrize("batch,n", [(64, 32), (8, 128), (3, 200)],
-                         ids=["n32", "n128", "workspace-spill"])
+@pytest.mark.parametrize(
+    "batch,n",
+    [(64, 5), (64, 16), (63, 31), (64, 32), (16, 33), (16, 50), (8, 100), (8, 128), (3, 256)],
+    ids=["n5", "n16", "n31", "n32", "n33-partial-panel", "n50-partial-panel",
+         "n100-partial-panel", "n128", "workspace-spill"],
+)
 def test_spd_inverse_kernel_matches_plain(cuda, batch, n):
+    """K4 under its rule (the warp layout at n <= 32, the blocked layout in
+    place above; at n = 256 its one matrix lives in the workspace) against
+    the plain version, with a non-SPD problem 0."""
     M = _to(spd_inputs(batch, n, seed=n), cuda)["M"]
     Minv, fail = qk.spd_inverse_kernel(M)
     ref, rfail = qk.spd_inverse_reference(M)
     torch.cuda.synchronize()
     assert torch.equal(fail, rfail) and bool(fail[0]) and not fail[1:].any()
     torch.testing.assert_close(Minv[1:], ref[1:], **TOL)
+    assert (qk._library().spd_inverse_workspace_floats(n) > 0) == (n > 240)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_spd_inverse_kernel_matches_blocked_twin(cuda, n):
+    """K4's blocked layout sums in the blocked order: fail flags equal to
+    the plain twin of that order (``_chol_inv_blocked``), Minv within 1e-4."""
+    M = _to(spd_inputs(16, n, seed=n + 3), cuda)["M"]
+    Minv, fail = qk.spd_inverse_kernel(M)
+    ref, rfail = qk._chol_inv_blocked(M)
+    torch.cuda.synchronize()
+    assert torch.equal(fail, rfail) and bool(fail[0]) and not fail[1:].any()
+    torch.testing.assert_close(Minv[1:], ref[1:], **TOL)
+
+
+@pytest.mark.parametrize("n", [8, 17, 32])
+def test_spd_inverse_warp_layout_equals_column_bit_for_bit(cuda, n):
+    """The warp layout runs the column factor's per-element operations
+    (K3's warp factor), so its Minv and fail flags are the column kernel's
+    bit for bit (the NaN-free clamped values of the non-SPD problem 0
+    included)."""
+    M = _to(spd_inputs(37, n, seed=2 * n), cuda)["M"]
+    assert qk.spd_inverse_arm_info(n)["arm"] == "warp"
+    col = qk._spd_inverse_launch(M, arm="column")
+    out = qk.spd_inverse_kernel(M)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], col[1]) and bool(out[1][0])
+    assert torch.equal(out[0].view(torch.int32), col[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [32, 50, 100, 128])
+def test_spd_inverse_arms_match_plain(cuda, n):
+    """Both A/B arms of the raw launcher agree with the plain version; past
+    n = 32 the rule's blocked layout in place equals the two-buffer arm bit
+    for bit (the same fmaf chain for every element), also at n = 100 and
+    128, where a block row has several sum and scale tasks, a warp several
+    L^T L tasks, and (n = 100) the last panel is partial."""
+    M = _to(spd_inputs(16, n, seed=n + 5), cuda)["M"]
+    ref, rfail = qk.spd_inverse_reference(M)
+    outs = {}
+    for arm in qk.SPD_ARMS:
+        outs[arm] = qk._spd_inverse_launch(M, arm=arm)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[arm][1], rfail) and bool(rfail[0]), arm
+        torch.testing.assert_close(outs[arm][0][1:], ref[1:], **TOL)
+    if n > 32:
+        Minv, fail = qk.spd_inverse_kernel(M)
+        torch.cuda.synchronize()
+        assert qk.spd_inverse_arm_info(n)["arm"] == "blocked"
+        assert torch.equal(fail, outs["two-buffer"][1])
+        assert torch.equal(Minv.view(torch.int32), outs["two-buffer"][0].view(torch.int32))
+    with pytest.raises(ValueError):
+        qk._spd_inverse_launch(M, arm="blocked")
+
+
+def test_spd_inverse_layout_rule(cuda):
+    """One warp a problem, eight a block, at n <= 32; one block a problem
+    above, with three blocks an SM at n = 128 (66 KB of shared memory)."""
+    assert qk.spd_inverse_problems_per_block(32) == 8
+    assert qk.spd_inverse_problems_per_block(33) == 1
+    warp, blocked = qk.spd_inverse_arm_info(32), qk.spd_inverse_arm_info(128)
+    assert (warp["arm"], warp["threads"], warp["local_bytes"]) == ("warp", 256, 0)
+    assert (blocked["arm"], blocked["threads"]) == ("blocked", 128)
+    assert blocked["smem_bytes"] == 128 * 129 * 4 + 1024 and blocked["blocks_per_sm"] == 3
 
 
 def _kkt_err64(qp, res):
