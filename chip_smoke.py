@@ -65,7 +65,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. the structured NLP, ``sqp_solve_batch(qp_impl="kernel_btd")`` on the
    unicycle family at horizon 32, B = 64 (120 K7 and 3 K2 launches; 240 K7
    with the second-order correction), against the dense kernel tier (K1),
-   every SOLVED problem certified in float64.
+   every SOLVED problem certified in float64;
+10. the reference-semantics tier, ``impl="vmap"`` (legs A-D), whose ADMM
+   chunks are plain tensor code and whose masked loops cost one host check
+   a trip (each leg prints its count): A. one-shot QP serving on the same
+   random QPs as phase 5, unpolished (no launch) and polished (K2 per
+   pass), with phase 5's bars; B. the SQP main path's two configurations
+   with phase 4's bars (K2 per polish pass only); C. in phase 8, the dense
+   vmap row of bench.py:512 at B = 256 beside K6 and K3, every SOLVED
+   problem passing the float64 OSQP test; D. phase 6's sustained MPC;
+11. E. the five OSQP families (bench.py:1040-1072) at B = 1024, drawn on
+   the card, under Ruiz scaling 10 through K3 (the random class also
+   through the vmap and fused tiers), each class's float64 OSQP test
+   against the unscaled problem >= 0.99;
+12. F. the K1 SQP tier under inner-QP scaling (n = 32, B = 4096,
+   ``qp.scaling=10``): BFGS outside the kernel, K1 with ``do_bfgs=False``,
+   phase 4's bars; then every leg's seconds.
 
 Each path run starts with every launch counter at 0 and asserts the
 counts it reads right after.  The line before the last two is
@@ -717,11 +732,20 @@ def qp_osqp64(qp, res, eps_abs: float, eps_rel: float, slack: float = 10.0):
     return ok, np.maximum(rd, viol)
 
 
+def host_checks() -> int:
+    """The masked loops' host checks so far (``utils/host.py``)."""
+    from sqp_solver_tpu_torch.utils import host
+
+    return host.host_checks
+
+
 def run_qp_one_shot(dev, card: str, impl: str = "kernel") -> dict:
     """qp_solve_batch(impl=...) on random QPs n = 32, m = 33, B = 4096:
     unpolished, polished (K2 route) and, on the kernel tier, polished
     through the K4 route, each run with the counters at 0.  The fused
-    tier runs 200 iterations as 8 chunks of 25, one K5 launch each."""
+    tier runs 200 iterations as 8 chunks of 25, one K5 launch each; the
+    vmap tier's chunks are plain tensor code (no launch), its masked loops
+    one host check a trip."""
     import dataclasses
 
     import torch
@@ -745,11 +769,13 @@ def run_qp_one_shot(dev, card: str, impl: str = "kernel") -> dict:
 
     for seed in (101, 102):  # warm-up
         qp_solve_batch(random_qp_batch(batch, n, m, seed=seed, device=dev), sp, impl=impl)
-    solve = dict(qp_solve_launches=1) if impl == "kernel" else dict(
-        admm_chunk_launches=-(-s.max_iter // s.check_termination))
+    solve = {"kernel": dict(qp_solve_launches=1), "vmap": {},
+             "fused": dict(admm_chunk_launches=-(-s.max_iter // s.check_termination))}[impl]
     runs = {}
     reset_counts()
+    checks = host_checks()
     res, wall = timed(lambda: qp_solve_batch(qp, s, impl=impl))
+    checks = host_checks() - checks
     runs["unpolished"] = (res, wall, read_counts(), solve)
     reset_counts()
     pol, wall_p = timed(lambda: qp_solve_batch(qp, sp, impl=impl))
@@ -782,7 +808,8 @@ def run_qp_one_shot(dev, card: str, impl: str = "kernel") -> dict:
     t = min(times)
     log(f"  one-shot impl={impl} n={n} m={m} B={batch}: solved {solved:.4f}, f64 OSQP test "
         f"(10x) {cert:.4f}, mean iter {float(res.info.iter.float().mean()):.1f}, wall "
-        f"{t * 1e3:.3f} ms ({batch / t:.1f} solves/s, min of {len(times)}) [{card}]")
+        f"{t * 1e3:.3f} ms ({batch / t:.1f} solves/s, min of {len(times)}), host checks "
+        f"{checks} [{card}]")
     log(f"  f64 KKT error p99: unpolished {p99['unpolished']:.3e}, polished (K2) "
         f"{p99['polished_k2']:.3e} in {out['polished_k2']['wall_ms']:.3f} ms"
         + ("" if impl != "kernel" else f", K4 route {p99['polish_k4_route']:.3e} (polish "
@@ -796,7 +823,7 @@ def run_qp_one_shot(dev, card: str, impl: str = "kernel") -> dict:
             raise AssertionError(f"qp one-shot {impl}: {label} KKT p99 {p99[label]:.3e} worse than "
                                  f"unpolished {p99['unpolished']:.3e}")
     return dict(runs=out, solved=solved, cert=cert, kkt_p99=p99, ms=t * 1e3,
-                solves_per_s=batch / t)
+                solves_per_s=batch / t, host_checks=checks)
 
 
 def run_infeasible_fused(dev) -> dict:
@@ -831,8 +858,8 @@ def run_infeasible_fused(dev) -> dict:
 def run_mpc_sequence(dev, card: str, impl: str = "kernel") -> dict:
     """qp_solve_sequence as in bench.py:854-901: K = 10 steps of a
     B = 4096 double-integrator fleet, n = 16, dt = 0.1, warm-started,
-    through K3 (``impl="kernel"``, with the warm-start probe) or the fused
-    tier (8 K5 launches per step)."""
+    through K3 (``impl="kernel"``, with the warm-start probe), the fused
+    tier (8 K5 launches per step) or the vmap tier (no launch)."""
     import dataclasses
 
     import torch
@@ -864,9 +891,12 @@ def run_mpc_sequence(dev, card: str, impl: str = "kernel") -> dict:
 
     rollout(100)  # warm-up
     reset_counts()
+    checks = host_checks()
     (solved, rms, iters), wall = rollout(0)
+    checks = host_checks() - checks
     counts = read_counts()
-    want = expect(qp_solve_launches=K) if impl == "kernel" else expect(admm_chunk_launches=8 * K)
+    want = expect(**{"kernel": dict(qp_solve_launches=K), "vmap": {},
+                     "fused": dict(admm_chunk_launches=8 * K)}[impl])
     if counts != want:
         raise AssertionError(f"sustained MPC {impl}: launches {counts}, expected {want}")
     solved, rms, iters = (v.cpu().numpy() for v in (solved, rms, iters))
@@ -875,14 +905,16 @@ def run_mpc_sequence(dev, card: str, impl: str = "kernel") -> dict:
     log(f"  sustained MPC impl={impl} K={K} x B={B} n={H}: solved per step min "
         f"{solved.min():.4f}, pos RMS {rms[0]:.4f} -> {rms[-1]:.4f}, mean iter step 1 "
         f"{iters[0]:.1f}, steps 2..K {iters[1:].mean():.1f}, wall {t * 1e3:.3f} ms -> "
-        f"{K * B / t:.1f} solves/s sustained (min of {len(times)}) [{card}]")
+        f"{K * B / t:.1f} solves/s sustained (min of {len(times)}), host checks {checks} "
+        f"[{card}]")
     if solved.min() < 0.99:
         raise AssertionError(f"sustained MPC {impl}: a step solved {solved.min():.4f} < 0.99")
     if not rms[-1] < rms[0]:
         raise AssertionError(f"sustained MPC {impl}: the fleet's position RMS did not fall")
     out = dict(counts=counts, solved_min=float(solved.min()), rms_first=float(rms[0]),
                rms_last=float(rms[-1]), iter_first=float(iters[0]),
-               iter_warm=float(iters[1:].mean()), ms=t * 1e3, solves_per_s=K * B / t)
+               iter_warm=float(iters[1:].mean()), ms=t * 1e3, solves_per_s=K * B / t,
+               host_checks=checks)
     if impl != "kernel":
         return out
     # the sequence threads its warm starts: check_termination = 25 floors
@@ -1273,13 +1305,16 @@ def compare_btd_f64(c: dict, reps: int) -> dict:
                    agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"], **extra)
 
 
-def run_btd_mpc(dev, card: str, batches=(256, 4096), horizon: int = 64) -> dict:
+def run_btd_mpc(dev, card: str, batches=(256, 4096), horizon: int = 64,
+                vmap_batch: int = 256) -> dict:
     """qp_solve_batch(impl="kernel") with linear_solver="schur_block_tridiag"
     (bench.py:500-557) on the stage-wise MPC family at horizon 64, B = 256
     and B = 4096, counters from 0 (one K6 launch per call), then the same
     problems through the dense K3 (one launch): statuses equal on >= 0.99,
     x within 2e-4 where both solved, every SOLVED problem passing the
-    float64 OSQP test at 10x the bars."""
+    float64 OSQP test at 10x the bars.  At B = ``vmap_batch`` also the
+    dense vmap tier (bench.py:512, no launch), whose SOLVED problems must
+    pass the same test; no solved floor, as for the other tiers."""
     import dataclasses
 
     import torch
@@ -1287,33 +1322,43 @@ def run_btd_mpc(dev, card: str, batches=(256, 4096), horizon: int = 64) -> dict:
     from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch
     from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
 
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
     s = btd_qp_settings()
     dense = dataclasses.replace(s, linear_solver="schur_cholesky", block_size=0)
+    # bench.py:512's "dense, vmap" row: the per-problem tier, early exit
+    vmap = QPSettings(adaptive_rho=True, max_iter=100)
 
-    def timed(batch, settings, seed):
+    def timed(batch, settings, seed, impl="kernel"):
         qp, _ = mpc_qp_stagewise_batch(batch, horizon=horizon, seed=seed, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = qp_solve_batch(qp, settings, impl="kernel")
+        res = qp_solve_batch(qp, settings, impl=impl)
         torch.cuda.synchronize()
         return qp, res, time.perf_counter() - t0
 
     out, counts = {}, {}
     for batch in batches:
         runs = {}
-        for label, settings, want in (("btd", s, expect(qp_solve_btd_launches=1)),
-                                      ("dense", dense, expect(qp_solve_launches=1))):
-            timed(batch, settings, 100)  # warm-up
+        legs = [("btd", s, "kernel", expect(qp_solve_btd_launches=1)),
+                ("dense", dense, "kernel", expect(qp_solve_launches=1))]
+        if batch == vmap_batch:
+            legs.append(("dense_vmap", vmap, "vmap", expect()))
+        for label, settings, impl, want in legs:
+            t_leg = time.perf_counter()
+            timed(batch, settings, 100, impl)  # warm-up
             reset_counts()
-            qp, res, wall = timed(batch, settings, 0)
+            checks = host_checks()
+            qp, res, wall = timed(batch, settings, 0, impl)
+            checks = host_checks() - checks
             c = read_counts()
             if c != want:
                 raise AssertionError(f"structured MPC B={batch} {label}: launches {c}, "
                                      f"expected {want}")
-            times = [wall] + [timed(batch, settings, 10 + r)[2] for r in range(2)]
-            runs[label] = (qp, res, min(times), c)
-        qp, rb, tb, cb = runs["btd"]
-        _, rd, td, cd = runs["dense"]
+            times = [wall] + [timed(batch, settings, 10 + r, impl)[2] for r in range(2)]
+            runs[label] = (qp, res, min(times), c, checks, time.perf_counter() - t_leg)
+        qp, rb, tb, cb, _, _ = runs["btd"]
+        _, rd, td, cd, _, _ = runs["dense"]
         sb, sd = rb.info.status, rd.info.status
         if rb.x.shape != (batch, 3 * horizon) or not torch.isfinite(rb.x).all():
             raise AssertionError("structured MPC: x has the wrong shape or is not finite")
@@ -1339,6 +1384,21 @@ def run_btd_mpc(dev, card: str, batches=(256, 4096), horizon: int = 64) -> dict:
         out[batch] = dict(ms=tb * 1e3, dense_ms=td * 1e3, ratio=td / tb, solved=frac_b,
                           dense_solved=frac_d, status_equal=same, x_err=xerr,
                           solves_per_s=batch / tb, dense_counts=cd)
+        if "dense_vmap" in runs:
+            _, rv, tv, cv, checks, seconds = runs["dense_vmap"]
+            ok, _ = qp_osqp64(qp, rv, vmap.eps_abs, vmap.eps_rel)
+            solved_v = (rv.info.status == 0).cpu().numpy()
+            if not ok[solved_v].all():
+                raise AssertionError(f"structured MPC B={batch} vmap: "
+                                     f"{int((~ok[solved_v]).sum())} SOLVED problems fail the "
+                                     "f64 OSQP test")
+            log(f"  structured MPC B={batch}, walls side by side: K6 {tb * 1e3:.3f} ms, dense "
+                f"K3 {td * 1e3:.3f} ms, dense vmap tier {tv * 1e3:.3f} ms ({batch / tv:.1f} "
+                f"solves/s, solved {float(np.mean(solved_v)):.4f}, host checks {checks}, SOLVED "
+                f"pass the f64 OSQP test) [min of 3; {card}]")
+            out[batch].update(vmap_ms=tv * 1e3, vmap_solved=float(np.mean(solved_v)),
+                              vmap_solves_per_s=batch / tv, vmap_host_checks=checks,
+                              vmap_counts=cv, vmap_seconds=seconds)
     return dict(runs=out, counts=counts)
 
 
@@ -1401,42 +1461,139 @@ def run_btd_nlp(dev, card: str, B: int = 64, H: int = 32) -> dict:
     return dict(runs=out, counts=counts, ratio=ratio)
 
 
-def run_main_path(configs, dev, card: str, qp_impl: str = "kernel") -> dict:
+# the families leg (bench.py:1066-1072): each OSQP class's device twin and
+# its published sizes
+FAMILY_ROWS = (("random", "random_qp_batch_device", dict(n=32, m=48)),
+               ("lasso", "lasso_qp_batch_device", dict(n_features=8, n_samples=16)),
+               ("huber", "huber_qp_batch_device", dict(n_features=8, n_samples=16)),
+               ("svm", "svm_qp_batch_device", dict(n_features=8, n_samples=16)),
+               ("portfolio", "portfolio_qp_batch_device", dict(n_assets=16, n_factors=4)))
+
+
+def family_settings():
+    """The families leg's one untuned configuration (bench.py:1061-1065):
+    Ruiz scaling 10, 300 ADMM iterations checked every 25, adaptive rho
+    every 50, fixed schedule, polish."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    return QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=300,
+                      check_termination=25, adaptive_rho=True, adaptive_rho_interval=50,
+                      polish=True, scaling=10, schedule="fixed")
+
+
+def run_families(dev, card: str, batch: int = 1024) -> dict:
+    """The five OSQP classes at B = 1024, drawn on the card, through
+    qp_solve_batch(impl="kernel") under scaling (one K3 launch, K2 per
+    polish pass), the random class also through impl="vmap" (K2 only) and
+    "fused" (12 K5 launches): per class the solved share and the float64
+    OSQP test at 10x the bars against the unscaled problem, >= 0.99."""
+    import torch
+
+    from sqp_solver_tpu_torch.models import families
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+
+    s = family_settings()
+    wants = {"kernel": expect(qp_solve_launches=1, polish_kkt_launches=s.polish_passes),
+             "vmap": expect(polish_kkt_launches=s.polish_passes),
+             "fused": expect(admm_chunk_launches=-(-s.max_iter // s.check_termination),
+                             polish_kkt_launches=s.polish_passes)}
+    out, counts = {}, {}
+    for cls, fn_name, kw in FAMILY_ROWS:
+        make = getattr(families, fn_name)
+        for impl in (("kernel", "vmap", "fused") if cls == "random" else ("kernel",)):
+            def solve(seed):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+                qp = make(gen, batch, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = qp_solve_batch(qp, s, impl=impl)
+                torch.cuda.synchronize()
+                return qp, res, time.perf_counter() - t0
+
+            solve(100)  # warm-up
+            reset_counts()
+            checks = host_checks()
+            qp, res, wall = solve(0)
+            checks = host_checks() - checks
+            c = read_counts()
+            if c != wants[impl]:
+                raise AssertionError(f"family {cls} {impl}: launches {c}, expected "
+                                     f"{wants[impl]}")
+            if not torch.isfinite(res.x).all():
+                raise AssertionError(f"family {cls} {impl}: x is not finite")
+            times = [wall] + [solve(10 + r)[2] for r in range(2)]
+            t = min(times)
+            solved = float((res.info.status == 0).float().mean())
+            ok, _ = qp_osqp64(qp, res, s.eps_abs, s.eps_rel)
+            cert = float(np.mean(ok))
+            key = f"{cls}_{impl}"
+            log(f"  family {cls} {tuple(kw.values())} impl={impl} B={batch}: solved "
+                f"{solved:.4f}, f64 OSQP test (10x, unscaled problem) {cert:.4f}, wall "
+                f"{t * 1e3:.3f} ms ({batch / t:.1f} solves/s, min of 3), host checks {checks} "
+                f"[{card}]")
+            if cert < 0.99:
+                raise AssertionError(f"family {cls} {impl}: f64 OSQP test passes on "
+                                     f"{cert:.4f} < 0.99")
+            counts[f"family_{key}"] = c
+            out[key] = dict(solved=solved, cert=cert, ms=t * 1e3, solves_per_s=batch / t,
+                            host_checks=checks)
+    return dict(runs=out, counts=counts)
+
+
+def run_main_path(configs, dev, card: str, qp_impl: str = "kernel", impl: str = "fused",
+                  scaling: int = 0) -> dict:
     """Both configurations end to end on the kernel (K1) or the fused (K5)
-    QP tier, each run with the counters from 0 and its launches asserted:
-    K1 once per outer iteration, or K5 once per chunk of each outer
-    iteration's QP; K2 once per polish pass."""
+    QP tier, or with ``impl="vmap"`` on the per-problem tier, each run
+    with the counters from 0 and its launches asserted: K1 once per outer
+    iteration, or K5 once per chunk of each outer iteration's QP, or none
+    (the vmap tier's chunks are plain tensor code); K2 once per polish
+    pass.  ``scaling`` sets the inner QP's Ruiz sweeps (on the kernel tier
+    K1 then runs with ``do_bfgs=False``)."""
+    import dataclasses
+
     import torch
 
     from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch, sphere_cap_solution
     from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
     from sqp_solver_tpu_torch.sqp.types import SQPStatus
 
+    label = f"impl={impl}" if impl == "vmap" else f"qp_impl={qp_impl}"
+    label += f", qp.scaling={scaling}" if scaling else ""
+
+    def settings_of(n):
+        s = bench_settings(n, qp_impl)
+        return dataclasses.replace(s, qp=dataclasses.replace(s.qp, scaling=scaling))
+
     def solve(n, batch, seed):
         problem, x0 = sphere_cap_nlp_batch(batch, n, seed=seed, dtype=torch.float32,
                                            device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = sqp_solve_batch(problem, x0, None, bench_settings(n, qp_impl), impl="fused")
+        res = sqp_solve_batch(problem, x0, None, settings_of(n), impl=impl)
         torch.cuda.synchronize()
         return problem, res, time.perf_counter() - t0
 
     for n, batch in configs:  # warm-up: torch.func tracing, allocator
         solve(n, batch, seed=100)
-    results, launches = {}, {}
+    results, launches, checks = {}, {}, {}
     for n, batch in configs:
-        s = bench_settings(n, qp_impl)
-        if qp_impl == "kernel":
+        s = settings_of(n)
+        if impl == "vmap":
+            want = expect(polish_kkt_launches=s.polish_passes)
+        elif qp_impl == "kernel":
             want = expect(sqp_step_launches=s.max_iter, polish_kkt_launches=s.polish_passes)
         else:
             chunks = -(-s.qp.max_iter // s.qp.check_termination)
             want = expect(admm_chunk_launches=s.max_iter * chunks,
                           polish_kkt_launches=s.polish_passes)
         reset_counts()
+        checks[n] = host_checks()
         problem, res, wall = solve(n, batch, seed=3)
+        checks[n] = host_checks() - checks[n]
         launches[n] = read_counts()
         if launches[n] != want:
-            raise AssertionError(f"{qp_impl} n={n}: launches {launches[n]}, expected {want}")
+            raise AssertionError(f"{label} n={n}: launches {launches[n]}, expected {want}")
         results[(n, batch)] = (problem, res, wall)
 
     summary = {}
@@ -1445,25 +1602,25 @@ def run_main_path(configs, dev, card: str, qp_impl: str = "kernel") -> dict:
         x = res.x.cpu().numpy()
         lam = res.lam.cpu().numpy()
         if x.shape != (batch, n) or not np.isfinite(x).all() or not np.isfinite(lam).all():
-            raise AssertionError(f"{qp_impl} n={n}: solution has the wrong shape or is not "
+            raise AssertionError(f"{label} n={n}: solution has the wrong shape or is not "
                                  "finite")
         solved = float(np.mean(status == SQPStatus.SOLVED))
         err_p99 = float(np.percentile(np.abs(x.astype(np.float64) - sphere_cap_solution(problem)), 99))
         cert = sphere_cert_1e4(problem.u[:, 0].double().cpu().numpy(), x, lam)
         times = [wall] + [solve(n, batch, seed=10 + r)[2] for r in range(3)]
         t = min(times)
-        log(f"  qp_impl={qp_impl} n={n} B={batch}: solved {solved:.4f}, err_p99 {err_p99:.3e}, "
+        log(f"  {label} n={n} B={batch}: solved {solved:.4f}, err_p99 {err_p99:.3e}, "
             f"f64 cert(1e-4) {cert:.4f}, wall {t * 1e3:.3f} ms per batch "
-            f"({t / batch * 1e6:.3f} us per solve, {batch / t:.1f} solves/s) "
-            f"[min of {len(times)}; {card}]")
+            f"({t / batch * 1e6:.3f} us per solve, {batch / t:.1f} solves/s), host checks "
+            f"{checks[n]} [min of {len(times)}; {card}]")
         if solved < 0.99:
-            raise AssertionError(f"{qp_impl} n={n}: solved fraction {solved:.4f} < 0.99")
+            raise AssertionError(f"{label} n={n}: solved fraction {solved:.4f} < 0.99")
         if err_p99 > 1e-6:
-            raise AssertionError(f"{qp_impl} n={n}: err_p99 {err_p99:.3e} > 1e-6")
+            raise AssertionError(f"{label} n={n}: err_p99 {err_p99:.3e} > 1e-6")
         if cert < 0.99:
-            raise AssertionError(f"{qp_impl} n={n}: f64 certificate {cert:.4f} < 0.99")
+            raise AssertionError(f"{label} n={n}: f64 certificate {cert:.4f} < 0.99")
         summary[n] = dict(batch=batch, solved=solved, err_p99=err_p99, cert=cert,
-                          ms=t * 1e3, solves_per_s=batch / t)
+                          ms=t * 1e3, solves_per_s=batch / t, host_checks=checks[n])
     return dict(launches=launches, configs=summary)
 
 
@@ -1559,6 +1716,33 @@ def main() -> int:
     btd_mpc_run = run_btd_mpc(dev, card)
     log("structured NLP: sqp_solve_batch(qp_impl='kernel_btd') against the dense kernel tier:")
     btd_nlp_run = run_btd_nlp(dev, card)
+
+    # 10.-14. the reference-semantics tier (impl="vmap") and scaling
+    leg_s = {}
+    t_leg = time.perf_counter()
+    log("A. one-shot QP serving on the vmap tier: qp_solve_batch(impl='vmap'):")
+    qp_vmap_run = run_qp_one_shot(dev, card, impl="vmap")
+    leg_s["A"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("B. SQP on the vmap tier: sqp_solve_batch(impl='vmap') on the sphere-cap family:")
+    vmap_run = run_main_path(configs, dev, card, impl="vmap")
+    leg_s["B"] = time.perf_counter() - t_leg
+    # C ran inside the structured MPC leg (run_btd_mpc's dense vmap row)
+    leg_s["C"] = btd_mpc_run["runs"][256]["vmap_seconds"]
+    t_leg = time.perf_counter()
+    log("D. sustained MPC serving on the vmap tier: qp_solve_sequence(impl='vmap'):")
+    mpc_vmap_run = run_mpc_sequence(dev, card, impl="vmap")
+    leg_s["D"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("E. the OSQP families under Ruiz scaling: qp_solve_batch(scaling=10):")
+    families_run = run_families(dev, card)
+    leg_s["E"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("F. the K1 SQP tier under inner-QP scaling (qp.scaling=10, K1 with do_bfgs=False):")
+    scaled_run = run_main_path([(32, 4096)], dev, card, qp_impl="kernel", scaling=10)
+    leg_s["F"] = time.perf_counter() - t_leg
+    log("legs' seconds: " + ", ".join(f"{k} {v:.1f} s" for k, v in leg_s.items())
+        + f", {sum(leg_s.values()):.1f} s in all (C ran inside the structured MPC leg)")
     paths = dict(
         **{f"sqp_main_n{n}": c for n, c in main_run["launches"].items()},
         **{f"sqp_fused_n{n}": c for n, c in fused_run["launches"].items()},
@@ -1566,7 +1750,11 @@ def main() -> int:
         mpc_sustained_fused=mpc_fused_run["counts"], qp_fused_certificates=infeas_run["counts"],
         **{f"qp_one_shot_{k}": v["counts"] for k, v in qp_run["runs"].items()},
         **{f"qp_fused_one_shot_{k}": v["counts"] for k, v in qp_fused_run["runs"].items()},
-        **btd_mpc_run["counts"], **btd_nlp_run["counts"])
+        **btd_mpc_run["counts"], **btd_nlp_run["counts"],
+        **{f"qp_vmap_one_shot_{k}": v["counts"] for k, v in qp_vmap_run["runs"].items()},
+        **{f"sqp_vmap_n{n}": c for n, c in vmap_run["launches"].items()},
+        mpc_sustained_vmap=mpc_vmap_run["counts"], **families_run["counts"],
+        **{f"sqp_scaled_n{n}": c for n, c in scaled_run["launches"].items()})
 
     def entry(name, replaces, rows, source=CU_SOURCE, **extra):
         head = rows[0]
@@ -1601,7 +1789,11 @@ def main() -> int:
                         qp_one_shot=qp_run, qp_fused_one_shot=qp_fused_run,
                         qp_fused_certificates=infeas_run, mpc_sustained=mpc_run,
                         mpc_sustained_fused=mpc_fused_run, nlp_sustained=nlp_run,
-                        btd_mpc=btd_mpc_run, btd_nlp=btd_nlp_run, card=card)))
+                        btd_mpc=btd_mpc_run, btd_nlp=btd_nlp_run,
+                        qp_vmap_one_shot=qp_vmap_run, vmap_main_path=vmap_run["configs"],
+                        mpc_sustained_vmap=mpc_vmap_run, families=families_run,
+                        scaled_main_path=scaled_run["configs"], legs_seconds=leg_s,
+                        card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
 """sqp_solver_tpu_torch — the PyTorch / CUDA port of ``sqp_solver_tpu``.
 
 A second package beside the JAX one, for one NVIDIA H100.  It holds the
-batched SQP solve, ``parallel.sqp_solve_batch(impl="fused")`` with
-``SQPSettings(qp_impl="kernel")`` (the main path) or ``qp_impl="fused"``
-(the default), the batched QP serving paths,
-``parallel.qp_solve_batch(impl="kernel")`` and ``(impl="fused")`` with
-their polish, the sustained ``qp_solve_sequence`` /
-``sqp_solve_sequence`` over either tier, and the structured tier for
+reference-semantics tier, the per-problem ``qp_solve`` / ``sqp_solve``
+with their class shims ``QPSolver`` / ``SQP`` and, as one batch-first
+masked loop, ``qp_solve_batch`` / ``sqp_solve_batch`` at their default
+``impl="vmap"``; the batched SQP solve, ``sqp_solve_batch(impl="fused")``
+with ``SQPSettings(qp_impl="kernel")`` (the main path) or
+``qp_impl="fused"``; the batched QP serving paths,
+``qp_solve_batch(impl="kernel")`` and ``(impl="fused")`` with their
+polish; Ruiz scaling (``scaling > 0``) on every QP tier and on the kernel
+and fused SQP tiers; the sustained ``qp_solve_sequence`` /
+``sqp_solve_sequence`` over any tier; and the structured tier for
 stage-wise problems: ``qp_solve_batch(impl="kernel")`` with
 ``linear_solver="schur_block_tridiag"`` and ``sqp_solve_batch`` with
 ``qp_impl="kernel_btd"``.  Their kernels (SQP step, polish KKT, whole QP
@@ -26,9 +30,11 @@ from sqp_solver_tpu_torch.qp import (
     QPInfo,
     QPResult,
     QPSettings,
+    QPSolver,
     QPState,
     QPStatus,
     QuadraticProblem,
+    qp_solve,
     qp_solve_sequence,
 )
 from sqp_solver_tpu_torch.sqp import (
@@ -36,13 +42,19 @@ from sqp_solver_tpu_torch.sqp import (
     SQPInfo,
     SQPResult,
     SQPSettings,
+    SQP,
     SQPStatus,
+    sqp_solve,
     sqp_solve_sequence,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "qp_solve",
+    "sqp_solve",
+    "QPSolver",
+    "SQP",
     "sqp_solve_batch",
     "qp_solve_batch",
     "qp_solve_sequence",

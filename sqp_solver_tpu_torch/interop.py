@@ -15,6 +15,7 @@ import torch
 
 from sqp_solver_tpu_torch.models.benchmark import sphere_cap_problem
 from sqp_solver_tpu_torch.models.mpc import mpc_nlp_stagewise_problem
+from sqp_solver_tpu_torch.qp.scaling import Scaling
 from sqp_solver_tpu_torch.qp.types import QPResult, QPState, QuadraticProblem
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem
 from sqp_solver_tpu_torch.utils.device import resolve_device
@@ -30,6 +31,7 @@ __all__ = [
     "band_to_kernel_layout",
     "qp_from_arrays",
     "qp_result_to_numpy",
+    "scaling_from_numpy",
 ]
 
 
@@ -104,3 +106,10 @@ def qp_result_to_numpy(result: QPResult) -> dict:
     for k in ("status", "iter", "rho_updates", "rho_estimate", "res_prim", "res_dual"):
         out[k] = getattr(result.info, k).detach().cpu().numpy()
     return out
+
+
+def scaling_from_numpy(d, e, c, dtype=None, device=None) -> Scaling:
+    """A :class:`~sqp_solver_tpu_torch.qp.scaling.Scaling` from a JAX
+    ``Scaling``'s leaves, batch-first: d (B, n), e (B, m), c (B,)."""
+    return Scaling(d=_tensor(d, dtype, device), e=_tensor(e, dtype, device),
+                   c=_tensor(c, dtype, device))

@@ -1,3 +1,4 @@
+from sqp_solver_tpu_torch.models import families, problems
 from sqp_solver_tpu_torch.models.benchmark import (
     sphere_cap_nlp_batch,
     sphere_cap_problem,
@@ -12,6 +13,8 @@ from sqp_solver_tpu_torch.models.mpc import (
 )
 
 __all__ = [
+    "families",
+    "problems",
     "sphere_cap_nlp_batch",
     "sphere_cap_problem",
     "sphere_cap_solution",

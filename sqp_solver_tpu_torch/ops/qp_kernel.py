@@ -57,6 +57,7 @@ from sqp_solver_tpu_torch.qp.types import (
     QPStatus,
     QuadraticProblem,
 )
+from sqp_solver_tpu_torch.sqp.bfgs import bfgs_update
 
 __all__ = [
     "SQPStepOut",
@@ -73,7 +74,6 @@ __all__ = [
     "spd_inverse_problems_per_block",
     "spd_inverse_arm_info",
     "SPD_ARMS",
-    "bfgs_update",
 ]
 
 # Launch counters: each wrapper adds one where it launches its CUDA kernel
@@ -260,36 +260,6 @@ def _chol_inv_blocked(M, nb: int = 32, ltl: bool = True):
 def _factor(P, A, rho_vec, sigma):
     """Minv and fail of M = P + sigma I + A' diag(rho) A."""
     return _chol_inv_ltl(_schur_matrix(P, A, rho_vec, sigma))
-
-
-def bfgs_update(Bm, s, yv, reset, upd):
-    """Damped BFGS (Procedure 18.2, reference bfgs.hpp:14-41), batch-first
-    twin of ``sqp/solver_kernel.py:_bfgs_update_t`` and of the update inside
-    the SQP-step kernel.  ``reset`` -> identity; no update where ``upd`` is
-    False or the damped curvature s'r is below machine epsilon."""
-    dtype = Bm.dtype
-    eps_m = torch.finfo(dtype).eps
-    tiny_pos = torch.finfo(dtype).tiny
-    n = Bm.shape[-1]
-    Bs = _mv(Bm, s)
-    sBs = (s * Bs).sum(-1)
-    sy = (s * yv).sum(-1)
-    damped = sy < 0.2 * sBs
-    theta = 0.8 * sBs / torch.clamp_min(sBs - sy, tiny_pos)
-    th = theta.unsqueeze(-1)
-    r = torch.where(damped.unsqueeze(-1), th * yv + (1.0 - th) * Bs, yv)
-    sr = torch.where(damped, theta * sy + (1.0 - theta) * sBs, sy)
-    Bupd = (
-        Bm
-        - (Bs.unsqueeze(-1) * Bs.unsqueeze(-2))
-        / torch.clamp_min(sBs, tiny_pos)[:, None, None]
-        + (r.unsqueeze(-1) * r.unsqueeze(-2))
-        / torch.clamp_min(sr, tiny_pos)[:, None, None]
-    )
-    keep = (sr < eps_m) | ~upd
-    Bn = torch.where(keep[:, None, None], Bm, Bupd)
-    eye = torch.eye(n, dtype=dtype, device=Bm.device)
-    return torch.where(reset[:, None, None], eye, Bn)
 
 
 def _admm_stats(ops, q, x, z, y):

@@ -1,10 +1,13 @@
 """Batched solves (twin of ``sqp_solver_tpu/parallel/batch.py``).
 
-Ported: ``qp_solve_batch(impl="fused")`` over the ADMM chunk kernel K5,
-``qp_solve_batch(impl="kernel")`` over the whole-QP kernel and
-``sqp_solve_batch(impl="fused")``.  The per-problem ``impl="vmap"`` tiers
-(the JAX default) and Ruiz scaling raise ``NotImplementedError`` naming
-their ROADMAP items.
+``impl="vmap"``, the default of both entries, is the per-problem
+reference-semantics tier (:mod:`sqp_solver_tpu_torch.qp.admm`,
+:mod:`sqp_solver_tpu_torch.sqp.solver`) run as one batch-first masked
+loop; ``qp_solve_batch(impl="fused")`` is the fused ADMM tier over the
+chunk kernel K5, ``(impl="kernel")`` the whole-QP kernel, and
+``sqp_solve_batch(impl="fused")`` the batch-explicit SQP tiers.  With
+``settings.scaling > 0`` every QP tier runs inside the Ruiz scaling
+pipeline (:func:`sqp_solver_tpu_torch.qp.scaling.solve_with_scaling`).
 """
 
 from __future__ import annotations
@@ -26,15 +29,18 @@ def qp_solve_batch(
     impl: str = "vmap",
 ) -> QPResult:
     """Solve a batch of QPs (leading batch axis on every problem field).
-    ``impl="fused"`` is the fused ADMM tier (chunks of ``check_termination``
-    iterations, one K5 launch each), ``impl="kernel"`` the whole-QP
-    kernel; the default ``"vmap"`` is the JAX package's semantics-defining
-    tier, which this package does not have yet."""
+    ``impl="vmap"`` is the semantics-defining tier, ``"fused"`` the fused
+    ADMM tier (chunks of ``check_termination`` iterations, one K5 launch
+    each), ``"kernel"`` the whole-QP kernel."""
+    if impl not in ("vmap", "fused", "kernel"):
+        raise ValueError(f"impl must be 'vmap', 'fused' or 'kernel', got {impl!r}")
     if settings.scaling > 0:
-        raise NotImplementedError(
-            "scaling > 0 (Ruiz equilibration) is not ported "
-            "(ROADMAP Queue 1, item 'scaling')"
-        )
+        # equilibrate per problem, solve scaled through whichever tier, then
+        # rescore against the original problem (qp/scaling.py)
+        from sqp_solver_tpu_torch.qp.scaling import solve_with_scaling
+
+        return solve_with_scaling(
+            lambda p, s_, st_: qp_solve_batch(p, s_, st_, impl=impl), qp, settings, state)
     if impl == "kernel":
         from sqp_solver_tpu_torch.ops.qp_kernel import qp_solve_kernel
 
@@ -43,10 +49,9 @@ def qp_solve_batch(
         from sqp_solver_tpu_torch.qp.admm_batched import qp_solve_fused
 
         return qp_solve_fused(qp, settings, state)
-    raise NotImplementedError(
-        f"qp_solve_batch(impl={impl!r}) is not ported; use impl='fused' or 'kernel' "
-        "(ROADMAP Queue 1, item 9 'qp/admm.py')"
-    )
+    from sqp_solver_tpu_torch.qp.admm import qp_solve_masked
+
+    return qp_solve_masked(qp, settings, state)
 
 
 def sqp_solve_batch(
@@ -56,15 +61,16 @@ def sqp_solve_batch(
     settings: SQPSettings = SQPSettings(),
     impl: str = "vmap",
 ) -> SQPResult:
-    """Solve a batch of NLPs; ``x0`` is (B, n), ``problem.l``/``u`` are
-    (B, m) or shared (m,).  ``impl="fused"`` is the production path; the
-    default ``"vmap"`` is the JAX package's semantics-defining tier, which
-    this package does not have yet."""
-    if impl != "fused":
-        raise NotImplementedError(
-            f"sqp_solve_batch(impl={impl!r}) is not ported; use impl='fused' "
-            "(ROADMAP Queue 1, item 'impl=\"vmap\"')"
-        )
-    from sqp_solver_tpu_torch.sqp.solver_batched import sqp_solve_fused
+    """Solve a batch of NLPs; ``x0`` is (B, n).  The problem's ``l``/``u``
+    are batched (B, m) when ``l.ndim == x0.ndim``, else shared (m,).
+    ``impl="vmap"`` is the semantics-defining tier, ``"fused"`` the
+    production path (``settings.qp_impl`` picks its QP tier)."""
+    if impl == "fused":
+        from sqp_solver_tpu_torch.sqp.solver_batched import sqp_solve_fused
 
-    return sqp_solve_fused(problem, x0, lam0, settings)
+        return sqp_solve_fused(problem, x0, lam0, settings)
+    if impl != "vmap":
+        raise ValueError(f"impl must be 'vmap' or 'fused', got {impl!r}")
+    from sqp_solver_tpu_torch.sqp.solver import sqp_solve
+
+    return sqp_solve(problem, x0, lam0, settings)

@@ -1,8 +1,11 @@
+from sqp_solver_tpu_torch.qp.admm import qp_solve
+from sqp_solver_tpu_torch.qp.api import QPSolver
 from sqp_solver_tpu_torch.qp.classify import (
     EQUALITY_CONSTRAINT,
     INEQUALITY_CONSTRAINT,
     LOOSE_BOUNDS,
     constr_type_init,
+    rho_vec_from_type,
 )
 from sqp_solver_tpu_torch.qp.polish import (
     active_masks,
@@ -11,6 +14,7 @@ from sqp_solver_tpu_torch.qp.polish import (
     polish_qp,
     reclassify_active_set,
 )
+from sqp_solver_tpu_torch.qp.scaling import Scaling, ruiz_equilibrate
 from sqp_solver_tpu_torch.qp.sequence import qp_solve_sequence
 from sqp_solver_tpu_torch.qp.types import (
     QPInfo,
@@ -22,6 +26,8 @@ from sqp_solver_tpu_torch.qp.types import (
 )
 
 __all__ = [
+    "qp_solve",
+    "QPSolver",
     "QuadraticProblem",
     "QPSettings",
     "QPStatus",
@@ -33,6 +39,9 @@ __all__ = [
     "reclassify_active_set",
     "qp_solve_sequence",
     "constr_type_init",
+    "rho_vec_from_type",
+    "ruiz_equilibrate",
+    "Scaling",
     "active_masks",
     "guess_active_set",
     "INEQUALITY_CONSTRAINT",

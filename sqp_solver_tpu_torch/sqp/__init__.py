@@ -1,4 +1,7 @@
+from sqp_solver_tpu_torch.sqp.api import SQP
+from sqp_solver_tpu_torch.sqp.bfgs import bfgs_update
 from sqp_solver_tpu_torch.sqp.sequence import sqp_solve_sequence
+from sqp_solver_tpu_torch.sqp.solver import sqp_solve
 from sqp_solver_tpu_torch.sqp.types import (
     NonlinearProblem,
     SQPInfo,
@@ -8,6 +11,9 @@ from sqp_solver_tpu_torch.sqp.types import (
 )
 
 __all__ = [
+    "sqp_solve",
+    "SQP",
+    "bfgs_update",
     "NonlinearProblem",
     "SQPSettings",
     "SQPStatus",

@@ -1,7 +1,8 @@
 """Shared SQP blocks (twin of ``sqp_solver_tpu/sqp/common.py``): the l1
 merit weight and line search of reference ``src/sqp.cpp:277-319``, the
-batched outer loop of Algorithm 18.3 that the fused and the kernel tier
-share, and their Newton-KKT polish epilogue.  Batch-first: reductions run
+batched outer loop of Algorithm 18.3 that every SQP tier shares (the
+per-problem tier with its while loops as masked loops), and their
+Newton-KKT polish epilogue.  Batch-first: reductions run
 over the last axis, Jacobians are (B, m, n) and Hessians (B, n, n)."""
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from sqp_solver_tpu_torch.qp.types import QPState
+from sqp_solver_tpu_torch.utils.host import any_live
 from sqp_solver_tpu_torch.sqp.types import (
     NonlinearProblem,
     SQPInfo,
@@ -24,7 +26,10 @@ __all__ = [
     "max_violation",
     "merit_weight",
     "line_search_scan",
+    "line_search_while",
     "merit_line_search",
+    "not_posdef",
+    "posdef_repair",
     "batched_callables",
     "SubproblemInputs",
     "StepResult",
@@ -82,10 +87,62 @@ def line_search_scan(eval_merit, batch_shape, dtype, phi, D, eta, tau, max_iter,
     return alpha, accepted
 
 
-def merit_line_search(f_of, c_of, l, u, tiny, settings, x, p, mu, obj, grad_obj, c_val):
-    """The batched tiers' line search: :func:`line_search_scan` on the l1
-    merit phi(x) = f(x) + mu ||violation(c(x))||_1 along p from x, with the
-    directional derivative grad_f'p - mu ||violation(c(x))||_1."""
+def line_search_while(eval_merit, batch_shape, dtype, phi, D, eta, tau, max_iter,
+                      device=None, active=None):
+    """The same backtracking as a masked while loop, the per-problem tier's
+    form (JAX ``sqp/common.py:137-157``): trips from i = 1 while i <
+    ``max_iter``, each problem stopping at its first accepted step, and the
+    loop at the trip where none is left searching (one host check a trip).
+    A problem that never passed Armijo keeps its last alpha: the failed
+    step is taken (reference src/sqp.cpp:294-306).  Problems outside
+    ``active`` do not search.  Returns ``(alpha, accepted)``."""
+    alpha = torch.ones(batch_shape, dtype=dtype, device=device)
+    accepted = torch.zeros(batch_shape, dtype=torch.bool, device=device)
+    searching = torch.ones(batch_shape, dtype=torch.bool, device=device)
+    if active is not None:
+        searching = searching & active
+    for _ in range(1, max_iter):
+        live = searching & ~accepted
+        if not any_live(live):
+            break
+        ok = eval_merit(alpha) <= phi + alpha * eta * D
+        accepted = torch.where(live, ok, accepted)
+        alpha = torch.where(live & ~ok, tau * alpha, alpha)
+    return alpha, accepted
+
+
+def not_posdef(M):
+    """Per problem of a batch (..., n, n): M has no Cholesky factor."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return (info > 0) | torch.isnan(L).flatten(-2).any(-1)
+
+
+def posdef_repair(Bm: torch.Tensor, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Escalating diagonal shift until the Cholesky factor exists
+    (reference src/sqp.cpp:172-181: tau = 1e-3, x10 each try, at most 40
+    tries), per problem of a batch (B, n, n), as a masked loop; a B with a
+    NaN becomes the identity.  Problems outside ``active`` are not shifted."""
+    eye = torch.eye(Bm.shape[-1], dtype=Bm.dtype, device=Bm.device)
+    Bm = torch.where(torch.isnan(Bm).flatten(-2).any(-1)[..., None, None], eye, Bm)
+    tau = 1e-3
+    for _ in range(40):
+        need = not_posdef(Bm)
+        if active is not None:
+            need = need & active
+        if not any_live(need):
+            break
+        Bm = torch.where(need[..., None, None], Bm + tau * eye, Bm)
+        tau *= 10.0
+    return Bm
+
+
+def merit_line_search(f_of, c_of, l, u, tiny, settings, x, p, mu, obj, grad_obj, c_val,
+                      early_exit: bool = False, active=None):
+    """The line search on the l1 merit phi(x) = f(x) + mu
+    ||violation(c(x))||_1 along p from x, with the directional derivative
+    grad_f'p - mu ||violation(c(x))||_1: :func:`line_search_scan`, or with
+    ``early_exit`` :func:`line_search_while` over the ``active`` problems
+    (the same steps)."""
     constr_l1 = constraint_norm(c_val, l, u, tiny)
     phi = obj + mu * constr_l1
     D = (grad_obj * p).sum(-1) - mu * constr_l1
@@ -94,8 +151,11 @@ def merit_line_search(f_of, c_of, l, u, tiny, settings, x, p, mu, obj, grad_obj,
         x_step = x + alpha.unsqueeze(-1) * p
         return f_of(x_step) + mu * constraint_norm(c_of(x_step), l, u, tiny)
 
-    return line_search_scan(eval_merit, x.shape[:-1], x.dtype, phi, D, settings.eta,
-                            settings.tau, settings.line_search_max_iter, device=x.device)
+    args = (eval_merit, x.shape[:-1], x.dtype, phi, D, settings.eta, settings.tau,
+            settings.line_search_max_iter)
+    if early_exit:
+        return line_search_while(*args, device=x.device, active=active)
+    return line_search_scan(*args, device=x.device)
 
 
 def _vdot(a, b):
@@ -226,6 +286,7 @@ def sqp_outer_loop(
     settings: SQPSettings,
     step: Callable,
     hessian: HessianForm = DENSE_HESSIAN,
+    early_exit: bool = False,
 ) -> SQPResult:
     """Algorithm 18.3 over a batch ``x0`` (B, n): termination, merit weight,
     line search, the freeze of non-finite problems, masked carry-over,
@@ -237,7 +298,10 @@ def sqp_outer_loop(
     ``ls_fail`` marks problems whose line search counts as failed whatever
     it found (the next iteration then resets their BFGS estimate).
     ``hessian`` says how the tier holds its estimate (dense (B, n, n) by
-    default)."""
+    default).  ``early_exit`` gives the per-problem tier's while loops
+    whatever ``settings.schedule``: the loop ends at the first iteration
+    with no problem left active, and the line search backtracks while any
+    active problem has not yet accepted (:func:`line_search_while`)."""
     dtype, dev = x0.dtype, x0.device
     B, n = x0.shape
     m = problem.l.shape[-1]
@@ -276,7 +340,7 @@ def sqp_outer_loop(
 
     for k in range(1, settings.max_iter + 1):
         active = ~done & ~failed
-        if settings.schedule == "early_exit" and not bool(active.any()):
+        if (early_exit or settings.schedule == "early_exit") and not any_live(active):
             break
         obj, grad_obj = f_lin(x)
         c_val, J = c_lin(x)
@@ -307,7 +371,7 @@ def sqp_outer_loop(
             mu,
         )
         alpha, ls_ok = merit_line_search(f_of, c_of, l, u, tiny, settings, x, p, mu,
-                                         obj, grad_obj, c_val)
+                                         obj, grad_obj, c_val, early_exit, active)
         if ls_fail is not None:
             ls_ok = ls_ok & ~ls_fail
         x_new = x + alpha.unsqueeze(-1) * p

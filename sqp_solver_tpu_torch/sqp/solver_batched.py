@@ -10,7 +10,9 @@ subproblem (and optional SOC) through the fused ADMM tier
 (:func:`sqp_solver_tpu_torch.qp.admm_batched.qp_solve_fused`, chunks of
 the K5 kernel), warm-started across outer iterations.  ``qp_impl="kernel_btd"``
 hands over to the structured tier over the block-tridiagonal step kernel
-(:mod:`sqp_solver_tpu_torch.sqp.solver_btd`).
+(:mod:`sqp_solver_tpu_torch.sqp.solver_btd`).  With ``qp.scaling > 0``
+each subproblem, the SOC re-solve included, is equilibrated afresh
+(:func:`sqp_solver_tpu_torch.qp.scaling.solve_with_scaling`).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from sqp_solver_tpu_torch.ops.qp_kernel import bfgs_update
+from sqp_solver_tpu_torch.sqp.bfgs import bfgs_update
 from sqp_solver_tpu_torch.qp.types import QuadraticProblem
 from sqp_solver_tpu_torch.sqp import common
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem, SQPResult, SQPSettings
@@ -47,11 +49,6 @@ def sqp_solve_fused(
         return sqp_solve_kernel_btd(problem, x0, lam0, settings)
     if settings.qp.linear_solver != "schur_cholesky":
         raise ValueError("sqp_solve_fused requires qp.linear_solver='schur_cholesky'")
-    if settings.qp.scaling > 0:
-        raise NotImplementedError(
-            "qp.scaling > 0 (Ruiz equilibration) is not ported "
-            "(ROADMAP Queue 1, item 'scaling')"
-        )
     return _sqp_solve_qp_fused(problem, x0, lam0, settings)
 
 
@@ -61,39 +58,36 @@ def _sqp_solve_qp_fused(problem, x0, lam0, settings: SQPSettings) -> SQPResult:
 
     eye = torch.eye(x0.shape[-1], dtype=x0.dtype, device=x0.device)
 
-    def not_posdef(M):
-        L, info = torch.linalg.cholesky_ex(M)
-        return (info > 0) | torch.isnan(L).flatten(1).any(-1)
-
     def posdef_repair(Bm):
-        bad = torch.isnan(Bm).flatten(1).any(-1)
-        Bm = torch.where(bad[:, None, None], eye, Bm)
-        if settings.schedule == "fixed":
-            # one check, reset to the identity where it fails
-            return torch.where(not_posdef(Bm)[:, None, None], eye, Bm)
-        tau = 1e-3
-        for _ in range(40):  # shift by tau I, tau growing 10x, while any fails
-            need = not_posdef(Bm)
-            if not bool(need.any()):
-                break
-            Bm = torch.where(need[:, None, None], Bm + tau * eye, Bm)
-            tau *= 10.0
-        return Bm
+        if settings.schedule != "fixed":
+            return common.posdef_repair(Bm)
+        # one check, reset to the identity where it fails
+        Bm = torch.where(torch.isnan(Bm).flatten(1).any(-1)[:, None, None], eye, Bm)
+        return torch.where(common.not_posdef(Bm)[:, None, None], eye, Bm)
 
     # subproblem infeasibility certificates are off on every SQP tier: a
     # transiently certified linearized subproblem must not stop early
     inner = dataclasses.replace(settings.qp, check_infeasibility=False)
 
+    def solve_subproblem(qp, warm):
+        if inner.scaling > 0:
+            # per-problem Ruiz equilibration of every subproblem: solved
+            # scaled, unscaled and rescored against the true subproblem
+            from sqp_solver_tpu_torch.qp.scaling import solve_with_scaling
+
+            return solve_with_scaling(qp_solve_fused, qp, inner, warm)
+        return qp_solve_fused(qp, inner, warm)
+
     def step(s):
         B_new = posdef_repair(bfgs_update(s.B, s.step_prev, s.delta_grad_L, s.reset, s.upd))
-        res = qp_solve_fused(QuadraticProblem(P=B_new, q=s.grad_obj, A=s.J, l=s.l - s.c_val,
-                                              u=s.u - s.c_val), inner, s.warm)
+        res = solve_subproblem(QuadraticProblem(P=B_new, q=s.grad_obj, A=s.J, l=s.l - s.c_val,
+                                                u=s.u - s.c_val), s.warm)
         qp_it = res.info.iter
         if settings.second_order_correction:
             d = s.c_of(s.x + res.x) - torch.matmul(s.J, res.x.unsqueeze(-1)).squeeze(-1)
             warm = res.state if settings.qp_warm_start else s.warm
-            res = qp_solve_fused(QuadraticProblem(P=B_new, q=s.grad_obj, A=s.J, l=s.l - d,
-                                                  u=s.u - d), inner, warm)
+            res = solve_subproblem(QuadraticProblem(P=B_new, q=s.grad_obj, A=s.J, l=s.l - d,
+                                                    u=s.u - d), warm)
             qp_it = qp_it + res.info.iter
         B_new = torch.where(s.active[:, None, None], B_new, s.B)
         return res.x, res.y, B_new, res.state, qp_it

@@ -23,7 +23,14 @@ by device time:
 * btd_nlp: ``sqp_solve_batch(qp_impl="kernel_btd")`` on the unicycle NLP
   at horizon 32 (n = 128, m = 224), B = 64: 120 outer iterations, each one
   K7 launch among the plain ops of the linearization and line search,
-  then 3 polish passes.
+  then 3 polish passes;
+* qp_vmap_one_shot: the one-shot QPs through ``qp_solve_batch(impl="vmap")``,
+  the per-problem tier's masked loop of plain tensor code;
+* sqp_vmap: ``sqp_solve_batch(impl="vmap")`` on the sphere cap, n = 32,
+  B = 4096, at the SQP main path's settings (polish through K2);
+* family_random_scaled: the random OSQP family (n = 32, m = 48,
+  B = 1024) under Ruiz scaling 10 through K3, polished (the families
+  leg's settings).
 
 Name cells on the command line to trace only those (all by default).
 The last line is one JSON object with the same numbers and the card's
@@ -76,6 +83,30 @@ def _btd_nlp(dev):
                       adaptive_rho_interval=50, block_size=4))
     problem, x0, _ = mpc_nlp_stagewise_batch(64, horizon=32, device=dev)
     return lambda: sqp_solve_batch(problem, x0, None, settings, impl="fused")
+
+
+def _sqp_vmap(dev):
+    """The SQP main path's n = 32 configuration on the per-problem tier."""
+    from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch
+
+    settings = SQPSettings(
+        max_iter=3, eps_prim=2e-3, eps_dual=2e-3, termination="kkt", schedule="fixed",
+        polish=True, polish_passes=2, line_search_max_iter=5,
+        qp=QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=50,
+                      check_termination=10, warm_start=True, adaptive_rho=True,
+                      adaptive_rho_interval=50, schedule="fixed"))
+    problem, x0 = sphere_cap_nlp_batch(4096, 32, seed=3, device=dev)
+    return lambda: sqp_solve_batch(problem, x0, None, settings, impl="vmap")
+
+
+def _family_random(dev):
+    """The families leg's random class (bench.py:1061-1067) through K3."""
+    from sqp_solver_tpu_torch.models.families import random_qp_batch_device
+
+    settings = dataclasses.replace(SETTINGS, max_iter=300, schedule="fixed", polish=True,
+                                   scaling=10)
+    qp = random_qp_batch_device(0, 1024, 32, 48, device=dev)
+    return lambda: qp_solve_batch(qp, settings, impl="kernel")
 
 
 def _trace(fn) -> dict:
@@ -136,6 +167,9 @@ def main() -> int:
         "mpc_sustained": lambda: _mpc_rollout(dev),
         "btd_mpc": lambda: (lambda: qp_solve_batch(mpc_btd, btd, impl="kernel")),
         "btd_nlp": lambda: _btd_nlp(dev),
+        "qp_vmap_one_shot": lambda: (lambda: qp_solve_batch(qp, SETTINGS, impl="vmap")),
+        "sqp_vmap": lambda: _sqp_vmap(dev),
+        "family_random_scaled": lambda: _family_random(dev),
     }
     names = sys.argv[1:] or list(makers)
     unknown = set(names) - set(makers)

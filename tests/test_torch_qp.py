@@ -216,7 +216,7 @@ def test_polish_qp_matches_jax(passes):
     np.testing.assert_allclose(one.x.numpy(), pp.x.numpy()[2], atol=1e-12, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["comp_slack", "btd", "anderson", "scaling", "vmap", "fused"])
+@pytest.mark.parametrize("kind", ["comp_slack", "btd", "anderson", "fused"])
 def test_qp_path_refuses_what_it_does_not_cover(kind):
     a = qp_inputs(2, 3, 4, seed=13)
     pq = interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu")
@@ -228,19 +228,12 @@ def test_qp_path_refuses_what_it_does_not_cover(kind):
                                        block_size=3, acceleration="anderson")
     elif kind == "anderson":
         settings = dataclasses.replace(settings, acceleration="anderson")
-    elif kind == "scaling":
-        settings = dataclasses.replace(settings, scaling=10)
-    elif kind == "fused":  # the fused tier is ported; its structured backends are not
+    else:  # the fused tier is ported; its structured backends are not
         settings = dataclasses.replace(settings, linear_solver="schur_block_tridiag",
                                        block_size=3)
         impl = kind
-    else:
-        impl = kind
     with pytest.raises(err, match="ROADMAP|check_comp_slack"):
         qp_solve_batch(pq, settings, impl=impl)
-    if kind == "vmap":  # the JAX default stays the default, so a bare call raises
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            qp_solve_batch(pq, settings)
 
 
 def test_qp_result_state_warm_starts_and_launches_nothing_on_cpu():

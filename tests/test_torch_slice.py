@@ -197,26 +197,21 @@ def test_main_path_float32_meets_the_closed_form():
     assert np.mean(pr.info.status.numpy() == SQPStatus.SOLVED) >= 0.99
 
 
-@pytest.mark.parametrize(
-    "kind",
-    ["scaling", "anderson", "qp_impl", "impl", "polish_n"],
-)
+@pytest.mark.parametrize("kind", ["anderson", "qp_impl"])
 def test_outside_the_slice_raises_not_implemented(kind):
     """What the port does not have yet raises, naming its ROADMAP item:
-    scaling and K1's in-kernel Anderson on the kernel tier, Anderson inside
-    the structured tier's K7 (``qp_impl="kernel_btd"``, whose scaling and
-    block checks raise ValueError), ``impl="vmap"``, and scaling on the
-    fused tier at n = 129 (the fused tier and SQP polish above n = 128 no
-    longer raise: tests/test_torch_fused.py)."""
+    K1's in-kernel Anderson on the kernel tier and Anderson inside the
+    structured tier's K7 (``qp_impl="kernel_btd"``, whose scaling and block
+    checks raise ValueError as in the JAX package).  Scaling and
+    ``impl="vmap"`` no longer raise: tests/test_torch_scaling.py and
+    tests/test_torch_reference_sqp.py."""
     pp, px0 = port_models.sphere_cap_nlp_batch(2, 4, seed=0, dtype=torch.float64,
                                                device="cpu")
     settings, impl = HEADLINE, "fused"
-    if kind == "scaling":
-        settings = dataclasses.replace(HEADLINE, qp=dataclasses.replace(HEADLINE.qp, scaling=10))
-    elif kind == "anderson":
+    if kind == "anderson":
         settings = dataclasses.replace(
             HEADLINE, qp=dataclasses.replace(HEADLINE.qp, acceleration="anderson"))
-    elif kind == "qp_impl":
+    else:
         # the structured tier is ported: its own limits raise ValueError as
         # in the JAX package (tests/test_sqp_btd.py::test_validation)
         btd = dataclasses.replace(HEADLINE, qp_impl="kernel_btd",
@@ -230,12 +225,5 @@ def test_outside_the_slice_raises_not_implemented(kind):
             dataclasses.replace(btd, qp=dataclasses.replace(btd.qp, block_size=0)).validate()
         settings = dataclasses.replace(btd, qp=dataclasses.replace(
             btd.qp, acceleration="anderson"))
-    elif kind == "impl":
-        impl = "vmap"
-    else:
-        pp, px0 = port_models.sphere_cap_nlp_batch(2, 129, seed=0, dtype=torch.float64,
-                                                   device="cpu")
-        settings = dataclasses.replace(HEADLINE, max_iter=1, qp_impl="fused",
-                                       qp=dataclasses.replace(HEADLINE.qp, scaling=10))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sqp_solve_batch(pp, px0, None, settings, impl=impl)
