@@ -80,7 +80,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the unscaled problem >= 0.99;
 12. F. the K1 SQP tier under inner-QP scaling (n = 32, B = 4096,
    ``qp.scaling=10``): BFGS outside the kernel, K1 with ``do_bfgs=False``,
-   phase 4's bars; then every leg's seconds.
+   phase 4's bars;
+13. G. Anderson acceleration inside the whole-solve kernels, each path
+   beside the same call with ``acceleration="none"`` (walls min of 3, mean
+   ADMM iterations, solved fraction): K3 on random QPs n = 32, m = 33,
+   B = 4096 at bench.py:1387-1396's settings (the float64 OSQP test);
+   the SQP main path n = 32, B = 4096 with ``qp.acceleration="anderson"``
+   through K1 (phase 4's bars); K6 on the structured MPC at horizon 64,
+   B = 256; K7 on one structured NLP step (horizon 32, B = 64).  Each
+   kernel with Anderson and its plain version with Anderson in float32 are
+   held against the plain version in float64 (``EPOCH_TOL`` where the
+   counts agree; the kernel's counts agreeing on >= 0.9 of what plain
+   float32 keeps) and timed with and without Anderson beside the bound.
+   K6 (on a cluster) and K7 also with chunks of 10 iterations and rho
+   every 50, where the ring holds several pairs: Anderson must change
+   the iteration counts of some problems and a quarter of them must reach
+   a Gram of two pairs (at the cells' own settings the ring holds one
+   pair at most, so those rows time the step's overhead);
+14. H. the linear-solver backends at the JAX bench's shapes:
+   ``schur_block_tridiag`` on the vmap and fused tiers (the MPC at horizon
+   64, B = 256, bench.py:508-518) beside K6 and the dense K3;
+   ``schur_cholesky_blocked`` on one SQP problem with n = 4096
+   (bench.py:455-470); ``cg`` and ``schur_cholesky_blocked`` on one dense
+   QP with n = m = 4096 (bench.py:725-743's dense rows); ``kkt_ldlt`` and
+   ``schur_cholesky_tri`` on the vmap one-shot QP (n = 32, m = 33,
+   B = 1024): walls, host checks, solved fraction and the float64 OSQP
+   test; then every leg's seconds.
 
 Each path run starts with every launch counter at 0 and asserts the
 counts it reads right after.  The line before the last two is
@@ -97,6 +122,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -242,10 +268,11 @@ def step_operands(batch: int, n: int, dev) -> dict:
                                  equality_row=False), dev)
 
 
-def step_call(fn, t, **kw):
-    """K1 (or its plain version, or a launcher) on the operands ``t``."""
+def step_call(fn, t, settings=None, **kw):
+    """K1 (or its plain version, or a launcher) on the operands ``t``, in
+    the main path's inner-QP settings unless ``settings`` are given."""
     return fn(t["B"], t["J"], t["g"], t["l"], t["u"], t["s"], t["dgl"], t["reset"], t["upd"],
-              t["active"], t["x"], t["z"], t["y"], main_qp_settings(), **kw)
+              t["active"], t["x"], t["z"], t["y"], settings or main_qp_settings(), **kw)
 
 
 def polish_operands(batch: int, n: int, dev) -> dict:
@@ -415,19 +442,23 @@ def compare_step(batch: int, n: int, dev, reps: int) -> dict:
             f"max |kernel - plain| {max(errs):.3e}")
     ms = cuda_ms(lambda: step_call(qk.sqp_step_kernel, t), reps)
     plain_ms = cuda_ms(lambda: step_call(qk.sqp_step_reference, t), max(1, reps // 4))
-    # the work of the timed call: BFGS (6 n^2), each factorization
-    # (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM iteration
-    # (2 n^2 + 4 m n) and each chunk's residuals (2 n^2 + 4 m n)
-    out = step_call(qk.sqp_step_kernel, t)
+    bound_ms, bound_by = step_bound(step_call(qk.sqp_step_kernel, t), s, batch, n)
+    return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def step_bound(out, s, batch: int, n: int):
+    """(bound ms, by) of one K1 call (m = n + 1) that ran ``out``: BFGS
+    (6 n^2), each factorization (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1
+    n^3), each ADMM iteration (2 n^2 + 4 m n), each chunk's residuals
+    (2 n^2 + 4 m n) and the Anderson step."""
     m = n + 1
     seg = s.check_termination
     it = out.iter.double()
     flops = float((6 * n * n + out.n_factor.double() * (n * n * m + n ** 3)
                    + it * (2 * n * n + 4 * m * n) + (it / seg) * (2 * n * n + 4 * m * n)).sum())
-    nbytes = batch * (4 * (2 * n * n + m * n + 4 * n + 4 * m + n + 2 * m + 9) + 3)
-    bound_ms, bound_by = bound(flops, nbytes)
-    return dict(n=n, batch=batch, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    flops += aa_flops(out, s, n, m, 2 * n * n + 4 * m * n)
+    return bound(flops, batch * (4 * (2 * n * n + m * n + 4 * n + 4 * m + n + 2 * m + 9) + 3))
 
 
 def compare_polish(batch: int, n: int, sweeps: int, dev, reps: int) -> dict:
@@ -566,23 +597,30 @@ def compare_qp(family: str, batch: int, n: int, dev, reps: int) -> dict:
                         reps) if other else None)
     log(f"  K3 {family} n={n} m={m}: {layout} layout ({per} problem(s) a block) {ms:.3f} ms"
         + (f", {other} layout {other_ms:.3f} ms" if other else ""))
-    # the work of the timed call (s): per problem, each factorization
-    # (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM iteration
-    # (2 n^2 + 4 m n), each chunk's residuals and certificate (2 x (2 n^2 + 4 m n))
-    it = k32.iter.double()
-    seg = s.check_termination
-    epochs = torch.clamp_min(torch.ceil(it / s.adaptive_rho_interval), 1)
-    nfact = torch.minimum(k32.rho_updates.double(), epochs)
-    flops = float((nfact * (n * n * m + n ** 3) + it * (2 * n * n + 4 * m * n)
-                   + (it / seg) * 2 * (2 * n * n + 4 * m * n)).sum())
-    # P and A read once; q, l, u and the warm x, z, y read, x, z, y and
-    # the 8 stats written
-    nbytes = batch * 4 * (n * n + m * n + 3 * (n + 2 * m) + 8)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = qp_bound(k32, s, batch, n, m)
     return dict(family=family, n=n, m=m, batch=batch, max_abs_err=max(errs), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                mean_iter=float(it.mean()), epochs_err=epoch_errs, layout=layout,
-                other_layout=other, other_layout_ms=other_ms)
+                mean_iter=float(k32.iter.float().mean()), epochs_err=epoch_errs,
+                layout=layout, other_layout=other, other_layout_ms=other_ms)
+
+
+def qp_bound(out, s, batch: int, n: int, m: int):
+    """(bound ms, by) of one K3 call that ran ``out``: per problem, each
+    factorization (Gram n^2 m, Cholesky + L^-1 + L^-T L^-1 n^3), each ADMM
+    iteration (2 n^2 + 4 m n), each chunk's residuals and certificate
+    (2 x (2 n^2 + 4 m n)) and the Anderson step; P and A read once, q, l, u
+    and the warm x, z, y read, x, z, y and the 8 stats written."""
+    import torch
+
+    it = out.iter.double()
+    seg = s.check_termination
+    interval = s.adaptive_rho_interval if s.adaptive_rho else s.max_iter
+    epochs = torch.clamp_min(torch.ceil(it / interval), 1)
+    nfact = torch.minimum(out.rho_updates.double(), epochs)
+    flops = float((nfact * (n * n * m + n ** 3) + it * (2 * n * n + 4 * m * n)
+                   + (it / seg) * 2 * (2 * n * n + 4 * m * n)).sum())
+    flops += aa_flops(out, s, n, m, 2 * n * n + 4 * m * n)
+    return bound(flops, batch * 4 * (n * n + m * n + 3 * (n + 2 * m) + 8))
 
 
 def compare_certificates(dev) -> int:
@@ -1063,7 +1101,20 @@ def btd_bound(out, settings, batch: int, n: int, m: int, bb: int):
     nfact = torch.minimum(out.rho_updates.double(), epochs) * (it > 0)
     flops = float((2 * (4 * n * bb + 2 * m * n) * it
                    + 2 * n * (2 * m * bb + 3 * bb * bb) * nfact).sum())
+    flops += aa_flops(out, settings, n, m, 2 * (4 * n * bb + 2 * m * n))
     return bound(flops, batch * (m * n + 4 * n * bb) * 4)
+
+
+def aa_flops(out, settings, n: int, m: int, stats_flops: float) -> float:
+    """The Anderson step's work over the chunks ``out`` ran (0 without it):
+    a chunk's second residual evaluation (``stats_flops``), the k (k + 1) / 2
+    + k dot products of the Gram and right-hand side over D = n + 2 m and
+    the candidate's k scaled differences (admm_core.cuh:aa_chunk_end)."""
+    if settings.acceleration != "anderson":
+        return 0.0
+    k, D = settings.anderson_memory, n + 2 * m
+    chunks = float(out.iter.double().sum()) / max(1, settings.check_termination)
+    return chunks * (stats_flops + (k * (k + 1) // 2 + k) * 2 * D + 2 * k * D)
 
 
 def btd_raw(fn, t, settings, **kw):
@@ -1542,14 +1593,15 @@ def run_families(dev, card: str, batch: int = 1024) -> dict:
 
 
 def run_main_path(configs, dev, card: str, qp_impl: str = "kernel", impl: str = "fused",
-                  scaling: int = 0) -> dict:
+                  scaling: int = 0, qp_kw=None) -> dict:
     """Both configurations end to end on the kernel (K1) or the fused (K5)
     QP tier, or with ``impl="vmap"`` on the per-problem tier, each run
     with the counters from 0 and its launches asserted: K1 once per outer
     iteration, or K5 once per chunk of each outer iteration's QP, or none
     (the vmap tier's chunks are plain tensor code); K2 once per polish
     pass.  ``scaling`` sets the inner QP's Ruiz sweeps (on the kernel tier
-    K1 then runs with ``do_bfgs=False``)."""
+    K1 then runs with ``do_bfgs=False``); ``qp_kw`` other inner-QP
+    settings (``acceleration``)."""
     import dataclasses
 
     import torch
@@ -1560,10 +1612,12 @@ def run_main_path(configs, dev, card: str, qp_impl: str = "kernel", impl: str = 
 
     label = f"impl={impl}" if impl == "vmap" else f"qp_impl={qp_impl}"
     label += f", qp.scaling={scaling}" if scaling else ""
+    label += "".join(f", qp.{k}={v}" for k, v in (qp_kw or {}).items())
 
     def settings_of(n):
         s = bench_settings(n, qp_impl)
-        return dataclasses.replace(s, qp=dataclasses.replace(s.qp, scaling=scaling))
+        return dataclasses.replace(s, qp=dataclasses.replace(s.qp, scaling=scaling,
+                                                             **(qp_kw or {})))
 
     def solve(n, batch, seed):
         problem, x0 = sphere_cap_nlp_batch(batch, n, seed=seed, dtype=torch.float32,
@@ -1609,8 +1663,10 @@ def run_main_path(configs, dev, card: str, qp_impl: str = "kernel", impl: str = 
         cert = sphere_cert_1e4(problem.u[:, 0].double().cpu().numpy(), x, lam)
         times = [wall] + [solve(n, batch, seed=10 + r)[2] for r in range(3)]
         t = min(times)
+        qp_iter = float(res.info.qp_solver_iter.float().mean())
         log(f"  {label} n={n} B={batch}: solved {solved:.4f}, err_p99 {err_p99:.3e}, "
-            f"f64 cert(1e-4) {cert:.4f}, wall {t * 1e3:.3f} ms per batch "
+            f"f64 cert(1e-4) {cert:.4f}, mean ADMM iterations {qp_iter:.1f}, "
+            f"wall {t * 1e3:.3f} ms per batch "
             f"({t / batch * 1e6:.3f} us per solve, {batch / t:.1f} solves/s), host checks "
             f"{checks[n]} [min of {len(times)}; {card}]")
         if solved < 0.99:
@@ -1620,8 +1676,442 @@ def run_main_path(configs, dev, card: str, qp_impl: str = "kernel", impl: str = 
         if cert < 0.99:
             raise AssertionError(f"{label} n={n}: f64 certificate {cert:.4f} < 0.99")
         summary[n] = dict(batch=batch, solved=solved, err_p99=err_p99, cert=cert,
-                          ms=t * 1e3, solves_per_s=batch / t, host_checks=checks[n])
+                          ms=t * 1e3, solves_per_s=batch / t, host_checks=checks[n],
+                          qp_iter=qp_iter)
     return dict(launches=launches, configs=summary)
+
+
+
+# ---- G. Anderson acceleration inside the whole-solve kernels ---------------
+
+
+def aa_settings(s):
+    import dataclasses
+
+    return dataclasses.replace(s, acceleration="anderson")
+
+
+def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x") -> dict:
+    """The kernel with Anderson and its plain version with Anderson, both
+    float32, each against the plain version in float64 under ROADMAP Queue
+    3's float32 bars: x, z, y at ``EPOCH_TOL`` on the problems float64
+    solved whose iteration and rho-update counts agree with it, and the
+    kernel's counts agreeing on >= ``BTD_AGREE`` of what the plain float32
+    version keeps.  ``launch`` and ``plain`` take (operands, settings)."""
+    import torch
+
+    t64 = {k: (v.double() if v.dtype == torch.float32 else v) for k, v in t32.items()}
+    p64 = plain(t64, settings)
+    outs = {"kernel": launch(t32, settings), "plain": plain(t32, settings)}
+    torch.cuda.synchronize()
+    res = {}
+    for name, out in outs.items():
+        agree = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        cmp = agree & p64.done
+        e = 0.0
+        for k in (x, "z", "y"):
+            a, b = getattr(out, k)[cmp].double(), getattr(p64, k)[cmp]
+            if not torch.allclose(a, b, atol=EPOCH_TOL, rtol=EPOCH_TOL):
+                raise AssertionError(f"{label}: {name} {k} differs from f64 by "
+                                     f"{max_err(a, b):.3e}")
+            e = max(e, max_err(a, b))
+        res[name] = dict(agree=float(agree.float().mean()), max_err=e)
+    if res["kernel"]["agree"] < BTD_AGREE * res["plain"]["agree"]:
+        raise AssertionError(f"{label}: the kernel agrees with f64 on {res['kernel']['agree']:.4f}, "
+                             f"the plain float32 version on {res['plain']['agree']:.4f}")
+    return dict(res, out=outs["kernel"], solved64=float(p64.done.float().mean()))
+
+
+def compare_aa(label: str, t32, launch, plain, s, bound_of, reps: int, x: str = "x",
+               pairs: bool = False) -> dict:
+    """One kernel with Anderson (``aa_against_f64``), timed with and without
+    it (CUDA events) beside its plain version with it and the bound for the
+    iterations it took (``bound_of(out, settings)``).  With ``pairs`` the
+    settings must hold at least three chunks an epoch, and the run must show
+    that the Anderson step did work: iteration counts that differ from the
+    launch without it on some problems, and at least a quarter of the
+    problems through three chunks or more, whose third chunk (in the first
+    epoch, before any reset of the ring) solved a Gram of two pairs."""
+    from sqp_solver_tpu_torch.ops.qp_kernel import _schedule
+
+    sa = aa_settings(s)
+    r = aa_against_f64(label, t32, launch, plain, sa, x)
+    out_none = launch(t32, s)
+    changed = deep = None
+    if pairs:
+        seg, cpe, _ = _schedule(sa)
+        if cpe < 3:
+            raise AssertionError(f"{label}: {cpe} chunks an epoch cannot show a Gram of two pairs")
+        it_a = r["out"].iter
+        changed = float((it_a != out_none.iter).float().mean())
+        deep = float((it_a >= 3 * seg).float().mean())
+        log(f"  {label}: iteration counts changed by Anderson on {changed:.4f} of the problems; "
+            f"{deep:.4f} ran three chunks of {seg} or more (a Gram of >= 2 pairs)")
+        if changed == 0.0 or deep < 0.25:
+            raise AssertionError(f"{label}: Anderson changed the counts on {changed:.4f}, "
+                                 f"{deep:.4f} reached a Gram of two pairs (bars > 0, 0.25)")
+    ms = cuda_ms(lambda: launch(t32, sa), reps)
+    ms_none = cuda_ms(lambda: launch(t32, s), reps)
+    plain_ms = cuda_ms(lambda: plain(t32, sa), 1)
+    bound_ms, bound_by = bound_of(r["out"], sa)
+    it, it_none = float(r["out"].iter.float().mean()), float(out_none.iter.float().mean())
+    log(f"  {label} with Anderson (k={sa.anderson_memory}): f64 solved {r['solved64']:.4f}; "
+        f"iter and rho agree with f64 on kernel {r['kernel']['agree']:.4f} / plain f32 "
+        f"{r['plain']['agree']:.4f}, max diff {r['kernel']['max_err']:.3e} / "
+        f"{r['plain']['max_err']:.3e}; kernel {ms:.3f} ms over a mean of {it:.1f} ADMM "
+        f"iterations (without Anderson {ms_none:.3f} ms, {it_none:.1f} iterations), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(label=label, anderson_memory=sa.anderson_memory, ms=ms, ms_none=ms_none,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, mean_iter=it,
+                mean_iter_none=it_none, max_abs_err=r["kernel"]["max_err"],
+                agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
+                iter_changed=changed, two_pair_share=deep)
+
+
+def run_aa_pair(label: str, card: str, make, solve, settings, want: dict, metrics,
+                fewer: bool = False) -> dict:
+    """An entry point with ``acceleration="none"`` and with Anderson:
+    ``make(seed)`` a problem (outside the walls), ``solve(problem,
+    settings)`` its result; a warm-up, the run on seed 0 with the counters
+    from 0 (asserted against ``want``), walls min of 3 seeds;
+    ``metrics(problem, result, settings)`` gives the solved fraction, the
+    float64 test and the mean ADMM iterations (a dict).  ``fewer`` asserts
+    that Anderson takes fewer mean iterations."""
+    import torch
+
+    problems = {seed: make(seed) for seed in (100, 0, 1, 2)}
+
+    def timed(st, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(problems[seed], st)
+        torch.cuda.synchronize()
+        return problems[seed], res, time.perf_counter() - t0
+
+    out = {}
+    for acc, st in (("none", settings), ("anderson", aa_settings(settings))):
+        timed(st, 100)  # warm-up
+        reset_counts()
+        problem, res, wall = timed(st, 0)
+        c = read_counts()
+        if c != expect(**want):
+            raise AssertionError(f"{label} {acc}: launches {c}, expected {want}")
+        walls = [wall] + [timed(st, 1 + r)[2] for r in range(2)]
+        out[acc] = dict(ms=min(walls) * 1e3, counts=c, **metrics(problem, res, st))
+    a, p = out["anderson"], out["none"]
+    log(f"  {label}: with Anderson {a['ms']:.3f} ms, mean ADMM iterations {a['mean_iter']:.1f}, "
+        f"solved {a['solved']:.4f}, f64 test {a['f64']:.4f}; without {p['ms']:.3f} ms, "
+        f"{p['mean_iter']:.1f} iterations, solved {p['solved']:.4f}, f64 test {p['f64']:.4f} "
+        f"[min of 3; {card}]")
+    if fewer and not a["mean_iter"] < p["mean_iter"]:
+        raise AssertionError(f"{label}: Anderson takes {a['mean_iter']:.1f} mean iterations, "
+                             f"without it {p['mean_iter']:.1f}")
+    return out
+
+
+def aa_qp_metrics(qp, res, s) -> dict:
+    """Solved fraction, the share passing the float64 OSQP test (10x) and
+    the mean iterations; every SOLVED problem must pass the test."""
+    ok, _ = qp_osqp64(qp, res, s.eps_abs, s.eps_rel)
+    solved = (res.info.status == 0).cpu().numpy()
+    if not ok[solved].all():
+        raise AssertionError(f"{int((~ok[solved]).sum())} SOLVED problems fail the f64 "
+                             "OSQP test")
+    return dict(solved=float(solved.mean()), f64=float(ok.mean()),
+                mean_iter=float(res.info.iter.float().mean()))
+
+
+def aa_pair_settings(s):
+    """``s`` with chunks of 10 iterations and rho every 50 (five chunks an
+    epoch, as the SQP cells' inner QPs of bench.py:455-470 check), eps
+    1e-5 and 300 iterations, alpha 1.6: the ring holds several pairs.  At
+    the structured cells' own settings K6 checks and adapts rho every 25
+    iterations, so its ring is emptied before it holds a pair, and K7 (25 /
+    50) holds one at most."""
+    import dataclasses
+
+    return dataclasses.replace(s, alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=300,
+                               check_termination=10, adaptive_rho=True,
+                               adaptive_rho_interval=50)
+
+
+def run_anderson(dev, card: str, main_run: dict, reps: int = 5) -> dict:
+    """Leg G: K3, K1, K6 and K7 with Anderson (memory 4), each path beside
+    the same call without it, and each kernel against its plain version
+    (``compare_aa``).  K6 (a cluster) and K7 are compared twice: at their
+    cells' settings, where the ring holds a pair at most (the overhead of
+    the step), and at ``aa_pair_settings``, where it holds several.
+    Returns the rows and the paths' launch counts."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch, random_qp_batch
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    rows, paths, runs = {}, {}, {}
+    # K3: bench.py:1387-1396's settings on the one-shot cell's shape
+    batch, n, m = 4096, 32, 33
+    s3 = QPSettings(alpha=1.6, eps_abs=1e-6, eps_rel=1e-6, max_iter=2000, check_termination=25,
+                    schedule="fixed")
+    runs["k3"] = run_aa_pair(
+        f"K3 qp_solve_batch(impl='kernel') random n={n} m={m} B={batch}", card,
+        lambda seed: random_qp_batch(batch, n, m, seed=3 + seed, device=dev),
+        lambda qp, st: qp_solve_batch(qp, st, impl="kernel"),
+        s3, dict(qp_solve_launches=1), aa_qp_metrics, fewer=True)
+    a3 = runs["k3"]["anderson"]
+    if a3["solved"] < 0.99 or a3["f64"] < 0.99:
+        raise AssertionError(f"K3 with Anderson: solved {a3['solved']:.4f}, f64 OSQP test "
+                             f"{a3['f64']:.4f} (bars 0.99)")
+    paths.update(aa_k3=runs["k3"]["anderson"]["counts"])
+    t = qp_operands("random", batch, n, dev)
+    rows["qp_solve"] = compare_aa(
+        f"K3 random n={n} m={m} B={batch}", t,
+        lambda t, st: qp_raw(qk._qp_solve_launch, t, st),
+        lambda t, st: qp_raw(qk.qp_solve_reference, t, st), s3,
+        lambda out, st: qp_bound(out, st, batch, n, m), reps)
+
+    # K1: the SQP headline n = 32, B = 4096 with qp.acceleration="anderson"
+    k1_run = run_main_path([(32, 4096)], dev, card, qp_kw=dict(acceleration="anderson"))
+    a1, p1 = k1_run["configs"][32], main_run["configs"][32]
+    log(f"  K1 tier n=32 B=4096: with Anderson {a1['ms']:.3f} ms, mean ADMM iterations "
+        f"{a1['qp_iter']:.1f}, solved {a1['solved']:.4f}, err_p99 {a1['err_p99']:.3e}, f64 cert "
+        f"{a1['cert']:.4f}; without (phase 4) {p1['ms']:.3f} ms, {p1['qp_iter']:.1f} iterations "
+        f"[{card}]")
+    runs["k1"] = dict(anderson=a1, none=p1)
+    paths.update(aa_sqp_main_n32=k1_run["launches"][32])
+    # the main path's operands, its inner QP run to 200 iterations at 1e-5
+    # (at 50 iterations and 1e-4 most stop at max_iter, before Anderson
+    # has pairs to work with)
+    t = step_operands(4096, 32, dev)
+    rows["sqp_step"] = compare_aa(
+        "K1 n=32 B=4096", t, lambda t, st: step_call(qk.sqp_step_kernel, t, st),
+        lambda t, st: step_call(qk.sqp_step_reference, t, st),
+        dataclasses.replace(main_qp_settings(), eps_abs=1e-5, eps_rel=1e-5, max_iter=200),
+        lambda out, st: step_bound(out, st, 4096, 32), reps, x="p")
+
+    # K6: the structured MPC at horizon 64, B = 256 (bench.py:512's settings)
+    s6 = btd_qp_settings()
+
+    runs["k6"] = run_aa_pair(
+        "K6 structured MPC horizon 64 B=256", card,
+        lambda seed: mpc_qp_stagewise_batch(256, horizon=64, seed=seed, device=dev)[0],
+        lambda qp, st: qp_solve_batch(qp, st, impl="kernel"), s6,
+        dict(qp_solve_btd_launches=1), aa_qp_metrics)
+    paths.update(aa_btd_mpc_b256=runs["k6"]["anderson"]["counts"])
+    c = btd_mpc_case(256, dev)
+    rows["qp_solve_btd_overhead"] = compare_aa(
+        f"{c['label']} (the cell's settings: the step's overhead)", c["t"],
+        lambda t, st: btd_launch(t, st, True), lambda t, st: btd_plain(t, st, True),
+        c["settings"], lambda out, st: btd_bound(out, st, c["batch"], c["n"], c["m"], c["bb"]),
+        reps)
+    rows["qp_solve_btd"] = compare_aa(
+        f"{c['label']} cluster, chunks of 10", c["t"],
+        lambda t, st: btd_launch(t, st, True, cluster=2), lambda t, st: btd_plain(t, st, True),
+        aa_pair_settings(c["settings"]),
+        lambda out, st: btd_bound(out, st, c["batch"], c["n"], c["m"], c["bb"]), reps,
+        pairs=True)
+
+    # K7: one structured NLP step (horizon 32, B = 64) through its entry
+    c = btd_step_case(32, 64, dev)
+    tt = c["t"]
+
+    def step_solve(_, st):  # one instance: the NLP's first-iteration QPs
+        return qb.btd_step_kernel(tt["pd"], tt["pe"], tt["J"], tt["g"], tt["l"], tt["u"],
+                                  tt["active"], tt["x"], tt["z"], tt["y"], st,
+                                  rho_in=tt["rho_in"])
+
+    def step_metrics(_, out, st):
+        act = tt["active"]
+        return dict(solved=float(out.done[act].float().mean()), f64=float("nan"),
+                    mean_iter=float(out.iter[act].float().mean()))
+
+    runs["k7"] = run_aa_pair(c["label"], card, lambda seed: None, step_solve, c["settings"],
+                             dict(btd_step_launches=1), step_metrics)
+    paths.update(aa_btd_step_h32=runs["k7"]["anderson"]["counts"])
+    rows["btd_step_overhead"] = compare_aa(
+        f"{c['label']} (the cell's settings: the step's overhead)", tt,
+        lambda t, st: btd_launch(t, st, False), lambda t, st: btd_plain(t, st, False),
+        c["settings"], lambda out, st: btd_bound(out, st, c["batch"], c["n"], c["m"], c["bb"]),
+        reps)
+    rows["btd_step"] = compare_aa(
+        f"{c['label']} cluster, chunks of 10", tt,
+        lambda t, st: btd_launch(t, st, False, cluster=2), lambda t, st: btd_plain(t, st, False),
+        aa_pair_settings(c["settings"]),
+        lambda out, st: btd_bound(out, st, c["batch"], c["n"], c["m"], c["bb"]), reps,
+        pairs=True)
+    torch.cuda.synchronize()
+    return dict(rows=rows, runs=runs, counts=paths)
+
+
+# ---- H. the linear-solver backends -------------------------------------------
+
+
+def dense_block_pattern_qp(n: int, m: int, bs: int, density: float, seed: int):
+    """The dense twin of the JAX package's ``models/sparse.py:
+    sparse_qp_pair`` (numpy, float64): a symmetric random block pattern of
+    P at ``density``, made strictly positive definite by diagonal dominance;
+    a random block pattern of A with at least one block a block row; finite
+    feasible bounds.  Returns (P, q, A, l, u)."""
+    prng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed)
+    Rb, Cb, Mb = n // bs, n // bs, m // bs
+    P = np.zeros((n, n))
+    for i in range(Rb):
+        for j in range(i + 1):
+            if i != j and prng.uniform() > density:
+                continue
+            P[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = rng.normal(size=(bs, bs)) / np.sqrt(n)
+    P = 0.5 * (P + P.T)
+    P[np.arange(n), np.arange(n)] += np.abs(P).sum(axis=1) + 0.1
+    A = np.zeros((m, n))
+    for i in range(Mb):
+        cols = np.nonzero(prng.uniform(size=Cb) < density)[0]
+        if len(cols) == 0:
+            cols = [int(prng.integers(Cb))]
+        for j in cols:
+            A[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = (rng.normal(size=(bs, bs))
+                                                           / np.sqrt(bs * len(cols)))
+    q = rng.normal(size=n)
+    Ax = A @ rng.normal(size=n)
+    width = rng.uniform(0.5, 2.0, size=m)
+    return P, q, A, Ax - width, Ax + width
+
+
+def timed_wall(fn, runs: int):
+    """(result of the first run, min wall seconds over ``runs`` runs, each
+    closed by a synchronize)."""
+    import torch
+
+    walls, first = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        first = out if first is None else first
+    return first, min(walls)
+
+
+def run_backends(dev, card: str, btd_mpc_run: dict) -> dict:
+    """Leg H: the linear-solver backends at the JAX bench's shapes, each
+    run with the counters from 0 (no kernel launch but the SQP polish's K2)
+    after a warm-up; walls min of 3 (2 at n = 4096), host checks, solved
+    fraction and the float64 tests of the cells they mirror."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch, sphere_cap_solution
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch, random_qp_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch, sqp_solve_batch
+    from sqp_solver_tpu_torch.qp import qp_solve
+    from sqp_solver_tpu_torch.qp.types import QPSettings, QuadraticProblem
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    out, counts = {}, {}
+
+    def run(label, fn, want, runs=3):
+        """A warm-up, then ``runs`` runs, the first with the counters from 0:
+        (its result, its host checks, the min wall seconds)."""
+        fn()
+        reset_counts()
+        checks = host_checks()
+        res, wall = timed_wall(fn, 1)
+        checks = host_checks() - checks
+        c = read_counts()
+        if c != expect(**want):
+            raise AssertionError(f"{label}: launches {c}, expected {want}")
+        counts[label] = c
+        return res, checks, min([wall] + [timed_wall(fn, 1)[1] for _ in range(runs - 1)])
+
+    # blocktri on the vmap and fused tiers (bench.py:508-518), B = 256
+    qp_mpc, blk = mpc_qp_stagewise_batch(256, horizon=64, seed=0, device=dev)
+    bt = QPSettings(adaptive_rho=True, max_iter=100, linear_solver="schur_block_tridiag",
+                    block_size=blk)
+    side = btd_mpc_run["runs"][256]
+    for label, st, impl in (("blocktri_vmap", bt, "vmap"),
+                            ("blocktri_fused", dataclasses.replace(bt, schedule="fixed"),
+                             "fused")):
+        fn = functools.partial(qp_solve_batch, qp_mpc, st, impl=impl)
+        res, checks, wall = run(label, fn, {})
+        m = aa_qp_metrics(qp_mpc, res, st)
+        log(f"  {label} MPC horizon 64 B=256: {wall * 1e3:.3f} ms ({256 / wall:.1f} solves/s), "
+            f"solved {m['solved']:.4f}, mean iter {m['mean_iter']:.1f}, host checks {checks}, "
+            f"SOLVED pass the f64 OSQP test ({m['f64']:.4f} of all); beside K6 "
+            f"{side['ms']:.3f} ms, dense K3 {side['dense_ms']:.3f} ms [min of 3; {card}]")
+        if m["solved"] < 0.99 or m["f64"] < 0.99:
+            raise AssertionError(f"{label}: solved {m['solved']:.4f}, f64 test {m['f64']:.4f} "
+                                 "(bars 0.99)")
+        out[label] = dict(ms=wall * 1e3, host_checks=checks, **m)
+
+    # kkt_ldlt and schur_cholesky_tri on the vmap one-shot QP, B = 1024
+    qp_r = random_qp_batch(1024, 32, 33, seed=0, device=dev)
+    for name in ("kkt_ldlt", "schur_cholesky_tri"):
+        st = qp_bench_settings(linear_solver=name)
+        fn = functools.partial(qp_solve_batch, qp_r, st, impl="vmap")
+        res, checks, wall = run(f"{name}_vmap", fn, {})
+        m = aa_qp_metrics(qp_r, res, st)
+        log(f"  {name} vmap one-shot n=32 m=33 B=1024: {wall * 1e3:.3f} ms "
+            f"({1024 / wall:.1f} solves/s), solved {m['solved']:.4f}, f64 OSQP test (10x) "
+            f"{m['f64']:.4f}, mean iter {m['mean_iter']:.1f}, host checks {checks} "
+            f"[min of 3; {card}]")
+        if m["solved"] < 0.99 or m["f64"] < 0.99:
+            raise AssertionError(f"{name}: solved {m['solved']:.4f}, f64 test {m['f64']:.4f} "
+                                 "(bars 0.99)")
+        out[f"{name}_vmap"] = dict(ms=wall * 1e3, host_checks=checks, **m)
+
+    # schur_cholesky_blocked on one SQP problem, n = 4096 (bench.py:455-470)
+    nl = 4096
+    sl = SQPSettings(max_iter=10, eps_prim=1e-3, eps_dual=1e-3, termination="kkt",
+                     schedule="fixed", line_search_max_iter=8, polish=True,
+                     qp=QPSettings(alpha=1.6, eps_abs=1e-4, eps_rel=1e-4, max_iter=50,
+                                   check_termination=10, adaptive_rho=True,
+                                   adaptive_rho_interval=50, schedule="fixed",
+                                   linear_solver="schur_cholesky_blocked", refine_steps=1))
+    prob, x0 = sphere_cap_nlp_batch(1, nl, seed=0, dtype=torch.float32, device=dev)
+    fn = functools.partial(sqp_solve_batch, prob, x0, None, sl, impl="vmap")
+    res, checks, wall = run("blocked_sqp_n4096", fn, dict(polish_kkt_launches=sl.polish_passes),
+                            runs=1)
+    x = res.x.cpu().numpy()
+    err = float(np.abs(x.astype(np.float64) - sphere_cap_solution(prob)).max())
+    cert = sphere_cert_1e4(prob.u[:, 0].double().cpu().numpy(), x, res.lam.cpu().numpy())
+    status = int(res.info.status[0])
+    log(f"  schur_cholesky_blocked SQP n={nl}: {wall * 1e3:.3f} ms, status {status}, "
+        f"max |x - x*| {err:.3e}, f64 cert(1e-4) {cert:.4f}, host checks {checks} "
+        f"[one run after a warm-up; {card}]")
+    if not np.isfinite(x).all() or status != 0 or cert < 1.0:
+        raise AssertionError(f"blocked SQP n={nl}: status {status}, cert {cert:.4f}")
+    out["blocked_sqp_n4096"] = dict(ms=wall * 1e3, status=status, err=err, cert=cert,
+                                    host_checks=checks)
+
+    # the dense rows of bench.py:725-743: one QP, n = m = 4096
+    P, q, A, l, u = dense_block_pattern_qp(4096, 4096, 128, 0.03, seed=0)
+    qp_d = QuadraticProblem(*(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                              for v in (P, q, A, l, u)))
+    qp_b = QuadraticProblem(*(v.unsqueeze(0) for v in (qp_d.P, qp_d.q, qp_d.A, qp_d.l, qp_d.u)))
+    cg = QPSettings(linear_solver="cg", eps_abs=1e-4, eps_rel=1e-4, max_iter=2000,
+                    check_termination=25, adaptive_rho=True)
+    for label, st in (("dense_cg", cg),
+                      ("dense_chol_blocked", dataclasses.replace(
+                          cg, linear_solver="schur_cholesky_blocked"))):
+        fn = functools.partial(qp_solve, qp_d, st)
+        res, checks, wall = run(label, fn, {}, runs=2)
+        status = int(res.info.status)
+        ok, _ = qp_osqp64(qp_b, types.SimpleNamespace(x=res.x[None], y=res.y[None]),
+                          st.eps_abs, st.eps_rel)
+        log(f"  {label} QP n=m=4096: {wall * 1e3:.3f} ms, status {status}, iter "
+            f"{int(res.info.iter)}, f64 OSQP test (10x) {bool(ok[0])}, host checks {checks} "
+            f"[min of 2; {card}]")
+        if not torch.isfinite(res.x).all() or (status == 0 and not ok[0]):
+            raise AssertionError(f"{label}: status {status}, f64 OSQP test {bool(ok[0])}")
+        out[label] = dict(ms=wall * 1e3, status=status, iter=int(res.info.iter),
+                          f64=bool(ok[0]), host_checks=checks)
+    return dict(runs=out, counts=counts)
 
 
 def main() -> int:
@@ -1660,8 +2150,9 @@ def main() -> int:
                         for src in phase_sources}
         _build.load()
         phase_libs = {src: f.result() for src, f in phase_builds.items()}
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) "
-        f"into {_build.build_dir()}, with the phase-clock builds of K1-K5")
+    units = ", ".join(f"{k} {v:.1f} s" for k, v in _build.last_unit_seconds.items())
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s: "
+        f"{units}) into {_build.build_dir()}, with the phase-clock builds of K1-K5")
 
     # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
@@ -1741,6 +2232,15 @@ def main() -> int:
     log("F. the K1 SQP tier under inner-QP scaling (qp.scaling=10, K1 with do_bfgs=False):")
     scaled_run = run_main_path([(32, 4096)], dev, card, qp_impl="kernel", scaling=10)
     leg_s["F"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("G. Anderson acceleration inside the whole-solve kernels (K3, K1, K6, K7), each "
+        "beside the same call without it:")
+    aa_run = run_anderson(dev, card, main_run)
+    leg_s["G"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("H. the linear-solver backends at the JAX bench's shapes:")
+    backends_run = run_backends(dev, card, btd_mpc_run)
+    leg_s["H"] = time.perf_counter() - t_leg
     log("legs' seconds: " + ", ".join(f"{k} {v:.1f} s" for k, v in leg_s.items())
         + f", {sum(leg_s.values()):.1f} s in all (C ran inside the structured MPC leg)")
     paths = dict(
@@ -1754,7 +2254,8 @@ def main() -> int:
         **{f"qp_vmap_one_shot_{k}": v["counts"] for k, v in qp_vmap_run["runs"].items()},
         **{f"sqp_vmap_n{n}": c for n, c in vmap_run["launches"].items()},
         mpc_sustained_vmap=mpc_vmap_run["counts"], **families_run["counts"],
-        **{f"sqp_scaled_n{n}": c for n, c in scaled_run["launches"].items()})
+        **{f"sqp_scaled_n{n}": c for n, c in scaled_run["launches"].items()},
+        **aa_run["counts"], **backends_run["counts"])
 
     def entry(name, replaces, rows, source=CU_SOURCE, **extra):
         head = rows[0]
@@ -1777,12 +2278,16 @@ def main() -> int:
               "whole warm-started ADMM solve")
     k2_lib = ("none: no single PyTorch call computes a Schur factor's L^-1 and the "
               "refinement sweeps of an active-set KKT solve")
-    kernels = [entry("sqp_step", K1_SOURCE, k1, library_note=k1_lib),
+    aa = aa_run["rows"]  # each whole-solve kernel's row with Anderson (leg G)
+    kernels = [entry("sqp_step", K1_SOURCE, k1, library_note=k1_lib, anderson=aa["sqp_step"]),
                entry("polish_kkt", K2_SOURCE, k2, library_note=k2_lib),
-               entry("qp_solve", K3_SOURCE, k3), entry("spd_inverse", K4_SOURCE, k4),
+               entry("qp_solve", K3_SOURCE, k3, anderson=aa["qp_solve"]),
+               entry("spd_inverse", K4_SOURCE, k4),
                entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE),
-               entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib),
-               entry("btd_step", K7_SOURCE, k7, source=BTD_CU_SOURCE, library_note=no_lib)]
+               entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib,
+                     anderson=aa["qp_solve_btd"], anderson_overhead=aa["qp_solve_btd_overhead"]),
+               entry("btd_step", K7_SOURCE, k7, source=BTD_CU_SOURCE, library_note=no_lib,
+                     anderson=aa["btd_step"], anderson_overhead=aa["btd_step_overhead"])]
     log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
                         phases=phases,
                         library_factor=factor_ms,
@@ -1792,7 +2297,8 @@ def main() -> int:
                         btd_mpc=btd_mpc_run, btd_nlp=btd_nlp_run,
                         qp_vmap_one_shot=qp_vmap_run, vmap_main_path=vmap_run["configs"],
                         mpc_sustained_vmap=mpc_vmap_run, families=families_run,
-                        scaled_main_path=scaled_run["configs"], legs_seconds=leg_s,
+                        scaled_main_path=scaled_run["configs"], anderson=aa_run["runs"],
+                        backends=backends_run["runs"], legs_seconds=leg_s,
                         card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -326,6 +326,16 @@ __device__ __forceinline__ void op_cols(const Op&, int n, int& j0, int& j1) {
   j1 = n;
 }
 
+// The state an operator carries from call to call (BandOp's exchange
+// count): the Anderson step takes the operator by value and hands the
+// state back through these.
+template <class Op>
+__device__ __forceinline__ int op_state(const Op&) {
+  return 0;
+}
+template <class Op>
+__device__ __forceinline__ void op_set_state(const Op&, int) {}
+
 // The phase marks around an epoch's refactor in admm_solve: an operator
 // whose factor splits at a Gram / Thomas boundary marks that boundary
 // itself (BandOp); one whose factor pieces mark themselves (the dense
@@ -346,6 +356,14 @@ struct StepParams {
   float eps_pinf, eps_dinf;
   int n_smem_mats;       // leading matrices [W, A, Li] held in shared memory
   long long ws_floats;   // per-problem workspace for the others
+};
+
+// The Anderson instantiations' extra kernel argument: the memory k (pairs
+// kept) and the state, aa_floats(k, n, m) floats a scope (the kernels
+// without Anderson keep their parameters as they were).
+struct AaArgs {
+  int k;
+  float* ws;
 };
 
 // Matrix placement: the first n_smem of the sizes go to shared memory after
@@ -469,19 +487,225 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
   return prim ? 1 : (dual ? 2 : 0);
 }
 
-// The warm-started ADMM solve of one problem (twin of _admm_core without
-// Anderson).  The operator's factor holds the factor for the current rho
-// on entry and on exit (or is built in the first epoch when st.pending is
-// set on entry).  With p.check_infeas, xp (n) and yp (m) keep the
-// chunk-start iterates for the certificates; a certified problem commits
-// its chunk and stops.
+// ---- Anderson acceleration (twin of _admm_core's aa_step) ---------------
+// Safeguarded type-II Anderson on the chunk map of one scope's iterate,
+// packed as u = (x, z, y), D = n + 2 m entries (m the scope's rows: a
+// block of a K6/K7 cluster holds all of x and its own rows of z and y).
+// The state lives in a device workspace, one slice a scope:
+//   dU, dF   k x D each: the difference pairs, a ring whose slot head holds
+//            the oldest pair (logical index i sits in slot (head + i) % k,
+//            so the newest pairs are at the end, as on the TPU)
+//   uT, f    D each: the previous chunk's output and its step u_T - u_in
+//   u0, ua   D each: the chunk-start iterate, the plain output while the
+//            candidate is evaluated
+//   G, gam   k x k and k: the normal equations and their solution
+// It is read and written once a chunk, after the chunk's seg iterations.
+// The ring's indices (AaRing) are the same in every thread of the scope:
+// each thread keeps them in registers and updates them alike.
+constexpr int kAaGroup = 4;  // dot products reduced at once
+
+__host__ __device__ constexpr long long aa_floats(int k, int n, int m) {
+  return (2LL * k + 4) * (n + 2LL * m) + (long long)k * k + k;
+}
+
+// prev_ok: the previous chunk's output is in uT and f; pairs: the pairs
+// held; head: the slot of the oldest.  {0, 0, 0} at every kernel entry; a
+// pending rho empties the ring (prev_ok = pairs = 0: the chunk map changes
+// with rho, so stale pairs would extrapolate through another fixed point).
+struct AaRing {
+  int prev_ok, pairs, head;
+};
+
+// The chunk-start iterate into u0, by the threads (and entries) that read
+// it back in aa_chunk_end.
+template <class S>
+__device__ __forceinline__ void aa_begin(float* aa, int k, int n, int m, const float* x,
+                                         const float* z, const float* y) {
+  const int D = n + 2 * m;
+  float* u0 = aa + (2 * k + 2) * D;
+#pragma unroll 1
+  for (int e = S::rank(); e < D; e += S::size())
+    u0[e] = e < n ? x[e] : (e < n + m ? z[e - n] : y[e - n - m]);
+}
+
+// Dot product t of the step's list: the Gram's upper triangle over the
+// logical indices [lo, k) (t < npair), then the right-hand side (b = -1).
+__device__ __forceinline__ void aa_pair(int t, int lo, int k, int npair, int& a, int& b) {
+  if (t < npair) {
+    a = lo;
+    while (t >= k - a) t -= k - a++;
+    b = a + t;
+  } else {
+    a = lo + t - npair;
+    b = -1;
+  }
+}
+
+struct AaStats {
+  float rp, rd, mz, mq;  // the termination residuals of the iterate kept
+  int state;             // the operator's state after the step (op_state)
+  AaRing ring;           // the ring's indices before (sp) and after the step
+};
+
+// The step at a chunk's end, after the plain chunk output u_T's residuals
+// (sp, the caller's stats): (x, z, y) hold u_T on entry and the accepted
+// iterate on exit, the candidate u_T - sum_i gamma_i dU_i (z clipped to
+// [l, u]) where it has pairs, a finite combined residual rp / (mz + 1e-30)
+// + rd / (mq + 1e-30) below the plain one and does not undo termination,
+// else u_T.  The Gram and right-hand side are k (k + 1) / 2 + k dot
+// products over D, reduced through op_sum kAaGroup at a time (a cluster's
+// blocks take x's entries of op_cols and their own rows); the scope's
+// first thread solves the k x k system by Gauss-Jordan in the workspace,
+// and every thread reads the one gamma, so the candidate and the accept
+// are the same in every thread of the scope.  It takes the operator by
+// value and stays out of line with its loops kept rolled, so that the
+// iterations around it keep their register allocation.
 template <class Op>
+__device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
+                                             float eps_rel, AaStats sp, const float* q,
+                                             const float* l, const float* u, float* x, float* z,
+                                             float* y, float* tm, float* tn1, float* tn2,
+                                             float* red, float* aa) {
+  using S = typename OpScope<Op>::type;
+  const int D = n + 2 * m;
+  float* dU = aa;
+  float* dF = dU + (size_t)k * D;
+  float* uTp = dF + (size_t)k * D;
+  float* fp = uTp + D;
+  float* u0 = fp + D;
+  float* ua = u0 + D;
+  float* G = ua + D;
+  float* gam = G + k * k;
+  const bool prev_ok = sp.ring.prev_ok != 0;
+  int pairs = sp.ring.pairs, head = sp.ring.head;
+  const int push = head;  // the oldest slot takes the newest pair
+  if (prev_ok) {
+    pairs = min(pairs + 1, k);
+    head = head + 1 == k ? 0 : head + 1;
+  }
+  auto cur = [&](int e) -> float& { return e < n ? x[e] : (e < n + m ? z[e - n] : y[e - n - m]); };
+#pragma unroll 1
+  for (int e = S::rank(); e < D; e += S::size()) {
+    const float uT = cur(e), f = uT - u0[e];
+    if (prev_ok) {
+      dU[(size_t)push * D + e] = uT - uTp[e];
+      dF[(size_t)push * D + e] = f - fp[e];
+    }
+    uTp[e] = uT;
+    fp[e] = f;
+  }
+  AaStats out = sp;
+  if (pairs > 0) {
+    const int lo = k - pairs, npair = pairs * (pairs + 1) / 2, ndot = npair + pairs;
+    int j0, j1;
+    op_cols(op, n, j0, j1);
+#pragma unroll 1
+    for (int t0 = 0; t0 < ndot; t0 += kAaGroup) {
+      int oa[kAaGroup], ob[kAaGroup];  // the factors' offsets from dF (f: fp)
+#pragma unroll
+      for (int g = 0; g < kAaGroup; ++g) {
+        int a, b;
+        aa_pair(min(t0 + g, ndot - 1), lo, k, npair, a, b);
+        oa[g] = ((head + a) % k) * D;
+        ob[g] = b < 0 ? (k + 1) * D : ((head + b) % k) * D;
+      }
+      float v[kAaGroup];
+#pragma unroll
+      for (int g = 0; g < kAaGroup; ++g) v[g] = 0.f;
+#pragma unroll 1
+      for (int e = S::rank(); e < D; e += S::size()) {
+        if (e < n && (e < j0 || e >= j1)) continue;
+#pragma unroll
+        for (int g = 0; g < kAaGroup; ++g) v[g] = fmaf(dF[oa[g] + e], dF[ob[g] + e], v[g]);
+      }
+      op_sum(op, v, red);
+      if (S::rank() == 0)
+#pragma unroll 1
+        for (int g = 0; g < kAaGroup && t0 + g < ndot; ++g) {
+          int a, b;
+          aa_pair(t0 + g, lo, k, npair, a, b);
+          if (b < 0) gam[a] = v[g];
+          else G[a * k + b] = G[b * k + a] = v[g];
+        }
+    }
+    if (S::rank() == 0) {
+      // Levenberg term 1e-8 (trace G + 1), 1 on the unused rows (whose
+      // right-hand side is 0, so their gamma is 0), then Gauss-Jordan
+      float tr = 0.f;
+      for (int a = lo; a < k; ++a) tr += G[a * k + a];
+      const float reg = 1e-8f * (tr + 1.f);
+      for (int a = 0; a < k; ++a) {
+        if (a < lo) {
+          for (int b = 0; b < k; ++b) G[a * k + b] = G[b * k + a] = 0.f;
+          gam[a] = 0.f;
+        }
+        G[a * k + a] += reg + (a < lo ? 1.f : 0.f);
+      }
+      for (int i = 0; i < k; ++i) {
+        const float inv = 1.f / G[i * k + i];
+        for (int b = 0; b < k; ++b) G[i * k + b] *= inv;
+        gam[i] *= inv;
+        for (int r = 0; r < k; ++r) {
+          if (r == i) continue;
+          const float fac = G[r * k + i];
+          for (int b = 0; b < k; ++b) G[r * k + b] = fmaf(-fac, G[i * k + b], G[r * k + b]);
+          gam[r] = fmaf(-fac, gam[i], gam[r]);
+        }
+      }
+    }
+    S::sync();  // gamma to the scope; the plain stats' readers are done
+#pragma unroll 1
+    for (int e = S::rank(); e < D; e += S::size()) {
+      float acc = 0.f;
+#pragma unroll 1
+      for (int a = lo; a < k; ++a) acc = fmaf(gam[a], dU[(size_t)((head + a) % k) * D + e], acc);
+      float& c = cur(e);
+      const float cand = c - acc;
+      ua[e] = c;
+      c = (e >= n && e < n + m) ? clip(cand, l[e - n], u[e - n]) : cand;
+    }
+    S::sync();
+    AdmmState sa;
+    admm_stats(op, q, x, z, y, tm, tn1, tn2, red, n, m, sa);
+    const float tiny = 1e-30f;
+    const float comb_a = sa.rp / (sa.mz + tiny) + sa.rd / (sa.mq + tiny);
+    const float comb_p = sp.rp / (sp.mz + tiny) + sp.rd / (sp.mq + tiny);
+    const bool term_a = (sa.rp <= eps_abs + eps_rel * sa.mz) && (sa.rd <= eps_abs + eps_rel * sa.mq);
+    const bool term_p = (sp.rp <= eps_abs + eps_rel * sp.mz) && (sp.rd <= eps_abs + eps_rel * sp.mq);
+    const bool accept = isfinite(comb_a) && comb_a < comb_p && (term_a || !term_p);
+    S::sync();  // the candidate stats' readers are done
+    if (accept) {
+      out.rp = sa.rp;
+      out.rd = sa.rd;
+      out.mz = sa.mz;
+      out.mq = sa.mq;
+    } else {
+#pragma unroll 1
+      for (int e = S::rank(); e < D; e += S::size()) cur(e) = ua[e];
+      S::sync();
+    }
+  }
+  out.ring = AaRing{1, pairs, head};
+  out.state = op_state(op);
+  return out;
+}
+
+// The warm-started ADMM solve of one problem (twin of _admm_core).  The
+// operator's factor holds the factor for the current rho on entry and on
+// exit (or is built in the first epoch when st.pending is set on entry).
+// With p.check_infeas, xp (n) and yp (m) keep the chunk-start iterates for
+// the certificates; a certified problem commits its chunk and stops.  The
+// instantiation with AA runs the Anderson step (aa_chunk_end) at each
+// chunk's end on this scope's state aa (k pairs), fresh at entry; the one
+// without it is the solve as it was, register for register.
+template <class Op, bool AA = false>
 __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, const float* l,
                            const float* u, float* rv, float* x, float* z, float* y, float* bt,
                            float* xt, float* tm, float* tn1, float* tn2, float* xp, float* yp,
-                           float* red, AdmmState& st) {
+                           float* red, AdmmState& st, float* aa = nullptr, int k = 0) {
   using S = typename OpScope<Op>::type;
   const int n = p.n, m = p.m;
+  [[maybe_unused]] AaRing ring{0, 0, 0};
   for (int e = 0; e < p.n_epochs && !st.done && !st.fail && st.infs == 0; ++e) {
     // adopt the pending rho together with its factorization; a NaN
     // rho_est (NaN residuals) poisons rho, as the TPU's arithmetic select
@@ -499,10 +723,22 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
         for (int j = S::rank(); j < n; j += S::size()) xp[j] = x[j];
         for (int i = S::rank(); i < m; i += S::size()) yp[i] = y[i];
       }
+      if constexpr (AA) aa_begin<S>(aa, k, n, m, x, z, y);
       for (int it = 0; it < p.seg; ++it)
         admm_iter(op, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
       ADMM_PHASE_BEGIN(kPhStats);
       admm_stats(op, q, x, z, y, tm, tn1, tn2, red, n, m, st);
+      if constexpr (AA) {
+        const AaStats r = aa_chunk_end(op, k, n, m, p.eps_abs, p.eps_rel,
+                                       AaStats{st.rp, st.rd, st.mz, st.mq, 0, ring}, q, l, u,
+                                       x, z, y, tm, tn1, tn2, red, aa);
+        op_set_state(op, r.state);
+        ring = r.ring;
+        st.rp = r.rp;
+        st.rd = r.rd;
+        st.mz = r.mz;
+        st.mq = r.mq;
+      }
       ADMM_PHASE_END(kPhStats);
       if (p.check_infeas) {
         ADMM_PHASE_BEGIN(kPhCert);
@@ -533,6 +769,9 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
       }
       st.rho_upd += changed ? 1 : 0;
       st.pending = changed;
+      if constexpr (AA) {
+        if (changed) ring.prev_ok = ring.pairs = 0;
+      }
     }
   }
 }

@@ -43,6 +43,17 @@
 // emitted (Minv, rho) pair stays consistent for SOC reuse; the iteration
 // count advancing by seg only on active problems.
 //
+// Anderson acceleration.  K1 and K3 (both layouts) take it as a second
+// instantiation of their bodies (AA = true), whose ADMM core runs the
+// Anderson step of admm_core.cuh at each chunk's end; the instantiations
+// without it are the kernels as they were.  The Anderson kernels and their
+// entry points live in qp_kernel_aa.cu, which includes this file with
+// QP_KERNEL_AA_UNIT defined, so that nvcc builds them in a process of
+// their own beside this one: with them in this unit, nvcc took 112.6 s
+// over it, against 75.8 and 81.9 s over the structured kernel's two units
+// (the build line of chip_smoke.py, sm_90a), and the library's build
+// waited for it.
+//
 // Memory.  Vectors live in shared memory.  The per-problem matrices
 // (row stride n+1, which makes the row-per-thread matvecs of K3/K4 and
 // the lane-split ones of K1/K2 free of bank conflicts) go to shared memory in a fixed order for as long as they fit
@@ -123,17 +134,23 @@ __device__ __forceinline__ void op_factor_mark(const DenseLaneOp<L>&, bool) {}
 // register tiles; the ADMM matvecs split each dot product over L lanes
 // (4 at 128 threads, 2 at 256) so that every thread works on short
 // chains with their loads in flight.  BFGS is the parent's.
-template <int L>
-__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel(
-    StepParams p, const float* __restrict__ Bp, const float* __restrict__ J,
-    const float* __restrict__ g, const float* __restrict__ lg, const float* __restrict__ ug,
-    const float* __restrict__ sg, const float* __restrict__ dglg,
-    const uint8_t* __restrict__ reset, const uint8_t* __restrict__ upd,
-    const uint8_t* __restrict__ active, const float* __restrict__ rho_in,
-    const float* __restrict__ minv_in, const float* __restrict__ x0,
-    const float* __restrict__ z0, const float* __restrict__ y0, float* __restrict__ p_out,
-    float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ B_out,
-    float* __restrict__ stats, float* __restrict__ minv_out, float* __restrict__ ws) {
+// The body, with (AA) or without Anderson acceleration; the kernels
+// sqp_step_kernel and sqp_step_kernel_aa (qp_kernel_aa.cu) instantiate it.
+#define SQP_STEP_PARAMS                                                                       \
+  StepParams p, const float* __restrict__ Bp, const float* __restrict__ J,                    \
+      const float* __restrict__ g, const float* __restrict__ lg, const float* __restrict__ ug, \
+      const float* __restrict__ sg, const float* __restrict__ dglg,                           \
+      const uint8_t* __restrict__ reset, const uint8_t* __restrict__ upd,                     \
+      const uint8_t* __restrict__ active, const float* __restrict__ rho_in,                   \
+      const float* __restrict__ minv_in, const float* __restrict__ x0,                        \
+      const float* __restrict__ z0, const float* __restrict__ y0, float* __restrict__ p_out,  \
+      float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ B_out,        \
+      float* __restrict__ stats, float* __restrict__ minv_out, float* __restrict__ ws
+#define SQP_STEP_ARGS                                                                     \
+  p, Bp, J, g, lg, ug, sg, dglg, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out, \
+      z_out, y_out, B_out, stats, minv_out, ws
+template <int L, bool AA>
+__device__ __forceinline__ void sqp_step_body(SQP_STEP_PARAMS, AaArgs aa_args) {
   extern __shared__ float smem[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -260,7 +277,9 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel(
   st.rho_est = st.rho;
 
   const DenseLaneOp<L> op{Bn, n, A, W, Li, red, ld, n, m, p.sigma};
-  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr, nullptr, red, st);
+  float* aa = AA ? aa_args.ws + b * aa_floats(aa_args.k, n, m) : nullptr;
+  admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
+                                 nullptr, red, st, aa, aa_args.k);
 
   ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) p_out[b * n + j] = x[j];
@@ -290,6 +309,19 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel(
   ADMM_PHASE_END(kPhTotal);
 }
 
+#ifndef QP_KERNEL_AA_UNIT
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel(SQP_STEP_PARAMS) {
+  sqp_step_body<L, false>(SQP_STEP_ARGS, AaArgs{0, nullptr});
+}
+#else
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel_aa(
+    SQP_STEP_PARAMS, AaArgs aa_args) {
+  sqp_step_body<L, true>(SQP_STEP_ARGS, aa_args);
+}
+#endif
+
 // K2.  Replaces sqp_solver_tpu/ops/qp_kernel.py:polish_kkt_kernel.
 // Per problem: mask J by the active rows, L^-1 of M = H + delta I +
 // (1/delta) Jm'Jm, then `sweeps` ideal-operator refinement sweeps that
@@ -304,6 +336,7 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel(
 // 128 threads, 2 at 256; the triangular ones over 2 L lanes, rows i and
 // n - 1 - i together) and reduced by shuffles; the elementwise updates
 // in the matvecs' epilogues, four barriers a sweep.
+#ifndef QP_KERNEL_AA_UNIT
 template <int L>
 __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
     int n, int m, float delta, int sweeps, int n_smem_mats, long long ws_floats,
@@ -412,6 +445,7 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
   ADMM_PHASE_END(kPhLoad);
   ADMM_PHASE_END(kPhTotal);
 }
+#endif  // QP_KERNEL_AA_UNIT
 
 // K3.  Replaces sqp_solver_tpu/ops/qp_kernel.py:qp_solve_kernel.
 // Per problem: classify the rows, then the ADMM solve entered with a
@@ -431,12 +465,18 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
 // chunk (residuals, certificates) and by the factor, stays in device
 // memory (L1/L2 resident).  This block layout serves n > 32 or m > 64;
 // smaller problems take the warp layout (qp_solve_warp_kernel).
-__global__ void __launch_bounds__(256) qp_solve_kernel(
-    StepParams p, const float* __restrict__ Pg, const float* __restrict__ Ag,
-    const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug,
-    const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0,
-    float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
-    float* __restrict__ stats, float* __restrict__ ws) {
+// The body, with (AA) or without Anderson acceleration; the kernels
+// qp_solve_kernel and qp_solve_kernel_aa (qp_kernel_aa.cu) instantiate it.
+#define QP_SOLVE_PARAMS                                                                       \
+  StepParams p, const float* __restrict__ Pg, const float* __restrict__ Ag,                   \
+      const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug, \
+      const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0, \
+      float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,        \
+      float* __restrict__ stats
+#define QP_SOLVE_ARGS p, Pg, Ag, qg, lg, ug, x0, z0, y0, x_out, z_out, y_out, stats
+template <bool AA>
+__device__ __forceinline__ void qp_solve_body(QP_SOLVE_PARAMS, float* __restrict__ ws,
+                                              AaArgs aa_args) {
   extern __shared__ float smem[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -498,7 +538,9 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
   st.rho_est = st.rho;
 
   const DenseOp op{Pb, n, A, W, Li, ld, n, m, p.sigma};
-  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
+  float* aa = AA ? aa_args.ws + b * aa_floats(aa_args.k, n, m) : nullptr;
+  admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                          aa, aa_args.k);
 
   ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
@@ -520,6 +562,18 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(
   ADMM_PHASE_END(kPhLoad);
   ADMM_PHASE_END(kPhTotal);
 }
+
+#ifndef QP_KERNEL_AA_UNIT
+__global__ void __launch_bounds__(256) qp_solve_kernel(QP_SOLVE_PARAMS, float* __restrict__ ws) {
+  qp_solve_body<false>(QP_SOLVE_ARGS, ws, AaArgs{0, nullptr});
+}
+#else
+__global__ void __launch_bounds__(256) qp_solve_kernel_aa(QP_SOLVE_PARAMS,
+                                                          float* __restrict__ ws,
+                                                          AaArgs aa_args) {
+  qp_solve_body<true>(QP_SOLVE_ARGS, ws, aa_args);
+}
+#endif
 
 // K3's warp layout: one warp a problem, kQpWarps problems a block, for
 // n <= 32 and m <= 64 (qp_warp_layout, the one place that states the
@@ -804,13 +858,18 @@ __host__ __device__ constexpr int qp_warp_floats(int n, int m) {
 
 // K3, warp layout: the same computation as qp_solve_kernel per problem;
 // NM (16 or 32) >= n unrolls the factor's registers.
-template <int NM>
-__global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(
-    StepParams p, int batch, const float* __restrict__ Pg, const float* __restrict__ Ag,
-    const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug,
-    const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0,
-    float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
-    float* __restrict__ stats) {
+// The body, with (AA) or without Anderson acceleration; the kernels
+// qp_solve_warp_kernel and qp_solve_warp_kernel_aa (qp_kernel_aa.cu)
+// instantiate it.
+#define QP_WARP_PARAMS                                                                         \
+  StepParams p, int batch, const float* __restrict__ Pg, const float* __restrict__ Ag,         \
+      const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug, \
+      const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0, \
+      float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,         \
+      float* __restrict__ stats
+#define QP_WARP_ARGS p, batch, Pg, Ag, qg, lg, ug, x0, z0, y0, x_out, z_out, y_out, stats
+template <int NM, bool AA>
+__device__ __forceinline__ void qp_solve_warp_body(QP_WARP_PARAMS, AaArgs aa_args) {
   extern __shared__ float4 smem4[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -871,7 +930,9 @@ __global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(
 
   // the factor's column buffer: tn1 and tn2, free while it runs
   const WarpDenseOp<NM> op{Pg + b * n * n, A, W, tn1, ld4, n, m, p.sigma};
-  admm_solve(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, nullptr, st);
+  float* aa = AA ? aa_args.ws + b * aa_floats(aa_args.k, n, m) : nullptr;
+  admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                  nullptr, st, aa, aa_args.k);
 
   ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = lane; j < n; j += 32) x_out[b * n + j] = x[j];
@@ -894,6 +955,20 @@ __global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(
   ADMM_PHASE_END(kPhTotal);
 }
 
+#ifndef QP_KERNEL_AA_UNIT
+template <int NM>
+__global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(QP_WARP_PARAMS) {
+  qp_solve_warp_body<NM, false>(QP_WARP_ARGS, AaArgs{0, nullptr});
+}
+#else
+template <int NM>
+__global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel_aa(QP_WARP_PARAMS,
+                                                                        AaArgs aa_args) {
+  qp_solve_warp_body<NM, true>(QP_WARP_ARGS, aa_args);
+}
+#endif
+
+#ifndef QP_KERNEL_AA_UNIT
 // K4.  Replaces sqp_solver_tpu/ops/qp_kernel.py:spd_inverse_kernel.
 // Per problem: the lower triangle of M, Cholesky with the pivot clamp
 // max(d, 1e-30) and fail = (d <= 0 | NaN), L^-1, then Minv = L^-T L^-1,
@@ -1080,6 +1155,8 @@ __global__ void __launch_bounds__(kSpdThreads, 3) spd_inverse_blocked_kernel(
   ADMM_PHASE_END(kPhTotal);
 }
 
+#endif  // QP_KERNEL_AA_UNIT
+
 // K4's arms: the rule's, or one of the two forced by the raw launcher's
 // A/B argument (the column kernel, the two-buffer blocked factor), and the
 // two that the rule picks.
@@ -1149,6 +1226,34 @@ cudaError_t set_smem(Kernel k, size_t bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The ADMM core's parameters of one launch of K1 or K3, without Anderson.
+StepParams step_params(int n, int m, float sigma, float alpha, float rho0, float eps_abs,
+                       float eps_rel, int n_epochs, int chunks_per_epoch, int seg,
+                       int adaptive_rho, float adaptive_rho_tolerance, int do_bfgs,
+                       int check_infeas, float eps_pinf, float eps_dinf, const Layout& L) {
+  StepParams p;
+  p.n = n;
+  p.m = m;
+  p.sigma = sigma;
+  p.alpha = alpha;
+  p.rho0 = rho0;
+  p.eps_abs = eps_abs;
+  p.eps_rel = eps_rel;
+  p.n_epochs = n_epochs;
+  p.chunks_per_epoch = chunks_per_epoch;
+  p.seg = seg;
+  p.adaptive_rho = adaptive_rho;
+  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
+  p.do_bfgs = do_bfgs;
+  p.check_infeas = check_infeas;
+  p.eps_pinf = eps_pinf;
+  p.eps_dinf = eps_dinf;
+  p.n_smem_mats = L.n_smem_mats;
+  p.ws_floats = L.ws_floats;
+  return p;
+}
+
+#ifndef QP_KERNEL_AA_UNIT
 // A K4 arm's kernel and launch shape at n.
 struct SpdLaunch {
   const void* kernel;
@@ -1200,9 +1305,11 @@ cudaError_t spd_prepare(const SpdLaunch& s) {
   return cudaFuncSetAttribute(s.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
+#endif  // QP_KERNEL_AA_UNIT
 
 }  // namespace
 
+#ifndef QP_KERNEL_AA_UNIT
 extern "C" {
 
 long long sqp_step_workspace_floats(int n, int m) { return step_layout(n, m).ws_floats; }
@@ -1239,24 +1346,9 @@ int sqp_step_launch(const float* Bp, const float* J, const float* g, const float
   auto kernel = threads == 128 ? sqp_step_kernel<4> : sqp_step_kernel<2>;
   err = set_smem(kernel, L.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  StepParams p;
-  p.n = n;
-  p.m = m;
-  p.sigma = sigma;
-  p.alpha = alpha;
-  p.rho0 = rho0;
-  p.eps_abs = eps_abs;
-  p.eps_rel = eps_rel;
-  p.n_epochs = n_epochs;
-  p.chunks_per_epoch = chunks_per_epoch;
-  p.seg = seg;
-  p.adaptive_rho = adaptive_rho;
-  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
-  p.do_bfgs = do_bfgs;
-  p.check_infeas = 0;
-  p.eps_pinf = p.eps_dinf = 0.f;
-  p.n_smem_mats = L.n_smem_mats;
-  p.ws_floats = L.ws_floats;
+  const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                   chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
+                                   do_bfgs, 0, 0.f, 0.f, L);
   kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
       p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
       z_out, y_out, B_out, stats, minv_out, ws);
@@ -1305,25 +1397,9 @@ int qp_solve_launch_as(int layout, const float* P, const float* A, const float* 
   if (err == cudaSuccess)
     err = warp ? set_smem(warp_kernel, warp_bytes) : set_smem(qp_solve_kernel, L.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  StepParams p;
-  p.n = n;
-  p.m = m;
-  p.sigma = sigma;
-  p.alpha = alpha;
-  p.rho0 = rho0;
-  p.eps_abs = eps_abs;
-  p.eps_rel = eps_rel;
-  p.n_epochs = n_epochs;
-  p.chunks_per_epoch = chunks_per_epoch;
-  p.seg = seg;
-  p.adaptive_rho = adaptive_rho;
-  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
-  p.do_bfgs = 0;
-  p.check_infeas = check_infeas;
-  p.eps_pinf = eps_pinf;
-  p.eps_dinf = eps_dinf;
-  p.n_smem_mats = L.n_smem_mats;
-  p.ws_floats = L.ws_floats;
+  const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                   chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance, 0,
+                                   check_infeas, eps_pinf, eps_dinf, L);
   if (warp) {
     const int blocks = (batch + kQpWarps - 1) / kQpWarps;
     warp_kernel<<<blocks, 32 * kQpWarps, warp_bytes, (cudaStream_t)stream>>>(
@@ -1409,3 +1485,85 @@ int spd_inverse_arm_info(int n, int device, int* out) {
 }
 
 }  // extern "C"
+
+#else  // QP_KERNEL_AA_UNIT: the Anderson kernels' entry points
+
+extern "C" {
+
+// Floats of one scope's Anderson state (admm_core.cuh:aa_floats) at memory
+// k, n variables and m rows; the wrappers allocate one slice a problem (a
+// block, for a K6/K7 cluster) with acceleration="anderson".
+long long admm_aa_floats(int k, int n, int m) { return aa_floats(k, n, m); }
+
+// sqp_step_launch with Anderson acceleration of memory aa_mem > 0, its state
+// in aa_ws (batch x admm_aa_floats(aa_mem, n, m) floats).
+int sqp_step_launch_aa(const float* Bp, const float* J, const float* g, const float* l,
+                       const float* u, const float* s, const float* dgl, const uint8_t* reset,
+                       const uint8_t* upd, const uint8_t* active, const float* rho_in,
+                       const float* minv_in, const float* x0, const float* z0, const float* y0,
+                       float* p_out, float* z_out, float* y_out, float* B_out, float* stats,
+                       float* minv_out, float* ws, int batch, int n, int m, float sigma,
+                       float alpha, float rho0, float eps_abs, float eps_rel, int n_epochs,
+                       int chunks_per_epoch, int seg, int adaptive_rho,
+                       float adaptive_rho_tolerance, int do_bfgs, int device, void* stream,
+                       int aa_mem, float* aa_ws) {
+  if (batch <= 0) return 0;
+  const Layout L = step_layout(n, m);
+  if ((L.ws_floats > 0 && ws == nullptr) || aa_mem <= 0 || aa_ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = threads_for(n, m);
+  auto kernel = threads == 128 ? sqp_step_kernel_aa<4> : sqp_step_kernel_aa<2>;
+  err = set_smem(kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                   chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
+                                   do_bfgs, 0, 0.f, 0.f, L);
+  kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
+      p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
+      z_out, y_out, B_out, stats, minv_out, ws, AaArgs{aa_mem, aa_ws});
+  return (int)cudaGetLastError();
+}
+
+// qp_solve_launch_as with Anderson acceleration of memory aa_mem > 0, its
+// state in aa_ws (batch x admm_aa_floats(aa_mem, n, m) floats); layout 0 by
+// qp_warp_layout, 1 the block layout, 2 the warp layout.
+int qp_solve_launch_aa(int layout, const float* P, const float* A, const float* q,
+                       const float* l, const float* u, const float* x0, const float* z0,
+                       const float* y0, float* x_out, float* z_out, float* y_out, float* stats,
+                       float* ws, int batch, int n, int m, float sigma, float alpha,
+                       float rho0, float eps_abs, float eps_rel, int n_epochs,
+                       int chunks_per_epoch, int seg, int adaptive_rho,
+                       float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
+                       float eps_dinf, int device, void* stream, int aa_mem, float* aa_ws) {
+  if (batch <= 0) return 0;
+  if (layout < 0 || layout > 2 || (layout == 2 && !qp_warp_layout(n, m)) || aa_mem <= 0 ||
+      aa_ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool warp = layout == 2 || (layout == 0 && qp_warp_layout(n, m));
+  const Layout L = qp_layout(n, m);
+  if (!warp && L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t warp_bytes = (size_t)kQpWarps * qp_warp_floats(n, m) * sizeof(float);
+  auto warp_kernel = n <= 16 ? qp_solve_warp_kernel_aa<16> : qp_solve_warp_kernel_aa<32>;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = warp ? set_smem(warp_kernel, warp_bytes) : set_smem(qp_solve_kernel_aa, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                   chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance, 0,
+                                   check_infeas, eps_pinf, eps_dinf, L);
+  const AaArgs aa{aa_mem, aa_ws};
+  if (warp) {
+    const int blocks = (batch + kQpWarps - 1) / kQpWarps;
+    warp_kernel<<<blocks, 32 * kQpWarps, warp_bytes, (cudaStream_t)stream>>>(
+        p, batch, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, aa);
+  } else {
+    qp_solve_kernel_aa<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+        p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws, aa);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+#endif  // QP_KERNEL_AA_UNIT

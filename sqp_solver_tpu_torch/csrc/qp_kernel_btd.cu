@@ -66,6 +66,14 @@
 // latency- and shared-memory bound, and the batch fills the card only
 // when B (or 2 B on clusters) >= 132.
 
+// Anderson acceleration.  The kernel takes it as a second instantiation of
+// its body (AA = true), whose ADMM core runs the Anderson step of
+// admm_core.cuh at each chunk's end, one workspace slice a block; the
+// instantiations without it are the kernel as it was.  They live in
+// qp_kernel_btd_aa.cu with their entry point (qp_btd_launch_aa), which
+// includes this file with QP_KERNEL_BTD_AA_UNIT defined, so that nvcc
+// builds them in a process of their own beside this one.
+
 #include <cooperative_groups.h>
 
 #include "admm_core.cuh"
@@ -523,6 +531,16 @@ __device__ __forceinline__ void op_sum(const BandOp<BB, CS>& op, float (&v)[K], 
   if constexpr (CS > 1) op.template combine<K, false>(v);
 }
 
+// The exchange count, carried through the Anderson step (op_state).
+template <int BB, int CS>
+__device__ __forceinline__ int op_state(const BandOp<BB, CS>& op) {
+  return op.seq;
+}
+template <int BB, int CS>
+__device__ __forceinline__ void op_set_state(const BandOp<BB, CS>& op, int seq) {
+  op.seq = seq;
+}
+
 // A block of a cluster adds its share of the n-vectors' terms (they are
 // the same in both blocks), so that the combined sums count each once.
 template <int BB, int CS>
@@ -584,15 +602,37 @@ int btd_cluster_size(int n, int m, int bb, int batch) {
 // TPU kernel; the ADMM solve entered with a pending rho, so the first
 // epoch factors.  Output x, z, y and stats (9, B): done, iter, res_prim,
 // res_dual, fail, rho_updates, rho_estimate, infs, rho of the final factor.
+// One body, written in the kernel itself: this unit compiles it as
+// qp_btd_kernel (without Anderson, the kernel as it was), and
+// qp_kernel_btd_aa.cu as qp_btd_kernel_aa (with it, AA).  Inlined from a
+// body function the two shared (as K1 and K3 are), the bb = 8 cluster
+// instance without Anderson came out with its loop-carried values
+// numbered in another order and other registers (122 a thread against the
+// kernel's 126 before Anderson, cuobjdump --dump-resource-usage through
+// tools/kernel_ab.py --parts regs on sm_90a).  A unit of its own also
+// keeps these instantiations, most of the library's build, in an nvcc
+// process of their own.
+#ifndef QP_KERNEL_BTD_AA_UNIT
 template <int BB, int CS>
 __global__ void __launch_bounds__(kThreads) qp_btd_kernel(
+#else
+template <int BB, int CS>
+__global__ void __launch_bounds__(kThreads) qp_btd_kernel_aa(
+#endif
     StepParams p, int rs, int batch, const float* __restrict__ pdg,
     const float* __restrict__ peg, const float* __restrict__ Ag, const float* __restrict__ qg,
     const float* __restrict__ lg, const float* __restrict__ ug,
     const uint8_t* __restrict__ active, const float* __restrict__ rho_in,
     const float* __restrict__ x0, const float* __restrict__ z0, const float* __restrict__ y0,
     float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,
+#ifndef QP_KERNEL_BTD_AA_UNIT
     float* __restrict__ stats) {
+  constexpr bool AA = false;
+  const AaArgs aa_args{0, nullptr};
+#else
+    float* __restrict__ stats, AaArgs aa_args) {
+  constexpr bool AA = true;
+#endif
   extern __shared__ float smem[];
   ADMM_PHASE_BEGIN(kPhTotal);
   const int n = p.n, m = p.m, ld = n + 1, T = n / BB, nband = n * BB;
@@ -675,7 +715,10 @@ __global__ void __launch_bounds__(kThreads) qp_btd_kernel(
                           flag, xch, xlen, rank, n, T, p.sigma, 0};
   StepParams pl = p;
   pl.m = ml;  // the ADMM core sees this block's rows
-  admm_solve(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
+  // Anderson's state: one slice a block, sized for m0 rows
+  float* aa = AA ? aa_args.ws + (size_t)blockIdx.x * aa_floats(aa_args.k, n, m0) : nullptr;
+  admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                 red, st, aa, aa_args.k);
 
   ADMM_PHASE_END(kPhTotal);
   if (rank == 0)
@@ -700,13 +743,18 @@ __global__ void __launch_bounds__(kThreads) qp_btd_kernel(
   if constexpr (CS > 1) cg::this_cluster().sync();
 }
 
+// One launch of this unit's kernel (with Anderson in qp_kernel_btd_aa.cu).
 template <int BB, int CS>
 cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cudaStream_t stream,
                        const float* pd, const float* pe, const float* A, const float* q,
                        const float* l, const float* u, const uint8_t* active,
                        const float* rho_in, const float* x0, const float* z0, const float* y0,
-                       float* x_out, float* z_out, float* y_out, float* stats) {
+                       float* x_out, float* z_out, float* y_out, float* stats, AaArgs aa) {
+#ifndef QP_KERNEL_BTD_AA_UNIT
   auto kernel = qp_btd_kernel<BB, CS>;
+#else
+  auto kernel = qp_btd_kernel_aa<BB, CS>;
+#endif
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -722,9 +770,50 @@ cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cuda
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = CS > 1 ? 1 : 0;
+#ifndef QP_KERNEL_BTD_AA_UNIT
+  (void)aa;
   return cudaLaunchKernelEx(&cfg, kernel, p, rs, batch, pd, pe, A, q, l, u, active, rho_in, x0,
                             z0, y0, x_out, z_out, y_out, stats);
+#else
+  return cudaLaunchKernelEx(&cfg, kernel, p, rs, batch, pd, pe, A, q, l, u, active, rho_in, x0,
+                            z0, y0, x_out, z_out, y_out, stats, aa);
+#endif
 }
+
+// The ADMM core's parameters of one launch, without Anderson.
+StepParams btd_params(int n, int m, float sigma, float alpha, float rho0, float eps_abs,
+                      float eps_rel, int n_epochs, int chunks_per_epoch, int seg,
+                      int adaptive_rho, float adaptive_rho_tolerance, int check_infeas,
+                      float eps_pinf, float eps_dinf) {
+  StepParams p;
+  p.n = n;
+  p.m = m;
+  p.sigma = sigma;
+  p.alpha = alpha;
+  p.rho0 = rho0;
+  p.eps_abs = eps_abs;
+  p.eps_rel = eps_rel;
+  p.n_epochs = n_epochs;
+  p.chunks_per_epoch = chunks_per_epoch;
+  p.seg = seg;
+  p.adaptive_rho = adaptive_rho;
+  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
+  p.do_bfgs = 0;
+  p.check_infeas = check_infeas;
+  p.eps_pinf = eps_pinf;
+  p.eps_dinf = eps_dinf;
+  p.n_smem_mats = 0;
+  p.ws_floats = 0;
+  return p;
+}
+
+// One launch with cs blocks per problem (1 or 2, as BTD_INSTANCES has them)
+// of this unit's kernel and the parameters p.
+cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, const float* pe,
+                          const float* A, const float* q, const float* l, const float* u,
+                          const uint8_t* active, const float* rho_in, const float* x0,
+                          const float* z0, const float* y0, float* x_out, float* z_out,
+                          float* y_out, float* stats, int batch, void* stream, AaArgs aa);
 
 }  // namespace
 
@@ -736,6 +825,32 @@ cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cuda
 #define BTD_INSTANCES X(8, 1) X(8, 2) X(16, 1) X(16, 2) X(24, 1) X(32, 1)
 #endif
 
+namespace {
+
+cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, const float* pe,
+                          const float* A, const float* q, const float* l, const float* u,
+                          const uint8_t* active, const float* rho_in, const float* x0,
+                          const float* z0, const float* y0, float* x_out, float* z_out,
+                          float* y_out, float* stats, int batch, void* stream, AaArgs aa) {
+  const int n = p.n, m = p.m;
+  if ((cs != 1 && cs != 2) || bb <= 0 || n % bb != 0) return cudaErrorInvalidValue;
+  const int rs = btd_block_rows(n, m, bb, cs);
+  if (rs < 0) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)(btd_fixed_floats(n, m, bb, cs) + (long long)rs * (n + 1)) * 4;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;  // unless an instantiation takes (bb, cs)
+#define X(BB_, CS_)                                                                        \
+  if (bb == BB_ && cs == CS_)                                                              \
+    err = launch_btd<BB_, CS_>(p, rs, batch, smem, st, pd, pe, A, q, l, u, active, rho_in, \
+                               x0, z0, y0, x_out, z_out, y_out, stats, aa);
+  BTD_INSTANCES
+#undef X
+  return err;
+}
+
+}  // namespace
+
+#ifndef QP_KERNEL_BTD_AA_UNIT
 extern "C" {
 
 // Blocks per problem the launcher takes at these sizes (1 or 2).
@@ -759,40 +874,13 @@ int qp_btd_launch_as(int cs, const float* pd, const float* pe, const float* A, c
                      float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
                      float eps_dinf, int device, void* stream) {
   if (batch <= 0) return 0;
-  if ((cs != 1 && cs != 2) || bb <= 0 || n % bb != 0) return (int)cudaErrorInvalidValue;
-  const int rs = btd_block_rows(n, m, bb, cs);
-  if (rs < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(btd_fixed_floats(n, m, bb, cs) + (long long)rs * (n + 1)) * 4;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  StepParams p;
-  p.n = n;
-  p.m = m;
-  p.sigma = sigma;
-  p.alpha = alpha;
-  p.rho0 = rho0;
-  p.eps_abs = eps_abs;
-  p.eps_rel = eps_rel;
-  p.n_epochs = n_epochs;
-  p.chunks_per_epoch = chunks_per_epoch;
-  p.seg = seg;
-  p.adaptive_rho = adaptive_rho;
-  p.adaptive_rho_tolerance = adaptive_rho_tolerance;
-  p.do_bfgs = 0;
-  p.check_infeas = check_infeas;
-  p.eps_pinf = eps_pinf;
-  p.eps_dinf = eps_dinf;
-  p.n_smem_mats = 0;
-  p.ws_floats = 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-#define BTD_ARGS p, rs, batch, smem, st, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, \
-                 z_out, y_out, stats
-  err = cudaErrorInvalidValue;  // unless an instantiation takes (bb, cs)
-#define X(BB_, CS_) \
-  if (bb == BB_ && cs == CS_) err = launch_btd<BB_, CS_>(BTD_ARGS);
-  BTD_INSTANCES
-#undef X
-#undef BTD_ARGS
+  const StepParams p = btd_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                  chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
+                                  check_infeas, eps_pinf, eps_dinf);
+  err = launch_btd_as(cs, p, bb, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out,
+                      y_out, stats, batch, stream, AaArgs{0, nullptr});
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -815,3 +903,36 @@ int qp_btd_launch(const float* pd, const float* pe, const float* A, const float*
 }
 
 }  // extern "C"
+
+#else  // QP_KERNEL_BTD_AA_UNIT: the Anderson kernels' entry point
+
+extern "C" {
+
+// qp_btd_launch_as with Anderson acceleration of memory aa_mem > 0, cs
+// blocks per problem (1 or 2; 0: the rule's, qp_btd_cluster_size), its
+// state in aa_ws: batch x cs slices of admm_aa_floats(aa_mem, n,
+// ceil(m / cs)) floats, one a block.
+int qp_btd_launch_aa(int cs, const float* pd, const float* pe, const float* A, const float* q,
+                     const float* l, const float* u, const uint8_t* active, const float* rho_in,
+                     const float* x0, const float* z0, const float* y0, float* x_out,
+                     float* z_out, float* y_out, float* stats, int batch, int n, int m, int bb,
+                     float sigma, float alpha, float rho0, float eps_abs, float eps_rel,
+                     int n_epochs, int chunks_per_epoch, int seg, int adaptive_rho,
+                     float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
+                     float eps_dinf, int device, void* stream, int aa_mem, float* aa_ws) {
+  if (batch <= 0) return 0;
+  if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);  // the rule reads this card's SM count
+  if (err != cudaSuccess) return (int)err;
+  const StepParams p = btd_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                  chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
+                                  check_infeas, eps_pinf, eps_dinf);
+  err = launch_btd_as(cs == 0 ? btd_cluster_size(n, m, bb, batch) : cs, p, bb, pd, pe, A, q, l,
+                      u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats, batch, stream,
+                      AaArgs{aa_mem, aa_ws});
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+#endif  // QP_KERNEL_BTD_AA_UNIT

@@ -18,9 +18,11 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load", "build_library", "build_dir", "nvcc_path", "last_build_seconds"]
+__all__ = ["load", "build_library", "build_dir", "nvcc_path", "last_build_seconds",
+           "last_unit_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -29,6 +31,7 @@ _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 last_build_seconds = 0.0  # wall time of the last nvcc run (0 when cached)
+last_unit_seconds: dict = {}  # each source's nvcc seconds in that run
 
 _VOID, _INT, _FLOAT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -37,7 +40,13 @@ _SIGNATURES = {
         _INT,
         [_VOID] * 22 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4 + [_FLOAT, _INT, _INT, _VOID],
     ),
+    "sqp_step_launch_aa": (
+        _INT,
+        [_VOID] * 22 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4 + [_FLOAT, _INT, _INT, _VOID]
+        + [_INT, _VOID],
+    ),
     "sqp_step_workspace_floats": (_LL, [_INT, _INT]),
+    "admm_aa_floats": (_LL, [_INT] * 3),
     "polish_kkt_launch": (
         _INT,
         [_VOID] * 12 + [_INT] * 3 + [_FLOAT, _INT, _INT, _VOID],
@@ -52,6 +61,11 @@ _SIGNATURES = {
         _INT,
         [_INT] + [_VOID] * 13 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
+    "qp_solve_launch_aa": (
+        _INT,
+        [_INT] + [_VOID] * 13 + [_INT] * 3 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_INT, _VOID],
     ),
     "qp_solve_problems_per_block": (_INT, [_INT, _INT]),
     "qp_solve_workspace_floats": (_LL, [_INT, _INT]),
@@ -75,6 +89,11 @@ _SIGNATURES = {
         _INT,
         [_INT] + [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
+    "qp_btd_launch_aa": (
+        _INT,
+        [_INT] + [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_INT, _VOID],
     ),
     "qp_btd_smem_rows": (_INT, [_INT] * 4),
     "qp_btd_cluster_size": (_INT, [_INT] * 4),
@@ -100,14 +119,21 @@ def _sources(csrc: Path = _CSRC):
     return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
-def _run_all(cmds) -> None:
-    """Run the nvcc commands in parallel; raise with the first failure's output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    outs = [p.communicate() for p in procs]
-    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+def _run_all(cmds) -> list:
+    """Run the nvcc commands in parallel; raise with the first failure's
+    output.  Returns the seconds each took."""
+    t0 = time.perf_counter()
+
+    def run(cmd):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:
+        done = list(pool.map(run, cmds))
+    for cmd, (proc, _) in zip(cmds, done):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    return [sec for _, sec in done]
 
 
 def _compile(cu, so: Path, flags=()) -> None:
@@ -115,8 +141,10 @@ def _compile(cu, so: Path, flags=()) -> None:
     source, all started together, then one link."""
     with tempfile.TemporaryDirectory(dir=so.parent) as tmp_dir:
         objs = [Path(tmp_dir) / f"{p.stem}.o" for p in cu]
-        _run_all([[nvcc_path(), *_NVCC_FLAGS, *flags, "-c", "-o", str(o), str(p)]
-                  for p, o in zip(cu, objs)])
+        secs = _run_all([[nvcc_path(), *_NVCC_FLAGS, *flags, "-c", "-o", str(o), str(p)]
+                         for p, o in zip(cu, objs)])
+        last_unit_seconds.clear()
+        last_unit_seconds.update({p.name: s for p, s in zip(cu, secs)})
         tmp = Path(tmp_dir) / so.name
         _run_all([[nvcc_path(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, so)

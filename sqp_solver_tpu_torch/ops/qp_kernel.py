@@ -12,7 +12,9 @@ Each kernel has three parts here:
   decides a flag).  The CPU path and the tests use it;
 * the **CUDA kernel** in ``csrc/qp_kernel.cu`` (one thread block per
   problem; K3 one warp per problem where n <= 32 and m <= 64, K4 where
-  n <= 32), built with nvcc at first use (``ops/_build.py``);
+  n <= 32; K1 and K3 with Anderson acceleration a second instantiation,
+  built from ``csrc/qp_kernel_aa.cu``), built with nvcc at first use
+  (``ops/_build.py``);
 * a **wrapper** (``sqp_step_kernel``, ``polish_kkt_kernel``,
   ``qp_solve_kernel``, ``spd_inverse_kernel``) that sends
   CPU tensors to the plain version and CUDA tensors to the kernel.  A
@@ -37,7 +39,6 @@ counted per tile and is therefore lower here.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -340,20 +341,49 @@ def _select(mask, new, old):
 def _admm_core(ops, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
                sigma, alpha, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg,
                adaptive_rho, adaptive_rho_tolerance, pending=None,
-               check_infeas=False, eps_pinf=1e-4, eps_dinf=1e-4):
-    """Twin of ``_admm_core`` without Anderson: rho epochs with adoption at
-    factor time, chunks of ``seg`` iterations with per-problem early exit,
-    adaptive rho, the termination residuals and, with ``check_infeas``,
-    the infeasibility certificates.  ``ops`` are the operator hooks
+               check_infeas=False, eps_pinf=1e-4, eps_dinf=1e-4,
+               use_aa=False, aa_mem=4):
+    """Twin of ``_admm_core``: rho epochs with adoption at factor time,
+    chunks of ``seg`` iterations with per-problem early exit, adaptive rho,
+    the termination residuals, with ``check_infeas`` the infeasibility
+    certificates and with ``use_aa`` safeguarded type-II Anderson
+    acceleration of the chunk map.  ``ops`` are the operator hooks
     (:func:`dense_ops` for a dense P, A and Minv); ``Minv`` is the entry
     factor in whatever form ``ops.apply_minv`` reads (a tensor or a tuple
     of tensors), and ``factor_fn(rho_vec) -> (factor, fail)`` builds a new
     one.  ``pending`` (bool (B,)) makes the first epoch adopt ``rho`` and
     factor (the whole-QP solve enters so).  A certified problem commits
     its chunk and is frozen from then on.  Returns the updated state as a
-    dict (``infs``: int32 certificate code, ``minv``: the final factor)."""
+    dict (``infs``: int32 certificate code, ``minv``: the final factor).
+
+    Anderson, per problem, on the iterate packed as (x, z, y) (D2 = n + 2m,
+    not the fused tier's (s, y) packing): ``aa_mem`` difference pairs in
+    ring buffers, the newest at the end; the Levenberg-regularized k x k
+    normal equations solved by Gauss-Jordan; the candidate's z clipped to
+    [l, u]; each chunk evaluates the residuals of the plain result and of
+    the candidate and takes the candidate where it has pairs, a finite
+    combined residual rp / (mz + 1e-30) + rd / (mq + 1e-30) below the plain
+    one, and does not undo termination.  The certificates take the accepted
+    deltas.  A pending rho empties the ring; every entry starts with a
+    fresh one.  The ring is updated on every problem, as on the TPU; a
+    frozen problem never reads it."""
     B = q.shape[0]
     dev = q.device
+    n, m = q.shape[-1], l.shape[-1]
+    if use_aa:
+        from sqp_solver_tpu_torch.qp.anderson import (
+            anderson_extrapolate,
+            anderson_init,
+            gauss_jordan,
+        )
+
+        aa = anderson_init((B,), aa_mem, n + 2 * m, q.dtype, device=dev)
+
+        def comb(st):
+            return st[0] / (st[2] + 1e-30) + st[1] / (st[3] + 1e-30)
+
+        def term(st):
+            return (st[0] <= eps_abs + eps_rel * st[2]) & (st[1] <= eps_abs + eps_rel * st[3])
     loose = (l < -LOOSE_BOUNDS_THRESH) & (u > LOOSE_BOUNDS_THRESH)
     equality = (u - l) < RHO_TOL
     itc = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -397,10 +427,29 @@ def _admm_core(ops, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
                 xn, zn, yn = _admm_iter(ops, Minv, q, l, u, xn, zn, yn, rv, sigma, alpha)
             x_pre, y_pre = x, y
             a1 = act.unsqueeze(-1)
+            if use_aa:
+                u_aa, pairs, aa = anderson_extrapolate(
+                    aa, torch.cat([x, z, y], dim=-1), torch.cat([xn, zn, yn], dim=-1),
+                    aa_mem, solve=gauss_jordan)
+                x_a = u_aa[:, :n]
+                z_a = torch.clamp(u_aa[:, n:n + m], min=l, max=u)  # keep the box invariant
+                y_a = u_aa[:, n + m:]
+                sp = _admm_stats(ops, q, xn, zn, yn)
+                sa = _admm_stats(ops, q, x_a, z_a, y_a)
+                comb_a = comb(sa)
+                accept = ((pairs > 0) & torch.isfinite(comb_a) & (comb_a < comb(sp))
+                          & (term(sa) | ~term(sp)))
+                ac1 = accept.unsqueeze(-1)
+                xn = torch.where(ac1, x_a, xn)
+                zn = torch.where(ac1, z_a, zn)
+                yn = torch.where(ac1, y_a, yn)
+                stats = tuple(torch.where(accept, a, p) for a, p in zip(sa, sp))
             x = torch.where(a1, xn, x)
             z = torch.where(a1, zn, z)
             y = torch.where(a1, yn, y)
-            res_prim, res_dual, max_Ax_z, max_Px_ATy_q = _admm_stats(ops, q, x, z, y)
+            if not use_aa:
+                stats = _admm_stats(ops, q, x, z, y)
+            res_prim, res_dual, max_Ax_z, max_Px_ATy_q = stats
             if check_infeas:
                 cert = _certificates(ops, q, xn - x_pre, yn - y_pre, lo_l, lo_u,
                                      l_eff, u_eff, eps_pinf, eps_dinf)
@@ -427,6 +476,11 @@ def _admm_core(ops, q, l, u, x, z, y, done, failv, rho, Minv, factor_fn, *,
             rho_upd = rho_upd + changed.to(torch.int32)
             rho_est = torch.where(act, new_rho, rho_est)
             pending = changed
+            if use_aa:
+                # the chunk map changes with rho: stale pairs would
+                # extrapolate through another fixed point
+                aa = dict(aa, prev_ok=aa["prev_ok"] & ~pending,
+                          pairs=torch.where(pending, 0, aa["pairs"]))
     return dict(x=x, z=z, y=y, done=done, fail=failv, iter=itc, rho=rho,
                 rho_updates=rho_upd, rho_estimate=rho_est, res_prim=rp,
                 res_dual=rd, n_factor=nfact, minv=Minv, infs=infs)
@@ -494,6 +548,7 @@ def sqp_step_reference(
         n_epochs=n_epochs, chunks_per_epoch=cpe, seg=seg,
         adaptive_rho=bool(settings.adaptive_rho),
         adaptive_rho_tolerance=float(settings.adaptive_rho_tolerance),
+        **_aa_args(settings),
     )
     return SQPStepOut(
         p=out["x"], z=out["z"], y=out["y"], B=Bn, done=out["done"],
@@ -503,6 +558,23 @@ def sqp_step_reference(
         n_factor=nfact0 + out["n_factor"],
         minv=out["minv"] if want_minv else None,
     )
+
+
+def _aa_args(settings: QPSettings) -> dict:
+    """The Anderson arguments of :func:`_admm_core` from the settings."""
+    return dict(use_aa=settings.acceleration == "anderson",
+                aa_mem=int(settings.anderson_memory))
+
+
+def _aa_workspace(lib, settings: QPSettings, slices: int, n: int, m: int, dev):
+    """``(aa_mem, workspace)`` for a launch with Anderson: one slice of the
+    kernel's state (``admm_core.cuh:aa_floats``) for each of ``slices``
+    scopes of n variables and m rows; ``(0, None)`` without it."""
+    if settings.acceleration != "anderson":
+        return 0, None
+    k = int(settings.anderson_memory)
+    floats = int(lib.admm_aa_floats(k, n, m))
+    return k, torch.empty((slices * floats,), dtype=torch.float32, device=dev)
 
 
 def _check_cuda_operands(name, named, dtypes):
@@ -561,10 +633,6 @@ def sqp_step_kernel(
     reset/upd/active bool (B,), rho_in (B,), minv_in (B, n, n).  CPU
     tensors run :func:`sqp_step_reference`; CUDA tensors must be float32
     and contiguous and run the kernel."""
-    if settings.acceleration != "none":
-        raise NotImplementedError(
-            "acceleration='anderson' is not ported (ROADMAP Queue 1, item 'Anderson')"
-        )
     batch, n = g.shape
     m = l.shape[-1]
     name = "sqp_step_kernel"
@@ -613,7 +681,8 @@ def _sqp_step_launch(B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
     ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.sqp_step_launch(
+    aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
+    args = (
         _ptr(B), _ptr(J), _ptr(g), _ptr(l), _ptr(u), _ptr(s), _ptr(dgl),
         _ptr(reset), _ptr(upd), _ptr(active), _ptr(rho_in), _ptr(minv_in),
         _ptr(x), _ptr(z), _ptr(y),
@@ -626,6 +695,10 @@ def _sqp_step_launch(B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
         float(settings.adaptive_rho_tolerance), int(bool(do_bfgs)),
         dev.index, ctypes.c_void_p(stream),
     )
+    # without Anderson the launch keeps the interface of the kernels before
+    # it (tools/kernel_ab.py calls another tree's library through it)
+    rc = (lib.sqp_step_launch_aa(*args, aa_mem, _ptr(aa_ws)) if aa_mem
+          else lib.sqp_step_launch(*args))
     _raise_on(lib, rc, name)
     sqp_step_launches += 1
     i32 = torch.int32
@@ -742,10 +815,6 @@ def _check_qp_settings(settings: QPSettings) -> None:
             "tiers (termination is evaluated in-kernel); use the fused or "
             "per-problem tier"
         )
-    if settings.acceleration != "none":
-        raise NotImplementedError(
-            "acceleration='anderson' is not ported (ROADMAP Queue 1, item 'Anderson')"
-        )
 
 
 def qp_solve_reference(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveOut:
@@ -772,6 +841,7 @@ def qp_solve_reference(P, A, q, l, u, x, z, y, settings: QPSettings) -> QPSolveO
         pending=~false,
         check_infeas=bool(settings.check_infeasibility),
         eps_pinf=float(settings.eps_pinf), eps_dinf=float(settings.eps_dinf),
+        **_aa_args(settings),
     )
     return QPSolveOut(
         x=out["x"], z=out["z"], y=out["y"], done=out["done"], iter=out["iter"],
@@ -814,12 +884,9 @@ def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None,
     ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    launch = lib.qp_solve_launch
-    if layout is not None:
-        if layout not in QP_LAYOUTS:
-            raise ValueError(f"{name}: layout {layout!r} is not one of {sorted(QP_LAYOUTS)}")
-        launch = functools.partial(lib.qp_solve_launch_as, QP_LAYOUTS[layout])
-    rc = launch(
+    if layout is not None and layout not in QP_LAYOUTS:
+        raise ValueError(f"{name}: layout {layout!r} is not one of {sorted(QP_LAYOUTS)}")
+    args = (
         _ptr(P), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(x), _ptr(z), _ptr(y),
         _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats), _ptr(ws),
         batch, n, m,
@@ -831,6 +898,16 @@ def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None,
         float(settings.eps_pinf), float(settings.eps_dinf),
         dev.index, ctypes.c_void_p(stream),
     )
+    aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
+    code = 0 if layout is None else QP_LAYOUTS[layout]
+    # without Anderson the launch keeps the interface of the kernels before
+    # it (tools/kernel_ab.py calls another tree's library through it)
+    if aa_mem:
+        rc = lib.qp_solve_launch_aa(code, *args, aa_mem, _ptr(aa_ws))
+    elif layout is None:
+        rc = lib.qp_solve_launch(*args)
+    else:
+        rc = lib.qp_solve_launch_as(code, *args)
     _raise_on(lib, rc, name)
     qp_solve_launches += 1
     i32 = torch.int32

@@ -40,13 +40,14 @@ sub-diagonal block P_{k+1,k} (``pe[:, T-1]`` zero).
 from __future__ import annotations
 
 import ctypes
-from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
 
 from sqp_solver_tpu_torch.ops.qp_kernel import (
     AdmmOps,
+    _aa_args,
+    _aa_workspace,
     _admm_core,
     _check_cuda_operands,
     _check_qp_settings,
@@ -221,6 +222,7 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         adaptive_rho_tolerance=float(settings.adaptive_rho_tolerance),
         pending=active, check_infeas=check_infeas,
         eps_pinf=float(settings.eps_pinf), eps_dinf=float(settings.eps_dinf),
+        **_aa_args(settings),
     )
     return BtdOut(
         x=out["x"], z=out["z"], y=out["y"], done=out["done"], iter=out["iter"],
@@ -255,8 +257,7 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     stats = torch.empty((9, batch), **f32)  # one contiguous row per field
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    launch = lib.qp_btd_launch if cluster is None else partial(lib.qp_btd_launch_as, cluster)
-    rc = launch(
+    args = (
         _ptr(pd), _ptr(pe), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(active),
         _ptr(rho_in), _ptr(x), _ptr(z), _ptr(y),
         _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats),
@@ -268,6 +269,18 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         float(settings.eps_pinf), float(settings.eps_dinf),
         dev.index, ctypes.c_void_p(stream),
     )
+    if settings.acceleration == "anderson":
+        # one slice of the Anderson state a block: a cluster's block holds
+        # all of x and ceil(m / cs) rows
+        cs = cluster or int(lib.qp_btd_cluster_size(n, m, bb, batch))
+        aa_mem, aa_ws = _aa_workspace(lib, settings, batch * cs, n, -(-m // cs), dev)
+        rc = lib.qp_btd_launch_aa(cs, *args, aa_mem, _ptr(aa_ws))
+    elif cluster is None:
+        # without Anderson the launch keeps the interface of the kernels
+        # before it (tools/kernel_ab.py calls another tree's library)
+        rc = lib.qp_btd_launch(*args)
+    else:
+        rc = lib.qp_btd_launch_as(cluster, *args)
     _raise_on(lib, rc, name)
     i32 = torch.int32
     return BtdOut(
@@ -362,11 +375,6 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
     tensors must be float32 and contiguous and run the kernel."""
     global btd_step_launches
     name = "btd_step_kernel"
-    if settings.acceleration != "none":
-        raise NotImplementedError(
-            f"{name}: acceleration='anderson' inside the structured kernel is not "
-            "ported (ROADMAP Queue 1, item 'Anderson')"
-        )
     batch, n = g.shape
     m = l.shape[-1]
     bb = btd_internal_block(int(settings.block_size))

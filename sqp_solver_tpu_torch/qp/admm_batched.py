@@ -4,7 +4,10 @@ The OSQP iteration with an explicit leading batch axis, in chunks of
 ``seg`` iterations: each chunk and its termination residuals are one
 launch of the chunk kernel K5 (:mod:`sqp_solver_tpu_torch.ops.admm_kernel`),
 which keeps each problem's fused iteration operator W in shared memory for
-the whole chunk.  Between chunks plain tensor code applies the per-problem
+the whole chunk.  With ``linear_solver="schur_block_tridiag"`` the chunk is
+plain tensor code over the backend's block-Thomas factor instead (the
+structured route: the same iterate math, batched small matmuls over the
+stages, and the same schedule).  Between chunks plain tensor code applies the per-problem
 masks: convergence (``done``), factorization failure, the infeasibility
 certificates, the optional complementary-slackness term and safeguarded
 Anderson acceleration; every ``adaptive_rho_interval`` iterations a rho
@@ -26,7 +29,8 @@ from typing import Optional
 import torch
 
 from sqp_solver_tpu_torch.ops.admm_kernel import admm_chunk, chunk_stats
-from sqp_solver_tpu_torch.ops.linear_solver import _schur_factor
+from sqp_solver_tpu_torch.ops.linear_solver import _schur_factor, get_linear_solver
+from sqp_solver_tpu_torch.qp.admm import _select
 from sqp_solver_tpu_torch.qp.classify import RHO_MAX, RHO_MIN, constr_type_init, rho_vec_from_type
 from sqp_solver_tpu_torch.qp.types import (
     QPInfo,
@@ -43,12 +47,7 @@ __all__ = ["qp_solve_fused"]
 
 def _check_settings(settings: QPSettings) -> None:
     settings.validate()
-    if settings.linear_solver in ("schur_block_tridiag", "schur_arrow"):
-        raise NotImplementedError(
-            f"qp_solve_fused with linear_solver={settings.linear_solver!r} (the structured "
-            "fused tier) is not ported (ROADMAP Queue 1, item 10 'Linear-solver backends')"
-        )
-    if settings.linear_solver != "schur_cholesky":
+    if settings.linear_solver not in ("schur_cholesky", "schur_block_tridiag", "schur_arrow"):
         raise ValueError(
             "qp_solve_fused supports linear_solver='schur_cholesky', "
             "'schur_block_tridiag', or 'schur_arrow'"
@@ -138,8 +137,43 @@ def qp_solve_fused(
                 torch.where(a1, torch.cat([zeros_n, y_a], dim=-1), yp_new),
                 torch.where(a1, stats_a, stats), aa)
 
-    W, _ = _schur_factor(P, A, sigma, rho_vec)
-    failed = torch.isnan(W).flatten(1).any(-1)
+    structured = settings.linear_solver != "schur_cholesky"
+    if structured:
+        # get_linear_solver raises for schur_arrow, naming its ROADMAP item
+        solver = get_linear_solver(settings.linear_solver, settings.block_size,
+                                   settings.arrow_width)
+
+        def factor(rho_vec):
+            return solver.factor(P, A, sigma, rho_vec)
+
+        def chunk(W, rho_vec, s, yp):
+            """``seg`` iterations with the structured solve (the iterate
+            math of K5 and of qp/admm.py), then the stats."""
+            x, z, y = s[:, :n], s[:, n:], yp[:, n:]
+            rho_inv = 1.0 / rho_vec
+            for _ in range(seg):
+                xt, zt = solver.solve_xz(W, P, A, sigma, rho_vec, sigma * x - q,
+                                         z - rho_inv * y, settings.refine_steps)
+                xn = alpha * xt + (1.0 - alpha) * x
+                z_pre = alpha * zt + (1.0 - alpha) * z
+                zn = torch.clamp(z_pre + rho_inv * y, min=l, max=u)
+                y = y + rho_vec * (z_pre - zn)
+                x, z = xn, zn
+            return (torch.cat([x, z], dim=-1), torch.cat([zeros_n, y], dim=-1),
+                    chunk_stats(P, A, q, x, z, y))
+
+        W = factor(rho_vec)
+        failed = W["diag_nan"]
+    else:
+        def factor(rho_vec):
+            return _schur_factor(P, A, sigma, rho_vec)[0]
+
+        def chunk(W, rho_vec, s, yp):
+            return admm_chunk(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp,
+                              alpha=alpha, seg=seg)
+
+        W = factor(rho_vec)
+        failed = torch.isnan(W).flatten(1).any(-1)
     s = torch.cat([state.x, state.z], dim=-1)
     yp = torch.cat([zeros_n, state.y], dim=-1)
     rho = full((B,), settings.rho)
@@ -166,8 +200,7 @@ def qp_solve_fused(
         active = ~done & ~failed & (infeas == 0)
         if settings.schedule != "fixed" and not bool(active.any()):
             break
-        s_new, yp_new, stats = admm_chunk(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp,
-                                          alpha=alpha, seg=seg)
+        s_new, yp_new, stats = chunk(W, rho_vec, s, yp)
         if use_aa:
             s_new, yp_new, stats, aa = anderson_step(s, yp, aa, s_new, yp_new, stats)
         if check > 0 and settings.check_infeasibility:
@@ -214,7 +247,7 @@ def qp_solve_fused(
             rho_vec = torch.where(changed.unsqueeze(-1),
                                   rho_vec_from_type(ctype, new_rho.unsqueeze(-1), dtype), rho_vec)
             if k < settings.max_iter:  # the factor is read only by a later chunk
-                W = torch.where(changed[:, None, None], _schur_factor(P, A, sigma, rho_vec)[0], W)
+                W = _select(changed, factor(rho_vec), W)
                 rhop, rhoip, scale1 = padded_rho(rho_vec)
             rho_estimate = torch.where(active, new_rho, rho_estimate)
             rho_updates = rho_updates + changed.to(torch.int32)

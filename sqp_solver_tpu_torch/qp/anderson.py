@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["anderson_init", "anderson_extrapolate"]
+__all__ = ["anderson_init", "anderson_extrapolate", "gauss_jordan"]
 
 
 def anderson_init(batch_shape, memory, dim, dtype, device=None):
@@ -29,9 +29,32 @@ def anderson_init(batch_shape, memory, dim, dtype, device=None):
                 prev_ok=z(dt=torch.bool), pairs=z(dt=torch.int32))
 
 
-def anderson_extrapolate(aa, u_in, u_T, memory):
+def gauss_jordan(G, rhs):
+    """Solve G gamma = rhs (batch-first, G (..., k, k), rhs (..., k, 1)) by
+    Gauss-Jordan without pivoting, in the order of the JAX whole-solve
+    kernel's statically unrolled elimination (its diagonal is >= the
+    Levenberg term > 0), which the CUDA kernels repeat."""
+    k = G.shape[-1]
+    G = G.clone()
+    rhs = rhs.clone()
+    for i in range(k):
+        inv_piv = 1.0 / G[..., i:i + 1, i:i + 1]
+        row_i = G[..., i:i + 1, :] * inv_piv
+        r_i = rhs[..., i:i + 1, :] * inv_piv
+        fac = G[..., :, i:i + 1].clone()
+        fac[..., i, :] = 0.0
+        G = G - fac * row_i
+        rhs = rhs - fac * r_i
+        G[..., i:i + 1, :] = row_i
+        rhs[..., i:i + 1, :] = r_i
+    return rhs
+
+
+def anderson_extrapolate(aa, u_in, u_T, memory, solve=torch.linalg.solve):
     """One AA-II step: push the newest (u_T, f) differences into the ring
-    buffers and solve the regularized normal equations.
+    buffers and solve the regularized normal equations (by ``solve``: the
+    fused tier's library solve, or the whole-solve kernels'
+    :func:`gauss_jordan`).
 
     Returns ``(u_aa, pairs, aa_new)``: the raw extrapolated candidate (the
     caller projects and safeguards it), the pair count (0 means no
@@ -60,7 +83,7 @@ def anderson_extrapolate(aa, u_in, u_T, memory):
     eye_k = torch.eye(memory, dtype=dtype, device=u_T.device)
     G = G + (reg[..., None, None] + (~valid).to(dtype).unsqueeze(-1) * eye_k) * eye_k
     rhs = torch.matmul(dFm, f.unsqueeze(-1))
-    gamma = torch.linalg.solve(G, rhs).squeeze(-1)
+    gamma = solve(G, rhs).squeeze(-1)
     u_aa = u_T - torch.matmul(gamma.unsqueeze(-2), dUm).squeeze(-2)
     aa_new = dict(dU=dU, dF=dF, uT_prev=u_T, f_prev=f,
                   prev_ok=torch.ones_like(have_prev), pairs=pairs)

@@ -112,11 +112,6 @@ def sqp_solve_kernel_btd(
             "qp_impl='kernel_btd' does not support inner-QP scaling "
             "(band-layout Ruiz is not implemented); set qp.scaling=0"
         )
-    if settings.qp.acceleration == "anderson":
-        raise NotImplementedError(
-            "acceleration='anderson' inside the structured kernel is not ported "
-            "(ROADMAP Queue 1, item 'Anderson')"
-        )
     batch, n = x0.shape
     bb = btd_internal_block(int(settings.qp.block_size))
     if n % bb:

@@ -30,15 +30,6 @@ from sqp_solver_tpu_torch.utils.precision import pin_precision
 __all__ = ["sqp_solve_kernel_fused"]
 
 
-def _check_ported(settings: SQPSettings) -> None:
-    """Reject inner-QP options whose code is not ported yet, naming the
-    ROADMAP item that ports them, instead of routing elsewhere."""
-    if settings.qp.acceleration == "anderson":
-        raise NotImplementedError(
-            "acceleration='anderson' is not ported (ROADMAP Queue 1, item 'Anderson')"
-        )
-
-
 def _scaled_operands(Bm, s: common.SubproblemInputs, lqp, uqp, warm: QPState, iters: int,
                      scale=None):
     """The subproblem's kernel operands in Ruiz-scaled coordinates, and the
@@ -80,7 +71,6 @@ def sqp_solve_kernel_fused(
     with ``do_bfgs=False``, its result is unscaled, and the unscaled
     Hessian is what the outer loop carries."""
     settings.validate()
-    _check_ported(settings)
     soc = settings.second_order_correction
     iters = settings.qp.scaling
 

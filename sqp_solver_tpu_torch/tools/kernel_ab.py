@@ -10,17 +10,23 @@ under ``build/kernel_ab/`` (only the sources the parts need, all nvcc
 processes started together); the Python around the kernels is this
 checkout's, which passes each library to the launchers explicitly and is
 valid as long as the C interface of the kernels compared is the same in
-both trees.  Three parts, in order (``--parts`` picks some):
+both trees.  Four parts, in order (``--parts`` picks some):
 
-``bits``    K1, K2, K6 and K7 of both trees at their ``chip_smoke.py``
+``bits``    K1, K2, K5, K6 and K7 of both trees at their ``chip_smoke.py``
             shapes, K3 at those shapes (its warp layout) and at two that
             its warp layout does not take (n > 32 or m > 64), and K4 at
-            n = 32 (its warp layout), on the same seeded inputs: every
-            output tensor must be equal bit for bit.  K4 at n = 128 sums
+            n = 32 (its warp layout), on the same seeded inputs, every
+            launch without Anderson acceleration: every output tensor
+            must be equal bit for bit.  K4 at n = 128 sums
             in the blocked order, so there the change alone must have the
             fail flags of ``_chol_inv_blocked`` and of
             ``spd_inverse_reference``, lie within ``chip_smoke.TOL``
             of both, and equal its own two-buffer arm bit for bit;
+``regs``    the registers, stack and local (spill) bytes a thread of
+            every kernel of both libraries (``cuobjdump
+            --dump-resource-usage``, the numbers the runtime's
+            ``cudaFuncGetAttributes`` reports): each kernel the parent has
+            must use the same in the change;
 ``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
             k3, k4, k5, k6, k7) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
@@ -62,7 +68,7 @@ SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
            "k4": "qp_kernel.cu", "k5": "admm_kernel.cu", "k6": "qp_kernel_btd.cu",
            "k7": "qp_kernel_btd.cu"}
 # the kernels that ``bits`` holds equal to the parent's
-BITS = ("k1", "k2", "k3", "k4", "k6", "k7")
+BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
 
 
 def _csrc(tree: Path) -> Path:
@@ -176,6 +182,7 @@ def bits(libs: dict, dev) -> list:
                           lambda lib, t=t, qs=qs: cs.qp_raw(
                               lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
     cases += [(c["label"], c["launch"]) for c in cs.spd_cases(dev) if c["n"] <= 32]
+    cases += [(c["label"], c["launch"]) for c in cs.chunk_cases(dev)]
     for c in cs.btd_cases(dev):
         cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
             c["t"], c["settings"], c["check_infeas"], lib=lib)))
@@ -190,6 +197,53 @@ def bits(libs: dict, dev) -> list:
             raise AssertionError(f"{label}: outputs differ from the parent's: {differ}")
         rows.append(dict(case=label, outputs=len(outs["parent"]), equal=True))
     rows.append(blocked_k4(libs["change"], dev))
+    return rows
+
+
+def resource_usage(lib) -> dict:
+    """{kernel: {REG, STACK, LOCAL, SHARED}} of every kernel in the library
+    ``lib`` (a ``ctypes.CDLL``), from ``cuobjdump --dump-resource-usage``."""
+    import re
+    import subprocess
+
+    from sqp_solver_tpu_torch.ops import _build
+
+    tool = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "--dump-resource-usage", lib._name], capture_output=True,
+                         text=True, check=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            # a kernel in an anonymous namespace carries a hash of its
+            # translation unit in its name, which differs between trees
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}", r"_GLOBAL__N__\1",
+                          m.group(1))
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
+                                                            line)}
+            name = None
+    return usage
+
+
+def regs(libs: dict) -> list:
+    """Each kernel of the parent's library against the same kernel of the
+    change's: equal registers, stack and local bytes a thread, or raise."""
+    import chip_smoke as cs
+
+    use = {who: resource_usage(lib) for who, lib in libs.items()}
+    rows, differ = [], []
+    for name, u in sorted(use["parent"].items()):
+        v = use["change"].get(name)
+        if v != u:
+            differ.append(name)
+        cs.log(f"  {name[:72]}: parent {u}, change {v}{'' if v == u else '  DIFFER'}")
+        rows.append(dict(kernel=name, parent=u, change=v))
+    for name in sorted(set(use["change"]) - set(use["parent"])):
+        cs.log(f"  {name[:72]}: new in the change, {use['change'][name]}")
+        rows.append(dict(kernel=name, change=use["change"][name]))
+    if differ:
+        raise AssertionError(f"resource usage differs from the parent's: {differ}")
     return rows
 
 
@@ -377,9 +431,9 @@ def main(argv=None) -> int:
     trees = {"parent": args.parent.resolve(), "change": ROOT}
     timed = {SOURCES[k] for k in kernels}
     jobs = {}
-    if "bits" in parts or "time" in parts:
+    if "bits" in parts or "time" in parts or "regs" in parts:
         sources = (timed if "time" in parts else set()) | (
-            {SOURCES[k] for k in BITS} if "bits" in parts else set())
+            {SOURCES[k] for k in BITS} if {"bits", "regs"} & set(parts) else set())
         for who, tree in trees.items():
             jobs[who] = (kernel_library, tree, who, sources)
     split_trees = args.trees.split(",")
@@ -404,8 +458,12 @@ def main(argv=None) -> int:
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     result = dict(card=card)
     if "bits" in parts:
-        cs.log("K1, K2, K3 in both layouts, K4 at n = 32, K6 and K7, parent against change:")
+        cs.log("K1, K2, K3 in both layouts, K4 at n = 32, K5, K6 and K7, parent against "
+               "change:")
         result["bits"] = bits(libs, dev)
+    if "regs" in parts:
+        cs.log("registers, stack and local bytes a thread, parent against change:")
+        result["regs"] = regs(libs)
     if "time" in parts:
         cs.log(f"{', '.join(k.upper() for k in kernels)} ms at the chip_smoke.py shapes:")
         result["time"] = timing(libs, dense, btd)

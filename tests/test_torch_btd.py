@@ -370,9 +370,6 @@ def test_structured_wrappers_launch_nothing_on_cpu():
     with pytest.raises(ValueError, match="multiple"):
         qb.btd_step_kernel(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"], t["active"],
                            t["x"], t["z"], t["y"], QPSettings(**dict(BTD, block_size=5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qb.qp_solve_kernel_btd(_port_qp(a), QPSettings(**dict(BTD, block_size=8,
-                                                              acceleration="anderson")))
     zero = QPState.zeros(2, 16, 10, dtype=torch.float64, device="cpu")
     r = qb.qp_solve_kernel_btd(_port_qp(a), QPSettings(**dict(BTD, block_size=8)), zero)
     assert r.x.shape == (2, 16)

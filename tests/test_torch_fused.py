@@ -470,18 +470,10 @@ def test_sqp_solve_sequence_fused_matches_jax():
     np.testing.assert_allclose(plam_f.numpy(), np.asarray(jlam_f), atol=1e-8, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["structured", "kernel_btd"])
+@pytest.mark.parametrize("kind", ["structured"])
 def test_fused_tier_refuses_what_it_does_not_cover(kind):
     a = qp_inputs(2, 3, 4, seed=19)
     pq = interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu")
-    if kind == "structured":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            qp_solve_batch(pq, QPSettings(linear_solver="schur_arrow", block_size=1,
-                                          arrow_width=1), impl="fused")
-        return
-    pp, px0 = _port_nlp(3)[0](torch.as_tensor([1.2, 1.3]))
-    # the structured tier is ported; Anderson inside K7 is not
-    settings = dataclasses.replace(FUSED, qp_impl="kernel_btd", qp=dataclasses.replace(
-        FUSED.qp, block_size=2, acceleration="anderson"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqp_solve_batch(pp, px0, None, settings, impl="fused")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        qp_solve_batch(pq, QPSettings(linear_solver="schur_arrow", block_size=1,
+                                      arrow_width=1), impl="fused")

@@ -1013,3 +1013,170 @@ def test_scaled_kernel_sqp_tier_on_cuda_matches_cpu_plain(cuda):
     # 0.36 of them solve in three outer iterations on the CPU
     assert both.float().mean().item() >= 0.25
     np.testing.assert_allclose(b.x.cpu()[both].numpy(), a.x[both].numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Anderson acceleration inside the whole-solve kernels (K1, K3, K6, K7), and
+# the linear-solver backends
+# ---------------------------------------------------------------------------
+
+# rho epochs with Anderson at a tolerance that leaves it pairs to work with
+AA_QP = QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=300, check_termination=25,
+                   adaptive_rho=True, adaptive_rho_interval=50, schedule="fixed",
+                   acceleration="anderson")
+AA_KINDS = ["K1", "K3-block", "K3-warp", "K6-cluster", "K6-block", "K7"]
+
+
+def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson"):
+    """(float32 inputs, kernel launch, plain call) of one kind: each call
+    takes the inputs and returns an object with x (or p), z, y, iter,
+    rho_updates and done.  ``seg`` replaces the chunk length (rho every 50
+    iterations, 40 for K1)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
+
+    s = dataclasses.replace(AA_QP, anderson_memory=memory, acceleration=acceleration)
+    if seg is not None:
+        s = dataclasses.replace(s, check_termination=seg)
+    if kind == "K1":
+        s = dataclasses.replace(s, check_termination=seg or 10, adaptive_rho_interval=40)
+        t = _to(step_inputs(128, 16, 17, seed=31, equality_row=False), cuda)
+        return (t, lambda t: _step(qk.sqp_step_kernel, t, s),
+                lambda t: _step(qk.sqp_step_reference, t, s))
+    if kind.startswith("K3"):
+        n, m = (40, 41) if kind == "K3-block" else (16, 24)
+        t = _to(qp_inputs(128, n, m, seed=n + m, loose_row=True), cuda)
+        layout = kind.split("-")[1]
+        assert (qk.qp_solve_problems_per_block(n, m) > 1) == (layout == "warp")
+        return (t, lambda t: _qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout), t, s),
+                lambda t: _qp_raw(qk.qp_solve_reference, t, s))
+    bs = dataclasses.replace(s, linear_solver="schur_block_tridiag", block_size=8)
+    if kind.startswith("K6"):
+        a = btd_qp_inputs(64, 4, 8, 24, seed=41, loose_row=True)
+        pd, pe = qb.extract_band(torch.as_tensor(a["P"]), 8)
+        t = _to(dict(pd=pd.numpy(), pe=pe.numpy(), J=a["A"], g=a["q"], l=a["l"], u=a["u"],
+                     x=a["x"], z=a["z"], y=a["y"]), cuda)
+        cluster = 2 if kind == "K6-cluster" else 1
+        assert kind == "K6-block" or qb.cluster_size(32, 24, 8, 64) == 2
+        return (t, lambda t: _btd_raw(qb._qp_btd_launch, t, bs, active=None, rho_in=None,
+                                      check_infeas=True, name="test", cluster=cluster),
+                lambda t: _btd_raw(qb.qp_btd_reference, t, bs, check_infeas=True))
+    t = _to(btd_step_inputs(64, 4, 8, 24, seed=43), cuda)
+    return (t, lambda t: qb.btd_step_kernel(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"],
+                                            t["active"], t["x"], t["z"], t["y"], bs,
+                                            rho_in=t["rho_in"]),
+            lambda t: _btd_raw(qb.qp_btd_reference, t, bs, active=t["active"],
+                               rho_in=t["rho_in"]))
+
+
+@pytest.mark.parametrize("memory", [1, 4])
+@pytest.mark.parametrize("kind", AA_KINDS)
+def test_anderson_kernels_match_plain_float64(cuda, kind, memory):
+    """Each kernel with Anderson (K3 in both layouts, K6 on a cluster of two
+    blocks and on one) and its plain version with Anderson in float32, each
+    against the plain version in float64, under the float32 bars of ROADMAP
+    Queue 3: iterates at 5e-4 where the iteration and rho-update counts
+    agree and float64 converged, counts agreeing on >= 0.9 of what the
+    plain float32 version agrees on."""
+    _aa_against_plain_float64(kind, *_aa_case(kind, memory, cuda))
+
+
+def _aa_against_plain_float64(kind, t32, launch, plain):
+    """The bars of test_anderson_kernels_match_plain_float64; the kernel's
+    output."""
+    t64 = {k: v.double() if v.dtype == torch.float32 else v for k, v in t32.items()}
+    ok, p32, p64 = launch(t32), plain(t32), plain(t64)
+    torch.cuda.synchronize()
+    assert p64.done.float().mean() >= 0.5
+    x = "p" if kind == "K1" else "x"
+    agree = {}
+    for label, out in (("kernel", ok), ("plain", p32)):
+        same = (out.iter == p64.iter) & (out.rho_updates == p64.rho_updates)
+        agree[label] = same.float().mean().item()
+        cmp = same & p64.done
+        for name in (x, "z", "y"):
+            torch.testing.assert_close(getattr(out, name)[cmp].double(),
+                                       getattr(p64, name)[cmp], atol=5e-4, rtol=5e-4)
+    assert agree["kernel"] >= 0.9 * agree["plain"], agree
+    return ok
+
+
+@pytest.mark.parametrize("kind", AA_KINDS)
+def test_anderson_kernels_with_several_pairs(cuda, kind):
+    """As test_anderson_kernels_match_plain_float64 at memory 4, with chunks
+    of 10 iterations: four or five chunks an epoch, so that the ring holds
+    several pairs (at chunks of 25 and rho every 50 a rho change empties it
+    every second chunk).  The step must have done work: iteration counts
+    that differ from the launch without Anderson on some problems, and a
+    quarter of the problems or more through three chunks, whose third (in
+    the first epoch, before any reset) solves a Gram of two pairs."""
+    ok = _aa_against_plain_float64(kind, *_aa_case(kind, 4, cuda, seg=10))
+    t32, launch_none, _ = _aa_case(kind, 4, cuda, seg=10, acceleration="none")
+    none = launch_none(t32)
+    assert (ok.iter != none.iter).any()
+    assert (ok.iter >= 30).float().mean() >= 0.25
+
+
+def test_anderson_kernels_cut_iterations(cuda):
+    """K3 with Anderson (memory 4) against K3 without on the one-shot cell's
+    problems at tight tolerances (bench.py:1387-1396's settings, B = 256):
+    fewer mean ADMM iterations, every problem SOLVED."""
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
+
+    qp = random_qp_batch(256, 32, 33, seed=3, device=cuda)
+    s = QPSettings(alpha=1.6, eps_abs=1e-6, eps_rel=1e-6, max_iter=2000, check_termination=25,
+                   schedule="fixed")
+    before = qk.qp_solve_launches
+    plain = qk.qp_solve_kernel(qp, s)
+    aa = qk.qp_solve_kernel(qp, dataclasses.replace(s, acceleration="anderson"))
+    assert qk.qp_solve_launches - before == 2
+    assert (aa.info.status == QPStatus.SOLVED).all()
+    assert aa.info.iter.float().mean() < plain.info.iter.float().mean()
+
+
+def test_no_acceleration_is_the_parents_bit_for_bit(cuda):
+    """Without Anderson, K1-K7 give the parent tree's outputs bit for bit at
+    the chip_smoke.py shapes and use its registers, stack and local bytes
+    (tools/kernel_ab.py --parts bits,regs); the parent tree is named by
+    KERNEL_AB_PARENT (a ``git archive`` of the parent commit)."""
+    parent = os.environ.get("KERNEL_AB_PARENT")
+    if not parent:
+        pytest.skip("set KERNEL_AB_PARENT to an unpacked parent tree")
+    from sqp_solver_tpu_torch.tools import kernel_ab
+
+    assert kernel_ab.main(["--parent", parent, "--parts", "bits,regs"]) == 0
+
+
+BACKEND_NAMES = ["kkt_ldlt", "cg", "schur_cholesky_tri", "schur_cholesky_blocked",
+                 "schur_block_tridiag"]
+
+
+@pytest.mark.parametrize("name", BACKEND_NAMES)
+def test_backends_on_cuda_float64_match_cpu(cuda, name):
+    """Each linear-solver backend under the vmap tier (and the block-
+    tridiagonal one under the fused tier) on CUDA float64 tensors against
+    the CPU: statuses and counts equal, x, y, z within 1e-9."""
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+
+    if name == "schur_block_tridiag":
+        qp, b = mpc_qp_stagewise_batch(16, horizon=8, seed=5, dtype=torch.float64,
+                                       device="cpu")
+        a = {k: getattr(qp, k).numpy() for k in LEAVES}
+        extra, impls = dict(block_size=b), ("vmap", "fused")
+    else:
+        a, extra, impls = qp_inputs(32, 8, 10, seed=9, loose_row=True), {}, ("vmap",)
+    s = QPSettings(**dict(VMAP_QP, adaptive_rho=True, adaptive_rho_interval=50,
+                          linear_solver=name, **extra))
+    for impl in impls:
+        res = {}
+        for dev in ("cpu", cuda):
+            qp = QuadraticProblem(*(torch.as_tensor(a[k], dtype=torch.float64).to(dev)
+                                    for k in LEAVES))
+            res[str(dev)] = qp_solve_batch(qp, s, impl=impl)
+        c, g = res["cpu"], res["cuda"]
+        for k in ("status", "iter", "rho_updates"):
+            assert torch.equal(getattr(c.info, k), getattr(g.info, k).cpu()), (impl, k)
+        for k in ("x", "y", "z"):
+            torch.testing.assert_close(getattr(g, k).cpu(), getattr(c, k), atol=1e-9, rtol=0)
+        assert bool((c.info.status == QPStatus.SOLVED).all()), impl

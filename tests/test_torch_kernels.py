@@ -181,5 +181,3 @@ def test_wrappers_check_shapes():
     args[1] = args[1][:, :-1]  # J with a row missing
     with pytest.raises(ValueError, match="J has shape"):
         qk.sqp_step_kernel(*args, QPSettings())
-    with pytest.raises(NotImplementedError, match="anderson.*item 'Anderson'"):
-        qk.sqp_step_kernel(*args, QPSettings(acceleration="anderson"))

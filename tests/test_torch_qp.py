@@ -216,21 +216,16 @@ def test_polish_qp_matches_jax(passes):
     np.testing.assert_allclose(one.x.numpy(), pp.x.numpy()[2], atol=1e-12, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["comp_slack", "btd", "anderson", "fused"])
+@pytest.mark.parametrize("kind", ["comp_slack", "fused"])
 def test_qp_path_refuses_what_it_does_not_cover(kind):
     a = qp_inputs(2, 3, 4, seed=13)
     pq = interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu")
     settings, impl, err = QPSettings(**BENCH), "kernel", NotImplementedError
     if kind == "comp_slack":
         settings, err = dataclasses.replace(settings, check_comp_slack=True), ValueError
-    elif kind == "btd":  # K6 is ported; Anderson inside it is not
-        settings = dataclasses.replace(settings, linear_solver="schur_block_tridiag",
-                                       block_size=3, acceleration="anderson")
-    elif kind == "anderson":
-        settings = dataclasses.replace(settings, acceleration="anderson")
-    else:  # the fused tier is ported; its structured backends are not
-        settings = dataclasses.replace(settings, linear_solver="schur_block_tridiag",
-                                       block_size=3)
+    else:  # the fused tier and its block-tridiagonal route are ported; schur_arrow is not
+        settings = dataclasses.replace(settings, linear_solver="schur_arrow", block_size=1,
+                                       arrow_width=1)
         impl = kind
     with pytest.raises(err, match="ROADMAP|check_comp_slack"):
         qp_solve_batch(pq, settings, impl=impl)

@@ -137,8 +137,10 @@ def test_failed_factor_marks_its_problem_alone():
 def test_linear_solver_registry_matches_jax():
     """``get_linear_solver("schur_cholesky")``: the factor dict {W, Minv, M,
     diag_nan}, the one-matvec and the refined two-op ``solve_xz`` and the
-    failure flag against the JAX backend; every other backend raises,
-    naming ROADMAP item 10, from the vmap tier too."""
+    failure flag against the JAX backend; then the vmap tier on the
+    ``kkt_ldlt``, ``cg`` and ``schur_cholesky_tri`` backends against JAX's
+    ``qp_solve`` under ``jax.vmap`` (every backend in detail:
+    tests/test_torch_backends.py)."""
     from sqp_solver_tpu.ops.linear_solver import get_linear_solver as jax_get
     from sqp_solver_tpu_torch.ops.linear_solver import get_linear_solver
 
@@ -163,9 +165,16 @@ def test_linear_solver_registry_matches_jax():
                     torch.as_tensor(rho))
     assert ps.is_failure(bad).all()
     for name in ("kkt_ldlt", "cg", "schur_cholesky_tri"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            qp_solve_batch(interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu"),
-                           QPSettings(linear_solver=name))
+        s = dict(BASE, linear_solver=name)
+        jr = jax.vmap(lambda p: jax_qp_solve(p, JaxQPSettings(**s)))(
+            JaxQP(*(jnp.asarray(a[k]) for k in LEAVES)))
+        pr = qp_solve_batch(interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu"),
+                            QPSettings(**s))
+        for k in ("status", "iter"):
+            np.testing.assert_array_equal(getattr(pr.info, k).numpy(),
+                                          np.asarray(getattr(jr.info, k)), err_msg=name)
+        np.testing.assert_allclose(pr.x.numpy(), np.asarray(jr.x), atol=ATOL, rtol=0,
+                                   err_msg=name)
     with pytest.raises(ValueError, match="unknown linear_solver"):
         get_linear_solver("lu")
 

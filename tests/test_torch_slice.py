@@ -197,33 +197,24 @@ def test_main_path_float32_meets_the_closed_form():
     assert np.mean(pr.info.status.numpy() == SQPStatus.SOLVED) >= 0.99
 
 
-@pytest.mark.parametrize("kind", ["anderson", "qp_impl"])
+@pytest.mark.parametrize("kind", ["qp_impl"])
 def test_outside_the_slice_raises_not_implemented(kind):
-    """What the port does not have yet raises, naming its ROADMAP item:
-    K1's in-kernel Anderson on the kernel tier and Anderson inside the
-    structured tier's K7 (``qp_impl="kernel_btd"``, whose scaling and block
-    checks raise ValueError as in the JAX package).  Scaling and
-    ``impl="vmap"`` no longer raise: tests/test_torch_scaling.py and
-    tests/test_torch_reference_sqp.py."""
+    """The structured tier (``qp_impl="kernel_btd"``) raises the JAX
+    package's ValueErrors for its scaling and block limits.  Anderson on
+    the kernel tiers, scaling and ``impl="vmap"`` no longer raise:
+    tests/test_torch_anderson_kernel.py, tests/test_torch_anderson_btd.py,
+    tests/test_torch_scaling.py and tests/test_torch_reference_sqp.py."""
     pp, px0 = port_models.sphere_cap_nlp_batch(2, 4, seed=0, dtype=torch.float64,
                                                device="cpu")
-    settings, impl = HEADLINE, "fused"
-    if kind == "anderson":
-        settings = dataclasses.replace(
-            HEADLINE, qp=dataclasses.replace(HEADLINE.qp, acceleration="anderson"))
-    else:
-        # the structured tier is ported: its own limits raise ValueError as
-        # in the JAX package (tests/test_sqp_btd.py::test_validation)
-        btd = dataclasses.replace(HEADLINE, qp_impl="kernel_btd",
-                                  qp=dataclasses.replace(HEADLINE.qp, block_size=2))
-        with pytest.raises(ValueError, match="scaling"):
-            sqp_solve_batch(pp, px0, None, dataclasses.replace(
-                btd, qp=dataclasses.replace(btd.qp, scaling=4)), impl=impl)
-        with pytest.raises(ValueError, match="multiple"):  # n = 4, internal block 8
-            sqp_solve_batch(pp, px0, None, btd, impl=impl)
-        with pytest.raises(ValueError, match="block_size"):
-            dataclasses.replace(btd, qp=dataclasses.replace(btd.qp, block_size=0)).validate()
-        settings = dataclasses.replace(btd, qp=dataclasses.replace(
-            btd.qp, acceleration="anderson"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqp_solve_batch(pp, px0, None, settings, impl=impl)
+    impl = "fused"
+    # the structured tier is ported: its own limits raise ValueError as in
+    # the JAX package (tests/test_sqp_btd.py::test_validation)
+    btd = dataclasses.replace(HEADLINE, qp_impl="kernel_btd",
+                              qp=dataclasses.replace(HEADLINE.qp, block_size=2))
+    with pytest.raises(ValueError, match="scaling"):
+        sqp_solve_batch(pp, px0, None, dataclasses.replace(
+            btd, qp=dataclasses.replace(btd.qp, scaling=4)), impl=impl)
+    with pytest.raises(ValueError, match="multiple"):  # n = 4, internal block 8
+        sqp_solve_batch(pp, px0, None, btd, impl=impl)
+    with pytest.raises(ValueError, match="block_size"):
+        dataclasses.replace(btd, qp=dataclasses.replace(btd.qp, block_size=0)).validate()
