@@ -105,7 +105,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    QP with n = m = 4096 (bench.py:725-743's dense rows); ``kkt_ldlt`` and
    ``schur_cholesky_tri`` on the vmap one-shot QP (n = 32, m = 33,
    B = 1024): walls, host checks, solved fraction and the float64 OSQP
-   test; then every leg's seconds.
+   test;
+15. I. ``schur_arrow`` on the coupled MPC (bench.py:644-711: 48 agents of
+   horizon 16, B = 64, n = 770, m = 1586, 100 iterations, adaptive rho) on
+   the vmap and fused tiers beside the dense backend: walls, solved
+   fraction, the float64 OSQP test of every SOLVED problem, the objective
+   against dense's where both solved;
+16. J. BlockSparse operands on ``cg`` (bench.py:722-811): the sparse twin of
+   leg H's dense n = m = 4096 QP through ``qp_solve``, then sparse cg at
+   n = m = 8192 (density 0.015 and 0.03) beside the blocked Cholesky;
+17. K. the exponential chain (36 outers) and the ball-constrained
+   Rosenbrock (300 outers) on the K1 tier, B = 1024, n = 32
+   (bench.py:1123-1178, 1248-1306), each SOLVED problem's float64 KKT
+   certificate at 1e-4 (>= 0.99 of them);
+18. L. ``qp_solve_diff`` on the fused tier (B = 1024, n = m = 128,
+   bench.py:1179-1247) and M. ``sqp_solve_diff`` on the K1 tier (the
+   exponential chain, 24 outers, bench.py:1307-1382): forward and forward
+   + backward walls (the adjoint is one K2 launch), finite gradients, and
+   on 64 problems the adjoint through K2 and through K4 against each other
+   and the plain route on the CPU;
+19. the batch split, ``sharded_qp_solve_batch`` (K3) and
+   ``sharded_sqp_solve_batch`` (K1) over ``make_mesh()``, equal to the
+   unsharded calls; then every leg's seconds.
 
 Each path run starts with every launch counter at 0 and asserts the
 counts it reads right after.  The line before the last two is
@@ -1950,35 +1971,22 @@ def run_anderson(dev, card: str, main_run: dict, reps: int = 5) -> dict:
 # ---- H. the linear-solver backends -------------------------------------------
 
 
-def dense_block_pattern_qp(n: int, m: int, bs: int, density: float, seed: int):
-    """The dense twin of the JAX package's ``models/sparse.py:
-    sparse_qp_pair`` (numpy, float64): a symmetric random block pattern of
-    P at ``density``, made strictly positive definite by diagonal dominance;
-    a random block pattern of A with at least one block a block row; finite
-    feasible bounds.  Returns (P, q, A, l, u)."""
-    prng = np.random.default_rng(seed)
-    rng = np.random.default_rng(seed)
-    Rb, Cb, Mb = n // bs, n // bs, m // bs
-    P = np.zeros((n, n))
-    for i in range(Rb):
-        for j in range(i + 1):
-            if i != j and prng.uniform() > density:
-                continue
-            P[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = rng.normal(size=(bs, bs)) / np.sqrt(n)
-    P = 0.5 * (P + P.T)
-    P[np.arange(n), np.arange(n)] += np.abs(P).sum(axis=1) + 0.1
-    A = np.zeros((m, n))
-    for i in range(Mb):
-        cols = np.nonzero(prng.uniform(size=Cb) < density)[0]
-        if len(cols) == 0:
-            cols = [int(prng.integers(Cb))]
-        for j in cols:
-            A[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = (rng.normal(size=(bs, bs))
-                                                           / np.sqrt(bs * len(cols)))
-    q = rng.normal(size=n)
-    Ax = A @ rng.normal(size=n)
-    width = rng.uniform(0.5, 2.0, size=m)
-    return P, q, A, Ax - width, Ax + width
+def counted_run(label, fn, want, counts: dict, runs: int = 3, warm: bool = True):
+    """A warm-up (unless ``warm`` is False), then ``runs`` runs, the first
+    with the counters from 0, its launches asserted to be ``want`` and
+    kept in ``counts[label]``: (its result, its host checks, the min wall
+    seconds)."""
+    if warm:
+        fn()
+    reset_counts()
+    checks = host_checks()
+    res, wall = timed_wall(fn, 1)
+    checks = host_checks() - checks
+    c = read_counts()
+    if c != expect(**want):
+        raise AssertionError(f"{label}: launches {c}, expected {want}")
+    counts[label] = c
+    return res, checks, min([wall] + [timed_wall(fn, 1)[1] for _ in range(runs - 1)])
 
 
 def timed_wall(fn, runs: int):
@@ -1997,6 +2005,14 @@ def timed_wall(fn, runs: int):
     return first, min(walls)
 
 
+def sparse_cg_settings():
+    """The sparse legs' cg settings (bench.py:735-738)."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    return QPSettings(linear_solver="cg", eps_abs=1e-4, eps_rel=1e-4, max_iter=2000,
+                      check_termination=25, adaptive_rho=True)
+
+
 def run_backends(dev, card: str, btd_mpc_run: dict) -> dict:
     """Leg H: the linear-solver backends at the JAX bench's shapes, each
     run with the counters from 0 (no kernel launch but the SQP polish's K2)
@@ -2008,26 +2024,14 @@ def run_backends(dev, card: str, btd_mpc_run: dict) -> dict:
 
     from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch, sphere_cap_solution
     from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch, random_qp_batch
+    from sqp_solver_tpu_torch.models.sparse import sparse_qp_pair
     from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch, sqp_solve_batch
     from sqp_solver_tpu_torch.qp import qp_solve
     from sqp_solver_tpu_torch.qp.types import QPSettings, QuadraticProblem
     from sqp_solver_tpu_torch.sqp.types import SQPSettings
 
     out, counts = {}, {}
-
-    def run(label, fn, want, runs=3):
-        """A warm-up, then ``runs`` runs, the first with the counters from 0:
-        (its result, its host checks, the min wall seconds)."""
-        fn()
-        reset_counts()
-        checks = host_checks()
-        res, wall = timed_wall(fn, 1)
-        checks = host_checks() - checks
-        c = read_counts()
-        if c != expect(**want):
-            raise AssertionError(f"{label}: launches {c}, expected {want}")
-        counts[label] = c
-        return res, checks, min([wall] + [timed_wall(fn, 1)[1] for _ in range(runs - 1)])
+    run = functools.partial(counted_run, counts=counts)
 
     # blocktri on the vmap and fused tiers (bench.py:508-518), B = 256
     qp_mpc, blk = mpc_qp_stagewise_batch(256, horizon=64, seed=0, device=dev)
@@ -2089,13 +2093,11 @@ def run_backends(dev, card: str, btd_mpc_run: dict) -> dict:
     out["blocked_sqp_n4096"] = dict(ms=wall * 1e3, status=status, err=err, cert=cert,
                                     host_checks=checks)
 
-    # the dense rows of bench.py:725-743: one QP, n = m = 4096
-    P, q, A, l, u = dense_block_pattern_qp(4096, 4096, 128, 0.03, seed=0)
-    qp_d = QuadraticProblem(*(torch.as_tensor(v, dtype=torch.float32, device=dev)
-                              for v in (P, q, A, l, u)))
+    # the dense rows of bench.py:725-743: one QP, n = m = 4096, the dense
+    # twin of sparse_qp_pair's (leg J solves its sparse twin)
+    qp_d = sparse_qp_pair(4096, 4096, 128, 0.03, seed=0, device=dev)[0]
     qp_b = QuadraticProblem(*(v.unsqueeze(0) for v in (qp_d.P, qp_d.q, qp_d.A, qp_d.l, qp_d.u)))
-    cg = QPSettings(linear_solver="cg", eps_abs=1e-4, eps_rel=1e-4, max_iter=2000,
-                    check_termination=25, adaptive_rho=True)
+    cg = sparse_cg_settings()
     for label, st in (("dense_cg", cg),
                       ("dense_chol_blocked", dataclasses.replace(
                           cg, linear_solver="schur_cholesky_blocked"))):
@@ -2112,6 +2114,400 @@ def run_backends(dev, card: str, btd_mpc_run: dict) -> dict:
         out[label] = dict(ms=wall * 1e3, status=status, iter=int(res.info.iter),
                           f64=bool(ok[0]), host_checks=checks)
     return dict(runs=out, counts=counts)
+
+
+# ---- I-M. the last modules: arrow, sparse, multi-outer NLPs, the layers ------
+
+
+def run_arrow(dev, card: str) -> dict:
+    """Leg I (bench.py:644-711): the coupled MPC, 48 agents of horizon 16,
+    B = 64 (n = 770, m = 1586, blocks of 16, a border of 2), 100 ADMM
+    iterations with adaptive rho, on the dense backend (vmap tier) and on
+    ``schur_arrow`` (vmap tier, and fused tier with the fixed schedule),
+    no launch; walls min of 3, solved fraction, the float64 OSQP test of
+    every SOLVED problem, and where both solved arrow's objective against
+    dense's (1e-5 relative) and its x (10x the tolerance, 1e-2)."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_coupled_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    qp, blk, cw = mpc_qp_coupled_batch(64, agents=48, horizon=16, device=dev)
+    n, m = qp.n, qp.m
+    dense = QPSettings(adaptive_rho=True, max_iter=100)
+    arrow = dataclasses.replace(dense, linear_solver="schur_arrow", block_size=blk,
+                                arrow_width=cw)
+    rows = (("dense_vmap", dense, "vmap"), ("arrow_vmap", arrow, "vmap"),
+            ("arrow_fused", dataclasses.replace(arrow, schedule="fixed"), "fused"))
+    out, counts, res = {}, {}, {}
+
+    def objective(r):
+        x = r.x.double()
+        return (0.5 * (x * torch.einsum("bij,bj->bi", qp.P.double(), x)).sum(-1)
+                + (qp.q.double() * x).sum(-1))
+
+    for label, s, impl in rows:
+        r, checks, wall = counted_run(f"coupled_{label}", functools.partial(
+            qp_solve_batch, qp, s, impl=impl), {}, counts)
+        met = aa_qp_metrics(qp, r, s)
+        res[label] = r
+        out[label] = dict(ms=wall * 1e3, host_checks=checks, **met)
+        log(f"  coupled MPC {label} n={n} m={m} B=64: {wall * 1e3:.3f} ms, solved "
+            f"{met['solved']:.4f}, f64 OSQP test (10x) {met['f64']:.4f}, mean iter "
+            f"{met['mean_iter']:.1f}, host checks {checks} [min of 3; {card}]")
+    d = res["dense_vmap"]
+    for label in ("arrow_vmap", "arrow_fused"):
+        both = (d.info.status == 0) & (res[label].info.status == 0)
+        if int(both.sum()) == 0:
+            raise AssertionError(f"{label}: no problem solved on both backends")
+        fa, fd = objective(res[label])[both], objective(d)[both]
+        rel = float(((fa - fd).abs() / (1.0 + fd.abs())).max())
+        dx = float((res[label].x - d.x)[both].abs().max())
+        log(f"  {label} against dense where both solved ({int(both.sum())} of 64): objective "
+            f"{rel:.3e} relative, max |x - x_dense| {dx:.3e}")
+        # two eps-solutions part in x by about eps (float32 iterates through two
+        # factors), so x is held at the OSQP test's 10x the tolerance
+        x_bar = 10.0 * max(dense.eps_abs, dense.eps_rel)
+        if rel > 1e-5 or dx > x_bar:
+            raise AssertionError(f"{label}: objective {rel:.3e} relative from dense's (bar "
+                                 f"1e-5), max |x - x_dense| {dx:.3e} (bar {x_bar:.0e})")
+        out[label].update(objective_rel=rel, x_diff=dx)
+    return dict(runs=out, counts=counts, n=n, m=m)
+
+
+def run_sparse(dev, card: str, backends_run: dict, crossover: bool = True) -> dict:
+    """Leg J (bench.py:722-811): ``sparse_qp_pair(n = m = 4096, bs = 128,
+    density 0.03)``'s BlockSparse twin through ``qp_solve`` on cg, beside
+    leg H's dense cg and blocked Cholesky rows on its dense twin; then the
+    crossover rows at n = m = 8192 (sparse cg at density 0.015 and 0.03,
+    the blocked Cholesky once).  No launch; walls min of 2; status,
+    iterations, host checks and the float64 OSQP test of a SOLVED result."""
+    import dataclasses
+
+    import torch
+
+    from sqp_solver_tpu_torch.models.sparse import sparse_qp_pair
+    from sqp_solver_tpu_torch.qp import qp_solve
+
+    cg = sparse_cg_settings()
+    out, counts = {}, {}
+
+    def row(label, dense, prob, st):
+        r, checks, wall = counted_run(label, functools.partial(qp_solve, prob, st), {}, counts,
+                                      runs=2)
+        status = int(r.info.status)
+        qpb = types.SimpleNamespace(**{k: getattr(dense, k).unsqueeze(0) for k in LEAVES})
+        ok, _ = qp_osqp64(qpb, types.SimpleNamespace(x=r.x[None], y=r.y[None]), st.eps_abs,
+                          st.eps_rel)
+        log(f"  {label} n=m={dense.n}: {wall * 1e3:.3f} ms, status {status}, iter "
+            f"{int(r.info.iter)}, f64 OSQP test (10x) {bool(ok[0])}, host checks {checks} "
+            f"[min of 2; {card}]")
+        if not torch.isfinite(r.x).all() or (status == 0 and not ok[0]):
+            raise AssertionError(f"{label}: status {status}, f64 OSQP test {bool(ok[0])}")
+        out[label] = dict(ms=wall * 1e3, status=status, iter=int(r.info.iter), f64=bool(ok[0]),
+                          host_checks=checks)
+        return r
+
+    dense, sparse = sparse_qp_pair(4096, 4096, 128, 0.03, seed=0, device=dev)
+    row("sparse_cg_n4096", dense, sparse, cg)
+    h = backends_run["runs"]
+    log(f"  P {sparse.P.nblocks} of {(sparse.P.shape[0] // sparse.P.bs) ** 2} blocks, A "
+        f"{sparse.A.nblocks}; beside dense cg "
+        f"{h['dense_cg']['ms']:.3f} ms ({h['dense_cg']['iter']} iter) and dense blocked "
+        f"Cholesky {h['dense_chol_blocked']['ms']:.3f} ms on its dense twin (leg H)")
+    if crossover:
+        for dens in (0.015, 0.03):
+            d8, s8 = sparse_qp_pair(8192, 8192, 128, dens, seed=7, device=dev)
+            row(f"sparse_cg_n8192_d{dens}", d8, s8, cg)
+            if dens == 0.015:  # the dense baseline does not depend on the density
+                row("dense_chol_blocked_n8192", d8, d8, dataclasses.replace(
+                    cg, linear_solver="schur_cholesky_blocked"))
+            del d8, s8
+    return dict(runs=out, counts=counts)
+
+
+MULTI_OUTER = {  # outers, polish passes, line-search steps, inner eps, inner iterations, eps
+    "exp_chain": (36, 3, 6, 1e-4, 50, 1e-3),  # bench.py:1135-1145
+    "rosenbrock": (300, 3, 16, 1e-5, 200, 1e-4),  # bench.py:1260-1270
+    "sqp_diff": (24, 2, 6, 1e-4, 50, 1e-3),  # bench.py:1322-1332
+}
+
+
+def multi_outer_settings(leg: str):
+    """The K1-tier settings of a multi-outer leg of :data:`MULTI_OUTER`."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    outers, polish_passes, ls, qp_eps, qp_iter, eps = MULTI_OUTER[leg]
+    return SQPSettings(max_iter=outers, eps_prim=eps, eps_dual=eps, termination="kkt",
+                       schedule="fixed", qp_impl="kernel", polish=True,
+                       polish_passes=polish_passes, line_search_max_iter=ls,
+                       qp=QPSettings(alpha=1.6, eps_abs=qp_eps, eps_rel=qp_eps,
+                                     max_iter=qp_iter, check_termination=10, warm_start=True,
+                                     adaptive_rho=True, adaptive_rho_interval=50,
+                                     schedule="fixed"))
+
+
+def run_multi_outer(dev, card: str) -> dict:
+    """Leg K: the exponential chain (bench.py:1123-1178: B = 1024, n = 32,
+    36 fixed outers) and the ball-constrained Rosenbrock (bench.py:1248-1306:
+    300 outers, inner QPs of 200 iterations, 16 line-search steps) on the
+    K1 tier, drawn on the card (a fresh seed a run); walls min of 3, the
+    solved fraction and the float64 KKT certificate at 1e-4 of
+    ``*_kkt_residuals``, which must hold for >= 0.99 of SOLVED problems."""
+    from sqp_solver_tpu_torch.models import benchmark as bm
+    from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
+
+    rows = (("exp_chain", bm.exp_chain_nlp_batch_device, bm.exp_chain_kkt_residuals,
+             multi_outer_settings("exp_chain")),
+            ("rosenbrock", bm.rosenbrock_nlp_batch_device, bm.rosenbrock_kkt_residuals,
+             multi_outer_settings("rosenbrock")))
+    out, counts = {}, {}
+    for label, gen, resid, s in rows:
+        seeds = iter(range(1, 100))
+        last = {}
+
+        def fn(gen=gen, s=s, last=last, seeds=seeds):
+            prob, x0 = gen(next(seeds), 1024, 32, device=dev)
+            last["prob"], last["res"] = prob, sqp_solve_batch(prob, x0, None, s, impl="fused")
+            return last["res"]
+
+        want = dict(sqp_step_launches=s.max_iter, polish_kkt_launches=s.polish_passes)
+        res, _, wall = counted_run(f"nlp_{label}", fn, want, counts)
+        res, prob = last["res"], last["prob"]
+        pv, dr = resid(prob, res.x, res.lam)
+        solved = (res.info.status == 0).cpu().numpy()
+        cert = (pv <= 1e-4) & (dr <= 1e-4)
+        cert_solved = float(cert[solved].mean()) if solved.any() else 0.0
+        it = res.info.iter.cpu().numpy()
+        log(f"  {label} n=32 B=1024, {s.max_iter} outers: {wall * 1e3:.3f} ms ({1024 / wall:.1f} "
+            f"solves/s), solved {solved.mean():.4f}, f64 KKT cert (1e-4) {cert.mean():.4f} of "
+            f"all and {cert_solved:.4f} of SOLVED, outers p50 {np.percentile(it, 50):.0f} p99 "
+            f"{np.percentile(it, 99):.0f}, stationarity p99 {np.percentile(dr, 99):.2e} "
+            f"[min of 3; {card}]")
+        if not np.isfinite(res.x.cpu().numpy()).all() or not solved.any() or cert_solved < 0.99:
+            raise AssertionError(f"{label}: solved {solved.mean():.4f}, certified "
+                                 f"{cert_solved:.4f} of SOLVED (bar 0.99)")
+        out[label] = dict(ms=wall * 1e3, solved=float(solved.mean()), cert=float(cert.mean()),
+                          cert_of_solved=cert_solved, outers_p50=float(np.percentile(it, 50)))
+    return dict(runs=out, counts=counts)
+
+
+def timed_backward(loss, walls: list) -> None:
+    """``loss.backward()``, its wall seconds (closed by a synchronize)
+    appended to ``walls``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+
+
+def random_cotangent(x):
+    """A seeded normal cotangent shaped as ``x`` (the legs' own losses,
+    sums of x^2, give 2 x, which on the sphere-like families lies in the
+    active constraints' span and leaves dz_x at rounding level)."""
+    import torch
+
+    g = np.random.default_rng(0).normal(size=tuple(x.shape))
+    return torch.as_tensor(g, dtype=x.dtype, device=x.device)
+
+
+def adjoint_routes(label: str, vjp, args_cuda, counts: dict) -> dict:
+    """One backward pass by each adjoint route on a subset: K2
+    (``use_kernel=None``), K4 (``use_kernel=False``), each launch counted,
+    against the plain route on CPU copies; the largest difference of each
+    gradient relative to its largest entry, <= 1e-3."""
+    import torch
+
+    def cpu(a):
+        return a.cpu() if torch.is_tensor(a) else a
+
+    outs = {}
+    for route, counter in ((None, "polish_kkt_launches"), (False, "spd_inverse_launches")):
+        reset_counts()
+        outs[route] = vjp(*args_cuda, use_kernel=route)
+        c = read_counts()
+        if c != expect(**{counter: 1}):
+            raise AssertionError(f"{label} adjoint route {route}: launches {c}")
+        counts[f"{label}_adjoint_{counter.split('_')[0]}"] = c
+    plain = vjp(*(cpu(a) for a in args_cuda))
+    worst = {}
+    for name, other in (("k2_vs_plain", outs[None]), ("k4_vs_plain", outs[False]),
+                        ("k2_vs_k4", None)):
+        pairs = zip(outs[None], outs[False]) if other is None else zip(other, plain)
+        rel = 0.0
+        for a, b in pairs:
+            if a is None:
+                continue
+            a, b = a.cpu().double(), b.cpu().double()
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"{label} {name}: a gradient is not finite")
+            rel = max(rel, float((a - b).abs().max() / (1e-12 + b.abs().max())))
+        worst[name] = rel
+    log(f"  {label} adjoint routes on the subset: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items()) + " (largest difference over the largest "
+        "entry)")
+    if max(worst.values()) > 1e-3:
+        raise AssertionError(f"{label}: adjoint routes differ: {worst}")
+    return worst
+
+
+def run_qp_diff(dev, card: str) -> dict:
+    """Leg L (bench.py:1179-1247): ``qp_solve_diff`` on
+    ``random_qp_batch_device`` B = 1024, n = m = 128, the fused tier, 200
+    iterations, polish, the fixed schedule: forward wall (8 K5 and 2 K2
+    launches) and forward + backward wall (one more K2: the adjoint),
+    min of 3, and the backward alone, the gradients to P, q, A, l and u
+    finite; then the adjoint routes on 64 problems."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.families import random_qp_batch_device
+    from sqp_solver_tpu_torch.qp.diff import qp_solve_diff, qp_solve_vjp
+    from sqp_solver_tpu_torch.qp.types import QPSettings, QuadraticProblem
+
+    s = QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=200, check_termination=25,
+                   adaptive_rho=True, adaptive_rho_interval=50, polish=True, schedule="fixed")
+    counts, seeds, last, bwd = {}, iter(range(1, 100)), {}, []
+
+    def fwd():
+        qp = random_qp_batch_device(next(seeds), 1024, 128, 128, device=dev)
+        x = qp_solve_diff(qp, s, "fused")
+        return (x * x).sum()
+
+    def fwd_bwd():
+        qp = random_qp_batch_device(next(seeds), 1024, 128, 128, device=dev)
+        leaves = {k: getattr(qp, k).requires_grad_(True) for k in LEAVES}
+        x = qp_solve_diff(QuadraticProblem(**leaves), s, "fused")
+        timed_backward((x * x).sum(), bwd)
+        last["qp"] = qp
+        return sum(leaves[k].grad.abs().sum() for k in LEAVES)
+
+    chunks = -(-s.max_iter // s.check_termination)
+    _, _, t_f = counted_run("qp_diff_forward", fwd, dict(
+        admm_chunk_launches=chunks, polish_kkt_launches=s.polish_passes), counts)
+    gsum, _, t_b = counted_run("qp_diff_backward", fwd_bwd, dict(
+        admm_chunk_launches=chunks, polish_kkt_launches=s.polish_passes + 1), counts)
+    gsum = float(gsum)
+    if not np.isfinite(gsum) or gsum == 0.0:
+        raise AssertionError(f"qp_solve_diff: gradient magnitude sum {gsum}")
+    # the adjoint routes at one solution, 64 problems
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+
+    sub = QuadraticProblem(*(getattr(last["qp"], k).detach()[:64].contiguous()
+                             for k in LEAVES))
+    res = qp_solve_batch(sub, s, impl="fused")
+    g = random_cotangent(res.x)
+    solved = float((res.info.status == 0).float().mean())
+    routes = adjoint_routes("qp_diff", lambda *a, **kw: qp_solve_vjp(*a, s, **kw), (
+        sub.P, sub.A, sub.l, sub.u, res.x, res.y, res.info.status, g), counts)
+    log(f"  qp_solve_diff B=1024 n=m=128 fused: forward {t_f * 1e3:.3f} ms, forward + backward "
+        f"{t_b * 1e3:.3f} ms, the backward alone {min(bwd) * 1e3:.3f} ms, gradient magnitude "
+        f"sum {gsum:.4e} (finite); subset solved {solved:.4f} [min of 3; {card}]")
+    return dict(runs=dict(forward_ms=t_f * 1e3, forward_backward_ms=t_b * 1e3,
+                          backward_ms=min(bwd) * 1e3, gsum=gsum, subset_solved=solved,
+                          routes=routes), counts=counts)
+
+
+def run_sqp_diff(dev, card: str) -> dict:
+    """Leg M (bench.py:1307-1382): ``sqp_solve_diff`` on the exponential
+    chain, B = 1024, n = 32, 24 outers on the K1 tier, polish 2: forward
+    wall (24 K1, 2 K2) and forward + backward wall (one more K2), min of 3,
+    and the backward alone, the gradients to l, u and params finite; then
+    the adjoint routes on 64 problems."""
+    from sqp_solver_tpu_torch.models.benchmark import exp_chain_nlp_batch_device
+    from sqp_solver_tpu_torch.sqp.diff import sqp_solve_diff, sqp_solve_vjp
+
+    s = multi_outer_settings("sqp_diff")
+    counts, seeds, last, bwd = {}, iter(range(1, 100)), {}, []
+
+    def fwd():
+        prob, x0 = exp_chain_nlp_batch_device(next(seeds), 1024, 32, device=dev)
+        return (sqp_solve_diff(prob, x0, None, s, "fused") ** 2).sum()
+
+    def fwd_bwd():
+        prob, x0 = exp_chain_nlp_batch_device(next(seeds), 1024, 32, device=dev)
+        leaves = [t.requires_grad_(True) for t in (prob.l, prob.u, prob.params)]
+        x = sqp_solve_diff(prob, x0, None, s, "fused")
+        timed_backward((x * x).sum(), bwd)
+        last["prob"], last["x0"] = prob, x0
+        return sum(t.grad.abs().sum() for t in leaves)
+
+    want = dict(sqp_step_launches=s.max_iter, polish_kkt_launches=s.polish_passes)
+    _, _, t_f = counted_run("sqp_diff_forward", fwd, want, counts)
+    want["polish_kkt_launches"] += 1
+    gsum, _, t_b = counted_run("sqp_diff_backward", fwd_bwd, want, counts)
+    gsum = float(gsum)
+    if not np.isfinite(gsum) or gsum == 0.0:
+        raise AssertionError(f"sqp_solve_diff: gradient magnitude sum {gsum}")
+    import dataclasses
+
+    from sqp_solver_tpu_torch.parallel.batch import sqp_solve_batch
+
+    p = last["prob"]
+    sub = dataclasses.replace(p, l=p.l.detach()[:64], u=p.u.detach()[:64],
+                              params=p.params.detach()[:64])
+    res = sqp_solve_batch(sub, last["x0"][:64], None, s, impl="fused")
+    solved = float((res.info.status == 0).float().mean())
+
+    def vjp(x, lam, status, g, l, u, params, use_kernel=None):
+        prob = dataclasses.replace(sub, l=l, u=u, params=params)
+        return sqp_solve_vjp(prob, x, lam, status, g, s, use_kernel=use_kernel)
+
+    routes = adjoint_routes("sqp_diff", vjp, (res.x, res.lam, res.info.status,
+                                              random_cotangent(res.x),
+                                              sub.l, sub.u, sub.params), counts)
+    log(f"  sqp_solve_diff exp-chain B=1024 n=32, 24 outers (K1): forward {t_f * 1e3:.3f} ms, "
+        f"forward + backward {t_b * 1e3:.3f} ms, the backward alone {min(bwd) * 1e3:.3f} ms, "
+        f"gradient magnitude sum over l, u, params {gsum:.4e} (finite); subset solved "
+        f"{solved:.4f} [min of 3; {card}]")
+    return dict(runs=dict(forward_ms=t_f * 1e3, forward_backward_ms=t_b * 1e3,
+                          backward_ms=min(bwd) * 1e3, gsum=gsum, subset_solved=solved,
+                          routes=routes), counts=counts)
+
+
+def run_sharding(dev, card: str) -> dict:
+    """The batch split over ``make_mesh()`` (every card; one here):
+    ``sharded_qp_solve_batch`` through K3 on the one-shot QP and
+    ``sharded_sqp_solve_batch`` on the K1 tier's n = 32 cell, each equal
+    to the unsharded call bit for bit, with the unsharded call's
+    launches."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.benchmark import sphere_cap_nlp_batch
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
+    from sqp_solver_tpu_torch.parallel import (
+        make_mesh,
+        qp_solve_batch,
+        sharded_qp_solve_batch,
+        sharded_sqp_solve_batch,
+        sqp_solve_batch,
+    )
+
+    mesh = make_mesh()
+    qp = random_qp_batch(4096, 32, 33, seed=0, device=dev)
+    prob, x0 = sphere_cap_nlp_batch(4096, 32, seed=3, device=dev)
+    qs, ss = qp_bench_settings(), bench_settings(32)
+    counts = {}
+    pairs = (("qp_k3", lambda: qp_solve_batch(qp, qs, impl="kernel"),
+              lambda: sharded_qp_solve_batch(qp, qs, mesh, impl="kernel"),
+              dict(qp_solve_launches=1)),
+             ("sqp_k1", lambda: sqp_solve_batch(prob, x0, None, ss, impl="fused"),
+              lambda: sharded_sqp_solve_batch(prob, x0, None, ss, mesh, impl="fused"),
+              dict(sqp_step_launches=ss.max_iter, polish_kkt_launches=ss.polish_passes)))
+    for label, plain, sharded, want in pairs:
+        a, _, t_a = counted_run(f"sharding_{label}_unsharded", plain, want, counts, runs=1)
+        b, _, t_b = counted_run(f"sharding_{label}_sharded", sharded, want, counts, runs=1)
+        if not (torch.equal(a.x, b.x) and torch.equal(a.info.status, b.info.status)):
+            raise AssertionError(f"sharding {label}: the sharded result differs")
+        log(f"  sharded {label} over {len(mesh)} device(s): equal to unsharded bit for bit "
+            f"({t_b * 1e3:.3f} ms against {t_a * 1e3:.3f} ms) [{card}]")
+    return dict(counts=counts, devices=len(mesh))
 
 
 def main() -> int:
@@ -2241,6 +2637,30 @@ def main() -> int:
     log("H. the linear-solver backends at the JAX bench's shapes:")
     backends_run = run_backends(dev, card, btd_mpc_run)
     leg_s["H"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("I. schur_arrow on the coupled MPC (vmap and fused tiers) beside the dense backend:")
+    arrow_run = run_arrow(dev, card)
+    leg_s["I"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("J. BlockSparse operands on cg: qp_solve(sparse_qp_pair), and the n = 8192 crossover:")
+    sparse_run = run_sparse(dev, card, backends_run)
+    leg_s["J"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("K. the multi-outer NLPs on the K1 tier (exp-chain, Rosenbrock):")
+    multi_run = run_multi_outer(dev, card)
+    leg_s["K"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("L. the differentiable QP layer: qp_solve_diff on the fused tier, forward and backward:")
+    qp_diff_run = run_qp_diff(dev, card)
+    leg_s["L"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("M. the differentiable NLP layer: sqp_solve_diff on the K1 tier, forward and backward:")
+    sqp_diff_run = run_sqp_diff(dev, card)
+    leg_s["M"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
+    log("the batch split: sharded_qp_solve_batch and sharded_sqp_solve_batch over make_mesh():")
+    shard_run = run_sharding(dev, card)
+    leg_s["sharding"] = time.perf_counter() - t_leg
     log("legs' seconds: " + ", ".join(f"{k} {v:.1f} s" for k, v in leg_s.items())
         + f", {sum(leg_s.values()):.1f} s in all (C ran inside the structured MPC leg)")
     paths = dict(
@@ -2255,7 +2675,9 @@ def main() -> int:
         **{f"sqp_vmap_n{n}": c for n, c in vmap_run["launches"].items()},
         mpc_sustained_vmap=mpc_vmap_run["counts"], **families_run["counts"],
         **{f"sqp_scaled_n{n}": c for n, c in scaled_run["launches"].items()},
-        **aa_run["counts"], **backends_run["counts"])
+        **aa_run["counts"], **backends_run["counts"], **arrow_run["counts"],
+        **sparse_run["counts"], **multi_run["counts"], **qp_diff_run["counts"],
+        **sqp_diff_run["counts"], **shard_run["counts"])
 
     def entry(name, replaces, rows, source=CU_SOURCE, **extra):
         head = rows[0]
@@ -2298,7 +2720,10 @@ def main() -> int:
                         qp_vmap_one_shot=qp_vmap_run, vmap_main_path=vmap_run["configs"],
                         mpc_sustained_vmap=mpc_vmap_run, families=families_run,
                         scaled_main_path=scaled_run["configs"], anderson=aa_run["runs"],
-                        backends=backends_run["runs"], legs_seconds=leg_s,
+                        backends=backends_run["runs"], arrow=arrow_run["runs"],
+                        sparse=sparse_run["runs"], multi_outer=multi_run["runs"],
+                        qp_diff=qp_diff_run["runs"], sqp_diff=sqp_diff_run["runs"],
+                        legs_seconds=leg_s,
                         card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

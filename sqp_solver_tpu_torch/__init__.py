@@ -13,16 +13,18 @@ and fused SQP tiers; the sustained ``qp_solve_sequence`` /
 ``sqp_solve_sequence`` over any tier; and the structured tier for
 stage-wise problems: ``qp_solve_batch(impl="kernel")`` with
 ``linear_solver="schur_block_tridiag"`` and ``sqp_solve_batch`` with
-``qp_impl="kernel_btd"``.  Their kernels (SQP step, polish KKT, whole QP
+``qp_impl="kernel_btd"``; the linear-solver backends, ``schur_arrow``
+with the coupled MPC family among them, and block-sparse operands on the
+matrix-free ``cg``; the differentiable layers ``qp_solve_diff`` and
+``sqp_solve_diff`` (``torch.autograd``); the batch split over devices
+(``parallel.sharding``).  Its kernels (SQP step, polish KKT, whole QP
 and SPD inverse in ``csrc/qp_kernel.cu``, the ADMM chunk in
 ``csrc/admm_kernel.cu``, the block-tridiagonal whole QP with its two
 entry points in ``csrc/qp_kernel_btd.cu``) are hand-written CUDA for
 sm_90a, each beside its plain PyTorch version.  Public functions are batch-first;
 settings, statuses and field names are the JAX package's.  Generators
 and constructors put their tensors on the card unless asked for another
-device; solvers run on the device of their inputs.  Parts outside the
-port raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+device; solvers run on the device of their inputs.
 """
 
 from sqp_solver_tpu_torch.parallel import qp_solve_batch, sqp_solve_batch

@@ -1,5 +1,5 @@
 """Batched QP and NLP families for the serving and structured paths (twin
-of ``sqp_solver_tpu/models/mpc.py`` without the coupled family).
+of ``sqp_solver_tpu/models/mpc.py``).
 
 * :func:`mpc_qp_batch`: condensed receding-horizon MPC of a double
   integrator, one shared (P, A) and per-instance (q, l, u) from the batch
@@ -12,16 +12,17 @@ of ``sqp_solver_tpu/models/mpc.py`` without the coupled family).
   whose Schur matrix is block-tridiagonal at block size 3;
 * :func:`mpc_nlp_stagewise_batch`: the stage-wise nonlinear MPC of a
   unicycle, block-tridiagonal at block size 4, with its independent
-  float64 certificate :func:`mpc_nlp_kkt_residuals`.
+  float64 certificate :func:`mpc_nlp_kkt_residuals`;
+* :func:`mpc_qp_coupled_batch`: multi-agent rendezvous MPC, whose Schur
+  matrix is arrow-structured (one block per agent, bordered by the shared
+  meet points).
 
 Both condensed MPC forms build their QP with the same two helpers: the shared
 matrices from :func:`_mpc_operators`, the per-state vectors from
 :func:`_mpc_vectors` (numpy for the batch, tensors on the device for the
 fleet).  The data are built in float64 numpy with the same calls in the same order
 as the JAX package, so one seed gives the identical problem in both, then
-cast and moved to ``device`` (by default the card).  The coupled
-(arrow-structured) family ``mpc_qp_coupled_batch`` is not ported (ROADMAP
-Queue 1, item 10 'schur_arrow').
+cast and moved to ``device`` (by default the card).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ __all__ = [
     "mpc_fleet",
     "double_integrator_condensed",
     "mpc_qp_stagewise_batch",
+    "mpc_qp_coupled_batch",
     "mpc_nlp_stagewise_batch",
     "mpc_nlp_stagewise_problem",
     "mpc_nlp_kkt_residuals",
@@ -245,6 +247,87 @@ def mpc_qp_stagewise_batch(
     problem = _problem(np.broadcast_to(P, (batch, n, n)), np.zeros((batch, n)),
                        np.broadcast_to(A_mat, (batch, m, n)), l, u, dtype, device)
     return problem, b
+
+
+def mpc_qp_coupled_batch(
+    batch: int,
+    agents: int = 8,
+    horizon: int = 4,
+    meet_points: int = 2,
+    dt: float = 0.25,
+    u_max: float = 2.0,
+    v_max: float = 1.5,
+    p_max: float = 5.0,
+    r_weight: float = 0.1,
+    w_weight: float = 1e-2,
+    seed: int = 0,
+    dtype=torch.float32,
+    device=None,
+):
+    """Multi-agent rendezvous MPC with an arrow-structured Schur matrix.
+
+    ``agents`` double integrators each plan a condensed input sequence of
+    ``horizon`` inputs (tracking and effort cost, input box, velocity
+    rows), and agent k's terminal position must equal a shared, jointly
+    optimised rendezvous coordinate w_{k mod meet_points} (one equality row
+    on that agent's inputs and w).  No row couples two agents, so
+    M = P + sigma I + A' rho A is block diagonal (a block of ``horizon``
+    per agent) bordered by ``meet_points`` dense columns: solve with
+    ``QPSettings(linear_solver="schur_arrow", block_size=horizon,
+    arrow_width=meet_points)``.  P and A are shared by the batch; the
+    initial states enter through q and the rendezvous bounds.  Returns
+    ``(problem, block_size, arrow_width)``."""
+    h, S, c = horizon, agents, meet_points
+    n = S * h + c
+    Sx, Su = double_integrator_condensed(h, dt)
+    Sp_x, Sp_u = Sx[:, 0, :], Su[:, 0, :]
+    Sv_x, Sv_u = Sx[:, 1, :], Su[:, 1, :]
+    P_blk = Sp_u.T @ Sp_u + r_weight * np.eye(h)
+    P = np.zeros((n, n))
+    for k in range(S):
+        o = h * k
+        P[o:o + h, o:o + h] = P_blk
+    P[S * h:, S * h:] = w_weight * np.eye(c)
+
+    # rows per agent: input box (h), velocity bounds (h), rendezvous (1);
+    # then the box of w (c)
+    m = S * (2 * h + 1) + c
+    A_mat = np.zeros((m, n))
+    r = 0
+    for k in range(S):
+        o = h * k
+        A_mat[r:r + h, o:o + h] = np.eye(h)
+        r += h
+        A_mat[r:r + h, o:o + h] = Sv_u
+        r += h
+        A_mat[r, o:o + h] = Sp_u[h - 1]
+        A_mat[r, S * h + (k % c)] = -1.0
+        r += 1
+    A_mat[r:r + c, S * h:] = np.eye(c)
+
+    rng = np.random.default_rng(seed)
+    # initial states tight enough that the agents sharing a meet point can
+    # always reach a common terminal position: every instance is feasible
+    x0 = rng.uniform(-0.3, 0.3, size=(batch, S, 2))
+    q = np.zeros((batch, n))
+    q[:, :S * h] = np.einsum("bsx,hx,hj->bsj", x0, Sp_x, Sp_u).reshape(batch, S * h)
+    pos_off = np.einsum("bsx,x->bs", x0, Sp_x[h - 1])
+    vel_off = np.einsum("bsx,hx->bsh", x0, Sv_x)
+    l = np.zeros((batch, m))
+    u = np.zeros((batch, m))
+    for k in range(S):
+        r0 = k * (2 * h + 1)
+        l[:, r0:r0 + h] = -u_max
+        u[:, r0:r0 + h] = u_max
+        l[:, r0 + h:r0 + 2 * h] = -v_max - vel_off[:, k]
+        u[:, r0 + h:r0 + 2 * h] = v_max - vel_off[:, k]
+        l[:, r0 + 2 * h] = -pos_off[:, k]
+        u[:, r0 + 2 * h] = -pos_off[:, k]
+    l[:, S * (2 * h + 1):] = -p_max
+    u[:, S * (2 * h + 1):] = p_max
+    problem = _problem(np.broadcast_to(P, (batch, n, n)), q,
+                       np.broadcast_to(A_mat, (batch, m, n)), l, u, dtype, device)
+    return problem, h, c
 
 
 def mpc_nlp_stagewise_problem(l, u, params, horizon: int, dt: float = 0.1,

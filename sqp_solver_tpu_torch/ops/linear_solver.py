@@ -23,13 +23,19 @@ problem), taken by name from :func:`get_linear_solver`:
 * ``schur_block_tridiag``: the block-Thomas factor of a block-tridiagonal
   M and its two sweeps, batched small matmuls over the stages (the
   per-problem and fused tiers' structured backend; the whole-solve tier
-  runs it in the K6/K7 kernel instead).
+  runs it in the K6/K7 kernel instead);
+* ``schur_arrow``: an arrow-structured M (block diagonal, bordered by a
+  dense coupling strip) inverted by its closed-form bordered inverse from
+  batched Cholesky factors of the blocks, then used like the default
+  backend's explicit inverse (the per-problem and fused tiers).
 
 The JAX package computes all of them with XLA, not Pallas, so here they are
 plain PyTorch, at full float32 under the caller's ``pin_precision``.  A
 factor that breaks down gives NaN, as ``jnp.linalg.cholesky`` does, and the
-backend's ``is_failure`` reports it.  ``schur_arrow`` raises
-``NotImplementedError`` naming its ROADMAP item.
+backend's ``is_failure`` reports it.  The matrix-free ``cg`` also takes a
+:class:`~sqp_solver_tpu_torch.ops.block_sparse.BlockSparse` P or A: the
+operand helpers :func:`_mv`, :func:`_rmv`, :func:`_diag` and
+:func:`_sq_col_sums` take dense and block-sparse operands alike.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from sqp_solver_tpu_torch.ops.block_sparse import BlockSparse
 from sqp_solver_tpu_torch.utils.host import any_live
 
 __all__ = ["LinearSolver", "get_linear_solver", "ldlt_factor", "ldlt_solve"]
@@ -51,12 +58,34 @@ def _eye_like(M):
     return torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
 
 
-def _mv(M, v):
+def _mv(M, v, prepared=None):
+    """M v over a leading batch, for a dense or a BlockSparse M (with its
+    strips ``prepared`` by ``M.prepare(False)``, if given)."""
+    if isinstance(M, BlockSparse):
+        return M.mv(v, prepared)
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
 
 
-def _rmv(M, w):
+def _rmv(M, w, prepared=None):
+    """M' w, dense or BlockSparse (strips by ``M.prepare(True)``)."""
+    if isinstance(M, BlockSparse):
+        return M.rmv(w, prepared)
     return torch.matmul(w.unsqueeze(-2), M).squeeze(-2)
+
+
+def _diag(M):
+    """The diagonal of a square M, dense or BlockSparse."""
+    if isinstance(M, BlockSparse):
+        return M.diag()
+    return torch.diagonal(M, dim1=-2, dim2=-1)
+
+
+def _sq_col_sums(A, w):
+    """sum_r w_r A[r, :]^2, the diagonal of A' diag(w) A, dense or
+    BlockSparse."""
+    if isinstance(A, BlockSparse):
+        return A.with_data(A.data * A.data).rmv(w)
+    return (w.unsqueeze(-1) * A * A).sum(-2)
 
 
 def _dot(a, b):
@@ -208,9 +237,18 @@ def _kkt_is_failure(factor):
 
 
 def _cg_factor(P, A, sigma, rho_vec):
-    """The Jacobi preconditioner diag(M), floored at the smallest normal."""
-    diag_M = torch.diagonal(P, dim1=-2, dim2=-1) + sigma + (rho_vec.unsqueeze(-1) * A * A).sum(-2)
-    return {"jacobi": torch.clamp_min(diag_M, torch.finfo(diag_M.dtype).tiny)}
+    """The Jacobi preconditioner diag(M), floored at the smallest normal.
+    A BlockSparse P or A also gets its strip arrays here (``P_mv``,
+    ``A_mv``, ``A_rmv``), outside the CG loop, so that no gather of tiles
+    rides an iteration."""
+    diag_M = _diag(P) + sigma + _sq_col_sums(A, rho_vec)
+    factor = {"jacobi": torch.clamp_min(diag_M, torch.finfo(diag_M.dtype).tiny)}
+    if isinstance(P, BlockSparse):
+        factor["P_mv"] = P.prepare(False)
+    if isinstance(A, BlockSparse):
+        factor["A_mv"] = A.prepare(False)
+        factor["A_rmv"] = A.prepare(True)
+    return factor
 
 
 def _cg_solve(factor, P, A, sigma, rho_vec, rhs1, rhs2, refine_steps):
@@ -225,10 +263,13 @@ def _cg_solve(factor, P, A, sigma, rho_vec, rhs1, rhs2, refine_steps):
     n = rhs1.shape[-1]
     dinv = 1.0 / factor["jacobi"]
 
-    def mv(v):
-        return _mv(P, v) + sigma * v + _rmv(A, rho_vec * _mv(A, v))
+    strips = factor.get
 
-    b = rhs1 + _rmv(A, rho_vec * rhs2)
+    def mv(v):
+        Av = _mv(A, v, strips("A_mv"))
+        return _mv(P, v, strips("P_mv")) + sigma * v + _rmv(A, rho_vec * Av, strips("A_rmv"))
+
+    b = rhs1 + _rmv(A, rho_vec * rhs2, strips("A_rmv"))
     eps = torch.finfo(b.dtype).eps
     tol2 = (10.0 * eps) ** 2 * torch.clamp_min(_dot(b, b), eps)
     nan = torch.full((), float("nan"), dtype=b.dtype, device=b.device)
@@ -407,6 +448,65 @@ def _btd_factory(b: int) -> "LinearSolver":
     return LinearSolver(factor, solve, _fallback_solve_xz(solve), lambda f: f["diag_nan"])
 
 
+# ---------------------------------------------------------------------------
+# schur_arrow: the bordered inverse of an arrow-structured M
+# ---------------------------------------------------------------------------
+
+
+def _arrow_factory(b: int, c: int) -> "LinearSolver":
+    def factor(P, A, sigma, rho_vec):
+        """M = [[D, B], [B', C]] with D = blkdiag(D_1..D_T) of (b, b) blocks
+        and a dense (c, c) border C; entries of M outside the arrow are
+        ignored.  The closed-form bordered inverse
+
+            Dinv = blkdiag(D_k^-1),  W = Dinv B,  S = C - B' W,  X = W S^-1,
+            M^-1 = [[Dinv + X W', -X], [-X', S^-1]]
+
+        from batched (T, b, b) Cholesky factors (one Newton-Schulz step per
+        block and one for S^-1), then one full Newton-Schulz step against M,
+        gives the explicit inverse and the fused operator of the default
+        backend, so an iteration costs what it costs there."""
+        M = _schur_matrix(P, A, sigma, rho_vec)
+        n = M.shape[-1]
+        T = (n - c) // b
+        nd = T * b
+        lead = M.shape[:-2]
+        # the (T, b, b) diagonal blocks of the leading part, by one diagonal
+        # view of its (T, b, T, b) layout
+        Dblk = M[..., :nd, :nd].reshape(lead + (T, b, T, b)).diagonal(dim1=-4, dim2=-2)
+        Dblk = Dblk.movedim(-1, -3)  # (..., T, b, b)
+        Bblk = M[..., :nd, nd:].reshape(lead + (T, b, c))
+        C = M[..., nd:, nd:]
+        Ld = _cholesky_nan(Dblk)
+        Li = _tri_inverse(Ld)
+        Dinv = torch.matmul(Li.mT, Li)
+        # each block's inverse is corrected before composition, since the
+        # bordered inverse inherits every block's error
+        Dinv = torch.matmul(Dinv, 2.0 * _eye_like(Dblk) - torch.matmul(Dblk, Dinv))
+        W = torch.matmul(Dinv, Bblk)
+        S = C - torch.einsum("...tbc,...tbd->...cd", Bblk, W)
+        Ls = _cholesky_nan(S)
+        Lsi = _tri_inverse(Ls)
+        Sinv = torch.matmul(Lsi.mT, Lsi)
+        Sinv = torch.matmul(Sinv, 2.0 * _eye_like(S) - torch.matmul(S, Sinv))
+        X = torch.matmul(W, Sinv.unsqueeze(-3))  # (..., T, b, c)
+        TL = M.new_zeros(lead + (T, b, T, b))
+        TL.diagonal(dim1=-4, dim2=-2).copy_(Dinv.movedim(-3, -1))
+        TL = (TL + torch.einsum("...tic,...ujc->...tiuj", X, W)).reshape(lead + (nd, nd))
+        Xf = X.reshape(lead + (nd, c))
+        Minv = torch.cat([torch.cat([TL, -Xf], dim=-1),
+                          torch.cat([-Xf.mT, Sinv], dim=-1)], dim=-2)
+        # one full Newton-Schulz step against M: the composed inverse's
+        # error contracts quadratically (without it float32 ADMM stalls at
+        # blocks of 32, as the JAX package measured)
+        Minv = torch.matmul(Minv, 2.0 * _eye_like(M) - torch.matmul(M, Minv))
+        diag_nan = torch.isnan(Ld).flatten(-3).any(-1) | torch.isnan(Ls).flatten(-2).any(-1)
+        return {"W": _fused_admm_operator(Minv, A), "Minv": Minv, "M": M,
+                "diag_nan": diag_nan}
+
+    return LinearSolver(factor, _schur_solve, _schur_solve_xz, _schur_is_failure)
+
+
 class LinearSolver(NamedTuple):
     """factor(P, A, sigma, rho_vec) -> factor dict;
     solve(factor, P, A, sigma, rho_vec, rhs1, rhs2, refine_steps) -> x~;
@@ -444,8 +544,8 @@ _REGISTRY = {
 
 
 def get_linear_solver(name: str, block_size: int = 0, arrow_width: int = 0) -> LinearSolver:
-    """The backend ``name`` (``block_size`` for ``schur_block_tridiag``)."""
-    del arrow_width  # read by schur_arrow only
+    """The backend ``name`` (``block_size`` for ``schur_block_tridiag``;
+    ``block_size`` and ``arrow_width`` for ``schur_arrow``)."""
     if name == "schur_block_tridiag":
         if block_size <= 0:
             raise ValueError(
@@ -453,10 +553,12 @@ def get_linear_solver(name: str, block_size: int = 0, arrow_width: int = 0) -> L
             )
         return _btd_factory(block_size)
     if name == "schur_arrow":
-        raise NotImplementedError(
-            "linear_solver='schur_arrow' is not ported (ROADMAP Queue 1, item 10 "
-            "'Linear-solver backends': schur_arrow, with mpc_qp_coupled_batch)"
-        )
+        if block_size <= 0 or arrow_width <= 0:
+            raise ValueError(
+                "linear_solver='schur_arrow' requires settings.block_size > 0 "
+                "and settings.arrow_width > 0"
+            )
+        return _arrow_factory(block_size, arrow_width)
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -1,5 +1,6 @@
 from sqp_solver_tpu_torch.qp.admm import qp_solve
 from sqp_solver_tpu_torch.qp.api import QPSolver
+from sqp_solver_tpu_torch.qp.diff import qp_solve_diff
 from sqp_solver_tpu_torch.qp.classify import (
     EQUALITY_CONSTRAINT,
     INEQUALITY_CONSTRAINT,
@@ -27,6 +28,7 @@ from sqp_solver_tpu_torch.qp.types import (
 
 __all__ = [
     "qp_solve",
+    "qp_solve_diff",
     "QPSolver",
     "QuadraticProblem",
     "QPSettings",

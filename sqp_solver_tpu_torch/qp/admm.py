@@ -29,6 +29,12 @@ and elementwise updates with over-relaxation and box projection.  As in
 the JAX package, the chunks are plain tensor code, not a kernel; polish
 goes through :func:`~sqp_solver_tpu_torch.qp.polish.polish_qp`, which
 takes the polish-KKT kernel (K2) for CUDA tensors.
+
+Every product with P and A goes through the operand helpers of the
+linear solvers, so a :class:`~sqp_solver_tpu_torch.ops.block_sparse.BlockSparse`
+P or A (arbitrary sparsity, its tiles with the batch axis) runs the same
+loop on the matrix-free ``cg`` backend, without scaling or polish, whose
+epilogues need dense operands.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from typing import Optional
 
 import torch
 
-from sqp_solver_tpu_torch.ops.linear_solver import get_linear_solver
+from sqp_solver_tpu_torch.ops.block_sparse import BlockSparse
+from sqp_solver_tpu_torch.ops.linear_solver import _mv, _rmv, get_linear_solver
 from sqp_solver_tpu_torch.qp.classify import RHO_MAX, RHO_MIN, constr_type_init, rho_vec_from_type
 from sqp_solver_tpu_torch.qp.types import (
     QPInfo,
@@ -57,14 +64,6 @@ def _linf(v):
     if v.shape[-1] == 0:
         return v.new_zeros(v.shape[:-1])
     return v.abs().amax(dim=-1)
-
-
-def _mv(M, v):
-    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
-
-
-def _rmv(M, w):
-    return torch.matmul(w.unsqueeze(-2), M).squeeze(-2)
 
 
 def _select(mask, new, old):
@@ -88,10 +87,15 @@ def qp_solve(
     x (n,), z and y (m,)) returns a result without the batch axis, as the
     JAX ``qp_solve`` does; a batch-first problem runs as a batch
     (:func:`qp_solve_masked`).  ``state`` warm-starts the iterates.  The
-    solve runs on the device of the problem's tensors."""
-    if qp.P.dim() == 3:
+    solve runs on the device of the problem's tensors.  P and A may be
+    BlockSparse (module docstring)."""
+    if qp.q.dim() == 2:
         return qp_solve_masked(qp, settings, state)
-    one = QuadraticProblem(*(v.unsqueeze(0) for v in (qp.P, qp.q, qp.A, qp.l, qp.u)))
+
+    def lift(v):
+        return v.with_data(v.data.unsqueeze(0)) if isinstance(v, BlockSparse) else v.unsqueeze(0)
+
+    one = QuadraticProblem(*(lift(v) for v in (qp.P, qp.q, qp.A, qp.l, qp.u)))
     st = None if state is None else QPState(*(v.unsqueeze(0) for v in (state.x, state.z,
                                                                        state.y)))
     res = qp_solve_masked(one, settings, st)
@@ -113,6 +117,20 @@ def qp_solve_masked(
     given, leaves the other problems untouched (the SQP tier's finished
     problems): their result is the warm start, with no meaning."""
     settings.validate()
+    if isinstance(qp.P, BlockSparse) or isinstance(qp.A, BlockSparse):
+        # the BlockSparse gate (JAX qp/admm.py:101-120)
+        if settings.linear_solver != "cg":
+            raise ValueError(
+                "BlockSparse problems require linear_solver='cg' (the matrix-free "
+                "backend); factorizing backends need dense operands, got "
+                f"{settings.linear_solver!r}"
+            )
+        for gate, name in ((settings.scaling > 0, "scaling"), (settings.polish, "polish")):
+            if gate:
+                raise ValueError(
+                    f"BlockSparse problems do not support settings.{name} "
+                    "(dense-operand epilogue)"
+                )
     if settings.scaling > 0:
         from sqp_solver_tpu_torch.qp.scaling import solve_with_scaling
 

@@ -6,13 +6,15 @@ proves that no x satisfies ``l <= Ax <= u`` (primal infeasible); a nonzero
 ``dx`` with ``P dx ~ 0``, ``q'dx < 0`` and ``A dx`` a recession direction
 of the box proves the objective unbounded below (dual infeasible).  Loose
 bounds (beyond +-LOOSE_BOUNDS_THRESH, possibly infinite) enter the support
-as +-1e20, which keeps the sums finite.  Dense P and A only.
+as +-1e20, which keeps the sums finite.  P and A may each be dense or
+BlockSparse (:mod:`sqp_solver_tpu_torch.ops.block_sparse`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from sqp_solver_tpu_torch.ops.linear_solver import _mv, _rmv
 from sqp_solver_tpu_torch.qp.classify import LOOSE_BOUNDS_THRESH
 
 __all__ = ["infeasibility_certificates"]
@@ -24,19 +26,12 @@ def _linf(v):
     return v.abs().amax(dim=-1)
 
 
-def _mv(M, v):
-    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
-
-
 def infeasibility_certificates(P, A, q, l, u, dx, dy, eps_pinf, eps_dinf):
     """Both certificates for a batch of QPs (leading batch dimensions).
-    Returns bool masks ``(primal_infeasible, dual_infeasible)``."""
-    if not (isinstance(P, torch.Tensor) and isinstance(A, torch.Tensor)):
-        raise NotImplementedError(
-            "block-sparse operands are not ported (ROADMAP Queue 1, item 13 'Sparse')"
-        )
+    Returns bool masks ``(primal_infeasible, dual_infeasible)``.  The
+    products dispatch per operand, dense or BlockSparse."""
     norm_dy = _linf(dy)
-    ATdy = torch.matmul(dy.unsqueeze(-2), A).squeeze(-2)
+    ATdy = _rmv(A, dy)
     u_eff = torch.where(u > LOOSE_BOUNDS_THRESH, torch.full_like(u, _BIG), u)
     l_eff = torch.where(l < -LOOSE_BOUNDS_THRESH, torch.full_like(l, -_BIG), l)
     sup = (u_eff * torch.clamp_min(dy, 0.0) + l_eff * torch.clamp_max(dy, 0.0)).sum(-1)

@@ -1,10 +1,7 @@
 """QP settings, state and status (twin of ``sqp_solver_tpu/qp/types.py``).
 
 Field names, defaults, ``validate()`` and the integer status codes are
-those of the JAX package, so settings move across one to one.  Values
-that select a part of the solver this package does not have yet are
-rejected where a solver entry point reads them (``NotImplementedError``),
-not here: ``validate()`` keeps the reference semantics.
+those of the JAX package, so settings move across one to one.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
     python -m sqp_solver_tpu_torch.tools.trace_serving [cell ...]
 
-Runs on the card only.  For each cell, after a warm-up, three
+Runs on the card only, from the root of a checkout (the cells of legs J,
+K and M take their settings from ``chip_smoke.py``).  For each cell, after a warm-up, three
 unprofiled runs timed on the host clock closed by
 ``torch.cuda.synchronize()`` and one run under ``torch.profiler`` (CPU
 and CUDA activities).  Prints per cell the wall times, the device busy
@@ -30,7 +31,17 @@ by device time:
   B = 4096, at the SQP main path's settings (polish through K2);
 * family_random_scaled: the random OSQP family (n = 32, m = 48,
   B = 1024) under Ruiz scaling 10 through K3, polished (the families
-  leg's settings).
+  leg's settings);
+* arrow_vmap: ``schur_arrow`` on the coupled MPC (48 agents of horizon
+  16, B = 64, n = 770, m = 1586), 100 iterations on the vmap tier;
+* sparse_cg: ``qp_solve`` of ``sparse_qp_pair``'s BlockSparse QP
+  (n = m = 4096, blocks of 128, density 0.03) on ``cg``;
+* exp_chain_k1: the exponential chain (B = 1024, n = 32) on the K1 tier,
+  36 outers;
+* qp_diff: ``qp_solve_diff`` forward and backward on the fused tier,
+  random QPs B = 1024, n = m = 128;
+* sqp_diff: ``sqp_solve_diff`` forward and backward on the exponential
+  chain, 24 outers on the K1 tier.
 
 Name cells on the command line to trace only those (all by default).
 The last line is one JSON object with the same numbers and the card's
@@ -109,6 +120,69 @@ def _family_random(dev):
     return lambda: qp_solve_batch(qp, settings, impl="kernel")
 
 
+def _arrow(dev):
+    """The arrow row of the JAX package's bench.py:671-681."""
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_coupled_batch
+
+    qp, blk, cw = mpc_qp_coupled_batch(64, agents=48, horizon=16, device=dev)
+    settings = QPSettings(adaptive_rho=True, max_iter=100, linear_solver="schur_arrow",
+                          block_size=blk, arrow_width=cw)
+    return lambda: qp_solve_batch(qp, settings, impl="vmap")
+
+
+def _sparse_cg(dev):
+    """The sparse row of the JAX package's bench.py:735-746."""
+    from chip_smoke import sparse_cg_settings  # leg J's settings
+    from sqp_solver_tpu_torch.models.sparse import sparse_qp_pair
+    from sqp_solver_tpu_torch.qp import qp_solve
+
+    _, sparse = sparse_qp_pair(4096, 4096, 128, 0.03, seed=0, device=dev)
+    return lambda: qp_solve(sparse, sparse_cg_settings())
+
+
+def _exp_chain(dev):
+    from chip_smoke import multi_outer_settings  # leg K's settings
+    from sqp_solver_tpu_torch.models.benchmark import exp_chain_nlp_batch_device
+
+    problem, x0 = exp_chain_nlp_batch_device(1, 1024, 32, device=dev)
+    settings = multi_outer_settings("exp_chain")
+    return lambda: sqp_solve_batch(problem, x0, None, settings, impl="fused")
+
+
+def _qp_diff(dev):
+    """bench.py:1188-1207: forward and backward through the fused tier."""
+    from sqp_solver_tpu_torch.models.families import random_qp_batch_device
+    from sqp_solver_tpu_torch.qp import QuadraticProblem, qp_solve_diff
+
+    qp = random_qp_batch_device(1, 1024, 128, 128, device=dev)
+    settings = dataclasses.replace(SETTINGS, eps_abs=1e-5, eps_rel=1e-5, polish=True)
+
+    def run():
+        leaves = {k: getattr(qp, k).detach().requires_grad_(True) for k in "PqAlu"}
+        x = qp_solve_diff(QuadraticProblem(**leaves), settings, "fused")
+        (x * x).sum().backward()
+
+    return run
+
+
+def _sqp_diff(dev):
+    """bench.py:1335-1352: forward and backward on the K1 tier."""
+    from chip_smoke import multi_outer_settings  # leg M's settings
+    from sqp_solver_tpu_torch.models.benchmark import exp_chain_nlp_batch_device
+    from sqp_solver_tpu_torch.sqp import sqp_solve_diff
+
+    problem, x0 = exp_chain_nlp_batch_device(1, 1024, 32, device=dev)
+    settings = multi_outer_settings("sqp_diff")
+
+    def run():
+        p = dataclasses.replace(problem, **{k: getattr(problem, k).detach().requires_grad_(True)
+                                            for k in ("l", "u", "params")})
+        x = sqp_solve_diff(p, x0, None, settings, "fused")
+        (x * x).sum().backward()
+
+    return run
+
+
 def _trace(fn) -> dict:
     """Unprofiled wall (min of 3 after a warm-up), then one profiled run:
     device busy time is the sum over CUDA kernel events only (an aten op's
@@ -170,6 +244,11 @@ def main() -> int:
         "qp_vmap_one_shot": lambda: (lambda: qp_solve_batch(qp, SETTINGS, impl="vmap")),
         "sqp_vmap": lambda: _sqp_vmap(dev),
         "family_random_scaled": lambda: _family_random(dev),
+        "arrow_vmap": lambda: _arrow(dev),
+        "sparse_cg": lambda: _sparse_cg(dev),
+        "exp_chain_k1": lambda: _exp_chain(dev),
+        "qp_diff": lambda: _qp_diff(dev),
+        "sqp_diff": lambda: _sqp_diff(dev),
     }
     names = sys.argv[1:] or list(makers)
     unknown = set(names) - set(makers)

@@ -5,7 +5,8 @@ the same hazard as the TPU's bf16 passes: the Schur/Cholesky pipeline
 loses digits and ADMM stops converging.  ``pin_precision`` wraps every
 solver entry point and switches TF32 off for the whole call, user
 callables included (their autodiff feeds the QP data and the merit
-values).  The previous settings are restored on exit.
+values).  The previous settings are restored on exit.  ``hmat`` and
+``hdot`` are one product each under the same pin.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import functools
 
 import torch
 
-__all__ = ["pin_precision"]
+__all__ = ["hdot", "hmat", "pin_precision"]
 
 
 def pin_precision(fn):
@@ -33,3 +34,16 @@ def pin_precision(fn):
             torch.set_float32_matmul_precision(prev_prec)
 
     return wrapped
+
+
+@pin_precision
+def hmat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` in full float32 (TF32 off)."""
+    return torch.matmul(a, b)
+
+
+@pin_precision
+def hdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``numpy.dot`` semantics (a sum over the last axis of ``a`` and the
+    second to last of ``b``, or its only one) in full float32."""
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [max(b.dim() - 2, 0)]))

@@ -235,10 +235,3 @@ def test_kkt_ldlt_solves_equality_heavy_f32():
                                              adaptive_rho=True, linear_solver="kkt_ldlt",
                                              scaling=10))
     assert (res.info.status != QPStatus.NUMERICAL_ISSUES).all(), res.info.status
-
-
-def test_schur_arrow_still_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pls.get_linear_solver("schur_arrow", block_size=2, arrow_width=1)
-    with pytest.raises(ValueError, match="block_size"):
-        pls.get_linear_solver("schur_block_tridiag")

@@ -468,12 +468,3 @@ def test_sqp_solve_sequence_fused_matches_jax():
     assert (psts.numpy() == 0).all()
     np.testing.assert_allclose(pxs.numpy(), np.asarray(jxs), atol=1e-8, rtol=0)
     np.testing.assert_allclose(plam_f.numpy(), np.asarray(jlam_f), atol=1e-8, rtol=0)
-
-
-@pytest.mark.parametrize("kind", ["structured"])
-def test_fused_tier_refuses_what_it_does_not_cover(kind):
-    a = qp_inputs(2, 3, 4, seed=19)
-    pq = interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        qp_solve_batch(pq, QPSettings(linear_solver="schur_arrow", block_size=1,
-                                      arrow_width=1), impl="fused")

@@ -1180,3 +1180,93 @@ def test_backends_on_cuda_float64_match_cpu(cuda, name):
         for k in ("x", "y", "z"):
             torch.testing.assert_close(getattr(g, k).cpu(), getattr(c, k), atol=1e-9, rtol=0)
         assert bool((c.info.status == QPStatus.SOLVED).all()), impl
+
+
+def test_arrow_and_sparse_cg_on_cuda_float64_match_cpu(cuda):
+    """schur_arrow on the vmap and fused tiers and BlockSparse operands on
+    cg (one problem, ``qp_solve``) on CUDA float64 tensors against the CPU:
+    statuses and counts equal, x, y within 1e-9; neither launches a
+    kernel."""
+    from sqp_solver_tpu_torch.models.mpc import mpc_qp_coupled_batch
+    from sqp_solver_tpu_torch.models.sparse import sparse_qp_pair
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.qp import qp_solve
+
+    runs = []
+    for impl in ("vmap", "fused"):
+        s = QPSettings(adaptive_rho=True, max_iter=2000, linear_solver="schur_arrow",
+                       block_size=4, arrow_width=2)
+        runs.append((impl, lambda dev, s=s, impl=impl: qp_solve_batch(
+            mpc_qp_coupled_batch(8, agents=6, horizon=4, dtype=torch.float64, device=dev)[0],
+            s, impl=impl)))
+    cg = QPSettings(linear_solver="cg", eps_abs=1e-7, eps_rel=1e-7, max_iter=2000,
+                    check_termination=25, adaptive_rho=True)
+    runs.append(("sparse", lambda dev: qp_solve(
+        sparse_qp_pair(n=128, m=128, bs=32, density=0.3, seed=8, dtype=torch.float64,
+                       device=dev)[1], cg)))
+    for label, run in runs:
+        res = []
+        for dev in ("cpu", cuda):
+            before = _counts()
+            res.append(run(dev))
+            assert _launched(before) == (0, 0, 0, 0), label
+        c, g = res
+        for k in ("status", "iter", "rho_updates"):
+            assert torch.equal(getattr(c.info, k), getattr(g.info, k).cpu()), (label, k)
+        for k in ("x", "y"):
+            torch.testing.assert_close(getattr(g, k).cpu(), getattr(c, k), atol=1e-9, rtol=0)
+        assert bool((c.info.status == QPStatus.SOLVED).all()), label
+
+
+def test_diff_layers_backward_on_cuda_match_plain(cuda):
+    """Both differentiable layers' backward on CUDA float32 tensors, through
+    K2 (and for the QP layer also through K4), against the plain route on
+    the CPU at the same solution; then ``qp_solve_diff`` end to end on the
+    fused tier, its gradients finite."""
+    from sqp_solver_tpu_torch.models.benchmark import exp_chain_nlp_batch_device
+    from sqp_solver_tpu_torch.models.mpc import random_qp_batch
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch, sqp_solve_batch
+    from sqp_solver_tpu_torch.qp.diff import qp_solve_diff, qp_solve_vjp
+    from sqp_solver_tpu_torch.sqp.diff import sqp_solve_vjp
+    from sqp_solver_tpu_torch.sqp.types import SQPSettings
+
+    qs = QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=2000, check_termination=25,
+                    adaptive_rho=True, polish=True)
+    qp = random_qp_batch(64, 16, 24, seed=3, device="cpu")
+    res = qp_solve_batch(qp, qs)
+    g = torch.as_tensor(np.random.default_rng(4).normal(size=(64, 16)), dtype=torch.float32)
+    args = (qp.P, qp.A, qp.l, qp.u, res.x, res.y, res.info.status, g)
+    ref = qp_solve_vjp(*args, qs, use_kernel=False)
+    for route, counter in ((True, "polish_kkt_launches"), (False, "spd_inverse_launches")):
+        before = getattr(qk, counter)
+        out = qp_solve_vjp(*(a.to(cuda) for a in args), qs, use_kernel=route)
+        assert getattr(qk, counter) == before + 1
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.cpu(), b, **TOL)
+    assert ref[1].abs().max() > 0
+
+    ss = SQPSettings(max_iter=24, eps_prim=1e-3, eps_dual=1e-3, termination="kkt",
+                     schedule="fixed", qp_impl="kernel", polish=True, polish_passes=2,
+                     line_search_max_iter=6, qp=MAIN_QP)
+    prob, x0 = exp_chain_nlp_batch_device(5, 64, 16, device="cpu")
+    sres = sqp_solve_batch(prob, x0, None, ss, impl="fused")
+    gs = torch.ones_like(sres.x)
+    sref = sqp_solve_vjp(prob, sres.x, sres.lam, sres.info.status, gs, ss)
+    gprob = dataclasses.replace(prob, l=prob.l.to(cuda), u=prob.u.to(cuda),
+                                params=prob.params.to(cuda))
+    before = qk.polish_kkt_launches
+    sout = sqp_solve_vjp(gprob, sres.x.to(cuda), sres.lam.to(cuda), sres.info.status.to(cuda),
+                         gs.to(cuda), ss)
+    assert qk.polish_kkt_launches == before + 1
+    for a, b in zip(sout, sref):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    assert sref[2].abs().max() > 0
+
+    leaves = {k: getattr(qp, k).to(cuda).requires_grad_(True) for k in LEAVES}
+    before = qk.polish_kkt_launches
+    x = qp_solve_diff(QuadraticProblem(**leaves), dataclasses.replace(qs, schedule="fixed",
+                                                                      max_iter=200), "fused")
+    (x * x).sum().backward()
+    assert qk.polish_kkt_launches > before
+    for k in LEAVES:
+        assert torch.isfinite(leaves[k].grad).all(), k

@@ -216,19 +216,13 @@ def test_polish_qp_matches_jax(passes):
     np.testing.assert_allclose(one.x.numpy(), pp.x.numpy()[2], atol=1e-12, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["comp_slack", "fused"])
+@pytest.mark.parametrize("kind", ["comp_slack"])
 def test_qp_path_refuses_what_it_does_not_cover(kind):
     a = qp_inputs(2, 3, 4, seed=13)
     pq = interop.qp_from_arrays(*(a[k] for k in LEAVES), device="cpu")
-    settings, impl, err = QPSettings(**BENCH), "kernel", NotImplementedError
-    if kind == "comp_slack":
-        settings, err = dataclasses.replace(settings, check_comp_slack=True), ValueError
-    else:  # the fused tier and its block-tridiagonal route are ported; schur_arrow is not
-        settings = dataclasses.replace(settings, linear_solver="schur_arrow", block_size=1,
-                                       arrow_width=1)
-        impl = kind
-    with pytest.raises(err, match="ROADMAP|check_comp_slack"):
-        qp_solve_batch(pq, settings, impl=impl)
+    settings = dataclasses.replace(QPSettings(**BENCH), check_comp_slack=True)
+    with pytest.raises(ValueError, match="check_comp_slack"):
+        qp_solve_batch(pq, settings, impl="kernel")
 
 
 def test_qp_result_state_warm_starts_and_launches_nothing_on_cpu():
