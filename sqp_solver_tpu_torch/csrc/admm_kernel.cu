@@ -45,6 +45,9 @@
 //   end (device memory only where those cannot hold them, D > 288); q
 //   and x in shared memory.  A'y one thread a column, Ax and Px one
 //   thread a row (float4 dot products), one block max-reduction.
+//   D > 1024 (up to 2048): a variant of its own (admm_chunk_wide_kernel,
+//   below), two rows a thread and W read from device memory every
+//   iteration; the launches at D <= 1024 are the kernels above.
 // Every loop bound and branch that holds a barrier or a shuffle is uniform
 // across the block or the warp.
 
@@ -280,6 +283,147 @@ __global__ void __launch_bounds__(KR > 0 ? kRegThreads : kMaxThreads) admm_chunk
   ADMM_PHASE_END(kPhTotal);
 }
 
+// D > 1024: more rows than a block has threads.  Thread i owns the rows
+// i and i + 1024 (state and constants in registers, kWideRows a thread);
+// no row of W fits in shared memory beside the others' vectors at any
+// size worth staging, so every iteration reads all of W from device
+// memory, one warp a row (lanes over its columns, a warp sum), against rhs
+// in shared memory: D^2 floats a problem an iteration bound it.  The stats
+// read P and A from device memory (one thread a column of A'y, one warp a
+// row of Ax and Px), as the narrow variant does where W's dead rows cannot
+// hold them.
+constexpr int kWideRows = 2;
+constexpr int kMaxWideD = kWideRows * kMaxThreads;
+
+__global__ void __launch_bounds__(kMaxThreads) admm_chunk_wide_kernel(
+    ChunkParams p, const float* __restrict__ Wg, const float* __restrict__ Pg,
+    const float* __restrict__ Ag, const float* __restrict__ qv, const float* __restrict__ sc,
+    const float* __restrict__ ri, const float* __restrict__ rp, const float* __restrict__ lp,
+    const float* __restrict__ up, const float* __restrict__ s_in,
+    const float* __restrict__ yp_in, float* __restrict__ s_out, float* __restrict__ yp_out,
+    float* __restrict__ stats) {
+  extern __shared__ float smem[];
+  ADMM_PHASE_BEGIN(kPhTotal);
+  ADMM_PHASE_BEGIN(kPhLoad);
+  const int n = p.n, m = p.m, D = p.D;
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  float* red = smem;
+  float* rhs = red + kRedSlots;  // D
+  float* xz = rhs + D;           // D: W rhs
+  float* sv = xz + D;            // D: final s, for the stats
+  float* yv = sv + D;            // D: final yp
+  float* aty = yv + D;           // n
+  const float* Wb = Wg + b * D * D;
+  const float* Pb = Pg + b * n * n;
+  const float* Ab = Ag + b * m * n;
+  const size_t vo = b * D;
+
+  float s[kWideRows], y[kWideRows], q[kWideRows], c[kWideRows], rinv[kWideRows],
+      rho[kWideRows], lo[kWideRows], hi[kWideRows], ysel[kWideRows];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    const int i = tid + r * T;
+    const bool own = i < D;
+    s[r] = own ? s_in[vo + i] : 0.f;
+    y[r] = own ? yp_in[vo + i] : 0.f;
+    q[r] = own ? qv[vo + i] : 0.f;
+    c[r] = own ? sc[vo + i] : 0.f;
+    rinv[r] = own ? ri[vo + i] : 0.f;
+    rho[r] = own ? rp[vo + i] : 0.f;
+    lo[r] = own ? lp[vo + i] : 0.f;
+    hi[r] = own ? up[vo + i] : 0.f;
+    ysel[r] = rinv[r] * rho[r];
+    if (own) rhs[i] = c[r] * s[r] - q[r] - ysel[r] * y[r];
+  }
+  __syncthreads();
+  ADMM_PHASE_END(kPhLoad);
+
+  ADMM_PHASE_BEGIN(kPhIter);
+  for (int it = 0; it < p.seg; ++it) {
+    for (int k = warp; k < D; k += nw) {
+      const float* row = Wb + (size_t)k * D;
+      float a = 0.f;
+#pragma unroll 4
+      for (int j = lane; j < D; j += 32) a = fmaf(__ldg(row + j), rhs[j], a);
+      a = warp_sum(a);
+      if (lane == 0) xz[k] = a;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) {
+      const int i = tid + r * T;
+      if (i < D) {
+        const float pre = p.alpha * xz[i] + p.beta * s[r];
+        float sn = pre + rinv[r] * y[r];
+        sn = sn < lo[r] ? lo[r] : sn;  // clip as min(max(v, lo), hi); NaN stays NaN
+        sn = sn > hi[r] ? hi[r] : sn;
+        y[r] = y[r] + rho[r] * (pre - sn);
+        s[r] = sn;
+        rhs[i] = c[r] * s[r] - q[r] - ysel[r] * y[r];
+      }
+    }
+    __syncthreads();
+  }
+  ADMM_PHASE_END(kPhIter);
+
+  ADMM_PHASE_BEGIN(kPhStats);
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    const int i = tid + r * T;
+    if (i < D) {
+      s_out[vo + i] = s[r];
+      yp_out[vo + i] = y[r];
+      sv[i] = s[r];
+      yv[i] = y[r];
+    }
+  }
+  __syncthreads();
+  // x = sv[:n], z = sv[n:], y = yv[n:]
+  const float* zs = sv + n;
+  const float* ys = yv + n;
+  for (int j = tid; j < n; j += T) {
+    float a = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < m; ++r) a = fmaf(__ldg(Ab + (size_t)r * n + j), ys[r], a);
+    aty[j] = a;
+  }
+  __syncthreads();
+  // |Ax - z|, |Px + q + A'y|, |Ax|, |z|, |Px|, |A'y|, |q|
+  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = warp; k < m + n; k += nw) {
+    const float* row = k < m ? Ab + (size_t)k * n : Pb + (size_t)(k - m) * n;
+    float a = 0.f;
+    for (int j = lane; j < n; j += 32) a = fmaf(__ldg(row + j), sv[j], a);
+    a = warp_sum(a);
+    if (lane == 0) {
+      if (k < m) {
+        v[0] = nan_max(v[0], fabsf(a - zs[k]));
+        v[2] = nan_max(v[2], fabsf(a));
+      } else {
+        v[1] = nan_max(v[1], fabsf(a + qv[vo + k - m] + aty[k - m]));
+        v[4] = nan_max(v[4], fabsf(a));
+      }
+    }
+  }
+  for (int j = tid; j < n; j += T) {
+    v[5] = nan_max(v[5], fabsf(aty[j]));
+    v[6] = nan_max(v[6], fabsf(qv[vo + j]));
+  }
+  for (int r = tid; r < m; r += T) v[3] = nan_max(v[3], fabsf(zs[r]));
+  block_max<7>(v, red);
+  if (tid == 0) {
+    float* st = stats + b * 4;
+    st[0] = v[0];
+    st[1] = v[1];
+    st[2] = nan_max(v[2], v[3]);
+    st[3] = nan_max(v[4], nan_max(v[5], v[6]));
+  }
+  ADMM_PHASE_END(kPhStats);
+  ADMM_PHASE_END(kPhTotal);
+}
+
 struct ChunkLayout {
   size_t smem_bytes;
   int ld, rows_smem, rows_reg, pa, threads;
@@ -309,13 +453,44 @@ ChunkLayout chunk_layout(int n, int m) {
   return L;
 }
 
+// The launch of the wide variant (D = n + m > 1024).
+int launch_wide(const float* W, const float* P, const float* A, const float* qv,
+                const float* scale1, const float* rhoip, const float* rhop, const float* lp,
+                const float* up, const float* s, const float* yp, float* s_out, float* yp_out,
+                float* stats, int batch, int n, int m, float alpha, float beta, int seg,
+                int device, void* stream) {
+  const int D = n + m;
+  const size_t smem = (size_t)(kRedSlots + 4LL * D + n) * sizeof(float);  // < 48 KB
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  ChunkParams p;
+  p.n = n;
+  p.m = m;
+  p.D = D;
+  p.ld = D;
+  p.rows_smem = 0;
+  p.rows_reg = 0;
+  p.pa = kPaDevice;
+  p.seg = seg;
+  p.alpha = alpha;
+  p.beta = beta;
+  admm_chunk_wide_kernel<<<batch, kMaxThreads, smem, (cudaStream_t)stream>>>(
+      p, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out, stats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int admm_chunk_smem_rows(int n, int m) { return chunk_layout(n, m).rows_smem; }
+// Rows of W in shared memory and in registers (none past D = 1024).
+int admm_chunk_smem_rows(int n, int m) {
+  return n + m > kMaxThreads ? 0 : chunk_layout(n, m).rows_smem;
+}
 
-int admm_chunk_reg_rows(int n, int m) { return chunk_layout(n, m).rows_reg; }
+int admm_chunk_reg_rows(int n, int m) {
+  return n + m > kMaxThreads ? 0 : chunk_layout(n, m).rows_reg;
+}
 
 int admm_chunk_launch(const float* W, const float* P, const float* A, const float* qv,
                       const float* scale1, const float* rhoip, const float* rhop,
@@ -323,7 +498,10 @@ int admm_chunk_launch(const float* W, const float* P, const float* A, const floa
                       float* s_out, float* yp_out, float* stats, int batch, int n, int m,
                       float alpha, float beta, int seg, int device, void* stream) {
   if (batch <= 0) return 0;
-  if (n + m > kMaxThreads || n <= 0 || m <= 0 || seg < 0) return (int)cudaErrorInvalidValue;
+  if (n + m > kMaxWideD || n <= 0 || m <= 0 || seg < 0) return (int)cudaErrorInvalidValue;
+  if (n + m > kMaxThreads) return launch_wide(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp,
+                                              s_out, yp_out, stats, batch, n, m, alpha, beta,
+                                              seg, device, stream);
   const ChunkLayout L = chunk_layout(n, m);
   auto kernel = L.rows_reg > 0 ? admm_chunk_kernel<kRegRows> : admm_chunk_kernel<0>;
   // this library's runtime keeps its own current device: use the tensors'

@@ -336,15 +336,32 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel_aa
 // 128 threads, 2 at 256; the triangular ones over 2 L lanes, rows i and
 // n - 1 - i together) and reduced by shuffles; the elementwise updates
 // in the matvecs' epilogues, four barriers a sweep.
+// Factor reuse (the JAX kernel's actt_prev / li_prev / fail_prev): the
+// instantiation with REUSE compares each problem's mask with a previous
+// call's; a problem whose mask is unchanged skips the factor, takes the
+// previous L^-1 (and mirrors it) and reports the previous fail flag.  The
+// decision is per problem (the TPU kernel's per tile of 128 lanes); the
+// block-wide OR keeps the branch around the factor's barriers uniform.
 #ifndef QP_KERNEL_AA_UNIT
-template <int L>
-__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
-    int n, int m, float delta, int sweeps, int n_smem_mats, long long ws_floats,
-    const float* __restrict__ H, const float* __restrict__ J,
-    const uint8_t* __restrict__ actg, const float* __restrict__ r1g,
-    const float* __restrict__ bg, const float* __restrict__ nu0,
-    const float* __restrict__ x0, float* __restrict__ x_out, float* __restrict__ nu_out,
-    uint8_t* __restrict__ fail_out, float* __restrict__ li_out, float* __restrict__ ws) {
+struct PolishReuse {
+  const uint8_t* act_prev;  // (B, m): the previous call's mask
+  const float* li_prev;     // (B, n, n): its L^-1 (lower triangle)
+  const uint8_t* fail_prev; // (B,): its fail flag (none: false)
+};
+
+#define POLISH_PARAMS                                                                      \
+  int n, int m, float delta, int sweeps, int n_smem_mats, long long ws_floats,             \
+      const float *__restrict__ H, const float *__restrict__ J,                            \
+      const uint8_t *__restrict__ actg, const float *__restrict__ r1g,                     \
+      const float *__restrict__ bg, const float *__restrict__ nu0,                         \
+      const float *__restrict__ x0, float *__restrict__ x_out, float *__restrict__ nu_out, \
+      uint8_t *__restrict__ fail_out, float *__restrict__ li_out, float *__restrict__ ws
+#define POLISH_ARGS                                                                      \
+  n, m, delta, sweeps, n_smem_mats, ws_floats, H, J, actg, r1g, bg, nu0, x0, x_out, nu_out, \
+      fail_out, li_out, ws
+
+template <int L, bool REUSE>
+__device__ __forceinline__ void polish_kkt_body(POLISH_PARAMS, PolishReuse reuse) {
   extern __shared__ float smem[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -391,9 +408,26 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
   __syncthreads();
   ADMM_PHASE_END(kPhLoad);
 
-  gram_build<kQuad<L>>(W, ld, Hb, n, Jm, ld, wrow, delta, n, m);
-  const bool fail = chol_blocked<kQuad<L>>(W, ld, n, red);
-  tri_inv_blocked(W, ld, Li, ld, n, true);
+  bool fail;
+  if constexpr (REUSE) {
+    bool changed = false;
+    for (int i = tid; i < m; i += T) changed = changed || (actg[b * m + i] != reuse.act_prev[b * m + i]);
+    if (__syncthreads_or(changed)) {
+      gram_build<kQuad<L>>(W, ld, Hb, n, Jm, ld, wrow, delta, n, m);
+      fail = chol_blocked<kQuad<L>>(W, ld, n, red);
+      tri_inv_blocked(W, ld, Li, ld, n, true);
+    } else {
+      // the previous L^-1, its transpose mirrored above the diagonal
+      const float* lp = reuse.li_prev + b * n * n;
+      for (int i = wp; i < n; i += nw)
+        for (int j = lane; j <= i; j += 32) Li[i * ld + j] = Li[j * ld + i] = lp[(size_t)i * n + j];
+      fail = reuse.fail_prev ? reuse.fail_prev[b] != 0 : false;
+    }
+  } else {
+    gram_build<kQuad<L>>(W, ld, Hb, n, Jm, ld, wrow, delta, n, m);
+    fail = chol_blocked<kQuad<L>>(W, ld, n, red);
+    tri_inv_blocked(W, ld, Li, ld, n, true);
+  }
 
   ADMM_PHASE_BEGIN(kPhPolish);
   // H into the factor's dead slot; the warm start's H x0 and Jm x0
@@ -444,6 +478,17 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(
     for (int j = lane; j < n; j += 32) lo[(size_t)i * n + j] = j <= i ? Li[i * ld + j] : 0.f;
   ADMM_PHASE_END(kPhLoad);
   ADMM_PHASE_END(kPhTotal);
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_kernel(POLISH_PARAMS) {
+  polish_kkt_body<L, false>(POLISH_ARGS, PolishReuse{nullptr, nullptr, nullptr});
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_reuse_kernel(
+    POLISH_PARAMS, PolishReuse reuse) {
+  polish_kkt_body<L, true>(POLISH_ARGS, reuse);
 }
 #endif  // QP_KERNEL_AA_UNIT
 
@@ -1372,6 +1417,31 @@ int polish_kkt_launch(const float* H, const float* J, const uint8_t* act, const 
   kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
       n, m, delta, sweeps, L.n_smem_mats, L.ws_floats, H, J, act, r1, b, nu0, x0, x_out,
       nu_out, fail_out, li_out, ws);
+  return (int)cudaGetLastError();
+}
+
+// polish_kkt_launch with factor reuse: a problem whose act equals act_prev
+// takes li_prev (B, n, n) as its L^-1 and fail_prev (B,; nullptr: false)
+// as its fail flag instead of factoring.
+int polish_kkt_launch_reuse(const float* H, const float* J, const uint8_t* act,
+                            const float* r1, const float* b, const float* nu0, const float* x0,
+                            const uint8_t* act_prev, const float* li_prev,
+                            const uint8_t* fail_prev, float* x_out, float* nu_out,
+                            uint8_t* fail_out, float* li_out, float* ws, int batch, int n,
+                            int m, float delta, int sweeps, int device, void* stream) {
+  if (batch <= 0) return 0;
+  if (act_prev == nullptr || li_prev == nullptr) return (int)cudaErrorInvalidValue;
+  const Layout L = polish_layout(n, m);
+  if (L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = threads_for(n, m);
+  auto kernel = threads == 128 ? polish_kkt_reuse_kernel<4> : polish_kkt_reuse_kernel<2>;
+  err = set_smem(kernel, L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
+      n, m, delta, sweeps, L.n_smem_mats, L.ws_floats, H, J, act, r1, b, nu0, x0, x_out,
+      nu_out, fail_out, li_out, ws, PolishReuse{act_prev, li_prev, fail_prev});
   return (int)cudaGetLastError();
 }
 

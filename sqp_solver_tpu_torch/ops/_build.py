@@ -51,6 +51,10 @@ _SIGNATURES = {
         _INT,
         [_VOID] * 12 + [_INT] * 3 + [_FLOAT, _INT, _INT, _VOID],
     ),
+    "polish_kkt_launch_reuse": (
+        _INT,
+        [_VOID] * 15 + [_INT] * 3 + [_FLOAT, _INT, _INT, _VOID],
+    ),
     "polish_kkt_workspace_floats": (_LL, [_INT, _INT]),
     "qp_solve_launch": (
         _INT,
@@ -95,6 +99,19 @@ _SIGNATURES = {
         [_INT] + [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_INT, _VOID],
     ),
+    "qp_btd_wide_launch": (
+        _INT,
+        [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID],
+    ),
+    "qp_btd_wide_launch_aa": (
+        _INT,
+        [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID] + [_INT, _VOID],
+    ),
+    "qp_btd_wide_workspace_floats": (_LL, [_INT] * 3),
+    "qp_btd_wide_smem_arrays": (_INT, [_INT] * 3),
+    "qp_btd_wide_smem_rows": (_INT, [_INT] * 3),
     "qp_btd_smem_rows": (_INT, [_INT] * 4),
     "qp_btd_cluster_size": (_INT, [_INT] * 4),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),

@@ -20,7 +20,9 @@ Three parts:
   ``admm_chunk_xla``): the CPU path and the card's oracle;
 * the CUDA kernel in ``csrc/admm_kernel.cu``, one thread block per
   problem with W on chip for the whole chunk (shared memory, and
-  registers for the rows that do not fit there);
+  registers for the rows that do not fit there) up to D = 1024, and past
+  that (up to 2048) a variant with two rows a thread that reads W from
+  device memory every iteration;
 * :func:`admm_chunk_kernel`, the wrapper that launches it on float32 CUDA
   operands and raises on anything else, and :func:`admm_chunk`, which
   sends CPU tensors to the plain version and CUDA tensors to the kernel.
@@ -41,7 +43,7 @@ __all__ = ["admm_chunk", "admm_chunk_kernel", "admm_chunk_layout", "admm_chunk_r
 # Launch counter: the wrapper adds one where it launches the CUDA kernel.
 admm_chunk_launches = 0
 
-_MAX_D = 1024  # one thread per row of W, at most a block's 1024 threads
+_MAX_D = 2048  # one thread per row of W, two past a block's 1024 threads
 
 
 def chunk_stats(P, A, q, x, z, y):
@@ -84,7 +86,7 @@ def admm_chunk_kernel(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha,
     """Launch K5 (replaces the TPU's ``ops/admm_kernel.py:admm_chunk_pallas``):
     one CUDA thread block per problem.  Every operand must be a float32,
     contiguous CUDA tensor: W (B, D, D), P (B, n, n), A (B, m, n) and the
-    eight (B, D) vectors, D = n + m <= 1024.  Returns ``(s, yp, stats)``."""
+    eight (B, D) vectors, D = n + m <= 2048.  Returns ``(s, yp, stats)``."""
     return _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, alpha=alpha,
                               seg=seg)
 
@@ -141,7 +143,7 @@ def admm_chunk_layout(n: int, m: int) -> dict:
     """Where K5 keeps the D = n + m rows of W at this shape: in shared
     memory, in registers (split over the block's lanes, where shared
     memory cannot hold them all and D <= 288), and read from device memory
-    each iteration (the rest)."""
+    each iteration (the rest: all of them past D = 1024)."""
     from sqp_solver_tpu_torch.ops import _build
 
     lib = _build.load()

@@ -716,18 +716,35 @@ def _sqp_step_launch(B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
 # ---------------------------------------------------------------------------
 
 
+def _check_reuse(name, act_prev, li_prev):
+    if act_prev is not None and li_prev is None:
+        raise ValueError(f"{name}: act_prev requires li_prev (the previous call's emitted "
+                         "L^-1): factorization reuse needs both")
+
+
 def polish_kkt_reference(H, J, act, r1, b, nu0, delta: float = 1e-2,
-                         sweeps: int = 6, x0=None) -> PolishOut:
+                         sweeps: int = 6, x0=None, act_prev=None, li_prev=None,
+                         fail_prev=None) -> PolishOut:
     """Plain version of the polish-KKT kernel: L^-1 of the Schur
     preconditioner M = H + delta I + (1/delta) Jm'Jm (Jm = J with inactive
     rows zeroed), then ``sweeps`` ideal-operator refinement sweeps on
     (x, nu) that apply M^-1 as Li'(Li t).  Same mathematics as the JAX
-    ``_polish_kkt_body`` without its factor-reuse inputs."""
+    ``_polish_kkt_body``.  With ``act_prev`` (and ``li_prev``, ``fail_prev``
+    of the call that emitted it) a problem whose mask equals ``act_prev``
+    takes ``li_prev`` as its L^-1 and ``fail_prev`` (default False) as its
+    fail flag (the JAX kernel decides per tile of lanes, this per problem;
+    the results are the same where ``li_prev`` came from the same (H, J))."""
+    _check_reuse("polish_kkt_reference", act_prev, li_prev)
     dtype = H.dtype
     actf = act.to(dtype)
     inv_d = 1.0 / delta
     Jm = J * actf.unsqueeze(-1)
     Li, fail = _chol_inv_ltl(_schur_matrix(H, Jm, actf * inv_d, delta), ltl=False)
+    if act_prev is not None:
+        same = (act == act_prev).all(dim=-1)
+        Li = torch.where(same[:, None, None], li_prev, Li)
+        fail = torch.where(same, torch.zeros_like(fail) if fail_prev is None else fail_prev,
+                           fail)
     nu = nu0 * actf
     if x0 is not None:
         x = x0
@@ -752,37 +769,53 @@ def polish_kkt_reference(H, J, act, r1, b, nu0, delta: float = 1e-2,
 
 
 def polish_kkt_kernel(H, J, act, r1, b, nu0, delta: float = 1e-2,
-                      sweeps: int = 6, x0=None) -> PolishOut:
+                      sweeps: int = 6, x0=None, act_prev=None, li_prev=None,
+                      fail_prev=None) -> PolishOut:
     """Batched active-set KKT polish solve, one CUDA thread block per problem
     (replaces the TPU's ``ops/qp_kernel.py:polish_kkt_kernel``).
 
     H (B, n, n), J (B, m, n) raw Jacobian (masked by ``act`` inside),
     act bool (B, m), r1 (B, n) stationarity rhs, b (B, m) active-row
     targets, nu0 (B, m) multiplier warm start, optional x0 (B, n) primal
-    warm start.  CPU tensors run :func:`polish_kkt_reference`."""
+    warm start.  Factor reuse, as the JAX kernel's ``actt_prev`` /
+    ``li_prev`` / ``fail_prev``: ``act_prev`` bool (B, m) and ``li_prev``
+    (B, n, n), a previous call's mask and emitted ``li``, and optionally its
+    ``fail`` (B,); a problem whose mask is unchanged skips the factor (sound
+    only for the same (H, J), as in JAX).  CPU tensors run
+    :func:`polish_kkt_reference`."""
     batch, n = r1.shape
     m = b.shape[-1]
     name = "polish_kkt_kernel"
+    _check_reuse(name, act_prev, li_prev)
+    if act_prev is None:
+        li_prev = fail_prev = None  # as JAX: nothing to reuse
     for key, t, shape in (
         ("H", H, (batch, n, n)), ("J", J, (batch, m, n)), ("act", act, (batch, m)),
-        ("nu0", nu0, (batch, m)), ("x0", x0, (batch, n)),
+        ("nu0", nu0, (batch, m)), ("x0", x0, (batch, n)), ("act_prev", act_prev, (batch, m)),
+        ("li_prev", li_prev, (batch, n, n)), ("fail_prev", fail_prev, (batch,)),
     ):
         _check_shape(name, key, t, shape)
     if not r1.is_cuda:
-        return polish_kkt_reference(H, J, act, r1, b, nu0, delta, sweeps, x0)
-    return _polish_kkt_launch(H, J, act, r1, b, nu0, delta, sweeps, x0)
+        return polish_kkt_reference(H, J, act, r1, b, nu0, delta, sweeps, x0, act_prev,
+                                    li_prev, fail_prev)
+    return _polish_kkt_launch(H, J, act, r1, b, nu0, delta, sweeps, x0, act_prev=act_prev,
+                              li_prev=li_prev, fail_prev=fail_prev)
 
 
 def _polish_kkt_launch(H, J, act, r1, b, nu0, delta: float, sweeps: int, x0=None,
-                       lib=None) -> PolishOut:
+                       lib=None, act_prev=None, li_prev=None, fail_prev=None) -> PolishOut:
     """One launch of the polish-KKT CUDA kernel on CUDA operands (``lib``
-    as for :func:`_sqp_step_launch`)."""
+    as for :func:`_sqp_step_launch`); with ``act_prev`` (and ``li_prev``,
+    as :func:`polish_kkt_kernel` passes them) its factor-reuse
+    instantiation."""
     global polish_kkt_launches
     batch, n = r1.shape
     m = b.shape[-1]
     name = "polish_kkt_kernel"
-    operands = dict(H=H, J=J, act=act, r1=r1, b=b, nu0=nu0, x0=x0)
-    dev = _check_cuda_operands(name, operands, dict(act=torch.bool))
+    operands = dict(H=H, J=J, act=act, r1=r1, b=b, nu0=nu0, x0=x0, act_prev=act_prev,
+                    li_prev=li_prev, fail_prev=fail_prev)
+    dev = _check_cuda_operands(name, operands, dict(act=torch.bool, act_prev=torch.bool,
+                                                    fail_prev=torch.bool))
     lib = lib or _library()
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((batch, n), **f32)
@@ -792,11 +825,14 @@ def _polish_kkt_launch(H, J, act, r1, b, nu0, delta: float, sweeps: int, x0=None
     ws_floats = int(lib.polish_kkt_workspace_floats(n, m))
     ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.polish_kkt_launch(
-        _ptr(H), _ptr(J), _ptr(act), _ptr(r1), _ptr(b), _ptr(nu0), _ptr(x0),
-        _ptr(x_out), _ptr(nu_out), _ptr(fail_out), _ptr(li_out), _ptr(ws),
-        batch, n, m, float(delta), int(sweeps), dev.index, ctypes.c_void_p(stream),
-    )
+    ins = (_ptr(H), _ptr(J), _ptr(act), _ptr(r1), _ptr(b), _ptr(nu0), _ptr(x0))
+    outs = (_ptr(x_out), _ptr(nu_out), _ptr(fail_out), _ptr(li_out), _ptr(ws),
+            batch, n, m, float(delta), int(sweeps), dev.index, ctypes.c_void_p(stream))
+    if act_prev is None:
+        rc = lib.polish_kkt_launch(*ins, *outs)
+    else:
+        rc = lib.polish_kkt_launch_reuse(*ins, _ptr(act_prev), _ptr(li_prev), _ptr(fail_prev),
+                                         *outs)
     _raise_on(lib, rc, name)
     polish_kkt_launches += 1
     return PolishOut(x=x_out, nu=nu_out, fail=fail_out, li=li_out)

@@ -27,10 +27,13 @@ BFGS), not a layout choice.
 Each entry point has a plain PyTorch version (:func:`qp_btd_reference`,
 batched tensor code that follows the kernel's per-problem algorithm, with
 the column Cholesky's pivot clamp and fail rule) and a wrapper that sends
-CPU tensors to it and CUDA tensors to the kernel in ``csrc/qp_kernel_btd.cu``
-(one thread block per problem, or a cluster of two where one block cannot
-hold A in shared memory).  A CUDA call the kernel cannot take raises;
-there is no fallback.
+CPU tensors to it and CUDA tensors to a CUDA kernel: internal blocks 8, 16,
+24 and 32 to ``csrc/qp_kernel_btd.cu`` (one thread block per problem, or a
+cluster of two where one block cannot hold A in shared memory), the other
+multiples of 8 up to 128 to ``csrc/qp_kernel_btd_wide.cu`` (one block per
+problem, the band arrays that shared memory cannot hold in a device
+workspace).  A CUDA call the kernels cannot take raises; there is no
+fallback.
 
 Layouts are batch-first: the band is ``pd``, ``pe`` of shape (B, T, bb, bb)
 with ``pd[:, k]`` the diagonal block M_{k,k}'s P part and ``pe[:, k]`` the
@@ -73,14 +76,18 @@ __all__ = [
     "btd_step_kernel",
 ]
 
-# The internal blocks the CUDA kernel is built for (a cluster of two blocks
-# per problem for 8 and 16 only).
+# The internal blocks the narrow CUDA kernel is built for (a cluster of two
+# blocks per problem for 8 and 16 only); the wide kernel takes the other
+# multiples of 8 up to WIDE_MAX_BLOCK.
 KERNEL_BLOCKS = (8, 16, 24, 32)
+WIDE_MAX_BLOCK = 128
 
-# Launch counters, one per entry point of the one CUDA kernel: each wrapper
-# adds one where it launches the kernel (never on the plain path).
+# Launch counters, one per entry point of each CUDA kernel (narrow, wide):
+# each wrapper adds one where it launches a kernel (never on the plain path).
 qp_solve_btd_launches = 0
 btd_step_launches = 0
+qp_solve_btd_wide_launches = 0
+btd_step_wide_launches = 0
 
 
 class BtdOut(NamedTuple):
@@ -232,20 +239,32 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     )
 
 
+def is_wide(bb: int, name: str = "qp_kernel_btd") -> bool:
+    """Whether the wide CUDA kernel (rather than the narrow one) takes the
+    internal block ``bb``; raises ``ValueError`` where neither does."""
+    if bb in KERNEL_BLOCKS:
+        return False
+    if bb % 8 == 0 and 0 < bb <= WIDE_MAX_BLOCK:
+        return True
+    raise ValueError(f"{name}: the CUDA kernels take internal blocks that are multiples of 8 "
+                     f"up to {WIDE_MAX_BLOCK}, not {bb}")
+
+
 def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
                    active, rho_in, check_infeas: bool, name: str,
                    cluster: Optional[int] = None, lib=None) -> BtdOut:
-    """One launch of the structured CUDA kernel on float32 CUDA operands,
-    with the blocks per problem of the kernel's rule (:func:`cluster_size`)
-    or, for the tests and the measurements, ``cluster`` (1 or 2); from the
-    package's library or from ``lib`` (another build, as
-    ``tools/kernel_ab.py`` passes)."""
+    """One launch of a structured CUDA kernel on float32 CUDA operands: the
+    narrow one with the blocks per problem of its rule (:func:`cluster_size`)
+    or, for the tests and the measurements, ``cluster`` (1 or 2), or the
+    wide one (one block per problem); from the package's library or from
+    ``lib`` (another build, as ``tools/kernel_ab.py`` passes)."""
     batch, n = q.shape
     m = l.shape[-1]
     bb = pd.shape[-1]
-    if bb not in KERNEL_BLOCKS:
-        raise ValueError(f"{name}: the CUDA kernel takes internal blocks {KERNEL_BLOCKS}, "
-                         f"not {bb}")
+    wide = is_wide(bb, name)
+    if wide and cluster not in (None, 1):
+        raise ValueError(f"{name}: the wide kernel (internal block {bb}) runs one block per "
+                         f"problem, not {cluster}")
     operands = dict(pd=pd, pe=pe, A=A, q=q, l=l, u=u, x=x, z=z, y=y, active=active,
                     rho_in=rho_in)
     dev = _check_cuda_operands(name, operands, dict(active=torch.bool))
@@ -269,7 +288,16 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         float(settings.eps_pinf), float(settings.eps_dinf),
         dev.index, ctypes.c_void_p(stream),
     )
-    if settings.acceleration == "anderson":
+    if wide:
+        ws_floats = int(lib.qp_btd_wide_workspace_floats(n, m, bb))
+        if ws_floats < 0:
+            raise ValueError(f"{name}: the vectors of n={n}, m={m} do not fit in a block's "
+                             "shared memory")
+        ws = torch.empty((batch * ws_floats,), **f32) if ws_floats else None
+        aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
+        rc = (lib.qp_btd_wide_launch_aa(*args, _ptr(ws), aa_mem, _ptr(aa_ws)) if aa_mem
+              else lib.qp_btd_wide_launch(*args, _ptr(ws)))
+    elif settings.acceleration == "anderson":
         # one slice of the Anderson state a block: a cluster's block holds
         # all of x and ceil(m / cs) rows
         cs = cluster or int(lib.qp_btd_cluster_size(n, m, bb, batch))
@@ -296,8 +324,10 @@ def cluster_size(n: int, m: int, bb: int, batch: int, lib=None) -> int:
     the current card: 2 (a cluster) where one block cannot hold all of A
     in shared memory and two hold more of it, or where one block per
     problem would leave half of the SMs idle (2 B <= SMs) and two hold all
-    of A; else 1.  Internal blocks 8 and 16 only; needs the built
-    library (or ``lib``)."""
+    of A; else 1.  Internal blocks 8 and 16 only (the wide kernel's is 1);
+    needs the built library (or ``lib``)."""
+    if is_wide(bb):
+        return 1
     return int((lib or _library()).qp_btd_cluster_size(n, m, bb, batch))
 
 
@@ -305,9 +335,18 @@ def smem_rows(n: int, m: int, bb: int, batch: int) -> int:
     """Rows of A the CUDA kernel keeps in shared memory at these sizes, over
     the blocks of one problem (the rest it reads from device memory);
     needs the built library."""
-    from sqp_solver_tpu_torch.ops import _build
+    lib = _library()
+    if is_wide(bb):
+        return int(lib.qp_btd_wide_smem_rows(n, m, bb))
+    return int(lib.qp_btd_smem_rows(n, m, bb, batch))
 
-    return int(_build.load().qp_btd_smem_rows(n, m, bb, batch))
+
+def wide_smem_arrays(n: int, m: int, bb: int) -> int:
+    """Of the wide kernel's band and factor arrays (Li, G, H, pd, pe and
+    the Thomas scratch S, F_{k-1}, F_k), how many leading ones it keeps in
+    shared memory at this shape (the others in its device workspace);
+    needs the built library."""
+    return int(_library().qp_btd_wide_smem_arrays(n, m, bb))
 
 
 def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
@@ -322,7 +361,7 @@ def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(
     decoupled identity rows (zero q and A columns, unit P diagonal), which
     stay at 0.  CPU tensors run :func:`qp_btd_reference`; CUDA tensors
     must be float32 and contiguous and run the kernel."""
-    global qp_solve_btd_launches
+    global qp_solve_btd_launches, qp_solve_btd_wide_launches
     _check_qp_settings(settings)
     name = "qp_solve_kernel_btd"
     P, q, A, l, u = qp.P, qp.q, qp.A, qp.l, qp.u
@@ -351,7 +390,10 @@ def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(
     if q.is_cuda:
         out = _qp_btd_launch(pd, pe, A, q, l, u, x0, z0, y0, settings, None, None,
                              bool(settings.check_infeasibility), name)
-        qp_solve_btd_launches += 1
+        if is_wide(bb):
+            qp_solve_btd_wide_launches += 1
+        else:
+            qp_solve_btd_launches += 1
     else:
         out = qp_btd_reference(pd, pe, A, q, l, u, x0, z0, y0, settings,
                                check_infeas=bool(settings.check_infeasibility))
@@ -373,7 +415,7 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
     re-solve feeds back as ``rho_in``.  n must be a multiple of the
     internal block.  CPU tensors run :func:`qp_btd_reference`; CUDA
     tensors must be float32 and contiguous and run the kernel."""
-    global btd_step_launches
+    global btd_step_launches, btd_step_wide_launches
     name = "btd_step_kernel"
     batch, n = g.shape
     m = l.shape[-1]
@@ -395,5 +437,8 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
         return qp_btd_reference(pd, pe, J, g, l, u, x, z, y, settings, active=active,
                                 rho_in=rho_in)
     out = _qp_btd_launch(pd, pe, J, g, l, u, x, z, y, settings, active, rho_in, False, name)
-    btd_step_launches += 1
+    if is_wide(bb):
+        btd_step_wide_launches += 1
+    else:
+        btd_step_launches += 1
     return out

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["step_inputs", "polish_inputs", "qp_inputs", "certificate_qp_inputs",
-           "spd_inputs", "admm_chunk_inputs", "btd_qp_inputs", "btd_step_inputs"]
+           "spd_inputs", "admm_chunk_inputs", "btd_qp_inputs", "btd_step_inputs",
+           "control_qp_inputs"]
 
 
 def step_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
@@ -261,4 +262,94 @@ def btd_step_inputs(batch: int, T: int, bb: int, m: int, seed: int = 0,
     if batch > 2:
         active[-1] = False
     out["active"] = active
+    return out
+
+
+def _dare(A, B, Q, R, iters: int = 2000, tol: float = 1e-10):
+    """Solution of the discrete algebraic Riccati equation of each problem
+    (batch-first A, B, Q, R), by the Riccati iteration from Q in Joseph's
+    form X = Q + K'RK + (A - BK)' X (A - BK), K = (R + B'XB)^-1 B'XA."""
+    X = Q.copy()
+    Bt = B.transpose(0, 2, 1)
+    for _ in range(iters):
+        K = np.linalg.solve(R + Bt @ X @ B, Bt @ X @ A)
+        Acl = A - B @ K
+        Xn = Q + K.transpose(0, 2, 1) @ R @ K + Acl.transpose(0, 2, 1) @ X @ Acl
+        Xn = 0.5 * (Xn + Xn.transpose(0, 2, 1))
+        if np.abs(Xn - X).max() <= tol * max(1.0, np.abs(Xn).max()):
+            return Xn
+        X = Xn
+    return X
+
+
+def control_qp_inputs(batch: int, horizon: int = 20, nx: int = 12, nu: int = 6, seed: int = 0,
+                      dtype=np.float64) -> dict:
+    """The OSQP benchmark's "Control" problem class (Stellato et al. 2020,
+    arXiv 1711.08013, section 7, "Control"), one random instance a
+    problem: dynamics x_{t+1} = A x_t + B u_t with A = I + Delta,
+    Delta_ij ~ N(0, 0.01), B_ij ~ N(0, 1); stage cost x'Qx + u'Ru with
+    Q = diag(q), q_i ~ U(0, 10) on a random 70 % of the states (0 on the
+    rest), R = 0.1 I; terminal cost the LQR one (the Riccati equation of
+    A, B, Q, R); boxes |x_t| <= xbar, xbar_i ~ U(1, 2), |u_t| <= ubar,
+    ubar_i ~ U(0, 0.1); x_0 ~ U(-xbar / 2, xbar / 2), halved until a
+    rollout of the LQR law clipped to the input box stays in the state box
+    (about half of the draws are infeasible otherwise).  The defaults are
+    a 6-DOF arm (12 states, 6 torques) over 20 steps.
+
+    Stage-wise layout z = [(u_0, x_1), ..., (u_{T-1}, x_T)] as
+    ``models.mpc.mpc_qp_stagewise_batch``'s (declared block nx + nu,
+    n = (nx + nu) T): rows the dynamics equalities (nx T, x_0 entering the
+    first through its bounds), the input box (nu T), the state box
+    (nx T).  Returns P, q, A, l, u in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    b, T = nx + nu, horizon
+    n, m = b * T, (2 * nx + nu) * T
+    Ad = np.eye(nx) + 0.1 * rng.standard_normal((batch, nx, nx))
+    Bd = rng.standard_normal((batch, nx, nu))
+    qd = rng.uniform(0.0, 10.0, (batch, nx)) * (rng.uniform(size=(batch, nx)) < 0.7)
+    Q = qd[:, :, None] * np.eye(nx)
+    R = np.broadcast_to(0.1 * np.eye(nu), (batch, nu, nu))
+    QT = _dare(Ad, Bd, Q, R)
+    xbar = rng.uniform(1.0, 2.0, (batch, nx))
+    ubar = rng.uniform(0.0, 0.1, (batch, nu))
+    x0 = rng.uniform(-0.5, 0.5, (batch, nx)) * xbar
+    # Drawn so, about half of the instances are infeasible at these sizes:
+    # x_0 is halved until the LQR law (clipped to the input box) keeps the
+    # state in its box over the horizon, so that every instance has a
+    # feasible point.
+    Bt = Bd.transpose(0, 2, 1)
+    K = np.linalg.solve(R + Bt @ QT @ Bd, Bt @ QT @ Ad)
+    for _ in range(60):
+        x, ok = x0, np.ones(batch, bool)
+        for _k in range(horizon):
+            uk = np.clip(-np.einsum("bij,bj->bi", K, x), -ubar, ubar)
+            x = np.einsum("bij,bj->bi", Ad, x) + np.einsum("bij,bj->bi", Bd, uk)
+            ok &= (np.abs(x) <= xbar).all(axis=1)
+        if ok.all():
+            break
+        x0 = np.where(ok[:, None], x0, 0.5 * x0)
+    P = np.zeros((batch, n, n), dtype)
+    A = np.zeros((batch, m, n), dtype)
+    l = np.zeros((batch, m))
+    u = np.zeros((batch, m))
+    eye = np.eye(nx)
+    for k in range(T):
+        o = b * k
+        P[:, o:o + nu, o:o + nu] = R
+        P[:, o + nu:o + b, o + nu:o + b] = QT if k == T - 1 else Q
+        r = nx * k  # x_{k+1} - A x_k - B u_k = 0 (A x_0 on the right for k = 0)
+        A[:, r:r + nx, o:o + nu] = -Bd
+        A[:, r:r + nx, o + nu:o + b] = eye
+        if k > 0:
+            A[:, r:r + nx, o - nx:o] = -Ad
+        r = nx * T + nu * k
+        A[:, r:r + nu, o:o + nu] = np.eye(nu)
+        l[:, r:r + nu], u[:, r:r + nu] = -ubar, ubar
+        r = (nx + nu) * T + nx * k
+        A[:, r:r + nx, o + nu:o + b] = eye
+        l[:, r:r + nx], u[:, r:r + nx] = -xbar, xbar
+    l[:, :nx] = u[:, :nx] = np.einsum("bij,bj->bi", Ad, x0)
+    out = dict(q=np.zeros((batch, n)), l=l, u=u)
+    out = {k: v.astype(dtype) for k, v in out.items()}
+    out.update(P=P, A=A)
     return out

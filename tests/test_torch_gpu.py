@@ -163,6 +163,39 @@ def test_polish_kkt_kernel_matches_plain(cuda, batch, n, m, warm):
     torch.testing.assert_close(ok.li[good], ref.li[good], **TOL)
 
 
+def test_polish_kkt_factor_reuse_matches_plain(cuda):
+    """K2's reuse instantiation (n = 128, m = 129): on an unchanged mask it
+    gives the fresh kernel's outputs bit for bit (the previous L^-1 and fail
+    flag, the same sweeps); with ~10 % of the masks changed and new
+    right-hand sides it matches the plain version with reuse at 1e-4, the
+    clamped pivot of problem 0 kept by fail_prev; one launch counted each."""
+    t = _to(polish_inputs(64, 128, 129, seed=4), cuda)
+    args = [t[k] for k in ("H", "J", "act", "r1", "b", "nu0")]
+    first = qk.polish_kkt_kernel(*args, delta=1e-2, sweeps=4, x0=t["x0"])
+    before = qk.polish_kkt_launches
+    again = qk.polish_kkt_kernel(*args, delta=1e-2, sweeps=4, x0=t["x0"], act_prev=t["act"],
+                                 li_prev=first.li, fail_prev=first.fail)
+    torch.cuda.synchronize()
+    assert qk.polish_kkt_launches == before + 1
+    for name in ("x", "nu", "fail", "li"):
+        a, b = getattr(first, name), getattr(again, name)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b), name
+    act_prev = t["act"].clone()
+    act_prev[::10, 0] = ~act_prev[::10, 0]
+    new = dict(r1=t["r1"] + 0.3, b=torch.where(t["act"], t["b"] - 0.2, 0.0))
+    args2 = [t["H"], t["J"], t["act"], new["r1"], new["b"], t["nu0"]]
+    kw = dict(delta=1e-2, sweeps=4, x0=t["x0"], act_prev=act_prev, li_prev=first.li,
+              fail_prev=first.fail)
+    ok = qk.polish_kkt_kernel(*args2, **kw)
+    ref = qk.polish_kkt_reference(*args2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.fail, ref.fail) and bool(ok.fail[0]) and not ok.fail[1:].any()
+    for name in ("x", "nu", "li"):
+        torch.testing.assert_close(getattr(ok, name)[1:], getattr(ref, name)[1:], **TOL,
+                                   msg=lambda msg, name=name: f"{name}: {msg}")
+
+
 def test_dense_factor_matches_blocked_twin(cuda):
     """K2's L^-1 and K1's emitted Minv against the plain twin of the
     kernels' blocked order (``_chol_inv_blocked``) at n = 128, on the
@@ -579,15 +612,17 @@ CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "
     "batch,n,m,seg",
     [(256, 32, 33, 10), (256, 32, 33, 25), (256, 16, 32, 25), (64, 128, 129, 10),
      (8, 400, 401, 5), (33, 17, 20, 7), (17, 32, 33, 0), (17, 32, 33, 1), (9, 128, 129, 1),
-     (12, 100, 180, 3)],
+     (12, 100, 180, 3), (6, 500, 600, 5), (2, 1024, 1024, 3)],
     ids=["D65-seg10", "D65-seg25", "D48", "D257-rows-in-registers", "D801", "D37-odd-batch",
-         "seg0", "seg1", "D257-seg1", "D280-rows-in-registers"],
+         "seg0", "seg1", "D257-seg1", "D280-rows-in-registers", "D1100-two-rows-a-thread",
+         "D2048"],
 )
 def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
     """One chunk, float32 kernel against float32 plain version at 1e-4.
     At D = 257 and 280 part of W does not fit in shared memory and is held
     in registers; at D = 801 the rest is read from device memory.  At an
-    odd D no problem's W starts 16-byte aligned (4-byte copies)."""
+    odd D no problem's W starts 16-byte aligned (4-byte copies).  Past
+    D = 1024 (1100, 2048) the wide variant, two rows a thread."""
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
     from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 
@@ -629,6 +664,14 @@ def test_admm_chunk_wrappers(cuda):
         ak.admm_chunk_kernel(*args[:-1], args[-1].cpu(), alpha=1.6, seg=3)
     with pytest.raises(ValueError):
         ak.admm_chunk_kernel(args[0].mT, *args[1:], alpha=1.6, seg=3)
+    # D = 2049: past the wide variant's two rows a thread, refused unlaunched
+    n, m = 1024, 1025
+    big = [torch.zeros((1, n + m, n + m), device=cuda), torch.zeros((1, n, n), device=cuda),
+           torch.zeros((1, m, n), device=cuda)] + [torch.zeros((1, n + m), device=cuda)] * 8
+    before = ak.admm_chunk_launches
+    with pytest.raises(ValueError, match="exceeds 2048"):
+        ak.admm_chunk_kernel(*big, alpha=1.6, seg=3)
+    assert ak.admm_chunk_launches == before
 
 
 @pytest.mark.parametrize("batch,n,m", [(256, 32, 33), (256, 16, 32), (32, 128, 129)],
@@ -812,31 +855,124 @@ def test_btd_kernel_fail_flag_and_counters(cuda, cluster):
         qb.btd_step_kernel(args[0], args[1], args[2].mT.contiguous().mT, *args[3:], BTD_QP)
 
 
-def test_btd_kernel_refuses_internal_blocks_over_32(cuda):
-    """The CUDA kernel is built for internal blocks 8, 16, 24 and 32: a
-    declared block size of 17 (internal block 40) raises on the card
+def test_btd_kernel_refuses_internal_blocks_over_128(cuda):
+    """The CUDA kernels take the internal blocks that are multiples of 8 up
+    to 128 (8, 16, 24 and 32 the narrow kernel, the others the wide one): a
+    declared block size of 68 (internal block 136) raises on the card
     through both entry points, with no launch counted, where the CPU runs
     the plain version (ROADMAP Queue 1)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
-    s = dataclasses.replace(BTD_QP, block_size=17, max_iter=25)
-    assert qb.btd_internal_block(17) == 40
-    a = btd_qp_inputs(4, 2, 40, 30, seed=3)
-    k6, k7 = qb.qp_solve_btd_launches, qb.btd_step_launches
+    s = dataclasses.replace(BTD_QP, block_size=68, max_iter=25)
+    assert qb.btd_internal_block(68) == 136
+    a = btd_qp_inputs(4, 2, 68, 30, seed=3)
+    counts = lambda: (qb.qp_solve_btd_launches, qb.btd_step_launches,  # noqa: E731
+                      qb.qp_solve_btd_wide_launches, qb.btd_step_wide_launches)
+    before = counts()
     for dev in ("cpu", cuda):
         t = _to(a, dev)
         qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
         if dev == "cpu":
-            assert qb.qp_solve_kernel_btd(qp, s).x.shape == (4, 80)
+            assert qb.qp_solve_kernel_btd(qp, s).x.shape == (4, 136)
             continue
-        with pytest.raises(ValueError, match="internal blocks"):
+        with pytest.raises(ValueError, match="up to 128"):
             qb.qp_solve_kernel_btd(qp, s)
-    st = _to(btd_step_inputs(4, 2, 40, 30, seed=3), cuda)
-    with pytest.raises(ValueError, match="internal blocks"):
+    st = _to(btd_step_inputs(4, 2, 136, 30, seed=3), cuda)
+    with pytest.raises(ValueError, match="up to 128"):
         qb.btd_step_kernel(*(st[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
                                              "z", "y")), s)
-    assert (qb.qp_solve_btd_launches, qb.btd_step_launches) == (k6, k7)
+    assert counts() == before
+
+
+# (batch, T, internal block, m): the wide kernel's band arrays all in
+# shared memory with rows of A (bb = 40), four of the eight there and A in
+# device memory (bb = 64), one there (bb = 128)
+WIDE_SHAPES = [pytest.param(64, 3, 40, 100, id="bb40"), pytest.param(32, 3, 64, 150, id="bb64"),
+               pytest.param(16, 2, 128, 200, id="bb128")]
+
+
+@pytest.mark.parametrize("anderson", [False, True], ids=["plain", "anderson"])
+@pytest.mark.parametrize("batch,T,bb,m", WIDE_SHAPES)
+def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, anderson):
+    """The wide structured kernel on random band QPs without equality rows:
+    K7's entry (a carried rho on every second problem, the last problem
+    inactive) and K6's, one rho epoch, kernel against plain at
+    atol = rtol = 1e-4 where the iteration counts agree (>= 99 %), each
+    entry counting its wide launch; with Anderson acceleration too."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
+
+    s = dataclasses.replace(BTD_QP, block_size=bb)
+    if anderson:
+        s = dataclasses.replace(s, check_termination=10, acceleration="anderson",
+                                anderson_memory=3)
+    layout = (qb.wide_smem_arrays(T * bb, m, bb), qb.smem_rows(T * bb, m, bb, batch))
+    assert layout == {40: (8, m), 64: (4, 0), 128: (1, 0)}[bb]
+    assert qb.cluster_size(T * bb, m, bb, batch) == 1
+    t = _to(btd_step_inputs(batch, T, bb, m, seed=bb), cuda)
+    before = (qb.btd_step_wide_launches, qb.btd_step_launches)
+    ok = qb.btd_step_kernel(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
+                                             "z", "y")), s, rho_in=t["rho_in"])
+    ref = _btd_raw(qb.qp_btd_reference, t, s, active=t["active"], rho_in=t["rho_in"])
+    torch.cuda.synchronize()
+    assert (qb.btd_step_wide_launches, qb.btd_step_launches) == (before[0] + 1, before[1])
+    a = _to(btd_qp_inputs(batch, T, bb, m, seed=bb + 1), cuda)
+    qp = QuadraticProblem(P=a["P"], q=a["q"], A=a["A"], l=a["l"], u=a["u"])
+    before = (qb.qp_solve_btd_wide_launches, qb.qp_solve_btd_launches)
+    res = qb.qp_solve_kernel_btd(qp, s)
+    assert (qb.qp_solve_btd_wide_launches, qb.qp_solve_btd_launches) == (before[0] + 1,
+                                                                          before[1])
+    pd, pe = qb.extract_band(a["P"], bb)
+    zx, zm = torch.zeros_like(a["q"]), torch.zeros_like(a["l"])
+    ref6 = qb.qp_btd_reference(pd, pe, a["A"], a["q"], a["l"], a["u"], zx, zm, zm, s,
+                               check_infeas=s.check_infeasibility)
+    torch.cuda.synchronize()
+    agree = []
+    for got, want in ((ok, ref), (res, ref6)):
+        it = got.iter if hasattr(got, "iter") else got.info.iter
+        assert torch.equal(it > 0, want.iter > 0)
+        same = it == want.iter
+        agree.append(same)
+        for name in ("x", "z", "y"):
+            torch.testing.assert_close(getattr(got, name)[same], getattr(want, name)[same],
+                                       **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+    assert not ok.fail.any() and torch.equal(ok.done, ref.done)
+    assert torch.equal(ok.x[-1], t["x"][-1]) and int(ok.iter[-1]) == 0
+    assert torch.cat(agree).float().mean().item() >= 0.99
+
+
+def test_btd_wide_kernel_on_the_control_arm_matches_plain_float64(cuda):
+    """The OSQP control class's 6-DOF arm (declared block 18, internal
+    block 40, n = 360, m = 600: 240 dynamics equalities) through
+    ``qp_solve_batch(impl="kernel")`` on the card at OSQP's 1e-3 bars:
+    every problem solved, as by the plain version in float32; two float32
+    runs that stop at the same iteration may lie ~1e-3 apart at these bars,
+    so the kernel's largest distance from the float64 plain version's x
+    must stay within twice the plain float32 version's (plus 1e-5)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.testing import control_qp_inputs
+
+    a = control_qp_inputs(16, seed=3)
+    s = QPSettings(alpha=1.6, eps_abs=1e-3, eps_rel=1e-3, max_iter=8000, check_termination=25,
+                   adaptive_rho=True, adaptive_rho_interval=50, rho=1.0, schedule="fixed",
+                   linear_solver="schur_block_tridiag", block_size=18)
+    t = _to(a, cuda)
+    qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
+    before = qb.qp_solve_btd_wide_launches
+    res = qp_solve_batch(qp, s, impl="kernel")
+    torch.cuda.synchronize()
+    assert qb.qp_solve_btd_wide_launches == before + 1
+    leaves = [v.cpu() for v in (qp.P, qp.q, qp.A, qp.l, qp.u)]
+    ref = qp_solve_batch(QuadraticProblem(*(v.double() for v in leaves)), s, impl="kernel")
+    plain = qp_solve_batch(QuadraticProblem(*leaves), s, impl="kernel")
+    err = {}
+    for name, out in (("kernel", res), ("plain", plain)):
+        assert (out.info.status.cpu() == QPStatus.SOLVED).all(), name
+        err[name] = (out.x.cpu().double() - ref.x).abs().max().item()
+    assert (ref.info.status == QPStatus.SOLVED).all()
+    assert err["kernel"] <= 2 * err["plain"] + 1e-5, err
 
 
 def test_structured_paths_on_cuda_match_cpu_plain(cuda):
