@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device facts: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build the CUDA kernels from ``sqp_solver_tpu_torch/csrc`` (one nvcc
    per source, all started together), and meanwhile copies of the sources
-   of K1-K4 and of K5 with phase clocks (``-DADMM_PHASE_CLOCKS``);
+   of K1-K4, of K5 and of the wide K6/K7 with phase clocks
+   (``-DADMM_PHASE_CLOCKS``);
 3. each kernel against its plain PyTorch version on the card, in float32,
    at its paths' shapes, with both times from CUDA events: the SQP-step
    (K1) and polish-KKT (K2) kernels at n = 32, B = 4096 and n = 128,
@@ -50,8 +51,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    float64 (the arm's trajectories never meet float64's counts), on
    random band QPs at internal blocks 64 and 128 (at 64 also with
    Anderson in chunks of 10, against float64 as in leg G, within twice the
-   plain float32 version's difference), and K7 on
-   random band QPs at 40 (n = 360, m = 600, B = 64);
+   plain float32 version's difference) and, at 40 (n = 360, m = 600,
+   B = 64), on a batch in which every eighth problem has a row across three
+   column blocks (the kernel's dense route; the others its band rows),
+   whose routes must equal ``band_rows``' and the wrapper's tally, each
+   route held against the plain version; and K7 on random band QPs at the
+   structured NLP's block-64 shape (n = 128, m = 224, B = 64, the shape of
+   phase 9's 120 wide launches) and at 40 (n = 360, m = 600, B = 64); each
+   wide row with its routes, cluster, shared memory a block, the arrays
+   there and in device memory, the bytes an ADMM iteration reads from
+   device memory, and its bound on A's nonzeros beside the bound on dense
+   A (the Anderson row too); then the wide kernel's phase split at the
+   arm's and K7's shapes;
 4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
    the closed-form optimum and an independent float64 KKT certificate,
@@ -140,8 +151,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on 64 problems the adjoint through K2 and through K4 against each other
    and the plain route on the CPU;
 19. N. the control arm end to end: ``qp_solve_batch(impl="kernel")`` with
-   the declared stage block 18 (one wide K6 launch) at B = 1024: solves/s,
-   solved >= 0.99, >= 0.99 of the problems passing the float64 OSQP test
+   the declared stage block 18 (one wide K6 launch, every problem on its
+   band rows, counted by the wrapper) at B = 1024: solves/s, solved >= 0.99, >= 0.99 of the problems passing the float64 OSQP test
    at 1e-4 with 10x slack, the device's idle share from one profiled run;
    O. the fused tier past D = 1024, ``qp_solve_batch(impl="fused")`` at
    n = m = 640, B = 256 (K5's wide variant): every SOLVED problem passes
@@ -645,6 +656,34 @@ def phase_split(dev, libs: dict, card: str) -> list:
         cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
         log(f"  {c['label']} ({blocks} blocks): {format_split(cyc)} [{card}]")
         rows.append(dict(case=c["label"], blocks=blocks, cycles_per_block=cyc))
+    return rows
+
+
+def wide_phase_split(lib, cases: list, card: str) -> list:
+    """The wide K6/K7's phase split at its shapes (``cases``), from the
+    build of ``csrc/qp_kernel_btd_wide.cu`` with phase clocks: cycles per
+    block of each phase of one launch after a warm-up, and per ADMM
+    iteration for the iterations' phases (A' w, M^-1 b, A v, the chunk
+    stats) and the factor's (Gram band, Thomas)."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.tools.kernel_ab import clock_split, format_split
+
+    rows = []
+    for c in cases:
+        blocks = c["batch"] * qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=lib)
+        cyc, out = clock_split(lib, lambda: btd_launch(c["t"], c["settings"], c["check_infeas"],
+                                                       lib=lib), blocks)
+        it = float(out.iter.float().mean())
+        per_iter = {k: v / it for k, v in cyc.items()
+                    if k in ("atmv", "sweep", "amv", "stats", "gram", "thomas", "total")}
+        log(f"  {c['label']} ({blocks} blocks, {it:.1f} ADMM iterations): {format_split(cyc)}; "
+            "per iteration: " + ", ".join(f"{k} {v:.0f}" for k, v in per_iter.items())
+            + f" cycles [{card}]")
+        torch.cuda.synchronize()
+        rows.append(dict(case=c["label"], blocks=blocks, mean_iter=it, cycles_per_block=cyc,
+                         cycles_per_iteration=per_iter))
     return rows
 
 
@@ -1226,12 +1265,16 @@ def btd_nlp_settings(qp_impl: str = "kernel_btd", soc: bool = False, block: int 
                       adaptive_rho_interval=50, block_size=block))
 
 
-def btd_bound(out, settings, batch: int, n: int, m: int, bb: int):
+def btd_bound(out, settings, batch: int, n: int, m: int, bb: int, A=None):
     """(bound ms, by) of one structured solve from ``_qp_btd_call``'s
     cost estimate (sqp_solver_tpu/ops/qp_kernel_btd.py:371-376) at the
     iterations this call took: per problem 2 (4 n bb + 2 m n) flops per
     ADMM iteration and 2 n (2 m bb + 3 bb^2) per factorization (one per
-    adopted rho, as K3's count); B (m n + 4 n bb) floats moved."""
+    adopted rho, as K3's count); B (m n + 4 n bb) floats moved.  Given the
+    operand ``A`` (B, m, n), the work this data needs instead: A's
+    nonzeros (nnz a problem) in place of m n in the iterations' products
+    and the floats moved, and its rows' own outer products (the sum over
+    rows of nnz_r^2) in place of 2 m n bb in the Gram band."""
     import torch
 
     from sqp_solver_tpu_torch.ops.qp_kernel import _schedule
@@ -1240,10 +1283,26 @@ def btd_bound(out, settings, batch: int, n: int, m: int, bb: int):
     it = out.iter.double()
     epochs = torch.clamp_min(torch.ceil(it / (cpe * seg)), 1)
     nfact = torch.minimum(out.rho_updates.double(), epochs) * (it > 0)
-    flops = float((2 * (4 * n * bb + 2 * m * n) * it
-                   + 2 * n * (2 * m * bb + 3 * bb * bb) * nfact).sum())
-    flops += aa_flops(out, settings, n, m, 2 * (4 * n * bb + 2 * m * n))
-    return bound(flops, batch * (m * n + 4 * n * bb) * 4)
+    if A is None:
+        mv, gram, moved = float(m * n), float(2 * m * n * bb), float(batch * m * n)
+    else:
+        nz = (A != 0).double()
+        mv, gram = nz.sum((1, 2)), (nz.sum(2) ** 2).sum(1)
+        moved = float(mv.sum())
+    flops = float((2 * (4 * n * bb + 2 * mv) * it
+                   + 2 * (n * 3 * bb * bb + gram) * nfact).sum())
+    per_iter = 2 * (4 * n * bb + 2 * (float(mv.mean()) if A is not None else mv))
+    flops += aa_flops(out, settings, n, m, per_iter)
+    return bound(flops, (moved + batch * 4 * n * bb) * 4)
+
+
+def btd_bounds(out, c: dict) -> dict:
+    """A structured row's bound on the data's work (A's nonzeros, the
+    wide kernel's band rows) and on dense A, each with what bounds it."""
+    args = (out, c["settings"], c["batch"], c["n"], c["m"], c["bb"])
+    ms, by = btd_bound(*args, A=c["t"]["J"])
+    dense_ms, dense_by = btd_bound(*args)
+    return dict(bound_ms=ms, bound_by=by, bound_dense_ms=dense_ms, bound_dense_by=dense_by)
 
 
 def aa_flops(out, settings, n: int, m: int, stats_flops: float) -> float:
@@ -1406,20 +1465,46 @@ def btd_wide_step_case(batch: int, T: int, bb: int, m: int, dev) -> dict:
                 settings=one, check_infeas=False, n=T * bb, m=m, bb=bb, batch=batch)
 
 
+def btd_mixed_case(batch: int, T: int, bb: int, m: int, dev) -> dict:
+    """Random band QPs (``testing.btd_route_inputs``) in which every eighth
+    problem has a row across three column blocks: those take the wide
+    kernel's dense route, the others its band rows; one rho epoch of 200
+    iterations."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_route_inputs
+
+    dense = tuple(range(3, batch, 8))
+    a = to_device(btd_route_inputs(batch, T, bb, m, seed=T + m, dense=dense,
+                                   dtype=np.float32), dev)
+    pd, pe = qb.extract_band(a["P"], bb)
+    t = dict(pd=pd, pe=pe, J=a["A"], g=a["q"], l=a["l"], u=a["u"], x=a["x"], z=a["z"],
+             y=a["y"])
+    one = qp_bench_settings(adaptive_rho=False, linear_solver="schur_block_tridiag",
+                            block_size=bb)
+    return dict(label=f"K6 mixed routes n={T * bb} B={batch}", family="random, mixed routes",
+                t=t, settings=one, check_infeas=True, n=T * bb, m=m, bb=bb, batch=batch,
+                dense=len(dense))
+
+
 def btd_wide_cases(dev) -> list:
     """The wide kernel's shapes of the kernel phase: K6 on the control arm
-    (B = 1024) and on random band QPs at internal blocks 64 and 128, K7 on
-    random band QPs at 40 (n = 360, m = 600, B = 64)."""
+    (B = 1024), on random band QPs at internal blocks 64 and 128 and on a
+    batch of both routes at 40 (n = 360, m = 600, B = 64), K7 on random band
+    QPs at the structured NLP's block-64 shape (n = 128, m = 224, B = 64)
+    and at 40 (n = 360, m = 600, B = 64)."""
     return [btd_control_case(1024, dev), btd_random_case(256, 4, 64, 384, dev),
-            btd_random_case(128, 2, 128, 256, dev), btd_wide_step_case(64, 9, 40, 600, dev)]
+            btd_random_case(128, 2, 128, 256, dev), btd_mixed_case(64, 9, 40, 600, dev),
+            btd_wide_step_case(64, 2, 64, 224, dev), btd_wide_step_case(64, 9, 40, 600, dev)]
 
 
 def btd_other(c: dict):
     """The block layout the launcher does not take at this case's shape (1
-    or 2 blocks per problem), or None where the kernel has one only."""
+    or 2 blocks per problem for the narrow kernel at internal blocks 8 and
+    16), or None where the kernel has one only (24, 32 and the wide
+    kernel's cluster of two)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
-    if c["bb"] > 16:
+    if qb.is_wide(c["bb"]) or c["bb"] > 16:
         return None
     return 3 - qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"])
 
@@ -1441,16 +1526,26 @@ def btd_row(c: dict, out, **fields) -> dict:
     if "other_ms" in fields:
         other = (f"; the other layout ({fields['other_variant']}) {fields['other_ms']:.3f} ms, "
                  f"max err {fields['other_max_abs_err']:.3e}")
-    log(f"  {c['label']}: {'a cluster of 2 blocks' if blocks > 1 else 'one block'} per "
-        f"problem, {rows} of {m} rows of A on chip, {fields['ms']:.3f} ms over a mean of "
-        f"{mean_iter:.1f} ADMM iterations: {per_iter * 1e3:.3f} us per iteration{other}")
+    wide = {}
+    where = f"{rows} of {m} rows of A on chip"
+    if qb.is_wide(bb):
+        lay = qb.wide_layout(n, m, bb)
+        band = int(out.band.sum())
+        wide = dict(layout=lay, routes=dict(band=band, dense=batch - band))
+        where = (f"band rows: {band} of {batch} problems (dense route {batch - band}); a block "
+                 f"{lay['smem_bytes'] / 1024:.1f} KB of shared memory holding "
+                 f"{', '.join(lay['shared'])} (device memory: {', '.join(lay['device']) or '-'});"
+                 f" {lay['iter_bytes']} bytes an iteration from device memory a problem")
+    log(f"  {c['label']}: {variant_name(blocks)} per problem, {where}, {fields['ms']:.3f} ms "
+        f"over a mean of {mean_iter:.1f} ADMM iterations: {per_iter * 1e3:.3f} us per "
+        f"iteration{other}")
     return dict(family=c["family"], n=n, m=m, bb=bb, batch=batch,
                 variant=variant_name(blocks), smem_rows=rows, library_ms=None,
-                mean_iter=mean_iter, ms_per_iter=per_iter, **fields)
+                mean_iter=mean_iter, ms_per_iter=per_iter, **wide, **fields)
 
 
 def variant_name(blocks: int) -> str:
-    return "cluster" if blocks > 1 else "block"
+    return {1: "block", 2: "cluster"}.get(blocks, f"cluster of {blocks}")
 
 
 def btd_against_plain(label: str, ok, ref) -> float:
@@ -1491,9 +1586,54 @@ def compare_btd_random(c: dict, reps: int) -> dict:
                      other_ms=cuda_ms(lambda: btd_launch(t, one, True, cluster=other), reps))
     ms = cuda_ms(lambda: btd_launch(t, one, ci), reps)
     plain_ms = cuda_ms(lambda: btd_plain(t, one, ci), max(1, reps // 4))
-    bound_ms, bound_by = btd_bound(ok, one, c["batch"], c["n"], c["m"], c["bb"])
-    return btd_row(c, ok, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, **extra)
+    return btd_row(c, ok, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bounds_of(ok, c),
+                   **extra)
+
+
+def bounds_of(out, c: dict) -> dict:
+    """The bound fields of a K6/K7 row: the wide kernel's on A's nonzeros
+    with dense A's beside it (``btd_bounds``), the narrow one's on dense A."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    if qb.is_wide(c["bb"]):
+        return btd_bounds(out, c)
+    ms, by = btd_bound(out, c["settings"], c["batch"], c["n"], c["m"], c["bb"])
+    return dict(bound_ms=ms, bound_by=by)
+
+
+def compare_btd_mixed(c: dict, reps: int) -> dict:
+    """The wide kernel on a batch of both routes: the route of every
+    problem equal to ``band_rows``' and to the plain wide route's, the
+    wrapper's tally counting them, and each route against the plain
+    version (``btd_against_plain``, per route)."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    t, one = c["t"], c["settings"]
+    qb.reset_wide_route_counts()
+    ok = btd_launch(t, one, True)
+    ref = btd_raw(qb.qp_btd_reference, t, one, check_infeas=True, band=True)
+    torch.cuda.synchronize()
+    fits = qb.band_rows(t["J"], c["bb"])[2]
+    counts = qb.wide_route_counts()
+    if not (torch.equal(ok.band, fits) and torch.equal(ref.band, fits)):
+        raise AssertionError(f"{c['label']}: the kernel's routes differ from band_rows'")
+    if counts != dict(band=c["batch"] - c["dense"], dense=c["dense"]):
+        raise AssertionError(f"{c['label']}: route tally {counts}")
+    err = 0.0
+    for name, sel in (("band", fits), ("dense", ~fits)):
+        err = max(err, btd_against_plain(f"{c['label']} {name} route",
+                                         ok._replace(**{k: getattr(ok, k)[sel] for k in (
+                                             "x", "z", "y", "iter", "fail", "infs")}),
+                                         ref._replace(**{k: getattr(ref, k)[sel] for k in (
+                                             "x", "z", "y", "iter", "fail", "infs")})))
+    log(f"  {c['label']}: routes {counts}, as band_rows and the plain wide route give them")
+    ms = cuda_ms(lambda: btd_launch(t, one, True), reps)
+    plain_ms = cuda_ms(lambda: btd_raw(qb.qp_btd_reference, t, one, check_infeas=True,
+                                       band=True), max(1, reps // 4))
+    return btd_row(c, ok, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bounds_of(ok, c),
+                   route_counts=counts)
 
 
 def against_f64(label: str, t32, settings, check_infeas: bool, other=None) -> dict:
@@ -1626,10 +1766,9 @@ def compare_btd_f64(c: dict, reps: int) -> dict:
     err = r["kernel"]["max_err"]
     ms = cuda_ms(lambda: btd_launch(t, s, c["check_infeas"]), reps)
     plain_ms = cuda_ms(lambda: btd_plain(t, s, c["check_infeas"]), max(1, reps // 4))
-    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, c["batch"], c["n"], c["m"], c["bb"])
-    return btd_row(c, r["outs"]["kernel"], max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"], **extra)
+    return btd_row(c, r["outs"]["kernel"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bounds_of(r["outs"]["kernel"], c), agree_kernel=r["kernel"]["agree"],
+                   agree_plain=r["plain"]["agree"], **extra)
 
 
 def compare_control(c: dict, reps: int) -> dict:
@@ -1640,9 +1779,8 @@ def compare_control(c: dict, reps: int) -> dict:
     fixed = fixed_against_f64(c)
     ms = cuda_ms(lambda: btd_launch(t, s, ci), reps)
     plain_ms = cuda_ms(lambda: btd_plain(t, s, ci), max(1, reps // 4))
-    bound_ms, bound_by = btd_bound(r["outs"]["kernel"], s, c["batch"], c["n"], c["m"], c["bb"])
     return btd_row(c, r["outs"]["kernel"], max_abs_err=fixed["max_abs_err"], ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   plain_ms=plain_ms, **bounds_of(r["outs"]["kernel"], c),
                    solved=r["kernel"]["solved"], solved_plain=r["plain"]["solved"],
                    cert64=r["cert64"], x_err_f64=r["kernel"]["x_err"],
                    x_err_f64_plain=r["plain"]["x_err"], fixed_rel_err=fixed)
@@ -1821,14 +1959,25 @@ def run_control_arm(dev, card: str, batch: int = 1024) -> dict:
     from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
     from sqp_solver_tpu_torch.tools.trace_serving import _trace
 
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
     s = control_settings()
     qp = control_qp(batch, 11, dev)
     reset_counts()
+    qb.reset_wide_route_counts()
     res = qp_solve_batch(qp, s, impl="kernel")
     torch.cuda.synchronize()
     c = read_counts()
+    routes = qb.wide_route_counts()
     if c != expect(qp_solve_btd_wide_launches=1):
         raise AssertionError(f"control arm: launches {c}")
+    if routes != dict(band=batch, dense=0):
+        raise AssertionError(f"control arm: routes {routes}, expected every problem on the "
+                             "band rows")
+    lay = qb.wide_layout(360, 600, qb.btd_internal_block(s.block_size))
+    log(f"  control arm: routes {routes}; the wide kernel in clusters of {lay['cluster']}, a "
+        f"block {lay['smem_bytes'] / 1024:.1f} KB of shared memory, {lay['iter_bytes']} bytes "
+        "an ADMM iteration from device memory")
     if res.x.shape != (batch, 360) or not torch.isfinite(res.x).all():
         raise AssertionError("control arm: x has the wrong shape or is not finite")
     solved = float((res.info.status == 0).float().mean())
@@ -1850,7 +1999,8 @@ def run_control_arm(dev, card: str, batch: int = 1024) -> dict:
                           kkt_p99=float(np.percentile(kkt, 99)), mean_iter=float(it.mean()),
                           max_iter=int(it.max()), ms=wall * 1e3, solves_per_s=batch / wall,
                           device_busy_ms=tr["device_busy_ms"], idle_share=tr["idle_share"],
-                          idle_share_profiled=tr["idle_share_profiled"], counts=c),
+                          idle_share_profiled=tr["idle_share_profiled"], counts=c,
+                          routes=routes, layout=lay),
                 counts=dict(control_arm=c))
 
 
@@ -2109,7 +2259,7 @@ def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
 
 
 def compare_aa(label: str, t32, launch, plain, s, bound_of, reps: int, x: str = "x",
-               pairs: bool = False, relative: bool = False) -> dict:
+               pairs: bool = False, relative: bool = False, dense_bound_of=None) -> dict:
     """One kernel with Anderson (``aa_against_f64``), timed with and without
     it (CUDA events) beside its plain version with it and the bound for the
     iterations it took (``bound_of(out, settings)``).  With ``pairs`` the
@@ -2118,7 +2268,8 @@ def compare_aa(label: str, t32, launch, plain, s, bound_of, reps: int, x: str = 
     launch without it on some problems, and at least a quarter of the
     problems through three chunks or more, whose third chunk (in the first
     epoch, before any reset of the ring) solved a Gram of two pairs.
-    ``relative`` as for ``aa_against_f64``."""
+    ``relative`` as for ``aa_against_f64``.  ``dense_bound_of``, where
+    ``bound_of`` counts A's nonzeros, gives the bound on dense A beside it."""
     from sqp_solver_tpu_torch.ops.qp_kernel import _schedule
 
     sa = aa_settings(s)
@@ -2141,15 +2292,21 @@ def compare_aa(label: str, t32, launch, plain, s, bound_of, reps: int, x: str = 
     ms_none = cuda_ms(lambda: launch(t32, s), reps)
     plain_ms = cuda_ms(lambda: plain(t32, sa), 1)
     bound_ms, bound_by = bound_of(r["out"], sa)
+    dense = {}
+    if dense_bound_of is not None:
+        dense_ms, dense_by = dense_bound_of(r["out"], sa)
+        dense = dict(bound_dense_ms=dense_ms, bound_dense_by=dense_by)
     it, it_none = float(r["out"].iter.float().mean()), float(out_none.iter.float().mean())
     log(f"  {label} with Anderson (k={sa.anderson_memory}): f64 solved {r['solved64']:.4f}; "
         f"iter and rho agree with f64 on kernel {r['kernel']['agree']:.4f} / plain f32 "
         f"{r['plain']['agree']:.4f}, max diff {r['kernel']['max_err']:.3e} / "
         f"{r['plain']['max_err']:.3e}; kernel {ms:.3f} ms over a mean of {it:.1f} ADMM "
         f"iterations (without Anderson {ms_none:.3f} ms, {it_none:.1f} iterations), plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+        + (f" on A's nonzeros, {dense['bound_dense_ms']:.4f} ms ({dense['bound_dense_by']}) on "
+           "dense A" if dense else ""))
     return dict(label=label, anderson_memory=sa.anderson_memory, ms=ms, ms_none=ms_none,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, mean_iter=it,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **dense, mean_iter=it,
                 mean_iter_none=it_none, max_abs_err=r["kernel"]["max_err"],
                 agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
                 iter_changed=changed, two_pair_share=deep)
@@ -2905,7 +3062,7 @@ def main() -> int:
 
     from sqp_solver_tpu_torch.tools import kernel_ab
 
-    phase_sources = ("qp_kernel.cu", "admm_kernel.cu")
+    phase_sources = ("qp_kernel.cu", "admm_kernel.cu", "qp_kernel_btd_wide.cu")
     with ThreadPoolExecutor(len(phase_sources)) as pool:  # with phase clocks, meanwhile
         phase_builds = {src: pool.submit(kernel_ab.phase_library, kernel_ab.ROOT,
                                          f"smoke-{src.split('.')[0]}", src)
@@ -2914,7 +3071,8 @@ def main() -> int:
         phase_libs = {src: f.result() for src, f in phase_builds.items()}
     units = ", ".join(f"{k} {v:.1f} s" for k, v in _build.last_unit_seconds.items())
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s: "
-        f"{units}) into {_build.build_dir()}, with the phase-clock builds of K1-K5")
+        f"{units}) into {_build.build_dir()}, with the phase-clock builds of K1-K5 and the "
+        "wide K6/K7")
 
     # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
@@ -2940,10 +3098,13 @@ def main() -> int:
     k6 = [compare_btd_random(random, reps=5), compare_btd_f64(mpc256, reps=10),
           compare_btd_f64(mpc4096, reps=5)]
     k7 = [compare_btd_f64(step32, reps=10), compare_btd_f64(step48, reps=10)]
-    control, rand64, rand128, wstep = btd_wide_cases(dev)
+    control, rand64, rand128, mixed, wpath, wstep = btd_wide_cases(dev)
     k6w = [compare_control(control, reps=2), compare_btd_random(rand64, reps=3),
-           compare_btd_random(rand128, reps=3)]
-    k7w = [compare_btd_random(wstep, reps=3)]
+           compare_btd_random(rand128, reps=3), compare_btd_mixed(mixed, reps=3)]
+    k7w = [compare_btd_random(wpath, reps=5), compare_btd_random(wstep, reps=3)]
+    log("wide K6/K7 phase split (clock64 spans of thread 0, cycles per block):")
+    wide_phases = wide_phase_split(phase_libs["qp_kernel_btd_wide.cu"],
+                                   [control, wpath, wstep], card)
     # the wide kernel with Anderson, chunks of 10 (a ring of several pairs),
     # against float64 as in leg G; the plain float32 version itself parts
     # from float64 by ~1e-3 here, so relative to it
@@ -2951,8 +3112,11 @@ def main() -> int:
         f"{rand64['label']} bb=64, chunks of 10", rand64["t"],
         lambda t, st: btd_launch(t, st, True), lambda t, st: btd_plain(t, st, True),
         dataclasses.replace(rand64["settings"], check_termination=10),
-        lambda out, st: btd_bound(out, st, rand64["batch"], rand64["n"], rand64["m"], 64),
-        reps=3, pairs=True, relative=True)
+        lambda out, st: btd_bound(out, st, rand64["batch"], rand64["n"], rand64["m"], 64,
+                                  A=rand64["t"]["J"]),
+        reps=3, pairs=True, relative=True,
+        dense_bound_of=lambda out, st: btd_bound(out, st, rand64["batch"], rand64["n"],
+                                                 rand64["m"], 64))
     for name, rows in (("sqp_step", k1), ("polish_kkt", k2), ("qp_solve", k3),
                        ("spd_inverse", k4), ("admm_chunk", k5), ("qp_solve_btd", k6),
                        ("btd_step", k7), ("qp_solve_btd_wide", k6w),
@@ -2963,9 +3127,13 @@ def main() -> int:
                 lib += " (median of turns, spread {:.3f}-{:.3f})".format(*r["library_spread"])
             seg = f" seg={r['seg']}" if "seg" in r else ""
             seg += f" {r['family']}" if "bb" in r else ""
+            dense = ""
+            if "bound_dense_ms" in r:
+                dense = (f" on A's nonzeros, {r['bound_dense_ms']:.4f} ms "
+                         f"({r['bound_dense_by']}) on dense A")
             log(f"  {name} n={r['n']} B={r['batch']}{seg}: kernel {r['ms']:.3f} ms, "
                 f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}) [{card}]")
+                f"({r['bound_by']}){dense} [{card}]")
 
     # 4.-7. the paths end to end, each with the launch counters from 0
     configs = [(32, 4096), (128, 1024)]
@@ -3108,7 +3276,7 @@ def main() -> int:
                entry("btd_step_wide", K7_SOURCE, k7w, source=BTD_WIDE_CU_SOURCE,
                      library_note=no_lib)]
     log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
-                        phases=phases,
+                        phases=phases, wide_phases=wide_phases,
                         library_factor=factor_ms,
                         qp_one_shot=qp_run, qp_fused_one_shot=qp_fused_run,
                         qp_fused_certificates=infeas_run, mpc_sustained=mpc_run,

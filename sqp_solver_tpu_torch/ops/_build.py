@@ -102,16 +102,14 @@ _SIGNATURES = {
     "qp_btd_wide_launch": (
         _INT,
         [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
-        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID],
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID, _VOID],
     ),
     "qp_btd_wide_launch_aa": (
         _INT,
         [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
-        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID] + [_INT, _VOID],
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID, _VOID] + [_INT, _VOID],
     ),
-    "qp_btd_wide_workspace_floats": (_LL, [_INT] * 3),
-    "qp_btd_wide_smem_arrays": (_INT, [_INT] * 3),
-    "qp_btd_wide_smem_rows": (_INT, [_INT] * 3),
+    "qp_btd_wide_layout": (_INT, [_INT] * 3 + [_VOID]),
     "qp_btd_smem_rows": (_INT, [_INT] * 4),
     "qp_btd_cluster_size": (_INT, [_INT] * 4),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),

@@ -18,11 +18,15 @@ hooks:
              d_k = L_k^-T w_k (all k), x_k = d_k - H_k x_{k+1}   O(n bb)
     P v:     from the band of P only
 
-A stays dense (A v and A' w are dense matvecs).  Entries of M outside the
-band are ignored: the caller guarantees the structure.  ``bb =
-btd_internal_block(block_size)`` fixes which entries are read; it is a
-semantic of the solver (and the block size of the structured SQP tier's
-BFGS), not a layout choice.
+Entries of M outside the band are ignored: the caller guarantees the
+structure.  ``bb = btd_internal_block(block_size)`` fixes which entries are
+read; it is a semantic of the solver (and the block size of the structured
+SQP tier's BFGS), not a layout choice.  The band holds M exactly where every
+row of A touches at most two consecutive column blocks; there the wide
+route keeps A in two-block band rows (:func:`band_rows`), each row's 2 bb
+entries from its first nonzero column block (at most T - 2), and its
+matvecs and Gram band read only those; a problem with a row outside two
+consecutive blocks reads A densely.
 
 Each entry point has a plain PyTorch version (:func:`qp_btd_reference`,
 batched tensor code that follows the kernel's per-problem algorithm, with
@@ -30,10 +34,12 @@ the column Cholesky's pivot clamp and fail rule) and a wrapper that sends
 CPU tensors to it and CUDA tensors to a CUDA kernel: internal blocks 8, 16,
 24 and 32 to ``csrc/qp_kernel_btd.cu`` (one thread block per problem, or a
 cluster of two where one block cannot hold A in shared memory), the other
-multiples of 8 up to 128 to ``csrc/qp_kernel_btd_wide.cu`` (one block per
-problem, the band arrays that shared memory cannot hold in a device
-workspace).  A CUDA call the kernels cannot take raises; there is no
-fallback.
+multiples of 8 up to 128 to ``csrc/qp_kernel_btd_wide.cu`` (a cluster of
+two blocks per problem, A in band rows and the band and factor
+arrays split over the cluster's shared memory, the arrays it cannot hold
+in a device workspace; :func:`wide_layout`).  On the CPU the wide route's
+plain version runs its matvecs and Gram band on :func:`band_rows` too.  A
+CUDA call the kernels cannot take raises; there is no fallback.
 
 Layouts are batch-first: the band is ``pd``, ``pe`` of shape (B, T, bb, bb)
 with ``pd[:, k]`` the diagonal block M_{k,k}'s P part and ``pe[:, k]`` the
@@ -69,11 +75,14 @@ from sqp_solver_tpu_torch.qp.types import QPResult, QPSettings, QPState, Quadrat
 
 __all__ = [
     "BtdOut",
+    "band_rows",
     "btd_internal_block",
     "extract_band",
     "qp_btd_reference",
     "qp_solve_kernel_btd",
     "btd_step_kernel",
+    "wide_layout",
+    "wide_route_counts",
 ]
 
 # The internal blocks the narrow CUDA kernel is built for (a cluster of two
@@ -88,6 +97,10 @@ qp_solve_btd_launches = 0
 btd_step_launches = 0
 qp_solve_btd_wide_launches = 0
 btd_step_wide_launches = 0
+# The problems each route of the wide kernel took, summed on each device
+# by the wrappers with no read back to the host ((2,) int64: band, dense);
+# read with wide_route_counts()
+_wide_routes: dict = {}
 
 
 class BtdOut(NamedTuple):
@@ -106,6 +119,9 @@ class BtdOut(NamedTuple):
     rho_estimate: torch.Tensor  # (B,)
     infs: torch.Tensor  # int32 (B,) certificate: 0 none, 1 primal, 2 dual
     rho_factor: torch.Tensor  # (B,) rho the final factor was computed under
+    # bool (B,): the problem took the wide route's band rows (None: the
+    # dense route of the narrow kernel and of the oracle)
+    band: Optional[torch.Tensor] = None
 
 
 def btd_internal_block(b: int) -> int:
@@ -144,21 +160,109 @@ def _band_pmv(pd, pe, v):
     return out.reshape(B, T * bb)
 
 
-def _btd_factor(pd, pe, A, rv, sigma):
-    """Gram band and block-Thomas Cholesky of M = P + sigma I + A' diag(rv) A
-    restricted to the band.  Returns ``((Li, G, H), fail)``: Li[:, k] =
-    L_k^-1, and the sweeps' couplings G[:, k] = L_k^-1 F_{k-1} (G[:, 0] = 0)
-    and H[:, k] = L_k^-T F_k' (H[:, T-1] = 0) of F_k = E_k L_k^-T; fail if
-    any block's pivot was clamped."""
-    B, T, bb, _ = pd.shape
-    m = A.shape[1]
+def band_rows(A: torch.Tensor, bb: int):
+    """A (B, m, n = T bb) in two-block band rows, the layout of the wide
+    kernel: ``(k_r, slabs, fits)`` with ``k_r`` (B, m) int64 the first
+    column block of each row's slab (its first nonzero column block, at
+    most T - 2; 0 for a zero row), ``slabs`` (B, m, W) its W = min(2, T) bb
+    entries from column k_r bb, and ``fits`` (B,) bool: every row of the
+    problem lies in its slab (no nonzero, a NaN counting as one, outside
+    two consecutive column blocks), so that M = P + sigma I + A' rho A is
+    block-tridiagonal at bb and the band products below equal the dense
+    ones."""
+    B, m, n = A.shape
+    T = n // bb
+    W = min(2, T) * bb
+    nz = A != 0
+    col = torch.arange(n, device=A.device)
+    first = torch.where(nz, col, n).amin(-1)
+    last = torch.where(nz, col, -1).amax(-1)
+    kf = torch.where(first == n, 0, first // bb)
+    kl = torch.clamp_min(last, 0) // bb
+    k_r = torch.clamp(kf, max=max(T - 2, 0))
+    fits = (kl <= k_r + 1).all(-1)
+    return k_r, torch.gather(A, 2, _band_cols(k_r, bb, W)), fits
+
+
+def _band_cols(k_r, bb: int, W: int):
+    """The columns of each band row's entries, (B, m, W)."""
+    return k_r.unsqueeze(-1) * bb + torch.arange(W, device=k_r.device)
+
+
+def _band_amv(band, v, bb: int):
+    """A v from the band rows: each slab against v's two blocks."""
+    k_r, slabs, _ = band
+    B, m, W = slabs.shape
+    seg = torch.gather(v.unsqueeze(1).expand(B, m, v.shape[-1]), 2, _band_cols(k_r, bb, W))
+    return (slabs * seg).sum(-1)
+
+
+def _band_atmv(band, w, bb: int, n: int):
+    """A' w from the band rows: each slab scaled by its row's w, added into
+    its two column blocks."""
+    k_r, slabs, _ = band
+    B, m, W = slabs.shape
+    out = torch.zeros((B, n), dtype=slabs.dtype, device=slabs.device)
+    return out.scatter_add_(1, _band_cols(k_r, bb, W).reshape(B, m * W),
+                            (slabs * w.unsqueeze(-1)).reshape(B, m * W))
+
+
+def _band_gram(band, rv, T: int, bb: int):
+    """The Gram band of A' diag(rv) A from the band rows: D_k = sum of
+    a_rk' rho_r a_rk over the rows whose slab covers column block k, E_k
+    = sum of a_r,k+1' rho_r a_rk over those whose slab starts at k.
+    Returns (D, E), each (B, T, bb, bb)."""
+    k_r, slabs, _ = band
+    B = slabs.shape[0]
+    a0 = slabs[..., :bb]
+    a1 = slabs[..., bb:]
+    D = slabs.new_zeros((B, T, bb, bb))
+    E = slabs.new_zeros((B, T, bb, bb))
+    for k in range(T):
+        at0 = (k_r == k).to(slabs.dtype) * rv
+        D[:, k] = torch.einsum("bri,brj->bij", a0, a0 * at0.unsqueeze(-1))
+        if k > 0:
+            at1 = (k_r + 1 == k).to(slabs.dtype) * rv
+            D[:, k] += torch.einsum("bri,brj->bij", a1, a1 * at1.unsqueeze(-1))
+        if k + 1 < T:
+            E[:, k] = torch.einsum("bri,brj->bij", a1, a0 * at0.unsqueeze(-1))
+    return D, E
+
+
+def _dense_gram(A, rv, T: int, bb: int):
+    """The Gram band of A' diag(rv) A from A itself, (D, E) as
+    :func:`_band_gram`'s."""
+    B, m, _ = A.shape
     Ab = A.reshape(B, m, T, bb)
     Aw = Ab * rv[:, :, None, None]
-    eye = torch.eye(bb, dtype=pd.dtype, device=pd.device)
-    D = pd + sigma * eye + torch.einsum("brki,brkj->bkij", Ab, Aw)
-    E = pe.clone()
+    D = torch.einsum("brki,brkj->bkij", Ab, Aw)
+    E = torch.zeros_like(D)
     if T > 1:
-        E[:, :-1] += torch.einsum("brki,brkj->bkij", Ab[:, :, 1:], Aw[:, :, :-1])
+        E[:, :-1] = torch.einsum("brki,brkj->bkij", Ab[:, :, 1:], Aw[:, :, :-1])
+    return D, E
+
+
+def _btd_factor(pd, pe, A, rv, sigma, band=None):
+    """Gram band and block-Thomas Cholesky of M = P + sigma I + A' diag(rv) A
+    restricted to the band (the Gram from the band rows ``band`` of
+    :func:`band_rows` where its problem fits, else from A).  Returns
+    ``((Li, G, H), fail)``: Li[:, k] = L_k^-1, and the sweeps' couplings
+    G[:, k] = L_k^-1 F_{k-1} (G[:, 0] = 0) and H[:, k] = L_k^-T F_k'
+    (H[:, T-1] = 0) of F_k = E_k L_k^-T; fail if any block's pivot was
+    clamped."""
+    B, T, bb, _ = pd.shape
+    if band is None:
+        DA, EA = _dense_gram(A, rv, T, bb)
+    else:
+        DA, EA = _band_gram(band, rv, T, bb)
+        fits = band[2]
+        if not bool(fits.all()):
+            DD, ED = _dense_gram(A, rv, T, bb)
+            sel = fits[:, None, None, None]
+            DA, EA = torch.where(sel, DA, DD), torch.where(sel, EA, ED)
+    eye = torch.eye(bb, dtype=pd.dtype, device=pd.device)
+    D = pd + sigma * eye + DA
+    E = pe + EA
     Li, G, H = torch.empty_like(pd), torch.zeros_like(pd), torch.zeros_like(pd)
     fail = torch.zeros(B, dtype=torch.bool, device=pd.device)
     Fp = torch.zeros_like(pd[:, 0])
@@ -196,14 +300,17 @@ def _btd_apply(factor, b):
 def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
                      active: Optional[torch.Tensor] = None,
                      rho_in: Optional[torch.Tensor] = None,
-                     check_infeas: bool = False) -> BtdOut:
+                     check_infeas: bool = False, band: bool = False) -> BtdOut:
     """Plain version of the structured kernel: the ADMM solve entered with
     a pending rho (the first epoch adopts it and factors the band), rho
     epochs, chunks with per-problem early exit, adaptive rho and, with
     ``check_infeas``, the infeasibility certificates.  ``active`` (bool
     (B,), default all) freezes the other problems on entry; ``rho_in``
     (B,) > 0 replaces rho0 for a problem (an SOC re-solve carries the rho
-    of the first solve's final factor)."""
+    of the first solve's final factor).  With ``band`` (the wide route),
+    A v, A' w and the Gram band run on :func:`band_rows` for the problems
+    that fit and densely for the others, and ``BtdOut.band`` says which;
+    without it A is dense throughout (the oracle)."""
     batch = q.shape[0]
     dev = q.device
     seg, cpe, n_epochs = _schedule(settings)
@@ -215,13 +322,26 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         rho = rho + (rho_in > 0).to(q.dtype) * (rho_in - rho)
     if active is None:
         active = torch.ones(batch, dtype=torch.bool, device=dev)
-    ops = AdmmOps(pmv=lambda v: _band_pmv(pd, pe, v), apply_minv=_btd_apply,
-                  amv=lambda v: _mv(A, v), atmv=lambda w: _mtv(A, w))
+    bb = pd.shape[-1]
+    rows = band_rows(A, bb) if band else None
+    amv, atmv = (lambda v: _mv(A, v)), (lambda w: _mtv(A, w))
+    if rows is not None:
+        fits = rows[2]
+        sel = fits.unsqueeze(-1)
+        if bool(fits.all()):
+            amv = lambda v: _band_amv(rows, v, bb)  # noqa: E731
+            atmv = lambda w: _band_atmv(rows, w, bb, q.shape[-1])  # noqa: E731
+        else:
+            amv = lambda v: torch.where(sel, _band_amv(rows, v, bb), _mv(A, v))  # noqa: E731
+            atmv = lambda w: torch.where(  # noqa: E731
+                sel, _band_atmv(rows, w, bb, q.shape[-1]), _mtv(A, w))
+    ops = AdmmOps(pmv=lambda v: _band_pmv(pd, pe, v), apply_minv=_btd_apply, amv=amv,
+                  atmv=atmv)
     false = torch.zeros(batch, dtype=torch.bool, device=dev)
     out = _admm_core(
         ops, q, l, u, x, z, y, ~active, false, rho,
         tuple(torch.zeros_like(pd) for _ in range(3)),
-        lambda rv: _btd_factor(pd, pe, A, rv, sigma),
+        lambda rv: _btd_factor(pd, pe, A, rv, sigma, rows),
         sigma=sigma, alpha=float(settings.alpha),
         eps_abs=float(settings.eps_abs), eps_rel=float(settings.eps_rel),
         n_epochs=n_epochs, chunks_per_epoch=cpe, seg=seg,
@@ -235,8 +355,15 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         x=out["x"], z=out["z"], y=out["y"], done=out["done"], iter=out["iter"],
         res_prim=out["res_prim"], res_dual=out["res_dual"], fail=out["fail"],
         rho_updates=out["rho_updates"], rho_estimate=out["rho_estimate"],
-        infs=out["infs"], rho_factor=out["rho"],
+        infs=out["infs"], rho_factor=out["rho"], band=None if rows is None else rows[2],
     )
+
+
+def _wide_route(bb: int) -> bool:
+    """Whether the internal block ``bb`` takes the wide route (band rows)
+    rather than the narrow kernel's dense one; on the CPU any block past
+    those of the narrow kernel does."""
+    return bb not in KERNEL_BLOCKS
 
 
 def is_wide(bb: int, name: str = "qp_kernel_btd") -> bool:
@@ -253,18 +380,19 @@ def is_wide(bb: int, name: str = "qp_kernel_btd") -> bool:
 def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
                    active, rho_in, check_infeas: bool, name: str,
                    cluster: Optional[int] = None, lib=None) -> BtdOut:
-    """One launch of a structured CUDA kernel on float32 CUDA operands: the
-    narrow one with the blocks per problem of its rule (:func:`cluster_size`)
-    or, for the tests and the measurements, ``cluster`` (1 or 2), or the
-    wide one (one block per problem); from the package's library or from
-    ``lib`` (another build, as ``tools/kernel_ab.py`` passes)."""
+    """One launch of a structured CUDA kernel on float32 CUDA operands, with
+    the blocks per problem of its rule (:func:`cluster_size`) or, for the
+    tests and the measurements, ``cluster``: the narrow one (1 or 2); the
+    wide kernel takes 2 only (``BtdOut.band`` its route per problem); from the
+    package's library or from ``lib`` (another build, as
+    ``tools/kernel_ab.py`` passes)."""
     batch, n = q.shape
     m = l.shape[-1]
     bb = pd.shape[-1]
     wide = is_wide(bb, name)
-    if wide and cluster not in (None, 1):
-        raise ValueError(f"{name}: the wide kernel (internal block {bb}) runs one block per "
-                         f"problem, not {cluster}")
+    if wide and cluster not in (None, 2):
+        raise ValueError(f"{name}: the wide kernel (internal block {bb}) runs a cluster of 2 "
+                         f"blocks per problem, not {cluster}")
     operands = dict(pd=pd, pe=pe, A=A, q=q, l=l, u=u, x=x, z=z, y=y, active=active,
                     rho_in=rho_in)
     dev = _check_cuda_operands(name, operands, dict(active=torch.bool))
@@ -288,15 +416,21 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         float(settings.eps_pinf), float(settings.eps_dinf),
         dev.index, ctypes.c_void_p(stream),
     )
+    route = None
     if wide:
-        ws_floats = int(lib.qp_btd_wide_workspace_floats(n, m, bb))
-        if ws_floats < 0:
-            raise ValueError(f"{name}: the vectors of n={n}, m={m} do not fit in a block's "
-                             "shared memory")
-        ws = torch.empty((batch * ws_floats,), **f32) if ws_floats else None
-        aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
-        rc = (lib.qp_btd_wide_launch_aa(*args, _ptr(ws), aa_mem, _ptr(aa_ws)) if aa_mem
-              else lib.qp_btd_wide_launch(*args, _ptr(ws)))
+        lay = wide_layout(n, m, bb, lib=lib)
+        if lay is None:
+            raise ValueError(f"{name}: the vectors of n={n}, m={m} do not fit in the shared "
+                             "memory of a cluster's block")
+        cs, ws_floats = lay["cluster"], lay["workspace_floats"]
+        ws = torch.empty((batch * cs * ws_floats,), **f32) if ws_floats else None
+        route = torch.empty((batch,), dtype=torch.bool, device=dev)
+        wargs = (*args, _ptr(ws), _ptr(route))
+        # one slice of the Anderson state a block: a cluster's block holds
+        # all of x and ceil(m / cs) rows
+        aa_mem, aa_ws = _aa_workspace(lib, settings, batch * cs, n, -(-m // cs), dev)
+        rc = (lib.qp_btd_wide_launch_aa(*wargs, aa_mem, _ptr(aa_ws)) if aa_mem
+              else lib.qp_btd_wide_launch(*wargs))
     elif settings.acceleration == "anderson":
         # one slice of the Anderson state a block: a cluster's block holds
         # all of x and ceil(m / cs) rows
@@ -310,43 +444,98 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     else:
         rc = lib.qp_btd_launch_as(cluster, *args)
     _raise_on(lib, rc, name)
+    if route is not None:
+        _count_routes(route)
     i32 = torch.int32
     return BtdOut(
         x=x_out, z=z_out, y=y_out, done=stats[0] > 0.5, iter=stats[1].to(i32),
         res_prim=stats[2], res_dual=stats[3], fail=stats[4] > 0.5,
         rho_updates=stats[5].to(i32), rho_estimate=stats[6], infs=stats[7].to(i32),
-        rho_factor=stats[8],
+        rho_factor=stats[8], band=route,
     )
+
+
+def _count_routes(route: torch.Tensor) -> None:
+    """Adds a wide launch's routes to its device's tally, on the device
+    with no read back to the host (``torch.bincount`` would read its
+    input's range back, stalling the host at every launch)."""
+    tally = _wide_routes.get(route.device)
+    if tally is None:
+        tally = _wide_routes[route.device] = torch.zeros(2, dtype=torch.int64,
+                                                         device=route.device)
+    band = route.sum()
+    tally += torch.stack([band, route.numel() - band])
+
+
+def wide_route_counts() -> dict:
+    """The problems the wide kernel's launches have taken through each
+    route since the last :func:`reset_wide_route_counts`: ``{"band": ...,
+    "dense": ...}`` (a host sync)."""
+    out = dict(band=0, dense=0)
+    for tally in _wide_routes.values():
+        band, dense = (int(v) for v in tally.tolist())
+        out["band"] += band
+        out["dense"] += dense
+    return out
+
+
+def reset_wide_route_counts() -> None:
+    _wide_routes.clear()
 
 
 def cluster_size(n: int, m: int, bb: int, batch: int, lib=None) -> int:
     """Thread blocks per problem the CUDA kernel takes at these sizes on
-    the current card: 2 (a cluster) where one block cannot hold all of A
-    in shared memory and two hold more of it, or where one block per
-    problem would leave half of the SMs idle (2 B <= SMs) and two hold all
-    of A; else 1.  Internal blocks 8 and 16 only (the wide kernel's is 1);
-    needs the built library (or ``lib``)."""
+    the current card.  Narrow kernel: 2 (a cluster) where one block cannot
+    hold all of A in shared memory and two hold more of it, or where one
+    block per problem would leave half of the SMs idle (2 B <= SMs) and
+    two hold all of A; else 1 (internal blocks 8 and 16 only).  Wide
+    kernel: 2 (0 where :func:`wide_layout` refuses the shape).  Needs the
+    built library (or ``lib``)."""
+    lib = lib or _library()
     if is_wide(bb):
-        return 1
-    return int((lib or _library()).qp_btd_cluster_size(n, m, bb, batch))
+        lay = wide_layout(n, m, bb, lib=lib)
+        return 0 if lay is None else lay["cluster"]
+    return int(lib.qp_btd_cluster_size(n, m, bb, batch))
 
 
 def smem_rows(n: int, m: int, bb: int, batch: int) -> int:
     """Rows of A the CUDA kernel keeps in shared memory at these sizes, over
-    the blocks of one problem (the rest it reads from device memory);
-    needs the built library."""
+    the blocks of one problem (the rest it reads from device memory; the
+    wide kernel all of its band rows or none); needs the built library."""
     lib = _library()
     if is_wide(bb):
-        return int(lib.qp_btd_wide_smem_rows(n, m, bb))
+        lay = wide_layout(n, m, bb, lib=lib)
+        return m if lay is not None and "A" in lay["shared"] else 0
     return int(lib.qp_btd_smem_rows(n, m, bb, batch))
 
 
-def wide_smem_arrays(n: int, m: int, bb: int) -> int:
-    """Of the wide kernel's band and factor arrays (Li, G, H, pd, pe and
-    the Thomas scratch S, F_{k-1}, F_k), how many leading ones it keeps in
-    shared memory at this shape (the others in its device workspace);
-    needs the built library."""
-    return int(_library().qp_btd_wide_smem_arrays(n, m, bb))
+WIDE_ARRAYS = ("Li", "GH", "A", "S", "F_prev", "F", "pd", "pe")
+
+
+def wide_layout(n: int, m: int, bb: int, lib=None):
+    """The wide kernel's layout at this shape, in its cluster of two
+    blocks per problem, as ``csrc/qp_kernel_btd_wide.cu:wide_layout``
+    computes it: ``cluster``, ``smem_bytes`` (a block's
+    shared memory), ``workspace_floats`` (of one block), ``shared`` and
+    ``device`` (which of L^-1, the sweeps' couplings G, H, A's band rows,
+    the Thomas scratch S, F_{k-1}, F_k, pd and pe each block keeps where: pd
+    and pe that shared memory cannot hold are read where they are given), ``iter_bytes`` (the
+    bytes an ADMM iteration of the band route reads from device memory, a
+    problem), ``T``, ``blocks_per_member`` (column blocks of the band a
+    block holds, at most), ``rows_per_member``, ``band_width`` and
+    ``band_stride``.  None where the shape is refused.  Needs the built
+    library (or ``lib``)."""
+    lib = lib or _library()
+    out = (ctypes.c_longlong * 11)()
+    if int(lib.qp_btd_wide_layout(n, m, bb, out)) != 0:
+        return None
+    v = list(out)
+    mask = v[3]
+    return dict(cluster=v[0], smem_bytes=v[1], workspace_floats=v[2],
+                shared=[a for i, a in enumerate(WIDE_ARRAYS) if mask >> i & 1],
+                device=[a for i, a in enumerate(WIDE_ARRAYS) if not mask >> i & 1],
+                iter_bytes=v[4], T=v[5], blocks_per_member=v[6], rows_per_member=v[7],
+                band_width=v[8], band_stride=v[9])
 
 
 def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
@@ -396,7 +585,8 @@ def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(
             qp_solve_btd_launches += 1
     else:
         out = qp_btd_reference(pd, pe, A, q, l, u, x0, z0, y0, settings,
-                               check_infeas=bool(settings.check_infeasibility))
+                               check_infeas=bool(settings.check_infeasibility),
+                               band=_wide_route(bb))
     return qp_result(qp, out, settings)
 
 
@@ -435,7 +625,7 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
         _check_shape(name, key, t, shape)
     if not g.is_cuda:
         return qp_btd_reference(pd, pe, J, g, l, u, x, z, y, settings, active=active,
-                                rho_in=rho_in)
+                                rho_in=rho_in, band=_wide_route(bb))
     out = _qp_btd_launch(pd, pe, J, g, l, u, x, z, y, settings, active, rho_in, False, name)
     if is_wide(bb):
         btd_step_wide_launches += 1

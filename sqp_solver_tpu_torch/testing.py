@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["step_inputs", "polish_inputs", "qp_inputs", "certificate_qp_inputs",
-           "spd_inputs", "admm_chunk_inputs", "btd_qp_inputs", "btd_step_inputs",
-           "control_qp_inputs"]
+           "spd_inputs", "admm_chunk_inputs", "btd_qp_inputs", "btd_route_inputs",
+           "btd_step_inputs", "control_qp_inputs"]
 
 
 def step_inputs(batch: int, n: int, m: int, seed: int = 0, dtype=np.float64,
@@ -238,6 +238,22 @@ def btd_qp_inputs(batch: int, T: int, bb: int, m: int, seed: int = 0, dtype=np.f
     y = 0.1 * rng.standard_normal((batch, m))
     out = dict(P=P, q=q, A=A, l=l, u=u, x=x, z=z, y=y)
     return {k: v.astype(dtype) for k, v in out.items()}
+
+
+def btd_route_inputs(batch: int, T: int, bb: int, m: int, seed: int = 0, dense=(1,),
+                     dtype=np.float64, loose_row: bool = False) -> dict:
+    """:func:`btd_qp_inputs` in which the first row of each problem in
+    ``dense`` also reaches column block T - 1 (one entry of 1e-3, T >= 3):
+    a row across more than two consecutive column blocks, so that those
+    problems take the wide structured kernel's dense route and the others
+    its band rows.  The structured solvers ignore the coupling the row puts
+    outside the band, the JAX kernel as the port's."""
+    if T < 3:
+        raise ValueError("a row across three column blocks needs T >= 3")
+    a = btd_qp_inputs(batch, T, bb, m, seed=seed, dtype=np.float64, loose_row=loose_row)
+    for b in dense:
+        a["A"][b, 0, (T - 1) * bb] = 1e-3
+    return {k: v.astype(dtype) for k, v in a.items()}
 
 
 def btd_step_inputs(batch: int, T: int, bb: int, m: int, seed: int = 0,

@@ -885,21 +885,26 @@ def test_btd_kernel_refuses_internal_blocks_over_128(cuda):
     assert counts() == before
 
 
-# (batch, T, internal block, m): the wide kernel's band arrays all in
-# shared memory with rows of A (bb = 40), four of the eight there and A in
-# device memory (bb = 64), one there (bb = 128)
-WIDE_SHAPES = [pytest.param(64, 3, 40, 100, id="bb40"), pytest.param(32, 3, 64, 150, id="bb64"),
-               pytest.param(16, 2, 128, 200, id="bb128")]
+# (batch, T, internal block, m, the arrays in device memory): a cluster of
+# two blocks per problem holds every array an iteration reads (bb = 40: all
+# of them; bb = 64: all but pd and pe); at bb = 128 (T = 2) the sweeps'
+# couplings go to the workspace and A's band rows, which an iteration
+# reads twice, stay
+WIDE_SHAPES = [
+    pytest.param(64, 3, 40, 100, [], id="bb40"),
+    pytest.param(32, 3, 64, 150, ["pd", "pe"], id="bb64"),
+    pytest.param(16, 2, 128, 200, ["GH", "S", "F_prev", "F", "pd", "pe"], id="bb128"),
+]
 
 
 @pytest.mark.parametrize("anderson", [False, True], ids=["plain", "anderson"])
-@pytest.mark.parametrize("batch,T,bb,m", WIDE_SHAPES)
-def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, anderson):
+@pytest.mark.parametrize("batch,T,bb,m,device", WIDE_SHAPES)
+def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, device, anderson):
     """The wide structured kernel on random band QPs without equality rows:
     K7's entry (a carried rho on every second problem, the last problem
-    inactive) and K6's, one rho epoch, kernel against plain at
-    atol = rtol = 1e-4 where the iteration counts agree (>= 99 %), each
-    entry counting its wide launch; with Anderson acceleration too."""
+    inactive) in its cluster of two, and K6's, one rho epoch, kernel against plain at atol = rtol = 1e-4 where
+    the iteration counts agree (>= 99 %), every problem on the band route,
+    each entry counting its wide launch; with Anderson acceleration too."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
@@ -907,9 +912,11 @@ def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, anderson
     if anderson:
         s = dataclasses.replace(s, check_termination=10, acceleration="anderson",
                                 anderson_memory=3)
-    layout = (qb.wide_smem_arrays(T * bb, m, bb), qb.smem_rows(T * bb, m, bb, batch))
-    assert layout == {40: (8, m), 64: (4, 0), 128: (1, 0)}[bb]
-    assert qb.cluster_size(T * bb, m, bb, batch) == 1
+    n = T * bb
+    lay = qb.wide_layout(n, m, bb)
+    assert lay["cluster"] == 2 == qb.cluster_size(n, m, bb, batch)
+    assert (lay["iter_bytes"] == 0) == (bb < 128)
+    assert lay["device"] == device
     t = _to(btd_step_inputs(batch, T, bb, m, seed=bb), cuda)
     before = (qb.btd_step_wide_launches, qb.btd_step_launches)
     ok = qb.btd_step_kernel(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
@@ -937,9 +944,109 @@ def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, anderson
         for name in ("x", "z", "y"):
             torch.testing.assert_close(getattr(got, name)[same], getattr(want, name)[same],
                                        **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
-    assert not ok.fail.any() and torch.equal(ok.done, ref.done)
+    assert not ok.fail.any() and torch.equal(ok.done, ref.done) and ok.band.all()
     assert torch.equal(ok.x[-1], t["x"][-1]) and int(ok.iter[-1]) == 0
     assert torch.cat(agree).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("anderson", [False, True], ids=["plain", "anderson"])
+def test_btd_wide_step_at_the_nlp_shape_matches_plain_float64(cuda, anderson):
+    """The wide K7 at the structured NLP's block-64 shape (n = 128, m = 224,
+    B = 64, T = 2; every array an iteration reads on chip, every problem on
+    the band route) on random band QPs, one rho epoch, with and without
+    Anderson acceleration: the kernel's iteration counts agree with the
+    plain version's in float64 on >= 99 % of the problems, its x, z, y lie
+    within atol = rtol = 1e-4 of float64's where they agree, and no farther
+    from them than twice the plain float32 version's distance (+ 1e-5).
+    Held against float64 because with Anderson the plain float32 version
+    itself lies ~3e-4 from float64 on a few dual entries here, farther than
+    the kernel does."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_step_inputs
+
+    s = dataclasses.replace(BTD_QP, block_size=64)
+    if anderson:
+        s = dataclasses.replace(s, check_termination=10, acceleration="anderson",
+                                anderson_memory=3)
+    lay = qb.wide_layout(128, 224, 64)
+    assert lay["cluster"] == 2 and lay["iter_bytes"] == 0 and lay["device"] == []
+    t = _to(btd_step_inputs(64, 2, 64, 224, seed=64), cuda)
+    t64 = {k: (v.double() if v.is_floating_point() else v) for k, v in t.items()}
+    ok = qb.btd_step_kernel(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
+                                             "z", "y")), s, rho_in=t["rho_in"])
+    p32 = _btd_raw(qb.qp_btd_reference, t, s, active=t["active"], rho_in=t["rho_in"])
+    p64 = _btd_raw(qb.qp_btd_reference, t64, s, active=t["active"], rho_in=t64["rho_in"])
+    torch.cuda.synchronize()
+    assert ok.band.all() and not ok.fail.any() and torch.equal(ok.done, p64.done)
+    same = (ok.iter == p64.iter) & (p32.iter == p64.iter)
+    assert same.float().mean().item() >= 0.99
+    err = {}
+    for who, got in (("kernel", ok), ("plain", p32)):
+        err[who] = max(float((getattr(got, k)[same].double() - getattr(p64, k)[same])
+                             .abs().max()) for k in ("x", "z", "y"))
+    for name in ("x", "z", "y"):
+        torch.testing.assert_close(getattr(ok, name)[same].double(), getattr(p64, name)[same],
+                                   **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+    assert err["kernel"] <= 2 * err["plain"] + 1e-5, err
+
+
+def test_btd_wide_kernel_mixed_routes(cuda):
+    """A batch in which two problems have a row across three column blocks:
+    those take the dense route, the others the band rows, both in the one
+    kernel; the routes equal band_rows' and the plain wide route's, the
+    wrapper's tally counts them, and both routes match the plain version
+    (atol = rtol = 1e-4 where the counts agree, which they do on >= 99 %
+    of the problems and on a problem of each route)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_route_inputs
+
+    a = _to(btd_route_inputs(32, 4, 40, 120, seed=4, dense=(3, 17)), cuda)
+    pd, pe = qb.extract_band(a["P"], 40)
+    s = dataclasses.replace(BTD_QP, block_size=40)
+    args = (pd, pe, a["A"], a["q"], a["l"], a["u"], a["x"], a["z"], a["y"], s)
+    qb.reset_wide_route_counts()
+    ok = qb._qp_btd_launch(*args, None, None, True, "test")
+    ref = qb.qp_btd_reference(*args, check_infeas=True, band=True)
+    torch.cuda.synchronize()
+    want = torch.ones(32, dtype=torch.bool, device=cuda)
+    want[[3, 17]] = False
+    assert torch.equal(ok.band, want) and torch.equal(ref.band, want)
+    assert torch.equal(qb.band_rows(a["A"], 40)[2], want)
+    assert qb.wide_route_counts() == dict(band=30, dense=2)
+    assert torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)
+    same = ok.iter == ref.iter
+    assert same.float().mean().item() >= 0.99 and bool(same[~want].any())
+    for name in ("x", "z", "y"):
+        torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL,
+                                   msg=lambda msg, name=name: f"{name}: {msg}")
+
+
+def test_btd_wide_layout_keeps_iterations_on_chip(cuda):
+    """The rule's layouts: at the 6-DOF arm's shape (n = 360, m = 600,
+    internal block 40; K7's timed shape too) a cluster of two blocks holds
+    L^-1, the couplings and A's band rows, so an ADMM iteration reads
+    nothing from device memory; so does the structured NLP's block-64
+    shape; at bb = 128, T = 2, where two blocks cannot hold A's band rows
+    beside L^-1 and the couplings, the band rows take shared memory first;
+    the launcher refuses any other cluster than two, and a shape whose
+    vectors fit no block."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_step_inputs
+
+    for n, m, bb in ((360, 600, 40), (128, 224, 64), (256, 384, 64)):
+        lay = qb.wide_layout(n, m, bb)
+        assert lay["cluster"] == 2 and lay["iter_bytes"] == 0, (n, m, bb, lay)
+        assert {"Li", "GH", "A"} <= set(lay["shared"]) and lay["smem_bytes"] <= 232448
+        assert lay["rows_per_member"] == -(-m // 2) and lay["band_width"] == 2 * bb
+    lay = qb.wide_layout(256, 256, 128)
+    assert lay["cluster"] == 2 == qb.cluster_size(256, 256, 128, 128)
+    assert "A" in lay["shared"] and "GH" in lay["device"] and lay["iter_bytes"] > 0
+    assert qb.wide_layout(8192, 64, 128) is None
+    assert qb.cluster_size(8192, 64, 128, 8) == 0
+    t = _to(btd_step_inputs(2, 3, 40, 30, seed=0), cuda)
+    with pytest.raises(ValueError, match="cluster of 2"):
+        qb._qp_btd_launch(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "x", "z", "y")),
+                          BTD_QP, t["active"], t["rho_in"], False, "test", cluster=4)
 
 
 def test_btd_wide_kernel_on_the_control_arm_matches_plain_float64(cuda):
