@@ -27,11 +27,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    n = 16, m = 32, B = 4096 (seg 25) and n = 128, m = 129, B = 1024
    (seg 10, the rows of W that shared memory cannot hold in registers),
    with the rows of W in shared memory and in registers, and past
-   D = 1024 (two rows a thread, W from device memory) at n = m = 640,
-   B = 256 and n = m = 1024, B = 64, drawn on the card; K2 with factor
+   D = 1024 (the wide variant: W streamed from device memory through a
+   ring of bulk copies, a cluster of blocks a problem) at n = m = 640,
+   B = 256 and n = m = 1024, B = 64, drawn on the card, with its layout
+   (cluster, stages, blocks an SM), its rate and its time with clusters of
+   1, 2 and 4 forced; every K5 row with its streaming floor (W read every
+   iteration) and its share of it; K2 with factor
    reuse (n = 128, B = 1024, a tenth of the masks changed) against its
    plain version, and on unchanged masks bit for bit the fresh kernel; the phase split
-   of K1, K2, K3, K4 and K5 in cycles per block; the time of the fused
+   of K1, K2, K3, K4 and K5 in cycles per block (the wide K5 also thread
+   0's cycles an iteration on the ring, the dots and the exchange); the time of the fused
    tier's library factorization at n = 32 and n = 128; the structured
    kernel's QP entry (K6) on random block-tridiagonal QPs without equality
    rows (n = 192, m = 320, B = 4096, one rho epoch, atol = rtol = 1e-4)
@@ -373,21 +378,27 @@ def dense_cases(dev) -> list:
 
 
 # the K3 shapes of the kernel phase: (family, batch, n), and the K5 ones:
-# (batch, n, m, seg)
+# (batch, n, m, seg), past D = 1024 the wide variant's
 QP_SHAPES = (("random", 4096, 32), ("mpc", 4096, 16))
 CHUNK_SHAPES = ((4096, 32, 33, 10), (4096, 32, 33, 25), (4096, 16, 32, 25), (1024, 128, 129, 10))
+CHUNK_WIDE_SHAPES = ((256, 640, 640, 10), (64, 1024, 1024, 10))
 
 
 def blocks_of(lib, kernel: str, batch: int, n: int, m: int) -> int:
     """Thread blocks of one launch of K1-K5: K3 and K4 put several problems
     in a block where their warp layouts apply (``qp_solve_problems_per_block``,
     ``spd_inverse_problems_per_block``; absent from a library built before
-    that layout: one)."""
+    that layout: one), and K5's wide variant a cluster of several blocks on
+    one problem (``admm_chunk_wide_layout``; one in a library before it)."""
     per = 1
     if kernel == "K3" and hasattr(lib, "qp_solve_problems_per_block"):
         per = int(lib.qp_solve_problems_per_block(n, m))
     elif kernel == "K4" and hasattr(lib, "spd_inverse_problems_per_block"):
         per = int(lib.spd_inverse_problems_per_block(n))
+    elif kernel == "K5" and n + m > 1024 and hasattr(lib, "admm_chunk_wide_layout"):
+        from sqp_solver_tpu_torch.ops import admm_kernel as ak
+
+        return batch * ak.admm_chunk_wide_layout_card(n, m, batch, lib=lib)["cluster"]
     return -(-batch // per)
 
 
@@ -483,16 +494,17 @@ def chunk_operands_device(batch: int, n: int, m: int, seed: int, dev) -> tuple:
     return tuple(ops[k].float().contiguous() for k in CHUNK_ARGS)
 
 
-def chunk_cases(dev) -> list:
-    """Each K5 shape of the kernel phase with a launcher that takes a kernel
-    library, on the operands of ``compare_chunk``."""
+def chunk_cases(dev, wide: bool = False) -> list:
+    """Each K5 shape of the kernel phase (``wide``: the wide variant's) with a
+    launcher that takes a kernel library, on the operands of
+    ``compare_chunk``."""
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
 
     cases = []
-    for batch, n, m, seg in CHUNK_SHAPES:
+    for batch, n, m, seg in CHUNK_WIDE_SHAPES if wide else CHUNK_SHAPES:
         args = chunk_operands(batch, n, m, seg, dev)
         cases.append(dict(label=f"K5 n={n} m={m} B={batch} seg={seg}", kernel="K5", n=n, m=m,
-                          batch=batch, seg=seg, reps=20 if n <= 32 else 8,
+                          batch=batch, seg=seg, reps=20 if n <= 32 else 8 if n <= 128 else 4,
                           launch=lambda lib, args=args, seg=seg: ak._admm_chunk_launch(
                               *args, alpha=1.6, seg=seg, lib=lib)))
     return cases
@@ -646,16 +658,26 @@ def compare_polish_reuse(batch: int, n: int, sweeps: int, dev, reps: int) -> dic
 def phase_split(dev, libs: dict, card: str) -> list:
     """Cycles per block of each phase of K1-K5 at their shapes,
     from the builds with phase clocks (``libs``: one per source), one launch
-    after a warm-up each."""
+    after a warm-up each; for the wide K5 also thread 0's cycles an
+    iteration waiting on the ring, in dot products, and in the update and
+    the cluster's exchange."""
     from sqp_solver_tpu_torch.tools.kernel_ab import SOURCES, clock_split, format_split
 
     rows = []
-    for c in dense_cases(dev) + qp_cases(dev) + spd_cases(dev) + chunk_cases(dev):
+    for c in (dense_cases(dev) + qp_cases(dev) + spd_cases(dev) + chunk_cases(dev)
+              + chunk_cases(dev, wide=True)):
         lib = libs[SOURCES[c["kernel"].lower()]]
         blocks = blocks_of(lib, c["kernel"], c["batch"], c["n"], c.get("m", c["n"]))
         cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
-        log(f"  {c['label']} ({blocks} blocks): {format_split(cyc)} [{card}]")
-        rows.append(dict(case=c["label"], blocks=blocks, cycles_per_block=cyc))
+        row = dict(case=c["label"], blocks=blocks, cycles_per_block=cyc)
+        per_iter = ""
+        if c["kernel"] == "K5" and c["n"] + c["m"] > 1024:  # thread 0's spans an iteration
+            row["cycles_per_iteration"] = {k: cyc.get(k, 0.0) / c["seg"]
+                                           for k in ("ring", "dot", "exchange", "iter")}
+            per_iter = "; per iteration: " + ", ".join(
+                f"{k} {v:.0f}" for k, v in row["cycles_per_iteration"].items())
+        log(f"  {c['label']} ({blocks} blocks): {format_split(cyc)}{per_iter} [{card}]")
+        rows.append(row)
     return rows
 
 
@@ -875,7 +897,13 @@ def compare_spd(batch: int, n: int, dev, reps: int) -> dict:
 
 def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
     """K5 against its plain version: one chunk of ``seg`` iterations and
-    the stats, on the operands of random QPs (``testing.admm_chunk_inputs``)."""
+    the stats, on the operands of random QPs (``testing.admm_chunk_inputs``),
+    with the bound (W read once) and the streaming floor (W every
+    iteration: no shape past D = 1024 holds it on chip) and the kernel's
+    share of the floor; past D = 1024 also the wide layout (cluster,
+    stages, blocks an SM), the rate at which the kernel streams the floor's
+    bytes, and the time with each cluster of 1, 2 and 4 blocks a problem
+    forced."""
     import torch
 
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
@@ -899,9 +927,27 @@ def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
     flops = batch * (seg * (2 * D * D + 10 * D) + 2 * n * n + 4 * m * n)
     nbytes = 4 * batch * (D * D + n * n + m * n + 10 * D + 4)
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(n=n, m=m, batch=batch, seg=seg, smem_rows=lay["smem_rows"],
-                register_rows=lay["register_rows"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    floor_bytes = 4 * batch * (seg * D * D + n * n + m * n + 10 * D + 4)
+    floor_ms = floor_bytes / PEAK_BYTES_PER_S * 1e3
+    row = dict(n=n, m=m, batch=batch, seg=seg, smem_rows=lay["smem_rows"],
+               register_rows=lay["register_rows"], max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               stream_floor_ms=floor_ms, stream_share=floor_ms / ms)
+    wide = ""
+    if D > 1024:
+        card = ak.admm_chunk_wide_layout_card(n, m, batch, device=dev)
+        cluster_ms = {c: cuda_ms(lambda c=c: ak._admm_chunk_launch(
+            *args, alpha=1.6, seg=seg, cluster=c), reps) for c in (1, 2, 4)}
+        row.update(layout=card, stream_gb_per_s=floor_bytes / ms / 1e6, cluster_ms=cluster_ms)
+        wide = (f"; clusters of {card['cluster']}, {card['stages']} stages of "
+                f"{card['rows_stage']} rows ({4 * card['stage_floats']} bytes), "
+                f"{card['blocks_per_sm']} block(s) an SM ({card['resident']} resident), "
+                f"{card['smem_bytes']} bytes of shared memory a block; "
+                f"{row['stream_gb_per_s']:.1f} GB/s; forced clusters "
+                + ", ".join(f"{c}: {v:.3f} ms" for c, v in cluster_ms.items()))
+    log(f"  K5 n={n} m={m} B={batch} seg={seg}: streaming floor {floor_ms:.4f} ms (W every "
+        f"iteration), {row['stream_share']:.3f} of it{wide}")
+    return row
 
 
 def time_library_factor(batch: int, n: int, m: int, dev, reps: int) -> dict:

@@ -45,11 +45,15 @@ constexpr float kLooseThresh = 1e16f;
 // ("polish"), the loads and stores, and the whole kernel; K3 its loads
 // and stores and the whole kernel; the core marks the certificates apart
 // from the chunk-end stats; K5 (admm_kernel.cu) marks its load, its
-// iterations ("iter") and its stats.
+// iterations ("iter") and its stats, and its wide variant also thread 0's
+// waits on the ring of W ("ring"), its dot products ("dot") and the
+// update with the cluster's exchange ("exchange"), summed over the
+// iterations (phase_add).
 #ifdef ADMM_PHASE_CLOCKS
 enum AdmmPhase {
   kPhGram, kPhThomas, kPhAtmv, kPhSweep, kPhAmv, kPhStats, kPhTotal,
-  kPhChol, kPhLinv, kPhLtl, kPhBfgs, kPhPolish, kPhLoad, kPhCert, kPhIter, kNumPhases
+  kPhChol, kPhLinv, kPhLtl, kPhBfgs, kPhPolish, kPhLoad, kPhCert, kPhIter,
+  kPhRing, kPhDot, kPhExchange, kNumPhases
 };
 // The sums are spread over kPhaseSlots copies (by block), so that the
 // stamps of thousands of blocks do not queue on one address.
@@ -60,6 +64,10 @@ __device__ __forceinline__ void phase_stamp(int p, bool begin) {
     const unsigned long long t = (unsigned long long)clock64();
     atomicAdd(&admm_phase_cycles[blockIdx.x % kPhaseSlots][p], begin ? 0ull - t : t);
   }
+}
+// adds cycles summed elsewhere by thread 0 to phase p
+__device__ __forceinline__ void phase_add(int p, unsigned long long cycles) {
+  if (threadIdx.x == 0) atomicAdd(&admm_phase_cycles[blockIdx.x % kPhaseSlots][p], cycles);
 }
 #define ADMM_PHASE_BEGIN(p) phase_stamp(p, true)
 #define ADMM_PHASE_END(p) phase_stamp(p, false)

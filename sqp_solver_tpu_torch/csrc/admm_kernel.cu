@@ -46,8 +46,10 @@
 //   and x in shared memory.  A'y one thread a column, Ax and Px one
 //   thread a row (float4 dot products), one block max-reduction.
 //   D > 1024 (up to 2048): a variant of its own (admm_chunk_wide_kernel,
-//   below), two rows a thread and W read from device memory every
-//   iteration; the launches at D <= 1024 are the kernels above.
+//   below), which no shared memory can hold W for: bound by W's bytes
+//   every iteration, it streams them through a ring of bulk copies that
+//   runs across the iterations, in a cluster of blocks a problem; the
+//   launches at D <= 1024 are the kernels above.
 // Every loop bound and branch that holds a barrier or a shuffle is uniform
 // across the block or the warp.
 
@@ -283,144 +285,487 @@ __global__ void __launch_bounds__(KR > 0 ? kRegThreads : kMaxThreads) admm_chunk
   ADMM_PHASE_END(kPhTotal);
 }
 
-// D > 1024: more rows than a block has threads.  Thread i owns the rows
-// i and i + 1024 (state and constants in registers, kWideRows a thread);
-// no row of W fits in shared memory beside the others' vectors at any
-// size worth staging, so every iteration reads all of W from device
-// memory, one warp a row (lanes over its columns, a warp sum), against rhs
-// in shared memory: D^2 floats a problem an iteration bound it.  The stats
-// read P and A from device memory (one thread a column of A'y, one warp a
-// row of Ax and Px), as the narrow variant does where W's dead rows cannot
-// hold them.
-constexpr int kWideRows = 2;
-constexpr int kMaxWideD = kWideRows * kMaxThreads;
+// ---- D > 1024 (up to 2048): the wide variant ------------------------------
+//
+// Bound.  No problem's W fits on chip (6.6 MB at D = 1280, 16.8 MB at
+// D = 2048; a portable cluster of eight blocks holds 1.8 MB), and one
+// right-hand side a problem gives W no reuse inside an iteration, so every
+// iteration streams all of W from device memory: the floor this shape can
+// reach is 4 B (seg D^2 + n^2 + m n + 10 D + 4) bytes over 3.35 TB/s
+// (5.26 ms at D = 1280, B = 256, seg 10), seg times the bound that counts
+// W once.
+//
+// Design: keep device memory streaming without a pause.
+//   A cluster of cs blocks a problem (admm_chunk_wide_layout: the most
+//   blocks a problem that leave every block an SM of its own), block r owning the
+//   contiguous rows [r D / cs, (r + 1) D / cs) of W.  Each block has 8
+//   consumer warps and one producer warp.
+//   The ring.  One producer thread streams the block's rows of W, a stage
+//   of whole rows at a time, through kWideStages stages in shared memory
+//   with bulk copies (cp.async.bulk, the TMA's non-tensor form) completing
+//   an mbarrier each (full); stage k is consumer warp k's, which takes its
+//   rows (one warp a row, a lane the columns lane + 32 j, scalar shared
+//   memory reads of the row and of rhs), writes W rhs of each row and
+//   releases the stage (empty).  W does not depend on the iterate, so the
+//   producer streams straight on into the next iteration's rows while the
+//   consumers update and exchange: the ring's phases run across the
+//   iterations, and device memory waits only when the whole ring is full.
+//   A copy needs 16-byte aligned ends (a problem's W starts at b D^2
+//   floats, unaligned for odd D): each stage holds the 16-byte aligned
+//   window around its rows, rows from the window's offset; at the ends of
+//   an operand the unaligned head and tail (at most 3 floats each) are
+//   copied by the producer thread, so no copy reads outside the tensor.
+//   The exchange.  Each consumer thread updates up to kWideRowsThread of
+//   the block's rows (s and y in registers, the row's constants read again
+//   from device memory each iteration, L2 hits) and writes its rows of the
+//   next rhs into every block of the cluster (distributed shared memory);
+//   rhs has two buffers by iteration parity, and each buffer an mbarrier
+//   that every consumer thread of the cluster arrives on (release at
+//   cluster scope) and the consumers wait on (acquire): the producer never
+//   takes part.  A consumer thread arrives only after its last read of the
+//   buffer it will write next, so a late reader never sees the next
+//   iteration's values.
+//   Stats.  Final s and yp go to every block; the same ring then streams
+//   the block's rows of A (Ax, a warp a row; A'y, a warp a range of
+//   columns in registers) and of P (Px); each block sends its A'y partial
+//   of every column to the block that owns the column's row of P, which
+//   sums the cs partials in rank order, and block 0 takes the cluster's
+//   maxima.  A last cluster barrier comes before any block exits.
+// Every branch that holds a named, mbarrier or cluster barrier is uniform
+// over the consumer threads, or over the cluster.
+constexpr int kMaxWideD = 2048;
+constexpr int kWideConsumerWarps = 8;
+constexpr int kWideConsumers = 32 * kWideConsumerWarps;
+constexpr int kWideThreads = kWideConsumers + 32;  // and the producer warp
+constexpr int kWideStages = kWideConsumerWarps;    // stage k is consumer warp k's
+constexpr int kWideRowsThread = kMaxWideD / kWideConsumers;  // rows a consumer thread updates
+constexpr int kWideAtyCols = kMaxWideD / kWideConsumers;     // A'y columns a lane holds
+constexpr int kWideMaxCluster = 8;                           // the portable limit
+constexpr int kSmemPerSm = 233472;                           // sm_90
+constexpr int kSmemReservedPerBlock = 1024;
+constexpr int kWideBarriers = 2 * kWideStages + 5;
+constexpr int kWideBarBytes = (kWideBarriers * 8 + 127) / 128 * 128;  // the ring after them
 
-__global__ void __launch_bounds__(kMaxThreads) admm_chunk_wide_kernel(
-    ChunkParams p, const float* __restrict__ Wg, const float* __restrict__ Pg,
+struct WideParams {
+  int n, m, D, seg, cs;
+  int stage_floats, rows_stage, rows_max, prow_max;
+  float alpha, beta;  // beta = 1 - alpha, rounded once on the host
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// whether the phase of parity `parity` has completed: the ring's barriers,
+// which this block's threads and copies complete (CTA scope), or one that
+// the cluster's blocks arrive on (acquire at cluster scope)
+template <bool kCluster>
+__device__ __forceinline__ bool mbar_try(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  if (kCluster)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  return done != 0;
+}
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  while (!mbar_try<kCluster>(a, parity)) {
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ uint32_t peer_u32(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+// arrive on `bar` in block `rank` of the cluster, releasing this thread's
+// writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, int rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   peer_u32(bar, rank))
+               : "memory");
+}
+__device__ __forceinline__ void st_at(float* p, int rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(peer_u32(p, rank)), "f"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(kWideConsumers) : "memory");
+}
+
+// Put the nf floats at src (inside the operand [lo_lim, hi_lim)) in flight
+// to `stage`, float k of src at stage[shift + k], shift = (src mod 16
+// bytes) / 4: one bulk copy of the 16-byte aligned window inside the
+// operand, completing `full`, and the unaligned head or tail at the
+// operand's ends (at most 3 floats each) by this thread.
+__device__ void ring_fill(float* stage, uint64_t* full, const float* src, int nf,
+                          const float* lo_lim, const float* hi_lim) {
+  const uintptr_t a = (uintptr_t)src, e = a + 4ull * (unsigned)nf, wa = a & ~(uintptr_t)15;
+  const uintptr_t l0 = ((uintptr_t)lo_lim + 15) & ~(uintptr_t)15;
+  const uintptr_t l1 = (uintptr_t)hi_lim & ~(uintptr_t)15;
+  uintptr_t lo = wa < l0 ? l0 : wa, hi = (e + 15) & ~(uintptr_t)15;
+  if (hi > l1) hi = l1;
+  const bool bulk = hi > lo;
+  const uintptr_t head = bulk ? lo : e, tail = bulk ? hi : e;
+  bool generic = false;
+  for (uintptr_t g = a; g < head; g += 4, generic = true)
+    stage[(g - wa) >> 2] = *reinterpret_cast<const float*>(g);
+  for (uintptr_t g = tail > a ? tail : a; g < e; g += 4, generic = true)
+    stage[(g - wa) >> 2] = *reinterpret_cast<const float*>(g);
+  if (generic) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (bulk) {
+    const unsigned bytes = (unsigned)(hi - lo);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(full)),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_u32(stage + ((lo - wa) >> 2))),
+        "l"(lo), "r"(bytes), "r"(smem_u32(full))
+        : "memory");
+  } else {
+    mbar_arrive(full);
+  }
+}
+
+// The stage's first row of the copy from src.
+__device__ __forceinline__ const float* ring_rows(const float* stage, const float* src) {
+  return stage + (((uintptr_t)src & 15) >> 2);
+}
+
+// sum_j r[j] v[j] over j < len by one warp (lane the columns lane + 32 k,
+// four accumulators, a warp sum); every lane returns it.
+__device__ __forceinline__ float row_dot(const float* r, const float* v, int len, int lane) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  int j = lane;
+  for (; j + 96 < len; j += 128) {
+    a0 = fmaf(r[j], v[j], a0);
+    a1 = fmaf(r[j + 32], v[j + 32], a1);
+    a2 = fmaf(r[j + 64], v[j + 64], a2);
+    a3 = fmaf(r[j + 96], v[j + 96], a3);
+  }
+  for (; j < len; j += 32) a0 = fmaf(r[j], v[j], a0);
+  return warp_sum((a0 + a1) + (a2 + a3));
+}
+
+// The cluster rank whose rows [n r / cs, n (r + 1) / cs) of P hold column j.
+__device__ __forceinline__ int prow_owner(int j, int n, int cs) {
+  int o = (int)((long long)j * cs / n);
+  if (o >= cs) o = cs - 1;
+  while (o > 0 && n * o / cs > j) --o;
+  while (o < cs - 1 && n * (o + 1) / cs <= j) ++o;
+  return o;
+}
+
+// Thread 0's spans inside the iterations (phase-clock builds only): waits on
+// the ring, dot products, and the update with the exchange.
+enum { kClkRing = 0, kClkDot = 1, kClkExch = 2 };
+struct WideClock {
+#ifdef ADMM_PHASE_CLOCKS
+  unsigned long long t = 0, acc[3] = {0ull, 0ull, 0ull};
+  __device__ __forceinline__ void mark() { t = clock64(); }
+  __device__ __forceinline__ void add(int k) {
+    const unsigned long long u = clock64();
+    acc[k] += u - t;
+    t = u;
+  }
+  __device__ __forceinline__ void flush() const {
+    phase_add(kPhRing, acc[kClkRing]);
+    phase_add(kPhDot, acc[kClkDot]);
+    phase_add(kPhExchange, acc[kClkExch]);
+  }
+#else
+  __device__ __forceinline__ void mark() {}
+  __device__ __forceinline__ void add(int) {}
+  __device__ __forceinline__ void flush() const {}
+#endif
+};
+
+__global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
+    WideParams p, const float* __restrict__ Wg, const float* __restrict__ Pg,
     const float* __restrict__ Ag, const float* __restrict__ qv, const float* __restrict__ sc,
     const float* __restrict__ ri, const float* __restrict__ rp, const float* __restrict__ lp,
     const float* __restrict__ up, const float* __restrict__ s_in,
     const float* __restrict__ yp_in, float* __restrict__ s_out, float* __restrict__ yp_out,
-    float* __restrict__ stats) {
-  extern __shared__ float smem[];
+    float* __restrict__ stats, int batch) {
+  extern __shared__ __align__(128) unsigned char wsm[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
-  const int n = p.n, m = p.m, D = p.D;
-  const size_t b = blockIdx.x;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
-  float* red = smem;
-  float* rhs = red + kRedSlots;  // D
-  float* xz = rhs + D;           // D: W rhs
-  float* sv = xz + D;            // D: final s, for the stats
-  float* yv = sv + D;            // D: final yp
-  float* aty = yv + D;           // n
+  const int n = p.n, m = p.m, D = p.D, cs = p.cs, SF = p.stage_floats;
+  const int rank = (int)(blockIdx.x % cs);
+  const size_t b = blockIdx.x / cs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsm);
+  uint64_t* empty = full + kWideStages;
+  uint64_t* ready = empty + kWideStages;  // [2]: rhs buffer 0 / 1 written
+  uint64_t* fin = ready + 2;              // final s and yp written
+  uint64_t* aty_bar = fin + 1;            // the A'y partials written
+  uint64_t* gather_bar = aty_bar + 1;     // the blocks' maxima written (rank 0)
+  float* ring = reinterpret_cast<float*>(wsm + kWideBarBytes);
+  float* rb = ring + (size_t)kWideStages * SF;  // [2][D]: rhs by iteration parity
+  float* sv = rb + 2 * D;                       // D: final s
+  float* yv = sv + D;                           // D: final yp
+  float* xz = yv + D;                           // rows_max: W rhs of the block's rows
+  float* px = xz + p.rows_max;                  // prow_max: P x of the block's rows of P
+  float* atyp = px + p.prow_max;                // [cs][prow_max]: A'y partials
+  float* red = atyp + cs * p.prow_max;          // [8][consumer warps]
+  float* gat = red + 8 * kWideConsumerWarps;    // [cs][8] (rank 0)
+  const int r0 = D * rank / cs, R = D * (rank + 1) / cs - r0;
+  const int p0 = n * rank / cs, np = n * (rank + 1) / cs - p0;
+  const int a0 = m * rank / cs, na = m * (rank + 1) / cs - a0;
+  const int kw = p.rows_stage, nch = (R + kw - 1) / kw;
+  const int ka = (SF - 8) / n, nca = (na + ka - 1) / ka, ncp = (np + ka - 1) / ka;
   const float* Wb = Wg + b * D * D;
   const float* Pb = Pg + b * n * n;
   const float* Ab = Ag + b * m * n;
-  const size_t vo = b * D;
-
-  float s[kWideRows], y[kWideRows], q[kWideRows], c[kWideRows], rinv[kWideRows],
-      rho[kWideRows], lo[kWideRows], hi[kWideRows], ysel[kWideRows];
-#pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-    const int i = tid + r * T;
-    const bool own = i < D;
-    s[r] = own ? s_in[vo + i] : 0.f;
-    y[r] = own ? yp_in[vo + i] : 0.f;
-    q[r] = own ? qv[vo + i] : 0.f;
-    c[r] = own ? sc[vo + i] : 0.f;
-    rinv[r] = own ? ri[vo + i] : 0.f;
-    rho[r] = own ? rp[vo + i] : 0.f;
-    lo[r] = own ? lp[vo + i] : 0.f;
-    hi[r] = own ? up[vo + i] : 0.f;
-    ysel[r] = rinv[r] * rho[r];
-    if (own) rhs[i] = c[r] * s[r] - q[r] - ysel[r] * y[r];
-  }
-  __syncthreads();
-  ADMM_PHASE_END(kPhLoad);
-
-  ADMM_PHASE_BEGIN(kPhIter);
-  for (int it = 0; it < p.seg; ++it) {
-    for (int k = warp; k < D; k += nw) {
-      const float* row = Wb + (size_t)k * D;
-      float a = 0.f;
-#pragma unroll 4
-      for (int j = lane; j < D; j += 32) a = fmaf(__ldg(row + j), rhs[j], a);
-      a = warp_sum(a);
-      if (lane == 0) xz[k] = a;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kWideRows; ++r) {
-      const int i = tid + r * T;
-      if (i < D) {
-        const float pre = p.alpha * xz[i] + p.beta * s[r];
-        float sn = pre + rinv[r] * y[r];
-        sn = sn < lo[r] ? lo[r] : sn;  // clip as min(max(v, lo), hi); NaN stays NaN
-        sn = sn > hi[r] ? hi[r] : sn;
-        y[r] = y[r] + rho[r] * (pre - sn);
-        s[r] = sn;
-        rhs[i] = c[r] * s[r] - q[r] - ysel[r] * y[r];
-      }
-    }
-    __syncthreads();
-  }
-  ADMM_PHASE_END(kPhIter);
-
-  ADMM_PHASE_BEGIN(kPhStats);
-#pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-    const int i = tid + r * T;
-    if (i < D) {
-      s_out[vo + i] = s[r];
-      yp_out[vo + i] = y[r];
-      sv[i] = s[r];
-      yv[i] = y[r];
-    }
-  }
-  __syncthreads();
-  // x = sv[:n], z = sv[n:], y = yv[n:]
-  const float* zs = sv + n;
-  const float* ys = yv + n;
-  for (int j = tid; j < n; j += T) {
-    float a = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < m; ++r) a = fmaf(__ldg(Ab + (size_t)r * n + j), ys[r], a);
-    aty[j] = a;
-  }
-  __syncthreads();
-  // |Ax - z|, |Px + q + A'y|, |Ax|, |z|, |Px|, |A'y|, |q|
-  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k = warp; k < m + n; k += nw) {
-    const float* row = k < m ? Ab + (size_t)k * n : Pb + (size_t)(k - m) * n;
-    float a = 0.f;
-    for (int j = lane; j < n; j += 32) a = fmaf(__ldg(row + j), sv[j], a);
-    a = warp_sum(a);
-    if (lane == 0) {
-      if (k < m) {
-        v[0] = nan_max(v[0], fabsf(a - zs[k]));
-        v[2] = nan_max(v[2], fabsf(a));
-      } else {
-        v[1] = nan_max(v[1], fabsf(a + qv[vo + k - m] + aty[k - m]));
-        v[4] = nan_max(v[4], fabsf(a));
-      }
-    }
-  }
-  for (int j = tid; j < n; j += T) {
-    v[5] = nan_max(v[5], fabsf(aty[j]));
-    v[6] = nan_max(v[6], fabsf(qv[vo + j]));
-  }
-  for (int r = tid; r < m; r += T) v[3] = nan_max(v[3], fabsf(zs[r]));
-  block_max<7>(v, red);
   if (tid == 0) {
-    float* st = stats + b * 4;
-    st[0] = v[0];
-    st[1] = v[1];
-    st[2] = nan_max(v[2], v[3]);
-    st[3] = nan_max(v[4], nan_max(v[5], v[6]));
+    const unsigned all = (unsigned)(cs * kWideConsumers);
+    for (int k = 0; k < kWideStages; ++k) {
+      mbar_init(&full[k], 1);
+      mbar_init(&empty[k], 1);
+    }
+    mbar_init(&ready[0], all);
+    mbar_init(&ready[1], all);
+    mbar_init(fin, all);
+    mbar_init(aty_bar, all);
+    mbar_init(gather_bar, (unsigned)cs);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  ADMM_PHASE_END(kPhStats);
+  cluster_sync_all();  // every block's barriers are set before a peer arrives
+
+  if (warp == kWideConsumerWarps) {  // the producer
+    if (lane == 0) {
+      const float* Wend = Wg + (size_t)batch * D * D;
+      const float* Aend = Ag + (size_t)batch * m * n;
+      const float* Pend = Pg + (size_t)batch * n * n;
+      int Q = 0;  // chunks so far: stage Q mod kWideStages, its fill Q / kWideStages
+      auto fill = [&](const float* src, int nf, const float* lo, const float* hi) {
+        const int k = Q % kWideStages, f = Q / kWideStages;
+        if (f > 0) mbar_wait(&empty[k], (f - 1) & 1);
+        ring_fill(ring + (size_t)k * SF, &full[k], src, nf, lo, hi);
+        ++Q;
+      };
+      for (int it = 0; it < p.seg; ++it)
+        for (int j = 0; j < nch; ++j)
+          fill(Wb + (size_t)(r0 + j * kw) * D, min(kw, R - j * kw) * D, Wg, Wend);
+      for (int j = 0; j < nca; ++j)
+        fill(Ab + (size_t)(a0 + j * ka) * n, min(ka, na - j * ka) * n, Ag, Aend);
+      for (int j = 0; j < ncp; ++j)
+        fill(Pb + (size_t)(p0 + j * ka) * n, min(ka, np - j * ka) * n, Pg, Pend);
+    }
+    __syncwarp();
+  } else {  // the consumers
+    WideClock clk;
+    const int t = tid;
+    const size_t vo = b * D;
+    float s[kWideRowsThread], y[kWideRowsThread];
+#pragma unroll
+    for (int k = 0; k < kWideRowsThread; ++k) {
+      const int loc = t + k * kWideConsumers;
+      s[k] = 0.f;
+      y[k] = 0.f;
+      if (loc < R) {
+        const int g = r0 + loc;
+        s[k] = s_in[vo + g];
+        y[k] = yp_in[vo + g];
+        if (p.seg > 0) {
+          const float q = qv[vo + g], c = sc[vo + g], ysel = ri[vo + g] * rp[vo + g];
+          const float rhs = c * s[k] - q - ysel * y[k];
+          for (int r = 0; r < cs; ++r) st_at(rb + g, r, rhs);
+        }
+      }
+    }
+    if (p.seg > 0)
+      for (int r = 0; r < cs; ++r) mbar_arrive_at(&ready[0], r);
+    ADMM_PHASE_END(kPhLoad);
+
+    ADMM_PHASE_BEGIN(kPhIter);
+    for (int it = 0; it < p.seg; ++it) {
+      clk.mark();
+      mbar_wait<true>(&ready[it & 1], (it >> 1) & 1);
+      clk.add(kClkExch);
+      const float* rhs = rb + (it & 1) * D;
+      const int base = it * nch;
+      // this warp's chunks: those whose stage is its own
+      for (int j = (warp - base % kWideStages + kWideStages) % kWideStages; j < nch;
+           j += kWideStages) {
+        mbar_wait(&full[warp], ((base + j) / kWideStages) & 1);
+        clk.add(kClkRing);
+        const int row = j * kw, rows = min(kw, R - row);
+        const float* w = ring_rows(ring + (size_t)warp * SF, Wb + (size_t)(r0 + row) * D);
+        for (int rr = 0; rr < rows; ++rr) {
+          const float a = row_dot(w + (size_t)rr * D, rhs, D, lane);
+          if (lane == 0) xz[row + rr] = a;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[warp]);
+        clk.add(kClkDot);
+      }
+      consumers_sync();  // xz complete
+      const bool last = it + 1 == p.seg;
+      float* nxt = rb + ((it + 1) & 1) * D;
+#pragma unroll
+      for (int k = 0; k < kWideRowsThread; ++k) {
+        const int loc = t + k * kWideConsumers;
+        if (loc < R) {
+          const int g = r0 + loc;
+          const float q = qv[vo + g], c = sc[vo + g], rinv = ri[vo + g], rho = rp[vo + g];
+          const float lo = lp[vo + g], hi = up[vo + g], ysel = rinv * rho;
+          const float pre = p.alpha * xz[loc] + p.beta * s[k];
+          float sn = pre + rinv * y[k];
+          sn = sn < lo ? lo : sn;  // clip as min(max(v, lo), hi); NaN stays NaN
+          sn = sn > hi ? hi : sn;
+          y[k] = y[k] + rho * (pre - sn);
+          s[k] = sn;
+          if (!last) {
+            const float rhs_new = c * s[k] - q - ysel * y[k];
+            for (int r = 0; r < cs; ++r) st_at(nxt + g, r, rhs_new);
+          }
+        }
+      }
+      if (!last)
+        for (int r = 0; r < cs; ++r) mbar_arrive_at(&ready[(it + 1) & 1], r);
+      clk.add(kClkExch);
+    }
+    ADMM_PHASE_END(kPhIter);
+
+    ADMM_PHASE_BEGIN(kPhStats);
+#pragma unroll
+    for (int k = 0; k < kWideRowsThread; ++k) {
+      const int loc = t + k * kWideConsumers;
+      if (loc < R) {
+        const int g = r0 + loc;
+        s_out[vo + g] = s[k];
+        yp_out[vo + g] = y[k];
+        for (int r = 0; r < cs; ++r) {
+          st_at(sv + g, r, s[k]);
+          if (g >= n) st_at(yv + g, r, y[k]);
+        }
+      }
+    }
+    for (int r = 0; r < cs; ++r) mbar_arrive_at(fin, r);
+    mbar_wait<true>(fin, 0);
+    // x = sv[:n], z = sv[n:], y = yv[n:].  The block's rows of A: Ax (a
+    // warp a row) and the A'y partial of every column (a warp a range of
+    // columns, lane the columns cw0 + lane + 32 k)
+    float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const int cw0 = n * warp / kWideConsumerWarps, cw1 = n * (warp + 1) / kWideConsumerWarps;
+    float acc[kWideAtyCols];
+#pragma unroll
+    for (int k = 0; k < kWideAtyCols; ++k) acc[k] = 0.f;
+    int Q = p.seg * nch;
+    for (int j = 0; j < nca; ++j, ++Q) {
+      const int k = Q % kWideStages;
+      mbar_wait(&full[k], (Q / kWideStages) & 1);
+      const int i0 = a0 + j * ka, rows = min(ka, na - j * ka);
+      const float* st = ring_rows(ring + (size_t)k * SF, Ab + (size_t)i0 * n);
+      for (int rr = warp; rr < rows; rr += kWideConsumerWarps) {
+        const float a = row_dot(st + (size_t)rr * n, sv, n, lane);
+        if (lane == 0) {
+          v[0] = nan_max(v[0], fabsf(a - sv[n + i0 + rr]));
+          v[2] = nan_max(v[2], fabsf(a));
+        }
+      }
+      for (int rr = 0; rr < rows; ++rr) {
+        const float yi = yv[n + i0 + rr];
+        const float* row = st + (size_t)rr * n;
+#pragma unroll
+        for (int c = 0; c < kWideAtyCols; ++c) {
+          const int col = cw0 + lane + 32 * c;
+          if (col < cw1) acc[c] = fmaf(row[col], yi, acc[c]);
+        }
+      }
+      consumers_sync();
+      if (t == 0) mbar_arrive(&empty[k]);
+    }
+    // each column's partial to the block that holds its row of P
+#pragma unroll
+    for (int c = 0; c < kWideAtyCols; ++c) {
+      const int col = cw0 + lane + 32 * c;
+      if (col < cw1) {
+        const int o = prow_owner(col, n, cs);
+        st_at(atyp + rank * p.prow_max + (col - n * o / cs), o, acc[c]);
+      }
+    }
+    for (int r = 0; r < cs; ++r) mbar_arrive_at(aty_bar, r);
+    // the block's rows of P: Px, a warp a row
+    for (int j = 0; j < ncp; ++j, ++Q) {
+      const int k = Q % kWideStages;
+      mbar_wait(&full[k], (Q / kWideStages) & 1);
+      const int j0 = j * ka, rows = min(ka, np - j0);
+      const float* st = ring_rows(ring + (size_t)k * SF, Pb + (size_t)(p0 + j0) * n);
+      for (int rr = warp; rr < rows; rr += kWideConsumerWarps) {
+        const float a = row_dot(st + (size_t)rr * n, sv, n, lane);
+        if (lane == 0) px[j0 + rr] = a;
+      }
+      consumers_sync();
+      if (t == 0) mbar_arrive(&empty[k]);
+    }
+    // |Ax - z|, |Px + q + A'y|, |Ax|, |z|, |Px|, |A'y|, |q|
+    for (int i = t; i < na; i += kWideConsumers) v[3] = nan_max(v[3], fabsf(sv[n + a0 + i]));
+    mbar_wait<true>(aty_bar, 0);
+    for (int jj = t; jj < np; jj += kWideConsumers) {
+      float aty = 0.f;
+      for (int r = 0; r < cs; ++r) aty += atyp[r * p.prow_max + jj];
+      const float q = qv[vo + p0 + jj], a = px[jj];
+      v[1] = nan_max(v[1], fabsf(a + q + aty));
+      v[4] = nan_max(v[4], fabsf(a));
+      v[5] = nan_max(v[5], fabsf(aty));
+      v[6] = nan_max(v[6], fabsf(q));
+    }
+#pragma unroll
+    for (int k = 0; k < 7; ++k)
+      for (int o = 16; o > 0; o >>= 1) v[k] = nan_max(v[k], __shfl_xor_sync(0xffffffffu, v[k], o));
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < 7; ++k) red[k * kWideConsumerWarps + warp] = v[k];
+    consumers_sync();
+    if (t == 0) {
+      for (int k = 0; k < 7; ++k) {
+        float r = red[k * kWideConsumerWarps];
+        for (int w = 1; w < kWideConsumerWarps; ++w) r = nan_max(r, red[k * kWideConsumerWarps + w]);
+        st_at(gat + rank * 8 + k, 0, r);
+      }
+      mbar_arrive_at(gather_bar, 0);
+      if (rank == 0) {
+        mbar_wait<true>(gather_bar, 0);
+        float g[7];
+        for (int k = 0; k < 7; ++k) {
+          g[k] = gat[k];
+          for (int r = 1; r < cs; ++r) g[k] = nan_max(g[k], gat[r * 8 + k]);
+        }
+        float* out = stats + b * 4;
+        out[0] = g[0];
+        out[1] = g[1];
+        out[2] = nan_max(g[2], g[3]);
+        out[3] = nan_max(g[4], nan_max(g[5], g[6]));
+      }
+    }
+    clk.flush();
+    ADMM_PHASE_END(kPhStats);
+  }
+  cluster_sync_all();  // no block exits while a peer may still reach its shared memory
   ADMM_PHASE_END(kPhTotal);
 }
 
@@ -453,29 +798,92 @@ ChunkLayout chunk_layout(int n, int m) {
   return L;
 }
 
-// The launch of the wide variant (D = n + m > 1024).
-int launch_wide(const float* W, const float* P, const float* A, const float* qv,
+// The wide variant's layout: the cluster (cs > 0 forces it; the rule takes
+// the most blocks a problem, up to 8, for which every block has an SM of
+// its own: B = 64 takes 2 on 132 SMs, B = 256 one; at D = 2048, B = 64,
+// clusters of 4, two blocks an SM with half the ring each, measured
+// slower than clusters of 2, PERF.md section 6), two blocks an SM where
+// the batch's blocks outnumber the SMs (else one, with a ring twice as
+// deep), and the ring's stages of whole rows of W in the shared memory
+// that is left.  Python mirror: ops/admm_kernel.py:admm_chunk_wide_layout.
+struct WideLayout {
+  int cluster, blocks_per_sm, stage_floats, rows_stage, rows_max, prow_max;
+  long long smem_bytes;
+};
+
+int wide_cluster_rule(int batch, int sms) {
+  int cs = 1;
+  while (cs < kWideMaxCluster && 2LL * batch * cs <= sms) cs *= 2;
+  return cs;
+}
+
+WideLayout wide_layout(int n, int m, int batch, int cs, int sms) {
+  WideLayout L;
+  const int D = n + m;
+  L.cluster = cs > 0 ? cs : wide_cluster_rule(batch, sms);
+  cs = L.cluster;
+  L.rows_max = (D + cs - 1) / cs;
+  L.prow_max = (n + cs - 1) / cs;
+  // rhs x 2, s, yp, xz, px, the A'y partials, the maxima
+  const long long fixed = 4LL * D + L.rows_max + (1LL + cs) * L.prow_max +
+                          8LL * kWideConsumerWarps + 8LL * cs;
+  const long long vec = (fixed + 3) / 4 * 4;
+  L.blocks_per_sm = (long long)batch * cs > sms ? 2 : 1;
+  for (;;) {
+    const long long budget =
+        L.blocks_per_sm == 2 ? kSmemPerSm / 2 - kSmemReservedPerBlock : kMaxSmemBytes;
+    const long long sf = ((budget - kWideBarBytes) / 4 - vec) / kWideStages / 4 * 4;
+    L.rows_stage = sf > 8 ? (int)((sf - 8) / D) : 0;
+    if (L.rows_stage >= 1 || L.blocks_per_sm == 1) break;
+    L.blocks_per_sm = 1;
+  }
+  L.stage_floats = round4(L.rows_stage * D + 8);
+  L.smem_bytes = kWideBarBytes + 4LL * ((long long)kWideStages * L.stage_floats + vec);
+  return L;
+}
+
+int launch_wide(int cs, const float* W, const float* P, const float* A, const float* qv,
                 const float* scale1, const float* rhoip, const float* rhop, const float* lp,
                 const float* up, const float* s, const float* yp, float* s_out, float* yp_out,
                 float* stats, int batch, int n, int m, float alpha, float beta, int seg,
                 int device, void* stream) {
-  const int D = n + m;
-  const size_t smem = (size_t)(kRedSlots + 4LL * D + n) * sizeof(float);  // < 48 KB
+  if (cs < 0 || cs > kWideMaxCluster || (cs & (cs - 1))) return (int)cudaErrorInvalidValue;
+  int sms = 0;
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  ChunkParams p;
+  const WideLayout L = wide_layout(n, m, batch, cs, sms);
+  if (L.rows_stage < 1) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(admm_chunk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  WideParams p;
   p.n = n;
   p.m = m;
-  p.D = D;
-  p.ld = D;
-  p.rows_smem = 0;
-  p.rows_reg = 0;
-  p.pa = kPaDevice;
+  p.D = n + m;
   p.seg = seg;
+  p.cs = L.cluster;
+  p.stage_floats = L.stage_floats;
+  p.rows_stage = L.rows_stage;
+  p.rows_max = L.rows_max;
+  p.prow_max = L.prow_max;
   p.alpha = alpha;
   p.beta = beta;
-  admm_chunk_wide_kernel<<<batch, kMaxThreads, smem, (cudaStream_t)stream>>>(
-      p, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out, stats);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)batch * L.cluster);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = (size_t)L.smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, admm_chunk_wide_kernel, p, W, P, A, qv, scale1, rhoip, rhop, lp,
+                           up, s, yp, s_out, yp_out, stats, batch);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -492,16 +900,45 @@ int admm_chunk_reg_rows(int n, int m) {
   return n + m > kMaxThreads ? 0 : chunk_layout(n, m).rows_reg;
 }
 
-int admm_chunk_launch(const float* W, const float* P, const float* A, const float* qv,
-                      const float* scale1, const float* rhoip, const float* rhop,
-                      const float* lp, const float* up, const float* s, const float* yp,
-                      float* s_out, float* yp_out, float* stats, int batch, int n, int m,
-                      float alpha, float beta, int seg, int device, void* stream) {
+// The wide variant's layout at this shape and batch on a card of `sms`
+// SMs (cluster 0: the rule's), in `out`: cluster, threads, stages, floats
+// a stage, rows of W a stage, shared memory bytes a block, the layout's
+// blocks an SM, the blocks an SM the runtime can hold of the kernel at
+// that shared memory, rows of W a block (at most), rows of P a block (at
+// most).  Non-zero where the shape is not the wide variant's.
+int admm_chunk_wide_layout(int n, int m, int batch, int cluster, int sms, long long* out) {
+  if (n <= 0 || m <= 0 || n + m <= kMaxThreads || n + m > kMaxWideD || batch <= 0 ||
+      cluster < 0 || cluster > kWideMaxCluster || (cluster & (cluster - 1)) || sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const WideLayout L = wide_layout(n, m, batch, cluster, sms);
+  int resident = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_chunk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, admm_chunk_wide_kernel,
+                                                        kWideThreads, (size_t)L.smem_bytes);
+  const long long v[10] = {L.cluster, kWideThreads, kWideStages, L.stage_floats, L.rows_stage,
+                           L.smem_bytes, L.blocks_per_sm, resident, L.rows_max, L.prow_max};
+  for (int k = 0; k < 10; ++k) out[k] = v[k];
+  return (int)err;
+}
+
+// One launch of K5; past D = 1024 the wide variant in clusters of `cluster`
+// blocks (1, 2, 4 or 8; 0: the layout rule's; the card's tests and
+// chip_smoke.py force one), refused (cudaErrorInvalidValue) at D <= 1024
+// unless 0.
+int admm_chunk_launch_as(int cluster, const float* W, const float* P, const float* A,
+                         const float* qv, const float* scale1, const float* rhoip,
+                         const float* rhop, const float* lp, const float* up, const float* s,
+                         const float* yp, float* s_out, float* yp_out, float* stats, int batch,
+                         int n, int m, float alpha, float beta, int seg, int device,
+                         void* stream) {
   if (batch <= 0) return 0;
   if (n + m > kMaxWideD || n <= 0 || m <= 0 || seg < 0) return (int)cudaErrorInvalidValue;
-  if (n + m > kMaxThreads) return launch_wide(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp,
-                                              s_out, yp_out, stats, batch, n, m, alpha, beta,
-                                              seg, device, stream);
+  if (n + m > kMaxThreads)
+    return launch_wide(cluster, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out,
+                       stats, batch, n, m, alpha, beta, seg, device, stream);
+  if (cluster != 0) return (int)cudaErrorInvalidValue;
   const ChunkLayout L = chunk_layout(n, m);
   auto kernel = L.rows_reg > 0 ? admm_chunk_kernel<kRegRows> : admm_chunk_kernel<0>;
   // this library's runtime keeps its own current device: use the tensors'
@@ -524,6 +961,15 @@ int admm_chunk_launch(const float* W, const float* P, const float* A, const floa
   kernel<<<batch, L.threads, L.smem_bytes, (cudaStream_t)stream>>>(
       p, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out, stats);
   return (int)cudaGetLastError();
+}
+
+int admm_chunk_launch(const float* W, const float* P, const float* A, const float* qv,
+                      const float* scale1, const float* rhoip, const float* rhop,
+                      const float* lp, const float* up, const float* s, const float* yp,
+                      float* s_out, float* yp_out, float* stats, int batch, int n, int m,
+                      float alpha, float beta, int seg, int device, void* stream) {
+  return admm_chunk_launch_as(0, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out,
+                              stats, batch, n, m, alpha, beta, seg, device, stream);
 }
 
 }  // extern "C"

@@ -82,6 +82,10 @@ _SIGNATURES = {
     "admm_chunk_launch": (
         _INT, [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
     ),
+    "admm_chunk_launch_as": (
+        _INT, [_INT] + [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
+    ),
+    "admm_chunk_wide_layout": (_INT, [_INT] * 5 + [_VOID]),
     "admm_chunk_smem_rows": (_INT, [_INT, _INT]),
     "admm_chunk_reg_rows": (_INT, [_INT, _INT]),
     "qp_btd_launch": (

@@ -21,8 +21,9 @@ Three parts:
 * the CUDA kernel in ``csrc/admm_kernel.cu``, one thread block per
   problem with W on chip for the whole chunk (shared memory, and
   registers for the rows that do not fit there) up to D = 1024, and past
-  that (up to 2048) a variant with two rows a thread that reads W from
-  device memory every iteration;
+  that (up to 2048) a variant that streams W from device memory every
+  iteration through a ring of bulk copies, a cluster of blocks a problem
+  (:func:`admm_chunk_wide_layout`);
 * :func:`admm_chunk_kernel`, the wrapper that launches it on float32 CUDA
   operands and raises on anything else, and :func:`admm_chunk`, which
   sends CPU tensors to the plain version and CUDA tensors to the kernel.
@@ -38,12 +39,13 @@ import ctypes
 import torch
 
 __all__ = ["admm_chunk", "admm_chunk_kernel", "admm_chunk_layout", "admm_chunk_reference",
-           "admm_chunk_smem_rows"]
+           "admm_chunk_smem_rows", "admm_chunk_wide_layout"]
 
 # Launch counter: the wrapper adds one where it launches the CUDA kernel.
 admm_chunk_launches = 0
 
-_MAX_D = 2048  # one thread per row of W, two past a block's 1024 threads
+_MAX_D = 2048  # the wide variant's limit (the JAX kernel's VMEM one is about 2,125)
+_NARROW_MAX_D = 1024  # one thread a row of W
 
 
 def chunk_stats(P, A, q, x, z, y):
@@ -92,9 +94,11 @@ def admm_chunk_kernel(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha,
 
 
 def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg,
-                       lib=None):
+                       lib=None, cluster=None):
     """One launch of K5 (``lib``: a kernel library other than the package's,
-    as ``tools/kernel_ab.py`` passes)."""
+    as ``tools/kernel_ab.py`` passes; ``cluster``: past D = 1024, the
+    blocks a problem in place of the layout rule's, for the card's tests
+    and measurements)."""
     global admm_chunk_launches
     from sqp_solver_tpu_torch.ops.qp_kernel import _check_cuda_operands, _ptr, _raise_on
 
@@ -104,6 +108,9 @@ def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha
     dev = _check_cuda_operands(name, dict(W=W, P=P, A=A, **vecs), {})
     if n + m > _MAX_D:
         raise ValueError(f"{name}: D = n + m = {n + m} exceeds {_MAX_D}")
+    if cluster is not None and (n + m <= _NARROW_MAX_D or cluster not in _CLUSTERS):
+        raise ValueError(f"{name}: cluster {cluster} at D = {n + m} (clusters of {_CLUSTERS} "
+                         f"blocks past D = {_NARROW_MAX_D})")
     if lib is None:
         from sqp_solver_tpu_torch.ops import _build
 
@@ -112,12 +119,14 @@ def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha
     yp_out = torch.empty_like(yp)
     stats = torch.empty((batch, 4), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.admm_chunk_launch(
-        _ptr(W), _ptr(P), _ptr(A), _ptr(qv), _ptr(scale1), _ptr(rhoip), _ptr(rhop),
-        _ptr(lp), _ptr(up), _ptr(s), _ptr(yp), _ptr(s_out), _ptr(yp_out), _ptr(stats),
-        batch, n, m, float(alpha), float(1.0 - alpha), int(seg), dev.index,
-        ctypes.c_void_p(stream),
-    )
+    args = (_ptr(W), _ptr(P), _ptr(A), _ptr(qv), _ptr(scale1), _ptr(rhoip), _ptr(rhop),
+            _ptr(lp), _ptr(up), _ptr(s), _ptr(yp), _ptr(s_out), _ptr(yp_out), _ptr(stats),
+            batch, n, m, float(alpha), float(1.0 - alpha), int(seg), dev.index,
+            ctypes.c_void_p(stream))
+    if cluster is None:
+        rc = lib.admm_chunk_launch(*args)
+    else:
+        rc = lib.admm_chunk_launch_as(int(cluster), *args)
     _raise_on(lib, rc, name)
     admm_chunk_launches += 1
     return s_out, yp_out, stats
@@ -149,3 +158,75 @@ def admm_chunk_layout(n: int, m: int) -> dict:
     lib = _build.load()
     smem, reg = int(lib.admm_chunk_smem_rows(n, m)), int(lib.admm_chunk_reg_rows(n, m))
     return dict(smem_rows=smem, register_rows=reg, device_rows=n + m - smem - reg)
+
+
+# The wide variant's constants (csrc/admm_kernel.cu): consumer warps (and
+# the ring's stages, one a warp), one producer warp, clusters, shared memory
+_CLUSTERS = (1, 2, 4, 8)
+_WIDE_WARPS = 8
+_WIDE_THREADS = 32 * (_WIDE_WARPS + 1)
+_SMEM_PER_SM = 233472
+_SMEM_PER_BLOCK = 232448
+_SMEM_RESERVED = 1024
+_WIDE_BAR_BYTES = -(-(2 * _WIDE_WARPS + 5) * 8 // 128) * 128
+
+
+def admm_chunk_wide_layout(n: int, m: int, batch: int, cluster: int = 0, sms: int = 132) -> dict:
+    """The wide variant's layout (D = n + m from 1025 to 2048) for ``batch``
+    problems on a card of ``sms`` SMs, as ``csrc/admm_kernel.cu:wide_layout``
+    computes it: ``cluster`` blocks a problem (``cluster`` > 0 forces it;
+    the rule takes the most, up to 8, for which ``batch * cluster`` blocks
+    each have an SM of their own), block r holding the rows [r D / cluster, (r + 1) D / cluster)
+    of W (``row_ranges``); ``blocks_per_sm`` 2 where the blocks outnumber
+    the SMs, else 1; ``stages`` stages of ``rows_stage`` whole rows of W
+    (``stage_bytes``) in the shared memory left beside the vectors
+    (``smem_bytes`` a block).  Every row of W streams from device memory
+    every iteration (``device_rows`` = D, ``w_bytes_per_iteration`` a
+    problem).  Raises where the shape is not the wide variant's."""
+    D = n + m
+    if n <= 0 or m <= 0 or not _NARROW_MAX_D < D <= _MAX_D or batch <= 0:
+        raise ValueError(f"admm_chunk_wide_layout: n = {n}, m = {m}, B = {batch}: the wide "
+                         f"variant takes D from {_NARROW_MAX_D + 1} to {_MAX_D}")
+    if cluster == 0:
+        cluster = 1
+        while cluster < _CLUSTERS[-1] and 2 * batch * cluster <= sms:
+            cluster *= 2
+    if cluster not in _CLUSTERS:
+        raise ValueError(f"admm_chunk_wide_layout: cluster {cluster} not one of {_CLUSTERS}")
+    rows_max, prow_max = -(-D // cluster), -(-n // cluster)
+    vec = 4 * D + rows_max + (1 + cluster) * prow_max + 8 * _WIDE_WARPS + 8 * cluster
+    vec = -(-vec // 4) * 4
+    per_sm = 2 if batch * cluster > sms else 1
+    while True:
+        budget = _SMEM_PER_SM // 2 - _SMEM_RESERVED if per_sm == 2 else _SMEM_PER_BLOCK
+        sf = ((budget - _WIDE_BAR_BYTES) // 4 - vec) // _WIDE_WARPS // 4 * 4
+        rows_stage = (sf - 8) // D if sf > 8 else 0
+        if rows_stage >= 1 or per_sm == 1:
+            break
+        per_sm = 1
+    stage_floats = -(-(rows_stage * D + 8) // 4) * 4
+    return dict(cluster=cluster, threads=_WIDE_THREADS, stages=_WIDE_WARPS,
+                stage_floats=stage_floats, stage_bytes=4 * stage_floats, rows_stage=rows_stage,
+                smem_bytes=_WIDE_BAR_BYTES + 4 * (_WIDE_WARPS * stage_floats + vec),
+                blocks_per_sm=per_sm, blocks=batch * cluster, rows_max=rows_max,
+                prow_max=prow_max,
+                row_ranges=[(D * r // cluster, D * (r + 1) // cluster) for r in range(cluster)],
+                device_rows=D, w_bytes_per_iteration=4 * D * D)
+
+
+def admm_chunk_wide_layout_card(n: int, m: int, batch: int, cluster: int = 0, device=None,
+                                lib=None) -> dict:
+    """The same layout as the built kernel reports it on the card (its SM
+    count from ``device``), with ``resident``: the blocks an SM the runtime
+    can hold of the kernel at that shared memory."""
+    from sqp_solver_tpu_torch.ops import _build
+    from sqp_solver_tpu_torch.ops.qp_kernel import _raise_on
+
+    lib = lib or _build.load()
+    sms = torch.cuda.get_device_properties(device or torch.device("cuda")).multi_processor_count
+    out = (ctypes.c_longlong * 10)()
+    _raise_on(lib, int(lib.admm_chunk_wide_layout(n, m, batch, cluster, sms, out)),
+              "admm_chunk_wide_layout")
+    keys = ("cluster", "threads", "stages", "stage_floats", "rows_stage", "smem_bytes",
+            "blocks_per_sm", "resident", "rows_max", "prow_max")
+    return dict(zip(keys, (int(v) for v in out)), sms=sms)

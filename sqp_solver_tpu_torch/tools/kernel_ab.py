@@ -26,12 +26,14 @@ both trees.  Four parts, in order (``--parts`` picks some):
             every kernel of both libraries (``cuobjdump
             --dump-resource-usage``, the numbers the runtime's
             ``cudaFuncGetAttributes`` reports): each kernel the parent has
-            must use the same in the change;
+            must use the same in the change, but those this tree redesigned
+            (``REDESIGNED``), which are listed beside the parent's;
 ``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
             k3, k4, k5, k6, k7) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
-            ``spd_cases`` for K4, ``chunk_cases`` for K5, ``btd_cases``
-            for K6/K7), CUDA events, in turns parent, change, change,
+            ``spd_cases`` for K4, ``chunk_cases`` for K5 and its wide
+            shapes, ``btd_cases`` for K6/K7), CUDA events, in turns
+            parent, change, change,
             parent (K6/K7 also the change in the other block layout);
             with k4, also the host wall of the K4 polish route on the
             one-shot QP cell with each tree's K4 (:func:`polish_route`);
@@ -43,8 +45,9 @@ both trees.  Four parts, in order (``--parts`` picks some):
             shape after a warm-up; thread 0 of each block sums the
             clock64() spans of each phase (``PHASES``), reported in cycles
             per block (under K3's warp layout, those of the block's first
-            problem).  A tree whose source has no marks at all (K5 before
-            they were added) gets no split.
+            problem; for the wide K5 also per iteration).  A tree whose
+            source has no marks at all (K5 before they were added) gets no
+            split.
 
 The last line of the output is one JSON object with every number.
 """
@@ -63,12 +66,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 # the AdmmPhase enum of csrc/admm_core.cuh, in its order
 PHASES = ("gram", "thomas", "atmv", "sweep", "amv", "stats", "total",
-          "chol", "linv", "ltl", "bfgs", "polish", "load", "cert", "iter")
+          "chol", "linv", "ltl", "bfgs", "polish", "load", "cert", "iter",
+          "ring", "dot", "exchange")
 SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
            "k4": "qp_kernel.cu", "k5": "admm_kernel.cu", "k6": "qp_kernel_btd.cu",
            "k7": "qp_kernel_btd.cu"}
-# the kernels that ``bits`` holds equal to the parent's
+# the kernels that ``bits`` holds equal to the parent's (K5 at its narrow
+# shapes: the wide variant sums in another order since its redesign)
 BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
+# kernels of the parent that this tree redesigned: ``regs`` lists them and
+# does not hold them to the parent's registers
+REDESIGNED = ("admm_chunk_wide_kernel",)
 
 
 def _csrc(tree: Path) -> Path:
@@ -158,7 +166,8 @@ def same_bits(a, b) -> bool:
 
 
 def bits(libs: dict, dev) -> list:
-    """K1, K2, K6 and K7 of both trees at their ``chip_smoke.py`` shapes,
+    """K1, K2, K5 (its narrow shapes), K6 and K7 of both trees at their
+    ``chip_smoke.py`` shapes,
     K3 at its ``chip_smoke.py`` shapes (the warp layout) and at two outside
     its warp layout (n > 32 or m > 64), and K4 at n = 32, on the same
     inputs; raises unless every output is equal bit for bit.  Then K4 at
@@ -235,10 +244,12 @@ def regs(libs: dict) -> list:
     rows, differ = [], []
     for name, u in sorted(use["parent"].items()):
         v = use["change"].get(name)
-        if v != u:
+        redesigned = any(k in name for k in REDESIGNED)
+        if v != u and not redesigned:
             differ.append(name)
-        cs.log(f"  {name[:72]}: parent {u}, change {v}{'' if v == u else '  DIFFER'}")
-        rows.append(dict(kernel=name, parent=u, change=v))
+        note = "  redesigned" if redesigned else "" if v == u else "  DIFFER"
+        cs.log(f"  {name[:72]}: parent {u}, change {v}{note}")
+        rows.append(dict(kernel=name, parent=u, change=v, redesigned=redesigned))
     for name in sorted(set(use["change"]) - set(use["parent"])):
         cs.log(f"  {name[:72]}: new in the change, {use['change'][name]}")
         rows.append(dict(kernel=name, change=use["change"][name]))
@@ -389,9 +400,13 @@ def phases(phase_libs: dict, dense: list, btd: list) -> list:
                 continue
             blocks = cs.blocks_of(lib, c["kernel"], c["batch"], c["n"], c.get("m", c["n"]))
             cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
+            per_iter = {k: v / c["seg"] for k, v in cyc.items()
+                        if k in ("ring", "dot", "exchange", "iter")} if c.get("seg") else {}
             cs.log(f"  {c['label']} {who} ({blocks} blocks): cycles per block "
-                   f"{format_split(cyc)}")
-            rows.append(dict(case=c["label"], tree=who, blocks=blocks, cycles_per_block=cyc))
+                   f"{format_split(cyc)}" + ("; per iteration " + ", ".join(
+                       f"{k} {v:.0f}" for k, v in per_iter.items()) if per_iter else ""))
+            rows.append(dict(case=c["label"], tree=who, blocks=blocks, cycles_per_block=cyc,
+                             cycles_per_iteration=per_iter))
     for c in btd:
         for who, lib in phase_libs["qp_kernel_btd.cu"].items():
             per = int(lib.qp_btd_cluster_size(c["n"], c["m"], c["bb"], c["batch"]))
@@ -453,7 +468,7 @@ def main(argv=None) -> int:
     if "k4" in kernels:
         dense += cs.spd_cases(dev)
     if "k5" in kernels:
-        dense += cs.chunk_cases(dev)
+        dense += cs.chunk_cases(dev) + cs.chunk_cases(dev, wide=True)
     btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     result = dict(card=card)

@@ -41,7 +41,11 @@ by device time:
 * qp_diff: ``qp_solve_diff`` forward and backward on the fused tier,
   random QPs B = 1024, n = m = 128;
 * sqp_diff: ``sqp_solve_diff`` forward and backward on the exponential
-  chain, 24 outers on the K1 tier.
+  chain, 24 outers on the K1 tier;
+* fused_wide: leg O of ``chip_smoke.py``, ``qp_solve_batch(impl="fused")``
+  on random QPs n = m = 640 (D = 1280, K5's wide variant), B = 256, drawn
+  on the card: up to 8 K5 launches between the library factorizations;
+  also the device time of K5's launches and of the rest.
 
 Name cells on the command line to trace only those (all by default).
 The last line is one JSON object with the same numbers and the card's
@@ -183,6 +187,13 @@ def _sqp_diff(dev):
     return run
 
 
+def _fused_wide(dev):
+    from sqp_solver_tpu_torch.models.families import random_qp_batch_device
+
+    qp = random_qp_batch_device(torch.Generator(device=dev).manual_seed(640), 256, 640, 640)
+    return lambda: qp_solve_batch(qp, SETTINGS, impl="fused")
+
+
 def _trace(fn) -> dict:
     """Unprofiled wall (min of 3 after a warm-up), then one profiled run:
     device busy time is the sum over CUDA kernel events only (an aten op's
@@ -214,11 +225,13 @@ def _trace(fn) -> dict:
         rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    k5_ms = sum(us for us, _, k in rows if "admm_chunk" in k) / 1e3
     return dict(wall_ms=wall * 1e3, walls_ms=[w * 1e3 for w in walls],
                 wall_profiled_ms=wall_prof * 1e3, device_busy_ms=busy_ms,
                 device_launches=sum(r[1] for r in rows),
                 idle_share=1.0 - busy_ms / (wall * 1e3),
                 idle_share_profiled=1.0 - busy_ms / (wall_prof * 1e3),
+                k5_ms=k5_ms, k5_launches=sum(c for _, c, k in rows if "admm_chunk" in k),
                 top=[dict(name=k[:60], count=c, ms=us / 1e3) for us, c, k in rows[:12]])
 
 
@@ -249,6 +262,7 @@ def main() -> int:
         "exp_chain_k1": lambda: _exp_chain(dev),
         "qp_diff": lambda: _qp_diff(dev),
         "sqp_diff": lambda: _sqp_diff(dev),
+        "fused_wide": lambda: _fused_wide(dev),
     }
     names = sys.argv[1:] or list(makers)
     unknown = set(names) - set(makers)
@@ -259,7 +273,9 @@ def main() -> int:
         print(f"{name}: wall {c['wall_ms']:.3f} ms (min of 3; profiled "
               f"{c['wall_profiled_ms']:.3f}), device busy {c['device_busy_ms']:.3f} ms in "
               f"{c['device_launches']} kernels, idle share {c['idle_share']:.3f} of the "
-              f"unprofiled wall ({c['idle_share_profiled']:.3f} of the profiled) [{card}]")
+              f"unprofiled wall ({c['idle_share_profiled']:.3f} of the profiled); K5 "
+              f"{c['k5_ms']:.3f} ms in {c['k5_launches']} launches, the rest "
+              f"{c['device_busy_ms'] - c['k5_ms']:.3f} ms [{card}]")
         for t in c["top"]:
             print(f"    {t['ms']:8.3f} ms  x{t['count']:<4d} {t['name']}")
     print(json.dumps(dict(cells=cells, card=card)))

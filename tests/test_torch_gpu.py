@@ -609,24 +609,35 @@ CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "
 
 
 @pytest.mark.parametrize(
-    "batch,n,m,seg",
-    [(256, 32, 33, 10), (256, 32, 33, 25), (256, 16, 32, 25), (64, 128, 129, 10),
-     (8, 400, 401, 5), (33, 17, 20, 7), (17, 32, 33, 0), (17, 32, 33, 1), (9, 128, 129, 1),
-     (12, 100, 180, 3), (6, 500, 600, 5), (2, 1024, 1024, 3)],
+    "batch,n,m,seg,nan_w",
+    [(256, 32, 33, 10, False), (256, 32, 33, 25, False), (256, 16, 32, 25, False),
+     (64, 128, 129, 10, False), (8, 400, 401, 5, False), (33, 17, 20, 7, False),
+     (17, 32, 33, 0, False), (17, 32, 33, 1, False), (9, 128, 129, 1, False),
+     (12, 100, 180, 3, False), (6, 500, 600, 5, False), (2, 1024, 1024, 3, False),
+     (5, 513, 600, 4, False), (3, 600, 620, 5, False), (5, 700, 500, 0, False),
+     (5, 700, 500, 1, False), (4, 513, 600, 3, True)],
     ids=["D65-seg10", "D65-seg25", "D48", "D257-rows-in-registers", "D801", "D37-odd-batch",
-         "seg0", "seg1", "D257-seg1", "D280-rows-in-registers", "D1100-two-rows-a-thread",
-         "D2048"],
+         "seg0", "seg1", "D257-seg1", "D280-rows-in-registers", "D1100-wide",
+         "D2048", "D1113-odd-wide", "D1220-B3-cluster8", "D1200-seg0", "D1200-seg1",
+         "D1113-nan-W"],
 )
-def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
+def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg, nan_w):
     """One chunk, float32 kernel against float32 plain version at 1e-4.
     At D = 257 and 280 part of W does not fit in shared memory and is held
     in registers; at D = 801 the rest is read from device memory.  At an
-    odd D no problem's W starts 16-byte aligned (4-byte copies).  Past
-    D = 1024 (1100, 2048) the wide variant, two rows a thread."""
+    odd D no problem's W after the first starts 16-byte aligned (4-byte
+    copies in the narrow kernel; in the wide one bulk copies of the aligned
+    window and the head or tail at W's ends by one thread).  Past D = 1024
+    the wide variant: W streamed through the ring, a cluster of blocks a
+    problem (B = 3: clusters of 8).  With ``nan_w`` one problem's W holds
+    a NaN (a failed factor): its outputs are NaN where the plain version's
+    are, the other problems' are unaffected."""
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
     from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 
     t = _to(admm_chunk_inputs(batch, n, m, seed=n + seg), cuda)
+    if nan_w:
+        t["W"][1, 7, 11] = float("nan")
     args = [t[k] for k in CHUNK_ARGS]
     before = ak.admm_chunk_launches
     ok = ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg)
@@ -634,7 +645,12 @@ def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
     torch.cuda.synchronize()
     assert ak.admm_chunk_launches == before + 1
     for name, a, b in zip(("s", "yp", "stats"), ok, ref):
-        torch.testing.assert_close(a, b, **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+        torch.testing.assert_close(a, b, **TOL, equal_nan=nan_w,
+                                   msg=lambda msg, name=name: f"{name}: {msg}")
+    if nan_w:
+        assert bool(ok[0][1].isnan().any()) and bool(ok[2][1].isnan().all())
+        others = [i for i in range(batch) if i != 1]
+        assert all(bool(torch.isfinite(x[others]).all()) for x in ok)
     lay = ak.admm_chunk_layout(n, m)
     assert lay["smem_rows"] == ak.admm_chunk_smem_rows(n, m)
     assert lay["smem_rows"] + lay["register_rows"] + lay["device_rows"] == n + m
@@ -643,6 +659,70 @@ def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg):
         assert (lay["register_rows"] > 0) == (n + m in (257, 280))
     else:
         assert lay["register_rows"] == 0 and lay["device_rows"] > 0
+    if n + m > 1024:  # every row of W streams from device memory every iteration
+        assert lay["device_rows"] == n + m
+        _assert_wide_layout(ak, n, m, batch, cuda)
+
+
+def _assert_wide_layout(ak, n, m, batch, cuda, cluster=0):
+    """The wide layout the kernel reports equals its Python mirror: the
+    cluster, the stages (one a consumer warp) of whole rows of W, shared
+    memory a block within 227 KB, and the runtime holding the blocks an SM
+    that the layout counts on."""
+    card = ak.admm_chunk_wide_layout_card(n, m, batch, cluster, device=cuda)
+    mirror = ak.admm_chunk_wide_layout(n, m, batch, cluster, sms=card["sms"])
+    for key in ("cluster", "threads", "stages", "stage_floats", "rows_stage", "smem_bytes",
+                "blocks_per_sm", "rows_max", "prow_max"):
+        assert card[key] == mirror[key], key
+    assert card["stages"] == 8 and card["rows_stage"] >= 1
+    assert mirror["stage_bytes"] >= 4 * (card["rows_stage"] * (n + m) + 6)
+    assert card["smem_bytes"] <= 232448
+    assert card["resident"] >= card["blocks_per_sm"]
+    if cluster == 0:
+        c = card["cluster"]
+        assert (batch * c <= card["sms"] or c == 1) and (c == 8 or 2 * batch * c > card["sms"])
+
+
+def test_admm_chunk_wide_unaligned_operands_match_plain(cuda):
+    """W, P and A as views that start one float into their storage (16-byte
+    unaligned, as a sliced tensor is): the wide variant's bulk copies keep
+    inside each operand and copy the head and tail at its ends with plain
+    loads, and the outputs equal the plain version's."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    t = _to(admm_chunk_inputs(3, 520, 511, seed=5), cuda)
+    for key in ("W", "P", "A"):
+        flat = torch.empty(t[key].numel() + 1, device=cuda)
+        view = flat[1:].view(t[key].shape)
+        view.copy_(t[key])
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        t[key] = view
+    args = [t[k] for k in CHUNK_ARGS]
+    ok = ak.admm_chunk_kernel(*args, alpha=1.6, seg=4)
+    ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=4)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("s", "yp", "stats"), ok, ref):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_admm_chunk_wide_clusters_match_plain(cuda, cluster):
+    """Each cluster size the wide variant takes, forced, against the plain
+    version at an odd D (rows split unevenly over the blocks, A and P rows
+    over up to eight blocks, every problem's W but the first unaligned)."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    batch, n, m, seg = 3, 517, 531, 3
+    t = _to(admm_chunk_inputs(batch, n, m, seed=cluster), cuda)
+    args = [t[k] for k in CHUNK_ARGS]
+    ok = ak._admm_chunk_launch(*args, alpha=1.6, seg=seg, cluster=cluster)
+    ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=seg)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("s", "yp", "stats"), ok, ref):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+    _assert_wide_layout(ak, n, m, batch, cuda, cluster)
 
 
 def test_admm_chunk_wrappers(cuda):
@@ -664,7 +744,27 @@ def test_admm_chunk_wrappers(cuda):
         ak.admm_chunk_kernel(*args[:-1], args[-1].cpu(), alpha=1.6, seg=3)
     with pytest.raises(ValueError):
         ak.admm_chunk_kernel(args[0].mT, *args[1:], alpha=1.6, seg=3)
-    # D = 2049: past the wide variant's two rows a thread, refused unlaunched
+    # a cluster is the wide variant's, of 1, 2, 4 or 8 blocks: refused
+    # unlaunched, and the C entry refuses what the wrapper would not pass
+    with pytest.raises(ValueError, match="cluster"):
+        ak._admm_chunk_launch(*args, alpha=1.6, seg=3, cluster=2)
+    assert ak.admm_chunk_launches == before + 1
+    from sqp_solver_tpu_torch.ops import _build
+    from sqp_solver_tpu_torch.ops.qp_kernel import _ptr
+
+    lib = _build.load()
+    w = _to(admm_chunk_inputs(1, 600, 500, seed=2), cuda)
+    wargs = [w[k] for k in CHUNK_ARGS]
+    outs = [torch.empty_like(wargs[-2]), torch.empty_like(wargs[-1]),
+            torch.empty((1, 4), device=cuda)]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    import ctypes
+
+    for bad in (3, 16):
+        rc = lib.admm_chunk_launch_as(bad, *map(_ptr, wargs + outs), 1, 600, 500, 1.6, -0.6, 3,
+                                      cuda.index or 0, ctypes.c_void_p(stream))
+        assert rc != 0
+    # D = 2049: past the wide variant's limit, refused unlaunched
     n, m = 1024, 1025
     big = [torch.zeros((1, n + m, n + m), device=cuda), torch.zeros((1, n, n), device=cuda),
            torch.zeros((1, m, n), device=cuda)] + [torch.zeros((1, n + m), device=cuda)] * 8
