@@ -1353,14 +1353,15 @@ def btd_bounds(out, c: dict) -> dict:
 
 def aa_flops(out, settings, n: int, m: int, stats_flops: float) -> float:
     """The Anderson step's work over the chunks ``out`` ran (0 without it):
-    a chunk's second residual evaluation (``stats_flops``), the k (k + 1) / 2
-    + k dot products of the Gram and right-hand side over D = n + 2 m and
-    the candidate's k scaled differences (admm_core.cuh:aa_chunk_end)."""
+    a chunk's second residual evaluation (``stats_flops``), the 2 k dot
+    products over D = n + 2 m of the kept Gram's new row and the
+    right-hand side, and the candidate's k scaled differences
+    (admm_core.cuh:aa_chunk_end)."""
     if settings.acceleration != "anderson":
         return 0.0
     k, D = settings.anderson_memory, n + 2 * m
     chunks = float(out.iter.double().sum()) / max(1, settings.check_termination)
-    return chunks * (stats_flops + (k * (k + 1) // 2 + k) * 2 * D + 2 * k * D)
+    return chunks * (stats_flops + 2 * k * 2 * D + 2 * k * D)
 
 
 def btd_raw(fn, t, settings, **kw):
@@ -1399,22 +1400,22 @@ def btd_random_case(batch: int, T: int, bb: int, m: int, dev) -> dict:
                 check_infeas=True, n=T * bb, m=m, bb=bb, batch=batch)
 
 
-def btd_mpc_case(batch: int, dev) -> dict:
-    """The stage-wise MPC family at horizon 64 (n = 192, m = 320) in the
-    structured MPC cell's settings, cold-started."""
+def btd_mpc_case(batch: int, dev, horizon: int = 64) -> dict:
+    """The stage-wise MPC family at ``horizon`` (64: n = 192, m = 320) in
+    the structured MPC cell's settings, cold-started."""
     import torch
 
     from sqp_solver_tpu_torch.models.mpc import mpc_qp_stagewise_batch
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
-    qp, b = mpc_qp_stagewise_batch(batch, horizon=64, seed=batch, device=dev)
+    qp, b = mpc_qp_stagewise_batch(batch, horizon=horizon, seed=batch, device=dev)
     bb = qb.btd_internal_block(b)
     pd, pe = qb.extract_band(qp.P, bb)
     n, m = qp.q.shape[-1], qp.l.shape[-1]
     t = dict(pd=pd, pe=pe, J=qp.A, g=qp.q, l=qp.l, u=qp.u,
              x=torch.zeros((batch, n), device=dev), z=torch.zeros((batch, m), device=dev),
              y=torch.zeros((batch, m), device=dev))
-    return dict(label=f"K6 MPC horizon 64 B={batch}", family="mpc", t=t,
+    return dict(label=f"K6 MPC horizon {horizon} B={batch}", family="mpc", t=t,
                 settings=btd_qp_settings(), check_infeas=True, n=n, m=m, bb=bb, batch=batch)
 
 
@@ -2258,10 +2259,10 @@ def run_main_path(configs, dev, card: str, qp_impl: str = "kernel", impl: str = 
 # ---- G. Anderson acceleration inside the whole-solve kernels ---------------
 
 
-def aa_settings(s):
+def aa_settings(s, memory: int = 4):
     import dataclasses
 
-    return dataclasses.replace(s, acceleration="anderson")
+    return dataclasses.replace(s, acceleration="anderson", anderson_memory=memory)
 
 
 def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
@@ -2358,6 +2359,45 @@ def compare_aa(label: str, t32, launch, plain, s, bound_of, reps: int, x: str = 
                 iter_changed=changed, two_pair_share=deep)
 
 
+def aa_report(dev, phase_libs: dict, card: str) -> list:
+    """Leg G's Anderson kernels (``aa_cases``): where each keeps the step's
+    state (its Gram always in shared memory; its ring in shared memory or
+    the device workspace), the blocks an SM of the kernel with Anderson and
+    of the kernel without it (the runtime's occupancy at each one's shared
+    memory), held against the rule's Python mirror
+    (``ops/qp_kernel.py:anderson_placement``); and the step's split a chunk
+    from the phase-clock builds (``tools/kernel_ab.py:aa_split``)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.tools.kernel_ab import AA_PHASES, SOURCES, aa_split
+
+    rows = []
+    for c in aa_cases(dev):
+        kw = dict(bb=c.get("bb"), cluster=c.get("cluster"))
+        on_card = qk.anderson_placement_card(c["placement"], c["n"], c["m"], c["memory"], **kw)
+        mirror = qk.anderson_placement(c["placement"], c["n"], c["m"], c["memory"],
+                                       twin_blocks=on_card.get("twin_blocks"), **kw)
+        differ = [k for k in mirror if k in on_card and mirror[k] != on_card[k]]
+        if differ:
+            raise AssertionError(f"{c['label']}: the launcher's placement {on_card} differs from "
+                                 f"the rule's mirror {mirror} in {differ}")
+        if on_card["ring"] and on_card["blocks"] < on_card["twin_blocks"]:
+            raise AssertionError(f"{c['label']}: the ring on chip leaves {on_card['blocks']} "
+                                 f"blocks an SM, the kernel without Anderson "
+                                 f"{on_card['twin_blocks']}")
+        split = aa_split(phase_libs[SOURCES[c["kernel"]]], c)
+        per = split["cycles_per_chunk"]
+        blocks = (f"blocks an SM {on_card['blocks']} with Anderson, {on_card['twin_blocks']} "
+                  f"without ({on_card['smem_bytes']} / {on_card['twin_smem_bytes']} bytes of "
+                  "shared memory a block)" if "blocks" in on_card else
+                  f"{on_card['smem_bytes']} bytes of shared memory a block")
+        log(f"  {c['label']}: ring {'on chip' if on_card['ring'] else 'in the workspace'}, Gram "
+            f"on chip; {blocks}; the step {split['step_per_chunk']:.0f} cycles a chunk a block ("
+            + ", ".join(f"{p[2:]} {per[p]:.0f}" for p in AA_PHASES)
+            + f"), the plain stats {per['stats']:.0f}, over {split['chunks']:.1f} chunks [{card}]")
+        rows.append(dict(case=c["label"], placement=on_card, mirror=mirror, **split))
+    return rows
+
+
 def run_aa_pair(label: str, card: str, make, solve, settings, want: dict, metrics,
                 fewer: bool = False) -> dict:
     """An entry point with ``acceleration="none"`` and with Anderson:
@@ -2409,6 +2449,104 @@ def aa_qp_metrics(qp, res, s) -> dict:
                              "OSQP test")
     return dict(solved=float(solved.mean()), f64=float(ok.mean()),
                 mean_iter=float(res.info.iter.float().mean()))
+
+
+def k3_aa_settings():
+    """bench.py:1387-1396's Anderson settings (memory 4) of K3's leg G row."""
+    from sqp_solver_tpu_torch.qp.types import QPSettings
+
+    return QPSettings(alpha=1.6, eps_abs=1e-6, eps_rel=1e-6, max_iter=2000,
+                      check_termination=25, schedule="fixed")
+
+
+def k1_aa_settings():
+    """K1's leg G row: the main path's inner QP run to 200 iterations at
+    1e-5 (at 50 iterations and 1e-4 most stop at max_iter, before Anderson
+    has pairs to work with)."""
+    import dataclasses
+
+    return dataclasses.replace(main_qp_settings(), eps_abs=1e-5, eps_rel=1e-5, max_iter=200)
+
+
+def aa_cases(dev) -> list:
+    """Leg G's Anderson launches (memory 4), each with a launcher that takes
+    a kernel library, for ``tools/kernel_ab.py`` and leg G's split and
+    placement: K1 n = 32, B = 4096; K3 random n = 32, m = 33, B = 4096 in its
+    warp layout (the rule's) and its block layout; K6 on the structured MPC
+    horizon 64, B = 256 and K7 on the NLP step horizon 32, B = 64, each at
+    its cell's settings and on a cluster with chunks of 10; K6 on the MPC
+    at horizon 32, B = 4096, one block a problem, chunks of 10 (where the
+    kernel without Anderson gets two blocks an SM, so the Anderson kernel's
+    registers are capped: csrc/qp_kernel_btd.cu:btd_aa_kernel); the wide K6
+    on random bands at bb = 64 and the wide K7 at the NLP's block-64 shape,
+    chunks of 10; then K1 and the K6 cluster with chunks of 10 at memory 8,
+    past the pairs one reduction takes (kAaSlots).  Each case names its
+    kernel (``kernel``: the A/B tool's key; ``placement``:
+    ``ops/qp_kernel.py:anderson_placement``'s), its memory, its thread
+    blocks, its chunk length and its shape, and ``launch_none``: the same
+    launch without Anderson."""
+    import dataclasses
+
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    cases = []
+    s1 = k1_aa_settings()
+    t = step_operands(4096, 32, dev)
+
+    def k1(lib, st, t=t):
+        return step_call(qk._sqp_step_launch, t, st, lib=lib)
+
+    k1_case = dict(label="K1 Anderson n=32 B=4096", kernel="k1aa", placement="K1", memory=4,
+                   n=32, m=33, batch=4096, blocks=4096, seg=s1.check_termination, reps=10,
+                   launch=lambda lib, k=4: k1(lib, aa_settings(s1, k)),
+                   launch_none=lambda lib: k1(lib, s1))
+    cases.append(k1_case)
+    s3 = k3_aa_settings()
+    t = qp_operands("random", 4096, 32, dev)
+    for layout in ("warp", "block"):
+        def k3(lib, st, t=t, layout=layout):
+            return qp_raw(lambda *a: qk._qp_solve_launch(*a, lib=lib, layout=layout), t, st)
+
+        cases.append(dict(
+            label=f"K3 Anderson random n=32 m=33 B=4096 ({layout} layout)", kernel="k3aa",
+            placement=f"K3-{layout}", memory=4, n=32, m=33, batch=4096,
+            blocks=2048 if layout == "warp" else 4096, seg=s3.check_termination, reps=5,
+            launch=lambda lib, k3=k3: k3(lib, aa_settings(s3)),
+            launch_none=lambda lib, k3=k3: k3(lib, s3)))
+    runs = [(c, key, label, st, cl)
+            for c, key in ((btd_mpc_case(256, dev), "k6aa"), (btd_step_case(32, 64, dev), "k7aa"))
+            for label, st, cl in (("the cell's settings", c["settings"], None),
+                                  ("cluster, chunks of 10", aa_pair_settings(c["settings"]), 2))]
+    c = btd_mpc_case(4096, dev, horizon=32)
+    runs.append((c, "k6aa", "one block a problem, chunks of 10", aa_pair_settings(c["settings"]),
+                 1))
+    for c, key, label, st, cl in runs:
+        def btd(lib, st, c=c, cl=cl):
+            return btd_launch(c["t"], st, c["check_infeas"], cluster=cl, lib=lib)
+
+        cases.append(dict(
+            label=f"{c['label']} Anderson, {label}", kernel=key, placement=key[:2].upper(),
+            memory=4, n=c["n"], m=c["m"], bb=c["bb"], batch=c["batch"], cluster=cl or 2,
+            blocks=(cl or 2) * c["batch"], seg=st.check_termination, reps=5,
+            launch=lambda lib, k=4, btd=btd, st=st: btd(lib, aa_settings(st, k)),
+            launch_none=lambda lib, btd=btd, st=st: btd(lib, st)))
+    for c in (btd_random_case(256, 4, 64, 384, dev), btd_wide_step_case(64, 2, 64, 224, dev)):
+        st = dataclasses.replace(c["settings"], check_termination=10)
+
+        def wide(lib, st, c=c):
+            return btd_launch(c["t"], st, c["check_infeas"], lib=lib)
+
+        cases.append(dict(
+            label=f"{c['label']} bb=64 Anderson, chunks of 10", kernel="k6waa",
+            placement="wide", memory=4, n=c["n"], m=c["m"], bb=64, batch=c["batch"], cluster=2,
+            blocks=2 * c["batch"], seg=10, reps=3,
+            launch=lambda lib, wide=wide, st=st: wide(lib, aa_settings(st)),
+            launch_none=lambda lib, wide=wide, st=st: wide(lib, st)))
+    k6_case = next(c for c in cases if c["kernel"] == "k6aa" and "chunks of 10" in c["label"])
+    for c in (k1_case, k6_case):
+        cases.append(dict(c, label=f"{c['label']}, memory 8", memory=8,
+                          launch=lambda lib, c=c: c["launch"](lib, 8)))
+    return cases
 
 
 def aa_pair_settings(s):
@@ -3108,17 +3246,22 @@ def main() -> int:
 
     from sqp_solver_tpu_torch.tools import kernel_ab
 
-    phase_sources = ("qp_kernel.cu", "admm_kernel.cu", "qp_kernel_btd_wide.cu")
+    # the Anderson units with the units they include: K1-K4, the structured
+    # kernel and the wide one with and without Anderson in one library each
+    phase_sources = ("qp_kernel_aa.cu", "admm_kernel.cu", "qp_kernel_btd_aa.cu",
+                     "qp_kernel_btd_wide_aa.cu")
     with ThreadPoolExecutor(len(phase_sources)) as pool:  # with phase clocks, meanwhile
         phase_builds = {src: pool.submit(kernel_ab.phase_library, kernel_ab.ROOT,
                                          f"smoke-{src.split('.')[0]}", src)
                         for src in phase_sources}
         _build.load()
         phase_libs = {src: f.result() for src, f in phase_builds.items()}
+    phase_libs.update({kernel_ab.TWINS[src]: phase_libs[src] for src in phase_sources
+                       if src in kernel_ab.TWINS})
     units = ", ".join(f"{k} {v:.1f} s" for k, v in _build.last_unit_seconds.items())
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s: "
         f"{units}) into {_build.build_dir()}, with the phase-clock builds of K1-K5 and the "
-        "wide K6/K7")
+        "wide K6/K7, each with its Anderson instantiations")
 
     # 3. each kernel against its plain version at its paths' shapes
     log("kernels against their plain versions (float32, atol = rtol = 1e-4; with rho epochs "
@@ -3229,6 +3372,9 @@ def main() -> int:
     log("G. Anderson acceleration inside the whole-solve kernels (K3, K1, K6, K7), each "
         "beside the same call without it:")
     aa_run = run_anderson(dev, card, main_run)
+    log("G. the Anderson step's placement and split a chunk (the phase-clock builds of the "
+        "Anderson units):")
+    aa_run["placement"] = aa_report(dev, phase_libs, card)
     leg_s["G"] = time.perf_counter() - t_leg
     t_leg = time.perf_counter()
     log("H. the linear-solver backends at the JAX bench's shapes:")

@@ -48,12 +48,16 @@ constexpr float kLooseThresh = 1e16f;
 // iterations ("iter") and its stats, and its wide variant also thread 0's
 // waits on the ring of W ("ring"), its dot products ("dot") and the
 // update with the cluster's exchange ("exchange"), summed over the
-// iterations (phase_add).
+// iterations (phase_add).  The Anderson step (aa_chunk_end) marks its
+// parts apart from the chunk-end stats: the ring's update ("aaring"), the
+// dot products' reductions ("aadot"), the k x k solve ("aasolve"), the
+// candidate with its stats ("aacand") and the revert ("aarevert").
 #ifdef ADMM_PHASE_CLOCKS
 enum AdmmPhase {
   kPhGram, kPhThomas, kPhAtmv, kPhSweep, kPhAmv, kPhStats, kPhTotal,
   kPhChol, kPhLinv, kPhLtl, kPhBfgs, kPhPolish, kPhLoad, kPhCert, kPhIter,
-  kPhRing, kPhDot, kPhExchange, kNumPhases
+  kPhRing, kPhDot, kPhExchange, kPhAaRing, kPhAaDot, kPhAaSolve, kPhAaCand, kPhAaRevert,
+  kNumPhases
 };
 // The sums are spread over kPhaseSlots copies (by block), so that the
 // stamps of thousands of blocks do not queue on one address.
@@ -366,12 +370,19 @@ struct StepParams {
   long long ws_floats;   // per-problem workspace for the others
 };
 
-// The Anderson instantiations' extra kernel argument: the memory k (pairs
-// kept) and the state, aa_floats(k, n, m) floats a scope (the kernels
-// without Anderson keep their parameters as they were).
+// The Anderson instantiations' extra kernel argument (the kernels without
+// Anderson keep their parameters as they were): the memory k (pairs kept),
+// the workspace of aa_floats(k, n, m) floats a scope, and where each
+// scope's shared-memory area (its Gram, aa_gram_floats, then its ring where
+// ring_sm, else the ring is in the workspace) starts in the block's dynamic
+// shared memory: at sm_off floats, sm_stride floats a scope (a block of
+// several problems).
 struct AaArgs {
   int k;
   float* ws;
+  long long sm_off;
+  int sm_stride;
+  int ring_sm;
 };
 
 // Matrix placement: the first n_smem of the sizes go to shared memory after
@@ -499,21 +510,66 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
 // Safeguarded type-II Anderson on the chunk map of one scope's iterate,
 // packed as u = (x, z, y), D = n + 2 m entries (m the scope's rows: a
 // block of a K6/K7 cluster holds all of x and its own rows of z and y).
-// The state lives in a device workspace, one slice a scope:
-//   dU, dF   k x D each: the difference pairs, a ring whose slot head holds
-//            the oldest pair (logical index i sits in slot (head + i) % k,
+// The state of one scope, read and written once a chunk, after the
+// chunk's seg iterations:
+//   in shared memory (aa_gram_floats(k) floats, always):
+//     Gk     k x k: the Gram of the pairs' dF by ring slot, kept from chunk
+//            to chunk: a chunk computes only the row of the pair it pushes
+//            (a pair's dot products do not change while it is held; a rho
+//            change empties the ring and with it the kept entries)
+//     Ga     k x (k + 1): the chunk's normal equations [G + reg | rhs] in
+//            the ring's logical order, solved in place (aa_solve)
+//   the ring (aa_ring_floats(k, n, m) floats), in shared memory where the
+//   launcher's rule puts it (the kernels' aa_*_placement), else at the
+//   head of the scope's slice of the device workspace:
+//     dU, dF k x D each: the difference pairs, a ring whose slot head holds
+//            the oldest pair (logical index i sits in slot head + i mod k,
 //            so the newest pairs are at the end, as on the TPU)
-//   uT, f    D each: the previous chunk's output and its step u_T - u_in
-//   u0, ua   D each: the chunk-start iterate, the plain output while the
+//     uT, f  D each: the previous chunk's output and its step u_T - u_in
+//     u0, ua D each: the chunk-start iterate, the plain output while the
 //            candidate is evaluated
-//   G, gam   k x k and k: the normal equations and their solution
-// It is read and written once a chunk, after the chunk's seg iterations.
 // The ring's indices (AaRing) are the same in every thread of the scope:
 // each thread keeps them in registers and updates them alike.
-constexpr int kAaGroup = 4;  // dot products reduced at once
+constexpr int kAaGroup = kRedSlots / 32;  // dot products reduced at once
+constexpr int kAaSlots = kAaGroup / 2;    // pairs a group: their Gram entry and rhs
+// The bound on k of the on-chip Gram: the solve puts a row on a lane of
+// one warp.  A launch with a larger memory is refused (the wrappers raise
+// a ValueError naming it).
+constexpr int kAaMaxMemory = 32;
 
 __host__ __device__ constexpr long long aa_floats(int k, int n, int m) {
   return (2LL * k + 4) * (n + 2LL * m) + (long long)k * k + k;
+}
+__host__ __device__ constexpr long long aa_ring_floats(int k, int n, int m) {
+  return (2LL * k + 4) * (n + 2LL * m);
+}
+__host__ __device__ constexpr int aa_gram_floats(int k) { return round4(k * k + k * (k + 1)); }
+
+// Blocks an SM that shared memory allows at smem_bytes a block on sm_90
+// (228 KB an SM, 1 KB reserved a block): the placement rules keep the ring
+// off chip where it would lower this below the kernel without Anderson.
+constexpr long long kAaSmemPerSm = 233472;
+constexpr long long kAaSmemReserved = 1024;
+__host__ __device__ constexpr int smem_blocks_per_sm(long long smem_bytes) {
+  return (int)(kAaSmemPerSm / (smem_bytes + kAaSmemReserved));
+}
+
+// One scope's Anderson state: the ring (in shared memory or the
+// workspace) and the Gram area (in shared memory).
+struct AaState {
+  float* ring;
+  float* gram;
+  int k;
+};
+
+// The state of scope `scope` of this block (K3's warp layout: its warp)
+// from the launch's AaArgs; smem is the block's dynamic shared memory,
+// slice the scope's slice of the workspace and m the rows it is sized for.
+__device__ __forceinline__ AaState aa_state(const AaArgs& a, float* smem, int scope, size_t slice,
+                                            int n, int m) {
+  float* g = smem + a.sm_off + (size_t)scope * a.sm_stride;
+  float* r = a.ring_sm ? g + aa_gram_floats(a.k) : a.ws + slice * aa_floats(a.k, n, m);
+  return AaState{r, g, a.k};
 }
 
 // prev_ok: the previous chunk's output is in uT and f; pairs: the pairs
@@ -536,16 +592,53 @@ __device__ __forceinline__ void aa_begin(float* aa, int k, int n, int m, const f
     u0[e] = e < n ? x[e] : (e < n + m ? z[e - n] : y[e - n - m]);
 }
 
-// Dot product t of the step's list: the Gram's upper triangle over the
-// logical indices [lo, k) (t < npair), then the right-hand side (b = -1).
-__device__ __forceinline__ void aa_pair(int t, int lo, int k, int npair, int& a, int& b) {
-  if (t < npair) {
-    a = lo;
-    while (t >= k - a) t -= k - a++;
-    b = a + t;
-  } else {
-    a = lo + t - npair;
-    b = -1;
+// The slot of the logical index after the one in slot s (s < k).
+__device__ __forceinline__ int aa_next(int s, int k) { return s + 1 == k ? 0 : s + 1; }
+
+// The normal equations of a chunk, by one warp (lane: its lane): Ga gets
+// the kept Gram Gk in the logical order (slot s_lo holds logical index
+// lo), the Levenberg term 1e-8 (trace G + 1) on the diagonal and 1 on the
+// unused rows (whose right-hand side is 0, so their gamma is 0), then
+// Gauss-Jordan on [G | rhs] with a row a lane.  The pivot row i is scaled
+// after the other rows' updates, which each lane computes from row i times
+// 1 / G_ii as the serial elimination stores it, so that every value has
+// the bits of the serial loop (the JAX kernel's statically unrolled
+// elimination, qp/anderson.py:gauss_jordan).  The valid rows' right-hand
+// side is in Ga's last column on entry; gamma is there on exit.
+__device__ __noinline__ void aa_solve(const float* Gk, float* Ga, int k, int lo, int s_lo,
+                                      int lane) {
+  const int k1 = k + 1;
+  float tr = 0.f;
+  for (int a = lo, s = s_lo; a < k; ++a, s = aa_next(s, k)) tr += Gk[s * k + s];
+  const float reg = 1e-8f * (tr + 1.f);
+  for (int r = lane; r < k; r += 32) {
+    float* row = Ga + r * k1;
+    int sr = s_lo + r - lo;
+    sr = sr >= k ? sr - k : sr;
+    for (int b = 0, sb = s_lo; b < k; ++b) {
+      float g = 0.f;
+      if (r >= lo && b >= lo) {
+        g = Gk[sr * k + sb];
+        sb = aa_next(sb, k);
+      }
+      if (b == r) g += reg + (r < lo ? 1.f : 0.f);
+      row[b] = g;
+    }
+    if (r < lo) row[k] = 0.f;
+  }
+  __syncwarp();
+  for (int i = 0; i < k; ++i) {
+    const float* pr = Ga + i * k1;
+    const float inv = 1.f / pr[i];
+    for (int r = lane; r < k; r += 32) {
+      if (r == i) continue;
+      float* row = Ga + r * k1;
+      const float fac = row[i];
+      for (int b = 0; b < k1; ++b) row[b] = fmaf(-fac, pr[b] * inv, row[b]);
+    }
+    __syncwarp();  // every lane has read row i
+    for (int b = lane; b < k1; b += 32) Ga[i * k1 + b] *= inv;
+    __syncwarp();
   }
 }
 
@@ -560,113 +653,125 @@ struct AaStats {
 // iterate on exit, the candidate u_T - sum_i gamma_i dU_i (z clipped to
 // [l, u]) where it has pairs, a finite combined residual rp / (mz + 1e-30)
 // + rd / (mq + 1e-30) below the plain one and does not undo termination,
-// else u_T.  The Gram and right-hand side are k (k + 1) / 2 + k dot
-// products over D, reduced through op_sum kAaGroup at a time (a cluster's
-// blocks take x's entries of op_cols and their own rows); the scope's
-// first thread solves the k x k system by Gauss-Jordan in the workspace,
-// and every thread reads the one gamma, so the candidate and the accept
-// are the same in every thread of the scope.  It takes the operator by
-// value and stays out of line with its loops kept rolled, so that the
-// iterations around it keep their register allocation.
+// else u_T.  One pass over the scope's entries updates the
+// ring and adds each thread's terms of the chunk's 2 x pairs dot products:
+// the pushed pair's row of the Gram (dF_push . dF_i) and the right-hand
+// side (dF_i . f), from one read of each dF_i, each summed over the same
+// entries by the same threads in the same order as every earlier chunk's
+// (so the kept entries are the ones a fresh Gram would have, bit for bit);
+// one op_sum reduces those of kAaSlots pairs (a cluster's blocks take x's
+// entries of op_cols and their own rows).  The chunk's stats stay in the
+// caller, whose loops keep their registers: fused into this out-of-line
+// step's reduction under the kernels' register caps, they ran slower
+// (K1 n = 32, K6 horizon 64 on an H100).  Rank 0 keeps the reduced values
+// in shared memory and warp 0 solves there (aa_solve), then a sync; every
+// thread reads the one gamma, so the candidate and the accept are the same
+// in every thread of the scope.  (A solve in registers by every warp, with
+// no barrier, at k <= kAaSlots ran no faster end to end: K1 n = 32, K3 and
+// K6/K7 at memory 4 on an H100.)  The candidate and the saved plain output
+// are one pass; the candidate's stats are the step's floor.  It takes the operator by value and stays out of line with its
+// loops kept rolled, so that the iterations around it keep their register
+// allocation.
 template <class Op>
 __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
                                              float eps_rel, AaStats sp, const float* q,
                                              const float* l, const float* u, float* x, float* z,
                                              float* y, float* tm, float* tn1, float* tn2,
-                                             float* red, float* aa) {
+                                             float* red, float* aa, float* ag) {
   using S = typename OpScope<Op>::type;
-  const int D = n + 2 * m;
+  const int D = n + 2 * m, k1 = k + 1;
   float* dU = aa;
   float* dF = dU + (size_t)k * D;
   float* uTp = dF + (size_t)k * D;
   float* fp = uTp + D;
   float* u0 = fp + D;
   float* ua = u0 + D;
-  float* G = ua + D;
-  float* gam = G + k * k;
+  float* Gk = ag;
+  float* Ga = ag + k * k;
   const bool prev_ok = sp.ring.prev_ok != 0;
   int pairs = sp.ring.pairs, head = sp.ring.head;
   const int push = head;  // the oldest slot takes the newest pair
   if (prev_ok) {
     pairs = min(pairs + 1, k);
-    head = head + 1 == k ? 0 : head + 1;
+    head = aa_next(head, k);
   }
+  const int lo = k - pairs;
+  const int s_lo = head + lo >= k ? head + lo - k : head + lo;  // logical lo's slot
   auto cur = [&](int e) -> float& { return e < n ? x[e] : (e < n + m ? z[e - n] : y[e - n - m]); };
+  int j0, j1;
+  op_cols(op, n, j0, j1);
+  float v[kAaGroup];  // the group's dot products
+  ADMM_PHASE_BEGIN(kPhAaRing);
+  // kAaSlots pairs a group, two dot products each: the pushed pair's entry
+  // of the Gram dF_push . dF_s and the right-hand side's dF_s . f, from one
+  // read of dF_s; the group's slots' offsets worked out once, in registers
 #pragma unroll 1
-  for (int e = S::rank(); e < D; e += S::size()) {
-    const float uT = cur(e), f = uT - u0[e];
-    if (prev_ok) {
-      dU[(size_t)push * D + e] = uT - uTp[e];
-      dF[(size_t)push * D + e] = f - fp[e];
+  for (int a0 = 0; a0 == 0 || a0 < pairs; a0 += kAaSlots) {
+    int os[kAaSlots];  // logical lo + a0 + g's slot times D (past pairs, the last one's)
+#pragma unroll
+    for (int g = 0; g < kAaSlots; ++g) {
+      const int a = max(min(a0 + g, pairs - 1), 0);
+      os[g] = (s_lo + a >= k ? s_lo + a - k : s_lo + a) * D;
     }
-    uTp[e] = uT;
-    fp[e] = f;
+#pragma unroll
+    for (int g = 0; g < kAaGroup; ++g) v[g] = 0.f;
+#pragma unroll 1
+    for (int e = S::rank(); e < D; e += S::size()) {
+      float dfp, fe;  // dF_push and f at e
+      if (a0 == 0) {
+        const float uT = cur(e);
+        fe = uT - u0[e];
+        dfp = fe - fp[e];
+        if (prev_ok) {
+          dU[(size_t)push * D + e] = uT - uTp[e];
+          dF[(size_t)push * D + e] = dfp;
+        }
+        uTp[e] = uT;
+        fp[e] = fe;
+      } else {
+        dfp = dF[(size_t)push * D + e];
+        fe = fp[e];
+      }
+      if (pairs == 0 || (e < n && (e < j0 || e >= j1))) continue;
+#pragma unroll
+      for (int g = 0; g < kAaSlots; ++g) {
+        const float d = dF[os[g] + e];
+        v[2 * g] = fmaf(dfp, d, v[2 * g]);
+        v[2 * g + 1] = fmaf(d, fe, v[2 * g + 1]);
+      }
+    }
+    if (a0 == 0) {
+      ADMM_PHASE_END(kPhAaRing);
+      ADMM_PHASE_BEGIN(kPhAaDot);
+    }
+    if (pairs == 0) break;
+    op_sum(op, v, red);
+    if (S::rank() == 0)  // the pushed row kept, the rhs into the system
+#pragma unroll 1
+      for (int g = 0; g < kAaSlots && a0 + g < pairs; ++g) {
+        const int sb = s_lo + a0 + g >= k ? s_lo + a0 + g - k : s_lo + a0 + g;
+        Gk[push * k + sb] = Gk[sb * k + push] = v[2 * g];
+        Ga[(lo + a0 + g) * k1 + k] = v[2 * g + 1];
+      }
   }
+  ADMM_PHASE_END(kPhAaDot);
   AaStats out = sp;
+  out.ring = AaRing{1, pairs, head};
   if (pairs > 0) {
-    const int lo = k - pairs, npair = pairs * (pairs + 1) / 2, ndot = npair + pairs;
-    int j0, j1;
-    op_cols(op, n, j0, j1);
-#pragma unroll 1
-    for (int t0 = 0; t0 < ndot; t0 += kAaGroup) {
-      int oa[kAaGroup], ob[kAaGroup];  // the factors' offsets from dF (f: fp)
-#pragma unroll
-      for (int g = 0; g < kAaGroup; ++g) {
-        int a, b;
-        aa_pair(min(t0 + g, ndot - 1), lo, k, npair, a, b);
-        oa[g] = ((head + a) % k) * D;
-        ob[g] = b < 0 ? (k + 1) * D : ((head + b) % k) * D;
-      }
-      float v[kAaGroup];
-#pragma unroll
-      for (int g = 0; g < kAaGroup; ++g) v[g] = 0.f;
-#pragma unroll 1
-      for (int e = S::rank(); e < D; e += S::size()) {
-        if (e < n && (e < j0 || e >= j1)) continue;
-#pragma unroll
-        for (int g = 0; g < kAaGroup; ++g) v[g] = fmaf(dF[oa[g] + e], dF[ob[g] + e], v[g]);
-      }
-      op_sum(op, v, red);
-      if (S::rank() == 0)
-#pragma unroll 1
-        for (int g = 0; g < kAaGroup && t0 + g < ndot; ++g) {
-          int a, b;
-          aa_pair(t0 + g, lo, k, npair, a, b);
-          if (b < 0) gam[a] = v[g];
-          else G[a * k + b] = G[b * k + a] = v[g];
-        }
+    ADMM_PHASE_BEGIN(kPhAaSolve);
+    if (S::rank() < 32) {
+      __syncwarp();  // the pushed row and the right-hand side to warp 0
+      aa_solve(Gk, Ga, k, lo, s_lo, S::rank());
     }
-    if (S::rank() == 0) {
-      // Levenberg term 1e-8 (trace G + 1), 1 on the unused rows (whose
-      // right-hand side is 0, so their gamma is 0), then Gauss-Jordan
-      float tr = 0.f;
-      for (int a = lo; a < k; ++a) tr += G[a * k + a];
-      const float reg = 1e-8f * (tr + 1.f);
-      for (int a = 0; a < k; ++a) {
-        if (a < lo) {
-          for (int b = 0; b < k; ++b) G[a * k + b] = G[b * k + a] = 0.f;
-          gam[a] = 0.f;
-        }
-        G[a * k + a] += reg + (a < lo ? 1.f : 0.f);
-      }
-      for (int i = 0; i < k; ++i) {
-        const float inv = 1.f / G[i * k + i];
-        for (int b = 0; b < k; ++b) G[i * k + b] *= inv;
-        gam[i] *= inv;
-        for (int r = 0; r < k; ++r) {
-          if (r == i) continue;
-          const float fac = G[r * k + i];
-          for (int b = 0; b < k; ++b) G[r * k + b] = fmaf(-fac, G[i * k + b], G[r * k + b]);
-          gam[r] = fmaf(-fac, gam[i], gam[r]);
-        }
-      }
-    }
-    S::sync();  // gamma to the scope; the plain stats' readers are done
+    S::sync();  // gamma to the scope
+    ADMM_PHASE_END(kPhAaSolve);
+    ADMM_PHASE_BEGIN(kPhAaCand);
 #pragma unroll 1
     for (int e = S::rank(); e < D; e += S::size()) {
       float acc = 0.f;
 #pragma unroll 1
-      for (int a = lo; a < k; ++a) acc = fmaf(gam[a], dU[(size_t)((head + a) % k) * D + e], acc);
+      for (int a = lo, s = s_lo; a < k; ++a, s = aa_next(s, k))
+        acc = fmaf(Ga[a * k1 + k], dU[(size_t)s * D + e], acc);
       float& c = cur(e);
       const float cand = c - acc;
       ua[e] = c;
@@ -682,6 +787,8 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
     const bool term_p = (sp.rp <= eps_abs + eps_rel * sp.mz) && (sp.rd <= eps_abs + eps_rel * sp.mq);
     const bool accept = isfinite(comb_a) && comb_a < comb_p && (term_a || !term_p);
     S::sync();  // the candidate stats' readers are done
+    ADMM_PHASE_END(kPhAaCand);
+    ADMM_PHASE_BEGIN(kPhAaRevert);
     if (accept) {
       out.rp = sa.rp;
       out.rd = sa.rd;
@@ -692,8 +799,8 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
       for (int e = S::rank(); e < D; e += S::size()) cur(e) = ua[e];
       S::sync();
     }
+    ADMM_PHASE_END(kPhAaRevert);
   }
-  out.ring = AaRing{1, pairs, head};
   out.state = op_state(op);
   return out;
 }
@@ -704,13 +811,16 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
 // With p.check_infeas, xp (n) and yp (m) keep the chunk-start iterates for
 // the certificates; a certified problem commits its chunk and stops.  The
 // instantiation with AA runs the Anderson step (aa_chunk_end) at each
-// chunk's end on this scope's state aa (k pairs), fresh at entry; the one
-// without it is the solve as it was, register for register.
-template <class Op, bool AA = false>
+// chunk's end on this scope's ring aa and Gram area ag (k pairs; aa_state),
+// fresh at entry; the one without it is the solve as it was, register for
+// register (its signature too: the Gram area comes as a parameter pack that
+// only the instantiation with AA is given).
+template <class Op, bool AA = false, class... Gram>
 __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, const float* l,
                            const float* u, float* rv, float* x, float* z, float* y, float* bt,
                            float* xt, float* tm, float* tn1, float* tn2, float* xp, float* yp,
-                           float* red, AdmmState& st, float* aa = nullptr, int k = 0) {
+                           float* red, AdmmState& st, float* aa = nullptr, int k = 0,
+                           Gram... ag) {
   using S = typename OpScope<Op>::type;
   const int n = p.n, m = p.m;
   [[maybe_unused]] AaRing ring{0, 0, 0};
@@ -736,10 +846,11 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
         admm_iter(op, q, l, u, rv, x, z, y, bt, xt, tm, p.sigma, p.alpha, n, m);
       ADMM_PHASE_BEGIN(kPhStats);
       admm_stats(op, q, x, z, y, tm, tn1, tn2, red, n, m, st);
+      ADMM_PHASE_END(kPhStats);
       if constexpr (AA) {
         const AaStats r = aa_chunk_end(op, k, n, m, p.eps_abs, p.eps_rel,
                                        AaStats{st.rp, st.rd, st.mz, st.mq, 0, ring}, q, l, u,
-                                       x, z, y, tm, tn1, tn2, red, aa);
+                                       x, z, y, tm, tn1, tn2, red, aa, ag...);
         op_set_state(op, r.state);
         ring = r.ring;
         st.rp = r.rp;
@@ -747,7 +858,6 @@ __device__ void admm_solve(const StepParams& p, const Op& op, const float* q, co
         st.mz = r.mz;
         st.mq = r.mq;
       }
-      ADMM_PHASE_END(kPhStats);
       if (p.check_infeas) {
         ADMM_PHASE_BEGIN(kPhCert);
         // the deltas replace the chunk-start copies; the stats' readers of
@@ -822,10 +932,22 @@ __device__ __forceinline__ void op_factor_mark(const DenseOp&, bool) {}
 
 }  // namespace
 
+// Floats of one scope's Anderson workspace (aa_floats) at memory k, n
+// variables and m rows; the wrappers allocate one slice a problem (a block,
+// for a K6/K7 cluster) with acceleration="anderson".  Weak, so that each
+// unit may define it and a library of any of the Anderson units has it.
+extern "C" __attribute__((weak)) long long admm_aa_floats(int k, int n, int m) {
+  return aa_floats(k, n, m);
+}
+
 #ifdef ADMM_PHASE_CLOCKS
 // Copies the phase sums out (kNumPhases values, summed over the slots)
-// and zeroes them.
-extern "C" int admm_phase_clocks(unsigned long long* out) {
+// and zeroes them.  Each unit has its own sums: an Anderson unit, linked
+// beside the unit it includes, names its reader admm_phase_clocks_aa.
+#ifndef ADMM_PHASE_READER
+#define ADMM_PHASE_READER admm_phase_clocks
+#endif
+extern "C" int ADMM_PHASE_READER(unsigned long long* out) {
   static unsigned long long buf[kPhaseSlots][kNumPhases];
   cudaError_t err = cudaDeviceSynchronize();
   if (err == cudaSuccess) err = cudaMemcpyFromSymbol(buf, admm_phase_cycles, sizeof(buf));

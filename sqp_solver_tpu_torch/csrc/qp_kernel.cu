@@ -52,7 +52,9 @@
 // their own beside this one: with them in this unit, nvcc took 112.6 s
 // over it, against 75.8 and 81.9 s over the structured kernel's two units
 // (the build line of chip_smoke.py, sm_90a), and the library's build
-// waited for it.
+// waited for it.  The step keeps its Gram in shared memory and its ring
+// there where aa_dense_plan (below) puts it; the Anderson kernels' registers
+// are capped at their twins', so that the step costs no blocks an SM.
 //
 // Memory.  Vectors live in shared memory.  The per-problem matrices
 // (row stride n+1, which makes the row-per-thread matvecs of K3/K4 and
@@ -277,9 +279,14 @@ __device__ __forceinline__ void sqp_step_body(SQP_STEP_PARAMS, AaArgs aa_args) {
   st.rho_est = st.rho;
 
   const DenseLaneOp<L> op{Bn, n, A, W, Li, red, ld, n, m, p.sigma};
-  float* aa = AA ? aa_args.ws + b * aa_floats(aa_args.k, n, m) : nullptr;
-  admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
-                                 nullptr, red, st, aa, aa_args.k);
+  if constexpr (AA) {
+    const AaState aa = aa_state(aa_args, smem, 0, b, n, m);
+    admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
+                                   nullptr, red, st, aa.ring, aa.k, aa.gram);
+  } else {
+    admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
+                                   nullptr, red, st);
+  }
 
   ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) p_out[b * n + j] = x[j];
@@ -583,9 +590,13 @@ __device__ __forceinline__ void qp_solve_body(QP_SOLVE_PARAMS, float* __restrict
   st.rho_est = st.rho;
 
   const DenseOp op{Pb, n, A, W, Li, ld, n, m, p.sigma};
-  float* aa = AA ? aa_args.ws + b * aa_floats(aa_args.k, n, m) : nullptr;
-  admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
-                          aa, aa_args.k);
+  if constexpr (AA) {
+    const AaState aa = aa_state(aa_args, smem, 0, b, n, m);
+    admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                            aa.ring, aa.k, aa.gram);
+  } else {
+    admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
+  }
 
   ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = tid; j < n; j += T) x_out[b * n + j] = x[j];
@@ -613,9 +624,12 @@ __global__ void __launch_bounds__(256) qp_solve_kernel(QP_SOLVE_PARAMS, float* _
   qp_solve_body<false>(QP_SOLVE_ARGS, ws, AaArgs{0, nullptr});
 }
 #else
-__global__ void __launch_bounds__(256) qp_solve_kernel_aa(QP_SOLVE_PARAMS,
-                                                          float* __restrict__ ws,
-                                                          AaArgs aa_args) {
+// With Anderson the registers are capped at those of the kernel without it
+// (64 a thread: 8 blocks an SM at 128 threads); the step took it to 121
+// uncapped, 4 blocks an SM (cuobjdump, sm_90a).
+__global__ void __launch_bounds__(256, 4) qp_solve_kernel_aa(QP_SOLVE_PARAMS,
+                                                             float* __restrict__ ws,
+                                                             AaArgs aa_args) {
   qp_solve_body<true>(QP_SOLVE_ARGS, ws, aa_args);
 }
 #endif
@@ -975,9 +989,14 @@ __device__ __forceinline__ void qp_solve_warp_body(QP_WARP_PARAMS, AaArgs aa_arg
 
   // the factor's column buffer: tn1 and tn2, free while it runs
   const WarpDenseOp<NM> op{Pg + b * n * n, A, W, tn1, ld4, n, m, p.sigma};
-  float* aa = AA ? aa_args.ws + b * aa_floats(aa_args.k, n, m) : nullptr;
-  admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
-                                  nullptr, st, aa, aa_args.k);
+  if constexpr (AA) {
+    const AaState aa = aa_state(aa_args, reinterpret_cast<float*>(smem4), wp, b, n, m);
+    admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                    nullptr, st, aa.ring, aa.k, aa.gram);
+  } else {
+    admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                    nullptr, st);
+  }
 
   ADMM_PHASE_BEGIN(kPhLoad);
   for (int j = lane; j < n; j += 32) x_out[b * n + j] = x[j];
@@ -1006,9 +1025,12 @@ __global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel(QP_WARP_PA
   qp_solve_warp_body<NM, false>(QP_WARP_ARGS, AaArgs{0, nullptr});
 }
 #else
+// With Anderson the registers are capped at those of the kernel without it
+// (128 a thread, 8 blocks an SM): uncapped, the step took the kernel to
+// 237 a thread and 4 blocks an SM (cuobjdump, sm_90a).
 template <int NM>
-__global__ void __launch_bounds__(32 * kQpWarps) qp_solve_warp_kernel_aa(QP_WARP_PARAMS,
-                                                                        AaArgs aa_args) {
+__global__ void __launch_bounds__(32 * kQpWarps, 8) qp_solve_warp_kernel_aa(QP_WARP_PARAMS,
+                                                                           AaArgs aa_args) {
   qp_solve_warp_body<NM, true>(QP_WARP_ARGS, aa_args);
 }
 #endif
@@ -1265,6 +1287,10 @@ Layout spd_layout(int arm, int n) {
 
 int threads_for(int n, int m) { return (n <= 64 && m <= 64) ? 128 : 256; }
 
+// The kernels with an Anderson instantiation, as the placement functions
+// name them.
+enum AaKernel { kAaK1 = 1, kAaK3Block = 2, kAaK3Warp = 3 };
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel k, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1496,6 +1522,38 @@ int qp_solve_launch(const float* P, const float* A, const float* q, const float*
 
 int qp_solve_problems_per_block(int n, int m) { return qp_warp_layout(n, m) ? kQpWarps : 1; }
 
+// Blocks an SM that the runtime can hold of the kernel without Anderson of
+// `kernel` (kAaK1: K1; kAaK3Block, kAaK3Warp: K3 in that layout) at its
+// shared memory for this shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+// the bound below which the Anderson instantiation's placement rule
+// (qp_kernel_aa.cu) keeps its ring off chip.  A negative CUDA error code on
+// failure.
+int qp_kernel_twin_blocks(int kernel, int n, int m, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  const void* fn = nullptr;
+  int threads = threads_for(n, m);
+  size_t smem = 0;
+  if (kernel == kAaK1) {
+    fn = threads == 128 ? (const void*)sqp_step_kernel<4> : (const void*)sqp_step_kernel<2>;
+    smem = step_layout(n, m).smem_bytes;
+  } else if (kernel == kAaK3Block) {
+    fn = (const void*)qp_solve_kernel;
+    smem = qp_layout(n, m).smem_bytes;
+  } else if (kernel == kAaK3Warp && qp_warp_layout(n, m)) {
+    fn = n <= 16 ? (const void*)qp_solve_warp_kernel<16> : (const void*)qp_solve_warp_kernel<32>;
+    threads = 32 * kQpWarps;
+    smem = (size_t)kQpWarps * qp_warp_floats(n, m) * sizeof(float);
+  } else {
+    return -(int)cudaErrorInvalidValue;
+  }
+  int blocks = 0;
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 // arm: kSpdRule (0) by spd_rule_arm, or kSpdColumn / kSpdTwoBuffer forced.
 int spd_inverse_launch_as(int arm, const float* M, float* minv_out, uint8_t* fail_out, float* ws,
                           int batch, int n, int device, void* stream) {
@@ -1558,15 +1616,130 @@ int spd_inverse_arm_info(int n, int device, int* out) {
 
 #else  // QP_KERNEL_AA_UNIT: the Anderson kernels' entry points
 
+extern "C" int qp_kernel_twin_blocks(int kernel, int n, int m, int device);  // qp_kernel.cu
+
+namespace {
+
+// Where an Anderson launch of K1 or K3 keeps each problem's Anderson state:
+// its Gram area (aa_gram_floats) in shared memory always, and its ring
+// (aa_ring_floats) there too where, with the ring, the block's shared
+// memory still holds every matrix the kernel without Anderson holds there
+// and still allows as many blocks an SM as that kernel gets (twin_blocks,
+// qp_kernel_twin_blocks); else the ring stays in the device workspace.
+// The block layout puts the area after its matrices in shared memory (a
+// matrix the Gram leaves no room for goes to the workspace:
+// aa_workspace_floats), the warp layout after its problems' slices, one
+// area a problem.  ops/qp_kernel.py:anderson_placement is the rule's Python
+// mirror.
+struct AaPlan {
+  bool ring;             // the ring in shared memory
+  long long smem_bytes;  // the block's dynamic shared memory
+  long long sm_off;      // floats before the first problem's area
+  int sm_stride;         // floats of a problem's area
+  int scopes;            // problems a block
+  long long twin_smem;   // the kernel without Anderson's
+  Layout L;              // the block layout's matrices (the warp layout: none)
+};
+
+AaPlan aa_dense_plan(int kernel, int n, int m, int k, int twin_blocks) {
+  const long long g = aa_gram_floats(k), r = aa_ring_floats(k, n, m);
+  AaPlan P{};
+  if (kernel == kAaK3Warp) {
+    const long long slice = qp_warp_floats(n, m);
+    P.scopes = kQpWarps;
+    P.twin_smem = kQpWarps * slice * 4;
+    const long long with = kQpWarps * (slice + g + r) * 4;
+    P.ring = with <= kMaxSmemBytes && smem_blocks_per_sm(with) >= twin_blocks;
+    P.sm_off = kQpWarps * slice;
+    P.sm_stride = (int)(g + (P.ring ? r : 0));
+    P.smem_bytes = (P.sm_off + (long long)kQpWarps * P.sm_stride) * 4;
+    P.L = Layout{(size_t)P.smem_bytes, 0, 0};
+    return P;
+  }
+  const long long ld = n + 1;
+  const long long mats[3] = {n * ld, m * ld, n * ld};
+  const long long vec = (kernel == kAaK1 ? 9LL * n : 7LL * n) + 7LL * m + kRedSlots;
+  const Layout twin = plan(vec, mats), with = plan(vec + g + r, mats);
+  P.scopes = 1;
+  P.twin_smem = (long long)twin.smem_bytes;
+  P.ring = with.n_smem_mats == twin.n_smem_mats && with.smem_bytes <= (size_t)kMaxSmemBytes &&
+           smem_blocks_per_sm((long long)with.smem_bytes) >= twin_blocks;
+  P.L = P.ring ? with : plan(vec + g, mats);
+  P.sm_stride = (int)(g + (P.ring ? r : 0));
+  P.smem_bytes = (long long)P.L.smem_bytes;
+  P.sm_off = P.smem_bytes / 4 - P.sm_stride;
+  return P;
+}
+
+// The plan of a launch on the card: the twin's blocks an SM from the
+// runtime; an error where the memory passes the on-chip Gram's bound or
+// the Gram does not fit.
+cudaError_t aa_dense_launch_plan(int kernel, int n, int m, int k, int device, AaPlan& P,
+                                 int& twin_blocks) {
+  if (k <= 0 || k > kAaMaxMemory) return cudaErrorInvalidValue;
+  twin_blocks = qp_kernel_twin_blocks(kernel, n, m, device);
+  if (twin_blocks < 0) return (cudaError_t)(-twin_blocks);
+  P = aa_dense_plan(kernel, n, m, k, twin_blocks);
+  return P.smem_bytes <= kMaxSmemBytes ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+AaArgs aa_args_of(const AaPlan& P, int k, float* ws) {
+  return AaArgs{k, ws, P.sm_off, P.sm_stride, P.ring ? 1 : 0};
+}
+
+}  // namespace
+
 extern "C" {
 
-// Floats of one scope's Anderson state (admm_core.cuh:aa_floats) at memory
-// k, n variables and m rows; the wrappers allocate one slice a problem (a
-// block, for a K6/K7 cluster) with acceleration="anderson".
-long long admm_aa_floats(int k, int n, int m) { return aa_floats(k, n, m); }
+// Workspace floats a problem of K1 (kernel kAaK1) or K3's block layout
+// (kAaK3Block) with Anderson of memory k: the matrices' that shared memory
+// does not hold beside the Anderson area (the warp layout: 0).
+long long qp_kernel_aa_workspace_floats(int kernel, int n, int m, int k) {
+  if (kernel == kAaK3Warp) return 0;
+  return aa_dense_plan(kernel, n, m, k, 0).L.ws_floats;
+}
 
-// sqp_step_launch with Anderson acceleration of memory aa_mem > 0, its state
-// in aa_ws (batch x admm_aa_floats(aa_mem, n, m) floats).
+// The placement of an Anderson launch of `kernel` (kAaK1, kAaK3Block,
+// kAaK3Warp) at n, m and memory k on this card, into out[9]: the ring in
+// shared memory (1) or in the workspace (0), the block's shared-memory
+// bytes, those of the kernel without Anderson, that kernel's blocks an SM
+// and this one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram
+// area's and the ring's floats a problem, problems a block, and the
+// workspace floats a problem (aa_dense_plan).  Returns a CUDA error code.
+int qp_kernel_aa_placement(int kernel, int n, int m, int k, int device, long long* out) {
+  AaPlan P;
+  int twin = 0;
+  cudaError_t err = aa_dense_launch_plan(kernel, n, m, k, device, P, twin);
+  const void* fn = nullptr;
+  int threads = threads_for(n, m);
+  if (kernel == kAaK1) {
+    fn = threads == 128 ? (const void*)sqp_step_kernel_aa<4> : (const void*)sqp_step_kernel_aa<2>;
+  } else if (kernel == kAaK3Block) {
+    fn = (const void*)qp_solve_kernel_aa;
+  } else {
+    fn = n <= 16 ? (const void*)qp_solve_warp_kernel_aa<16>
+                 : (const void*)qp_solve_warp_kernel_aa<32>;
+    threads = 32 * kQpWarps;
+  }
+  int blocks = 0;
+  if (err == cudaSuccess && P.smem_bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)P.smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, P.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long v[9] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
+                          aa_gram_floats(k), aa_ring_floats(k, n, m), P.scopes,
+                          P.L.ws_floats};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+
+// sqp_step_launch with Anderson acceleration of memory 0 < aa_mem <=
+// kAaMaxMemory, its state in aa_ws (batch x admm_aa_floats(aa_mem, n, m)
+// floats) and shared memory (aa_dense_plan); ws holds
+// qp_kernel_aa_workspace_floats(kAaK1, n, m, aa_mem) floats a problem.
 int sqp_step_launch_aa(const float* Bp, const float* J, const float* g, const float* l,
                        const float* u, const float* s, const float* dgl, const uint8_t* reset,
                        const uint8_t* upd, const uint8_t* active, const float* rho_in,
@@ -1578,27 +1751,30 @@ int sqp_step_launch_aa(const float* Bp, const float* J, const float* g, const fl
                        float adaptive_rho_tolerance, int do_bfgs, int device, void* stream,
                        int aa_mem, float* aa_ws) {
   if (batch <= 0) return 0;
-  const Layout L = step_layout(n, m);
-  if ((L.ws_floats > 0 && ws == nullptr) || aa_mem <= 0 || aa_ws == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  if (aa_ws == nullptr) return (int)cudaErrorInvalidValue;
+  AaPlan P;
+  int twin = 0;
+  cudaError_t err = aa_dense_launch_plan(kAaK1, n, m, aa_mem, device, P, twin);
   if (err != cudaSuccess) return (int)err;
+  if (P.L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = threads_for(n, m);
   auto kernel = threads == 128 ? sqp_step_kernel_aa<4> : sqp_step_kernel_aa<2>;
-  err = set_smem(kernel, L.smem_bytes);
+  err = set_smem(kernel, P.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
                                    chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
-                                   do_bfgs, 0, 0.f, 0.f, L);
-  kernel<<<batch, threads, L.smem_bytes, (cudaStream_t)stream>>>(
+                                   do_bfgs, 0, 0.f, 0.f, P.L);
+  kernel<<<batch, threads, P.smem_bytes, (cudaStream_t)stream>>>(
       p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
-      z_out, y_out, B_out, stats, minv_out, ws, AaArgs{aa_mem, aa_ws});
+      z_out, y_out, B_out, stats, minv_out, ws, aa_args_of(P, aa_mem, aa_ws));
   return (int)cudaGetLastError();
 }
 
-// qp_solve_launch_as with Anderson acceleration of memory aa_mem > 0, its
-// state in aa_ws (batch x admm_aa_floats(aa_mem, n, m) floats); layout 0 by
-// qp_warp_layout, 1 the block layout, 2 the warp layout.
+// qp_solve_launch_as with Anderson acceleration of memory 0 < aa_mem <=
+// kAaMaxMemory, its state in aa_ws (batch x admm_aa_floats(aa_mem, n, m)
+// floats) and shared memory (aa_dense_plan); layout 0 by qp_warp_layout, 1
+// the block layout (ws: qp_kernel_aa_workspace_floats(kAaK3Block, n, m,
+// aa_mem) floats a problem), 2 the warp layout.
 int qp_solve_launch_aa(int layout, const float* P, const float* A, const float* q,
                        const float* l, const float* u, const float* x0, const float* z0,
                        const float* y0, float* x_out, float* z_out, float* y_out, float* stats,
@@ -1608,28 +1784,28 @@ int qp_solve_launch_aa(int layout, const float* P, const float* A, const float* 
                        float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
                        float eps_dinf, int device, void* stream, int aa_mem, float* aa_ws) {
   if (batch <= 0) return 0;
-  if (layout < 0 || layout > 2 || (layout == 2 && !qp_warp_layout(n, m)) || aa_mem <= 0 ||
-      aa_ws == nullptr)
+  if (layout < 0 || layout > 2 || (layout == 2 && !qp_warp_layout(n, m)) || aa_ws == nullptr)
     return (int)cudaErrorInvalidValue;
   const bool warp = layout == 2 || (layout == 0 && qp_warp_layout(n, m));
-  const Layout L = qp_layout(n, m);
-  if (!warp && L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t warp_bytes = (size_t)kQpWarps * qp_warp_floats(n, m) * sizeof(float);
+  AaPlan pl;
+  int twin = 0;
+  cudaError_t err =
+      aa_dense_launch_plan(warp ? kAaK3Warp : kAaK3Block, n, m, aa_mem, device, pl, twin);
+  if (err != cudaSuccess) return (int)err;
+  if (!warp && pl.L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   auto warp_kernel = n <= 16 ? qp_solve_warp_kernel_aa<16> : qp_solve_warp_kernel_aa<32>;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = warp ? set_smem(warp_kernel, warp_bytes) : set_smem(qp_solve_kernel_aa, L.smem_bytes);
+  err = warp ? set_smem(warp_kernel, pl.smem_bytes) : set_smem(qp_solve_kernel_aa, pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
                                    chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance, 0,
-                                   check_infeas, eps_pinf, eps_dinf, L);
-  const AaArgs aa{aa_mem, aa_ws};
+                                   check_infeas, eps_pinf, eps_dinf, warp ? qp_layout(n, m) : pl.L);
+  const AaArgs aa = aa_args_of(pl, aa_mem, aa_ws);
   if (warp) {
     const int blocks = (batch + kQpWarps - 1) / kQpWarps;
-    warp_kernel<<<blocks, 32 * kQpWarps, warp_bytes, (cudaStream_t)stream>>>(
+    warp_kernel<<<blocks, 32 * kQpWarps, pl.smem_bytes, (cudaStream_t)stream>>>(
         p, batch, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, aa);
   } else {
-    qp_solve_kernel_aa<<<batch, threads_for(n, m), L.smem_bytes, (cudaStream_t)stream>>>(
+    qp_solve_kernel_aa<<<batch, threads_for(n, m), pl.smem_bytes, (cudaStream_t)stream>>>(
         p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws, aa);
   }
   return (int)cudaGetLastError();

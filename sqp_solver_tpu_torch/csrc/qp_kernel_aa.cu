@@ -6,4 +6,5 @@
 // own, beside qp_kernel.cu; the kernels without Anderson stay as they were.
 
 #define QP_KERNEL_AA_UNIT
+#define ADMM_PHASE_READER admm_phase_clocks_aa  // the phase-clock builds' reader
 #include "qp_kernel.cu"

@@ -72,7 +72,8 @@
 // instantiations without it are the kernel as it was.  They live in
 // qp_kernel_btd_aa.cu with their entry point (qp_btd_launch_aa), which
 // includes this file with QP_KERNEL_BTD_AA_UNIT defined, so that nvcc
-// builds them in a process of their own beside this one.
+// builds them in a process of their own beside this one.  The step keeps
+// its Gram in shared memory and its ring there where btd_aa_plan puts it.
 
 #include <cooperative_groups.h>
 
@@ -560,9 +561,9 @@ long long btd_fixed_floats(int n, int m, int bb, int cs) {
 }
 
 // Rows of A each block keeps in shared memory (-1 where the rest does not
-// fit).
-int btd_block_rows(int n, int m, int bb, int cs) {
-  const long long spare = (long long)kMaxSmemBytes / 4 - btd_fixed_floats(n, m, bb, cs);
+// fit), beside `extra` floats of an Anderson launch's area.
+int btd_block_rows(int n, int m, int bb, int cs, long long extra = 0) {
+  const long long spare = (long long)kMaxSmemBytes / 4 - btd_fixed_floats(n, m, bb, cs) - extra;
   if (spare < 0) return -1;
   const long long rows = spare / (n + 1), m0 = (m + cs - 1) / cs;
   return (int)(rows < m0 ? rows : m0);
@@ -616,8 +617,16 @@ int btd_cluster_size(int n, int m, int bb, int batch) {
 template <int BB, int CS>
 __global__ void __launch_bounds__(kThreads) qp_btd_kernel(
 #else
-template <int BB, int CS>
-__global__ void __launch_bounds__(kThreads) qp_btd_kernel_aa(
+// With Anderson the step's registers count in the kernel's.  MINB = 2
+// caps them at the 128 a thread of the kernel without it, for the launches
+// where that kernel gets two blocks an SM (btd_aa_kernel: internal blocks
+// 8 and 16 at shapes whose shared memory allows two), so that the step
+// costs no block an SM and spills instead; MINB = 1 leaves them uncapped
+// where it gets one (200 / 221 a thread at bb = 8 / 16 on a cluster,
+// cuobjdump, sm_90a), which ran K6 at horizon 64, B = 256 2 % faster than
+// capped on an H100.
+template <int BB, int CS, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) qp_btd_kernel_aa(
 #endif
     StepParams p, int rs, int batch, const float* __restrict__ pdg,
     const float* __restrict__ peg, const float* __restrict__ Ag, const float* __restrict__ qg,
@@ -715,10 +724,14 @@ __global__ void __launch_bounds__(kThreads) qp_btd_kernel_aa(
                           flag, xch, xlen, rank, n, T, p.sigma, 0};
   StepParams pl = p;
   pl.m = ml;  // the ADMM core sees this block's rows
-  // Anderson's state: one slice a block, sized for m0 rows
-  float* aa = AA ? aa_args.ws + (size_t)blockIdx.x * aa_floats(aa_args.k, n, m0) : nullptr;
-  admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
-                                 red, st, aa, aa_args.k);
+  if constexpr (AA) {  // Anderson's state: sized for m0 rows a block
+    const AaState aa = aa_state(aa_args, smem, 0, blockIdx.x, n, m0);
+    admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                   red, st, aa.ring, aa.k, aa.gram);
+  } else {
+    admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                   red, st);
+  }
 
   ADMM_PHASE_END(kPhTotal);
   if (rank == 0)
@@ -744,16 +757,33 @@ __global__ void __launch_bounds__(kThreads) qp_btd_kernel_aa(
 }
 
 // One launch of this unit's kernel (with Anderson in qp_kernel_btd_aa.cu).
+#ifdef QP_KERNEL_BTD_AA_UNIT
+// The Anderson kernel of a launch at (BB, CS) where the kernel without
+// Anderson gets twin_blocks blocks an SM: its registers capped to keep two
+// where that kernel gets two (internal blocks up to 16; wider ones get one).
+template <int BB, int CS>
+auto btd_aa_kernel(int twin_blocks) {
+  auto kernel = qp_btd_kernel_aa<BB, CS, 1>;
+  if constexpr (BB <= 16)
+    if (twin_blocks >= 2) kernel = qp_btd_kernel_aa<BB, CS, 2>;
+  return kernel;
+}
+#endif
+
+// twin_blocks: with Anderson, the blocks an SM of the kernel without it
+// (btd_aa_kernel); unused without.
 template <int BB, int CS>
 cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cudaStream_t stream,
                        const float* pd, const float* pe, const float* A, const float* q,
                        const float* l, const float* u, const uint8_t* active,
                        const float* rho_in, const float* x0, const float* z0, const float* y0,
-                       float* x_out, float* z_out, float* y_out, float* stats, AaArgs aa) {
+                       float* x_out, float* z_out, float* y_out, float* stats, AaArgs aa,
+                       int twin_blocks) {
 #ifndef QP_KERNEL_BTD_AA_UNIT
+  (void)twin_blocks;
   auto kernel = qp_btd_kernel<BB, CS>;
 #else
-  auto kernel = qp_btd_kernel_aa<BB, CS>;
+  auto kernel = btd_aa_kernel<BB, CS>(twin_blocks);
 #endif
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -808,12 +838,21 @@ StepParams btd_params(int n, int m, float sigma, float alpha, float rho0, float 
 }
 
 // One launch with cs blocks per problem (1 or 2, as BTD_INSTANCES has them)
-// of this unit's kernel and the parameters p.
+// of this unit's kernel and the parameters p, rs rows of A a block and smem
+// bytes of shared memory (btd_block_rows, btd_aa_plan); twin_blocks as
+// launch_btd's.
 cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, const float* pe,
                           const float* A, const float* q, const float* l, const float* u,
                           const uint8_t* active, const float* rho_in, const float* x0,
                           const float* z0, const float* y0, float* x_out, float* z_out,
-                          float* y_out, float* stats, int batch, void* stream, AaArgs aa);
+                          float* y_out, float* stats, int batch, void* stream, AaArgs aa,
+                          int rs, size_t smem, int twin_blocks);
+
+// The shared memory of a launch without Anderson: the fixed part and rs
+// rows of A.
+size_t btd_smem_bytes(int n, int m, int bb, int cs, int rs) {
+  return (size_t)(btd_fixed_floats(n, m, bb, cs) + (long long)rs * (n + 1)) * 4;
+}
 
 }  // namespace
 
@@ -831,18 +870,16 @@ cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, 
                           const float* A, const float* q, const float* l, const float* u,
                           const uint8_t* active, const float* rho_in, const float* x0,
                           const float* z0, const float* y0, float* x_out, float* z_out,
-                          float* y_out, float* stats, int batch, void* stream, AaArgs aa) {
-  const int n = p.n, m = p.m;
-  if ((cs != 1 && cs != 2) || bb <= 0 || n % bb != 0) return cudaErrorInvalidValue;
-  const int rs = btd_block_rows(n, m, bb, cs);
-  if (rs < 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(btd_fixed_floats(n, m, bb, cs) + (long long)rs * (n + 1)) * 4;
+                          float* y_out, float* stats, int batch, void* stream, AaArgs aa,
+                          int rs, size_t smem, int twin_blocks) {
+  const int n = p.n;
+  if ((cs != 1 && cs != 2) || bb <= 0 || n % bb != 0 || rs < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;  // unless an instantiation takes (bb, cs)
 #define X(BB_, CS_)                                                                        \
   if (bb == BB_ && cs == CS_)                                                              \
     err = launch_btd<BB_, CS_>(p, rs, batch, smem, st, pd, pe, A, q, l, u, active, rho_in, \
-                               x0, z0, y0, x_out, z_out, y_out, stats, aa);
+                               x0, z0, y0, x_out, z_out, y_out, stats, aa, twin_blocks);
   BTD_INSTANCES
 #undef X
   return err;
@@ -856,6 +893,30 @@ extern "C" {
 // Blocks per problem the launcher takes at these sizes (1 or 2).
 int qp_btd_cluster_size(int n, int m, int bb, int batch) {
   return btd_cluster_size(n, m, bb, batch);
+}
+
+// Blocks an SM that the runtime can hold of the kernel without Anderson at
+// cs blocks per problem and its shared memory for this shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): the bound below which
+// the Anderson instantiation's placement rule (btd_aa_plan) keeps its ring
+// off chip.  A negative CUDA error code on failure.
+int qp_btd_twin_blocks(int n, int m, int bb, int cs, int device) {
+  const int rs = btd_block_rows(n, m, bb, cs);
+  if (rs < 0) return -(int)cudaErrorInvalidValue;
+  const size_t smem = btd_smem_bytes(n, m, bb, cs, rs);
+  const void* fn = nullptr;
+#define X(BB_, CS_) \
+  if (bb == BB_ && cs == CS_) fn = (const void*)qp_btd_kernel<BB_, CS_>;
+  BTD_INSTANCES
+#undef X
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // Rows of A the launch keeps on chip, over the blocks of one problem (-1
@@ -879,8 +940,10 @@ int qp_btd_launch_as(int cs, const float* pd, const float* pe, const float* A, c
   const StepParams p = btd_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
                                   chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
                                   check_infeas, eps_pinf, eps_dinf);
+  const int rs = btd_block_rows(n, m, bb, cs);
   err = launch_btd_as(cs, p, bb, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out,
-                      y_out, stats, batch, stream, AaArgs{0, nullptr});
+                      y_out, stats, batch, stream, AaArgs{0, nullptr}, rs,
+                      btd_smem_bytes(n, m, bb, cs, rs), 0);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -906,12 +969,83 @@ int qp_btd_launch(const float* pd, const float* pe, const float* A, const float*
 
 #else  // QP_KERNEL_BTD_AA_UNIT: the Anderson kernels' entry point
 
+extern "C" int qp_btd_twin_blocks(int n, int m, int bb, int cs, int device);  // qp_kernel_btd.cu
+
+namespace {
+
+// Where an Anderson launch keeps each block's Anderson state: its Gram
+// area (aa_gram_floats) in shared memory always, after A's rows, and its
+// ring (aa_ring_floats for m0 rows) there too where, with the ring, the
+// block still holds as many rows of A as the kernel without Anderson and
+// shared memory still allows as many blocks an SM as that kernel gets
+// (twin_blocks, qp_btd_twin_blocks); else the ring stays in the device
+// workspace.  Where shared memory is full of A's rows, the Gram takes the
+// room of the last ones.  ops/qp_kernel.py:anderson_placement is the
+// rule's Python mirror.
+struct BtdAaPlan {
+  bool ring;
+  int rs, twin_rs;  // rows of A a block, with Anderson and without
+  long long smem_bytes, twin_smem, sm_off, area;
+};
+
+BtdAaPlan btd_aa_plan(int n, int m, int bb, int cs, int k, int twin_blocks) {
+  const long long m0 = (m + cs - 1) / cs, fixed = btd_fixed_floats(n, m, bb, cs);
+  const long long g = aa_gram_floats(k), r = aa_ring_floats(k, n, (int)m0);
+  BtdAaPlan P{};
+  P.twin_rs = btd_block_rows(n, m, bb, cs);
+  P.twin_smem = (long long)btd_smem_bytes(n, m, bb, cs, P.twin_rs);
+  const int rs_ring = btd_block_rows(n, m, bb, cs, g + r);
+  const long long with = (fixed + g + r + (long long)P.twin_rs * (n + 1)) * 4;
+  P.ring = P.twin_rs >= 0 && rs_ring == P.twin_rs && with <= kMaxSmemBytes &&
+           smem_blocks_per_sm(with) >= twin_blocks;
+  P.area = g + (P.ring ? r : 0);
+  P.rs = P.ring ? P.twin_rs : btd_block_rows(n, m, bb, cs, g);
+  P.sm_off = fixed + (long long)P.rs * (n + 1);
+  P.smem_bytes = (P.sm_off + P.area) * 4;
+  return P;
+}
+
+}  // namespace
+
 extern "C" {
 
-// qp_btd_launch_as with Anderson acceleration of memory aa_mem > 0, cs
-// blocks per problem (1 or 2; 0: the rule's, qp_btd_cluster_size), its
-// state in aa_ws: batch x cs slices of admm_aa_floats(aa_mem, n,
-// ceil(m / cs)) floats, one a block.
+// The placement of an Anderson launch at n, m, internal block bb, cs blocks
+// per problem and memory k on this card, into out[9]: the ring in shared
+// memory (1) or in the workspace (0), a block's shared-memory bytes, those
+// of the kernel without Anderson, that kernel's blocks an SM and this
+// one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram area's
+// and the ring's floats a block, rows of A a block with Anderson and
+// without (btd_aa_plan).  Returns a CUDA error code.
+int qp_btd_aa_placement(int n, int m, int bb, int cs, int k, int device, long long* out) {
+  if (k <= 0 || k > kAaMaxMemory) return (int)cudaErrorInvalidValue;
+  const int twin = qp_btd_twin_blocks(n, m, bb, cs, device);
+  if (twin < 0) return -twin;
+  const BtdAaPlan P = btd_aa_plan(n, m, bb, cs, k, twin);
+  if (P.rs < 0) return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+#define X(BB_, CS_) \
+  if (bb == BB_ && cs == CS_) fn = (const void*)btd_aa_kernel<BB_, CS_>(twin);
+  BTD_INSTANCES
+#undef X
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem_bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, P.smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long m0 = (m + cs - 1) / cs;
+  const long long v[9] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
+                          aa_gram_floats(k), aa_ring_floats(k, n, (int)m0), P.rs, P.twin_rs};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// qp_btd_launch_as with Anderson acceleration of memory 0 < aa_mem <=
+// kAaMaxMemory, cs blocks per problem (1 or 2; 0: the rule's,
+// qp_btd_cluster_size), its state in shared memory and aa_ws (btd_aa_plan):
+// batch x cs slices of admm_aa_floats(aa_mem, n, ceil(m / cs)) floats, one
+// a block.
 int qp_btd_launch_aa(int cs, const float* pd, const float* pe, const float* A, const float* q,
                      const float* l, const float* u, const uint8_t* active, const float* rho_in,
                      const float* x0, const float* z0, const float* y0, float* x_out,
@@ -921,15 +1055,20 @@ int qp_btd_launch_aa(int cs, const float* pd, const float* pe, const float* A, c
                      float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
                      float eps_dinf, int device, void* stream, int aa_mem, float* aa_ws) {
   if (batch <= 0) return 0;
-  if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (aa_mem <= 0 || aa_mem > kAaMaxMemory || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);  // the rule reads this card's SM count
   if (err != cudaSuccess) return (int)err;
+  if (cs == 0) cs = btd_cluster_size(n, m, bb, batch);
+  const int twin = qp_btd_twin_blocks(n, m, bb, cs, device);
+  if (twin < 0) return -twin;
+  const BtdAaPlan P = btd_aa_plan(n, m, bb, cs, aa_mem, twin);
   const StepParams p = btd_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
                                   chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
                                   check_infeas, eps_pinf, eps_dinf);
-  err = launch_btd_as(cs == 0 ? btd_cluster_size(n, m, bb, batch) : cs, p, bb, pd, pe, A, q, l,
-                      u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats, batch, stream,
-                      AaArgs{aa_mem, aa_ws});
+  err = launch_btd_as(cs, p, bb, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out,
+                      y_out, stats, batch, stream,
+                      AaArgs{aa_mem, aa_ws, P.sm_off, (int)P.area, P.ring ? 1 : 0}, P.rs,
+                      (size_t)P.smem_bytes, twin);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -6,4 +6,5 @@
 // kernel without Anderson stays as it was.
 
 #define QP_KERNEL_BTD_AA_UNIT
+#define ADMM_PHASE_READER admm_phase_clocks_aa  // the phase-clock builds' reader
 #include "qp_kernel_btd.cu"

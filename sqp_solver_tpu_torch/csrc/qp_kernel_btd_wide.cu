@@ -105,8 +105,8 @@
 //
 // Anderson acceleration as in qp_kernel_btd.cu: a second instantiation of
 // the body (AA = true) in qp_kernel_btd_wide_aa.cu, which includes this
-// file with QP_KERNEL_BTD_WIDE_AA_UNIT defined; its ring stays in its
-// workspace, one slice a block.
+// file with QP_KERNEL_BTD_WIDE_AA_UNIT defined; its Gram in shared memory
+// (wide_layout's reserve), its ring in its workspace, one slice a block.
 
 #include <cooperative_groups.h>
 
@@ -163,7 +163,7 @@ __host__ __device__ inline int wide_couplings(int T, int cs, int rank, int& ng) 
 // (or the band rows first, where that leaves an iteration fewer bytes to
 // read from device memory), then the rest.
 __host__ __device__ inline WideLayout wide_layout_as(int n, int m, int bb, int cs,
-                                                     bool a_first) {
+                                                     bool a_first, long long reserve = 0) {
   WideLayout L;
   L.cs = cs;
   L.T = n / bb;
@@ -175,7 +175,7 @@ __host__ __device__ inline WideLayout wide_layout_as(int n, int m, int bb, int c
   L.ldf = bb + 1;
   L.xlen = round4(n > 8 ? n : 8);
   L.fixed = round4ll(kWideCtxFloats + 8LL * n + 8LL * L.m0 + kRedSlots + kPanel + 1 +
-                     2LL * cs * L.xlen + 3LL * L.m0 + L.T + 1);
+                     2LL * cs * L.xlen + 3LL * L.m0 + L.T + 1) + reserve;
   int nc = 0;
   for (int r = 0; r < cs; ++r) {
     int ng;
@@ -225,11 +225,15 @@ __host__ __device__ inline WideLayout wide_layout_as(int n, int m, int bb, int c
 
 // The layout of the two orders that leaves an iteration fewer bytes to
 // read from device memory (A's band rows first at bb = 128, T = 2: 131 KB
-// an iteration a problem where the other order reads 524 KB of A).
-__host__ __device__ inline WideLayout wide_layout(int n, int m, int bb, int cs) {
-  const WideLayout L = wide_layout_as(n, m, bb, cs, false);
+// an iteration a problem where the other order reads 524 KB of A).  An
+// Anderson launch reserves its Gram area (aa_gram_floats, a multiple of 4
+// floats) at the end of the fixed part; its ring stays in the workspace,
+// since the arrays an iteration reads take the shared memory first-fit.
+__host__ __device__ inline WideLayout wide_layout(int n, int m, int bb, int cs,
+                                                  long long reserve = 0) {
+  const WideLayout L = wide_layout_as(n, m, bb, cs, false, reserve);
   if (L.iter_bytes == 0) return L;
-  const WideLayout La = wide_layout_as(n, m, bb, cs, true);
+  const WideLayout La = wide_layout_as(n, m, bb, cs, true, reserve);
   return La.iter_bytes < L.iter_bytes ? La : L;
 }
 
@@ -870,7 +874,7 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
   ADMM_PHASE_BEGIN(kPhTotal);
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const WideLayout Lay = wide_layout(p.n, p.m, bb, cs);
+  const WideLayout Lay = wide_layout(p.n, p.m, bb, cs, AA ? aa_gram_floats(aa_args.k) : 0);
   const int n = p.n, m = p.m, T = Lay.T, m0 = Lay.m0, W = Lay.W, lds = Lay.lds;
   const int xlen = Lay.xlen;
   const size_t b = blockIdx.x / cs, b2 = (size_t)bb * bb;
@@ -1065,10 +1069,16 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
 
   StepParams pl = p;
   pl.m = ml;  // the ADMM core sees this block's rows
-  // Anderson's state: one slice a block, sized for m0 rows
-  float* aa = AA ? aa_args.ws + (size_t)blockIdx.x * aa_floats(aa_args.k, n, m0) : nullptr;
-  admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
-                         aa, aa_args.k);
+  // Anderson's state: its Gram area at the end of the fixed part, its ring
+  // in one workspace slice a block, sized for m0 rows
+  if constexpr (AA) {
+    float* aa = aa_args.ws + (size_t)blockIdx.x * aa_floats(aa_args.k, n, m0);
+    float* ag = wide_smem + Lay.fixed - aa_gram_floats(aa_args.k);
+    admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                           aa, aa_args.k, ag);
+  } else {
+    admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
+  }
 
   ADMM_PHASE_END(kPhTotal);
   if (rank == 0)
@@ -1109,7 +1119,7 @@ cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rh
   if (bb < 8 || bb > kWideMaxBlock || bb % 8 != 0 || n <= 0 || m <= 0 || n % bb != 0)
     return cudaErrorInvalidValue;
   const int cs = kWideCluster;
-  const WideLayout L = wide_layout(n, m, bb, cs);
+  const WideLayout L = wide_layout(n, m, bb, cs, aa.ws ? aa_gram_floats(aa.k) : 0);
   if (!L.ok || (L.ws_floats > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1210,12 +1220,31 @@ int qp_btd_wide_launch(QP_BTD_WIDE_ARGS) {
   return (int)launch_wide(QP_BTD_WIDE_CALL, AaArgs{0, nullptr});
 }
 #else
-// With Anderson acceleration of memory aa_mem > 0, its state in aa_ws:
-// batch x 2 slices of admm_aa_floats(aa_mem, n, ceil(m / 2)) floats,
-// one a block.
+// The layout of one block of an Anderson launch of memory k, as
+// qp_btd_wide_layout gives it: the fixed part ends with the Gram area
+// (aa_gram_floats), so that the workspace floats may be more.
+int qp_btd_wide_layout_aa(int n, int m, int bb, int k, long long* out) {
+  if (bb < 8 || bb > kWideMaxBlock || bb % 8 != 0 || n <= 0 || m <= 0 || n % bb != 0 ||
+      k <= 0 || k > kAaMaxMemory)
+    return -1;
+  const int cs = kWideCluster;
+  const WideLayout L = wide_layout(n, m, bb, cs, aa_gram_floats(k));
+  const long long v[11] = {cs,  L.smem_bytes, L.ws_floats, (long long)L.smem, L.iter_bytes,
+                           L.T, L.R,          L.m0,        L.W,               L.lds,
+                           L.fixed};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return L.ok ? 0 : -1;
+}
+
+// With Anderson acceleration of memory 0 < aa_mem <= kAaMaxMemory, its
+// Gram in shared memory (wide_layout's reserve; ws then holds
+// qp_btd_wide_layout_aa's workspace floats a block) and its ring in aa_ws:
+// batch x 2 slices of admm_aa_floats(aa_mem, n, ceil(m / 2)) floats, one a
+// block.
 int qp_btd_wide_launch_aa(QP_BTD_WIDE_ARGS, int aa_mem, float* aa_ws) {
   if (batch <= 0) return 0;
-  if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (aa_mem <= 0 || aa_mem > kAaMaxMemory || aa_ws == nullptr)
+    return (int)cudaErrorInvalidValue;
   return (int)launch_wide(QP_BTD_WIDE_CALL, AaArgs{aa_mem, aa_ws});
 }
 #endif

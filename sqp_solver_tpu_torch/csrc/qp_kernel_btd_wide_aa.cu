@@ -6,4 +6,5 @@
 // in a process of its own beside the others.
 
 #define QP_KERNEL_BTD_WIDE_AA_UNIT
+#define ADMM_PHASE_READER admm_phase_clocks_aa  // the phase-clock builds' reader
 #include "qp_kernel_btd_wide.cu"

@@ -117,6 +117,12 @@ _SIGNATURES = {
     "qp_btd_smem_rows": (_INT, [_INT] * 4),
     "qp_btd_cluster_size": (_INT, [_INT] * 4),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
+    "qp_kernel_twin_blocks": (_INT, [_INT] * 4),
+    "qp_kernel_aa_workspace_floats": (_LL, [_INT] * 4),
+    "qp_kernel_aa_placement": (_INT, [_INT] * 5 + [_VOID]),
+    "qp_btd_twin_blocks": (_INT, [_INT] * 5),
+    "qp_btd_aa_placement": (_INT, [_INT] * 6 + [_VOID]),
+    "qp_btd_wide_layout_aa": (_INT, [_INT] * 4 + [_VOID]),
 }
 
 

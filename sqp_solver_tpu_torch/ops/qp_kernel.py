@@ -75,6 +75,9 @@ __all__ = [
     "spd_inverse_problems_per_block",
     "spd_inverse_arm_info",
     "SPD_ARMS",
+    "AA_MAX_MEMORY",
+    "anderson_placement",
+    "anderson_placement_card",
 ]
 
 # Launch counters: each wrapper adds one where it launches its CUDA kernel
@@ -569,12 +572,196 @@ def _aa_args(settings: QPSettings) -> dict:
 def _aa_workspace(lib, settings: QPSettings, slices: int, n: int, m: int, dev):
     """``(aa_mem, workspace)`` for a launch with Anderson: one slice of the
     kernel's state (``admm_core.cuh:aa_floats``) for each of ``slices``
-    scopes of n variables and m rows; ``(0, None)`` without it."""
+    scopes of n variables and m rows; ``(0, None)`` without it.  Raises a
+    ValueError past the kernels' bound on the memory (:data:`AA_MAX_MEMORY`)."""
     if settings.acceleration != "anderson":
         return 0, None
     k = int(settings.anderson_memory)
+    _check_aa_memory(k)
     floats = int(lib.admm_aa_floats(k, n, m))
     return k, torch.empty((slices * floats,), dtype=torch.float32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Where the Anderson kernels keep their state (csrc/admm_core.cuh)
+# ---------------------------------------------------------------------------
+
+# The CUDA kernels' bound on ``anderson_memory`` (admm_core.cuh:kAaMaxMemory):
+# the Gram stays in shared memory and its solve puts a row on a lane of one
+# warp.  The plain versions take any memory.
+AA_MAX_MEMORY = 32
+
+# sm_90's shared memory (admm_core.cuh: kMaxSmemBytes, kAaSmemPerSm,
+# kAaSmemReserved) and the reduction slots
+_MAX_SMEM = 232448
+_SMEM_PER_SM = 233472
+_SMEM_RESERVED = 1024
+_RED_SLOTS = 8 * 32
+_QP_WARPS = 2  # K3's problems a block under its warp layout
+
+ANDERSON_KERNELS = ("K1", "K3-block", "K3-warp", "K6", "K7", "wide")
+
+
+def _check_aa_memory(k: int) -> None:
+    if not 0 < k <= AA_MAX_MEMORY:
+        raise ValueError(f"anderson_memory = {k}: the CUDA kernels keep the Anderson Gram in "
+                         f"shared memory for a memory of 1 to {AA_MAX_MEMORY} (AA_MAX_MEMORY); "
+                         "the vmap and fused tiers take any")
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _smem_blocks(smem_bytes: int) -> int:
+    """Blocks an SM that sm_90's shared memory allows at ``smem_bytes`` a
+    block (admm_core.cuh:smem_blocks_per_sm)."""
+    return _SMEM_PER_SM // (smem_bytes + _SMEM_RESERVED)
+
+
+def _plan(vec: int, mats) -> tuple:
+    """(shared bytes, matrices in shared memory, workspace floats) of
+    ``csrc/qp_kernel.cu:plan``: the vectors, then the matrices first-fit in
+    their order."""
+    smem, held, ws, spill = 4 * vec, 0, 0, False
+    for size in mats:
+        if not spill and smem + 4 * size <= _MAX_SMEM:
+            smem += 4 * size
+            held += 1
+        else:
+            spill = True
+            ws += size
+    return smem, held, ws
+
+
+def _qp_warp_floats(n: int, m: int) -> int:
+    ld4 = _round4(n) if _round4(n) & 7 else _round4(n) + 4  # stride4
+    return 7 * _round4(n) + 7 * _round4(m) + (_round4(m) + n) * ld4
+
+
+def _btd_fixed_floats(n: int, m: int, bb: int, cs: int) -> int:
+    m0 = -(-m // cs)
+    ring = 4 * max(n, 16) if cs > 1 else 0
+    return 8 * n + 7 * m0 + _RED_SLOTS + ring + 5 * n * bb + 2 * bb * (bb + 1) + 1
+
+
+def _btd_block_rows(n: int, m: int, bb: int, cs: int, extra: int = 0) -> int:
+    spare = _MAX_SMEM // 4 - _btd_fixed_floats(n, m, bb, cs) - extra
+    return -1 if spare < 0 else min(spare // (n + 1), -(-m // cs))
+
+
+def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Optional[int],
+                       bb: Optional[int] = None, cluster: Optional[int] = None) -> dict:
+    """Where an Anderson launch keeps its state (the rule of the kernels'
+    launchers: ``csrc/qp_kernel.cu:aa_dense_plan``, ``qp_kernel_btd.cu:
+    btd_aa_plan``, the wide kernel's ``wide_layout`` reserve), a function of
+    the kernel, its shape and the memory k.  Each scope's Gram area
+    (``gram_floats``: the kept k x k Gram and the k x (k + 1) system) is in
+    shared memory; its ring (``ring_floats``: the difference pairs and four
+    iterates) too (``ring``) where the block's shared memory with it still
+    holds what the kernel without Anderson holds (its matrices, or rows of
+    A) and allows as many blocks an SM as that kernel gets
+    (``twin_blocks``: the runtime's occupancy of it on the card, as
+    :func:`anderson_placement_card` reports it; None for the wide kernel),
+    else in the device workspace; the wide kernel's stays there, since its
+    arrays take shared memory first.  ``kernel``: "K1", "K3-block", "K3-warp",
+    "K6" or "K7" (the structured kernel at internal block ``bb`` <= 32 and
+    ``cluster`` blocks a problem) or "wide".  Returns ``ring``,
+    ``gram_floats``, ``ring_floats``, ``twin_blocks``, and but for the wide
+    kernel ``smem_bytes`` and ``twin_smem_bytes`` (a block's) and the rows
+    of A (``rows``, ``twin_rows``; the structured kernel) or matrices
+    (``mats``, ``twin_mats``; K1, K3's block layout) in shared memory with
+    Anderson and without.  Raises a ValueError past :data:`AA_MAX_MEMORY`."""
+    _check_aa_memory(k)
+    if kernel not in ANDERSON_KERNELS:
+        raise ValueError(f"anderson_placement: kernel {kernel!r} not one of {ANDERSON_KERNELS}")
+    gram = _round4(k * k + k * (k + 1))
+    rows_of = m if kernel in ("K1", "K3-block", "K3-warp") else -(-m // (cluster or 2))
+    ring_floats = (2 * k + 4) * (n + 2 * rows_of)
+    out = dict(gram_floats=gram, ring_floats=ring_floats, twin_blocks=twin_blocks)
+    if kernel == "wide":
+        return dict(out, ring=False)
+    if kernel == "K3-warp":
+        if not (n <= 32 and m <= 64):
+            raise ValueError("anderson_placement: K3's warp layout takes n <= 32, m <= 64")
+        sl = _qp_warp_floats(n, m)
+        twin_smem = 4 * _QP_WARPS * sl
+        with_ring = 4 * _QP_WARPS * (sl + gram + ring_floats)
+        ring = with_ring <= _MAX_SMEM and _smem_blocks(with_ring) >= twin_blocks
+        smem = 4 * _QP_WARPS * (sl + gram + (ring_floats if ring else 0))
+        return dict(out, ring=ring, smem_bytes=smem, twin_smem_bytes=twin_smem)
+    if kernel in ("K1", "K3-block"):
+        ld = n + 1
+        mats = (n * ld, m * ld, n * ld)
+        vec = (9 * n if kernel == "K1" else 7 * n) + 7 * m + _RED_SLOTS
+        twin = _plan(vec, mats)
+        with_ring = _plan(vec + gram + ring_floats, mats)
+        ring = (with_ring[1] == twin[1] and with_ring[0] <= _MAX_SMEM
+                and _smem_blocks(with_ring[0]) >= twin_blocks)
+        lay = with_ring if ring else _plan(vec + gram, mats)
+        return dict(out, ring=ring, smem_bytes=lay[0], twin_smem_bytes=twin[0],
+                    mats=lay[1], twin_mats=twin[1], workspace_floats=lay[2])
+    cs = cluster or 1
+    if bb is None or bb > 32:
+        raise ValueError("anderson_placement: the structured kernel takes an internal block "
+                         "of 8 to 32 (bb); wider ones are the wide kernel's")
+    fixed = _btd_fixed_floats(n, m, bb, cs)
+    twin_rows = _btd_block_rows(n, m, bb, cs)
+    twin_smem = 4 * (fixed + twin_rows * (n + 1))
+    with_ring = 4 * (fixed + gram + ring_floats + twin_rows * (n + 1))
+    ring = (twin_rows >= 0 and _btd_block_rows(n, m, bb, cs, gram + ring_floats) == twin_rows
+            and with_ring <= _MAX_SMEM and _smem_blocks(with_ring) >= twin_blocks)
+    rows = twin_rows if ring else _btd_block_rows(n, m, bb, cs, gram)
+    smem = 4 * (fixed + rows * (n + 1) + gram + (ring_floats if ring else 0))
+    return dict(out, ring=ring, smem_bytes=smem, twin_smem_bytes=twin_smem,
+                rows=rows, twin_rows=twin_rows)
+
+
+_AA_CODES = {"K1": 1, "K3-block": 2, "K3-warp": 3}
+
+
+def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[int] = None,
+                            cluster: Optional[int] = None, device: int = 0, lib=None) -> dict:
+    """The placement as the built kernel's launcher decides it on the card
+    (``qp_kernel_aa_placement``, ``qp_btd_aa_placement``,
+    ``qp_btd_wide_layout_aa``): the keys of :func:`anderson_placement`
+    with the twin's blocks an SM from the runtime, and ``blocks``: the
+    Anderson kernel's at its shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; not for the wide
+    kernel, whose ``smem_bytes`` and ``workspace_floats`` are those of its
+    layout with the Gram reserved)."""
+    lib = lib or _library()
+    out = (ctypes.c_longlong * 11)()
+    if kernel == "wide":
+        if int(lib.qp_btd_wide_layout_aa(n, m, bb, k, out)) != 0:
+            raise ValueError(f"anderson_placement_card: the wide kernel refuses n={n}, m={m}, "
+                             f"bb={bb}, k={k}")
+        gram = _round4(k * k + k * (k + 1))
+        return dict(ring=False, smem_bytes=int(out[1]), workspace_floats=int(out[2]),
+                    gram_floats=gram, ring_floats=(2 * k + 4) * (n + 2 * int(out[7])))
+    if kernel in _AA_CODES:
+        rc = int(lib.qp_kernel_aa_placement(_AA_CODES[kernel], n, m, k, device, out))
+        keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
+                "gram_floats", "ring_floats", "problems_per_block", "workspace_floats")
+    else:
+        rc = int(lib.qp_btd_aa_placement(n, m, bb, cluster, k, device, out))
+        keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
+                "gram_floats", "ring_floats", "rows", "twin_rows")
+    _raise_on(lib, rc, "anderson_placement_card")
+    res = {key: int(v) for key, v in zip(keys, out)}
+    res["ring"] = bool(res["ring"])
+    return res
+
+
+def _workspace_floats(lib, kernel: str, n: int, m: int, aa_mem: int) -> int:
+    """Workspace floats a problem of K1 or K3's block layout: with Anderson
+    those of its launch, whose Gram area may leave a matrix out of shared
+    memory (a library built before that area has the others' floats)."""
+    if aa_mem and hasattr(lib, "qp_kernel_aa_workspace_floats"):
+        return int(lib.qp_kernel_aa_workspace_floats(_AA_CODES[kernel], n, m, aa_mem))
+    if kernel == "K1":
+        return int(lib.sqp_step_workspace_floats(n, m))
+    return int(lib.qp_solve_workspace_floats(n, m))
 
 
 def _check_cuda_operands(name, named, dtypes):
@@ -677,11 +864,11 @@ def _sqp_step_launch(B, J, g, l, u, s, dgl, reset, upd, active, x, z, y,
     B_out = torch.empty((batch, n, n), **f32)
     stats = torch.empty((9, batch), **f32)  # one contiguous row per field
     minv_out = torch.empty((batch, n, n), **f32) if want_minv else None
-    ws_floats = int(lib.sqp_step_workspace_floats(n, m))
+    aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
+    ws_floats = _workspace_floats(lib, "K1", n, m, aa_mem)
     ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
     args = (
         _ptr(B), _ptr(J), _ptr(g), _ptr(l), _ptr(u), _ptr(s), _ptr(dgl),
         _ptr(reset), _ptr(upd), _ptr(active), _ptr(rho_in), _ptr(minv_in),
@@ -916,12 +1103,13 @@ def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None,
     z_out = torch.empty((batch, m), **f32)
     y_out = torch.empty((batch, m), **f32)
     stats = torch.empty((8, batch), **f32)  # one contiguous row per field
-    ws_floats = int(lib.qp_solve_workspace_floats(n, m))
+    if layout is not None and layout not in QP_LAYOUTS:
+        raise ValueError(f"{name}: layout {layout!r} is not one of {sorted(QP_LAYOUTS)}")
+    aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
+    ws_floats = _workspace_floats(lib, "K3-block", n, m, aa_mem)
     ws = torch.empty((batch * ws_floats,), **f32) if ws_floats > 0 else None
     seg, cpe, n_epochs = _schedule(settings)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if layout is not None and layout not in QP_LAYOUTS:
-        raise ValueError(f"{name}: layout {layout!r} is not one of {sorted(QP_LAYOUTS)}")
     args = (
         _ptr(P), _ptr(A), _ptr(q), _ptr(l), _ptr(u), _ptr(x), _ptr(z), _ptr(y),
         _ptr(x_out), _ptr(z_out), _ptr(y_out), _ptr(stats), _ptr(ws),
@@ -934,7 +1122,6 @@ def _qp_solve_launch(P, A, q, l, u, x, z, y, settings: QPSettings, lib=None,
         float(settings.eps_pinf), float(settings.eps_dinf),
         dev.index, ctypes.c_void_p(stream),
     )
-    aa_mem, aa_ws = _aa_workspace(lib, settings, batch, n, m, dev)
     code = 0 if layout is None else QP_LAYOUTS[layout]
     # without Anderson the launch keeps the interface of the kernels before
     # it (tools/kernel_ab.py calls another tree's library through it)

@@ -423,12 +423,20 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
             raise ValueError(f"{name}: the vectors of n={n}, m={m} do not fit in the shared "
                              "memory of a cluster's block")
         cs, ws_floats = lay["cluster"], lay["workspace_floats"]
+        # one slice of the Anderson state a block: a cluster's block holds
+        # all of x and ceil(m / cs) rows; its Gram in shared memory may
+        # leave an array to the workspace (a library built before it has
+        # the layout without Anderson)
+        aa_mem, aa_ws = _aa_workspace(lib, settings, batch * cs, n, -(-m // cs), dev)
+        if aa_mem and hasattr(lib, "qp_btd_wide_layout_aa"):
+            out = (ctypes.c_longlong * 11)()
+            if int(lib.qp_btd_wide_layout_aa(n, m, bb, aa_mem, out)) != 0:
+                raise ValueError(f"{name}: the vectors of n={n}, m={m} and the Anderson Gram "
+                                 "do not fit in the shared memory of a cluster's block")
+            ws_floats = int(out[2])
         ws = torch.empty((batch * cs * ws_floats,), **f32) if ws_floats else None
         route = torch.empty((batch,), dtype=torch.bool, device=dev)
         wargs = (*args, _ptr(ws), _ptr(route))
-        # one slice of the Anderson state a block: a cluster's block holds
-        # all of x and ceil(m / cs) rows
-        aa_mem, aa_ws = _aa_workspace(lib, settings, batch * cs, n, -(-m // cs), dev)
         rc = (lib.qp_btd_wide_launch_aa(*wargs, aa_mem, _ptr(aa_ws)) if aa_mem
               else lib.qp_btd_wide_launch(*wargs))
     elif settings.acceleration == "anderson":

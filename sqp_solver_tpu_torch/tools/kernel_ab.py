@@ -16,8 +16,13 @@ both trees.  Four parts, in order (``--parts`` picks some):
             shapes, K3 at those shapes (its warp layout) and at two that
             its warp layout does not take (n > 32 or m > 64), and K4 at
             n = 32 (its warp layout), on the same seeded inputs, every
-            launch without Anderson acceleration: every output tensor
-            must be equal bit for bit.  K4 at n = 128 sums
+            launch without Anderson acceleration; then the Anderson
+            instantiations at leg G's shapes and settings
+            (``chip_smoke.aa_cases``: K1, K3 in both layouts, K6 and K7 at
+            their cells' settings and on a cluster with chunks of 10, K6
+            at horizon 32 on one block, the wide K6 and K7, and K1 and the
+            K6 cluster at memory 8): every output tensor must be equal bit
+            for bit.  K4 at n = 128 sums
             in the blocked order, so there the change alone must have the
             fail flags of ``_chol_inv_blocked`` and of
             ``spd_inverse_reference``, lie within ``chip_smoke.TOL``
@@ -29,7 +34,9 @@ both trees.  Four parts, in order (``--parts`` picks some):
             must use the same in the change, but those this tree redesigned
             (``REDESIGNED``), which are listed beside the parent's;
 ``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
-            k3, k4, k5, k6, k7) at every ``chip_smoke.py`` shape
+            k3, k4, k5, k6, k7, and the Anderson instantiations k1aa,
+            k3aa, k6aa, k7aa and k6waa, the wide K6 and K7, at leg G's
+            shapes) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
             ``spd_cases`` for K4, ``chunk_cases`` for K5 and its wide
             shapes, ``btd_cases`` for K6/K7), CUDA events, in turns
@@ -47,7 +54,11 @@ both trees.  Four parts, in order (``--parts`` picks some):
             per block (under K3's warp layout, those of the block's first
             problem; for the wide K5 also per iteration).  A tree whose
             source has no marks at all (K5 before they were added) gets no
-            split.
+            split.  The Anderson units build against their tree's own
+            headers, since the step they time lives in ``admm_core.cuh``,
+            beside the units they include (each unit reads its own sums:
+            an Anderson unit's reader is ``admm_phase_clocks_aa``), and
+            each split is also given per chunk.
 
 The last line of the output is one JSON object with every number.
 """
@@ -67,16 +78,30 @@ ROOT = Path(__file__).resolve().parents[2]
 # the AdmmPhase enum of csrc/admm_core.cuh, in its order
 PHASES = ("gram", "thomas", "atmv", "sweep", "amv", "stats", "total",
           "chol", "linv", "ltl", "bfgs", "polish", "load", "cert", "iter",
-          "ring", "dot", "exchange")
+          "ring", "dot", "exchange", "aaring", "aadot", "aasolve", "aacand",
+          "aarevert")
+# the Anderson step's parts
+AA_PHASES = ("aaring", "aadot", "aasolve", "aacand", "aarevert")
 SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
            "k4": "qp_kernel.cu", "k5": "admm_kernel.cu", "k6": "qp_kernel_btd.cu",
-           "k7": "qp_kernel_btd.cu"}
+           "k7": "qp_kernel_btd.cu", "k1aa": "qp_kernel_aa.cu", "k3aa": "qp_kernel_aa.cu",
+           "k6aa": "qp_kernel_btd_aa.cu", "k7aa": "qp_kernel_btd_aa.cu",
+           "k6waa": "qp_kernel_btd_wide_aa.cu"}
+# the Anderson units, each with the unit it includes (whose C functions it
+# calls): a library holds both
+TWINS = {"qp_kernel_aa.cu": "qp_kernel.cu", "qp_kernel_btd_aa.cu": "qp_kernel_btd.cu",
+         "qp_kernel_btd_wide_aa.cu": "qp_kernel_btd_wide.cu"}
+AA_KERNELS = ("k1aa", "k3aa", "k6aa", "k7aa", "k6waa")
 # the kernels that ``bits`` holds equal to the parent's (K5 at its narrow
-# shapes: the wide variant sums in another order since its redesign)
-BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
-# kernels of the parent that this tree redesigned: ``regs`` lists them and
-# does not hold them to the parent's registers
-REDESIGNED = ("admm_chunk_wide_kernel",)
+# shapes: the wide variant sums in another order since its redesign), and
+# the Anderson instantiations at leg G's shapes
+BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7") + AA_KERNELS
+# kernels (and device functions of their own) of the parent that this tree
+# redesigned: ``regs`` lists them and does not hold them to the parent's
+# registers
+REDESIGNED = ("admm_chunk_wide_kernel", "sqp_step_kernel_aa", "qp_solve_kernel_aa",
+              "qp_solve_warp_kernel_aa", "qp_btd_kernel_aa", "qp_btd_wide_kernel_aa",
+              "aa_chunk_end", "aa_solve")
 
 
 def _csrc(tree: Path) -> Path:
@@ -98,21 +123,30 @@ def _stage_and_build(cu: list, headers: Path, label: str, flags=()):
     for h in headers.glob("*.cuh"):
         shutil.copy(h, csrc / h.name)
     lib = _build.build_library(csrc, out, flags=flags)
-    if "-DADMM_PHASE_CLOCKS" in flags and hasattr(lib, "admm_phase_clocks"):
-        lib.admm_phase_clocks.restype = ctypes.c_int
-        lib.admm_phase_clocks.argtypes = [ctypes.c_void_p]
+    for reader in ("admm_phase_clocks", "admm_phase_clocks_aa"):
+        if "-DADMM_PHASE_CLOCKS" in flags and hasattr(lib, reader):
+            getattr(lib, reader).restype = ctypes.c_int
+            getattr(lib, reader).argtypes = [ctypes.c_void_p]
     return lib
+
+
+def with_twins(sources) -> list:
+    """The sources with the unit each Anderson unit includes, sorted."""
+    return sorted(set(sources) | {TWINS[s] for s in sources if s in TWINS})
 
 
 def kernel_library(tree: Path, label: str, sources) -> ctypes.CDLL:
     """``tree``'s kernel sources (names in its ``csrc``) with its own headers."""
-    return _stage_and_build([_csrc(tree) / s for s in sorted(sources)], _csrc(tree), label)
+    return _stage_and_build([_csrc(tree) / s for s in with_twins(sources)], _csrc(tree), label)
 
 
 def phase_library(tree: Path, label: str, source: str) -> ctypes.CDLL:
-    """``tree``'s kernel source with this checkout's headers and phase clocks."""
-    return _stage_and_build([_csrc(tree) / source], _csrc(ROOT), f"{label}-phases",
-                            flags=("-DADMM_PHASE_CLOCKS",))
+    """``tree``'s kernel source with phase clocks, against this checkout's
+    headers; an Anderson unit (with the unit it includes) against the
+    tree's own, which hold the step it times."""
+    headers = _csrc(tree) if source in TWINS else _csrc(ROOT)
+    return _stage_and_build([_csrc(tree) / s for s in with_twins([source])], headers,
+                            f"{label}-phases", flags=("-DADMM_PHASE_CLOCKS",))
 
 
 def build_all(jobs: dict) -> dict:
@@ -123,19 +157,21 @@ def build_all(jobs: dict) -> dict:
         return {k: f.result() for k, f in futs.items()}
 
 
-def clock_split(lib, launch, blocks: int):
+def clock_split(lib, launch, blocks: int, reader: str = "admm_phase_clocks"):
     """(cycles per block of each marked phase, the output) of one
     ``launch()`` after a warm-up launch, from a ``-DADMM_PHASE_CLOCKS``
-    library."""
+    library: the sums of the unit whose reader is ``reader`` (an Anderson
+    unit's: ``admm_phase_clocks_aa``)."""
     import numpy as np
     import torch
 
+    read = getattr(lib, reader)
     buf = np.zeros(len(PHASES), dtype=np.uint64)
     launch()
-    rc = lib.admm_phase_clocks(buf.ctypes.data)
+    rc = read(buf.ctypes.data)
     out = launch()
     torch.cuda.synchronize()
-    rc = rc or lib.admm_phase_clocks(buf.ctypes.data)
+    rc = rc or read(buf.ctypes.data)
     if rc:
         raise RuntimeError(f"admm_phase_clocks failed ({rc})")
     return {p: float(buf[i]) / blocks for i, p in enumerate(PHASES) if buf[i]}, out
@@ -169,7 +205,8 @@ def bits(libs: dict, dev) -> list:
     """K1, K2, K5 (its narrow shapes), K6 and K7 of both trees at their
     ``chip_smoke.py`` shapes,
     K3 at its ``chip_smoke.py`` shapes (the warp layout) and at two outside
-    its warp layout (n > 32 or m > 64), and K4 at n = 32, on the same
+    its warp layout (n > 32 or m > 64), K4 at n = 32 and the Anderson
+    instantiations at leg G's shapes (``chip_smoke.aa_cases``), on the same
     inputs; raises unless every output is equal bit for bit.  Then K4 at
     n = 128 (:func:`blocked_k4`)."""
     import torch
@@ -195,6 +232,7 @@ def bits(libs: dict, dev) -> list:
     for c in cs.btd_cases(dev):
         cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
             c["t"], c["settings"], c["check_infeas"], lib=lib)))
+    cases += [(c["label"], c["launch"]) for c in cs.aa_cases(dev)]
     rows = []
     for label, fn in cases:
         outs = {who: _tensors(fn(lib)) for who, lib in libs.items()}
@@ -317,12 +355,16 @@ def timing(libs: dict, dense: list, btd: list) -> list:
     for c in dense:
         ms = _turns(libs, lambda lib, _: c["launch"](lib), c["reps"])
         mean = {who: sum(v) / len(v) for who, v in ms.items()}
+        # an Anderson case: the change's same launch without Anderson, after the turns
+        none = cs.cuda_ms(lambda: c["launch_none"](libs["change"]), c["reps"]) if (
+            "launch_none" in c) else None
         cs.log(f"  {c['label']}: parent {mean['parent']:.3f} ms, change {mean['change']:.3f} ms, "
                f"parent / change {mean['parent'] / mean['change']:.2f}x (means of 2 turns of "
-               f"{c['reps']} launches: {ms})")
+               f"{c['reps']} launches: {ms})"
+               + ("" if none is None else f"; without Anderson {none:.3f} ms"))
         rows.append(dict(case=c["label"], n=c["n"], batch=c["batch"], parent_ms=mean["parent"],
                          change_ms=mean["change"], speedup=mean["parent"] / mean["change"],
-                         turns=ms))
+                         turns=ms, none_ms=none))
     for c in btd:
         reps = 3 if "random" in c["label"] else 5
         rule = qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=libs["change"])
@@ -388,11 +430,33 @@ def polish_route(libs: dict, dev, runs: int = 5) -> dict:
                 change_ms=mean["change"], turns=walls)
 
 
-def phases(phase_libs: dict, dense: list, btd: list) -> list:
+def aa_split(lib, c: dict) -> dict:
+    """The phase split of one Anderson case ``c`` (``chip_smoke.aa_cases``)
+    from the phase-clock build ``lib``: cycles per block, and the step's
+    parts (``AA_PHASES``) and the chunk-end stats per chunk (chunks: the
+    mean iterations over the chunk length)."""
+    cyc, out = clock_split(lib, lambda: c["launch"](lib), c["blocks"],
+                           reader="admm_phase_clocks_aa")
+    chunks = float(out.iter.double().mean()) / c["seg"]
+    per_chunk = {p: cyc.get(p, 0.0) / max(chunks, 1.0) for p in ("stats",) + AA_PHASES}
+    return dict(cycles_per_block=cyc, chunks=chunks, cycles_per_chunk=per_chunk,
+                step_per_chunk=sum(per_chunk[p] for p in AA_PHASES))
+
+
+def phases(phase_libs: dict, dense: list, btd: list, aa: list = ()) -> list:
     """Per-block clock64() cycles of each phase, one launch per shape and tree."""
     import chip_smoke as cs
 
     rows = []
+    for c in aa:
+        for who, lib in phase_libs[SOURCES[c["kernel"]]].items():
+            r = aa_split(lib, c)
+            cs.log(f"  {c['label']} {who} ({c['blocks']} blocks, {r['chunks']:.1f} chunks): the "
+                   f"step {r['step_per_chunk']:.0f} cycles a chunk ("
+                   + ", ".join(f"{p[2:]} {r["cycles_per_chunk"][p]:.0f}" for p in AA_PHASES)
+                   + f"; the plain stats {r['cycles_per_chunk']['stats']:.0f}); cycles per block "
+                   f"{format_split(r['cycles_per_block'])}")
+            rows.append(dict(case=c["label"], tree=who, **r))
     for c in dense:
         for who, lib in phase_libs[SOURCES[c["kernel"].lower()]].items():
             if not hasattr(lib, "admm_phase_clocks"):
@@ -471,23 +535,25 @@ def main(argv=None) -> int:
         dense += cs.chunk_cases(dev) + cs.chunk_cases(dev, wide=True)
     btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
+    aa = [c for c in cs.aa_cases(dev) if c["kernel"] in kernels] if set(AA_KERNELS) & set(
+        kernels) else []
     result = dict(card=card)
     if "bits" in parts:
-        cs.log("K1, K2, K3 in both layouts, K4 at n = 32, K5, K6 and K7, parent against "
-               "change:")
+        cs.log("K1, K2, K3 in both layouts, K4 at n = 32, K5, K6 and K7, and the Anderson "
+               "instantiations at leg G's shapes, parent against change:")
         result["bits"] = bits(libs, dev)
     if "regs" in parts:
         cs.log("registers, stack and local bytes a thread, parent against change:")
         result["regs"] = regs(libs)
     if "time" in parts:
         cs.log(f"{', '.join(k.upper() for k in kernels)} ms at the chip_smoke.py shapes:")
-        result["time"] = timing(libs, dense, btd)
+        result["time"] = timing(libs, dense + aa, btd)
         if "k4" in kernels:
             result["polish_route"] = polish_route(libs, dev)
     if "phases" in parts:
         cs.log("phase split (clock64, thread 0 of each block):")
         phase_libs = {src: {who: built[(src, who)] for who in split_trees} for src in timed}
-        result["phases"] = phases(phase_libs, dense, btd)
+        result["phases"] = phases(phase_libs, dense, btd, aa)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -1412,7 +1412,7 @@ def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson"):
                                rho_in=t["rho_in"]))
 
 
-@pytest.mark.parametrize("memory", [1, 4])
+@pytest.mark.parametrize("memory", [1, 2, 4, 8])
 @pytest.mark.parametrize("kind", AA_KINDS)
 def test_anderson_kernels_match_plain_float64(cuda, kind, memory):
     """Each kernel with Anderson (K3 in both layouts, K6 on a cluster of two
@@ -1460,6 +1460,97 @@ def test_anderson_kernels_with_several_pairs(cuda, kind):
     assert (ok.iter >= 30).float().mean() >= 0.25
 
 
+@pytest.mark.parametrize("kind", AA_KINDS)
+def test_anderson_kernels_ring_wraps_and_rho_resets(cuda, kind):
+    """Memory 2 with chunks of 5 iterations and rho every 50 (40 for K1):
+    an epoch's ten (eight) chunks push nine (seven) pairs into a ring of
+    two slots, which wraps three times or more, and a rho change in
+    mid-solve empties the ring and the kept Gram.  The kernel holds to
+    plain float64 under the bars of test_anderson_kernels_match_plain_float64;
+    some problems change rho in mid-solve and a quarter or more run a whole
+    epoch."""
+    ok = _aa_against_plain_float64(kind, *_aa_case(kind, 2, cuda, seg=5))
+    assert (ok.rho_updates >= 2).any()  # the setup's update counts one
+    epoch = 40 if kind == "K1" else 50
+    assert (ok.iter >= epoch).float().mean() >= 0.25
+
+
+@pytest.mark.parametrize("kind", AA_KINDS)
+def test_anderson_kernels_refuse_memory_past_the_bound(cuda, kind):
+    """A memory past the on-chip Gram's bound (AA_MAX_MEMORY + 1) raises a
+    ValueError naming it before any launch, while the plain version takes
+    it; the bound itself runs, with finite iterates."""
+    t32, launch, plain = _aa_case(kind, qk.AA_MAX_MEMORY + 1, cuda)
+    before = _counts()
+    with pytest.raises(ValueError, match="AA_MAX_MEMORY"):
+        launch(t32)
+    assert _launched(before) == (0, 0, 0, 0)
+    assert plain(t32).iter.numel() == t32["l"].shape[0]
+    t32, launch, _ = _aa_case(kind, qk.AA_MAX_MEMORY, cuda)
+    out = launch(t32)
+    x = out.p if kind == "K1" else out.x
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(out.y).all())
+
+
+@pytest.mark.parametrize("kind", ["K3-block", "K3-warp", "K6-block", "K6-cluster"])
+def test_anderson_kernels_certificates(cuda, kind):
+    """The certificate batch (feasible, primal and dual infeasible problems
+    by turns, n = 16, m = 18) with Anderson (memory 4) and certificates on,
+    through K3 in each layout and K6 (internal block 8, T = 2) on one block
+    and on a cluster: the statuses equal the plain version's and the batch's
+    pattern."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    s = dataclasses.replace(QP_BENCH, acceleration="anderson")
+    t = _to(certificate_qp_inputs(96, 16, seed=5), cuda)
+    if kind.startswith("K3"):
+        layout = kind.split("-")[1]
+        ok = qk.qp_status(_qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout), t, s))
+        ref = qk.qp_status(_qp_raw(qk.qp_solve_reference, t, s))
+    else:
+        pd, pe = qb.extract_band(t["P"], 8)
+        tb = dict(pd=pd, pe=pe, J=t["A"], g=t["q"], l=t["l"], u=t["u"], x=t["x"], z=t["z"],
+                  y=t["y"])
+        bs = dataclasses.replace(s, linear_solver="schur_block_tridiag", block_size=8)
+        cl = 2 if kind == "K6-cluster" else 1
+        ok = qk.qp_status(_btd_raw(qb._qp_btd_launch, tb, bs, active=None, rho_in=None,
+                                   check_infeas=True, name="test", cluster=cl))
+        ref = qk.qp_status(_btd_raw(qb.qp_btd_reference, tb, bs, check_infeas=True))
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ref)
+    want = torch.tensor([QPStatus.SOLVED, QPStatus.PRIMAL_INFEASIBLE,
+                         QPStatus.DUAL_INFEASIBLE] * 32, dtype=torch.int32, device=ok.device)
+    assert torch.equal(ok, want)
+
+
+# (kernel, n, m, internal block, blocks a problem): the Anderson kernels of
+# leg G's shapes, the card tests' and those past shared memory
+AA_PLACEMENTS = [("K1", 32, 33, None, None), ("K1", 128, 129, None, None),
+                 ("K1", 16, 17, None, None), ("K3-warp", 32, 33, None, None),
+                 ("K3-warp", 16, 24, None, None), ("K3-block", 32, 33, None, None),
+                 ("K3-block", 40, 41, None, None), ("K3-block", 64, 900, None, None),
+                 ("K6", 192, 320, 8, 2), ("K6", 192, 320, 8, 1), ("K7", 128, 224, 8, 2),
+                 ("K6", 32, 24, 8, 1), ("wide", 256, 384, 64, 2), ("wide", 360, 600, 40, 2)]
+
+
+@pytest.mark.parametrize("kernel,n,m,bb,cluster", AA_PLACEMENTS,
+                         ids=[f"{c[0]}-n{c[1]}-m{c[2]}-cs{c[4]}" for c in AA_PLACEMENTS])
+def test_anderson_placement_is_the_rules(cuda, kernel, n, m, bb, cluster):
+    """The placement the launcher reports (qp_kernel_aa_placement,
+    qp_btd_aa_placement, qp_btd_wide_layout_aa) equals the rule's Python
+    mirror (ops/qp_kernel.py:anderson_placement) given the card's blocks an
+    SM of the kernel without Anderson; with the ring on chip the Anderson
+    kernel's blocks an SM are no fewer than those; memory 4 and 8."""
+    for k in (4, 8):
+        card = qk.anderson_placement_card(kernel, n, m, k, bb=bb, cluster=cluster)
+        mirror = qk.anderson_placement(kernel, n, m, k, twin_blocks=card.get("twin_blocks"),
+                                       bb=bb, cluster=cluster)
+        assert {key: card[key] for key in mirror if key in card} == {
+            key: v for key, v in mirror.items() if key in card}, (card, mirror)
+        if kernel != "wide" and card["ring"]:
+            assert card["blocks"] >= card["twin_blocks"], card
+
+
 def test_anderson_kernels_cut_iterations(cuda):
     """K3 with Anderson (memory 4) against K3 without on the one-shot cell's
     problems at tight tolerances (bench.py:1387-1396's settings, B = 256):
@@ -1479,7 +1570,8 @@ def test_anderson_kernels_cut_iterations(cuda):
 
 def test_no_acceleration_is_the_parents_bit_for_bit(cuda):
     """Without Anderson, K1-K7 give the parent tree's outputs bit for bit at
-    the chip_smoke.py shapes and use its registers, stack and local bytes
+    the chip_smoke.py shapes and use its registers, stack and local bytes,
+    and the Anderson instantiations its outputs at leg G's shapes
     (tools/kernel_ab.py --parts bits,regs); the parent tree is named by
     KERNEL_AB_PARENT (a ``git archive`` of the parent commit)."""
     parent = os.environ.get("KERNEL_AB_PARENT")

@@ -82,3 +82,29 @@ def test_spd_arms_follow_the_launcher_enum():
     coded = {a.lower(): i for i, a in enumerate(arms) if i > 0}
     assert {"kspd" + name.replace("-", ""): code for code, name in _SPD_ARM_NAMES.items()} == coded
     assert all(_SPD_ARM_NAMES[code] == name for name, code in SPD_ARMS.items())
+
+
+def test_anderson_codes_follow_the_launcher_enum():
+    """The kernel codes ``ops/qp_kernel.py`` passes to the Anderson
+    placement and workspace entries are those of ``csrc/qp_kernel.cu:
+    AaKernel``."""
+    from sqp_solver_tpu_torch.ops.qp_kernel import _AA_CODES
+
+    codes = dict(e.replace(" ", "").split("=") for e in _enum("qp_kernel.cu", "AaKernel"))
+    assert {"kaa" + name.lower().replace("-", ""): code for name, code in _AA_CODES.items()} == {
+        name.lower(): int(code) for name, code in codes.items()}
+
+
+def test_anderson_units_build_with_the_units_they_include():
+    """Each Anderson key of the A/B tool names an Anderson unit, which its
+    libraries build beside the unit it includes; the step's phases close
+    ``PHASES``."""
+    from sqp_solver_tpu_torch.tools import kernel_ab as ka
+
+    for key in ka.AA_KERNELS:
+        src = ka.SOURCES[key]
+        assert src in ka.TWINS and (ROOT / "sqp_solver_tpu_torch" / "csrc" / src).exists()
+        assert ka.with_twins([src]) == sorted([src, ka.TWINS[src]])
+    assert ka.with_twins(["admm_kernel.cu"]) == ["admm_kernel.cu"]
+    assert PHASES[-len(ka.AA_PHASES):] == ka.AA_PHASES
+    assert set(ka.AA_KERNELS) <= set(ka.BITS)
