@@ -48,7 +48,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    launcher took (one block or a cluster of two per problem), the rows of
    A on chip and the time per ADMM iteration, and the same launch in the
    other layout held against the same plain version and timed; the
-   wide structured kernel (internal blocks 40 to 128,
+   wide structured kernel (internal blocks from 40,
    ``csrc/qp_kernel_btd_wide.cu``): K6 on the OSQP control class's 6-DOF
    arm (``testing.control_qp_inputs``, n = 360, m = 600, internal block
    40, B = 1024) against float64 as the MPC rows, and at a fixed rho for
@@ -66,8 +66,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    wide row with its routes, cluster, shared memory a block, the arrays
    there and in device memory, the bytes an ADMM iteration reads from
    device memory, and its bound on A's nonzeros beside the bound on dense
-   A (the Anderson row too); then the wide kernel's phase split at the
-   arm's and K7's shapes;
+   A (the Anderson row too); past internal block 128, K6 on random band
+   QPs at 136 (n = 272, m = 160, B = 128) and 256 (n = 512, m = 200,
+   B = 32; every array in the workspace) and K7 at 136 (B = 64) and 256
+   (B = 32), each against its plain version and float64, and K7 at the control class's
+   shape at 50 states (internal block 152, B = 16) at a fixed rho against
+   float64 as the arm; then the wide kernel's phase split at the arm's and
+   K7's shapes;
 4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
    the closed-form optimum and an independent float64 KKT certificate,
@@ -127,7 +132,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    every 50, where the ring holds several pairs: Anderson must change
    the iteration counts of some problems and a quarter of them must reach
    a Gram of two pairs (at the cells' own settings the ring holds one
-   pair at most, so those rows time the step's overhead);
+   pair at most, so those rows time the step's overhead); then each
+   Anderson kernel (K1, K3 in both layouts, K6, K7 and the wide K6 and
+   K7) at memory 40 in chunks of 2 with rho every 120, the ring filling
+   and wrapping: against float64 under the same bars, a quarter of the
+   problems past the wrap, and at a fixed rho for 100 iterations within
+   twice the plain float32 version's error; the Gram area's and the
+   ring's placement and the blocks an SM from the launcher against the
+   rule's mirror; K3 and the wide K6 timed at memory 40 beside memory 4;
 14. H. the linear-solver backends at the JAX bench's shapes:
    ``schur_block_tridiag`` on the vmap and fused tiers (the MPC at horizon
    64, B = 256, bench.py:508-518) beside K6 and the dense K3;
@@ -159,6 +171,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the declared stage block 18 (one wide K6 launch, every problem on its
    band rows, counted by the wrapper) at B = 1024: solves/s, solved >= 0.99, >= 0.99 of the problems passing the float64 OSQP test
    at 1e-4 with 10x slack, the device's idle share from one profiled run;
+   P. the OSQP control class at 50 states, 25 inputs, horizon 10
+   (declared stage block 75: internal block 152, the wide kernel past
+   128; n = 750 padded to 760, m = 1,250) through
+   ``qp_solve_batch(impl="kernel")`` at B = 128 with leg N's bars, the
+   kernel's time per ADMM iteration and its bound, then the kernel against
+   its plain version and float64 at B = 16 as leg N's row;
    O. the fused tier past D = 1024, ``qp_solve_batch(impl="fused")`` at
    n = m = 640, B = 256 (K5's wide variant): every SOLVED problem passes
    the float64 OSQP test;
@@ -1544,6 +1562,114 @@ def btd_wide_cases(dev) -> list:
             btd_wide_step_case(64, 2, 64, 224, dev), btd_wide_step_case(64, 9, 40, 600, dev)]
 
 
+def control50_settings():
+    """Leg P's QP settings: the control arm's (``control_settings``) at the
+    declared stage block nx + nu = 75 of the OSQP control class at 50
+    states (internal block 152)."""
+    return dataclasses.replace(control_settings(), block_size=75)
+
+
+def control50_qp(batch: int, seed: int, dev):
+    """``testing.control_qp_inputs`` at 50 states and 25 inputs over 10 steps
+    (the OSQP benchmark's Control class, nu = nx / 2, horizon 10: n = 750,
+    m = 1,250), float32 on the card."""
+    from sqp_solver_tpu_torch.qp.types import QuadraticProblem
+    from sqp_solver_tpu_torch.testing import control_qp_inputs
+
+    t = to_device(control_qp_inputs(batch, horizon=10, nx=50, nu=25, seed=seed,
+                                    dtype=np.float32), dev)
+    return QuadraticProblem(**{k: t[k] for k in LEAVES})
+
+
+def control50_operands(qp, bb: int, dev):
+    """The structured operands of ``qp`` as qp_solve_kernel_btd builds them:
+    n padded to a multiple of ``bb`` with decoupled identity rows, the band
+    of P, cold-started iterates; and the padded problem, whose float64 OSQP
+    test is the original's (its padding entries of x, q, P x and A' y are
+    0)."""
+    from sqp_solver_tpu_torch.qp.types import QuadraticProblem
+
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    batch, n0 = qp.q.shape
+    n, m = -(-n0 // bb) * bb, qp.l.shape[-1]
+    P = torch.nn.functional.pad(qp.P, (0, n - n0, 0, n - n0))
+    P[:, n0:, n0:] = torch.eye(n - n0, device=dev)
+    pd, pe = qb.extract_band(P, bb)
+    J = torch.nn.functional.pad(qp.A, (0, n - n0)).contiguous()
+    g = torch.nn.functional.pad(qp.q, (0, n - n0)).contiguous()
+    t = dict(pd=pd, pe=pe, J=J, g=g, l=qp.l, u=qp.u, x=torch.zeros((batch, n), device=dev),
+             z=torch.zeros((batch, m), device=dev), y=torch.zeros((batch, m), device=dev))
+    return t, QuadraticProblem(P=P, q=g, A=J, l=qp.l, u=qp.u)
+
+
+def btd_control50_case(batch: int, dev) -> dict:
+    """The control class at 50 states (``control50_qp``) at internal block
+    152 (n = 760 = 5 blocks), the wide kernel past 128, cold-started, in leg
+    P's settings: K6's shape of leg P."""
+    s = control50_settings()
+    qp = control50_qp(batch, batch, dev)
+    t, padded = control50_operands(qp, 152, dev)
+    return dict(label=f"K6 control class nx=50 B={batch}", family="control nx=50", t=t,
+                settings=s, check_infeas=True, n=t["g"].shape[-1], m=qp.l.shape[-1], bb=152,
+                batch=batch, qp=padded)
+
+
+def btd_control50_step_case(batch: int, dev) -> dict:
+    """K7's entry at the control class's shape at 50 states (internal block
+    152): its first QPs cold-started, a carried rho on every second problem
+    and the last problem inactive, 200 iterations at leg P's bars."""
+    import torch
+
+    c = btd_control50_case(batch, dev)
+    active = torch.ones(batch, dtype=torch.bool, device=dev)
+    active[-1] = False
+    rho_in = torch.where(torch.arange(batch, device=dev) % 2 == 1, 0.37, 0.0)
+    return dict(c, label=f"K7 control class nx=50 B={batch}", family="control nx=50 step",
+                t=dict(c["t"], active=active, rho_in=rho_in), check_infeas=False,
+                settings=dataclasses.replace(c["settings"], max_iter=200))
+
+
+def btd_past128_cases(dev) -> list:
+    """The wide kernel past internal block 128: K6 on random band QPs at
+    internal blocks 136 (n = 272, m = 160, B = 128; its sweep chains in two
+    rounds of rows, the couplings and Thomas's arrays in the workspace) and
+    256 (n = 512, m = 200, B = 32; every array in the workspace), K7 at 136
+    (B = 64) and 256 (B = 32), and K7 at the control class's shape at 50
+    states (internal block 152, B = 16)."""
+    return [btd_random_case(128, 2, 136, 160, dev), btd_random_case(32, 2, 256, 200, dev),
+            btd_wide_step_case(64, 2, 136, 160, dev), btd_wide_step_case(32, 2, 256, 200, dev),
+            btd_control50_step_case(16, dev)]
+
+
+def compare_btd_past128(c: dict, reps: int) -> dict:
+    """A wide case past internal block 128: on random bands
+    (:func:`compare_btd_random`) the kernel against its plain version at
+    atol = rtol = 1e-4 where the counts agree, then the kernel and the
+    plain float32 version each against the plain float64 one
+    (``against_f64``, one rho epoch, no equality rows); at the control
+    class's shape (equality rows at rho_eq = 1e3 rho) the fixed-rho run of
+    leg N (:func:`fixed_against_f64`): the kernel within twice the plain
+    float32 version's distance from float64."""
+    t, s, ci = c["t"], c["settings"], c["check_infeas"]
+    if c["family"].startswith("control"):
+        fixed = fixed_against_f64(c)
+        ok = btd_launch(t, s, ci)
+        ms = cuda_ms(lambda: btd_launch(t, s, ci), reps)
+        plain_ms = cuda_ms(lambda: btd_plain(t, s, ci), 1)
+        return btd_row(c, ok, max_abs_err=fixed["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                       **bounds_of(ok, c), fixed_rel_err=fixed)
+    row = compare_btd_random(c, reps)
+    r = against_f64(c["label"], t, s, ci)
+    log(f"  {c['label']} bb={c['bb']}: vs plain f64, iter agree kernel {r['kernel']['agree']:.4f}"
+        f" / plain f32 {r['plain']['agree']:.4f}, max diff kernel {r['kernel']['max_err']:.3e} /"
+        f" plain f32 {r['plain']['max_err']:.3e}")
+    return dict(row, agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
+                f64_err=r["kernel"]["max_err"], f64_err_plain=r["plain"]["max_err"])
+
+
 def btd_other(c: dict):
     """The block layout the launcher does not take at this case's shape (1
     or 2 blocks per problem for the narrow kernel at internal blocks 8 and
@@ -1581,7 +1707,8 @@ def btd_row(c: dict, out, **fields) -> dict:
         wide = dict(layout=lay, routes=dict(band=band, dense=batch - band))
         where = (f"band rows: {band} of {batch} problems (dense route {batch - band}); a block "
                  f"{lay['smem_bytes'] / 1024:.1f} KB of shared memory holding "
-                 f"{', '.join(lay['shared'])} (device memory: {', '.join(lay['device']) or '-'});"
+                 f"{', '.join(lay['shared']) or 'none of its arrays'} (device memory: "
+                 f"{', '.join(lay['device']) or '-'});"
                  f" {lay['iter_bytes']} bytes an iteration from device memory a problem")
     log(f"  {c['label']}: {variant_name(blocks)} per problem, {where}, {fields['ms']:.3f} ms "
         f"over a mean of {mean_iter:.1f} ADMM iterations: {per_iter * 1e3:.3f} us per "
@@ -1768,7 +1895,11 @@ def control_against_f64(c: dict) -> dict:
     t32, s, ci = c["t"], c["settings"], c["check_infeas"]
     t64 = {k: (v.double() if v.is_floating_point() else v) for k, v in t32.items()}
     p64 = btd_plain(t64, s, ci)
-    ker, p32 = btd_launch(t32, s, ci), btd_plain(t32, s, ci)
+    ker = btd_launch(t32, s, ci)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    p32 = btd_plain(t32, s, ci)
+    end.record()
     torch.cuda.synchronize()
     res = {}
     for name, out in (("kernel", ker), ("plain", p32)):
@@ -1788,7 +1919,7 @@ def control_against_f64(c: dict) -> dict:
     if not res["kernel"]["x_err"] <= 2 * res["plain"]["x_err"] + 1e-5:
         raise AssertionError(f"{c['label']}: the kernel's x lies {res['kernel']['x_err']:.3e} "
                              "from f64's, over twice the plain f32 version's")
-    return dict(res, cert64=cert, outs=dict(kernel=ker))
+    return dict(res, cert64=cert, outs=dict(kernel=ker), plain_ms=start.elapsed_time(end))
 
 
 def compare_btd_f64(c: dict, reps: int) -> dict:
@@ -1820,12 +1951,14 @@ def compare_btd_f64(c: dict, reps: int) -> dict:
 
 def compare_control(c: dict, reps: int) -> dict:
     """The wide K6 on the control arm (:func:`control_against_f64`, then
-    :func:`fixed_against_f64`), timed beside its plain version."""
+    :func:`fixed_against_f64`), timed beside its plain version (the plain
+    float32 call of :func:`control_against_f64`, CUDA events: one call of
+    seconds needs no warm-up)."""
     t, s, ci = c["t"], c["settings"], c["check_infeas"]
     r = control_against_f64(c)
     fixed = fixed_against_f64(c)
     ms = cuda_ms(lambda: btd_launch(t, s, ci), reps)
-    plain_ms = cuda_ms(lambda: btd_plain(t, s, ci), max(1, reps // 4))
+    plain_ms = r["plain_ms"]
     return btd_row(c, r["outs"]["kernel"], max_abs_err=fixed["max_abs_err"], ms=ms,
                    plain_ms=plain_ms, **bounds_of(r["outs"]["kernel"], c),
                    solved=r["kernel"]["solved"], solved_plain=r["plain"]["solved"],
@@ -2049,6 +2182,90 @@ def run_control_arm(dev, card: str, batch: int = 1024) -> dict:
                           idle_share_profiled=tr["idle_share_profiled"], counts=c,
                           routes=routes, layout=lay),
                 counts=dict(control_arm=c))
+
+
+def run_control50(dev, card: str, batch: int = 128, plain_batch: int = 16) -> dict:
+    """Leg P: qp_solve_batch(impl="kernel") with the declared stage block 75
+    on the OSQP control class at 50 states, 25 inputs and horizon 10
+    (``control50_qp``: n = 750 padded to 760, m = 1,250, 500 dynamics
+    equalities; internal block 152, the wide kernel past 128), B = 128,
+    counters from 0 (one wide K6 launch, every problem on the band rows):
+    solved >= 0.99, and >= 0.99 of the problems pass the float64 OSQP test
+    at 1e-4 with the legs' 10x slack (the solver's own bars, 1e-3).  Then
+    the kernel against its plain version and float64 at B = ``plain_batch``
+    (``compare_control``: the plain versions at B = 128 take minutes).
+    Wall min of 3 after a warm-up, solves/s, the device's idle share from
+    one run under torch.profiler, the layout, the kernel's time per ADMM
+    iteration (CUDA events over the mean and over the slowest problem's
+    iterations) and its bound on A's nonzeros and on dense A."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.tools.trace_serving import _trace
+
+    s = control50_settings()
+    bb = qb.btd_internal_block(s.block_size)
+    qp = control50_qp(batch, 50, dev)
+    n0, m = qp.q.shape[-1], qp.l.shape[-1]
+    n = -(-n0 // bb) * bb
+    reset_counts()
+    qb.reset_wide_route_counts()
+    res = qp_solve_batch(qp, s, impl="kernel")
+    torch.cuda.synchronize()
+    c = read_counts()
+    routes = qb.wide_route_counts()
+    if c != expect(qp_solve_btd_wide_launches=1):
+        raise AssertionError(f"control nx=50: launches {c}")
+    if routes != dict(band=batch, dense=0):
+        raise AssertionError(f"control nx=50: routes {routes}, expected every problem on the "
+                             "band rows")
+    if res.x.shape != (batch, n0) or not torch.isfinite(res.x).all():
+        raise AssertionError("control nx=50: x has the wrong shape or is not finite")
+    lay = qb.wide_layout(n, m, bb)
+    log(f"  control nx=50: internal block {bb}, n = {n0} padded to {n}, m = {m}; routes "
+        f"{routes}; the wide kernel in clusters of {lay['cluster']}, a block "
+        f"{lay['smem_bytes'] / 1024:.1f} KB of shared memory holding "
+        f"{', '.join(lay['shared']) or '-'} (the workspace: {', '.join(lay['device'])}, "
+        f"{lay['workspace_floats'] * 4 / 2**20:.2f} MiB a block), {lay['iter_bytes']} bytes an "
+        "ADMM iteration from device memory a problem")
+    solved = float((res.info.status == 0).float().mean())
+    ok, kkt = qp_osqp64(qp, res, 1e-4, 1e-4)
+    cert = float(np.mean(ok))
+    it = res.info.iter.float()
+    ops, _ = control50_operands(qp, bb, dev)
+    launch = lambda: btd_launch(ops, s, True)  # noqa: E731
+    ms = cuda_ms(launch, 2)
+    ctx = dict(settings=s, batch=batch, n=n, m=m, bb=bb, t=ops)
+    bounds = btd_bounds(res.info, ctx)
+    tr = _trace(lambda: qp_solve_batch(qp, s, impl="kernel"))
+    wall = tr["wall_ms"] / 1e3
+    log(f"  control nx=50 n={n0} m={m} B={batch}: solved {solved:.4f}, f64 OSQP test (1e-4, 10x) "
+        f"{cert:.4f}, KKT error p50 {np.percentile(kkt, 50):.3e} p99 "
+        f"{np.percentile(kkt, 99):.3e}, ADMM iterations mean {float(it.mean()):.1f} max "
+        f"{int(it.max())}; wall {wall * 1e3:.3f} ms ({batch / wall:.1f} solves/s), device busy "
+        f"{tr['device_busy_ms']:.3f} ms in the profiled run, idle share "
+        f"{tr['idle_share_profiled']:.4f} of its wall ({tr['idle_share']:.4f} of the unprofiled "
+        f"wall); the kernel {ms:.3f} ms (CUDA events, mean of 2): "
+        f"{ms * 1e3 / float(it.mean()):.3f} us per iteration of the mean, "
+        f"{ms * 1e3 / float(it.max()):.3f} us per iteration of the slowest problem; bound "
+        f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}) on A's nonzeros, "
+        f"{bounds['bound_dense_ms']:.4f} ms ({bounds['bound_dense_by']}) on dense A "
+        f"[min of 3; {card}]")
+    if solved < 0.99 or cert < 0.99:
+        raise AssertionError(f"control nx=50: solved {solved:.4f}, f64 test {cert:.4f}")
+    log(f"  control nx=50: the kernel against its plain version and float64 at "
+        f"B={plain_batch}:")
+    row = compare_control(btd_control50_case(plain_batch, dev), reps=2)
+    return dict(runs=dict(solved=solved, cert64=cert, kkt_p50=float(np.percentile(kkt, 50)),
+                          kkt_p99=float(np.percentile(kkt, 99)), mean_iter=float(it.mean()),
+                          max_iter=int(it.max()), ms=wall * 1e3, solves_per_s=batch / wall,
+                          kernel_ms=ms, us_per_iter_mean=ms * 1e3 / float(it.mean()),
+                          us_per_iter_max=ms * 1e3 / float(it.max()), **bounds,
+                          device_busy_ms=tr["device_busy_ms"], idle_share=tr["idle_share"],
+                          idle_share_profiled=tr["idle_share_profiled"], counts=c,
+                          routes=routes, layout=lay, batch=batch, plain_batch=plain_batch),
+                row=row, counts=dict(control50=c))
 
 
 def run_fused_wide(dev, card: str, batch: int = 256, n: int = 640) -> dict:
@@ -2276,12 +2493,17 @@ def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
     itself parts from float64 by more than ``EPOCH_TOL``: Anderson's
     accept test flips on rounding) the kernel's largest difference must
     instead stay within twice the plain float32 version's (plus 1e-5).
-    ``launch`` and ``plain`` take (operands, settings)."""
+    ``launch`` and ``plain`` take (operands, settings); ``plain_ms`` is the
+    plain float32 call's time (CUDA events, no warm-up)."""
     import torch
 
     t64 = {k: (v.double() if v.dtype == torch.float32 else v) for k, v in t32.items()}
     p64 = plain(t64, settings)
-    outs = {"kernel": launch(t32, settings), "plain": plain(t32, settings)}
+    outs = {"kernel": launch(t32, settings)}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs["plain"] = plain(t32, settings)
+    end.record()
     torch.cuda.synchronize()
     res = {}
     for name, out in outs.items():
@@ -2302,7 +2524,8 @@ def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
     if res["kernel"]["agree"] < BTD_AGREE * res["plain"]["agree"]:
         raise AssertionError(f"{label}: the kernel agrees with f64 on {res['kernel']['agree']:.4f}, "
                              f"the plain float32 version on {res['plain']['agree']:.4f}")
-    return dict(res, out=outs["kernel"], solved64=float(p64.done.float().mean()))
+    return dict(res, out=outs["kernel"], solved64=float(p64.done.float().mean()),
+                plain_ms=start.elapsed_time(end))
 
 
 def compare_aa(label: str, t32, launch, plain, s, bound_of, reps: int, x: str = "x",
@@ -2673,6 +2896,175 @@ def run_anderson(dev, card: str, main_run: dict, reps: int = 5) -> dict:
         pairs=True)
     torch.cuda.synchronize()
     return dict(rows=rows, runs=runs, counts=paths)
+
+
+AA_LONG_MEMORY = 40
+
+
+def aa_long_settings(s, memory: int = AA_LONG_MEMORY):
+    """``s`` with Anderson at ``memory`` in chunks of 2 iterations and rho
+    every 120 (60 chunks an epoch, so that the ring fills and wraps before
+    a rho change empties it), eps 1e-6 and 300 iterations, alpha 1.6."""
+    return dataclasses.replace(s, acceleration="anderson", anderson_memory=memory, alpha=1.6,
+                               eps_abs=1e-6, eps_rel=1e-6, max_iter=300, check_termination=2,
+                               adaptive_rho=True, adaptive_rho_interval=120)
+
+
+def aa_long_cases(dev) -> list:
+    """Leg G's kernels with Anderson past memory 32, at leg G's shapes
+    (``aa_cases``): K1 n = 32, B = 4096; K3 random n = 32, m = 33, B = 4096
+    in its warp and block layouts; K6 on the structured MPC horizon 64,
+    B = 256 and K7 on the NLP step horizon 32 (B = 1024), each on a
+    cluster; the wide K6 on random bands at bb = 64 and the wide K7 at the
+    NLP's block-64 shape (B = 1024 each).  Each: its label, operands, launch
+    and plain call (each taking operands and settings), base settings, the
+    iterate's name, its placement's kernel and shape, whether it is held
+    relative to the plain float32 version (the wide K6, as at memory 4),
+    ``bound_of(out, settings)``, and ``entry``: the kernel line's entry its
+    timed row joins."""
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    cases = [dict(label="K1 n=32 B=4096", kernel="K1", n=32, m=33, t=step_operands(4096, 32, dev),
+                  launch=lambda t, st: step_call(qk.sqp_step_kernel, t, st),
+                  plain=lambda t, st: step_call(qk.sqp_step_reference, t, st),
+                  settings=k1_aa_settings(), x="p", kw={}, entry="sqp_step",
+                  bound_of=lambda out, st: step_bound(out, st, 4096, 32))]
+    t = qp_operands("random", 4096, 32, dev)
+    for layout in ("warp", "block"):
+        cases.append(dict(
+            label=f"K3 random n=32 m=33 B=4096 ({layout} layout)", kernel=f"K3-{layout}", n=32,
+            m=33, t=t, launch=lambda t, st, layout=layout: qp_raw(
+                lambda *a: qk._qp_solve_launch(*a, layout=layout), t, st),
+            plain=lambda t, st: qp_raw(qk.qp_solve_reference, t, st), settings=k3_aa_settings(),
+            x="x", kw={}, entry="qp_solve",
+            bound_of=lambda out, st: qp_bound(out, st, 4096, 32, 33)))
+    # K7 and the wide kernels at B = 1024 (leg G's shapes, more problems):
+    # with a check every 2 iterations few float32 runs stop at float64's
+    # iteration, and the share that does needs the problems to be an
+    # estimate
+    for c, kernel, entry in ((btd_mpc_case(256, dev), "K6", "qp_solve_btd"),
+                             (btd_step_case(32, 1024, dev), "K7", "btd_step")):
+        ci = c["check_infeas"]
+        cases.append(dict(
+            label=f"{c['label']} cluster", kernel=kernel, n=c["n"], m=c["m"], t=c["t"],
+            launch=lambda t, st, ci=ci: btd_launch(t, st, ci, cluster=2),
+            plain=lambda t, st, ci=ci: btd_plain(t, st, ci), settings=c["settings"], x="x",
+            kw=dict(bb=c["bb"], cluster=2), entry=entry,
+            bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"],
+                                                    c["bb"])))
+    for c, entry in ((btd_random_case(1024, 4, 64, 384, dev), "qp_solve_btd_wide"),
+                     (btd_wide_step_case(1024, 2, 64, 224, dev), "btd_step_wide")):
+        ci = c["check_infeas"]
+        cases.append(dict(
+            label=f"wide {c['label']} bb=64", kernel="wide", n=c["n"], m=c["m"], t=c["t"],
+            launch=lambda t, st, ci=ci: btd_launch(t, st, ci),
+            plain=lambda t, st, ci=ci: btd_plain(t, st, ci), settings=c["settings"], x="x",
+            kw=dict(bb=64, cluster=2), relative=ci, entry=entry,
+            bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"], 64,
+                                                    A=c["t"]["J"])))
+    return cases
+
+
+def aa_fixed_against_f64(label: str, c: dict, st, iters: int) -> dict:
+    """Anderson at ``st``'s memory with a fixed rho for ``iters`` iterations
+    and no early exit (every problem's ring fills and wraps): the kernel and
+    the plain version in float32 each against the plain version in float64,
+    as the largest per-problem error relative to 1 + the float64 iterate's
+    largest entry over x (p), z, y; the kernel's must stay within twice the
+    plain float32 version's (plus 1e-5), as leg N's fixed-rho run.  Where
+    the problems have equality rows (the MPC, the NLP's dynamics), this is
+    the comparison that sees the trajectories: float32 runs that stop on
+    their own seldom stop at float64's iteration."""
+    import torch
+
+    s = dataclasses.replace(st, adaptive_rho=False, max_iter=iters, eps_abs=1e-12,
+                            eps_rel=1e-12)
+    t32 = c["t"]
+    t64 = {k: (v.double() if v.is_floating_point() else v) for k, v in t32.items()}
+    p64 = c["plain"](t64, s)
+    err = {}
+    for name, out in (("kernel", c["launch"](t32, s)), ("plain", c["plain"](t32, s))):
+        torch.cuda.synchronize()
+        err[name] = max(float(((getattr(out, k).double() - getattr(p64, k)).abs().amax(1)
+                               / (1 + getattr(p64, k).abs().amax(1))).max())
+                        for k in (c["x"], "z", "y"))
+    if not err["kernel"] <= 2 * err["plain"] + 1e-5:
+        raise AssertionError(f"{label}: {iters} iterations at a fixed rho, the kernel's error "
+                             f"against f64 {err['kernel']:.3e} exceeds twice the plain f32 "
+                             f"version's {err['plain']:.3e}")
+    return err
+
+
+def run_anderson_long(dev, card: str, reps: int = 2) -> dict:
+    """Leg G past memory 32: each Anderson kernel at memory 40
+    (``aa_long_cases``, ``aa_long_settings``: chunks of 2, rho every 120)
+    held against its plain version and float64 under the bars of the
+    memory-4 cases (``aa_against_f64``), a quarter or more of the problems
+    running past the chunk at which the ring wraps, and with a fixed rho
+    for 100 iterations, every problem past the wrap
+    (``aa_fixed_against_f64``); the Gram area's and the
+    ring's placement and the blocks an SM from the launcher
+    (``anderson_placement_card``) against the rule's mirror; and each
+    kernel timed at memory 40 beside memory 4 in the same settings, with
+    the plain version and the bound (``timed``: the rows by the kernel
+    line's entry)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    rows, timed = [], {}
+    k = AA_LONG_MEMORY
+    for c in aa_long_cases(dev):
+        st = aa_long_settings(c["settings"])
+        r = aa_against_f64(f"{c['label']} memory {k}", c["t"], c["launch"], c["plain"], st,
+                           c["x"], c.get("relative", False))
+        wrapped = float((r["out"].iter >= 2 * (k + 2)).float().mean())
+        if wrapped < 0.25:
+            raise AssertionError(f"{c['label']} memory {k}: {wrapped:.4f} of the problems ran "
+                                 f"past the ring's wrap at {2 * (k + 2)} iterations (bar 0.25)")
+        fixed = aa_fixed_against_f64(f"{c['label']} memory {k}", c, st, 100)
+        on_card = qk.anderson_placement_card(c["kernel"], c["n"], c["m"], k, **c["kw"])
+        wide = None
+        if c["kernel"] == "wide":
+            plain = qb.wide_layout(c["n"], c["m"], c["kw"]["bb"])
+            wide = (plain, dict(plain, smem_bytes=on_card["smem_bytes"]) if on_card["gram"]
+                    else None)
+        mirror = qk.anderson_placement(c["kernel"], c["n"], c["m"], k,
+                                       twin_blocks=on_card.get("twin_blocks"), wide=wide,
+                                       **c["kw"])
+        differ = [key for key in mirror if key in on_card and mirror[key] != on_card[key]]
+        if differ:
+            raise AssertionError(f"{c['label']} memory {k}: the launcher's placement {on_card} "
+                                 f"differs from the rule's mirror {mirror} in {differ}")
+        blocks = (f", blocks an SM {on_card['blocks']} with Anderson, "
+                  f"{on_card['twin_blocks']} without" if "blocks" in on_card else "")
+        log(f"  {c['label']} memory {k} (chunks of 2, rho every 120): Gram area "
+            f"{'in shared memory' if on_card['gram'] else 'in the workspace'}, ring "
+            f"{'in shared memory' if on_card['ring'] else 'in the workspace'} "
+            f"({on_card['smem_bytes']} bytes of shared memory a block{blocks}); iter and rho "
+            f"agree with f64 on kernel {r['kernel']['agree']:.4f} / plain f32 "
+            f"{r['plain']['agree']:.4f}, max diff {r['kernel']['max_err']:.3e} / "
+            f"{r['plain']['max_err']:.3e}; {wrapped:.4f} of the problems past the ring's wrap, "
+            f"mean ADMM iterations {float(r['out'].iter.float().mean()):.1f}; 100 iterations at "
+            f"a fixed rho, relative error against plain f64 kernel {fixed['kernel']:.3e} / plain "
+            f"f32 {fixed['plain']:.3e} [{card}]")
+        row = dict(case=c["label"], memory=k, placement=on_card, wrapped=wrapped, fixed=fixed,
+                   agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
+                   max_abs_err=r["kernel"]["max_err"], max_abs_err_plain=r["plain"]["max_err"])
+        t, launch = c["t"], c["launch"]
+        st4 = aa_long_settings(c["settings"], 4)
+        ms, ms4 = cuda_ms(lambda: launch(t, st), reps), cuda_ms(lambda: launch(t, st4), reps)
+        out4 = launch(t, st4)
+        plain_ms = r["plain_ms"]  # its float32 call above: seconds, no warm-up needed
+        it, it4 = float(r["out"].iter.float().mean()), float(out4.iter.float().mean())
+        bound_ms, by = c["bound_of"](r["out"], st)
+        log(f"  {c['label']} memory {k}: kernel {ms:.3f} ms over a mean of {it:.1f} ADMM "
+            f"iterations; memory 4 in the same settings {ms4:.3f} ms over {it4:.1f}; plain "
+            f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({by}) [{card}]")
+        row.update(ms=ms, ms_memory4=ms4, mean_iter=it, mean_iter_memory4=it4,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        timed.setdefault(c["entry"], []).append(row)
+        rows.append(row)
+    return dict(rows=rows, timed=timed)
 
 
 # ---- H. the linear-solver backends -------------------------------------------
@@ -3291,6 +3683,10 @@ def main() -> int:
     k6w = [compare_control(control, reps=2), compare_btd_random(rand64, reps=3),
            compare_btd_random(rand128, reps=3), compare_btd_mixed(mixed, reps=3)]
     k7w = [compare_btd_random(wpath, reps=5), compare_btd_random(wstep, reps=3)]
+    log("wide K6/K7 past internal block 128 (the sweep chains' rows in rounds):")
+    for c in btd_past128_cases(dev):
+        (k6w if c["label"].startswith("K6") else k7w).append(
+            compare_btd_past128(c, reps=2 if c["bb"] > 136 else 3))
     log("wide K6/K7 phase split (clock64 spans of thread 0, cycles per block):")
     wide_phases = wide_phase_split(phase_libs["qp_kernel_btd_wide.cu"],
                                    [control, wpath, wstep], card)
@@ -3375,6 +3771,9 @@ def main() -> int:
     log("G. the Anderson step's placement and split a chunk (the phase-clock builds of the "
         "Anderson units):")
     aa_run["placement"] = aa_report(dev, phase_libs, card)
+    log(f"G. the Anderson kernels past memory 32: memory {AA_LONG_MEMORY}, chunks of 2, the "
+        "ring filling and wrapping:")
+    aa_run["long"] = run_anderson_long(dev, card)
     leg_s["G"] = time.perf_counter() - t_leg
     t_leg = time.perf_counter()
     log("H. the linear-solver backends at the JAX bench's shapes:")
@@ -3406,6 +3805,12 @@ def main() -> int:
     control_run = run_control_arm(dev, card)
     leg_s["N"] = time.perf_counter() - t_leg
     t_leg = time.perf_counter()
+    log("P. the OSQP control class at 50 states (nx = 50, nu = 25, horizon 10) through "
+        "qp_solve_batch(impl='kernel', block_size=75): the wide kernel past internal block 128:")
+    control50_run = run_control50(dev, card)
+    k6w.append(control50_run["row"])
+    leg_s["P"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
     log("O. the fused tier past D = 1024: qp_solve_batch(impl='fused') at n = m = 640:")
     fused_wide_run = run_fused_wide(dev, card)
     leg_s["O"] = time.perf_counter() - t_leg
@@ -3430,7 +3835,7 @@ def main() -> int:
         **aa_run["counts"], **backends_run["counts"], **arrow_run["counts"],
         **sparse_run["counts"], **multi_run["counts"], **qp_diff_run["counts"],
         **sqp_diff_run["counts"], **shard_run["counts"], **control_run["counts"],
-        **fused_wide_run["counts"])
+        **fused_wide_run["counts"], **control50_run["counts"])
 
     def entry(name, replaces, rows, source=CU_SOURCE, **extra):
         head = rows[0]
@@ -3454,19 +3859,25 @@ def main() -> int:
     k2_lib = ("none: no single PyTorch call computes a Schur factor's L^-1 and the "
               "refinement sweeps of an active-set KKT solve")
     aa = aa_run["rows"]  # each whole-solve kernel's row with Anderson (leg G)
-    kernels = [entry("sqp_step", K1_SOURCE, k1, library_note=k1_lib, anderson=aa["sqp_step"]),
+    aa_long = aa_run["long"]["timed"]  # each Anderson kernel at memory 40 beside memory 4
+    kernels = [entry("sqp_step", K1_SOURCE, k1, library_note=k1_lib, anderson=aa["sqp_step"],
+                     anderson_memory40=aa_long["sqp_step"]),
                entry("polish_kkt", K2_SOURCE, k2, library_note=k2_lib),
-               entry("qp_solve", K3_SOURCE, k3, anderson=aa["qp_solve"]),
+               entry("qp_solve", K3_SOURCE, k3, anderson=aa["qp_solve"],
+                     anderson_memory40=aa_long["qp_solve"]),
                entry("spd_inverse", K4_SOURCE, k4),
                entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE),
                entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib,
-                     anderson=aa["qp_solve_btd"], anderson_overhead=aa["qp_solve_btd_overhead"]),
+                     anderson=aa["qp_solve_btd"], anderson_overhead=aa["qp_solve_btd_overhead"],
+                     anderson_memory40=aa_long["qp_solve_btd"]),
                entry("btd_step", K7_SOURCE, k7, source=BTD_CU_SOURCE, library_note=no_lib,
-                     anderson=aa["btd_step"], anderson_overhead=aa["btd_step_overhead"]),
+                     anderson=aa["btd_step"], anderson_overhead=aa["btd_step_overhead"],
+                     anderson_memory40=aa_long["btd_step"]),
                entry("qp_solve_btd_wide", K6_SOURCE, k6w, source=BTD_WIDE_CU_SOURCE,
-                     library_note=no_lib, anderson=k6w_aa),
+                     library_note=no_lib, anderson=k6w_aa,
+                     anderson_memory40=aa_long["qp_solve_btd_wide"]),
                entry("btd_step_wide", K7_SOURCE, k7w, source=BTD_WIDE_CU_SOURCE,
-                     library_note=no_lib)]
+                     library_note=no_lib, anderson_memory40=aa_long["btd_step_wide"])]
     log(json.dumps(dict(main_path=main_run["configs"], fused_main_path=fused_run["configs"],
                         phases=phases, wide_phases=wide_phases,
                         library_factor=factor_ms,
@@ -3481,6 +3892,7 @@ def main() -> int:
                         sparse=sparse_run["runs"], multi_outer=multi_run["runs"],
                         qp_diff=qp_diff_run["runs"], sqp_diff=sqp_diff_run["runs"],
                         control_arm=control_run["runs"], fused_wide=fused_wide_run["runs"],
+                        control50=control50_run["runs"], anderson_long=aa_run["long"]["rows"],
                         legs_seconds=leg_s,
                         card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)

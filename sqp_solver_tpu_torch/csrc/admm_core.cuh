@@ -373,16 +373,18 @@ struct StepParams {
 // The Anderson instantiations' extra kernel argument (the kernels without
 // Anderson keep their parameters as they were): the memory k (pairs kept),
 // the workspace of aa_floats(k, n, m) floats a scope, and where each
-// scope's shared-memory area (its Gram, aa_gram_floats, then its ring where
-// ring_sm, else the ring is in the workspace) starts in the block's dynamic
-// shared memory: at sm_off floats, sm_stride floats a scope (a block of
-// several problems).
+// scope's shared-memory area (its Gram, aa_gram_floats, unless gram_ws;
+// then its ring where ring_sm) starts in the block's dynamic shared memory:
+// at sm_off floats, sm_stride floats a scope (a block of several
+// problems).  What shared memory does not hold is in the scope's slice of
+// the workspace (aa_state).
 struct AaArgs {
   int k;
   float* ws;
   long long sm_off;
   int sm_stride;
   int ring_sm;
+  int gram_ws;  // the Gram area at the head of the workspace slice (k > kAaGramSmemMemory)
 };
 
 // Matrix placement: the first n_smem of the sizes go to shared memory after
@@ -512,16 +514,20 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
 // block of a K6/K7 cluster holds all of x and its own rows of z and y).
 // The state of one scope, read and written once a chunk, after the
 // chunk's seg iterations:
-//   in shared memory (aa_gram_floats(k) floats, always):
+//   the Gram area (aa_gram_floats(k) floats), in shared memory at every
+//   k <= kAaGramSmemMemory, past it where the launcher's rule puts it
+//   (the kernels' aa_*_placement), else at the head of the scope's slice
+//   of the device workspace (AaArgs::gram_ws):
 //     Gk     k x k: the Gram of the pairs' dF by ring slot, kept from chunk
 //            to chunk: a chunk computes only the row of the pair it pushes
 //            (a pair's dot products do not change while it is held; a rho
 //            change empties the ring and with it the kept entries)
 //     Ga     k x (k + 1): the chunk's normal equations [G + reg | rhs] in
 //            the ring's logical order, solved in place (aa_solve)
-//   the ring (aa_ring_floats(k, n, m) floats), in shared memory where the
-//   launcher's rule puts it (the kernels' aa_*_placement), else at the
-//   head of the scope's slice of the device workspace:
+//   the ring (aa_ring_floats(k, n, m) floats), in shared memory after the
+//   Gram area where the launcher's rule puts it (only where the Gram is
+//   there too), else in the scope's slice of the device workspace, after
+//   the Gram area where that is there too:
 //     dU, dF k x D each: the difference pairs, a ring whose slot head holds
 //            the oldest pair (logical index i sits in slot head + i mod k,
 //            so the newest pairs are at the end, as on the TPU)
@@ -530,32 +536,38 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
 //            candidate is evaluated
 // The ring's indices (AaRing) are the same in every thread of the scope:
 // each thread keeps them in registers and updates them alike.
+// Any memory k >= 1: the step walks the pairs kAaSlots at a time and the
+// solve (aa_solve) puts rows on the lanes of one warp in rounds of 32.
 constexpr int kAaGroup = kRedSlots / 32;  // dot products reduced at once
 constexpr int kAaSlots = kAaGroup / 2;    // pairs a group: their Gram entry and rhs
-// The bound on k of the on-chip Gram: the solve puts a row on a lane of
-// one warp.  A launch with a larger memory is refused (the wrappers raise
-// a ValueError naming it).
-constexpr int kAaMaxMemory = 32;
+// Up to this memory every launch keeps the Gram area in shared memory (the
+// kernels' bound on k before the area could leave it: 2,080 floats at 32).
+// Past it, an area in the workspace costs the step more than the rest of
+// it: aa_solve's k pivots each wait on device memory (PERF.md).
+constexpr int kAaGramSmemMemory = 32;
 
-__host__ __device__ constexpr long long aa_floats(int k, int n, int m) {
-  return (2LL * k + 4) * (n + 2LL * m) + (long long)k * k + k;
-}
+__host__ __device__ constexpr int aa_gram_floats(int k) { return round4(k * k + k * (k + 1)); }
 __host__ __device__ constexpr long long aa_ring_floats(int k, int n, int m) {
   return (2LL * k + 4) * (n + 2LL * m);
 }
-__host__ __device__ constexpr int aa_gram_floats(int k) { return round4(k * k + k * (k + 1)); }
+// A scope's workspace slice: the ring, after the Gram area where that is not
+// in shared memory (the slice has room for both either way).
+__host__ __device__ constexpr long long aa_floats(int k, int n, int m) {
+  return aa_gram_floats(k) + aa_ring_floats(k, n, m);
+}
 
 // Blocks an SM that shared memory allows at smem_bytes a block on sm_90
 // (228 KB an SM, 1 KB reserved a block): the placement rules keep the ring
-// off chip where it would lower this below the kernel without Anderson.
+// (and past kAaGramSmemMemory the Gram area) off chip where it would lower
+// this below the kernel without Anderson.
 constexpr long long kAaSmemPerSm = 233472;
 constexpr long long kAaSmemReserved = 1024;
 __host__ __device__ constexpr int smem_blocks_per_sm(long long smem_bytes) {
   return (int)(kAaSmemPerSm / (smem_bytes + kAaSmemReserved));
 }
 
-// One scope's Anderson state: the ring (in shared memory or the
-// workspace) and the Gram area (in shared memory).
+// One scope's Anderson state: the ring and the Gram area, each in shared
+// memory or the workspace.
 struct AaState {
   float* ring;
   float* gram;
@@ -567,8 +579,9 @@ struct AaState {
 // slice the scope's slice of the workspace and m the rows it is sized for.
 __device__ __forceinline__ AaState aa_state(const AaArgs& a, float* smem, int scope, size_t slice,
                                             int n, int m) {
-  float* g = smem + a.sm_off + (size_t)scope * a.sm_stride;
-  float* r = a.ring_sm ? g + aa_gram_floats(a.k) : a.ws + slice * aa_floats(a.k, n, m);
+  float* w = a.ws + slice * aa_floats(a.k, n, m);
+  float* g = a.gram_ws ? w : smem + a.sm_off + (size_t)scope * a.sm_stride;
+  float* r = a.ring_sm ? g + aa_gram_floats(a.k) : w + (a.gram_ws ? aa_gram_floats(a.k) : 0);
   return AaState{r, g, a.k};
 }
 
@@ -664,7 +677,7 @@ struct AaStats {
 // caller, whose loops keep their registers: fused into this out-of-line
 // step's reduction under the kernels' register caps, they ran slower
 // (K1 n = 32, K6 horizon 64 on an H100).  Rank 0 keeps the reduced values
-// in shared memory and warp 0 solves there (aa_solve), then a sync; every
+// in the Gram area and warp 0 solves there (aa_solve), then a sync; every
 // thread reads the one gamma, so the candidate and the accept are the same
 // in every thread of the scope.  (A solve in registers by every warp, with
 // no barrier, at k <= kAaSlots ran no faster end to end: K1 n = 32, K3 and

@@ -52,8 +52,9 @@
 // their own beside this one: with them in this unit, nvcc took 112.6 s
 // over it, against 75.8 and 81.9 s over the structured kernel's two units
 // (the build line of chip_smoke.py, sm_90a), and the library's build
-// waited for it.  The step keeps its Gram in shared memory and its ring
-// there where aa_dense_plan (below) puts it; the Anderson kernels' registers
+// waited for it.  The step keeps its Gram area and its ring in shared
+// memory where aa_dense_plan (below) puts them (the Gram always at a
+// memory up to 32); the Anderson kernels' registers
 // are capped at their twins', so that the step costs no blocks an SM.
 //
 // Memory.  Vectors live in shared memory.  The per-problem matrices
@@ -1621,18 +1622,21 @@ extern "C" int qp_kernel_twin_blocks(int kernel, int n, int m, int device);  // 
 namespace {
 
 // Where an Anderson launch of K1 or K3 keeps each problem's Anderson state:
-// its Gram area (aa_gram_floats) in shared memory always, and its ring
-// (aa_ring_floats) there too where, with the ring, the block's shared
-// memory still holds every matrix the kernel without Anderson holds there
-// and still allows as many blocks an SM as that kernel gets (twin_blocks,
-// qp_kernel_twin_blocks); else the ring stays in the device workspace.
-// The block layout puts the area after its matrices in shared memory (a
-// matrix the Gram leaves no room for goes to the workspace:
-// aa_workspace_floats), the warp layout after its problems' slices, one
-// area a problem.  ops/qp_kernel.py:anderson_placement is the rule's Python
-// mirror.
+// its ring (aa_ring_floats) in shared memory where, with the ring and the
+// Gram area (aa_gram_floats), the block's shared memory still holds every
+// matrix the kernel without Anderson holds there and still allows as many
+// blocks an SM as that kernel gets (twin_blocks, qp_kernel_twin_blocks);
+// else the ring stays in the device workspace.  The Gram area is in shared
+// memory always at a memory k <= kAaGramSmemMemory, and past it where it
+// alone keeps those two (else it goes to the head of the problem's
+// workspace slice).  The block layout puts the area after its matrices in
+// shared memory (at k <= kAaGramSmemMemory a matrix the Gram leaves no
+// room for goes to the workspace: aa_workspace_floats), the warp layout
+// after its problems' slices, one area a problem.
+// ops/qp_kernel.py:anderson_placement is the rule's Python mirror.
 struct AaPlan {
   bool ring;             // the ring in shared memory
+  bool gram;             // the Gram area in shared memory
   long long smem_bytes;  // the block's dynamic shared memory
   long long sm_off;      // floats before the first problem's area
   int sm_stride;         // floats of a problem's area
@@ -1643,15 +1647,22 @@ struct AaPlan {
 
 AaPlan aa_dense_plan(int kernel, int n, int m, int k, int twin_blocks) {
   const long long g = aa_gram_floats(k), r = aa_ring_floats(k, n, m);
+  const bool gram_always = k <= kAaGramSmemMemory;
   AaPlan P{};
   if (kernel == kAaK3Warp) {
     const long long slice = qp_warp_floats(n, m);
+    // the block's shared memory with `area` floats more a problem keeps
+    // the twin's blocks an SM
+    auto keeps = [&](long long area) {
+      const long long with = kQpWarps * (slice + area) * 4;
+      return with <= kMaxSmemBytes && smem_blocks_per_sm(with) >= twin_blocks;
+    };
     P.scopes = kQpWarps;
     P.twin_smem = kQpWarps * slice * 4;
-    const long long with = kQpWarps * (slice + g + r) * 4;
-    P.ring = with <= kMaxSmemBytes && smem_blocks_per_sm(with) >= twin_blocks;
+    P.ring = keeps(g + r);
+    P.gram = P.ring || gram_always || keeps(g);
     P.sm_off = kQpWarps * slice;
-    P.sm_stride = (int)(g + (P.ring ? r : 0));
+    P.sm_stride = (int)((P.gram ? g : 0) + (P.ring ? r : 0));
     P.smem_bytes = (P.sm_off + (long long)kQpWarps * P.sm_stride) * 4;
     P.L = Layout{(size_t)P.smem_bytes, 0, 0};
     return P;
@@ -1659,24 +1670,30 @@ AaPlan aa_dense_plan(int kernel, int n, int m, int k, int twin_blocks) {
   const long long ld = n + 1;
   const long long mats[3] = {n * ld, m * ld, n * ld};
   const long long vec = (kernel == kAaK1 ? 9LL * n : 7LL * n) + 7LL * m + kRedSlots;
-  const Layout twin = plan(vec, mats), with = plan(vec + g + r, mats);
+  const Layout twin = plan(vec, mats);
+  // the plan with `area` floats more keeps the twin's matrices and blocks an SM
+  auto keeps = [&](const Layout& with) {
+    return with.n_smem_mats == twin.n_smem_mats && with.smem_bytes <= (size_t)kMaxSmemBytes &&
+           smem_blocks_per_sm((long long)with.smem_bytes) >= twin_blocks;
+  };
+  const Layout with_ring = plan(vec + g + r, mats), with_gram = plan(vec + g, mats);
   P.scopes = 1;
   P.twin_smem = (long long)twin.smem_bytes;
-  P.ring = with.n_smem_mats == twin.n_smem_mats && with.smem_bytes <= (size_t)kMaxSmemBytes &&
-           smem_blocks_per_sm((long long)with.smem_bytes) >= twin_blocks;
-  P.L = P.ring ? with : plan(vec + g, mats);
-  P.sm_stride = (int)(g + (P.ring ? r : 0));
+  P.ring = keeps(with_ring);
+  P.gram = P.ring || gram_always || keeps(with_gram);
+  P.L = P.ring ? with_ring : (P.gram ? with_gram : twin);
+  P.sm_stride = (int)((P.gram ? g : 0) + (P.ring ? r : 0));
   P.smem_bytes = (long long)P.L.smem_bytes;
   P.sm_off = P.smem_bytes / 4 - P.sm_stride;
   return P;
 }
 
 // The plan of a launch on the card: the twin's blocks an SM from the
-// runtime; an error where the memory passes the on-chip Gram's bound or
-// the Gram does not fit.
+// runtime; an error where the memory is not positive or the shared memory
+// passes the card's.
 cudaError_t aa_dense_launch_plan(int kernel, int n, int m, int k, int device, AaPlan& P,
                                  int& twin_blocks) {
-  if (k <= 0 || k > kAaMaxMemory) return cudaErrorInvalidValue;
+  if (k <= 0) return cudaErrorInvalidValue;
   twin_blocks = qp_kernel_twin_blocks(kernel, n, m, device);
   if (twin_blocks < 0) return (cudaError_t)(-twin_blocks);
   P = aa_dense_plan(kernel, n, m, k, twin_blocks);
@@ -1684,7 +1701,7 @@ cudaError_t aa_dense_launch_plan(int kernel, int n, int m, int k, int device, Aa
 }
 
 AaArgs aa_args_of(const AaPlan& P, int k, float* ws) {
-  return AaArgs{k, ws, P.sm_off, P.sm_stride, P.ring ? 1 : 0};
+  return AaArgs{k, ws, P.sm_off, P.sm_stride, P.ring ? 1 : 0, P.gram ? 0 : 1};
 }
 
 }  // namespace
@@ -1700,12 +1717,13 @@ long long qp_kernel_aa_workspace_floats(int kernel, int n, int m, int k) {
 }
 
 // The placement of an Anderson launch of `kernel` (kAaK1, kAaK3Block,
-// kAaK3Warp) at n, m and memory k on this card, into out[9]: the ring in
+// kAaK3Warp) at n, m and memory k on this card, into out[10]: the ring in
 // shared memory (1) or in the workspace (0), the block's shared-memory
 // bytes, those of the kernel without Anderson, that kernel's blocks an SM
 // and this one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram
-// area's and the ring's floats a problem, problems a block, and the
-// workspace floats a problem (aa_dense_plan).  Returns a CUDA error code.
+// area's and the ring's floats a problem, problems a block, the workspace
+// floats a problem and the Gram area in shared memory (1) or in the
+// Anderson workspace (0) (aa_dense_plan).  Returns a CUDA error code.
 int qp_kernel_aa_placement(int kernel, int n, int m, int k, int device, long long* out) {
   AaPlan P;
   int twin = 0;
@@ -1728,16 +1746,16 @@ int qp_kernel_aa_placement(int kernel, int n, int m, int k, int device, long lon
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, P.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long v[9] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
-                          aa_gram_floats(k), aa_ring_floats(k, n, m), P.scopes,
-                          P.L.ws_floats};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const long long v[10] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
+                           aa_gram_floats(k), aa_ring_floats(k, n, m), P.scopes,
+                           P.L.ws_floats, P.gram ? 1 : 0};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 
 
-// sqp_step_launch with Anderson acceleration of memory 0 < aa_mem <=
-// kAaMaxMemory, its state in aa_ws (batch x admm_aa_floats(aa_mem, n, m)
+// sqp_step_launch with Anderson acceleration of any memory aa_mem > 0, its
+// state in aa_ws (batch x admm_aa_floats(aa_mem, n, m)
 // floats) and shared memory (aa_dense_plan); ws holds
 // qp_kernel_aa_workspace_floats(kAaK1, n, m, aa_mem) floats a problem.
 int sqp_step_launch_aa(const float* Bp, const float* J, const float* g, const float* l,
@@ -1770,8 +1788,8 @@ int sqp_step_launch_aa(const float* Bp, const float* J, const float* g, const fl
   return (int)cudaGetLastError();
 }
 
-// qp_solve_launch_as with Anderson acceleration of memory 0 < aa_mem <=
-// kAaMaxMemory, its state in aa_ws (batch x admm_aa_floats(aa_mem, n, m)
+// qp_solve_launch_as with Anderson acceleration of any memory aa_mem > 0,
+// its state in aa_ws (batch x admm_aa_floats(aa_mem, n, m)
 // floats) and shared memory (aa_dense_plan); layout 0 by qp_warp_layout, 1
 // the block layout (ws: qp_kernel_aa_workspace_floats(kAaK3Block, n, m,
 // aa_mem) floats a problem), 2 the warp layout.

@@ -73,7 +73,8 @@
 // qp_kernel_btd_aa.cu with their entry point (qp_btd_launch_aa), which
 // includes this file with QP_KERNEL_BTD_AA_UNIT defined, so that nvcc
 // builds them in a process of their own beside this one.  The step keeps
-// its Gram in shared memory and its ring there where btd_aa_plan puts it.
+// its Gram area and its ring in shared memory where btd_aa_plan puts them
+// (the Gram always at a memory up to 32).
 
 #include <cooperative_groups.h>
 
@@ -973,17 +974,19 @@ extern "C" int qp_btd_twin_blocks(int n, int m, int bb, int cs, int device);  //
 
 namespace {
 
-// Where an Anderson launch keeps each block's Anderson state: its Gram
-// area (aa_gram_floats) in shared memory always, after A's rows, and its
-// ring (aa_ring_floats for m0 rows) there too where, with the ring, the
-// block still holds as many rows of A as the kernel without Anderson and
-// shared memory still allows as many blocks an SM as that kernel gets
-// (twin_blocks, qp_btd_twin_blocks); else the ring stays in the device
-// workspace.  Where shared memory is full of A's rows, the Gram takes the
-// room of the last ones.  ops/qp_kernel.py:anderson_placement is the
-// rule's Python mirror.
+// Where an Anderson launch keeps each block's Anderson state: its ring
+// (aa_ring_floats for m0 rows) in shared memory after A's rows and the Gram
+// area (aa_gram_floats) where, with both, the block still holds as many
+// rows of A as the kernel without Anderson and shared memory still allows
+// as many blocks an SM as that kernel gets (twin_blocks,
+// qp_btd_twin_blocks); else the ring stays in the device workspace.  The
+// Gram area is in shared memory always at a memory k <= kAaGramSmemMemory
+// (where shared memory is full of A's rows, it takes the room of the last
+// ones), and past it where it alone keeps those two (else it goes to the
+// head of the block's workspace slice).  ops/qp_kernel.py:
+// anderson_placement is the rule's Python mirror.
 struct BtdAaPlan {
-  bool ring;
+  bool ring, gram;  // the ring, the Gram area in shared memory
   int rs, twin_rs;  // rows of A a block, with Anderson and without
   long long smem_bytes, twin_smem, sm_off, area;
 };
@@ -994,12 +997,16 @@ BtdAaPlan btd_aa_plan(int n, int m, int bb, int cs, int k, int twin_blocks) {
   BtdAaPlan P{};
   P.twin_rs = btd_block_rows(n, m, bb, cs);
   P.twin_smem = (long long)btd_smem_bytes(n, m, bb, cs, P.twin_rs);
-  const int rs_ring = btd_block_rows(n, m, bb, cs, g + r);
-  const long long with = (fixed + g + r + (long long)P.twin_rs * (n + 1)) * 4;
-  P.ring = P.twin_rs >= 0 && rs_ring == P.twin_rs && with <= kMaxSmemBytes &&
-           smem_blocks_per_sm(with) >= twin_blocks;
-  P.area = g + (P.ring ? r : 0);
-  P.rs = P.ring ? P.twin_rs : btd_block_rows(n, m, bb, cs, g);
+  // `area` floats more keep the twin's rows of A and its blocks an SM
+  auto keeps = [&](long long area) {
+    const long long with = (fixed + area + (long long)P.twin_rs * (n + 1)) * 4;
+    return P.twin_rs >= 0 && btd_block_rows(n, m, bb, cs, area) == P.twin_rs &&
+           with <= kMaxSmemBytes && smem_blocks_per_sm(with) >= twin_blocks;
+  };
+  P.ring = keeps(g + r);
+  P.gram = P.ring || k <= kAaGramSmemMemory || keeps(g);
+  P.area = (P.gram ? g : 0) + (P.ring ? r : 0);
+  P.rs = P.ring || !P.gram ? P.twin_rs : btd_block_rows(n, m, bb, cs, g);
   P.sm_off = fixed + (long long)P.rs * (n + 1);
   P.smem_bytes = (P.sm_off + P.area) * 4;
   return P;
@@ -1010,14 +1017,15 @@ BtdAaPlan btd_aa_plan(int n, int m, int bb, int cs, int k, int twin_blocks) {
 extern "C" {
 
 // The placement of an Anderson launch at n, m, internal block bb, cs blocks
-// per problem and memory k on this card, into out[9]: the ring in shared
+// per problem and memory k on this card, into out[10]: the ring in shared
 // memory (1) or in the workspace (0), a block's shared-memory bytes, those
 // of the kernel without Anderson, that kernel's blocks an SM and this
 // one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram area's
 // and the ring's floats a block, rows of A a block with Anderson and
-// without (btd_aa_plan).  Returns a CUDA error code.
+// without, and the Gram area in shared memory (1) or in the Anderson
+// workspace (0) (btd_aa_plan).  Returns a CUDA error code.
 int qp_btd_aa_placement(int n, int m, int bb, int cs, int k, int device, long long* out) {
-  if (k <= 0 || k > kAaMaxMemory) return (int)cudaErrorInvalidValue;
+  if (k <= 0) return (int)cudaErrorInvalidValue;
   const int twin = qp_btd_twin_blocks(n, m, bb, cs, device);
   if (twin < 0) return -twin;
   const BtdAaPlan P = btd_aa_plan(n, m, bb, cs, k, twin);
@@ -1035,14 +1043,15 @@ int qp_btd_aa_placement(int n, int m, int bb, int cs, int k, int device, long lo
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, P.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const long long m0 = (m + cs - 1) / cs;
-  const long long v[9] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
-                          aa_gram_floats(k), aa_ring_floats(k, n, (int)m0), P.rs, P.twin_rs};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const long long v[10] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
+                           aa_gram_floats(k), aa_ring_floats(k, n, (int)m0), P.rs, P.twin_rs,
+                           P.gram ? 1 : 0};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 
-// qp_btd_launch_as with Anderson acceleration of memory 0 < aa_mem <=
-// kAaMaxMemory, cs blocks per problem (1 or 2; 0: the rule's,
+// qp_btd_launch_as with Anderson acceleration of any memory aa_mem > 0, cs
+// blocks per problem (1 or 2; 0: the rule's,
 // qp_btd_cluster_size), its state in shared memory and aa_ws (btd_aa_plan):
 // batch x cs slices of admm_aa_floats(aa_mem, n, ceil(m / cs)) floats, one
 // a block.
@@ -1055,7 +1064,7 @@ int qp_btd_launch_aa(int cs, const float* pd, const float* pe, const float* A, c
                      float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
                      float eps_dinf, int device, void* stream, int aa_mem, float* aa_ws) {
   if (batch <= 0) return 0;
-  if (aa_mem <= 0 || aa_mem > kAaMaxMemory || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);  // the rule reads this card's SM count
   if (err != cudaSuccess) return (int)err;
   if (cs == 0) cs = btd_cluster_size(n, m, bb, batch);
@@ -1067,7 +1076,9 @@ int qp_btd_launch_aa(int cs, const float* pd, const float* pe, const float* A, c
                                   check_infeas, eps_pinf, eps_dinf);
   err = launch_btd_as(cs, p, bb, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out,
                       y_out, stats, batch, stream,
-                      AaArgs{aa_mem, aa_ws, P.sm_off, (int)P.area, P.ring ? 1 : 0}, P.rs,
+                      AaArgs{aa_mem, aa_ws, P.sm_off, (int)P.area, P.ring ? 1 : 0,
+                             P.gram ? 0 : 1},
+                      P.rs,
                       (size_t)P.smem_bytes, twin);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -9,8 +9,12 @@
 //                        btd_step_kernel
 //   (body _qp_btd_kernel, pallas_call in _qp_btd_call)
 //
-// for every internal block bb that is a multiple of 8 up to 128, bb a
-// runtime argument (one instantiation).
+// for every internal block bb past 32 that is a multiple of 8, bb a
+// runtime argument (one instantiation), at every shape whose vectors and
+// fixed part fit a block's shared memory (wide_layout).  Blocks up to 128
+// are the shapes it was designed for; a wider one (the OSQP control class
+// at 50 states: declared stage block 75, bb = 152) runs its sweep chains'
+// rows in rounds and most of its arrays from the workspace.
 //
 // Design: one problem a cluster of CS = 2 thread blocks of 256 threads,
 // every array an ADMM iteration reads in the cluster's shared memory
@@ -51,7 +55,7 @@
 //               step is a bb x bb matvec by two lanes a row over the
 //               coupling stored transposed (consecutive lanes on
 //               consecutive words), the pair's sums met by a shuffle, one
-//               block barrier;
+//               block barrier (past bb = 128 the rows in rounds of 128);
 //     P v       rows of its column blocks by the owner (pe_{k-1} of the
 //               block before its first read from the neighbour), written
 //               into every block; one barrier;
@@ -105,8 +109,10 @@
 //
 // Anderson acceleration as in qp_kernel_btd.cu: a second instantiation of
 // the body (AA = true) in qp_kernel_btd_wide_aa.cu, which includes this
-// file with QP_KERNEL_BTD_WIDE_AA_UNIT defined; its Gram in shared memory
-// (wide_layout's reserve), its ring in its workspace, one slice a block.
+// file with QP_KERNEL_BTD_WIDE_AA_UNIT defined; its Gram area in shared
+// memory (wide_layout's reserve) where wide_aa_gram_sm puts it, else at
+// the head of the block's Anderson workspace slice; its ring in that
+// slice.
 
 #include <cooperative_groups.h>
 
@@ -118,7 +124,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kWideThreads = 256;
-constexpr int kWideMaxBlock = 128;
+constexpr int kWideChainRows = kWideThreads / 2;  // a sweep chain's rows a round
 constexpr int kWideQuad = 2;  // chol_blocked's trailing-update tiles
 constexpr int kWideCtxFloats = 64;  // the operator's context (WideCtx)
 constexpr int kWideCluster = 2;     // thread blocks a problem
@@ -283,30 +289,36 @@ __device__ __forceinline__ void wide_upper(const float* Li, int ldl, int bb, int
 
 // A sweep chain's steps k = k0, k0 + dir, ... up to k1 (excluded) by the
 // block: y_k = rhs_k - C_k y_{k-dir}, C_k at C + k bb^2 stored transposed.
-// Two lanes a row (2 bb <= threads): lane s of row i's pair sums columns
-// s, s + 2, ... (consecutive pairs on consecutive words of C), the pair's
-// sums meet by a shuffle, and one block barrier a step publishes y_k.
+// Two lanes a row: lane s of row i's pair sums columns s, s + 2, ...
+// (consecutive pairs on consecutive words of C), the pair's sums meet by a
+// shuffle, and one block barrier a step publishes y_k.  The rows go in
+// rounds of kWideChainRows (one round up to bb = 128), each row's sums as
+// in one round.
 __device__ __forceinline__ void wide_chain(const float* C, const float* rhs, float* y, int k0,
                                            int k1, int dir, int bb) {
-  const int t = threadIdx.x, i = t >> 1, sl = t & 1;
-  const bool row = i < bb;
+  const int t = threadIdx.x, sl = t & 1;
   const size_t b2 = (size_t)bb * bb;
   for (int k = k0; k != k1; k += dir) {
-    const float* Ct = C + k * b2 + sl * bb + (row ? i : 0);
     const float* yp = y + (k - dir) * bb + sl;
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row) {
-      int j = 0;
+    for (int i0 = 0; i0 < bb; i0 += kWideChainRows) {
+      const int i = i0 + (t >> 1);
+      const bool row = i < bb;
+      const float* Ct = C + k * b2 + sl * bb + (row ? i : 0);
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row) {
+        int j = 0;
 #pragma unroll 2
-      for (; j + 8 <= bb; j += 8) {
+        for (; j + 8 <= bb; j += 8) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) a[u] = fmaf(Ct[(size_t)(j + 2 * u) * bb], yp[j + 2 * u], a[u]);
+          for (int u = 0; u < 4; ++u)
+            a[u] = fmaf(Ct[(size_t)(j + 2 * u) * bb], yp[j + 2 * u], a[u]);
+        }
+        for (; j + sl < bb; j += 2) a[0] = fmaf(Ct[(size_t)j * bb], yp[j], a[0]);
       }
-      for (; j + sl < bb; j += 2) a[0] = fmaf(Ct[(size_t)j * bb], yp[j], a[0]);
+      float acc = (a[0] + a[1]) + (a[2] + a[3]);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (row && sl == 0) y[k * bb + i] = rhs[k * bb + i] - acc;
     }
-    float acc = (a[0] + a[1]) + (a[2] + a[3]);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (row && sl == 0) y[k * bb + i] = rhs[k * bb + i] - acc;
     __syncthreads();
   }
 }
@@ -874,7 +886,7 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
   ADMM_PHASE_BEGIN(kPhTotal);
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const WideLayout Lay = wide_layout(p.n, p.m, bb, cs, AA ? aa_gram_floats(aa_args.k) : 0);
+  const WideLayout Lay = wide_layout(p.n, p.m, bb, cs, AA ? aa_args.sm_stride : 0);
   const int n = p.n, m = p.m, T = Lay.T, m0 = Lay.m0, W = Lay.W, lds = Lay.lds;
   const int xlen = Lay.xlen;
   const size_t b = blockIdx.x / cs, b2 = (size_t)bb * bb;
@@ -1069,13 +1081,13 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
 
   StepParams pl = p;
   pl.m = ml;  // the ADMM core sees this block's rows
-  // Anderson's state: its Gram area at the end of the fixed part, its ring
-  // in one workspace slice a block, sized for m0 rows
+  // Anderson's state: its Gram area at the end of the fixed part (the
+  // launcher's sm_off) or at the head of the block's workspace slice, its
+  // ring in that slice, one a block, sized for m0 rows (aa_state)
   if constexpr (AA) {
-    float* aa = aa_args.ws + (size_t)blockIdx.x * aa_floats(aa_args.k, n, m0);
-    float* ag = wide_smem + Lay.fixed - aa_gram_floats(aa_args.k);
+    const AaState aa = aa_state(aa_args, wide_smem, 0, blockIdx.x, n, m0);
     admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
-                           aa, aa_args.k, ag);
+                           aa.ring, aa.k, aa.gram);
   } else {
     admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
   }
@@ -1104,9 +1116,28 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
   cl.sync();
 }
 
-// The launch of this unit's kernel on a checked shape: bb a multiple of 8
-// up to kWideMaxBlock dividing n, the workspace given where the layout
-// needs one.
+// Whether an Anderson launch of memory k keeps its Gram area in shared
+// memory, at the end of the fixed part (wide_layout's reserve): always at
+// k <= kAaGramSmemMemory; past it where the layout with the reserve keeps
+// in shared memory every array that the one without it keeps there, and
+// as many blocks an SM as shared memory allows that one.
+bool wide_aa_gram_sm(int n, int m, int bb, int cs, int k) {
+  if (k <= kAaGramSmemMemory) return true;
+  const WideLayout L = wide_layout(n, m, bb, cs);
+  const WideLayout Lg = wide_layout(n, m, bb, cs, aa_gram_floats(k));
+  return Lg.ok && Lg.smem == L.smem &&
+         smem_blocks_per_sm(Lg.smem_bytes) >= smem_blocks_per_sm(L.smem_bytes);
+}
+
+// A shape the wide kernel takes: bb a multiple of 8 dividing n (its layout
+// may still refuse it, where the fixed part does not fit).
+bool wide_shape(int n, int m, int bb) {
+  return bb >= 8 && bb % 8 == 0 && n > 0 && m > 0 && n % bb == 0;
+}
+
+// The launch of this unit's kernel on a checked shape (wide_shape), the
+// workspace given where the layout needs one; with Anderson (aa.ws), the
+// Gram area where wide_aa_gram_sm puts it.
 cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rho0,
                         float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch,
                         int seg, int adaptive_rho, float adaptive_rho_tolerance,
@@ -1116,11 +1147,16 @@ cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rh
                         const float* rho_in, const float* x0, const float* z0, const float* y0,
                         float* x_out, float* z_out, float* y_out, float* stats, uint8_t* route,
                         float* ws, int device, void* stream, AaArgs aa) {
-  if (bb < 8 || bb > kWideMaxBlock || bb % 8 != 0 || n <= 0 || m <= 0 || n % bb != 0)
-    return cudaErrorInvalidValue;
+  if (!wide_shape(n, m, bb)) return cudaErrorInvalidValue;
   const int cs = kWideCluster;
-  const WideLayout L = wide_layout(n, m, bb, cs, aa.ws ? aa_gram_floats(aa.k) : 0);
+  const bool gram_sm = aa.ws == nullptr || wide_aa_gram_sm(n, m, bb, cs, aa.k);
+  const long long reserve = aa.ws != nullptr && gram_sm ? aa_gram_floats(aa.k) : 0;
+  const WideLayout L = wide_layout(n, m, bb, cs, reserve);
   if (!L.ok || (L.ws_floats > 0 && ws == nullptr)) return cudaErrorInvalidValue;
+  aa.sm_off = L.fixed - reserve;
+  aa.sm_stride = (int)reserve;
+  aa.ring_sm = 0;
+  aa.gram_ws = gram_sm ? 0 : 1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
@@ -1190,6 +1226,20 @@ cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rh
       A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats, route, ws, device, \
       stream
 
+namespace {
+
+// A layout's report (qp_btd_wide_layout) into out[11]; 0, or -1 where the
+// fixed part does not fit.
+int wide_report(const WideLayout& L, long long* out) {
+  const long long v[11] = {L.cs, L.smem_bytes, L.ws_floats, (long long)L.smem, L.iter_bytes,
+                           L.T,  L.R,          L.m0,        L.W,               L.lds,
+                           L.fixed};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return L.ok ? 0 : -1;
+}
+
+}  // namespace
+
 extern "C" {
 
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
@@ -1201,15 +1251,8 @@ extern "C" {
 // row's width and stride, and the fixed part's floats.  Returns 0, or -1
 // where the shape is refused.
 int qp_btd_wide_layout(int n, int m, int bb, long long* out) {
-  if (bb < 8 || bb > kWideMaxBlock || bb % 8 != 0 || n <= 0 || m <= 0 || n % bb != 0)
-    return -1;
-  const int cs = kWideCluster;
-  const WideLayout L = wide_layout(n, m, bb, cs);
-  const long long v[11] = {cs,  L.smem_bytes, L.ws_floats, (long long)L.smem, L.iter_bytes,
-                           L.T, L.R,          L.m0,        L.W,               L.lds,
-                           L.fixed};
-  for (int i = 0; i < 11; ++i) out[i] = v[i];
-  return L.ok ? 0 : -1;
+  if (!wide_shape(n, m, bb)) return -1;
+  return wide_report(wide_layout(n, m, bb, kWideCluster), out);
 }
 
 // One launch of the wide kernel; the arguments of qp_btd_launch, the
@@ -1221,30 +1264,25 @@ int qp_btd_wide_launch(QP_BTD_WIDE_ARGS) {
 }
 #else
 // The layout of one block of an Anderson launch of memory k, as
-// qp_btd_wide_layout gives it: the fixed part ends with the Gram area
-// (aa_gram_floats), so that the workspace floats may be more.
+// qp_btd_wide_layout gives it, and out[11]: its Gram area in shared memory
+// (1: the fixed part ends with it, so that the workspace floats may be
+// more) or at the head of the Anderson workspace slice (0)
+// (wide_aa_gram_sm).
 int qp_btd_wide_layout_aa(int n, int m, int bb, int k, long long* out) {
-  if (bb < 8 || bb > kWideMaxBlock || bb % 8 != 0 || n <= 0 || m <= 0 || n % bb != 0 ||
-      k <= 0 || k > kAaMaxMemory)
-    return -1;
-  const int cs = kWideCluster;
-  const WideLayout L = wide_layout(n, m, bb, cs, aa_gram_floats(k));
-  const long long v[11] = {cs,  L.smem_bytes, L.ws_floats, (long long)L.smem, L.iter_bytes,
-                           L.T, L.R,          L.m0,        L.W,               L.lds,
-                           L.fixed};
-  for (int i = 0; i < 11; ++i) out[i] = v[i];
-  return L.ok ? 0 : -1;
+  if (!wide_shape(n, m, bb) || k <= 0) return -1;
+  const bool gram_sm = wide_aa_gram_sm(n, m, bb, kWideCluster, k);
+  out[11] = gram_sm ? 1 : 0;
+  return wide_report(wide_layout(n, m, bb, kWideCluster, gram_sm ? aa_gram_floats(k) : 0), out);
 }
 
-// With Anderson acceleration of memory 0 < aa_mem <= kAaMaxMemory, its
-// Gram in shared memory (wide_layout's reserve; ws then holds
-// qp_btd_wide_layout_aa's workspace floats a block) and its ring in aa_ws:
-// batch x 2 slices of admm_aa_floats(aa_mem, n, ceil(m / 2)) floats, one a
-// block.
+// With Anderson acceleration of any memory aa_mem > 0, its Gram area in
+// shared memory (wide_layout's reserve; ws then holds
+// qp_btd_wide_layout_aa's workspace floats a block) or in aa_ws, and its
+// ring in aa_ws: batch x 2 slices of admm_aa_floats(aa_mem, n, ceil(m /
+// 2)) floats, one a block.
 int qp_btd_wide_launch_aa(QP_BTD_WIDE_ARGS, int aa_mem, float* aa_ws) {
   if (batch <= 0) return 0;
-  if (aa_mem <= 0 || aa_mem > kAaMaxMemory || aa_ws == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch_wide(QP_BTD_WIDE_CALL, AaArgs{aa_mem, aa_ws});
 }
 #endif

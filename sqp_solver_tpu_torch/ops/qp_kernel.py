@@ -75,7 +75,7 @@ __all__ = [
     "spd_inverse_problems_per_block",
     "spd_inverse_arm_info",
     "SPD_ARMS",
-    "AA_MAX_MEMORY",
+    "AA_GRAM_SMEM_MEMORY",
     "anderson_placement",
     "anderson_placement_card",
 ]
@@ -573,7 +573,7 @@ def _aa_workspace(lib, settings: QPSettings, slices: int, n: int, m: int, dev):
     """``(aa_mem, workspace)`` for a launch with Anderson: one slice of the
     kernel's state (``admm_core.cuh:aa_floats``) for each of ``slices``
     scopes of n variables and m rows; ``(0, None)`` without it.  Raises a
-    ValueError past the kernels' bound on the memory (:data:`AA_MAX_MEMORY`)."""
+    ValueError on a memory that is not positive."""
     if settings.acceleration != "anderson":
         return 0, None
     k = int(settings.anderson_memory)
@@ -586,10 +586,11 @@ def _aa_workspace(lib, settings: QPSettings, slices: int, n: int, m: int, dev):
 # Where the Anderson kernels keep their state (csrc/admm_core.cuh)
 # ---------------------------------------------------------------------------
 
-# The CUDA kernels' bound on ``anderson_memory`` (admm_core.cuh:kAaMaxMemory):
-# the Gram stays in shared memory and its solve puts a row on a lane of one
-# warp.  The plain versions take any memory.
-AA_MAX_MEMORY = 32
+# Up to this ``anderson_memory`` every CUDA launch keeps each scope's Gram
+# area in shared memory (admm_core.cuh:kAaGramSmemMemory); past it the rule
+# below decides, as it does for the ring.  The kernels, like the plain
+# versions, take any memory >= 1.
+AA_GRAM_SMEM_MEMORY = 32
 
 # sm_90's shared memory (admm_core.cuh: kMaxSmemBytes, kAaSmemPerSm,
 # kAaSmemReserved) and the reduction slots
@@ -603,10 +604,8 @@ ANDERSON_KERNELS = ("K1", "K3-block", "K3-warp", "K6", "K7", "wide")
 
 
 def _check_aa_memory(k: int) -> None:
-    if not 0 < k <= AA_MAX_MEMORY:
-        raise ValueError(f"anderson_memory = {k}: the CUDA kernels keep the Anderson Gram in "
-                         f"shared memory for a memory of 1 to {AA_MAX_MEMORY} (AA_MAX_MEMORY); "
-                         "the vmap and fused tiers take any")
+    if k <= 0:
+        raise ValueError(f"anderson_memory = {k}: the CUDA kernels take a memory of 1 or more")
 
 
 def _round4(v: int) -> int:
@@ -651,55 +650,80 @@ def _btd_block_rows(n: int, m: int, bb: int, cs: int, extra: int = 0) -> int:
 
 
 def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Optional[int],
-                       bb: Optional[int] = None, cluster: Optional[int] = None) -> dict:
+                       bb: Optional[int] = None, cluster: Optional[int] = None,
+                       wide: Optional[tuple] = None) -> dict:
     """Where an Anderson launch keeps its state (the rule of the kernels'
     launchers: ``csrc/qp_kernel.cu:aa_dense_plan``, ``qp_kernel_btd.cu:
-    btd_aa_plan``, the wide kernel's ``wide_layout`` reserve), a function of
-    the kernel, its shape and the memory k.  Each scope's Gram area
-    (``gram_floats``: the kept k x k Gram and the k x (k + 1) system) is in
-    shared memory; its ring (``ring_floats``: the difference pairs and four
-    iterates) too (``ring``) where the block's shared memory with it still
-    holds what the kernel without Anderson holds (its matrices, or rows of
-    A) and allows as many blocks an SM as that kernel gets
+    btd_aa_plan``, ``qp_kernel_btd_wide.cu:wide_aa_gram_sm``), a function
+    of the kernel, its shape and the memory k.  Each scope's ring
+    (``ring_floats``: the difference pairs and four iterates) is in shared
+    memory (``ring``) where the block's shared memory with it and the Gram
+    area still holds what the kernel without Anderson holds (its matrices,
+    or rows of A) and allows as many blocks an SM as that kernel gets
     (``twin_blocks``: the runtime's occupancy of it on the card, as
-    :func:`anderson_placement_card` reports it; None for the wide kernel),
-    else in the device workspace; the wide kernel's stays there, since its
-    arrays take shared memory first.  ``kernel``: "K1", "K3-block", "K3-warp",
-    "K6" or "K7" (the structured kernel at internal block ``bb`` <= 32 and
-    ``cluster`` blocks a problem) or "wide".  Returns ``ring``,
+    :func:`anderson_placement_card` reports it), else in the device
+    workspace; the wide kernel's stays there, since its arrays take shared
+    memory first.  The Gram area (``gram_floats``: the kept k x k Gram and
+    the k x (k + 1) system) is in shared memory (``gram``) at every k up to
+    :data:`AA_GRAM_SMEM_MEMORY` (where it may take the room of a matrix or
+    row of A), and past it where it alone keeps those two (for the wide
+    kernel: its arrays in shared memory, and the blocks an SM shared memory
+    allows), else at the head of the scope's workspace slice.  ``kernel``:
+    "K1", "K3-block", "K3-warp", "K6" or "K7" (the structured kernel at
+    internal block ``bb`` <= 32 and ``cluster`` blocks a problem) or "wide",
+    for which ``wide`` gives the layouts (:func:`qp_kernel_btd.wide_layout`'s
+    ``shared`` and ``smem_bytes``) without Anderson and with the Gram area
+    reserved, where k passes that memory.  Returns ``ring``, ``gram``,
     ``gram_floats``, ``ring_floats``, ``twin_blocks``, and but for the wide
     kernel ``smem_bytes`` and ``twin_smem_bytes`` (a block's) and the rows
     of A (``rows``, ``twin_rows``; the structured kernel) or matrices
     (``mats``, ``twin_mats``; K1, K3's block layout) in shared memory with
-    Anderson and without.  Raises a ValueError past :data:`AA_MAX_MEMORY`."""
+    Anderson and without.  Raises a ValueError on a memory below 1."""
     _check_aa_memory(k)
     if kernel not in ANDERSON_KERNELS:
         raise ValueError(f"anderson_placement: kernel {kernel!r} not one of {ANDERSON_KERNELS}")
     gram = _round4(k * k + k * (k + 1))
+    always = k <= AA_GRAM_SMEM_MEMORY
     rows_of = m if kernel in ("K1", "K3-block", "K3-warp") else -(-m // (cluster or 2))
     ring_floats = (2 * k + 4) * (n + 2 * rows_of)
     out = dict(gram_floats=gram, ring_floats=ring_floats, twin_blocks=twin_blocks)
     if kernel == "wide":
-        return dict(out, ring=False)
+        if always:
+            return dict(out, ring=False, gram=True)
+        if wide is None:
+            raise ValueError("anderson_placement: the wide kernel past memory "
+                             f"{AA_GRAM_SMEM_MEMORY} needs its two layouts (wide)")
+        plain, reserved = wide
+        keeps = (reserved is not None and reserved["shared"] == plain["shared"]
+                 and _smem_blocks(reserved["smem_bytes"]) >= _smem_blocks(plain["smem_bytes"]))
+        return dict(out, ring=False, gram=keeps)
     if kernel == "K3-warp":
         if not (n <= 32 and m <= 64):
             raise ValueError("anderson_placement: K3's warp layout takes n <= 32, m <= 64")
         sl = _qp_warp_floats(n, m)
-        twin_smem = 4 * _QP_WARPS * sl
-        with_ring = 4 * _QP_WARPS * (sl + gram + ring_floats)
-        ring = with_ring <= _MAX_SMEM and _smem_blocks(with_ring) >= twin_blocks
-        smem = 4 * _QP_WARPS * (sl + gram + (ring_floats if ring else 0))
-        return dict(out, ring=ring, smem_bytes=smem, twin_smem_bytes=twin_smem)
+
+        def keeps(area):
+            with_area = 4 * _QP_WARPS * (sl + area)
+            return with_area <= _MAX_SMEM and _smem_blocks(with_area) >= twin_blocks
+
+        ring = keeps(gram + ring_floats)
+        on = ring or always or keeps(gram)
+        smem = 4 * _QP_WARPS * (sl + (gram if on else 0) + (ring_floats if ring else 0))
+        return dict(out, ring=ring, gram=on, smem_bytes=smem, twin_smem_bytes=4 * _QP_WARPS * sl)
     if kernel in ("K1", "K3-block"):
         ld = n + 1
         mats = (n * ld, m * ld, n * ld)
         vec = (9 * n if kernel == "K1" else 7 * n) + 7 * m + _RED_SLOTS
         twin = _plan(vec, mats)
-        with_ring = _plan(vec + gram + ring_floats, mats)
-        ring = (with_ring[1] == twin[1] and with_ring[0] <= _MAX_SMEM
-                and _smem_blocks(with_ring[0]) >= twin_blocks)
-        lay = with_ring if ring else _plan(vec + gram, mats)
-        return dict(out, ring=ring, smem_bytes=lay[0], twin_smem_bytes=twin[0],
+
+        def keeps(lay):
+            return lay[1] == twin[1] and lay[0] <= _MAX_SMEM and _smem_blocks(lay[0]) >= twin_blocks
+
+        with_ring, with_gram = _plan(vec + gram + ring_floats, mats), _plan(vec + gram, mats)
+        ring = keeps(with_ring)
+        on = ring or always or keeps(with_gram)
+        lay = with_ring if ring else (with_gram if on else twin)
+        return dict(out, ring=ring, gram=on, smem_bytes=lay[0], twin_smem_bytes=twin[0],
                     mats=lay[1], twin_mats=twin[1], workspace_floats=lay[2])
     cs = cluster or 1
     if bb is None or bb > 32:
@@ -707,14 +731,18 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
                          "of 8 to 32 (bb); wider ones are the wide kernel's")
     fixed = _btd_fixed_floats(n, m, bb, cs)
     twin_rows = _btd_block_rows(n, m, bb, cs)
-    twin_smem = 4 * (fixed + twin_rows * (n + 1))
-    with_ring = 4 * (fixed + gram + ring_floats + twin_rows * (n + 1))
-    ring = (twin_rows >= 0 and _btd_block_rows(n, m, bb, cs, gram + ring_floats) == twin_rows
-            and with_ring <= _MAX_SMEM and _smem_blocks(with_ring) >= twin_blocks)
-    rows = twin_rows if ring else _btd_block_rows(n, m, bb, cs, gram)
-    smem = 4 * (fixed + rows * (n + 1) + gram + (ring_floats if ring else 0))
-    return dict(out, ring=ring, smem_bytes=smem, twin_smem_bytes=twin_smem,
-                rows=rows, twin_rows=twin_rows)
+
+    def keeps(area):
+        with_area = 4 * (fixed + area + twin_rows * (n + 1))
+        return (twin_rows >= 0 and _btd_block_rows(n, m, bb, cs, area) == twin_rows
+                and with_area <= _MAX_SMEM and _smem_blocks(with_area) >= twin_blocks)
+
+    ring = keeps(gram + ring_floats)
+    on = ring or always or keeps(gram)
+    rows = twin_rows if ring or not on else _btd_block_rows(n, m, bb, cs, gram)
+    smem = 4 * (fixed + rows * (n + 1) + (gram if on else 0) + (ring_floats if ring else 0))
+    return dict(out, ring=ring, gram=on, smem_bytes=smem,
+                twin_smem_bytes=4 * (fixed + twin_rows * (n + 1)), rows=rows, twin_rows=twin_rows)
 
 
 _AA_CODES = {"K1": 1, "K3-block": 2, "K3-warp": 3}
@@ -729,27 +757,28 @@ def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[in
     Anderson kernel's at its shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; not for the wide
     kernel, whose ``smem_bytes`` and ``workspace_floats`` are those of its
-    layout with the Gram reserved)."""
+    layout with the Gram area reserved where it is in shared memory)."""
     lib = lib or _library()
-    out = (ctypes.c_longlong * 11)()
+    out = (ctypes.c_longlong * 12)()
     if kernel == "wide":
         if int(lib.qp_btd_wide_layout_aa(n, m, bb, k, out)) != 0:
             raise ValueError(f"anderson_placement_card: the wide kernel refuses n={n}, m={m}, "
                              f"bb={bb}, k={k}")
         gram = _round4(k * k + k * (k + 1))
-        return dict(ring=False, smem_bytes=int(out[1]), workspace_floats=int(out[2]),
-                    gram_floats=gram, ring_floats=(2 * k + 4) * (n + 2 * int(out[7])))
+        return dict(ring=False, gram=bool(out[11]), smem_bytes=int(out[1]),
+                    workspace_floats=int(out[2]), gram_floats=gram,
+                    ring_floats=(2 * k + 4) * (n + 2 * int(out[7])))
     if kernel in _AA_CODES:
         rc = int(lib.qp_kernel_aa_placement(_AA_CODES[kernel], n, m, k, device, out))
         keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
-                "gram_floats", "ring_floats", "problems_per_block", "workspace_floats")
+                "gram_floats", "ring_floats", "problems_per_block", "workspace_floats", "gram")
     else:
         rc = int(lib.qp_btd_aa_placement(n, m, bb, cluster, k, device, out))
         keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
-                "gram_floats", "ring_floats", "rows", "twin_rows")
+                "gram_floats", "ring_floats", "rows", "twin_rows", "gram")
     _raise_on(lib, rc, "anderson_placement_card")
     res = {key: int(v) for key, v in zip(keys, out)}
-    res["ring"] = bool(res["ring"])
+    res["ring"], res["gram"] = bool(res["ring"]), bool(res["gram"])
     return res
 
 

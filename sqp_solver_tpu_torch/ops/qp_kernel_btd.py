@@ -33,11 +33,14 @@ batched tensor code that follows the kernel's per-problem algorithm, with
 the column Cholesky's pivot clamp and fail rule) and a wrapper that sends
 CPU tensors to it and CUDA tensors to a CUDA kernel: internal blocks 8, 16,
 24 and 32 to ``csrc/qp_kernel_btd.cu`` (one thread block per problem, or a
-cluster of two where one block cannot hold A in shared memory), the other
-multiples of 8 up to 128 to ``csrc/qp_kernel_btd_wide.cu`` (a cluster of
-two blocks per problem, A in band rows and the band and factor
-arrays split over the cluster's shared memory, the arrays it cannot hold
-in a device workspace; :func:`wide_layout`).  On the CPU the wide route's
+cluster of two where one block cannot hold A in shared memory), every other
+multiple of 8 to ``csrc/qp_kernel_btd_wide.cu`` (a cluster of two blocks
+per problem, A in band rows and the band and factor arrays split over the
+cluster's shared memory, the arrays it cannot hold in a device workspace;
+:func:`wide_layout`; past 128, as for the OSQP control class at 50 states,
+its sweep chains take the rows in rounds).  The one shape the card refuses
+is one whose vectors and fixed part do not fit a cluster block's shared
+memory (:func:`wide_layout` returns None).  On the CPU the wide route's
 plain version runs its matvecs and Gram band on :func:`band_rows` too.  A
 CUDA call the kernels cannot take raises; there is no fallback.
 
@@ -86,10 +89,9 @@ __all__ = [
 ]
 
 # The internal blocks the narrow CUDA kernel is built for (a cluster of two
-# blocks per problem for 8 and 16 only); the wide kernel takes the other
-# multiples of 8 up to WIDE_MAX_BLOCK.
+# blocks per problem for 8 and 16 only); the wide kernel takes every other
+# multiple of 8 at the shapes its layout places (wide_layout).
 KERNEL_BLOCKS = (8, 16, 24, 32)
-WIDE_MAX_BLOCK = 128
 
 # Launch counters, one per entry point of each CUDA kernel (narrow, wide):
 # each wrapper adds one where it launches a kernel (never on the plain path).
@@ -368,13 +370,15 @@ def _wide_route(bb: int) -> bool:
 
 def is_wide(bb: int, name: str = "qp_kernel_btd") -> bool:
     """Whether the wide CUDA kernel (rather than the narrow one) takes the
-    internal block ``bb``; raises ``ValueError`` where neither does."""
+    internal block ``bb``: every multiple of 8 but those of the narrow one;
+    raises ``ValueError`` where neither does (the wide kernel may still
+    refuse a shape, where :func:`wide_layout` returns None)."""
     if bb in KERNEL_BLOCKS:
         return False
-    if bb % 8 == 0 and 0 < bb <= WIDE_MAX_BLOCK:
+    if bb % 8 == 0 and bb > 0:
         return True
-    raise ValueError(f"{name}: the CUDA kernels take internal blocks that are multiples of 8 "
-                     f"up to {WIDE_MAX_BLOCK}, not {bb}")
+    raise ValueError(f"{name}: the CUDA kernels take internal blocks that are multiples of 8, "
+                     f"not {bb}")
 
 
 def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
@@ -424,12 +428,12 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
                              "memory of a cluster's block")
         cs, ws_floats = lay["cluster"], lay["workspace_floats"]
         # one slice of the Anderson state a block: a cluster's block holds
-        # all of x and ceil(m / cs) rows; its Gram in shared memory may
+        # all of x and ceil(m / cs) rows; its Gram area in shared memory may
         # leave an array to the workspace (a library built before it has
         # the layout without Anderson)
         aa_mem, aa_ws = _aa_workspace(lib, settings, batch * cs, n, -(-m // cs), dev)
         if aa_mem and hasattr(lib, "qp_btd_wide_layout_aa"):
-            out = (ctypes.c_longlong * 11)()
+            out = (ctypes.c_longlong * 12)()
             if int(lib.qp_btd_wide_layout_aa(n, m, bb, aa_mem, out)) != 0:
                 raise ValueError(f"{name}: the vectors of n={n}, m={m} and the Anderson Gram "
                                  "do not fit in the shared memory of a cluster's block")

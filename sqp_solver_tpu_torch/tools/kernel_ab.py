@@ -12,11 +12,14 @@ checkout's, which passes each library to the launchers explicitly and is
 valid as long as the C interface of the kernels compared is the same in
 both trees.  Four parts, in order (``--parts`` picks some):
 
-``bits``    K1, K2, K5, K6 and K7 of both trees at their ``chip_smoke.py``
-            shapes, K3 at those shapes (its warp layout) and at two that
-            its warp layout does not take (n > 32 or m > 64), and K4 at
-            n = 32 (its warp layout), on the same seeded inputs, every
-            launch without Anderson acceleration; then the Anderson
+``bits``    K1, K2, K5 (the wide variant too, at D = 1280 and 2048), K6 and
+            K7 (the wide kernel too, at the internal blocks up to 128 of
+            ``chip_smoke.btd_wide_cases``) of both trees at their
+            ``chip_smoke.py`` shapes, K3 at those shapes (its warp layout)
+            and at two that its warp layout does not take (n > 32 or
+            m > 64), and K4 at n = 32 (its warp layout), on the same seeded
+            inputs, every launch without Anderson acceleration; then the
+            Anderson
             instantiations at leg G's shapes and settings
             (``chip_smoke.aa_cases``: K1, K3 in both layouts, K6 and K7 at
             their cells' settings and on a cluster with chunks of 10, K6
@@ -92,16 +95,16 @@ SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
 TWINS = {"qp_kernel_aa.cu": "qp_kernel.cu", "qp_kernel_btd_aa.cu": "qp_kernel_btd.cu",
          "qp_kernel_btd_wide_aa.cu": "qp_kernel_btd_wide.cu"}
 AA_KERNELS = ("k1aa", "k3aa", "k6aa", "k7aa", "k6waa")
-# the kernels that ``bits`` holds equal to the parent's (K5 at its narrow
-# shapes: the wide variant sums in another order since its redesign), and
-# the Anderson instantiations at leg G's shapes
+# the kernels that ``bits`` holds equal to the parent's, and the Anderson
+# instantiations at leg G's shapes
 BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7") + AA_KERNELS
 # kernels (and device functions of their own) of the parent that this tree
-# redesigned: ``regs`` lists them and does not hold them to the parent's
-# registers
-REDESIGNED = ("admm_chunk_wide_kernel", "sqp_step_kernel_aa", "qp_solve_kernel_aa",
-              "qp_solve_warp_kernel_aa", "qp_btd_kernel_aa", "qp_btd_wide_kernel_aa",
-              "aa_chunk_end", "aa_solve")
+# changed: ``regs`` lists them and does not hold them to the parent's
+# registers.  The Anderson step's state may now put its Gram area in the
+# workspace (admm_core.cuh:aa_state), which moved the registers and stack
+# of K3's block-layout and the narrow K6/K7's Anderson kernels; every other
+# kernel keeps the parent's
+REDESIGNED = ("qp_solve_kernel_aa", "qp_btd_kernel_aa")
 
 
 def _csrc(tree: Path) -> Path:
@@ -202,8 +205,9 @@ def same_bits(a, b) -> bool:
 
 
 def bits(libs: dict, dev) -> list:
-    """K1, K2, K5 (its narrow shapes), K6 and K7 of both trees at their
-    ``chip_smoke.py`` shapes,
+    """K1, K2, K5 (the wide variant too), K6 and K7 (the wide kernel too, at
+    internal blocks up to 128) of both trees at their ``chip_smoke.py``
+    shapes,
     K3 at its ``chip_smoke.py`` shapes (the warp layout) and at two outside
     its warp layout (n > 32 or m > 64), K4 at n = 32 and the Anderson
     instantiations at leg G's shapes (``chip_smoke.aa_cases``), on the same
@@ -229,7 +233,8 @@ def bits(libs: dict, dev) -> list:
                               lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
     cases += [(c["label"], c["launch"]) for c in cs.spd_cases(dev) if c["n"] <= 32]
     cases += [(c["label"], c["launch"]) for c in cs.chunk_cases(dev)]
-    for c in cs.btd_cases(dev):
+    cases += [(c["label"], c["launch"]) for c in cs.chunk_cases(dev, wide=True)]
+    for c in cs.btd_cases(dev) + [c for c in cs.btd_wide_cases(dev) if c["bb"] <= 128]:
         cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
             c["t"], c["settings"], c["check_infeas"], lib=lib)))
     cases += [(c["label"], c["launch"]) for c in cs.aa_cases(dev)]

@@ -3,10 +3,12 @@ on the CPU: where its state lives, and the Gram it keeps from chunk to chunk.
 
 * The placement rule through its Python mirror
   (``ops/qp_kernel.py:anderson_placement``) at the shapes of ``chip_smoke.py``'s
-  leg G and the card tests: the Gram always in shared memory, the ring there
-  where it costs the kernel without Anderson nothing (no matrix or row of A
-  leaves shared memory, no block an SM is lost), else in the workspace; the
-  wide kernel's ring in the workspace; a memory past the bound refused.
+  leg G and the card tests: the Gram in shared memory at every memory up to
+  32, the ring there where it costs the kernel without Anderson nothing (no
+  matrix or row of A leaves shared memory, no block an SM is lost), else in
+  the workspace; the wide kernel's ring in the workspace; past memory 32 the
+  Gram area too in shared memory only where it costs nothing, else in the
+  workspace; a memory below 1 refused.
 * A numpy mirror of the kept Gram in float64: a ring of k slots, each chunk
   pushing one pair into the oldest slot and computing only that pair's row of
   the Gram and the right-hand side, over a dozen chunks with evictions and a
@@ -92,13 +94,70 @@ def test_placement_rule_across_memories(k):
     assert on["gram_floats"] == -(-(k * k + k * (k + 1)) // 4) * 4
 
 
+# (kernel, n, m, bb, cluster, blocks an SM of the kernel without Anderson,
+# the Gram area in shared memory at memories 33, 48 and 64): past memory 32
+# the area stays on chip only where it alone keeps the twin's matrices (or
+# rows of A) and blocks an SM.  K1 and K3's block layout at n = 32 (eight
+# blocks an SM) keep it at 33 only; K3's warp layout at n = 32 never; K1 at
+# n = 128 and K7 at the NLP step's shape up to 48, where a matrix or a
+# block an SM would go next; K6 on a cluster always; K6 on one block, whose
+# A rows fill shared memory, never; K6 at n = 32, m = 24 always, with its
+# ring beside it at 33
+PAST_32 = [
+    ("K1", 32, 33, None, None, 8, (True, False, False)),
+    ("K1", 128, 129, None, None, 1, (True, True, False)),
+    ("K3-warp", 32, 33, None, None, 8, (False, False, False)),
+    ("K3-block", 32, 33, None, None, 8, (True, False, False)),
+    ("K6", 192, 320, 8, 2, 1, (True, True, True)),
+    ("K6", 192, 320, 8, 1, 1, (False, False, False)),
+    ("K7", 128, 224, 8, 2, 2, (True, True, False)),
+    ("K6", 32, 24, 8, 1, 4, (True, True, True)),
+]
+
+
 def test_placement_rule_refuses_past_the_bound():
-    """Memory 33 (past the on-chip Gram's bound of 32) and 0 raise a
-    ValueError naming the bound, for every kernel."""
+    """Memory 0 raises a ValueError for every kernel; past memory 32 (the
+    kernels' bound before the Gram area could leave shared memory) every
+    kernel gives a placement: at 33, 48 and 64 the Gram area stays in shared
+    memory exactly where, with it, the block still holds what the kernel
+    without Anderson holds and gets as many blocks an SM, else it leaves
+    (``gram`` False, the block's shared memory that of the kernel without
+    Anderson); the ring is on chip only beside it."""
     for kernel in qk.ANDERSON_KERNELS:
-        for k in (0, qk.AA_MAX_MEMORY + 1):
-            with pytest.raises(ValueError, match="AA_MAX_MEMORY"):
-                qk.anderson_placement(kernel, 32, 48, k, twin_blocks=1, bb=8, cluster=2)
+        with pytest.raises(ValueError, match="anderson_memory"):
+            qk.anderson_placement(kernel, 32, 48, 0, twin_blocks=1, bb=8, cluster=2)
+    for kernel, n, m, bb, cluster, twin, want in PAST_32:
+        for k, on in zip((33, 48, 64), want):
+            p = qk.anderson_placement(kernel, n, m, k, twin_blocks=twin, bb=bb, cluster=cluster)
+            assert p["gram"] is on, (kernel, n, m, cluster, k, p)
+            assert p["gram_floats"] == -(-(k * k + k * (k + 1)) // 4) * 4
+            assert not p["ring"] or p["gram"]
+            scopes = 2 if kernel == "K3-warp" else 1
+            extra = 4 * scopes * ((p["gram_floats"] if on else 0)
+                                  + (p["ring_floats"] if p["ring"] else 0))
+            assert p["smem_bytes"] <= 232448
+            if kernel in ("K1", "K3-block"):
+                assert p["mats"] == p["twin_mats"]
+            if kernel in ("K6", "K7"):
+                assert p["rows"] == p["twin_rows"]
+            assert p["smem_bytes"] == p["twin_smem_bytes"] + extra
+            if on:
+                assert 233472 // (p["smem_bytes"] + 1024) >= twin
+    # the wide kernel, given its layouts without Anderson and with the area
+    # reserved: on chip where the reserve moves no array and no block an SM
+    plain = dict(shared=["Li", "GH", "A"], smem_bytes=150000)
+    for reserved, on in ((dict(shared=["Li", "GH", "A"], smem_bytes=163000), True),
+                         (dict(shared=["Li", "A"], smem_bytes=150000), False),
+                         (dict(shared=["Li", "GH", "A"], smem_bytes=232000), True),
+                         (None, False)):
+        p = qk.anderson_placement("wide", 272, 160, 40, twin_blocks=None, bb=136,
+                                  wide=(plain, reserved))
+        assert p["gram"] is on and p["ring"] is False
+    assert qk.anderson_placement("wide", 272, 160, 32, twin_blocks=None, bb=136)["gram"]
+    small = dict(shared=["Li"], smem_bytes=30000)
+    p = qk.anderson_placement("wide", 512, 200, 40, twin_blocks=None, bb=256,
+                              wide=(small, dict(shared=["Li"], smem_bytes=43000)))
+    assert p["gram"] is False  # 7 blocks an SM by shared memory would drop to 5
 
 
 # ---------------------------------------------------------------------------

@@ -195,17 +195,21 @@ def test_polish_reuse_needs_the_previous_factor():
 
 def test_wide_route_refuses_blocks_past_the_kernels():
     """The internal blocks the CUDA kernels take: 8, 16, 24, 32 (narrow),
-    the other multiples of 8 up to 128 (wide); others raise.  On the CPU
-    every block runs the plain version and counts no launch."""
-    assert [qb.is_wide(bb) for bb in (8, 32, 40, 64, 128)] == [False, False, True, True, True]
-    for bb in (136, 12):
-        with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+    every other multiple of 8 (wide: 40 to 128, and past 128, as 136, 152
+    and 256, since the wide kernel's sweep chains take rows in rounds);
+    an internal block that is no multiple of 8 raises.  On the CPU every
+    block runs the plain version and counts no launch."""
+    assert [qb.is_wide(bb) for bb in (8, 32, 40, 64, 128, 136, 152, 256)] == [
+        False, False, True, True, True, True, True, True]
+    for bb in (12, 0):
+        with pytest.raises(ValueError, match="multiples of 8"):
             qb.is_wide(bb)
     before = (qb.qp_solve_btd_launches, qb.qp_solve_btd_wide_launches,
               qb.btd_step_launches, qb.btd_step_wide_launches)
-    a = btd_qp_inputs(2, 1, 136, 20, seed=3)
-    r = qb.qp_solve_kernel_btd(_port_qp(a), QPSettings(**dict(BTD, block_size=136,
-                                                               max_iter=50)))
-    assert r.x.shape == (2, 136)
+    for bb in (136, 256):
+        a = btd_qp_inputs(2, 1, bb, 20, seed=3)
+        r = qb.qp_solve_kernel_btd(_port_qp(a), QPSettings(**dict(BTD, block_size=bb,
+                                                                   max_iter=50)))
+        assert r.x.shape == (2, bb) and bool(torch.isfinite(r.x).all())
     assert (qb.qp_solve_btd_launches, qb.qp_solve_btd_wide_launches, qb.btd_step_launches,
             qb.btd_step_wide_launches) == before

@@ -956,44 +956,67 @@ def test_btd_kernel_fail_flag_and_counters(cuda, cluster):
 
 
 def test_btd_kernel_refuses_internal_blocks_over_128(cuda):
-    """The CUDA kernels take the internal blocks that are multiples of 8 up
-    to 128 (8, 16, 24 and 32 the narrow kernel, the others the wide one): a
-    declared block size of 68 (internal block 136) raises on the card
-    through both entry points, with no launch counted, where the CPU runs
-    the plain version (ROADMAP Queue 1)."""
+    """Internal blocks past 128, which the card refused before the wide
+    kernel's sweep chains took rows in rounds, now run: a declared block
+    size of 68 (internal block 136) through both entry points, each
+    counting one wide launch, against the plain version on the CPU (equal
+    statuses, x at atol = rtol = 1e-4 where the iteration counts agree).
+    What the card still refuses, with no launch counted, is a shape whose
+    vectors do not fit a cluster block's shared memory (n = 5440 at
+    bb = 136: wide_layout returns None) and an internal block that is no
+    multiple of 8."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
     s = dataclasses.replace(BTD_QP, block_size=68, max_iter=25)
-    assert qb.btd_internal_block(68) == 136
+    assert qb.btd_internal_block(68) == 136 and qb.is_wide(136)
     a = btd_qp_inputs(4, 2, 68, 30, seed=3)
     counts = lambda: (qb.qp_solve_btd_launches, qb.btd_step_launches,  # noqa: E731
                       qb.qp_solve_btd_wide_launches, qb.btd_step_wide_launches)
     before = counts()
+    res = {}
     for dev in ("cpu", cuda):
         t = _to(a, dev)
         qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
-        if dev == "cpu":
-            assert qb.qp_solve_kernel_btd(qp, s).x.shape == (4, 136)
-            continue
-        with pytest.raises(ValueError, match="up to 128"):
-            qb.qp_solve_kernel_btd(qp, s)
+        res[dev] = qb.qp_solve_kernel_btd(qp, s)
+        assert res[dev].x.shape == (4, 136)
+    torch.cuda.synchronize()
+    assert torch.equal(res[cuda].info.status.cpu(), res["cpu"].info.status)
+    same = (res[cuda].info.iter.cpu() == res["cpu"].info.iter)
+    assert same.float().mean().item() >= 0.75
+    torch.testing.assert_close(res[cuda].x.cpu()[same], res["cpu"].x[same], **TOL)
     st = _to(btd_step_inputs(4, 2, 136, 30, seed=3), cuda)
-    with pytest.raises(ValueError, match="up to 128"):
-        qb.btd_step_kernel(*(st[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
-                                             "z", "y")), s)
-    assert counts() == before
+    args = [st[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x", "z", "y")]
+    out = qb.btd_step_kernel(*args, s)
+    assert bool(torch.isfinite(out.x).all()) and out.band.all()
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    big = dict(pd=torch.zeros(1, 40, 136, 136), pe=torch.zeros(1, 40, 136, 136),
+               J=torch.zeros(1, 8, 5440), g=torch.zeros(1, 5440), l=torch.zeros(1, 8),
+               u=torch.zeros(1, 8), active=torch.ones(1, dtype=torch.bool),
+               x=torch.zeros(1, 5440), z=torch.zeros(1, 8), y=torch.zeros(1, 8))
+    big = {k: v.to(cuda) for k, v in big.items()}
+    assert qb.wide_layout(5440, 8, 136) is None
+    with pytest.raises(ValueError, match="do not fit"):
+        qb.btd_step_kernel(*(big[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
+                                              "z", "y")), s)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        qb.is_wide(12)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
 
 
 # (batch, T, internal block, m, the arrays in device memory): a cluster of
 # two blocks per problem holds every array an iteration reads (bb = 40: all
 # of them; bb = 64: all but pd and pe); at bb = 128 (T = 2) the sweeps'
 # couplings go to the workspace and A's band rows, which an iteration
-# reads twice, stay
+# reads twice, stay; so at bb = 136, whose sweep chains take two rounds of
+# rows; at bb = 256 every array is in the workspace
 WIDE_SHAPES = [
     pytest.param(64, 3, 40, 100, [], id="bb40"),
     pytest.param(32, 3, 64, 150, ["pd", "pe"], id="bb64"),
     pytest.param(16, 2, 128, 200, ["GH", "S", "F_prev", "F", "pd", "pe"], id="bb128"),
+    pytest.param(16, 2, 136, 160, ["GH", "S", "F_prev", "F", "pd", "pe"], id="bb136"),
+    pytest.param(8, 2, 256, 200, ["Li", "GH", "A", "S", "F_prev", "F", "pd", "pe"],
+                 id="bb256"),
 ]
 
 
@@ -1180,6 +1203,61 @@ def test_btd_wide_kernel_on_the_control_arm_matches_plain_float64(cuda):
         err[name] = (out.x.cpu().double() - ref.x).abs().max().item()
     assert (ref.info.status == QPStatus.SOLVED).all()
     assert err["kernel"] <= 2 * err["plain"] + 1e-5, err
+
+
+def test_btd_wide_kernel_on_the_control_class_at_50_states(cuda):
+    """The OSQP control class at 50 states and 25 inputs over 10 steps
+    (declared stage block 75, internal block 152, n = 750 padded to 760,
+    m = 1,250), which the card refused before the wide kernel took
+    internal blocks past 128: ``qp_solve_batch(impl="kernel")`` launches
+    the wide K6 once, every problem on the band rows, and solves every
+    problem, as the plain version in float32 does (on the card); where the
+    plain float64 version solved too, the kernel's x lies no farther from
+    its x than twice the plain float32 version's (plus 1e-5).  The K7
+    entry at this shape takes the same kernel, one launch."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.testing import control_qp_inputs
+
+    a = control_qp_inputs(8, horizon=10, nx=50, nu=25, seed=5)
+    s = QPSettings(alpha=1.6, eps_abs=1e-3, eps_rel=1e-3, max_iter=8000, check_termination=25,
+                   adaptive_rho=True, adaptive_rho_interval=50, rho=1.0, schedule="fixed",
+                   linear_solver="schur_block_tridiag", block_size=75)
+    assert qb.btd_internal_block(75) == 152
+    t = _to(a, cuda)
+    qp = QuadraticProblem(P=t["P"], q=t["q"], A=t["A"], l=t["l"], u=t["u"])
+    before = qb.qp_solve_btd_wide_launches
+    qb.reset_wide_route_counts()
+    res = qp_solve_batch(qp, s, impl="kernel")
+    torch.cuda.synchronize()
+    assert qb.qp_solve_btd_wide_launches == before + 1
+    assert qb.wide_route_counts() == dict(band=8, dense=0)
+    assert res.x.shape == (8, 750) and bool(torch.isfinite(res.x).all())
+    assert (res.info.status == QPStatus.SOLVED).all()
+    # the padded operands as qp_solve_kernel_btd builds them
+    P = torch.nn.functional.pad(t["P"], (0, 10, 0, 10))
+    P[:, 750:, 750:] = torch.eye(10, device=cuda)
+    pd, pe = qb.extract_band(P, 152)
+    J = torch.nn.functional.pad(t["A"], (0, 10)).contiguous()
+    g = torch.nn.functional.pad(t["q"], (0, 10)).contiguous()
+    zx, zm = torch.zeros((8, 760), device=cuda), torch.zeros((8, 1250), device=cuda)
+    ops = dict(pd=pd, pe=pe, J=J, g=g, l=t["l"], u=t["u"], x=zx, z=zm, y=zm)
+    p32 = _btd_raw(qb.qp_btd_reference, ops, s, check_infeas=True)
+    p64 = _btd_raw(qb.qp_btd_reference, {k: v.double() for k, v in ops.items()}, s,
+                   check_infeas=True)
+    torch.cuda.synchronize()
+    assert (p32.done & ~p32.fail).all()
+    both = p64.done & ~p64.fail
+    err = {name: (x[both].double() - p64.x[both, :750]).abs().max().item()
+           for name, x in (("kernel", res.x), ("plain", p32.x[:, :750]))}
+    assert err["kernel"] <= 2 * err["plain"] + 1e-5, err
+    before = qb.btd_step_wide_launches
+    out = qb.btd_step_kernel(pd, pe, J, g, t["l"], t["u"],
+                             torch.ones(8, dtype=torch.bool, device=cuda), zx, zm, zm,
+                             dataclasses.replace(s, max_iter=200))
+    torch.cuda.synchronize()
+    assert qb.btd_step_wide_launches == before + 1
+    assert bool(torch.isfinite(out.x).all()) and out.band.all() and not out.fail.any()
 
 
 def test_structured_paths_on_cuda_match_cpu_plain(cuda):
@@ -1370,32 +1448,39 @@ AA_QP = QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=300, check_te
 AA_KINDS = ["K1", "K3-block", "K3-warp", "K6-cluster", "K6-block", "K7"]
 
 
-def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson"):
+def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson", rho_every=None, eps=None,
+             batch=None):
     """(float32 inputs, kernel launch, plain call) of one kind: each call
     takes the inputs and returns an object with x (or p), z, y, iter,
-    rho_updates and done.  ``seg`` replaces the chunk length (rho every 50
-    iterations, 40 for K1)."""
+    rho_updates and done.  ``seg`` replaces the chunk length, ``rho_every``
+    the rho interval (50 iterations, 40 for K1), ``eps`` the tolerances
+    (1e-5) and ``batch`` the problems (128, 64 for K6/K7)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
     s = dataclasses.replace(AA_QP, anderson_memory=memory, acceleration=acceleration)
     if seg is not None:
         s = dataclasses.replace(s, check_termination=seg)
+    if rho_every is not None:
+        s = dataclasses.replace(s, adaptive_rho_interval=rho_every)
+    if eps is not None:
+        s = dataclasses.replace(s, eps_abs=eps, eps_rel=eps)
     if kind == "K1":
-        s = dataclasses.replace(s, check_termination=seg or 10, adaptive_rho_interval=40)
-        t = _to(step_inputs(128, 16, 17, seed=31, equality_row=False), cuda)
+        s = dataclasses.replace(s, check_termination=seg or 10,
+                                adaptive_rho_interval=rho_every or 40)
+        t = _to(step_inputs(batch or 128, 16, 17, seed=31, equality_row=False), cuda)
         return (t, lambda t: _step(qk.sqp_step_kernel, t, s),
                 lambda t: _step(qk.sqp_step_reference, t, s))
     if kind.startswith("K3"):
         n, m = (40, 41) if kind == "K3-block" else (16, 24)
-        t = _to(qp_inputs(128, n, m, seed=n + m, loose_row=True), cuda)
+        t = _to(qp_inputs(batch or 128, n, m, seed=n + m, loose_row=True), cuda)
         layout = kind.split("-")[1]
         assert (qk.qp_solve_problems_per_block(n, m) > 1) == (layout == "warp")
         return (t, lambda t: _qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout), t, s),
                 lambda t: _qp_raw(qk.qp_solve_reference, t, s))
     bs = dataclasses.replace(s, linear_solver="schur_block_tridiag", block_size=8)
     if kind.startswith("K6"):
-        a = btd_qp_inputs(64, 4, 8, 24, seed=41, loose_row=True)
+        a = btd_qp_inputs(batch or 64, 4, 8, 24, seed=41, loose_row=True)
         pd, pe = qb.extract_band(torch.as_tensor(a["P"]), 8)
         t = _to(dict(pd=pd.numpy(), pe=pe.numpy(), J=a["A"], g=a["q"], l=a["l"], u=a["u"],
                      x=a["x"], z=a["z"], y=a["y"]), cuda)
@@ -1404,7 +1489,7 @@ def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson"):
         return (t, lambda t: _btd_raw(qb._qp_btd_launch, t, bs, active=None, rho_in=None,
                                       check_infeas=True, name="test", cluster=cluster),
                 lambda t: _btd_raw(qb.qp_btd_reference, t, bs, check_infeas=True))
-    t = _to(btd_step_inputs(64, 4, 8, 24, seed=43), cuda)
+    t = _to(btd_step_inputs(batch or 64, 4, 8, 24, seed=43), cuda)
     return (t, lambda t: qb.btd_step_kernel(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"],
                                             t["active"], t["x"], t["z"], t["y"], bs,
                                             rho_in=t["rho_in"]),
@@ -1477,19 +1562,39 @@ def test_anderson_kernels_ring_wraps_and_rho_resets(cuda, kind):
 
 @pytest.mark.parametrize("kind", AA_KINDS)
 def test_anderson_kernels_refuse_memory_past_the_bound(cuda, kind):
-    """A memory past the on-chip Gram's bound (AA_MAX_MEMORY + 1) raises a
-    ValueError naming it before any launch, while the plain version takes
-    it; the bound itself runs, with finite iterates."""
-    t32, launch, plain = _aa_case(kind, qk.AA_MAX_MEMORY + 1, cuda)
+    """The kernels take any memory >= 1 (the bound of 32 an on-chip Gram
+    set before the Gram area could leave shared memory is gone): memory 0
+    raises a ValueError before any launch; memories 33 and 40 run, with
+    finite iterates, as the plain version runs them."""
+    t32, launch, plain = _aa_case(kind, 4, cuda)
+    t0 = _aa_case(kind, 0, cuda)[1]
     before = _counts()
-    with pytest.raises(ValueError, match="AA_MAX_MEMORY"):
-        launch(t32)
+    with pytest.raises(ValueError, match="anderson_memory"):
+        t0(t32)
     assert _launched(before) == (0, 0, 0, 0)
-    assert plain(t32).iter.numel() == t32["l"].shape[0]
-    t32, launch, _ = _aa_case(kind, qk.AA_MAX_MEMORY, cuda)
-    out = launch(t32)
-    x = out.p if kind == "K1" else out.x
-    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(out.y).all())
+    for memory in (33, 40):
+        t32, launch, plain = _aa_case(kind, memory, cuda)
+        out = launch(t32)
+        x = out.p if kind == "K1" else out.x
+        assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(out.y).all())
+        assert plain(t32).iter.numel() == t32["l"].shape[0]
+
+
+@pytest.mark.parametrize("memory", [33, 40])
+@pytest.mark.parametrize("kind", AA_KINDS)
+def test_anderson_kernels_past_memory_32_match_plain_float64(cuda, kind, memory):
+    """Memories 33 and 40 with chunks of 2 iterations, rho every 120 and eps
+    1e-6: an epoch's 60 chunks push 59 pairs into the ring, which fills
+    and wraps before a rho change empties it.  The kernel holds to plain
+    float64 under the bars of test_anderson_kernels_match_plain_float64, a
+    quarter or more of the problems running past the chunk at which the
+    ring wraps.  4096 problems: with a check every 2 iterations a quarter
+    or fewer of the float32 runs stop at float64's iteration, so the shares
+    that do are estimates, whose spread at 128 or 512 problems passes a
+    tenth of them."""
+    ok = _aa_against_plain_float64(kind, *_aa_case(kind, memory, cuda, seg=2, rho_every=120,
+                                                   eps=1e-6, batch=4096))
+    assert (ok.iter >= 2 * (memory + 2)).float().mean() >= 0.25
 
 
 @pytest.mark.parametrize("kind", ["K3-block", "K3-warp", "K6-block", "K6-cluster"])
@@ -1530,7 +1635,8 @@ AA_PLACEMENTS = [("K1", 32, 33, None, None), ("K1", 128, 129, None, None),
                  ("K3-warp", 16, 24, None, None), ("K3-block", 32, 33, None, None),
                  ("K3-block", 40, 41, None, None), ("K3-block", 64, 900, None, None),
                  ("K6", 192, 320, 8, 2), ("K6", 192, 320, 8, 1), ("K7", 128, 224, 8, 2),
-                 ("K6", 32, 24, 8, 1), ("wide", 256, 384, 64, 2), ("wide", 360, 600, 40, 2)]
+                 ("K6", 32, 24, 8, 1), ("wide", 256, 384, 64, 2), ("wide", 360, 600, 40, 2),
+                 ("wide", 128, 224, 64, 2), ("wide", 760, 1250, 152, 2)]
 
 
 @pytest.mark.parametrize("kernel,n,m,bb,cluster", AA_PLACEMENTS,
@@ -1540,14 +1646,29 @@ def test_anderson_placement_is_the_rules(cuda, kernel, n, m, bb, cluster):
     qp_btd_aa_placement, qp_btd_wide_layout_aa) equals the rule's Python
     mirror (ops/qp_kernel.py:anderson_placement) given the card's blocks an
     SM of the kernel without Anderson; with the ring on chip the Anderson
-    kernel's blocks an SM are no fewer than those; memory 4 and 8."""
-    for k in (4, 8):
+    kernel's blocks an SM are no fewer than those; memories 4 and 8 (the Gram
+    area in shared memory always) and 33, 40 and 64 (the Gram area there
+    only where it costs the kernel without Anderson nothing: for the wide
+    kernel, given its layout without Anderson and, where the launcher kept
+    the area on chip, the one it reports)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    for k in (4, 8, 33, 40, 64):
         card = qk.anderson_placement_card(kernel, n, m, k, bb=bb, cluster=cluster)
+        wide = None
+        if kernel == "wide":
+            plain = qb.wide_layout(n, m, bb)
+            reserved = dict(smem_bytes=card["smem_bytes"], shared=plain["shared"]) if (
+                card["gram"]) else None
+            wide = (plain, reserved)
+            assert card["gram"] or k > 32
+            if card["gram"] and k > 32:
+                assert card["workspace_floats"] == plain["workspace_floats"], card
         mirror = qk.anderson_placement(kernel, n, m, k, twin_blocks=card.get("twin_blocks"),
-                                       bb=bb, cluster=cluster)
+                                       bb=bb, cluster=cluster, wide=wide)
         assert {key: card[key] for key in mirror if key in card} == {
             key: v for key, v in mirror.items() if key in card}, (card, mirror)
-        if kernel != "wide" and card["ring"]:
+        if kernel != "wide" and (card["ring"] or (card["gram"] and k > 32)):
             assert card["blocks"] >= card["twin_blocks"], card
 
 
