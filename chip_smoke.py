@@ -66,13 +66,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    wide row with its routes, cluster, shared memory a block, the arrays
    there and in device memory, the bytes an ADMM iteration reads from
    device memory, and its bound on A's nonzeros beside the bound on dense
-   A (the Anderson row too); past internal block 128, K6 on random band
-   QPs at 136 (n = 272, m = 160, B = 128) and 256 (n = 512, m = 200,
-   B = 32; every array in the workspace) and K7 at 136 (B = 64) and 256
-   (B = 32), each against its plain version and float64, and K7 at the control class's
-   shape at 50 states (internal block 152, B = 16) at a fixed rho against
-   float64 as the arm; then the wide kernel's phase split at the arm's and
-   K7's shapes;
+   A (the Anderson row too); past internal block 128 (the compact route:
+   A by its nonzeros, the layout rule's cluster), K6 on random band QPs at
+   136 (n = 272, m = 160, B = 128) and 256 (n = 512, m = 200, B = 32; a
+   matrix of the sweeps outgrows a block) and K7 at 136 (B = 64) and 256
+   (B = 32), each against its plain version and float64, and K7 at the
+   control class's shape at 50 states (internal block 152, B = 16) at a
+   fixed rho against float64 as the arm; then the wide kernel's phase
+   split at the arm's and K7's shapes and at leg P's (B = 16);
 4. the SQP main path end to end, ``sqp_solve_batch(impl="fused")`` on the
    sphere-cap family at the two benchmark configurations, checked against
    the closed-form optimum and an independent float64 KKT certificate,
@@ -700,7 +701,9 @@ def phase_split(dev, libs: dict, card: str) -> list:
 
 
 def wide_phase_split(lib, cases: list, card: str) -> list:
-    """The wide K6/K7's phase split at its shapes (``cases``), from the
+    """The wide K6/K7's phase split at its shapes (``cases``; past internal
+    block 128 the compact route, whose Gram band and Thomas interleave a
+    column block at a time: there the runner's of each block), from the
     build of ``csrc/qp_kernel_btd_wide.cu`` with phase clocks: cycles per
     block of each phase of one launch after a warm-up, and per ADMM
     iteration for the iterations' phases (A' w, M^-1 b, A v, the chunk
@@ -712,7 +715,8 @@ def wide_phase_split(lib, cases: list, card: str) -> list:
 
     rows = []
     for c in cases:
-        blocks = c["batch"] * qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=lib)
+        blocks = c["batch"] * qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=lib,
+                                              nnz=btd_nnz(c))
         cyc, out = clock_split(lib, lambda: btd_launch(c["t"], c["settings"], c["check_infeas"],
                                                        lib=lib), blocks)
         it = float(out.iter.float().mean())
@@ -1633,12 +1637,13 @@ def btd_control50_step_case(batch: int, dev) -> dict:
 
 
 def btd_past128_cases(dev) -> list:
-    """The wide kernel past internal block 128: K6 on random band QPs at
-    internal blocks 136 (n = 272, m = 160, B = 128; its sweep chains in two
-    rounds of rows, the couplings and Thomas's arrays in the workspace) and
-    256 (n = 512, m = 200, B = 32; every array in the workspace), K7 at 136
-    (B = 64) and 256 (B = 32), and K7 at the control class's shape at 50
-    states (internal block 152, B = 16)."""
+    """The wide kernel past internal block 128, its compact route (A by its
+    nonzeros, the layout rule's cluster): K6 on random band QPs at internal
+    blocks 136 (n = 272, m = 160, B = 128) and 256 (n = 512, m = 200,
+    B = 32; a matrix of the sweeps outgrows a block's shared memory, so
+    they stay in the workspace), K7 at 136 (B = 64) and 256 (B = 32), and
+    K7 at the control class's shape at 50 states (internal block 152,
+    B = 16)."""
     return [btd_random_case(128, 2, 136, 160, dev), btd_random_case(32, 2, 256, 200, dev),
             btd_wide_step_case(64, 2, 136, 160, dev), btd_wide_step_case(32, 2, 256, 200, dev),
             btd_control50_step_case(16, dev)]
@@ -1691,8 +1696,9 @@ def btd_row(c: dict, out, **fields) -> dict:
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
     n, m, bb, batch = c["n"], c["m"], c["bb"], c["batch"]
-    blocks = qb.cluster_size(n, m, bb, batch)
-    rows = qb.smem_rows(n, m, bb, batch)
+    nnz = btd_nnz(c)
+    blocks = qb.cluster_size(n, m, bb, batch, nnz=nnz)
+    rows = qb.smem_rows(n, m, bb, batch, nnz=nnz)
     mean_iter = float(out.iter.float().mean())
     per_iter = fields["ms"] / mean_iter if mean_iter > 0 else float("nan")
     other = ""
@@ -1702,7 +1708,7 @@ def btd_row(c: dict, out, **fields) -> dict:
     wide = {}
     where = f"{rows} of {m} rows of A on chip"
     if qb.is_wide(bb):
-        lay = qb.wide_layout(n, m, bb)
+        lay = qb.wide_layout(n, m, bb, nnz=nnz)
         band = int(out.band.sum())
         wide = dict(layout=lay, routes=dict(band=band, dense=batch - band))
         where = (f"band rows: {band} of {batch} problems (dense route {batch - band}); a block "
@@ -1716,6 +1722,15 @@ def btd_row(c: dict, out, **fields) -> dict:
     return dict(family=c["family"], n=n, m=m, bb=bb, batch=batch,
                 variant=variant_name(blocks), smem_rows=rows, library_ms=None,
                 mean_iter=mean_iter, ms_per_iter=per_iter, **wide, **fields)
+
+
+def btd_nnz(c: dict):
+    """The nonzeros a block holds at each cluster (``qb.compact_nnz``) for a
+    case past internal block 128, which the compact route's layout takes;
+    None up to it."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    return qb.compact_nnz(c["t"]["J"], c["bb"]) if c["bb"] > qb.COMPACT_ABOVE else None
 
 
 def variant_name(blocks: int) -> str:
@@ -2222,18 +2237,19 @@ def run_control50(dev, card: str, batch: int = 128, plain_batch: int = 16) -> di
                              "band rows")
     if res.x.shape != (batch, n0) or not torch.isfinite(res.x).all():
         raise AssertionError("control nx=50: x has the wrong shape or is not finite")
-    lay = qb.wide_layout(n, m, bb)
+    ops, _ = control50_operands(qp, bb, dev)
+    nnz = qb.compact_nnz(ops["J"], bb)
+    lay = qb.wide_layout(n, m, bb, nnz=nnz)
     log(f"  control nx=50: internal block {bb}, n = {n0} padded to {n}, m = {m}; routes "
         f"{routes}; the wide kernel in clusters of {lay['cluster']}, a block "
         f"{lay['smem_bytes'] / 1024:.1f} KB of shared memory holding "
         f"{', '.join(lay['shared']) or '-'} (the workspace: {', '.join(lay['device'])}, "
         f"{lay['workspace_floats'] * 4 / 2**20:.2f} MiB a block), {lay['iter_bytes']} bytes an "
-        "ADMM iteration from device memory a problem")
+        f"ADMM iteration from device memory a problem; A's nonzeros a block {nnz}")
     solved = float((res.info.status == 0).float().mean())
     ok, kkt = qp_osqp64(qp, res, 1e-4, 1e-4)
     cert = float(np.mean(ok))
     it = res.info.iter.float()
-    ops, _ = control50_operands(qp, bb, dev)
     launch = lambda: btd_launch(ops, s, True)  # noqa: E731
     ms = cuda_ms(launch, 2)
     ctx = dict(settings=s, batch=batch, n=n, m=m, bb=bb, t=ops)
@@ -2264,7 +2280,8 @@ def run_control50(dev, card: str, batch: int = 128, plain_batch: int = 16) -> di
                           us_per_iter_max=ms * 1e3 / float(it.max()), **bounds,
                           device_busy_ms=tr["device_busy_ms"], idle_share=tr["idle_share"],
                           idle_share_profiled=tr["idle_share_profiled"], counts=c,
-                          routes=routes, layout=lay, batch=batch, plain_batch=plain_batch),
+                          routes=routes, layout=lay, batch=batch, plain_batch=plain_batch,
+                          nnz=nnz),
                 row=row, counts=dict(control50=c))
 
 
@@ -3683,13 +3700,14 @@ def main() -> int:
     k6w = [compare_control(control, reps=2), compare_btd_random(rand64, reps=3),
            compare_btd_random(rand128, reps=3), compare_btd_mixed(mixed, reps=3)]
     k7w = [compare_btd_random(wpath, reps=5), compare_btd_random(wstep, reps=3)]
-    log("wide K6/K7 past internal block 128 (the sweep chains' rows in rounds):")
+    log("wide K6/K7 past internal block 128 (the compact route: A by its nonzeros, the "
+        "rule's cluster):")
     for c in btd_past128_cases(dev):
         (k6w if c["label"].startswith("K6") else k7w).append(
             compare_btd_past128(c, reps=2 if c["bb"] > 136 else 3))
     log("wide K6/K7 phase split (clock64 spans of thread 0, cycles per block):")
     wide_phases = wide_phase_split(phase_libs["qp_kernel_btd_wide.cu"],
-                                   [control, wpath, wstep], card)
+                                   [control, wpath, wstep, btd_control50_case(16, dev)], card)
     # the wide kernel with Anderson, chunks of 10 (a ring of several pairs),
     # against float64 as in leg G; the plain float32 version itself parts
     # from float64 by ~1e-3 here, so relative to it

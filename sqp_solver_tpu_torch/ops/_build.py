@@ -103,6 +103,8 @@ _SIGNATURES = {
         [_INT] + [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_INT, _VOID],
     ),
+    # the wide kernel's entries of a library built before the compact route
+    # (a parent tree's, tools/kernel_ab.py): its layout reports and launches
     "qp_btd_wide_launch": (
         _INT,
         [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
@@ -114,6 +116,20 @@ _SIGNATURES = {
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID, _VOID] + [_INT, _VOID],
     ),
     "qp_btd_wide_layout": (_INT, [_INT] * 3 + [_VOID]),
+    "qp_btd_wide_layout_aa": (_INT, [_INT] * 4 + [_VOID]),
+    # the wide kernel's entries (past internal block 128 with the nonzeros
+    # a block holds)
+    "qp_btd_wide_launch_nnz": (
+        _INT,
+        [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID, _VOID] + [_VOID],
+    ),
+    "qp_btd_wide_launch_aa_nnz": (
+        _INT,
+        [_VOID] * 15 + [_INT] * 4 + [_FLOAT] * 5 + [_INT] * 4
+        + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID, _VOID] + [_INT, _VOID, _VOID],
+    ),
+    "qp_btd_wide_layout_nnz": (_INT, [_INT] * 4 + [_VOID, _VOID]),
     "qp_btd_smem_rows": (_INT, [_INT] * 4),
     "qp_btd_cluster_size": (_INT, [_INT] * 4),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),
@@ -122,7 +138,6 @@ _SIGNATURES = {
     "qp_kernel_aa_placement": (_INT, [_INT] * 5 + [_VOID]),
     "qp_btd_twin_blocks": (_INT, [_INT] * 5),
     "qp_btd_aa_placement": (_INT, [_INT] * 6 + [_VOID]),
-    "qp_btd_wide_layout_aa": (_INT, [_INT] * 4 + [_VOID]),
 }
 
 

@@ -749,25 +749,31 @@ _AA_CODES = {"K1": 1, "K3-block": 2, "K3-warp": 3}
 
 
 def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[int] = None,
-                            cluster: Optional[int] = None, device: int = 0, lib=None) -> dict:
+                            cluster: Optional[int] = None, device: int = 0, lib=None,
+                            nnz: Optional[tuple] = None) -> dict:
     """The placement as the built kernel's launcher decides it on the card
     (``qp_kernel_aa_placement``, ``qp_btd_aa_placement``,
-    ``qp_btd_wide_layout_aa``): the keys of :func:`anderson_placement`
+    ``qp_btd_wide_layout_nnz``): the keys of :func:`anderson_placement`
     with the twin's blocks an SM from the runtime, and ``blocks``: the
     Anderson kernel's at its shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; not for the wide
     kernel, whose ``smem_bytes`` and ``workspace_floats`` are those of its
-    layout with the Gram area reserved where it is in shared memory)."""
+    layout with the Gram area reserved where it is in shared memory, past
+    internal block 128 for the nonzeros a block holds, ``nnz``, as
+    :func:`qp_kernel_btd.wide_layout` takes them)."""
     lib = lib or _library()
-    out = (ctypes.c_longlong * 12)()
     if kernel == "wide":
-        if int(lib.qp_btd_wide_layout_aa(n, m, bb, k, out)) != 0:
+        from sqp_solver_tpu_torch.ops.qp_kernel_btd import wide_layout
+
+        lay = wide_layout(n, m, bb, nnz=nnz, anderson=k, lib=lib) if k >= 1 else None
+        if lay is None:
             raise ValueError(f"anderson_placement_card: the wide kernel refuses n={n}, m={m}, "
                              f"bb={bb}, k={k}")
         gram = _round4(k * k + k * (k + 1))
-        return dict(ring=False, gram=bool(out[11]), smem_bytes=int(out[1]),
-                    workspace_floats=int(out[2]), gram_floats=gram,
-                    ring_floats=(2 * k + 4) * (n + 2 * int(out[7])))
+        return dict(ring=False, gram=lay["gram_shared"], smem_bytes=lay["smem_bytes"],
+                    workspace_floats=lay["workspace_floats"], gram_floats=gram,
+                    ring_floats=(2 * k + 4) * (n + 2 * lay["rows_per_member"]))
+    out = (ctypes.c_longlong * 12)()
     if kernel in _AA_CODES:
         rc = int(lib.qp_kernel_aa_placement(_AA_CODES[kernel], n, m, k, device, out))
         keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",

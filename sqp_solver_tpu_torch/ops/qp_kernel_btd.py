@@ -37,11 +37,16 @@ cluster of two where one block cannot hold A in shared memory), every other
 multiple of 8 to ``csrc/qp_kernel_btd_wide.cu`` (a cluster of two blocks
 per problem, A in band rows and the band and factor arrays split over the
 cluster's shared memory, the arrays it cannot hold in a device workspace;
-:func:`wide_layout`; past 128, as for the OSQP control class at 50 states,
-its sweep chains take the rows in rounds).  The one shape the card refuses
-is one whose vectors and fixed part do not fit a cluster block's shared
-memory (:func:`wide_layout` returns None).  On the CPU the wide route's
-plain version runs its matvecs and Gram band on :func:`band_rows` too.  A
+:func:`wide_layout`; past :data:`COMPACT_ABOVE`, as for the OSQP control
+class at 50 states, its compact route: A's band rows held by their
+nonzeros, :func:`compact_rows`, each matrix of the sweeps in a slot of one
+block, in a cluster of 2, 4 or 8 that the layout rule picks for the
+nonzeros a block holds, :func:`compact_nnz`).
+The one shape the card refuses is one whose vectors and fixed part do not
+fit a cluster block's shared memory (:func:`wide_layout` returns None).
+On the CPU the wide route's plain version runs its matvecs and Gram band
+on :func:`band_rows` too, and past :data:`COMPACT_ABOVE` on their
+:func:`compact_rows`.  A
 CUDA call the kernels cannot take raises; there is no fallback.
 
 Layouts are batch-first: the band is ``pd``, ``pe`` of shape (B, T, bb, bb)
@@ -78,7 +83,10 @@ from sqp_solver_tpu_torch.qp.types import QPResult, QPSettings, QPState, Quadrat
 
 __all__ = [
     "BtdOut",
+    "CompactRows",
     "band_rows",
+    "compact_nnz",
+    "compact_rows",
     "btd_internal_block",
     "extract_band",
     "qp_btd_reference",
@@ -92,6 +100,10 @@ __all__ = [
 # blocks per problem for 8 and 16 only); the wide kernel takes every other
 # multiple of 8 at the shapes its layout places (wide_layout).
 KERNEL_BLOCKS = (8, 16, 24, 32)
+# Internal blocks past this take the wide kernel's compact route: A's band
+# rows held by their nonzeros, the cluster the layout rule's
+# (csrc/qp_kernel_btd_wide.cu:kWideCompactAbove)
+COMPACT_ABOVE = 128
 
 # Launch counters, one per entry point of each CUDA kernel (narrow, wide):
 # each wrapper adds one where it launches a kernel (never on the plain path).
@@ -231,6 +243,61 @@ def _band_gram(band, rv, T: int, bb: int):
     return D, E
 
 
+class CompactRows(NamedTuple):
+    """A's band rows held by their nonzeros (the wide route past internal
+    block :data:`COMPACT_ABOVE`): each row's slab start ``k_r`` (B, m) as
+    :func:`band_rows`', its nonzero entries (a NaN counting as one) in
+    column order, ``vals`` (B, m, K), with their columns inside the slab,
+    ``cols`` (B, m, K), K the most any row has, ``valid`` (B, m, K) marking
+    the entries a row has, and ``fits`` as :func:`band_rows`'."""
+
+    k_r: torch.Tensor
+    vals: torch.Tensor
+    cols: torch.Tensor
+    valid: torch.Tensor
+    fits: torch.Tensor
+
+
+def compact_rows(band) -> CompactRows:
+    """:func:`band_rows`' ``(k_r, slabs, fits)`` held by their nonzeros."""
+    k_r, slabs, fits = band
+    nz = slabs != 0
+    cnt = nz.sum(-1)
+    K = int(cnt.max()) if cnt.numel() else 0
+    # the nonzero columns first, each in column order (a stable sort)
+    cols = torch.sort((~nz).to(torch.int8), dim=-1, stable=True).indices[..., :K]
+    valid = torch.arange(K, device=slabs.device) < cnt.unsqueeze(-1)
+    vals = torch.where(valid, torch.gather(slabs, -1, cols), 0.0)
+    return CompactRows(k_r, vals, torch.where(valid, cols, 0), valid, fits)
+
+
+def _compact_amv(rows: CompactRows, v, bb: int):
+    """A v over each row's nonzero entries."""
+    B, m, K = rows.vals.shape
+    at = rows.k_r.unsqueeze(-1) * bb + rows.cols
+    seg = torch.gather(v.unsqueeze(1).expand(B, m, v.shape[-1]), 2, at)
+    return torch.where(rows.valid, rows.vals * seg, 0.0).sum(-1)
+
+
+def _compact_atmv(rows: CompactRows, w, bb: int, n: int):
+    """A' w: each row's nonzero entries scaled by its w, added into their
+    columns."""
+    B, m, K = rows.vals.shape
+    out = torch.zeros((B, n), dtype=rows.vals.dtype, device=rows.vals.device)
+    at = (rows.k_r.unsqueeze(-1) * bb + rows.cols).reshape(B, m * K)
+    add = torch.where(rows.valid, rows.vals * w.unsqueeze(-1), 0.0).reshape(B, m * K)
+    return out.scatter_add_(1, at, add)
+
+
+def _compact_gram(rows: CompactRows, rv, T: int, bb: int):
+    """The Gram band of A' diag(rv) A from the compact rows, (D, E) as
+    :func:`_band_gram`'s: each row's entries put back into its slab."""
+    B, m, K = rows.vals.shape
+    W = min(2, T) * bb
+    slabs = rows.vals.new_zeros((B, m, W)).scatter_add_(2, rows.cols, rows.vals)
+    return _band_gram((rows.k_r, slabs, rows.fits), rv, T, bb)
+
+
 def _dense_gram(A, rv, T: int, bb: int):
     """The Gram band of A' diag(rv) A from A itself, (D, E) as
     :func:`_band_gram`'s."""
@@ -247,7 +314,8 @@ def _dense_gram(A, rv, T: int, bb: int):
 def _btd_factor(pd, pe, A, rv, sigma, band=None):
     """Gram band and block-Thomas Cholesky of M = P + sigma I + A' diag(rv) A
     restricted to the band (the Gram from the band rows ``band`` of
-    :func:`band_rows` where its problem fits, else from A).  Returns
+    :func:`band_rows`, or from their :class:`CompactRows`, where its
+    problem fits, else from A).  Returns
     ``((Li, G, H), fail)``: Li[:, k] = L_k^-1, and the sweeps' couplings
     G[:, k] = L_k^-1 F_{k-1} (G[:, 0] = 0) and H[:, k] = L_k^-T F_k'
     (H[:, T-1] = 0) of F_k = E_k L_k^-T; fail if any block's pivot was
@@ -256,8 +324,12 @@ def _btd_factor(pd, pe, A, rv, sigma, band=None):
     if band is None:
         DA, EA = _dense_gram(A, rv, T, bb)
     else:
-        DA, EA = _band_gram(band, rv, T, bb)
-        fits = band[2]
+        if isinstance(band, CompactRows):
+            DA, EA = _compact_gram(band, rv, T, bb)
+            fits = band.fits
+        else:
+            DA, EA = _band_gram(band, rv, T, bb)
+            fits = band[2]
         if not bool(fits.all()):
             DD, ED = _dense_gram(A, rv, T, bb)
             sel = fits[:, None, None, None]
@@ -311,8 +383,9 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     (B,) > 0 replaces rho0 for a problem (an SOC re-solve carries the rho
     of the first solve's final factor).  With ``band`` (the wide route),
     A v, A' w and the Gram band run on :func:`band_rows` for the problems
-    that fit and densely for the others, and ``BtdOut.band`` says which;
-    without it A is dense throughout (the oracle)."""
+    that fit (past internal block :data:`COMPACT_ABOVE` on their
+    :func:`compact_rows`) and densely for the others, and ``BtdOut.band``
+    says which; without it A is dense throughout (the oracle)."""
     batch = q.shape[0]
     dev = q.device
     seg, cpe, n_epochs = _schedule(settings)
@@ -325,18 +398,24 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     if active is None:
         active = torch.ones(batch, dtype=torch.bool, device=dev)
     bb = pd.shape[-1]
+    n = q.shape[-1]
     rows = band_rows(A, bb) if band else None
     amv, atmv = (lambda v: _mv(A, v)), (lambda w: _mtv(A, w))
     if rows is not None:
         fits = rows[2]
         sel = fits.unsqueeze(-1)
-        if bool(fits.all()):
-            amv = lambda v: _band_amv(rows, v, bb)  # noqa: E731
-            atmv = lambda w: _band_atmv(rows, w, bb, q.shape[-1])  # noqa: E731
+        if bb > COMPACT_ABOVE:
+            rows = compact_rows(rows)
+            bamv = lambda v: _compact_amv(rows, v, bb)  # noqa: E731
+            batmv = lambda w: _compact_atmv(rows, w, bb, n)  # noqa: E731
         else:
-            amv = lambda v: torch.where(sel, _band_amv(rows, v, bb), _mv(A, v))  # noqa: E731
-            atmv = lambda w: torch.where(  # noqa: E731
-                sel, _band_atmv(rows, w, bb, q.shape[-1]), _mtv(A, w))
+            bamv = lambda v: _band_amv(rows, v, bb)  # noqa: E731
+            batmv = lambda w: _band_atmv(rows, w, bb, n)  # noqa: E731
+        if bool(fits.all()):
+            amv, atmv = bamv, batmv
+        else:
+            amv = lambda v: torch.where(sel, bamv(v), _mv(A, v))  # noqa: E731
+            atmv = lambda w: torch.where(sel, batmv(w), _mtv(A, w))  # noqa: E731
     ops = AdmmOps(pmv=lambda v: _band_pmv(pd, pe, v), apply_minv=_btd_apply, amv=amv,
                   atmv=atmv)
     false = torch.zeros(batch, dtype=torch.bool, device=dev)
@@ -357,7 +436,7 @@ def qp_btd_reference(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
         x=out["x"], z=out["z"], y=out["y"], done=out["done"], iter=out["iter"],
         res_prim=out["res_prim"], res_dual=out["res_dual"], fail=out["fail"],
         rho_updates=out["rho_updates"], rho_estimate=out["rho_estimate"],
-        infs=out["infs"], rho_factor=out["rho"], band=None if rows is None else rows[2],
+        infs=out["infs"], rho_factor=out["rho"], band=None if rows is None else fits,
     )
 
 
@@ -383,20 +462,21 @@ def is_wide(bb: int, name: str = "qp_kernel_btd") -> bool:
 
 def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
                    active, rho_in, check_infeas: bool, name: str,
-                   cluster: Optional[int] = None, lib=None) -> BtdOut:
+                   cluster: Optional[int] = None, lib=None,
+                   nnz: Optional[tuple] = None) -> BtdOut:
     """One launch of a structured CUDA kernel on float32 CUDA operands, with
     the blocks per problem of its rule (:func:`cluster_size`) or, for the
     tests and the measurements, ``cluster``: the narrow one (1 or 2); the
-    wide kernel takes 2 only (``BtdOut.band`` its route per problem); from the
+    wide kernel takes its layout's only (``BtdOut.band`` its route per
+    problem; past internal block :data:`COMPACT_ABOVE` the layout is the
+    rule's for ``nnz``, the nonzeros a block holds, or, where None,
+    :func:`compact_nnz` of ``A``, one read back to the host); from the
     package's library or from ``lib`` (another build, as
     ``tools/kernel_ab.py`` passes)."""
     batch, n = q.shape
     m = l.shape[-1]
     bb = pd.shape[-1]
     wide = is_wide(bb, name)
-    if wide and cluster not in (None, 2):
-        raise ValueError(f"{name}: the wide kernel (internal block {bb}) runs a cluster of 2 "
-                         f"blocks per problem, not {cluster}")
     operands = dict(pd=pd, pe=pe, A=A, q=q, l=l, u=u, x=x, z=z, y=y, active=active,
                     rho_in=rho_in)
     dev = _check_cuda_operands(name, operands, dict(active=torch.bool))
@@ -422,27 +502,33 @@ def _qp_btd_launch(pd, pe, A, q, l, u, x, z, y, settings: QPSettings,
     )
     route = None
     if wide:
-        lay = wide_layout(n, m, bb, lib=lib)
+        # a library built before the compact route has entries of its own
+        # and takes no nonzero counts
+        current = hasattr(lib, "qp_btd_wide_launch_nnz")
+        if current and bb > COMPACT_ABOVE and nnz is None:
+            nnz = compact_nnz(A, bb)
+        aa_k = int(settings.anderson_memory) if settings.acceleration == "anderson" else 0
+        lay = wide_layout(n, m, bb, nnz=nnz, anderson=max(aa_k, 0), lib=lib)
         if lay is None:
             raise ValueError(f"{name}: the vectors of n={n}, m={m} do not fit in the shared "
                              "memory of a cluster's block")
         cs, ws_floats = lay["cluster"], lay["workspace_floats"]
+        if cluster not in (None, cs):
+            raise ValueError(f"{name}: the wide kernel (internal block {bb}) runs a cluster of "
+                             f"{cs} blocks per problem at this shape, not {cluster}")
         # one slice of the Anderson state a block: a cluster's block holds
-        # all of x and ceil(m / cs) rows; its Gram area in shared memory may
-        # leave an array to the workspace (a library built before it has
-        # the layout without Anderson)
+        # all of x and ceil(m / cs) rows
         aa_mem, aa_ws = _aa_workspace(lib, settings, batch * cs, n, -(-m // cs), dev)
-        if aa_mem and hasattr(lib, "qp_btd_wide_layout_aa"):
-            out = (ctypes.c_longlong * 12)()
-            if int(lib.qp_btd_wide_layout_aa(n, m, bb, aa_mem, out)) != 0:
-                raise ValueError(f"{name}: the vectors of n={n}, m={m} and the Anderson Gram "
-                                 "do not fit in the shared memory of a cluster's block")
-            ws_floats = int(out[2])
         ws = torch.empty((batch * cs * ws_floats,), **f32) if ws_floats else None
         route = torch.empty((batch,), dtype=torch.bool, device=dev)
         wargs = (*args, _ptr(ws), _ptr(route))
-        rc = (lib.qp_btd_wide_launch_aa(*wargs, aa_mem, _ptr(aa_ws)) if aa_mem
-              else lib.qp_btd_wide_launch(*wargs))
+        if current:
+            nz = _nnz_args(nnz)
+            rc = (lib.qp_btd_wide_launch_aa_nnz(*wargs, aa_mem, _ptr(aa_ws), nz) if aa_mem
+                  else lib.qp_btd_wide_launch_nnz(*wargs, nz))
+        else:
+            rc = (lib.qp_btd_wide_launch_aa(*wargs, aa_mem, _ptr(aa_ws)) if aa_mem
+                  else lib.qp_btd_wide_launch(*wargs))
     elif settings.acceleration == "anderson":
         # one slice of the Anderson state a block: a cluster's block holds
         # all of x and ceil(m / cs) rows
@@ -495,59 +581,133 @@ def reset_wide_route_counts() -> None:
     _wide_routes.clear()
 
 
-def cluster_size(n: int, m: int, bb: int, batch: int, lib=None) -> int:
+def cluster_size(n: int, m: int, bb: int, batch: int, lib=None,
+                 nnz: Optional[tuple] = None) -> int:
     """Thread blocks per problem the CUDA kernel takes at these sizes on
     the current card.  Narrow kernel: 2 (a cluster) where one block cannot
     hold all of A in shared memory and two hold more of it, or where one
     block per problem would leave half of the SMs idle (2 B <= SMs) and
     two hold all of A; else 1 (internal blocks 8 and 16 only).  Wide
-    kernel: 2 (0 where :func:`wide_layout` refuses the shape).  Needs the
-    built library (or ``lib``)."""
+    kernel: its layout's (2 up to internal block :data:`COMPACT_ABOVE`,
+    past it the rule's for ``nnz``, :func:`wide_layout`'s; 0 where the
+    layout refuses the shape).  Needs the built library (or ``lib``)."""
     lib = lib or _library()
     if is_wide(bb):
-        lay = wide_layout(n, m, bb, lib=lib)
+        lay = wide_layout(n, m, bb, nnz=nnz, lib=lib)
         return 0 if lay is None else lay["cluster"]
     return int(lib.qp_btd_cluster_size(n, m, bb, batch))
 
 
-def smem_rows(n: int, m: int, bb: int, batch: int) -> int:
+def smem_rows(n: int, m: int, bb: int, batch: int, nnz: Optional[tuple] = None) -> int:
     """Rows of A the CUDA kernel keeps in shared memory at these sizes, over
     the blocks of one problem (the rest it reads from device memory; the
-    wide kernel all of its band rows or none); needs the built library."""
+    wide kernel all of its band rows or none, past internal block
+    :data:`COMPACT_ABOVE` for ``nnz``); needs the built library."""
     lib = _library()
     if is_wide(bb):
-        lay = wide_layout(n, m, bb, lib=lib)
+        lay = wide_layout(n, m, bb, nnz=nnz, lib=lib)
         return m if lay is not None and "A" in lay["shared"] else 0
     return int(lib.qp_btd_smem_rows(n, m, bb, batch))
 
 
 WIDE_ARRAYS = ("Li", "GH", "A", "S", "F_prev", "F", "pd", "pe")
+# the compact route's scratch arrays (XScratch), after A in its mask: the
+# runner's F_{k-1}, the Gram's D and E partials
+COMPACT_SCRATCH = ("F_prev", "D_part", "E_part")
+# the clusters the compact route's rule weighs, in its order
+COMPACT_CLUSTERS = (2, 4, 8)
 
 
-def wide_layout(n: int, m: int, bb: int, lib=None):
-    """The wide kernel's layout at this shape, in its cluster of two
-    blocks per problem, as ``csrc/qp_kernel_btd_wide.cu:wide_layout``
-    computes it: ``cluster``, ``smem_bytes`` (a block's
-    shared memory), ``workspace_floats`` (of one block), ``shared`` and
-    ``device`` (which of L^-1, the sweeps' couplings G, H, A's band rows,
-    the Thomas scratch S, F_{k-1}, F_k, pd and pe each block keeps where: pd
-    and pe that shared memory cannot hold are read where they are given), ``iter_bytes`` (the
-    bytes an ADMM iteration of the band route reads from device memory, a
-    problem), ``T``, ``blocks_per_member`` (column blocks of the band a
-    block holds, at most), ``rows_per_member``, ``band_width`` and
-    ``band_stride``.  None where the shape is refused.  Needs the built
-    library (or ``lib``)."""
-    lib = lib or _library()
-    out = (ctypes.c_longlong * 11)()
-    if int(lib.qp_btd_wide_layout(n, m, bb, out)) != 0:
-        return None
-    v = list(out)
+def compact_nnz(A: torch.Tensor, bb: int) -> tuple:
+    """The most nonzeros (a NaN counting as one) that a block of any
+    problem's cluster holds on the compact route, at each cluster of
+    :data:`COMPACT_CLUSTERS` (block r holds the rows r, r + cs, ...): the
+    ``nnz`` of :func:`wide_layout`.  One read back to the host."""
+    B, m, _ = A.shape
+    per_row = (A != 0).sum(-1)
+    out = []
+    for cs in COMPACT_CLUSTERS:
+        m0 = -(-m // cs)
+        pad = torch.nn.functional.pad(per_row, (0, m0 * cs - m))
+        out.append(pad.reshape(B, m0, cs).sum(1).amax() if B else per_row.new_zeros(()))
+    return tuple(int(v) for v in torch.stack(out).tolist())
+
+
+def _matrix_names(T: int) -> list:
+    """The compact route's matrices of the sweeps in their numbering (xj_g,
+    xj_h, xj_l): G_1 .. G_{T-1}, H_0 .. H_{T-2}, L_0 .. L_{T-1}."""
+    return ([f"G{k}" for k in range(1, T)] + [f"H{k}" for k in range(T - 1)]
+            + [f"L{k}" for k in range(T)])
+
+
+def _layout_dict(v: list, anderson: int) -> dict:
+    """A layout report (qp_btd_wide_layout_nnz's 16 values) as a dict."""
+    out = dict(cluster=v[0], smem_bytes=v[1], workspace_floats=v[2], iter_bytes=v[4], T=v[5],
+               rows_per_member=v[7], band_width=v[8], fixed_floats=v[10])
+    if anderson:
+        out["gram_shared"] = bool(v[11])
     mask = v[3]
-    return dict(cluster=v[0], smem_bytes=v[1], workspace_floats=v[2],
-                shared=[a for i, a in enumerate(WIDE_ARRAYS) if mask >> i & 1],
-                device=[a for i, a in enumerate(WIDE_ARRAYS) if not mask >> i & 1],
-                iter_bytes=v[4], T=v[5], blocks_per_member=v[6], rows_per_member=v[7],
-                band_width=v[8], band_stride=v[9])
+    if v[12] == 0:
+        names = [(a, bool(mask >> i & 1)) for i, a in enumerate(WIDE_ARRAYS)]
+        out.update(route="band", blocks_per_member=v[6], band_stride=v[9])
+    else:
+        T, cs, slots_sm = v[5], v[0], v[13]
+        names = [("A", bool(mask & 1))]
+        names += [(a, j // cs < slots_sm) for j, a in enumerate(_matrix_names(T))]
+        names += [(a, bool(mask >> (i + 1) & 1)) for i, a in enumerate(COMPACT_SCRATCH)]
+        out.update(route="compact", matrix_slots=v[6], nnz=v[9], slots_shared=slots_sm,
+                   a_first=bool(v[14]))
+    out["shared"] = [a for a, on in names if on]
+    out["device"] = [a for a, on in names if not on]
+    return out
+
+
+def _nnz_args(nnz):
+    """The C entries' nnz values (xwide_rule's kXNnzArgs: the counts at each
+    cluster of :data:`COMPACT_CLUSTERS`), or None."""
+    return None if nnz is None else (ctypes.c_longlong * len(COMPACT_CLUSTERS))(*nnz)
+
+
+def wide_layout(n: int, m: int, bb: int, nnz: Optional[tuple] = None, anderson: int = 0,
+                lib=None):
+    """The wide kernel's layout of a launch at this shape, as
+    ``csrc/qp_kernel_btd_wide.cu`` computes it (``qp_btd_wide_layout_nnz``),
+    with Anderson of memory ``anderson`` (0: none) and, past internal block
+    :data:`COMPACT_ABOVE`, for the nonzeros a block holds (``nnz``,
+    :func:`compact_nnz`'s; None: the band rows' full count).  ``cluster``
+    (blocks a problem), ``smem_bytes`` (a block's), ``workspace_floats`` (of
+    one block), ``shared`` and ``device`` (which arrays each block keeps
+    where), ``iter_bytes`` (the bytes an ADMM iteration reads from device
+    memory, a problem), ``T``, ``rows_per_member``, ``band_width``,
+    ``fixed_floats``, ``route`` and with Anderson ``gram_shared`` (its Gram
+    area in shared memory).  Up to 128 (``route`` "band": a cluster of two,
+    A in two-block band rows; pd and pe that shared memory cannot hold are
+    read where they are given) the arrays are L^-1, the sweeps' couplings
+    G, H, A's band rows, the Thomas scratch S, F_{k-1}, F_k, pd and pe, and
+    ``blocks_per_member`` (column blocks a block holds, at most) and
+    ``band_stride`` complete it; past it (``route`` "compact": the smallest
+    cluster of :data:`COMPACT_CLUSTERS` at which an iteration reads nothing
+    from device memory, else the one, and the order, that reads the fewest
+    bytes) the arrays are A (its nonzeros), each matrix of the sweeps (G1
+    .., H0 .., L0 ..: a slot of one block each) and the factor's scratch
+    F_prev, D_part, E_part, and ``matrix_slots`` (a block's),
+    ``slots_shared`` (those in shared memory), ``nnz`` (the entries a block
+    has room for) and ``a_first`` complete it.  None where the shape is
+    refused.  Needs the built library (or ``lib``); a library built before
+    the compact route reports its own."""
+    lib = lib or _library()
+    if hasattr(lib, "qp_btd_wide_layout_nnz"):
+        out = (ctypes.c_longlong * 16)()
+        if int(lib.qp_btd_wide_layout_nnz(n, m, bb, anderson, _nnz_args(nnz), out)) != 0:
+            return None
+        return _layout_dict(list(out), anderson)
+    out = (ctypes.c_longlong * 12)()
+    aa = anderson and hasattr(lib, "qp_btd_wide_layout_aa")
+    rc = lib.qp_btd_wide_layout_aa(n, m, bb, anderson, out) if aa else lib.qp_btd_wide_layout(
+        n, m, bb, out)
+    if int(rc) != 0:
+        return None
+    return _layout_dict(list(out) + [0] * 4, anderson if aa else 0)
 
 
 def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(),
@@ -603,7 +763,8 @@ def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(
 
 
 def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
-                    rho_in: Optional[torch.Tensor] = None) -> BtdOut:
+                    rho_in: Optional[torch.Tensor] = None,
+                    nnz: Optional[tuple] = None) -> BtdOut:
     """The warm-started structured QP of one SQP outer iteration,
 
         min 0.5 p'Bp + g'p   s.t.   l <= J p <= u,
@@ -614,9 +775,12 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
     at their warm start; ``rho_in`` (B,), where > 0, replaces rho0 (0 means
     none).  No infeasibility certificates (the SQP tiers run without).
     ``BtdOut.rho_factor`` is the rho of the final factor, which an SOC
-    re-solve feeds back as ``rho_in``.  n must be a multiple of the
-    internal block.  CPU tensors run :func:`qp_btd_reference`; CUDA
-    tensors must be float32 and contiguous and run the kernel."""
+    re-solve feeds back as ``rho_in``; past internal block
+    :data:`COMPACT_ABOVE` it may pass the first solve's ``nnz``
+    (:func:`compact_nnz` of ``J``), which the launch otherwise reads back.
+    n must be a multiple of the internal block.  CPU tensors run
+    :func:`qp_btd_reference`; CUDA tensors must be float32 and contiguous
+    and run the kernel."""
     global btd_step_launches, btd_step_wide_launches
     name = "btd_step_kernel"
     batch, n = g.shape
@@ -638,7 +802,8 @@ def btd_step_kernel(pd, pe, J, g, l, u, active, x, z, y, settings: QPSettings,
     if not g.is_cuda:
         return qp_btd_reference(pd, pe, J, g, l, u, x, z, y, settings, active=active,
                                 rho_in=rho_in, band=_wide_route(bb))
-    out = _qp_btd_launch(pd, pe, J, g, l, u, x, z, y, settings, active, rho_in, False, name)
+    out = _qp_btd_launch(pd, pe, J, g, l, u, x, z, y, settings, active, rho_in, False, name,
+                         nnz=nnz)
     if is_wide(bb):
         btd_step_wide_launches += 1
     else:

@@ -32,7 +32,12 @@ from typing import Optional
 
 import torch
 
-from sqp_solver_tpu_torch.ops.qp_kernel_btd import btd_internal_block, btd_step_kernel
+from sqp_solver_tpu_torch.ops.qp_kernel_btd import (
+    COMPACT_ABOVE,
+    btd_internal_block,
+    btd_step_kernel,
+    compact_nnz,
+)
 from sqp_solver_tpu_torch.qp.types import QPState
 from sqp_solver_tpu_torch.sqp import common
 from sqp_solver_tpu_torch.sqp.types import NonlinearProblem, SQPResult, SQPSettings
@@ -126,8 +131,11 @@ def sqp_solve_kernel_btd(
 
     def step(s: common.SubproblemInputs):
         pd = bfgs_update_band(s.B, s.step_prev, s.delta_grad_L, s.reset, s.upd)
+        # past the wide kernel's band route the SOC re-solve takes the first
+        # solve's count of J's nonzeros (one read back to the host a step)
+        nnz = compact_nnz(s.J, bb) if soc and s.J.is_cuda and bb > COMPACT_ABOVE else None
         out = btd_step_kernel(pd, pe_zero, s.J, s.grad_obj, s.l - s.c_val, s.u - s.c_val,
-                              s.active, s.warm.x, s.warm.z, s.warm.y, settings.qp)
+                              s.active, s.warm.x, s.warm.z, s.warm.y, settings.qp, nnz=nnz)
         # a failed block factor froze the problem inside the kernel: its p is
         # the warm start, not a descent direction
         qp_fail = out.fail & s.active
@@ -140,7 +148,7 @@ def sqp_solve_kernel_btd(
             warm = state if settings.qp_warm_start else s.warm
             out2 = btd_step_kernel(pd, pe_zero, s.J, s.grad_obj, s.l - d, s.u - d,
                                    s.active & ~qp_fail, warm.x, warm.z, warm.y,
-                                   settings.qp, rho_in=out.rho_factor)
+                                   settings.qp, rho_in=out.rho_factor, nnz=nnz)
             p = torch.where(qp_fail[:, None], zero, out2.x)
             lam_qp, qp_it = out2.y, qp_it + out2.iter
             state = QPState(x=p, z=out2.z, y=lam_qp)

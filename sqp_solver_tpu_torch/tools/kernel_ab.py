@@ -39,10 +39,13 @@ both trees.  Four parts, in order (``--parts`` picks some):
 ``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
             k3, k4, k5, k6, k7, and the Anderson instantiations k1aa,
             k3aa, k6aa, k7aa and k6waa, the wide K6 and K7, at leg G's
-            shapes) at every ``chip_smoke.py`` shape
+            shapes, and k6x, k7x, the wide K6 and K7 past internal block
+            128) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
             ``spd_cases`` for K4, ``chunk_cases`` for K5 and its wide
-            shapes, ``btd_cases`` for K6/K7), CUDA events, in turns
+            shapes, ``btd_cases`` for K6/K7, ``btd_past128_cases`` for
+            k6x/k7x: a tree whose library has no compact route runs its
+            own route there), CUDA events, in turns
             parent, change, change,
             parent (K6/K7 also the change in the other block layout);
             with k4, also the host wall of the K4 polish route on the
@@ -89,7 +92,8 @@ SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
            "k4": "qp_kernel.cu", "k5": "admm_kernel.cu", "k6": "qp_kernel_btd.cu",
            "k7": "qp_kernel_btd.cu", "k1aa": "qp_kernel_aa.cu", "k3aa": "qp_kernel_aa.cu",
            "k6aa": "qp_kernel_btd_aa.cu", "k7aa": "qp_kernel_btd_aa.cu",
-           "k6waa": "qp_kernel_btd_wide_aa.cu"}
+           "k6waa": "qp_kernel_btd_wide_aa.cu", "k6x": "qp_kernel_btd_wide.cu",
+           "k7x": "qp_kernel_btd_wide.cu"}
 # the Anderson units, each with the unit it includes (whose C functions it
 # calls): a library holds both
 TWINS = {"qp_kernel_aa.cu": "qp_kernel.cu", "qp_kernel_btd_aa.cu": "qp_kernel_btd.cu",
@@ -100,11 +104,10 @@ AA_KERNELS = ("k1aa", "k3aa", "k6aa", "k7aa", "k6waa")
 BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7") + AA_KERNELS
 # kernels (and device functions of their own) of the parent that this tree
 # changed: ``regs`` lists them and does not hold them to the parent's
-# registers.  The Anderson step's state may now put its Gram area in the
-# workspace (admm_core.cuh:aa_state), which moved the registers and stack
-# of K3's block-layout and the narrow K6/K7's Anderson kernels; every other
-# kernel keeps the parent's
-REDESIGNED = ("qp_solve_kernel_aa", "qp_btd_kernel_aa")
+# registers.  None: the compact route past internal block 128 is kernels of
+# its own (qp_btd_xwide_kernel and its Anderson instantiation, which
+# ``regs`` lists as new), and every kernel of the parent keeps its registers
+REDESIGNED = ()
 
 
 def _csrc(tree: Path) -> Path:
@@ -138,9 +141,11 @@ def with_twins(sources) -> list:
     return sorted(set(sources) | {TWINS[s] for s in sources if s in TWINS})
 
 
-def kernel_library(tree: Path, label: str, sources) -> ctypes.CDLL:
-    """``tree``'s kernel sources (names in its ``csrc``) with its own headers."""
-    return _stage_and_build([_csrc(tree) / s for s in with_twins(sources)], _csrc(tree), label)
+def kernel_library(tree: Path, label: str, sources, flags=()) -> ctypes.CDLL:
+    """``tree``'s kernel sources (names in its ``csrc``) with its own headers
+    (and nvcc ``flags``)."""
+    return _stage_and_build([_csrc(tree) / s for s in with_twins(sources)], _csrc(tree), label,
+                            flags=flags)
 
 
 def phase_library(tree: Path, label: str, source: str) -> ctypes.CDLL:
@@ -372,7 +377,8 @@ def timing(libs: dict, dense: list, btd: list) -> list:
                          turns=ms, none_ms=none))
     for c in btd:
         reps = 3 if "random" in c["label"] else 5
-        rule = qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=libs["change"])
+        rule = qb.cluster_size(c["n"], c["m"], c["bb"], c["batch"], lib=libs["change"],
+                               nnz=cs.btd_nnz(c))
         other = 3 - rule if c["bb"] <= 16 else None
         ms = _turns(libs, lambda lib, cl: cs.btd_launch(c["t"], c["settings"], c["check_infeas"],
                                                         cluster=cl, lib=lib), reps, other)
@@ -540,6 +546,8 @@ def main(argv=None) -> int:
         dense += cs.chunk_cases(dev) + cs.chunk_cases(dev, wide=True)
     btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
+    if {"k6x", "k7x"} & set(kernels):
+        btd += [c for c in cs.btd_past128_cases(dev) if c["label"][:2].lower() + "x" in kernels]
     aa = [c for c in cs.aa_cases(dev) if c["kernel"] in kernels] if set(AA_KERNELS) & set(
         kernels) else []
     result = dict(card=card)
@@ -558,7 +566,8 @@ def main(argv=None) -> int:
     if "phases" in parts:
         cs.log("phase split (clock64, thread 0 of each block):")
         phase_libs = {src: {who: built[(src, who)] for who in split_trees} for src in timed}
-        result["phases"] = phases(phase_libs, dense, btd, aa)
+        # the split of the narrow K6/K7 (chip_smoke.py splits the wide ones)
+        result["phases"] = phases(phase_libs, dense, [c for c in btd if c["bb"] <= 32], aa)
     print(json.dumps(result), flush=True)
     return 0
 

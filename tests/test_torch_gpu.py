@@ -956,8 +956,8 @@ def test_btd_kernel_fail_flag_and_counters(cuda, cluster):
 
 
 def test_btd_kernel_refuses_internal_blocks_over_128(cuda):
-    """Internal blocks past 128, which the card refused before the wide
-    kernel's sweep chains took rows in rounds, now run: a declared block
+    """Internal blocks past 128, which the card once refused, run (the wide
+    kernel's compact route): a declared block
     size of 68 (internal block 136) through both entry points, each
     counting one wide launch, against the plain version on the CPU (equal
     statuses, x at atol = rtol = 1e-4 where the iteration counts agree).
@@ -1008,14 +1008,16 @@ def test_btd_kernel_refuses_internal_blocks_over_128(cuda):
 # two blocks per problem holds every array an iteration reads (bb = 40: all
 # of them; bb = 64: all but pd and pe); at bb = 128 (T = 2) the sweeps'
 # couplings go to the workspace and A's band rows, which an iteration
-# reads twice, stay; so at bb = 136, whose sweep chains take two rounds of
-# rows; at bb = 256 every array is in the workspace
+# reads twice, stay.  Past 128 the compact route: at bb = 136 a cluster of
+# four holds A's nonzeros and every matrix of the sweeps (the factor's
+# scratch in the workspace); at bb = 256 a matrix outgrows a block, so a
+# cluster of eight holds A alone
 WIDE_SHAPES = [
     pytest.param(64, 3, 40, 100, [], id="bb40"),
     pytest.param(32, 3, 64, 150, ["pd", "pe"], id="bb64"),
     pytest.param(16, 2, 128, 200, ["GH", "S", "F_prev", "F", "pd", "pe"], id="bb128"),
-    pytest.param(16, 2, 136, 160, ["GH", "S", "F_prev", "F", "pd", "pe"], id="bb136"),
-    pytest.param(8, 2, 256, 200, ["Li", "GH", "A", "S", "F_prev", "F", "pd", "pe"],
+    pytest.param(16, 2, 136, 160, ["F_prev", "D_part", "E_part"], id="bb136"),
+    pytest.param(8, 2, 256, 200, ["G1", "H0", "L0", "L1", "F_prev", "D_part", "E_part"],
                  id="bb256"),
 ]
 
@@ -1025,9 +1027,11 @@ WIDE_SHAPES = [
 def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, device, anderson):
     """The wide structured kernel on random band QPs without equality rows:
     K7's entry (a carried rho on every second problem, the last problem
-    inactive) in its cluster of two, and K6's, one rho epoch, kernel against plain at atol = rtol = 1e-4 where
-    the iteration counts agree (>= 99 %), every problem on the band route,
-    each entry counting its wide launch; with Anderson acceleration too."""
+    inactive) in its layout's cluster (two up to internal block 128, the
+    compact route's rule past it), and K6's, one rho epoch, kernel against
+    plain at atol = rtol = 1e-4 where the iteration counts agree (>= 99 %),
+    every problem on the band route, each entry counting its wide launch;
+    with Anderson acceleration too."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
@@ -1036,17 +1040,27 @@ def test_btd_wide_kernel_matches_plain_one_epoch(cuda, batch, T, bb, m, device, 
         s = dataclasses.replace(s, check_termination=10, acceleration="anderson",
                                 anderson_memory=3)
     n = T * bb
-    lay = qb.wide_layout(n, m, bb)
-    assert lay["cluster"] == 2 == qb.cluster_size(n, m, bb, batch)
-    assert (lay["iter_bytes"] == 0) == (bb < 128)
-    assert lay["device"] == device
     t = _to(btd_step_inputs(batch, T, bb, m, seed=bb), cuda)
+    nnz = qb.compact_nnz(t["J"], bb) if bb > qb.COMPACT_ABOVE else None
+    lay = qb.wide_layout(n, m, bb, nnz=nnz)
+    assert lay["cluster"] == qb.cluster_size(n, m, bb, batch, nnz=nnz)
+    if bb <= qb.COMPACT_ABOVE:
+        assert lay["cluster"] == 2 and lay["route"] == "band"
+        assert (lay["iter_bytes"] == 0) == (bb < 128)
+    else:
+        assert lay["route"] == "compact" and (lay["iter_bytes"] == 0) == (bb < 256)
+    assert lay["device"] == device
     before = (qb.btd_step_wide_launches, qb.btd_step_launches)
-    ok = qb.btd_step_kernel(*(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x",
-                                             "z", "y")), s, rho_in=t["rho_in"])
+    step_args = tuple(t[k] for k in ("pd", "pe", "J", "g", "l", "u", "active", "x", "z", "y"))
+    ok = qb.btd_step_kernel(*step_args, s, rho_in=t["rho_in"])
     ref = _btd_raw(qb.qp_btd_reference, t, s, active=t["active"], rho_in=t["rho_in"])
     torch.cuda.synchronize()
     assert (qb.btd_step_wide_launches, qb.btd_step_launches) == (before[0] + 1, before[1])
+    if nnz is not None:
+        # a count the caller carries (as the SOC re-solve does) is the one
+        # the launch reads back
+        again = qb.btd_step_kernel(*step_args, s, rho_in=t["rho_in"], nnz=nnz)
+        assert all(torch.equal(getattr(again, k), getattr(ok, k)) for k in ("x", "iter"))
     a = _to(btd_qp_inputs(batch, T, bb, m, seed=bb + 1), cuda)
     qp = QuadraticProblem(P=a["P"], q=a["q"], A=a["A"], l=a["l"], u=a["u"])
     before = (qb.qp_solve_btd_wide_launches, qb.qp_solve_btd_launches)
@@ -1136,6 +1150,39 @@ def test_btd_wide_kernel_mixed_routes(cuda):
     assert torch.equal(ok.band, want) and torch.equal(ref.band, want)
     assert torch.equal(qb.band_rows(a["A"], 40)[2], want)
     assert qb.wide_route_counts() == dict(band=30, dense=2)
+    assert torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)
+    same = ok.iter == ref.iter
+    assert same.float().mean().item() >= 0.99 and bool(same[~want].any())
+    for name in ("x", "z", "y"):
+        torch.testing.assert_close(getattr(ok, name)[same], getattr(ref, name)[same], **TOL,
+                                   msg=lambda msg, name=name: f"{name}: {msg}")
+
+
+def test_btd_past128_kernel_mixed_routes(cuda):
+    """Past internal block 128 (the compact route, bb = 136, T = 3): a batch
+    in which two problems have a row across three column blocks takes the
+    dense route for those (their rows read where the problem gives them)
+    and the compact rows for the others, in one launch; the routes equal
+    band_rows' and the plain wide route's, and both routes match the plain
+    version (atol = rtol = 1e-4 where the counts agree, on >= 99 % of the
+    problems and on a problem of each route)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_route_inputs
+
+    a = _to(btd_route_inputs(16, 3, 136, 60, seed=6, dense=(2, 11)), cuda)
+    pd, pe = qb.extract_band(a["P"], 136)
+    s = dataclasses.replace(BTD_QP, block_size=136)
+    args = (pd, pe, a["A"], a["q"], a["l"], a["u"], a["x"], a["z"], a["y"], s)
+    lay = qb.wide_layout(408, 60, 136, nnz=qb.compact_nnz(a["A"], 136))
+    assert lay["route"] == "compact"
+    qb.reset_wide_route_counts()
+    ok = qb._qp_btd_launch(*args, None, None, True, "test")
+    ref = qb.qp_btd_reference(*args, check_infeas=True, band=True)
+    torch.cuda.synchronize()
+    want = torch.ones(16, dtype=torch.bool, device=cuda)
+    want[[2, 11]] = False
+    assert torch.equal(ok.band, want) and torch.equal(ref.band, want)
+    assert qb.wide_route_counts() == dict(band=14, dense=2)
     assert torch.equal(ok.fail, ref.fail) and torch.equal(ok.infs, ref.infs)
     same = ok.iter == ref.iter
     assert same.float().mean().item() >= 0.99 and bool(same[~want].any())
@@ -1258,6 +1305,139 @@ def test_btd_wide_kernel_on_the_control_class_at_50_states(cuda):
     torch.cuda.synchronize()
     assert qb.btd_step_wide_launches == before + 1
     assert bool(torch.isfinite(out.x).all()) and out.band.all() and not out.fail.any()
+
+
+_LEG_P = {}
+
+
+def _leg_p(cuda):
+    """Leg P's constraint matrix (the control class at 50 states, B = 128,
+    padded to n = 760) and its nonzeros a block holds (``compact_nnz``)."""
+    import chip_smoke as cs
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    if "A" not in _LEG_P:
+        ops, _ = cs.control50_operands(cs.control50_qp(128, 50, cuda), 152, cuda)
+        _LEG_P.update(A=ops["J"], nnz=qb.compact_nnz(ops["J"], 152))
+    return _LEG_P["A"], _LEG_P["nnz"]
+
+
+def _layout_cases(cuda):
+    """(label, n, m, internal block, A) at every shape of
+    ``chip_smoke.btd_wide_cases`` and ``btd_past128_cases`` and at leg P's."""
+    import chip_smoke as cs
+
+    out = [(c["label"], c["n"], c["m"], c["bb"], c["t"]["J"])
+           for c in cs.btd_wide_cases(cuda) + cs.btd_past128_cases(cuda)]
+    return out + [("leg P", 760, 1250, 152, _leg_p(cuda)[0])]
+
+
+def test_wide_layout_rule_on_the_card(cuda):
+    """The layout the C entry reports (qp_btd_wide_layout_nnz, through
+    ``wide_layout``) at every shape of chip_smoke.py's wide and past-128
+    cases and at leg P's, without Anderson and at memories 4 and 40 (the
+    Gram area on chip at 4, and at 40 only beside the same arrays): up to
+    internal block 128 a cluster of two and the band route, whatever the
+    nonzeros; past it the compact route in a cluster of 2, 4 or 8 that
+    reads no more from device memory than the band rows' full count would,
+    and holds A on chip where it reads nothing else; at leg P's shape a
+    cluster of eight, every coupling of the sweeps in shared memory and at
+    most 0.5 MB an iteration from device memory (4.24 MB on the band
+    route)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+
+    for label, n, m, bb, A in _layout_cases(cuda):
+        nnz = qb.compact_nnz(A, bb) if bb > qb.COMPACT_ABOVE else None
+        card = qb.wide_layout(n, m, bb, nnz=nnz)
+        for k in (4, 40):
+            aa = qb.wide_layout(n, m, bb, nnz=nnz, anderson=k)
+            assert aa["cluster"] == card["cluster"] and (aa["gram_shared"] or k > 32), label
+            if aa["gram_shared"] and k > 32:
+                assert aa["shared"] == card["shared"], (label, k, aa)
+        if bb <= qb.COMPACT_ABOVE:
+            assert card["cluster"] == 2 and card["route"] == "band", label
+            assert card == qb.wide_layout(n, m, bb, nnz=(1, 1, 1)), label
+            continue
+        full = qb.wide_layout(n, m, bb)
+        assert card["route"] == "compact" and card["cluster"] in qb.COMPACT_CLUSTERS, label
+        assert card["iter_bytes"] <= full["iter_bytes"], (label, card, full)
+        assert card["nnz"] == nnz[qb.COMPACT_CLUSTERS.index(card["cluster"])], label
+        if card["iter_bytes"] == 0:
+            assert "A" in card["shared"], label
+    assert card["cluster"] == 8 and card["iter_bytes"] <= 500_000, card
+    assert {f"G{k}" for k in range(1, 5)} | {f"H{k}" for k in range(4)} <= set(card["shared"])
+
+
+# (batch, T, internal block, m) past 128: the compact route's cluster of
+# four (bb = 136, T = 2: every matrix on chip), eight (bb = 152; bb = 256,
+# where a matrix outgrows a block's shared memory)
+PAST128_SHAPES = [pytest.param(16, 2, 136, 160, id="bb136"),
+                  pytest.param(16, 2, 152, 150, id="bb152"),
+                  pytest.param(8, 2, 256, 200, id="bb256")]
+
+
+@pytest.mark.parametrize("memory", [0, 4, 40], ids=["none", "aa4", "aa40"])
+@pytest.mark.parametrize("entry", ["K6", "K7"])
+@pytest.mark.parametrize("batch,T,bb,m", PAST128_SHAPES)
+def test_btd_past128_kernels_match_plain_float32_and_float64(cuda, batch, T, bb, m, entry,
+                                                              memory):
+    """The compact route past internal block 128 on random band QPs
+    without equality rows, one rho epoch (K6 cold with certificates; K7
+    with a carried rho on every second problem and the last inactive),
+    without Anderson and with memories 4 and 40 (chunks of 10): every
+    problem on the band route; each float32 code held against the plain
+    float64 version as ``chip_smoke.against_f64`` holds them (a float32
+    code stops at another chunk than float64 on a problem near the bar now
+    and then, and the plain version on the card sums with atomics, so its
+    own counts vary from run to run): the kernel matching float64's
+    iteration and rho-update counts on at least ``BTD_AGREE`` of the plain
+    float32 version's share, its x, z, y within ``EPOCH_TOL`` of float64's
+    where it does, within atol = rtol = 1e-4 of the plain float32
+    version's where both do, and there no farther from float64 than twice
+    the plain float32 version (+ 1e-5)."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
+
+    s = dataclasses.replace(BTD_QP, block_size=bb)
+    if memory:
+        s = dataclasses.replace(s, check_termination=10, acceleration="anderson",
+                                anderson_memory=memory)
+    if entry == "K7":
+        t = _to(btd_step_inputs(batch, T, bb, m, seed=bb), cuda)
+        kw = dict(active=t["active"], rho_in=t["rho_in"])
+        ci = False
+    else:
+        a = _to(btd_qp_inputs(batch, T, bb, m, seed=bb + 2), cuda)
+        pd, pe = qb.extract_band(a["P"], bb)
+        zx, zm = torch.zeros_like(a["q"]), torch.zeros_like(a["l"])
+        t = dict(pd=pd, pe=pe, J=a["A"], g=a["q"], l=a["l"], u=a["u"], x=zx, z=zm, y=zm)
+        kw = dict(active=None, rho_in=None)
+        ci = True
+    t64 = {k: (v.double() if v.is_floating_point() else v) for k, v in t.items()}
+    ok = _btd_raw(qb._qp_btd_launch, t, s, check_infeas=ci, name="test", **kw)
+    k64 = {k: (v.double() if v is not None and v.is_floating_point() else v)
+           for k, v in kw.items()}
+    p32 = _btd_raw(qb.qp_btd_reference, t, s, check_infeas=ci, band=True, **kw)
+    p64 = _btd_raw(qb.qp_btd_reference, t64, s, check_infeas=ci, band=True, **k64)
+    torch.cuda.synchronize()
+    import chip_smoke as cs
+
+    assert ok.band.all() and not ok.fail.any() and torch.equal(ok.infs, p32.infs)
+    agree = {who: (got.iter == p64.iter) & (got.rho_updates == p64.rho_updates)
+             for who, got in (("kernel", ok), ("plain", p32))}
+    share = {who: a.float().mean().item() for who, a in agree.items()}
+    assert share["kernel"] >= cs.BTD_AGREE * share["plain"], share
+    both = agree["kernel"] & agree["plain"]
+    for name in ("x", "z", "y"):
+        got, want = getattr(ok, name), getattr(p64, name)
+        torch.testing.assert_close(got[agree["kernel"]].double(), want[agree["kernel"]],
+                                   atol=cs.EPOCH_TOL, rtol=cs.EPOCH_TOL,
+                                   msg=lambda msg, name=name: f"{name} against f64: {msg}")
+        torch.testing.assert_close(got[both], getattr(p32, name)[both], **TOL,
+                                   msg=lambda msg, name=name: f"{name}: {msg}")
+    err = {who: max(float((getattr(got, k)[both].double() - getattr(p64, k)[both]).abs().max())
+                    for k in ("x", "z", "y")) for who, got in (("kernel", ok), ("plain", p32))}
+    assert err["kernel"] <= 2 * err["plain"] + 1e-5, err
 
 
 def test_structured_paths_on_cuda_match_cpu_plain(cuda):
@@ -1629,21 +1809,24 @@ def test_anderson_kernels_certificates(cuda, kind):
 
 
 # (kernel, n, m, internal block, blocks a problem): the Anderson kernels of
-# leg G's shapes, the card tests' and those past shared memory
+# leg G's shapes, the card tests' and those past shared memory (the wide
+# kernel at the control class's shape at 50 states: the compact route's
+# cluster of eight for leg P's nonzeros)
 AA_PLACEMENTS = [("K1", 32, 33, None, None), ("K1", 128, 129, None, None),
                  ("K1", 16, 17, None, None), ("K3-warp", 32, 33, None, None),
                  ("K3-warp", 16, 24, None, None), ("K3-block", 32, 33, None, None),
                  ("K3-block", 40, 41, None, None), ("K3-block", 64, 900, None, None),
                  ("K6", 192, 320, 8, 2), ("K6", 192, 320, 8, 1), ("K7", 128, 224, 8, 2),
                  ("K6", 32, 24, 8, 1), ("wide", 256, 384, 64, 2), ("wide", 360, 600, 40, 2),
-                 ("wide", 128, 224, 64, 2), ("wide", 760, 1250, 152, 2)]
+                 ("wide", 128, 224, 64, 2), ("wide", 760, 1250, 152, 8)]
 
 
 @pytest.mark.parametrize("kernel,n,m,bb,cluster", AA_PLACEMENTS,
                          ids=[f"{c[0]}-n{c[1]}-m{c[2]}-cs{c[4]}" for c in AA_PLACEMENTS])
 def test_anderson_placement_is_the_rules(cuda, kernel, n, m, bb, cluster):
     """The placement the launcher reports (qp_kernel_aa_placement,
-    qp_btd_aa_placement, qp_btd_wide_layout_aa) equals the rule's Python
+    qp_btd_aa_placement, qp_btd_wide_layout_nnz; past internal block 128
+    for leg P's nonzeros) equals the rule's Python
     mirror (ops/qp_kernel.py:anderson_placement) given the card's blocks an
     SM of the kernel without Anderson; with the ring on chip the Anderson
     kernel's blocks an SM are no fewer than those; memories 4 and 8 (the Gram
@@ -1653,11 +1836,12 @@ def test_anderson_placement_is_the_rules(cuda, kernel, n, m, bb, cluster):
     the area on chip, the one it reports)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
+    nnz = _leg_p(cuda)[1] if kernel == "wide" and bb > qb.COMPACT_ABOVE else None
     for k in (4, 8, 33, 40, 64):
-        card = qk.anderson_placement_card(kernel, n, m, k, bb=bb, cluster=cluster)
+        card = qk.anderson_placement_card(kernel, n, m, k, bb=bb, cluster=cluster, nnz=nnz)
         wide = None
         if kernel == "wide":
-            plain = qb.wide_layout(n, m, bb)
+            plain = qb.wide_layout(n, m, bb, nnz=nnz)
             reserved = dict(smem_bytes=card["smem_bytes"], shared=plain["shared"]) if (
                 card["gram"]) else None
             wide = (plain, reserved)
