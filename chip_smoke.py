@@ -31,7 +31,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ring of bulk copies, a cluster of blocks a problem) at n = m = 640,
    B = 256 and n = m = 1024, B = 64, drawn on the card, with its layout
    (cluster, stages, blocks an SM), its rate and its time with clusters of
-   1, 2 and 4 forced; every K5 row with its streaming floor (W read every
+   1, 2 and 4 forced; at the middle sizes (the cluster route, W on chip
+   across a cluster for the whole chunk, or the stream route) at n = m =
+   256, B = 1024 (seg 25 and 10) and n = 360, m = 600, B = 256 (seg 25),
+   with the route, the rows of W on chip, the bytes of W an iteration
+   reads from device memory and the time with every other route and
+   cluster that fits forced; at the JAX kernel's limit D = 2125 (B = 64);
+   every K5 row with its streaming floor (W read every
    iteration) and its share of it; K2 with factor
    reuse (n = 128, B = 1024, a tenth of the masks changed) against its
    plain version, and on unchanged masks bit for bit the fresh kernel; the phase split
@@ -181,6 +187,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    O. the fused tier past D = 1024, ``qp_solve_batch(impl="fused")`` at
    n = m = 640, B = 256 (K5's wide variant): every SOLVED problem passes
    the float64 OSQP test;
+   Q. the fused tier at the middle sizes, ``qp_solve_batch(impl="fused")``
+   on random QPs n = m = 256 (D = 512, K5's cluster route) at B = 1024,
+   solved >= 0.99, and on the control class at 12 states (n = 360, m =
+   600, D = 960, the stream route) at B = 256 with leg N's settings on the
+   dense route: solves/s, K5's launches by route, every SOLVED problem
+   passing the float64 OSQP test at 10x the bars, the idle share;
 20. the batch split, ``sharded_qp_solve_batch`` (K3) and
    ``sharded_sqp_solve_batch`` (K1) over ``make_mesh()``, equal to the
    unsharded calls; then every leg's seconds.
@@ -401,6 +413,10 @@ def dense_cases(dev) -> list:
 QP_SHAPES = (("random", 4096, 32), ("mpc", 4096, 16))
 CHUNK_SHAPES = ((4096, 32, 33, 10), (4096, 32, 33, 25), (4096, 16, 32, 25), (1024, 128, 129, 10))
 CHUNK_WIDE_SHAPES = ((256, 640, 640, 10), (64, 1024, 1024, 10))
+# the middle sizes, D = 289-1024: random QPs n = m = 256 (D = 512) at the QP
+# legs' chunks of 25 and at 10, and the OSQP control class's dense shape at
+# 12 states (n = 360, m = 600, D = 960)
+CHUNK_MID_SHAPES = ((1024, 256, 256, 25), (256, 360, 600, 25), (1024, 256, 256, 10))
 
 
 def blocks_of(lib, kernel: str, batch: int, n: int, m: int) -> int:
@@ -408,16 +424,18 @@ def blocks_of(lib, kernel: str, batch: int, n: int, m: int) -> int:
     in a block where their warp layouts apply (``qp_solve_problems_per_block``,
     ``spd_inverse_problems_per_block``; absent from a library built before
     that layout: one), and K5's wide variant a cluster of several blocks on
-    one problem (``admm_chunk_wide_layout``; one in a library before it)."""
+    one problem past D = 288 (``admm_chunk_layout``; in a library before the
+    routes one up to D = 1024, and before the wide variant one at every D)."""
     per = 1
     if kernel == "K3" and hasattr(lib, "qp_solve_problems_per_block"):
         per = int(lib.qp_solve_problems_per_block(n, m))
     elif kernel == "K4" and hasattr(lib, "spd_inverse_problems_per_block"):
         per = int(lib.spd_inverse_problems_per_block(n))
-    elif kernel == "K5" and n + m > 1024 and hasattr(lib, "admm_chunk_wide_layout"):
+    elif kernel == "K5" and n + m > 288 and (hasattr(lib, "admm_chunk_route_layout") or (
+            n + m > 1024 and hasattr(lib, "admm_chunk_wide_layout"))):
         from sqp_solver_tpu_torch.ops import admm_kernel as ak
 
-        return batch * ak.admm_chunk_wide_layout_card(n, m, batch, lib=lib)["cluster"]
+        return batch * ak.admm_chunk_layout(n, m, batch, lib=lib)["cluster"]
     return -(-batch // per)
 
 
@@ -469,11 +487,11 @@ def qp_cases(dev) -> list:
 @functools.lru_cache(maxsize=None)
 def chunk_operands(batch: int, n: int, m: int, seg: int, dev) -> tuple:
     """K5's operands at one shape (``testing.admm_chunk_inputs``, made once:
-    at n = 128 the host takes seconds to form W); past D = 1024 formed on
+    at n = 128 the host takes seconds to form W); past D = 288 formed on
     the card (:func:`chunk_operands_device`)."""
     from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 
-    if n + m > 1024:
+    if n + m > 288:
         return chunk_operands_device(batch, n, m, n + seg, dev)
     t = to_device(admm_chunk_inputs(batch, n, m, seed=n + seg, dtype=np.float32), dev)
     return tuple(t[k] for k in CHUNK_ARGS)
@@ -513,14 +531,15 @@ def chunk_operands_device(batch: int, n: int, m: int, seed: int, dev) -> tuple:
     return tuple(ops[k].float().contiguous() for k in CHUNK_ARGS)
 
 
-def chunk_cases(dev, wide: bool = False) -> list:
-    """Each K5 shape of the kernel phase (``wide``: the wide variant's) with a
+def chunk_cases(dev, shapes=CHUNK_SHAPES) -> list:
+    """Each K5 shape of ``shapes`` (``CHUNK_SHAPES``, the middle sizes'
+    ``CHUNK_MID_SHAPES`` or the wide variant's ``CHUNK_WIDE_SHAPES``) with a
     launcher that takes a kernel library, on the operands of
     ``compare_chunk``."""
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
 
     cases = []
-    for batch, n, m, seg in CHUNK_WIDE_SHAPES if wide else CHUNK_SHAPES:
+    for batch, n, m, seg in shapes:
         args = chunk_operands(batch, n, m, seg, dev)
         cases.append(dict(label=f"K5 n={n} m={m} B={batch} seg={seg}", kernel="K5", n=n, m=m,
                           batch=batch, seg=seg, reps=20 if n <= 32 else 8 if n <= 128 else 4,
@@ -684,13 +703,13 @@ def phase_split(dev, libs: dict, card: str) -> list:
 
     rows = []
     for c in (dense_cases(dev) + qp_cases(dev) + spd_cases(dev) + chunk_cases(dev)
-              + chunk_cases(dev, wide=True)):
+              + chunk_cases(dev, CHUNK_MID_SHAPES) + chunk_cases(dev, CHUNK_WIDE_SHAPES)):
         lib = libs[SOURCES[c["kernel"].lower()]]
         blocks = blocks_of(lib, c["kernel"], c["batch"], c["n"], c.get("m", c["n"]))
         cyc, _ = clock_split(lib, lambda: c["launch"](lib), blocks)
         row = dict(case=c["label"], blocks=blocks, cycles_per_block=cyc)
         per_iter = ""
-        if c["kernel"] == "K5" and c["n"] + c["m"] > 1024:  # thread 0's spans an iteration
+        if c["kernel"] == "K5" and c["n"] + c["m"] > 288:  # thread 0's spans an iteration
             row["cycles_per_iteration"] = {k: cyc.get(k, 0.0) / c["seg"]
                                            for k in ("ring", "dot", "exchange", "iter")}
             per_iter = "; per iteration: " + ", ".join(
@@ -917,58 +936,78 @@ def compare_spd(batch: int, n: int, dev, reps: int) -> dict:
                 library_spread=[min(turns["library"]), max(turns["library"])], layout=info)
 
 
-def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int) -> dict:
+def compare_chunk(batch: int, n: int, m: int, seg: int, dev, reps: int, lib=None) -> dict:
     """K5 against its plain version: one chunk of ``seg`` iterations and
-    the stats, on the operands of random QPs (``testing.admm_chunk_inputs``),
-    with the bound (W read once) and the streaming floor (W every
-    iteration: no shape past D = 1024 holds it on chip) and the kernel's
-    share of the floor; past D = 1024 also the wide layout (cluster,
-    stages, blocks an SM), the rate at which the kernel streams the floor's
-    bytes, and the time with each cluster of 1, 2 and 4 blocks a problem
-    forced."""
+    the stats, on the operands of random QPs (``chunk_operands``), with the
+    bound (W read once) and the streaming floor (W every iteration) and the
+    kernel's share of the floor; the route the layout rule takes, the rows
+    of W on chip and the bytes of W read from device memory an iteration;
+    past D = 288 also the layout (cluster, shared memory a block, stages,
+    blocks an SM) and the time with each other route and cluster that fits
+    forced (past D = 1024: clusters of 1, 2 and 4).  ``lib``: a kernel
+    library other than the package's (a parent tree's: its own route)."""
     import torch
 
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
 
     args = chunk_operands(batch, n, m, seg, dev)
-    ok = ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg)
+    launch = lambda **kw: ak._admm_chunk_launch(*args, alpha=1.6, seg=seg, lib=lib, **kw)  # noqa
+    ok = launch()
     ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=seg)
     torch.cuda.synchronize()
     err = max(check_close(f"K5 n={n} seg={seg} {name}", a, b)
               for name, a, b in zip(("s", "yp", "stats"), ok, ref))
-    lay = ak.admm_chunk_layout(n, m)
-    log(f"  K5 n={n} m={m} B={batch} seg={seg}: max |kernel - plain| {err:.3e}, of the "
-        f"{n + m} rows of W {lay['smem_rows']} in shared memory, {lay['register_rows']} in "
-        f"registers, {lay['device_rows']} read from device memory")
-    ms = cuda_ms(lambda: ak.admm_chunk_kernel(*args, alpha=1.6, seg=seg), reps)
+    D = n + m
+    lay = ak.admm_chunk_layout(n, m, batch, device=dev, lib=lib)
+    on_chip = lay["smem_rows"] + lay["register_rows"]
+    log(f"  K5 n={n} m={m} B={batch} seg={seg}: max |kernel - plain| {err:.3e}; route "
+        f"{lay['route']}, clusters of {lay['cluster']}; of the {D} rows of W {lay['smem_rows']} "
+        f"in shared memory, {lay['register_rows']} in registers, {lay['device_rows']} read from "
+        f"device memory every iteration ({lay['w_bytes_per_iteration']} bytes of W an iteration "
+        f"a problem, {lay['w_bytes_per_iteration'] * batch} a launch)")
+    ms = cuda_ms(launch, reps)
     plain_ms = cuda_ms(lambda: ak.admm_chunk_reference(*args, alpha=1.6, seg=seg),
                        max(1, reps // 4))
     # each iteration 2 D^2 (the matvec) + 10 D; the stats 2 n^2 + 4 m n.
     # W, P, A and eight (B, D) vectors read once, s, yp and the stats written
-    D = n + m
     flops = batch * (seg * (2 * D * D + 10 * D) + 2 * n * n + 4 * m * n)
     nbytes = 4 * batch * (D * D + n * n + m * n + 10 * D + 4)
     bound_ms, bound_by = bound(flops, nbytes)
     floor_bytes = 4 * batch * (seg * D * D + n * n + m * n + 10 * D + 4)
     floor_ms = floor_bytes / PEAK_BYTES_PER_S * 1e3
-    row = dict(n=n, m=m, batch=batch, seg=seg, smem_rows=lay["smem_rows"],
-               register_rows=lay["register_rows"], max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    row = dict(n=n, m=m, batch=batch, seg=seg, route=lay["route"], cluster=lay["cluster"],
+               smem_rows=lay["smem_rows"], register_rows=lay["register_rows"],
+               rows_on_chip=on_chip, device_rows=lay["device_rows"],
+               w_bytes_per_iteration=lay["w_bytes_per_iteration"] * batch, max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                stream_floor_ms=floor_ms, stream_share=floor_ms / ms)
-    wide = ""
-    if D > 1024:
-        card = ak.admm_chunk_wide_layout_card(n, m, batch, device=dev)
-        cluster_ms = {c: cuda_ms(lambda c=c: ak._admm_chunk_launch(
-            *args, alpha=1.6, seg=seg, cluster=c), reps) for c in (1, 2, 4)}
-        row.update(layout=card, stream_gb_per_s=floor_bytes / ms / 1e6, cluster_ms=cluster_ms)
-        wide = (f"; clusters of {card['cluster']}, {card['stages']} stages of "
-                f"{card['rows_stage']} rows ({4 * card['stage_floats']} bytes), "
-                f"{card['blocks_per_sm']} block(s) an SM ({card['resident']} resident), "
-                f"{card['smem_bytes']} bytes of shared memory a block; "
-                f"{row['stream_gb_per_s']:.1f} GB/s; forced clusters "
-                + ", ".join(f"{c}: {v:.3f} ms" for c, v in cluster_ms.items()))
-    log(f"  K5 n={n} m={m} B={batch} seg={seg}: streaming floor {floor_ms:.4f} ms (W every "
-        f"iteration), {row['stream_share']:.3f} of it{wide}")
+    more = ""
+    if D > 288 and lay.get("smem_bytes"):
+        forced = {}
+        from sqp_solver_tpu_torch.ops import _build
+
+        if hasattr(lib or _build.load(), "admm_chunk_route_layout"):
+            choices = ([("stream", c) for c in (1, 2, 4)] if D > 1024 else
+                       [("narrow", 0)] + [("cluster", c) for c in (2, 4, 8, 16)]
+                       + [("stream", c) for c in (1, 2, 4, 8)])
+            for route, c in choices:
+                if (route, c) == (lay["route"], lay["cluster"]):
+                    continue
+                try:
+                    ak.admm_chunk_layout(n, m, batch, route, c, device=dev, lib=lib)
+                except ValueError:
+                    continue  # does not fit
+                forced[f"{route} {c}" if c else route] = cuda_ms(
+                    lambda route=route, c=c: launch(route=route, cluster=c), reps)
+        row.update(layout=lay, stream_gb_per_s=floor_bytes / ms / 1e6, forced_ms=forced)
+        more = (f"; a block {lay['smem_bytes']} bytes of shared memory, {lay['rows_max']} rows "
+                f"of W at most, {lay['stages']} stages of {lay['rows_stage']} rows, "
+                f"{lay['blocks_per_sm']} block(s) an SM ({lay['resident']} resident); "
+                f"{row['stream_gb_per_s']:.1f} GB/s of the floor's bytes; forced "
+                + (", ".join(f"{k}: {v:.3f} ms" for k, v in forced.items()) or "-"))
+    log(f"  K5 n={n} m={m} B={batch} seg={seg}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), streaming floor {floor_ms:.4f} ms (W every "
+        f"iteration), {row['stream_share']:.3f} of it{more}")
     return row
 
 
@@ -2320,6 +2359,78 @@ def run_fused_wide(dev, card: str, batch: int = 256, n: int = 640) -> dict:
                 counts={f"qp_fused_d{2 * n}": c})
 
 
+def fused_dense_leg(label: str, qp, settings, card: str, min_solved: float = 0.0) -> dict:
+    """qp_solve_batch(impl="fused") on ``qp``, counters from 0 for one run
+    (K5 launches only, by the route each took): solves/s from the wall's
+    min of 3 after a warm-up and the device's idle share from one run
+    under torch.profiler (``tools/trace_serving._trace``), the solved
+    share (at least ``min_solved``), and every SOLVED problem passing the
+    float64 OSQP test at 10x the bars."""
+    import torch
+
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.parallel.batch import qp_solve_batch
+    from sqp_solver_tpu_torch.tools.trace_serving import _trace
+
+    batch = qp.q.shape[0]
+    qp_solve_batch(qp, settings, impl="fused")  # warm-up
+    reset_counts()
+    ak.reset_route_counts()
+    res = qp_solve_batch(qp, settings, impl="fused")
+    torch.cuda.synchronize()
+    c = read_counts()
+    routes = ak.route_counts()
+    if c["admm_chunk_launches"] < 1 or c != expect(admm_chunk_launches=c["admm_chunk_launches"]):
+        raise AssertionError(f"{label}: launches {c}")
+    if sum(routes.values()) != c["admm_chunk_launches"]:
+        raise AssertionError(f"{label}: routes {routes} against {c['admm_chunk_launches']} launches")
+    ok, kkt = qp_osqp64(qp, res, settings.eps_abs, settings.eps_rel)
+    solved = (res.info.status == 0).cpu().numpy()
+    if not np.isfinite(res.x.cpu().numpy()).all() or not ok[solved].all():
+        raise AssertionError(f"{label}: SOLVED problems fail the f64 OSQP test")
+    if solved.mean() < min_solved:
+        raise AssertionError(f"{label}: solved {solved.mean():.4f} < {min_solved}")
+    tr = _trace(lambda: qp_solve_batch(qp, settings, impl="fused"))
+    wall = tr["wall_ms"] / 1e3
+    it = res.info.iter.float()
+    log(f"  {label} B={batch}: solved {solved.mean():.4f}, every SOLVED passes the f64 OSQP test "
+        f"(10x the bars: {float(ok[solved].mean()) if solved.any() else 1.0:.4f} of them), ADMM "
+        f"iterations mean {float(it.mean()):.1f} max {int(it.max())}; K5 launches "
+        f"{c['admm_chunk_launches']} by route {routes}; wall {wall * 1e3:.3f} ms "
+        f"({batch / wall:.1f} solves/s, min of 3), K5 {tr['k5_ms']:.3f} ms of device time in "
+        f"the profiled run, idle share {tr['idle_share']:.4f} of the wall "
+        f"({tr['idle_share_profiled']:.4f} profiled) [{card}]")
+    return dict(solved=float(solved.mean()), cert64_solved=float(ok[solved].mean()) if
+                solved.any() else 1.0, mean_iter=float(it.mean()), max_iter=int(it.max()),
+                ms=wall * 1e3, solves_per_s=batch / wall, k5_ms=tr["k5_ms"],
+                device_busy_ms=tr["device_busy_ms"], idle_share=tr["idle_share"],
+                idle_share_profiled=tr["idle_share_profiled"], counts=c, routes=routes,
+                batch=batch)
+
+
+def run_fused_mid(dev, card: str) -> dict:
+    """Leg Q: the fused tier at the middle sizes, where K5 takes the cluster
+    or stream route (D = 289-1024): random QPs n = m = 256 (D = 512,
+    ``random_qp_batch_device``) at B = 1024 at the QP legs' settings
+    (chunks of 25), solved >= 0.99; and the OSQP control class at 12 states
+    (``control_qp``, leg N's problems: n = 360, m = 600, D = 960) at B = 256
+    at leg N's settings on the dense route, as a user solves it without
+    declaring stages (``schur_cholesky``)."""
+    import torch
+
+    from sqp_solver_tpu_torch.models.families import random_qp_batch_device
+
+    qp = random_qp_batch_device(torch.Generator(device=dev).manual_seed(256), 1024, 256, 256)
+    rand = fused_dense_leg("fused tier random n=m=256 (D=512)", qp, qp_bench_settings(), card,
+                           min_solved=0.99)
+    dense = dataclasses.replace(control_settings(), linear_solver="schur_cholesky",
+                                block_size=0)
+    ctrl = fused_dense_leg("fused tier control class nx=12 n=360 m=600 (D=960)",
+                           control_qp(256, 12, dev), dense, card)
+    return dict(runs=dict(random_d512=rand, control_d960=ctrl),
+                counts=dict(qp_fused_d512=rand["counts"], qp_fused_control_d960=ctrl["counts"]))
+
+
 # the families leg (bench.py:1066-1072): each OSQP class's device twin and
 # its published sizes
 FAMILY_ROWS = (("random", "random_qp_batch_device", dict(n=32, m=48)),
@@ -3626,6 +3737,26 @@ def run_sharding(dev, card: str) -> dict:
     return dict(counts=counts, devices=len(mesh))
 
 
+def k5_routes(rows: list, fused_mid_run: dict) -> dict:
+    """K5's routes for the kernels line: each route's kernel (all in
+    ``K5_CU_SOURCE``), the shapes of the kernel phase that took it with
+    their ms, plain ms, bound and share of the streaming floor, and leg Q's
+    launches on it."""
+    kernels = dict(narrow="admm_chunk_kernel", cluster="admm_chunk_cluster_kernel",
+                   stream="admm_chunk_wide_kernel (admm_chunk_wide_xl_kernel past D = 2048)")
+    out = {}
+    for route, kernel in kernels.items():
+        shapes = [dict(n=r["n"], m=r["m"], batch=r["batch"], seg=r["seg"], ms=r["ms"],
+                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                       stream_share=r["stream_share"], cluster=r["cluster"],
+                       w_bytes_per_iteration=r["w_bytes_per_iteration"])
+                  for r in rows if r["route"] == route]
+        leg_q = sum(run["routes"][route] for run in fused_mid_run["runs"].values())
+        out[route] = dict(kernel=kernel, source=K5_CU_SOURCE, shapes=shapes,
+                          leg_q_launches=leg_q)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3688,6 +3819,10 @@ def main() -> int:
           compare_chunk(1024, 128, 129, 10, dev, reps=8),
           compare_chunk(256, 640, 640, 10, dev, reps=4),
           compare_chunk(64, 1024, 1024, 10, dev, reps=4)]
+    log("K5 at the middle sizes (D = 289-1024: the cluster and stream routes) and at the JAX "
+        "kernel's limit (D = 2125):")
+    k5 += [compare_chunk(*shape, dev, reps=4) for shape in CHUNK_MID_SHAPES]
+    k5.append(compare_chunk(64, 1062, 1063, 10, dev, reps=3))
     log("K1-K5 phase split (clock64 spans of thread 0, cycles per block, share of the total):")
     phases = phase_split(dev, phase_libs, card)
     factor_ms = [time_library_factor(4096, 32, 33, dev, reps=10),
@@ -3833,6 +3968,12 @@ def main() -> int:
     fused_wide_run = run_fused_wide(dev, card)
     leg_s["O"] = time.perf_counter() - t_leg
     t_leg = time.perf_counter()
+    log("Q. the fused tier at the middle sizes: qp_solve_batch(impl='fused') at n = m = 256 "
+        "and on the control class at 12 states (n = 360, m = 600), K5's cluster and stream "
+        "routes:")
+    fused_mid_run = run_fused_mid(dev, card)
+    leg_s["Q"] = time.perf_counter() - t_leg
+    t_leg = time.perf_counter()
     log("the batch split: sharded_qp_solve_batch and sharded_sqp_solve_batch over make_mesh():")
     shard_run = run_sharding(dev, card)
     leg_s["sharding"] = time.perf_counter() - t_leg
@@ -3853,7 +3994,7 @@ def main() -> int:
         **aa_run["counts"], **backends_run["counts"], **arrow_run["counts"],
         **sparse_run["counts"], **multi_run["counts"], **qp_diff_run["counts"],
         **sqp_diff_run["counts"], **shard_run["counts"], **control_run["counts"],
-        **fused_wide_run["counts"], **control50_run["counts"])
+        **fused_wide_run["counts"], **control50_run["counts"], **fused_mid_run["counts"])
 
     def entry(name, replaces, rows, source=CU_SOURCE, **extra):
         head = rows[0]
@@ -3884,7 +4025,8 @@ def main() -> int:
                entry("qp_solve", K3_SOURCE, k3, anderson=aa["qp_solve"],
                      anderson_memory40=aa_long["qp_solve"]),
                entry("spd_inverse", K4_SOURCE, k4),
-               entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE),
+               entry("admm_chunk", K5_SOURCE, k5, source=K5_CU_SOURCE,
+                     routes=k5_routes(k5, fused_mid_run)),
                entry("qp_solve_btd", K6_SOURCE, k6, source=BTD_CU_SOURCE, library_note=no_lib,
                      anderson=aa["qp_solve_btd"], anderson_overhead=aa["qp_solve_btd_overhead"],
                      anderson_memory40=aa_long["qp_solve_btd"]),
@@ -3910,7 +4052,8 @@ def main() -> int:
                         sparse=sparse_run["runs"], multi_outer=multi_run["runs"],
                         qp_diff=qp_diff_run["runs"], sqp_diff=sqp_diff_run["runs"],
                         control_arm=control_run["runs"], fused_wide=fused_wide_run["runs"],
-                        control50=control50_run["runs"], anderson_long=aa_run["long"]["rows"],
+                        control50=control50_run["runs"], fused_mid=fused_mid_run["runs"],
+                        anderson_long=aa_run["long"]["rows"],
                         legs_seconds=leg_s,
                         card=card)))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,8 +17,14 @@
 // B = 4096, 0.034 ms at 3.35 TB/s; the 2 D^2 seg flops are a fifth of that
 // time at 67 TFLOP/s, so bytes bound it at every path shape.
 //
-// Design.  One thread block per problem, one thread per row of W
-// (blockDim = D rounded up to a warp, D <= 1024); each thread keeps its
+// Routes.  One layout rule (route_layout, reported by the C entry
+// admm_chunk_route_layout) picks one of three by D, n and the batch: the
+// narrow kernel up to D = 288, the cluster route from 289 to 1024 where a
+// portable cluster's shared memory holds W, the stream route past that
+// (up to D = 2125, the JAX kernel's limit).
+//
+// The narrow route.  One thread block per problem, one thread per row of
+// W (blockDim = D rounded up to a warp, D <= 1024); each thread keeps its
 // row's state and constants in registers for the whole chunk.
 //   Load.  Every row of W that shared memory holds goes in flight at entry
 //   at once (cp.async, 16 bytes a copy where the rows are aligned, 4
@@ -39,17 +45,20 @@
 //   fit) stay in registers, split over the lanes of the block's warps (at
 //   most kRegRows rows a warp, a lane the columns lane + 32 c), each dot a
 //   lane-split sum and a warp sum: no iteration touches device memory.
-//   Only a D beyond the register variant's 288 reads the rest of W from
-//   device memory each iteration, one warp a row.
+//   Past 288 the rule takes the other routes; forced onto this kernel
+//   (the A/B comparisons do), a D up to 1024 reads the rows of W that
+//   shared memory cannot hold from device memory each iteration, one
+//   warp a row.
 //   Stats.  P and A go in flight into W's dead rows when the iterations
 //   end (device memory only where those cannot hold them, D > 288); q
 //   and x in shared memory.  A'y one thread a column, Ax and Px one
 //   thread a row (float4 dot products), one block max-reduction.
-//   D > 1024 (up to 2048): a variant of its own (admm_chunk_wide_kernel,
-//   below), which no shared memory can hold W for: bound by W's bytes
-//   every iteration, it streams them through a ring of bulk copies that
-//   runs across the iterations, in a cluster of blocks a problem; the
-//   launches at D <= 1024 are the kernels above.
+// The cluster and stream routes are one ring kernel in three
+// instantiations (ring_chunk, below): W's rows spread over a cluster of
+// blocks a problem and brought in by bulk copies, rhs exchanged through
+// distributed shared memory every iteration.  The stream route's ring
+// streams W every iteration; the cluster route's holds the block's rows
+// for the whole chunk.
 // Every loop bound and branch that holds a barrier or a shuffle is uniform
 // across the block or the warp.
 
@@ -285,7 +294,8 @@ __global__ void __launch_bounds__(KR > 0 ? kRegThreads : kMaxThreads) admm_chunk
   ADMM_PHASE_END(kPhTotal);
 }
 
-// ---- D > 1024 (up to 2048): the wide variant ------------------------------
+// ---- the stream route: D > 1024 (up to 2125), and below where W does not
+// ---- fit a cluster ----------------------------------------------------------
 //
 // Bound.  No problem's W fits on chip (6.6 MB at D = 1280, 16.8 MB at
 // D = 2048; a portable cluster of eight blocks holds 1.8 MB), and one
@@ -296,7 +306,7 @@ __global__ void __launch_bounds__(KR > 0 ? kRegThreads : kMaxThreads) admm_chunk
 // W once.
 //
 // Design: keep device memory streaming without a pause.
-//   A cluster of cs blocks a problem (admm_chunk_wide_layout: the most
+//   A cluster of cs blocks a problem (wide_layout: the most
 //   blocks a problem that leave every block an SM of its own), block r owning the
 //   contiguous rows [r D / cs, (r + 1) D / cs) of W.  Each block has 8
 //   consumer warps and one producer warp.
@@ -331,9 +341,41 @@ __global__ void __launch_bounds__(KR > 0 ? kRegThreads : kMaxThreads) admm_chunk
 //   of every column to the block that owns the column's row of P, which
 //   sums the cs partials in rank order, and block 0 takes the cluster's
 //   maxima.  A last cluster barrier comes before any block exits.
+//   Below D = 1025 the stream route takes the same kernel and layout
+//   rule, where W does not fit a cluster (D = 960: 3.7 MB a problem).
+//
+// ---- the cluster route: D = 289-1024 where a cluster holds W -----------------
+//
+// Bound.  W is read once a launch: 4 B (D^2 + n^2 + m n + 10 D + 4) bytes
+// over 3.35 TB/s (0.487 ms at D = 512, B = 1024).  Each iteration then
+// reads all of W from shared memory once, 4 seg D^2 bytes a problem (26.8
+// GB at D = 512, B = 1024, seg 25: ~0.9 ms at 128 bytes a cycle an SM).
+//
+// Design: the stream route's kernel with W resident in its ring.
+//   The fewest blocks a problem (2, 4 or 8) whose shared memory holds
+//   W, preferring a cluster whose blocks fit two to an SM
+//   (resident_cluster_rule; 8 at D = 512, up to D = 640).  Stage k holds
+//   the block's chunk k (ceil(rows / 8) rows) for the whole chunk of
+//   iterations: the producer copies W once, consumer warp k waits on
+//   its stage's barrier in the first iteration alone and frees the stage
+//   for A and P after the last.
+//   Dots.  A lane keeps its columns of rhs in registers (32 at most), and
+//   a warp takes its rows four at a time, their loads issued together
+//   before their products (reg_dots): one shared-memory wavefront a 32
+//   products, against two where rhs is read from shared memory as well.
+//   The exchange.  A thread holds one row: its state and constants in
+//   registers.  It writes its row of the next rhs into every block, then
+//   after a barrier of the block's consumers one thread a peer arrives on
+//   that peer's buffer barrier (release at cluster scope): cs arrivals a
+//   buffer, not cs x 256 (the same for the final s, yp and the A'y
+//   partials).
 // Every branch that holds a named, mbarrier or cluster barrier is uniform
 // over the consumer threads, or over the cluster.
-constexpr int kMaxWideD = 2048;
+constexpr int kMaxWideD = 2048;  // the wide instantiation's arrays; past it up to kMaxD
+// the JAX kernel's limit: its smallest tile's VMEM footprint reaches its
+// 100 MiB limit past D = 2,125 (sqp_solver_tpu/ops/admm_kernel.py:pick_tile)
+constexpr int kMaxD = 2125;
+constexpr int kMaxNarrowD = kRegThreads;  // the rule's narrow route: D <= 288
 constexpr int kWideConsumerWarps = 8;
 constexpr int kWideConsumers = 32 * kWideConsumerWarps;
 constexpr int kWideThreads = kWideConsumers + 32;  // and the producer warp
@@ -341,6 +383,7 @@ constexpr int kWideStages = kWideConsumerWarps;    // stage k is consumer warp k
 constexpr int kWideRowsThread = kMaxWideD / kWideConsumers;  // rows a consumer thread updates
 constexpr int kWideAtyCols = kMaxWideD / kWideConsumers;     // A'y columns a lane holds
 constexpr int kWideMaxCluster = 8;                           // the portable limit
+constexpr int kMaxResidentCluster = 16;  // the cluster route's, forced: non-portable
 constexpr int kSmemPerSm = 233472;                           // sm_90
 constexpr int kSmemReservedPerBlock = 1024;
 constexpr int kWideBarriers = 2 * kWideStages + 5;
@@ -502,8 +545,69 @@ struct WideClock {
 #endif
 };
 
-__global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
-    WideParams p, const float* __restrict__ Wg, const float* __restrict__ Pg,
+// G rows of W at once (nr of them real, row stride ld) times v by one
+// warp: lane the columns lane + 32 k < len, v in registers (the lane's
+// columns of the right-hand side, zero past len), one accumulator a row,
+// the G warp sums interleaved; every lane gets them in out.  Four columns
+// of 32 at a time: their 4 G loads go out before any product, with no
+// branch between them (a load past len reads at most 127 floats on, inside
+// the block's shared memory, and its product is replaced by zero), so
+// their latencies overlap; every index is static, so v stays in registers.
+constexpr int kResGroup = 4;  // rows a group (2 and 8 measured slower, PERF.md section 6)
+template <int K, int G>
+__device__ __forceinline__ void reg_dots(const float* r, int ld, int nr, const float (&v)[K],
+                                         int len, int lane, float (&out)[G]) {
+  static_assert(K % 4 == 0, "columns in fours");
+  const int kc = (len + 31) >> 5;
+#pragma unroll
+  for (int g = 0; g < G; ++g) out[g] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    if (k0 < kc) {  // warp-uniform
+      float w[4][G];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int g = 0; g < G; ++g) w[k][g] = g < nr ? r[g * ld + lane + 32 * (k0 + k)] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool in = lane + 32 * (k0 + k) < len;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          out[g] = fmaf(in ? w[k][g] : 0.f, v[k0 + k], out[g]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g) out[g] += __shfl_xor_sync(0xffffffffu, out[g], o);
+}
+
+// The ring's body, in three instantiations (RingCfg): the wide variant's
+// up to D = 2048 (kWideRowsThread rows a consumer thread, kWideAtyCols
+// A'y columns a lane), past it up to kMaxD (one more of each, so that the
+// launches up to 2048 keep their registers), and the cluster route's,
+// where the ring holds the block's rows of W for the whole chunk.
+template <int kRows, int kAty, bool kResident>
+struct RingCfg {
+  static constexpr int rows = kRows, aty = kAty;
+  static constexpr bool resident = kResident;
+};
+constexpr int kXlRowsThread = (kMaxD + kWideConsumers - 1) / kWideConsumers;
+constexpr int kXlAtyCols = ((kMaxD + kWideConsumerWarps - 1) / kWideConsumerWarps + 31) / 32;
+// The cluster route: D <= kMaxThreads, at most kResRowsThread rows of W a
+// consumer thread, a lane's columns of rhs in kResCols registers.
+constexpr int kResRowsThread = 1;
+constexpr int kResCols = kMaxThreads / 32;
+constexpr int kResAtyCols = (kMaxThreads / kWideConsumerWarps + 31) / 32;
+using WideCfg = RingCfg<kWideRowsThread, kWideAtyCols, false>;
+using XlCfg = RingCfg<kXlRowsThread, kXlAtyCols, false>;
+using ResCfg = RingCfg<kResRowsThread, kResAtyCols, true>;
+
+template <class C>
+__device__ __forceinline__ void ring_chunk(
+    const WideParams& p, const float* __restrict__ Wg, const float* __restrict__ Pg,
     const float* __restrict__ Ag, const float* __restrict__ qv, const float* __restrict__ sc,
     const float* __restrict__ ri, const float* __restrict__ rp, const float* __restrict__ lp,
     const float* __restrict__ up, const float* __restrict__ s_in,
@@ -536,6 +640,9 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
   const int a0 = m * rank / cs, na = m * (rank + 1) / cs - a0;
   const int kw = p.rows_stage, nch = (R + kw - 1) / kw;
   const int ka = (SF - 8) / n, nca = (na + ka - 1) / ka, ncp = (np + ka - 1) / ka;
+  // rounds of W through the ring: one an iteration, or one in all where the
+  // ring holds the block's rows for the whole chunk (chunk k in stage k)
+  const int wrounds = C::resident ? (p.seg > 0 ? 1 : 0) : p.seg;
   const float* Wb = Wg + b * D * D;
   const float* Pb = Pg + b * n * n;
   const float* Ab = Ag + b * m * n;
@@ -545,10 +652,11 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
       mbar_init(&full[k], 1);
       mbar_init(&empty[k], 1);
     }
-    mbar_init(&ready[0], all);
-    mbar_init(&ready[1], all);
-    mbar_init(fin, all);
-    mbar_init(aty_bar, all);
+    // the cluster route's blocks arrive once each on a peer's barriers
+    mbar_init(&ready[0], C::resident ? (unsigned)cs : all);
+    mbar_init(&ready[1], C::resident ? (unsigned)cs : all);
+    mbar_init(fin, C::resident ? (unsigned)cs : all);
+    mbar_init(aty_bar, C::resident ? (unsigned)cs : all);
     mbar_init(gather_bar, (unsigned)cs);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -566,7 +674,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
         ring_fill(ring + (size_t)k * SF, &full[k], src, nf, lo, hi);
         ++Q;
       };
-      for (int it = 0; it < p.seg; ++it)
+      for (int it = 0; it < wrounds; ++it)
         for (int j = 0; j < nch; ++j)
           fill(Wb + (size_t)(r0 + j * kw) * D, min(kw, R - j * kw) * D, Wg, Wend);
       for (int j = 0; j < nca; ++j)
@@ -579,9 +687,12 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
     WideClock clk;
     const int t = tid;
     const size_t vo = b * D;
-    float s[kWideRowsThread], y[kWideRowsThread];
+    float s[C::rows], y[C::rows];
+    // the cluster route keeps its rows' constants in registers
+    constexpr int kc = C::resident ? C::rows : 1;
+    float cq[kc], cc[kc], cri[kc], crp[kc], clo[kc], chi[kc];
 #pragma unroll
-    for (int k = 0; k < kWideRowsThread; ++k) {
+    for (int k = 0; k < C::rows; ++k) {
       const int loc = t + k * kWideConsumers;
       s[k] = 0.f;
       y[k] = 0.f;
@@ -589,6 +700,14 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
         const int g = r0 + loc;
         s[k] = s_in[vo + g];
         y[k] = yp_in[vo + g];
+        if constexpr (C::resident) {
+          cq[k] = qv[vo + g];
+          cc[k] = sc[vo + g];
+          cri[k] = ri[vo + g];
+          crp[k] = rp[vo + g];
+          clo[k] = lp[vo + g];
+          chi[k] = up[vo + g];
+        }
         if (p.seg > 0) {
           const float q = qv[vo + g], c = sc[vo + g], ysel = ri[vo + g] * rp[vo + g];
           const float rhs = c * s[k] - q - ysel * y[k];
@@ -596,8 +715,14 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
         }
       }
     }
-    if (p.seg > 0)
-      for (int r = 0; r < cs; ++r) mbar_arrive_at(&ready[0], r);
+    if (p.seg > 0) {
+      if constexpr (C::resident) {
+        consumers_sync();  // the block's rows written: one arrival on each peer
+        if (t < cs) mbar_arrive_at(&ready[0], t);
+      } else {
+        for (int r = 0; r < cs; ++r) mbar_arrive_at(&ready[0], r);
+      }
+    }
     ADMM_PHASE_END(kPhLoad);
 
     ADMM_PHASE_BEGIN(kPhIter);
@@ -606,32 +731,67 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
       mbar_wait<true>(&ready[it & 1], (it >> 1) & 1);
       clk.add(kClkExch);
       const float* rhs = rb + (it & 1) * D;
-      const int base = it * nch;
-      // this warp's chunks: those whose stage is its own
-      for (int j = (warp - base % kWideStages + kWideStages) % kWideStages; j < nch;
-           j += kWideStages) {
-        mbar_wait(&full[warp], ((base + j) / kWideStages) & 1);
-        clk.add(kClkRing);
-        const int row = j * kw, rows = min(kw, R - row);
-        const float* w = ring_rows(ring + (size_t)warp * SF, Wb + (size_t)(r0 + row) * D);
-        for (int rr = 0; rr < rows; ++rr) {
-          const float a = row_dot(w + (size_t)rr * D, rhs, D, lane);
-          if (lane == 0) xz[row + rr] = a;
+      if constexpr (C::resident) {
+        // this warp's chunk stays in its stage: rhs in registers, a warp a row
+        if (warp < nch) {
+          if (it == 0) mbar_wait(&full[warp], 0);
+          clk.add(kClkRing);
+          float rh[kResCols];
+#pragma unroll
+          for (int k = 0; k < kResCols; ++k) {
+            const int col = lane + 32 * k;
+            rh[k] = col < D ? rhs[col] : 0.f;
+          }
+          const int row = warp * kw, rows = min(kw, R - row);
+          const float* w = ring_rows(ring + (size_t)warp * SF, Wb + (size_t)(r0 + row) * D);
+          for (int rr = 0; rr < rows; rr += kResGroup) {
+            float a[kResGroup];
+            reg_dots(w + (size_t)rr * D, D, rows - rr, rh, D, lane, a);
+            if (lane == 0)
+#pragma unroll
+              for (int g = 0; g < kResGroup; ++g)
+                if (rr + g < rows) xz[row + rr + g] = a[g];
+          }
+          if (it + 1 == p.seg) {  // the stage's last read: free it for A and P
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[warp]);
+          }
+          clk.add(kClkDot);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[warp]);
-        clk.add(kClkDot);
+      } else {
+        const int base = it * nch;
+        // this warp's chunks: those whose stage is its own
+        for (int j = (warp - base % kWideStages + kWideStages) % kWideStages; j < nch;
+             j += kWideStages) {
+          mbar_wait(&full[warp], ((base + j) / kWideStages) & 1);
+          clk.add(kClkRing);
+          const int row = j * kw, rows = min(kw, R - row);
+          const float* w = ring_rows(ring + (size_t)warp * SF, Wb + (size_t)(r0 + row) * D);
+          for (int rr = 0; rr < rows; ++rr) {
+            const float a = row_dot(w + (size_t)rr * D, rhs, D, lane);
+            if (lane == 0) xz[row + rr] = a;
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[warp]);
+          clk.add(kClkDot);
+        }
       }
       consumers_sync();  // xz complete
       const bool last = it + 1 == p.seg;
       float* nxt = rb + ((it + 1) & 1) * D;
 #pragma unroll
-      for (int k = 0; k < kWideRowsThread; ++k) {
+      for (int k = 0; k < C::rows; ++k) {
         const int loc = t + k * kWideConsumers;
         if (loc < R) {
           const int g = r0 + loc;
-          const float q = qv[vo + g], c = sc[vo + g], rinv = ri[vo + g], rho = rp[vo + g];
-          const float lo = lp[vo + g], hi = up[vo + g], ysel = rinv * rho;
+          float q, c, rinv, rho, lo, hi;
+          if constexpr (C::resident) {
+            q = cq[k], c = cc[k], rinv = cri[k], rho = crp[k], lo = clo[k], hi = chi[k];
+          } else {
+            q = qv[vo + g], c = sc[vo + g], rinv = ri[vo + g], rho = rp[vo + g];
+            lo = lp[vo + g], hi = up[vo + g];
+          }
+          const float ysel = rinv * rho;
           const float pre = p.alpha * xz[loc] + p.beta * s[k];
           float sn = pre + rinv * y[k];
           sn = sn < lo ? lo : sn;  // clip as min(max(v, lo), hi); NaN stays NaN
@@ -644,15 +804,21 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
           }
         }
       }
-      if (!last)
-        for (int r = 0; r < cs; ++r) mbar_arrive_at(&ready[(it + 1) & 1], r);
+      if (!last) {
+        if constexpr (C::resident) {
+          consumers_sync();
+          if (t < cs) mbar_arrive_at(&ready[(it + 1) & 1], t);
+        } else {
+          for (int r = 0; r < cs; ++r) mbar_arrive_at(&ready[(it + 1) & 1], r);
+        }
+      }
       clk.add(kClkExch);
     }
     ADMM_PHASE_END(kPhIter);
 
     ADMM_PHASE_BEGIN(kPhStats);
 #pragma unroll
-    for (int k = 0; k < kWideRowsThread; ++k) {
+    for (int k = 0; k < C::rows; ++k) {
       const int loc = t + k * kWideConsumers;
       if (loc < R) {
         const int g = r0 + loc;
@@ -664,17 +830,22 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
         }
       }
     }
-    for (int r = 0; r < cs; ++r) mbar_arrive_at(fin, r);
+    if constexpr (C::resident) {
+      consumers_sync();  // one arrival a block on each peer
+      if (t < cs) mbar_arrive_at(fin, t);
+    } else {
+      for (int r = 0; r < cs; ++r) mbar_arrive_at(fin, r);
+    }
     mbar_wait<true>(fin, 0);
     // x = sv[:n], z = sv[n:], y = yv[n:].  The block's rows of A: Ax (a
     // warp a row) and the A'y partial of every column (a warp a range of
     // columns, lane the columns cw0 + lane + 32 k)
     float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const int cw0 = n * warp / kWideConsumerWarps, cw1 = n * (warp + 1) / kWideConsumerWarps;
-    float acc[kWideAtyCols];
+    float acc[C::aty];
 #pragma unroll
-    for (int k = 0; k < kWideAtyCols; ++k) acc[k] = 0.f;
-    int Q = p.seg * nch;
+    for (int k = 0; k < C::aty; ++k) acc[k] = 0.f;
+    int Q = wrounds * nch;
     for (int j = 0; j < nca; ++j, ++Q) {
       const int k = Q % kWideStages;
       mbar_wait(&full[k], (Q / kWideStages) & 1);
@@ -691,7 +862,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
         const float yi = yv[n + i0 + rr];
         const float* row = st + (size_t)rr * n;
 #pragma unroll
-        for (int c = 0; c < kWideAtyCols; ++c) {
+        for (int c = 0; c < C::aty; ++c) {
           const int col = cw0 + lane + 32 * c;
           if (col < cw1) acc[c] = fmaf(row[col], yi, acc[c]);
         }
@@ -701,14 +872,19 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
     }
     // each column's partial to the block that holds its row of P
 #pragma unroll
-    for (int c = 0; c < kWideAtyCols; ++c) {
+    for (int c = 0; c < C::aty; ++c) {
       const int col = cw0 + lane + 32 * c;
       if (col < cw1) {
         const int o = prow_owner(col, n, cs);
         st_at(atyp + rank * p.prow_max + (col - n * o / cs), o, acc[c]);
       }
     }
-    for (int r = 0; r < cs; ++r) mbar_arrive_at(aty_bar, r);
+    if constexpr (C::resident) {
+      consumers_sync();
+      if (t < cs) mbar_arrive_at(aty_bar, t);
+    } else {
+      for (int r = 0; r < cs; ++r) mbar_arrive_at(aty_bar, r);
+    }
     // the block's rows of P: Px, a warp a row
     for (int j = 0; j < ncp; ++j, ++Q) {
       const int k = Q % kWideStages;
@@ -769,6 +945,30 @@ __global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(
   ADMM_PHASE_END(kPhTotal);
 }
 
+#define RING_KERNEL_ARGS                                                                      \
+  WideParams p, const float *__restrict__ Wg, const float *__restrict__ Pg,                   \
+      const float *__restrict__ Ag, const float *__restrict__ qv,                              \
+      const float *__restrict__ sc, const float *__restrict__ ri,                              \
+      const float *__restrict__ rp, const float *__restrict__ lp,                              \
+      const float *__restrict__ up, const float *__restrict__ s_in,                            \
+      const float *__restrict__ yp_in, float *__restrict__ s_out, float *__restrict__ yp_out, \
+      float *__restrict__ stats, int batch
+#define RING_KERNEL_CALL \
+  p, Wg, Pg, Ag, qv, sc, ri, rp, lp, up, s_in, yp_in, s_out, yp_out, stats, batch
+
+// D = 1025-2048, and the stream route below: the wide variant
+__global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_kernel(RING_KERNEL_ARGS) {
+  ring_chunk<WideCfg>(RING_KERNEL_CALL);
+}
+// D = 2049-2125
+__global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_wide_xl_kernel(RING_KERNEL_ARGS) {
+  ring_chunk<XlCfg>(RING_KERNEL_CALL);
+}
+// the cluster route: W on chip for the whole chunk
+__global__ void __launch_bounds__(kWideThreads, 2) admm_chunk_cluster_kernel(RING_KERNEL_ARGS) {
+  ring_chunk<ResCfg>(RING_KERNEL_CALL);
+}
+
 struct ChunkLayout {
   size_t smem_bytes;
   int ld, rows_smem, rows_reg, pa, threads;
@@ -805,7 +1005,8 @@ ChunkLayout chunk_layout(int n, int m) {
 // slower than clusters of 2, PERF.md section 6), two blocks an SM where
 // the batch's blocks outnumber the SMs (else one, with a ring twice as
 // deep), and the ring's stages of whole rows of W in the shared memory
-// that is left.  Python mirror: ops/admm_kernel.py:admm_chunk_wide_layout.
+// that is left.  The stream route at D <= 1024 takes it too.  Python
+// mirror of the wide range: ops/admm_kernel.py:admm_chunk_wide_layout.
 struct WideLayout {
   int cluster, blocks_per_sm, stage_floats, rows_stage, rows_max, prow_max;
   long long smem_bytes;
@@ -817,6 +1018,13 @@ int wide_cluster_rule(int batch, int sms) {
   return cs;
 }
 
+// rhs x 2, s, yp, xz, px, the A'y partials, the maxima: floats a block
+long long ring_vec_floats(int n, int D, int cs) {
+  const long long fixed = 4LL * D + (D + cs - 1) / cs + (1LL + cs) * ((n + cs - 1) / cs) +
+                          8LL * kWideConsumerWarps + 8LL * cs;
+  return (fixed + 3) / 4 * 4;
+}
+
 WideLayout wide_layout(int n, int m, int batch, int cs, int sms) {
   WideLayout L;
   const int D = n + m;
@@ -824,10 +1032,7 @@ WideLayout wide_layout(int n, int m, int batch, int cs, int sms) {
   cs = L.cluster;
   L.rows_max = (D + cs - 1) / cs;
   L.prow_max = (n + cs - 1) / cs;
-  // rhs x 2, s, yp, xz, px, the A'y partials, the maxima
-  const long long fixed = 4LL * D + L.rows_max + (1LL + cs) * L.prow_max +
-                          8LL * kWideConsumerWarps + 8LL * cs;
-  const long long vec = (fixed + 3) / 4 * 4;
+  const long long vec = ring_vec_floats(n, D, cs);
   L.blocks_per_sm = (long long)batch * cs > sms ? 2 : 1;
   for (;;) {
     const long long budget =
@@ -842,20 +1047,171 @@ WideLayout wide_layout(int n, int m, int batch, int cs, int sms) {
   return L;
 }
 
-int launch_wide(int cs, const float* W, const float* P, const float* A, const float* qv,
-                const float* scale1, const float* rhoip, const float* rhop, const float* lp,
-                const float* up, const float* s, const float* yp, float* s_out, float* yp_out,
-                float* stats, int batch, int n, int m, float alpha, float beta, int seg,
-                int device, void* stream) {
-  if (cs < 0 || cs > kWideMaxCluster || (cs & (cs - 1))) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const WideLayout L = wide_layout(n, m, batch, cs, sms);
-  if (L.rows_stage < 1) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(admm_chunk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L.smem_bytes);
+// The cluster route's layout at cs blocks a problem: block r's rows of W
+// [r D / cs, (r + 1) D / cs) in the ring's eight stages for the whole
+// chunk (stage k holds chunk k, the rows_stage = ceil(rows / 8) rows of
+// consumer warp k), two blocks an SM where the shared memory allows.
+// Fits where a block's shared memory does and its rows are at most one a
+// consumer thread.
+WideLayout resident_layout(int n, int m, int cs, bool* fits) {
+  WideLayout L;
+  const int D = n + m;
+  L.cluster = cs;
+  L.rows_max = (D + cs - 1) / cs;
+  L.prow_max = (n + cs - 1) / cs;
+  L.rows_stage = (L.rows_max + kWideStages - 1) / kWideStages;
+  L.stage_floats = round4(L.rows_stage * D + 8);
+  L.smem_bytes = kWideBarBytes + 4LL * ((long long)kWideStages * L.stage_floats +
+                                        ring_vec_floats(n, D, cs));
+  L.blocks_per_sm = L.smem_bytes <= kSmemPerSm / 2 - kSmemReservedPerBlock ? 2 : 1;
+  *fits = D <= kMaxThreads && L.smem_bytes <= kMaxSmemBytes &&
+          L.rows_max <= kResRowsThread * kWideConsumers;
+  return L;
+}
+
+// The cluster route's rule: the fewest blocks a problem (2, 4 or 8: a
+// portable cluster) that hold W with two blocks an SM, else the fewest
+// that hold it at all; 0 where no portable cluster does.
+int resident_cluster_rule(int n, int m) {
+  int best = 0;
+  for (int cs = 2; cs <= kWideMaxCluster; cs *= 2) {
+    bool fits = false;
+    const WideLayout L = resident_layout(n, m, cs, &fits);
+    if (!fits) continue;
+    if (L.blocks_per_sm == 2) return cs;
+    if (best == 0) best = cs;
+  }
+  return best;
+}
+
+// K5's one layout rule.  Given D = n + m, n and the batch it picks the
+// route and its cluster:
+//   narrow   D <= 288: one block a problem, W in shared memory and
+//            registers (chunk_layout);
+//   cluster  289 <= D <= 1024 where a portable cluster's shared memory
+//            holds W (resident_cluster_rule): W on chip for the whole
+//            chunk, read from device memory once a launch;
+//   stream   past that (D <= 2125): W streamed through the ring every
+//            iteration (wide_layout).
+// A forced route (route > 0) or cluster (cluster > 0) replaces the rule's
+// where it fits: the narrow kernel up to D = 1024 (the rows of W it cannot
+// hold read from device memory every iteration), the cluster route at
+// 2, 4, 8 or 16 blocks a problem (16: a non-portable cluster), the stream
+// route past D = 288 at 1, 2, 4 or 8.  False where the choice does not fit.
+enum Route { kRouteRule = 0, kRouteNarrow = 1, kRouteCluster = 2, kRouteStream = 3 };
+
+struct RouteLayout {
+  int route, cluster, threads, blocks_per_sm, rows_max, smem_rows, reg_rows, device_rows;
+  int stages, rows_stage, stage_floats, prow_max;
+  long long smem_bytes;
+  ChunkLayout narrow;
+};
+
+bool route_layout(int n, int m, int batch, int route, int cluster, int sms, RouteLayout* out) {
+  const int D = n + m;
+  if (n <= 0 || m <= 0 || D > kMaxD || batch <= 0 || route < kRouteRule ||
+      route > kRouteStream || cluster < 0 || cluster > kMaxResidentCluster ||
+      (cluster & (cluster - 1)))
+    return false;
+  int rc = 0;  // the rule's cluster on the cluster route
+  if (route == kRouteRule) {
+    if (D <= kMaxNarrowD) {
+      route = kRouteNarrow;
+    } else if (D <= kMaxThreads && (rc = resident_cluster_rule(n, m)) > 0) {
+      route = kRouteCluster;
+    } else {
+      route = kRouteStream;
+    }
+  }
+  RouteLayout& L = *out;
+  L.route = route;
+  if (route == kRouteNarrow) {
+    if (D > kMaxThreads || cluster != 0) return false;
+    L.narrow = chunk_layout(n, m);
+    L.cluster = 1;
+    L.threads = L.narrow.threads;
+    L.blocks_per_sm = 0;  // the runtime's (resident)
+    L.rows_max = D;
+    L.smem_rows = L.narrow.rows_smem;
+    L.reg_rows = L.narrow.rows_reg;
+    L.device_rows = D - L.smem_rows - L.reg_rows;
+    L.stages = L.rows_stage = L.stage_floats = L.prow_max = 0;
+    L.smem_bytes = (long long)L.narrow.smem_bytes;
+    return true;
+  }
+  if (D <= kMaxNarrowD) return false;  // the narrow kernel's alone
+  WideLayout W;
+  if (route == kRouteCluster) {
+    const int cs = cluster > 0 ? cluster : rc > 0 ? rc : resident_cluster_rule(n, m);
+    bool fits = false;
+    if (cs < 1) return false;
+    W = resident_layout(n, m, cs, &fits);
+    if (!fits) return false;
+    L.smem_rows = D;
+    L.device_rows = 0;
+  } else {
+    if (cluster > kWideMaxCluster) return false;
+    W = wide_layout(n, m, batch, cluster, sms);
+    if (W.rows_stage < 1) return false;
+    L.smem_rows = 0;
+    L.device_rows = D;
+  }
+  L.cluster = W.cluster;
+  L.threads = kWideThreads;
+  L.blocks_per_sm = W.blocks_per_sm;
+  L.rows_max = W.rows_max;
+  L.reg_rows = 0;
+  L.stages = kWideStages;
+  L.rows_stage = W.rows_stage;
+  L.stage_floats = W.stage_floats;
+  L.prow_max = W.prow_max;
+  L.smem_bytes = W.smem_bytes;
+  return true;
+}
+
+typedef void (*RingKernel)(WideParams, const float*, const float*, const float*, const float*,
+                           const float*, const float*, const float*, const float*,
+                           const float*, const float*, const float*, float*, float*, float*,
+                           int);
+
+RingKernel ring_kernel(const RouteLayout& L, int D) {
+  if (L.route == kRouteCluster) return admm_chunk_cluster_kernel;
+  return D > kMaxWideD ? admm_chunk_wide_xl_kernel : admm_chunk_wide_kernel;
+}
+
+// the ring kernel's attributes for this layout: its shared memory, and
+// clusters past the portable 8
+cudaError_t ring_attributes(RingKernel kernel, const RouteLayout& L) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.smem_bytes);
+  if (err == cudaSuccess && L.cluster > kWideMaxCluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+cudaLaunchConfig_t ring_config(const RouteLayout& L, int batch, cudaLaunchAttribute* attr,
+                               void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)batch * L.cluster);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = (size_t)L.smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+int launch_ring(const RouteLayout& L, const float* W, const float* P, const float* A,
+                const float* qv, const float* scale1, const float* rhoip, const float* rhop,
+                const float* lp, const float* up, const float* s, const float* yp, float* s_out,
+                float* yp_out, float* stats, int batch, int n, int m, float alpha, float beta,
+                int seg, void* stream) {
+  const RingKernel kernel = ring_kernel(L, n + m);
+  cudaError_t err = ring_attributes(kernel, L);
   if (err != cudaSuccess) return (int)err;
   WideParams p;
   p.n = n;
@@ -869,84 +1225,25 @@ int launch_wide(int cs, const float* W, const float* P, const float* A, const fl
   p.prow_max = L.prow_max;
   p.alpha = alpha;
   p.beta = beta;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)batch * L.cluster);
-  cfg.blockDim = dim3(kWideThreads);
-  cfg.dynamicSmemBytes = (size_t)L.smem_bytes;
-  cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = L.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, admm_chunk_wide_kernel, p, W, P, A, qv, scale1, rhoip, rhop, lp,
-                           up, s, yp, s_out, yp_out, stats, batch);
+  const cudaLaunchConfig_t cfg = ring_config(L, batch, attr, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, p, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp,
+                           s_out, yp_out, stats, batch);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Rows of W in shared memory and in registers (none past D = 1024).
-int admm_chunk_smem_rows(int n, int m) {
-  return n + m > kMaxThreads ? 0 : chunk_layout(n, m).rows_smem;
-}
-
-int admm_chunk_reg_rows(int n, int m) {
-  return n + m > kMaxThreads ? 0 : chunk_layout(n, m).rows_reg;
-}
-
-// The wide variant's layout at this shape and batch on a card of `sms`
-// SMs (cluster 0: the rule's), in `out`: cluster, threads, stages, floats
-// a stage, rows of W a stage, shared memory bytes a block, the layout's
-// blocks an SM, the blocks an SM the runtime can hold of the kernel at
-// that shared memory, rows of W a block (at most), rows of P a block (at
-// most).  Non-zero where the shape is not the wide variant's.
-int admm_chunk_wide_layout(int n, int m, int batch, int cluster, int sms, long long* out) {
-  if (n <= 0 || m <= 0 || n + m <= kMaxThreads || n + m > kMaxWideD || batch <= 0 ||
-      cluster < 0 || cluster > kWideMaxCluster || (cluster & (cluster - 1)) || sms <= 0)
-    return (int)cudaErrorInvalidValue;
-  const WideLayout L = wide_layout(n, m, batch, cluster, sms);
-  int resident = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_chunk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem_bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, admm_chunk_wide_kernel,
-                                                        kWideThreads, (size_t)L.smem_bytes);
-  const long long v[10] = {L.cluster, kWideThreads, kWideStages, L.stage_floats, L.rows_stage,
-                           L.smem_bytes, L.blocks_per_sm, resident, L.rows_max, L.prow_max};
-  for (int k = 0; k < 10; ++k) out[k] = v[k];
-  return (int)err;
-}
-
-// One launch of K5; past D = 1024 the wide variant in clusters of `cluster`
-// blocks (1, 2, 4 or 8; 0: the layout rule's; the card's tests and
-// chip_smoke.py force one), refused (cudaErrorInvalidValue) at D <= 1024
-// unless 0.
-int admm_chunk_launch_as(int cluster, const float* W, const float* P, const float* A,
-                         const float* qv, const float* scale1, const float* rhoip,
-                         const float* rhop, const float* lp, const float* up, const float* s,
-                         const float* yp, float* s_out, float* yp_out, float* stats, int batch,
-                         int n, int m, float alpha, float beta, int seg, int device,
-                         void* stream) {
-  if (batch <= 0) return 0;
-  if (n + m > kMaxWideD || n <= 0 || m <= 0 || seg < 0) return (int)cudaErrorInvalidValue;
-  if (n + m > kMaxThreads)
-    return launch_wide(cluster, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out,
-                       stats, batch, n, m, alpha, beta, seg, device, stream);
-  if (cluster != 0) return (int)cudaErrorInvalidValue;
-  const ChunkLayout L = chunk_layout(n, m);
+int launch_narrow(const ChunkLayout& L, const float* W, const float* P, const float* A,
+                  const float* qv, const float* scale1, const float* rhoip, const float* rhop,
+                  const float* lp, const float* up, const float* s, const float* yp,
+                  float* s_out, float* yp_out, float* stats, int batch, int n, int m,
+                  float alpha, float beta, int seg, void* stream) {
   auto kernel = L.rows_reg > 0 ? admm_chunk_kernel<kRegRows> : admm_chunk_kernel<0>;
-  // this library's runtime keeps its own current device: use the tensors'
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess && L.smem_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L.smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (L.smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   ChunkParams p;
   p.n = n;
   p.m = m;
@@ -963,13 +1260,94 @@ int admm_chunk_launch_as(int cluster, const float* W, const float* P, const floa
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
+// K5's layout at this shape and batch on a card of `sms` SMs (route and
+// cluster 0: the rule's; else forced, as admm_chunk_launch_as takes them),
+// in `out`: route (1 narrow, 2 cluster, 3 stream), cluster, threads a
+// block, the layout's blocks an SM (0: the runtime's), shared memory bytes
+// a block, rows of W a block (at most), rows of W in shared memory for
+// the whole chunk (over a problem's blocks), in registers, and read from
+// device memory every iteration, the ring's stages, rows of W a stage and
+// floats a stage, the blocks an SM the runtime can hold of the kernel at
+// that shared memory, rows of P a block (at most), and the clusters the
+// card can hold at once (0 on the narrow route).  Returns
+// cudaErrorInvalidValue where the choice does not fit.
+int admm_chunk_route_layout(int n, int m, int batch, int route, int cluster, int sms,
+                            long long* out) {
+  RouteLayout L;
+  if (sms <= 0 || !route_layout(n, m, batch, route, cluster, sms, &L))
+    return (int)cudaErrorInvalidValue;
+  int resident = 0, clusters = 0;
+  cudaError_t err = cudaSuccess;
+  if (L.route == kRouteNarrow) {
+    // raised only past the default 48 KB, as launch_narrow does: a lower
+    // maximum would refuse a later launch at another shape
+    auto kernel = L.narrow.rows_reg > 0 ? admm_chunk_kernel<kRegRows> : admm_chunk_kernel<0>;
+    if (L.smem_bytes > 48 * 1024)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)L.smem_bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, L.threads,
+                                                          (size_t)L.smem_bytes);
+  } else {
+    const RingKernel kernel = ring_kernel(L, n + m);
+    err = ring_attributes(kernel, L);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kWideThreads,
+                                                          (size_t)L.smem_bytes);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = ring_config(L, batch, attr, nullptr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  }
+  const long long v[15] = {L.route,      L.cluster,    L.threads,   L.blocks_per_sm,
+                           L.smem_bytes, L.rows_max,   L.smem_rows, L.reg_rows,
+                           L.device_rows, L.stages,    L.rows_stage, L.stage_floats,
+                           resident,     L.prow_max,   clusters};
+  for (int k = 0; k < 15; ++k) out[k] = v[k];
+  return (int)err;
+}
+
+// One launch of K5 on the route `route` in clusters of `cluster` blocks
+// (0: the layout rule's; the card's tests, kernel_ab and chip_smoke.py
+// force them), refused (cudaErrorInvalidValue) where the choice does not
+// fit (route_layout); the route it took in *taken (where not null: 1
+// narrow, 2 cluster, 3 stream, 0 for an empty batch).
+int admm_chunk_launch_as(int route, int cluster, const float* W, const float* P, const float* A,
+                         const float* qv, const float* scale1, const float* rhoip,
+                         const float* rhop, const float* lp, const float* up, const float* s,
+                         const float* yp, float* s_out, float* yp_out, float* stats, int batch,
+                         int n, int m, float alpha, float beta, int seg, int device,
+                         void* stream, int* taken) {
+  if (taken) *taken = 0;
+  if (batch <= 0) return 0;
+  if (seg < 0) return (int)cudaErrorInvalidValue;
+  // this library's runtime keeps its own current device: use the tensors'
+  cudaError_t err = cudaSetDevice(device);
+  int sms = 1;  // the narrow kernel's rule needs no SM count
+  if (err == cudaSuccess && (n + m > kMaxNarrowD || route != kRouteRule || cluster != 0))
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  RouteLayout L;
+  if (!route_layout(n, m, batch, route, cluster, sms, &L)) return (int)cudaErrorInvalidValue;
+  if (taken) *taken = L.route;
+  if (L.route == kRouteNarrow)
+    return launch_narrow(L.narrow, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out,
+                         yp_out, stats, batch, n, m, alpha, beta, seg, stream);
+  return launch_ring(L, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out, stats,
+                     batch, n, m, alpha, beta, seg, stream);
+}
+
 int admm_chunk_launch(const float* W, const float* P, const float* A, const float* qv,
                       const float* scale1, const float* rhoip, const float* rhop,
                       const float* lp, const float* up, const float* s, const float* yp,
                       float* s_out, float* yp_out, float* stats, int batch, int n, int m,
                       float alpha, float beta, int seg, int device, void* stream) {
-  return admm_chunk_launch_as(0, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out, yp_out,
-                              stats, batch, n, m, alpha, beta, seg, device, stream);
+  return admm_chunk_launch_as(0, 0, W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, s_out,
+                              yp_out, stats, batch, n, m, alpha, beta, seg, device, stream,
+                              nullptr);
 }
 
 }  // extern "C"

@@ -83,8 +83,11 @@ _SIGNATURES = {
         _INT, [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
     ),
     "admm_chunk_launch_as": (
-        _INT, [_INT] + [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID],
+        _INT, [_INT] * 2 + [_VOID] * 14 + [_INT] * 3 + [_FLOAT] * 2 + [_INT, _INT, _VOID, _VOID],
     ),
+    "admm_chunk_route_layout": (_INT, [_INT] * 6 + [_VOID]),
+    # the layout reports of a library built before the routes (a parent
+    # tree's, tools/kernel_ab.py)
     "admm_chunk_wide_layout": (_INT, [_INT] * 5 + [_VOID]),
     "admm_chunk_smem_rows": (_INT, [_INT, _INT]),
     "admm_chunk_reg_rows": (_INT, [_INT, _INT]),

@@ -18,12 +18,14 @@ Three parts:
 
 * :func:`admm_chunk_reference`, the plain PyTorch version (twin of
   ``admm_chunk_xla``): the CPU path and the card's oracle;
-* the CUDA kernel in ``csrc/admm_kernel.cu``, one thread block per
-  problem with W on chip for the whole chunk (shared memory, and
-  registers for the rows that do not fit there) up to D = 1024, and past
-  that (up to 2048) a variant that streams W from device memory every
-  iteration through a ring of bulk copies, a cluster of blocks a problem
-  (:func:`admm_chunk_wide_layout`);
+* the CUDA kernel in ``csrc/admm_kernel.cu``, which takes one of three
+  routes by one layout rule there (:func:`admm_chunk_layout` reports it):
+  up to D = 288 one thread block a problem with W on chip (shared memory,
+  and registers for the rows that do not fit there); from 289 to 1024,
+  where a cluster's shared memory holds W, a cluster of blocks a problem
+  with W on chip for the whole chunk; past that (up to 2,125, the JAX
+  kernel's limit) a variant that streams W from device memory every
+  iteration through a ring of bulk copies, a cluster of blocks a problem;
 * :func:`admm_chunk_kernel`, the wrapper that launches it on float32 CUDA
   operands and raises on anything else, and :func:`admm_chunk`, which
   sends CPU tensors to the plain version and CUDA tensors to the kernel.
@@ -39,13 +41,22 @@ import ctypes
 import torch
 
 __all__ = ["admm_chunk", "admm_chunk_kernel", "admm_chunk_layout", "admm_chunk_reference",
-           "admm_chunk_smem_rows", "admm_chunk_wide_layout"]
+           "admm_chunk_smem_rows", "admm_chunk_wide_layout", "route_counts", "reset_route_counts",
+           "ROUTES"]
 
-# Launch counter: the wrapper adds one where it launches the CUDA kernel.
+# Launch counter: the wrapper adds one where it launches the CUDA kernel,
+# and one to the route the launch took (route_counts)
 admm_chunk_launches = 0
+_route_launches = {}
 
-_MAX_D = 2048  # the wide variant's limit (the JAX kernel's VMEM one is about 2,125)
-_NARROW_MAX_D = 1024  # one thread a row of W
+# the JAX kernel's limit: its smallest tile's VMEM footprint reaches its
+# 100 MiB limit past D = 2,125 (sqp_solver_tpu/ops/admm_kernel.py:pick_tile)
+_MAX_D = 2125
+_NARROW_MAX_D = 1024  # one thread a row of W: the narrow kernel, where it may be forced
+_WIDE_MIN_D = 1025  # the wide variant's range, which the Python mirror covers
+# K5's routes as csrc/admm_kernel.cu numbers them (0: the layout rule's)
+ROUTES = {"narrow": 1, "cluster": 2, "stream": 3}
+_ROUTE_NAMES = {v: k for k, v in ROUTES.items()}
 
 
 def chunk_stats(P, A, q, x, z, y):
@@ -85,20 +96,21 @@ def _check(name, W, P, A, vecs):
 
 
 def admm_chunk_kernel(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg):
-    """Launch K5 (replaces the TPU's ``ops/admm_kernel.py:admm_chunk_pallas``):
-    one CUDA thread block per problem.  Every operand must be a float32,
+    """Launch K5 (replaces the TPU's ``ops/admm_kernel.py:admm_chunk_pallas``)
+    on the route the layout rule picks.  Every operand must be a float32,
     contiguous CUDA tensor: W (B, D, D), P (B, n, n), A (B, m, n) and the
-    eight (B, D) vectors, D = n + m <= 2048.  Returns ``(s, yp, stats)``."""
+    eight (B, D) vectors, D = n + m <= 2125.  Returns ``(s, yp, stats)``."""
     return _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, alpha=alpha,
                               seg=seg)
 
 
 def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg,
-                       lib=None, cluster=None):
+                       lib=None, route=None, cluster=None):
     """One launch of K5 (``lib``: a kernel library other than the package's,
-    as ``tools/kernel_ab.py`` passes; ``cluster``: past D = 1024, the
-    blocks a problem in place of the layout rule's, for the card's tests
-    and measurements)."""
+    as ``tools/kernel_ab.py`` passes; ``route`` (a key of :data:`ROUTES`)
+    and ``cluster`` (blocks a problem): a choice in place of the layout
+    rule's, for the card's tests and measurements; the C entry refuses one
+    that does not fit at this shape)."""
     global admm_chunk_launches
     from sqp_solver_tpu_torch.ops.qp_kernel import _check_cuda_operands, _ptr, _raise_on
 
@@ -108,9 +120,8 @@ def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha
     dev = _check_cuda_operands(name, dict(W=W, P=P, A=A, **vecs), {})
     if n + m > _MAX_D:
         raise ValueError(f"{name}: D = n + m = {n + m} exceeds {_MAX_D}")
-    if cluster is not None and (n + m <= _NARROW_MAX_D or cluster not in _CLUSTERS):
-        raise ValueError(f"{name}: cluster {cluster} at D = {n + m} (clusters of {_CLUSTERS} "
-                         f"blocks past D = {_NARROW_MAX_D})")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"{name}: route {route!r} is not one of {tuple(ROUTES)}")
     if lib is None:
         from sqp_solver_tpu_torch.ops import _build
 
@@ -123,13 +134,32 @@ def _admm_chunk_launch(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha
             _ptr(lp), _ptr(up), _ptr(s), _ptr(yp), _ptr(s_out), _ptr(yp_out), _ptr(stats),
             batch, n, m, float(alpha), float(1.0 - alpha), int(seg), dev.index,
             ctypes.c_void_p(stream))
-    if cluster is None:
+    taken = ctypes.c_int(0)
+    if not hasattr(lib, "admm_chunk_route_layout"):  # a library before the routes
+        if route is not None or cluster:
+            raise ValueError(f"{name}: this library has no routes to force")
         rc = lib.admm_chunk_launch(*args)
     else:
-        rc = lib.admm_chunk_launch_as(int(cluster), *args)
+        c = int(cluster or 0)
+        if batch > 0 and (route is not None or c):  # raises, unlaunched, where it does not fit
+            admm_chunk_layout(n, m, batch, route, c, device=dev, lib=lib)
+        rc = lib.admm_chunk_launch_as(ROUTES.get(route, 0), c, *args, ctypes.byref(taken))
     _raise_on(lib, rc, name)
     admm_chunk_launches += 1
+    if taken.value:
+        key = _ROUTE_NAMES[taken.value]
+        _route_launches[key] = _route_launches.get(key, 0) + 1
     return s_out, yp_out, stats
+
+
+def route_counts() -> dict:
+    """K5's launches by the route each took (``narrow``, ``cluster``,
+    ``stream``) since :func:`reset_route_counts`."""
+    return {k: _route_launches.get(k, 0) for k in ROUTES}
+
+
+def reset_route_counts() -> None:
+    _route_launches.clear()
 
 
 def admm_chunk(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg):
@@ -142,22 +172,72 @@ def admm_chunk(W, P, A, qv, scale1, rhoip, rhop, lp, up, s, yp, *, alpha, seg):
     return admm_chunk_reference(*args, alpha=alpha, seg=seg)
 
 
-def admm_chunk_smem_rows(n: int, m: int) -> int:
-    """Rows of W that K5 holds in shared memory at this shape (all D
-    rows while they fit)."""
-    return admm_chunk_layout(n, m)["smem_rows"]
+def admm_chunk_smem_rows(n: int, m: int, batch: int = 1) -> int:
+    """Rows of W that K5 holds in shared memory for the whole chunk at this
+    shape, over all the blocks of a problem."""
+    return admm_chunk_layout(n, m, batch)["smem_rows"]
 
 
-def admm_chunk_layout(n: int, m: int) -> dict:
-    """Where K5 keeps the D = n + m rows of W at this shape: in shared
-    memory, in registers (split over the block's lanes, where shared
-    memory cannot hold them all and D <= 288), and read from device memory
-    each iteration (the rest: all of them past D = 1024)."""
+# the fields of csrc/admm_kernel.cu:admm_chunk_route_layout, in its order
+_LAYOUT_KEYS = ("route", "cluster", "threads", "blocks_per_sm", "smem_bytes", "rows_max",
+                "smem_rows", "register_rows", "device_rows", "stages", "rows_stage",
+                "stage_floats", "resident", "prow_max", "active_clusters")
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def admm_chunk_layout(n: int, m: int, batch: int = 1, route=None, cluster: int = 0,
+                      device=None, lib=None) -> dict:
+    """K5's layout at this shape and batch on the card (its SM count from
+    ``device``), as the kernel's one layout rule picks it
+    (``csrc/admm_kernel.cu:route_layout``; ``route`` and ``cluster`` force a
+    choice, as ``_admm_chunk_launch`` does): the route (narrow, cluster or
+    stream), the blocks a problem (``cluster``), the rows of W a block
+    holds or streams at most (``rows_max``), and where the D = n + m rows of
+    W are: in shared memory for the whole chunk (``smem_rows``, over the
+    problem's blocks), in registers (``register_rows``), or read from device
+    memory every iteration (``device_rows``; ``w_bytes_per_iteration`` a
+    problem); the shared memory a block, the ring's stages (the stream and
+    cluster routes), ``resident``: the blocks an SM the runtime can hold of
+    the kernel at that shared memory, and ``active_clusters``: the clusters
+    the card can hold at once (0 on the narrow route).  Raises where the
+    choice does not fit.  A library built before the routes (``lib``, a
+    parent tree's) reports its one block a problem up to D = 1024 and the
+    wide variant past it."""
     from sqp_solver_tpu_torch.ops import _build
+    from sqp_solver_tpu_torch.ops.qp_kernel import _raise_on
 
-    lib = _build.load()
-    smem, reg = int(lib.admm_chunk_smem_rows(n, m)), int(lib.admm_chunk_reg_rows(n, m))
-    return dict(smem_rows=smem, register_rows=reg, device_rows=n + m - smem - reg)
+    D = n + m
+    if D > _MAX_D:
+        raise ValueError(f"admm_chunk_layout: D = n + m = {D} exceeds {_MAX_D}")
+    lib = lib or _build.load()
+    if not hasattr(lib, "admm_chunk_route_layout"):
+        if D > _NARROW_MAX_D:
+            keys = ("cluster", "threads", "stages", "stage_floats", "rows_stage", "smem_bytes",
+                    "blocks_per_sm", "resident", "rows_max", "prow_max")
+            out = (ctypes.c_longlong * len(keys))()
+            _raise_on(lib, int(lib.admm_chunk_wide_layout(
+                n, m, batch, cluster, _sms(device or torch.device("cuda")), out)),
+                "admm_chunk_wide_layout")
+            return dict(zip(keys, (int(v) for v in out)), route="stream", smem_rows=0,
+                        register_rows=0, device_rows=D, w_bytes_per_iteration=4 * D * D)
+        smem, reg = int(lib.admm_chunk_smem_rows(n, m)), int(lib.admm_chunk_reg_rows(n, m))
+        return dict(route="narrow", cluster=1, smem_rows=smem, register_rows=reg,
+                    device_rows=D - smem - reg, w_bytes_per_iteration=4 * D * (D - smem - reg))
+    device = device or torch.device("cuda")
+    out = (ctypes.c_longlong * len(_LAYOUT_KEYS))()
+    rc = int(lib.admm_chunk_route_layout(n, m, batch, ROUTES[route] if route else 0,
+                                         int(cluster), _sms(device), out))
+    if rc == 1:
+        raise ValueError(f"admm_chunk_layout: route {route or 'of the rule'}, cluster "
+                         f"{cluster or 'of the rule'} does not fit n = {n}, m = {m}, B = {batch}")
+    _raise_on(lib, rc, "admm_chunk_layout")
+    lay = dict(zip(_LAYOUT_KEYS, (int(v) for v in out)))
+    lay["route"] = _ROUTE_NAMES[lay["route"]]
+    lay.update(sms=_sms(device), w_bytes_per_iteration=4 * D * lay["device_rows"])
+    return lay
 
 
 # The wide variant's constants (csrc/admm_kernel.cu): consumer warps (and
@@ -172,7 +252,7 @@ _WIDE_BAR_BYTES = -(-(2 * _WIDE_WARPS + 5) * 8 // 128) * 128
 
 
 def admm_chunk_wide_layout(n: int, m: int, batch: int, cluster: int = 0, sms: int = 132) -> dict:
-    """The wide variant's layout (D = n + m from 1025 to 2048) for ``batch``
+    """The wide variant's layout (D = n + m from 1025 to 2125) for ``batch``
     problems on a card of ``sms`` SMs, as ``csrc/admm_kernel.cu:wide_layout``
     computes it: ``cluster`` blocks a problem (``cluster`` > 0 forces it;
     the rule takes the most, up to 8, for which ``batch * cluster`` blocks
@@ -184,9 +264,9 @@ def admm_chunk_wide_layout(n: int, m: int, batch: int, cluster: int = 0, sms: in
     every iteration (``device_rows`` = D, ``w_bytes_per_iteration`` a
     problem).  Raises where the shape is not the wide variant's."""
     D = n + m
-    if n <= 0 or m <= 0 or not _NARROW_MAX_D < D <= _MAX_D or batch <= 0:
+    if n <= 0 or m <= 0 or not _WIDE_MIN_D <= D <= _MAX_D or batch <= 0:
         raise ValueError(f"admm_chunk_wide_layout: n = {n}, m = {m}, B = {batch}: the wide "
-                         f"variant takes D from {_NARROW_MAX_D + 1} to {_MAX_D}")
+                         f"variant takes D from {_WIDE_MIN_D} to {_MAX_D}")
     if cluster == 0:
         cluster = 1
         while cluster < _CLUSTERS[-1] and 2 * batch * cluster <= sms:
@@ -212,21 +292,3 @@ def admm_chunk_wide_layout(n: int, m: int, batch: int, cluster: int = 0, sms: in
                 prow_max=prow_max,
                 row_ranges=[(D * r // cluster, D * (r + 1) // cluster) for r in range(cluster)],
                 device_rows=D, w_bytes_per_iteration=4 * D * D)
-
-
-def admm_chunk_wide_layout_card(n: int, m: int, batch: int, cluster: int = 0, device=None,
-                                lib=None) -> dict:
-    """The same layout as the built kernel reports it on the card (its SM
-    count from ``device``), with ``resident``: the blocks an SM the runtime
-    can hold of the kernel at that shared memory."""
-    from sqp_solver_tpu_torch.ops import _build
-    from sqp_solver_tpu_torch.ops.qp_kernel import _raise_on
-
-    lib = lib or _build.load()
-    sms = torch.cuda.get_device_properties(device or torch.device("cuda")).multi_processor_count
-    out = (ctypes.c_longlong * 10)()
-    _raise_on(lib, int(lib.admm_chunk_wide_layout(n, m, batch, cluster, sms, out)),
-              "admm_chunk_wide_layout")
-    keys = ("cluster", "threads", "stages", "stage_floats", "rows_stage", "smem_bytes",
-            "blocks_per_sm", "resident", "rows_max", "prow_max")
-    return dict(zip(keys, (int(v) for v in out)), sms=sms)

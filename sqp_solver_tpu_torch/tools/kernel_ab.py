@@ -42,7 +42,8 @@ both trees.  Four parts, in order (``--parts`` picks some):
             shapes, and k6x, k7x, the wide K6 and K7 past internal block
             128) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
-            ``spd_cases`` for K4, ``chunk_cases`` for K5 and its wide
+            ``spd_cases`` for K4, ``chunk_cases`` for K5 at its narrow,
+            middle (D = 512, 960: each tree's own route) and wide
             shapes, ``btd_cases`` for K6/K7, ``btd_past128_cases`` for
             k6x/k7x: a tree whose library has no compact route runs its
             own route there), CUDA events, in turns
@@ -65,6 +66,14 @@ both trees.  Four parts, in order (``--parts`` picks some):
             beside the units they include (each unit reads its own sums:
             an Anderson unit's reader is ``admm_phase_clocks_aa``), and
             each split is also given per chunk.
+
+``k5rows``  K5 at the middle sizes (``chip_smoke.CHUNK_MID_SHAPES``,
+            D = 512 and 960) through ``chip_smoke.compare_chunk`` with each
+            tree of ``--trees``' library: against its plain version, the
+            kernel's and the plain version's ms, the bound, the streaming
+            floor, the route, the rows of W on chip and the bytes of W read
+            from device memory an iteration (a tree before the routes: its
+            one block a problem).
 
 The last line of the output is one JSON object with every number.
 """
@@ -238,7 +247,7 @@ def bits(libs: dict, dev) -> list:
                               lambda *a: qk._qp_solve_launch(*a, lib=lib), t, qs)))
     cases += [(c["label"], c["launch"]) for c in cs.spd_cases(dev) if c["n"] <= 32]
     cases += [(c["label"], c["launch"]) for c in cs.chunk_cases(dev)]
-    cases += [(c["label"], c["launch"]) for c in cs.chunk_cases(dev, wide=True)]
+    cases += [(c["label"], c["launch"]) for c in cs.chunk_cases(dev, cs.CHUNK_WIDE_SHAPES)]
     for c in cs.btd_cases(dev) + [c for c in cs.btd_wide_cases(dev) if c["bb"] <= 128]:
         cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
             c["t"], c["settings"], c["check_infeas"], lib=lib)))
@@ -521,12 +530,14 @@ def main(argv=None) -> int:
     trees = {"parent": args.parent.resolve(), "change": ROOT}
     timed = {SOURCES[k] for k in kernels}
     jobs = {}
-    if "bits" in parts or "time" in parts or "regs" in parts:
-        sources = (timed if "time" in parts else set()) | (
-            {SOURCES[k] for k in BITS} if {"bits", "regs"} & set(parts) else set())
-        for who, tree in trees.items():
-            jobs[who] = (kernel_library, tree, who, sources)
     split_trees = args.trees.split(",")
+    if {"bits", "time", "regs", "k5rows"} & set(parts):
+        sources = (timed if "time" in parts else set()) | (
+            {SOURCES[k] for k in BITS} if {"bits", "regs"} & set(parts) else set()) | (
+            {SOURCES["k5"]} if "k5rows" in parts else set())
+        for who, tree in trees.items():
+            if {"bits", "time", "regs"} & set(parts) or who in split_trees:
+                jobs[who] = (kernel_library, tree, who, sources)
     if "phases" in parts:
         for src in timed:
             for who, tree in trees.items():
@@ -543,7 +554,8 @@ def main(argv=None) -> int:
     if "k4" in kernels:
         dense += cs.spd_cases(dev)
     if "k5" in kernels:
-        dense += cs.chunk_cases(dev) + cs.chunk_cases(dev, wide=True)
+        dense += [c for shapes in (cs.CHUNK_SHAPES, cs.CHUNK_MID_SHAPES, cs.CHUNK_WIDE_SHAPES)
+                  for c in cs.chunk_cases(dev, shapes)]
     btd = cs.btd_cases(dev) if {"k6", "k7"} & set(kernels) else []
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     if {"k6x", "k7x"} & set(kernels):
@@ -563,6 +575,11 @@ def main(argv=None) -> int:
         result["time"] = timing(libs, dense + aa, btd)
         if "k4" in kernels:
             result["polish_route"] = polish_route(libs, dev)
+    if "k5rows" in parts:
+        cs.log("K5 at the middle sizes, each tree's library:")
+        result["k5rows"] = {who: [cs.compare_chunk(*shape, dev, reps=4, lib=libs[who])
+                                  for shape in cs.CHUNK_MID_SHAPES]
+                            for who in split_trees}
     if "phases" in parts:
         cs.log("phase split (clock64, thread 0 of each block):")
         phase_libs = {src: {who: built[(src, who)] for who in split_trees} for src in timed}

@@ -1,13 +1,14 @@
-"""The fused ADMM chunk (K5) at the wide variant's shapes (D = n + m from
-1025 to 2048), against the JAX package.
+"""The fused ADMM chunk (K5) past the narrow kernel's shapes (D = n + m
+from 289 to 2125: the cluster and stream routes), against the JAX package.
 
 The same numpy inputs, float64, B = 2, seg 3, go through the port's plain
-version ``admm_chunk_reference`` (the oracle that the card holds the wide
-kernel to) and the JAX package's ``admm_chunk_xla``, at an odd D (1025:
-no problem's W after the first starts 16-byte aligned) and an even one
-(1100), each with an equality row and a loose row.  Tolerance: atol =
-rtol = 1e-12 (float64 summed in another order over three iterations of a
-D x D product).
+version ``admm_chunk_reference`` (the oracle that the card holds the
+kernel's routes to) and the JAX package's ``admm_chunk_xla``, at odd Ds
+(289, 1025: no problem's W after the first starts 16-byte aligned) and
+even ones (512; 960, the OSQP control class's dense shape; 1100; 2125,
+the JAX kernel's limit), each with an equality row and a loose row.
+Tolerance: atol = rtol = 1e-12 (float64 summed in another order over
+three iterations of a D x D product).
 
 Then the wide layout's rule, which ``ops/admm_kernel.py:admm_chunk_wide_layout``
 mirrors from ``csrc/admm_kernel.cu:wide_layout`` (the card's tests hold the
@@ -29,7 +30,9 @@ from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "yp")
 
 
-@pytest.mark.parametrize("n,m", [(500, 525), (512, 588)], ids=["D1025-odd", "D1100"])
+@pytest.mark.parametrize(
+    "n,m", [(500, 525), (512, 588), (145, 144), (256, 256), (360, 600), (1062, 1063)],
+    ids=["D1025-odd", "D1100", "D289-odd", "D512", "D960-control", "D2125"])
 def test_admm_chunk_reference_matches_jax_at_wide_shapes(n, m):
     a = admm_chunk_inputs(2, n, m, seed=n, equality_row=True, loose_row=True)
     launches = ak.admm_chunk_launches
@@ -45,8 +48,9 @@ def test_admm_chunk_reference_matches_jax_at_wide_shapes(n, m):
 @pytest.mark.parametrize(
     "n,m,batch,sms",
     [(640, 640, 256, 132), (1024, 1024, 64, 132), (513, 600, 3, 132), (1024, 1024, 256, 132),
-     (2047, 1, 5, 132), (1, 2047, 1000, 132), (700, 700, 40, 114)],
-    ids=["D1280-B256", "D2048-B64", "D1113-B3", "D2048-B256", "m1", "n1", "B40-114SMs"])
+     (2047, 1, 5, 132), (1, 2047, 1000, 132), (700, 700, 40, 114), (1062, 1063, 64, 132)],
+    ids=["D1280-B256", "D2048-B64", "D1113-B3", "D2048-B256", "m1", "n1", "B40-114SMs",
+         "D2125-B64"])
 def test_admm_chunk_wide_layout_rule(n, m, batch, sms):
     D = n + m
     lay = ak.admm_chunk_wide_layout(n, m, batch, sms=sms)
@@ -75,7 +79,8 @@ def test_admm_chunk_wide_layout_forced_cluster_and_refusals():
         assert lay["cluster"] == c and lay["blocks"] == 64 * c
     with pytest.raises(ValueError):
         ak.admm_chunk_wide_layout(512, 512, 4)  # D = 1024: the narrow kernel's
+    assert ak.admm_chunk_wide_layout(1062, 1063, 4)["rows_max"] == 266  # D = 2125, clusters of 8
     with pytest.raises(ValueError):
-        ak.admm_chunk_wide_layout(1024, 1025, 4)  # D = 2049: refused
+        ak.admm_chunk_wide_layout(1063, 1063, 4)  # D = 2126: past the JAX kernel's limit
     with pytest.raises(ValueError):
         ak.admm_chunk_wide_layout(1024, 1024, 4, cluster=3)

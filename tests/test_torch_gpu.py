@@ -615,23 +615,31 @@ CHUNK_ARGS = ("W", "P", "A", "qv", "scale1", "rhoip", "rhop", "lp", "up", "s", "
      (17, 32, 33, 0, False), (17, 32, 33, 1, False), (9, 128, 129, 1, False),
      (12, 100, 180, 3, False), (6, 500, 600, 5, False), (2, 1024, 1024, 3, False),
      (5, 513, 600, 4, False), (3, 600, 620, 5, False), (5, 700, 500, 0, False),
-     (5, 700, 500, 1, False), (4, 513, 600, 3, True)],
+     (5, 700, 500, 1, False), (4, 513, 600, 3, True), (4, 145, 144, 3, False),
+     (5, 300, 301, 4, False), (6, 256, 256, 5, False), (7, 256, 256, 3, False),
+     (5, 256, 256, 0, False), (5, 256, 256, 1, False), (4, 256, 256, 3, True),
+     (3, 360, 600, 4, False), (3, 512, 512, 3, False), (2, 1062, 1063, 3, False),
+     (3, 1062, 1063, 0, False)],
     ids=["D65-seg10", "D65-seg25", "D48", "D257-rows-in-registers", "D801", "D37-odd-batch",
          "seg0", "seg1", "D257-seg1", "D280-rows-in-registers", "D1100-wide",
          "D2048", "D1113-odd-wide", "D1220-B3-cluster8", "D1200-seg0", "D1200-seg1",
-         "D1113-nan-W"],
+         "D1113-nan-W", "D289-odd", "D601-odd", "D512", "D512-odd-batch", "D512-seg0",
+         "D512-seg1", "D512-nan-W", "D960-control", "D1024", "D2125", "D2125-seg0"],
 )
 def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg, nan_w):
-    """One chunk, float32 kernel against float32 plain version at 1e-4.
-    At D = 257 and 280 part of W does not fit in shared memory and is held
-    in registers; at D = 801 the rest is read from device memory.  At an
-    odd D no problem's W after the first starts 16-byte aligned (4-byte
-    copies in the narrow kernel; in the wide one bulk copies of the aligned
-    window and the head or tail at W's ends by one thread).  Past D = 1024
-    the wide variant: W streamed through the ring, a cluster of blocks a
-    problem (B = 3: clusters of 8).  With ``nan_w`` one problem's W holds
-    a NaN (a failed factor): its outputs are NaN where the plain version's
-    are, the other problems' are unaffected."""
+    """One chunk, float32 kernel against float32 plain version at 1e-4, on
+    the route the layout rule takes.  At D = 257 and 280 part of W does
+    not fit in shared memory and is held in registers (the narrow route).
+    From D = 289 to 1024 the cluster route where a portable cluster's
+    shared memory holds W (D = 289, 512, 601: W on chip for the whole
+    chunk), else the stream route (D = 801, 960, 1024).  At an odd D no
+    problem's W after the first starts 16-byte aligned (4-byte copies in
+    the narrow kernel; in the ring bulk copies of the aligned window and
+    the head or tail at W's ends by one thread).  Past D = 1024 the stream
+    route (B = 3: clusters of 8), up to the JAX kernel's limit D = 2125.
+    With ``nan_w`` one problem's W holds a NaN (a failed factor): its
+    outputs are NaN where the plain version's are, the other problems'
+    are unaffected."""
     from sqp_solver_tpu_torch.ops import admm_kernel as ak
     from sqp_solver_tpu_torch.testing import admm_chunk_inputs
 
@@ -651,16 +659,18 @@ def test_admm_chunk_kernel_matches_plain(cuda, batch, n, m, seg, nan_w):
         assert bool(ok[0][1].isnan().any()) and bool(ok[2][1].isnan().all())
         others = [i for i in range(batch) if i != 1]
         assert all(bool(torch.isfinite(x[others]).all()) for x in ok)
-    lay = ak.admm_chunk_layout(n, m)
-    assert lay["smem_rows"] == ak.admm_chunk_smem_rows(n, m)
+    lay = ak.admm_chunk_layout(n, m, batch)
+    assert lay["smem_rows"] == ak.admm_chunk_smem_rows(n, m, batch)
     assert lay["smem_rows"] + lay["register_rows"] + lay["device_rows"] == n + m
-    if n + m <= 288:  # what shared memory cannot hold, registers do
-        assert lay["device_rows"] == 0
+    if n + m <= 288:  # the narrow route: what shared memory cannot hold, registers do
+        assert lay["route"] == "narrow" and lay["device_rows"] == 0
         assert (lay["register_rows"] > 0) == (n + m in (257, 280))
-    else:
-        assert lay["register_rows"] == 0 and lay["device_rows"] > 0
-    if n + m > 1024:  # every row of W streams from device memory every iteration
-        assert lay["device_rows"] == n + m
+    elif lay["route"] == "cluster":  # W on chip over the cluster for the whole chunk
+        assert n + m in (289, 512, 601)
+        assert lay["smem_rows"] == n + m and lay["register_rows"] == lay["device_rows"] == 0
+    else:  # every row of W streams from device memory every iteration
+        assert lay["route"] == "stream" and lay["device_rows"] == n + m
+    if n + m > 1024:
         _assert_wide_layout(ak, n, m, batch, cuda)
 
 
@@ -669,7 +679,8 @@ def _assert_wide_layout(ak, n, m, batch, cuda, cluster=0):
     cluster, the stages (one a consumer warp) of whole rows of W, shared
     memory a block within 227 KB, and the runtime holding the blocks an SM
     that the layout counts on."""
-    card = ak.admm_chunk_wide_layout_card(n, m, batch, cluster, device=cuda)
+    card = ak.admm_chunk_layout(n, m, batch, cluster=cluster, device=cuda)
+    assert card["route"] == "stream"
     mirror = ak.admm_chunk_wide_layout(n, m, batch, cluster, sms=card["sms"])
     for key in ("cluster", "threads", "stages", "stage_floats", "rows_stage", "smem_bytes",
                 "blocks_per_sm", "rows_max", "prow_max"):
@@ -760,16 +771,165 @@ def test_admm_chunk_wrappers(cuda):
     stream = torch.cuda.current_stream(cuda).cuda_stream
     import ctypes
 
-    for bad in (3, 16):
-        rc = lib.admm_chunk_launch_as(bad, *map(_ptr, wargs + outs), 1, 600, 500, 1.6, -0.6, 3,
-                                      cuda.index or 0, ctypes.c_void_p(stream))
+    for route, bad in ((0, 3), (0, 16), (ak.ROUTES["narrow"], 0), (ak.ROUTES["cluster"], 8)):
+        rc = lib.admm_chunk_launch_as(route, bad, *map(_ptr, wargs + outs), 1, 600, 500, 1.6,
+                                      -0.6, 3, cuda.index or 0, ctypes.c_void_p(stream), None)
         assert rc != 0
-    # D = 2049: past the wide variant's limit, refused unlaunched
-    n, m = 1024, 1025
+    # D = 2126: past the JAX kernel's limit, refused unlaunched
+    n, m = 1063, 1063
     big = [torch.zeros((1, n + m, n + m), device=cuda), torch.zeros((1, n, n), device=cuda),
            torch.zeros((1, m, n), device=cuda)] + [torch.zeros((1, n + m), device=cuda)] * 8
     before = ak.admm_chunk_launches
-    with pytest.raises(ValueError, match="exceeds 2048"):
+    with pytest.raises(ValueError, match="exceeds 2125"):
+        ak.admm_chunk_kernel(*big, alpha=1.6, seg=3)
+    assert ak.admm_chunk_launches == before
+
+
+def _chunk_check(ak, cuda, batch, n, m, seg, seed, route=None, cluster=None):
+    """One launch (the route and cluster forced where given) against the
+    plain version at 1e-4; returns the layout it took."""
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    t = _to(admm_chunk_inputs(batch, n, m, seed=seed), cuda)
+    args = [t[k] for k in CHUNK_ARGS]
+    ak.reset_route_counts()
+    ok = ak._admm_chunk_launch(*args, alpha=1.6, seg=seg, route=route, cluster=cluster)
+    ref = ak.admm_chunk_reference(*args, alpha=1.6, seg=seg)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("s", "yp", "stats"), ok, ref):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda msg, name=name: f"{name}: {msg}")
+    lay = ak.admm_chunk_layout(n, m, batch, route, cluster or 0)
+    assert ak.route_counts() == {k: int(k == lay["route"]) for k in ak.ROUTES}
+    return lay
+
+
+def _largest_cluster_d(ak):
+    """The largest D (n = D // 2) that the layout rule puts on the cluster route."""
+    return max(d for d in range(289, 1025) if ak.admm_chunk_layout(d // 2, d - d // 2, 1024)[
+        "route"] == "cluster")
+
+
+def test_admm_chunk_route_rule_on_the_card(cuda):
+    """The layout rule through its C entry (``admm_chunk_route_layout``)
+    over D = 2-2125: narrow up to 288, the cluster route from 289 wherever
+    a portable cluster holds W and the stream route elsewhere; on the
+    cluster route W is on chip (no row from device memory), the clusters'
+    row ranges cover D, a block's shared memory fits 227 KB, its stages
+    hold its rows (ceil(rows / 8) a stage), the runtime holds the blocks an
+    SM the layout counts on, and no smaller portable cluster holds W with
+    as many blocks an SM; where the stream route is taken below D = 1025,
+    no portable cluster holds W."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+
+    for D in list(range(2, 300, 7)) + list(range(289, 1025, 13)) + [512, 640, 641, 960, 1024,
+                                                                      1025, 2048, 2049, 2125]:
+        for n in sorted({max(1, D // 8), D // 2, D - max(1, D // 8)}):
+            m = D - n
+            if n < 1 or m < 1:
+                continue
+            lay = ak.admm_chunk_layout(n, m, 1024)
+            assert lay["route"] == ("narrow" if D <= 288 else "stream" if D > 1024 else
+                                    lay["route"]), (n, m)
+            assert lay["smem_rows"] + lay["register_rows"] + lay["device_rows"] == D
+            if lay["route"] == "narrow":
+                continue
+            c = lay["cluster"]
+            ranges = [(D * r // c, D * (r + 1) // c) for r in range(c)]
+            assert max(r1 - r0 for r0, r1 in ranges) == lay["rows_max"] == -(-D // c)
+            assert lay["smem_bytes"] <= 232448 and lay["resident"] >= lay["blocks_per_sm"] >= 1
+            assert lay["active_clusters"] >= 1
+            portable = {}
+            for k in (2, 4, 8):
+                try:
+                    portable[k] = ak.admm_chunk_layout(n, m, 1024, "cluster", k)["blocks_per_sm"]
+                except ValueError:
+                    pass
+            if lay["route"] == "cluster":
+                assert lay["device_rows"] == 0 and lay["smem_rows"] == D
+                assert lay["stages"] * lay["rows_stage"] >= lay["rows_max"]
+                # the fewest blocks a problem with two blocks an SM, else the fewest
+                assert c in portable and all(k >= c or portable[k] < portable[c]
+                                             for k in portable)
+                assert portable[c] == 2 or all(v == 1 for v in portable.values())
+            else:
+                assert lay["device_rows"] == D and not portable
+
+
+def test_admm_chunk_largest_cluster_d_and_the_next_match_plain(cuda):
+    """The largest D the cluster route takes (n = D // 2), with W on chip,
+    and the next D, which streams W: each against the plain version."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+
+    D = _largest_cluster_d(ak)
+    assert 600 <= D < 700
+    lay = _chunk_check(ak, cuda, 5, D // 2, D - D // 2, 4, seed=D)
+    assert lay["route"] == "cluster" and lay["device_rows"] == 0
+    lay = _chunk_check(ak, cuda, 5, (D + 1) // 2, D + 1 - (D + 1) // 2, 4, seed=D + 1)
+    assert lay["route"] == "stream" and lay["device_rows"] == D + 1
+
+
+@pytest.mark.parametrize("n,m", [(145, 144), (256, 256)], ids=["D289-odd", "D512"])
+def test_admm_chunk_forced_routes_match_plain(cuda, n, m):
+    """Every route and cluster that fits, forced, against the plain version:
+    the narrow kernel (rows of W it cannot hold from device memory), the
+    cluster route at 2, 4, 8 and 16 blocks a problem (16: a non-portable
+    cluster) and the stream route at 1, 2, 4 and 8; those that do not fit
+    are refused unlaunched."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    fitted = []
+    for route, c in ([("narrow", None)] + [("cluster", k) for k in (2, 4, 8, 16)]
+                     + [("stream", k) for k in (1, 2, 4, 8)]):
+        try:
+            ak.admm_chunk_layout(n, m, 3, route, c or 0)
+        except ValueError:
+            before = ak.admm_chunk_launches
+            t = _to(admm_chunk_inputs(3, n, m, seed=1), cuda)
+            with pytest.raises(ValueError, match="does not fit"):
+                ak._admm_chunk_launch(*[t[k] for k in CHUNK_ARGS], alpha=1.6, seg=3,
+                                      route=route, cluster=c)
+            assert ak.admm_chunk_launches == before
+            continue
+        lay = _chunk_check(ak, cuda, 3, n, m, 3, seed=n + (c or 0), route=route, cluster=c)
+        assert lay["route"] == route and (c is None or lay["cluster"] == c)
+        fitted.append((route, c))
+    want_cluster = {289: (2, 4, 8, 16), 512: (8, 16)}[n + m]
+    assert [c for r, c in fitted if r == "cluster"] == list(want_cluster)
+    assert [c for r, c in fitted if r == "stream"] == [1, 2, 4, 8]
+    assert ("narrow", None) in fitted
+
+
+def test_admm_chunk_refuses_what_does_not_fit(cuda):
+    """A forced route or cluster that does not fit is refused unlaunched
+    with a clear error: the cluster route where its blocks cannot hold W,
+    the stream route at D <= 288, the narrow kernel past D = 1024, a
+    cluster of 16 on the stream route, a cluster that is no power of two,
+    and a route that does not exist; and D = 2126, past the JAX kernel's
+    limit."""
+    from sqp_solver_tpu_torch.ops import admm_kernel as ak
+    from sqp_solver_tpu_torch.testing import admm_chunk_inputs
+
+    def launch(n, m, **kw):
+        t = _to(admm_chunk_inputs(2, n, m, seed=3), cuda)
+        return ak._admm_chunk_launch(*[t[k] for k in CHUNK_ARGS], alpha=1.6, seg=2, **kw)
+
+    before = ak.admm_chunk_launches
+    for n, m, kw in ((256, 256, dict(route="cluster", cluster=4)),
+                     (360, 600, dict(route="cluster")), (100, 100, dict(route="stream")),
+                     (600, 500, dict(route="narrow")), (600, 500, dict(cluster=16)),
+                     (256, 256, dict(cluster=3))):
+        with pytest.raises(ValueError, match="does not fit"):
+            launch(n, m, **kw)
+    with pytest.raises(ValueError, match="route"):
+        launch(256, 256, route="tiles")
+    assert ak.admm_chunk_launches == before
+    with pytest.raises(ValueError, match="exceeds 2125"):
+        ak.admm_chunk_layout(1063, 1063, 1)
+    n, m = 1063, 1063
+    big = [torch.zeros((1, n + m, n + m), device=cuda), torch.zeros((1, n, n), device=cuda),
+           torch.zeros((1, m, n), device=cuda)] + [torch.zeros((1, n + m), device=cuda)] * 8
+    with pytest.raises(ValueError, match="exceeds 2125"):
         ak.admm_chunk_kernel(*big, alpha=1.6, seg=3)
     assert ak.admm_chunk_launches == before
 
