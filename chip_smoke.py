@@ -3049,11 +3049,14 @@ def aa_long_cases(dev) -> list:
     iterate's name, its placement's kernel and shape, whether it is held
     relative to the plain float32 version (the wide K6, as at memory 4),
     ``bound_of(out, settings)``, and ``entry``: the kernel line's entry its
-    timed row joins."""
+    timed row joins.  Each launch takes a kernel library (``lib``, the
+    package's by default), as ``tools/kernel_ab.py`` passes one
+    (:func:`aa_memory_cases`)."""
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
 
     cases = [dict(label="K1 n=32 B=4096", kernel="K1", n=32, m=33, t=step_operands(4096, 32, dev),
-                  launch=lambda t, st: step_call(qk.sqp_step_kernel, t, st),
+                  batch=4096,
+                  launch=lambda t, st, lib=None: step_call(qk._sqp_step_launch, t, st, lib=lib),
                   plain=lambda t, st: step_call(qk.sqp_step_reference, t, st),
                   settings=k1_aa_settings(), x="p", kw={}, entry="sqp_step",
                   bound_of=lambda out, st: step_bound(out, st, 4096, 32))]
@@ -3061,8 +3064,8 @@ def aa_long_cases(dev) -> list:
     for layout in ("warp", "block"):
         cases.append(dict(
             label=f"K3 random n=32 m=33 B=4096 ({layout} layout)", kernel=f"K3-{layout}", n=32,
-            m=33, t=t, launch=lambda t, st, layout=layout: qp_raw(
-                lambda *a: qk._qp_solve_launch(*a, layout=layout), t, st),
+            m=33, t=t, batch=4096, launch=lambda t, st, lib=None, layout=layout: qp_raw(
+                lambda *a: qk._qp_solve_launch(*a, layout=layout, lib=lib), t, st),
             plain=lambda t, st: qp_raw(qk.qp_solve_reference, t, st), settings=k3_aa_settings(),
             x="x", kw={}, entry="qp_solve",
             bound_of=lambda out, st: qp_bound(out, st, 4096, 32, 33)))
@@ -3075,7 +3078,8 @@ def aa_long_cases(dev) -> list:
         ci = c["check_infeas"]
         cases.append(dict(
             label=f"{c['label']} cluster", kernel=kernel, n=c["n"], m=c["m"], t=c["t"],
-            launch=lambda t, st, ci=ci: btd_launch(t, st, ci, cluster=2),
+            batch=c["batch"],
+            launch=lambda t, st, lib=None, ci=ci: btd_launch(t, st, ci, cluster=2, lib=lib),
             plain=lambda t, st, ci=ci: btd_plain(t, st, ci), settings=c["settings"], x="x",
             kw=dict(bb=c["bb"], cluster=2), entry=entry,
             bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"],
@@ -3085,11 +3089,37 @@ def aa_long_cases(dev) -> list:
         ci = c["check_infeas"]
         cases.append(dict(
             label=f"wide {c['label']} bb=64", kernel="wide", n=c["n"], m=c["m"], t=c["t"],
-            launch=lambda t, st, ci=ci: btd_launch(t, st, ci),
+            batch=c["batch"], launch=lambda t, st, lib=None, ci=ci: btd_launch(t, st, ci, lib=lib),
             plain=lambda t, st, ci=ci: btd_plain(t, st, ci), settings=c["settings"], x="x",
             kw=dict(bb=64, cluster=2), relative=ci, entry=entry,
             bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"], 64,
                                                     A=c["t"]["J"])))
+    return cases
+
+
+# tools/kernel_ab.py's key of each aa_long_cases kernel
+AA_LONG_KEYS = {"K1": "k1aa", "K3-warp": "k3aa", "K3-block": "k3aa", "K6": "k6aa", "K7": "k7aa",
+                "wide": "k6waa"}
+
+
+def aa_memory_cases(dev, memory: int = AA_LONG_MEMORY, long_cases=None) -> list:
+    """Leg G's cases past memory 32 (``long_cases``, by default
+    ``aa_long_cases``: chunks of 2, rho every 120) at ``memory``, in the
+    form of ``aa_cases`` for ``tools/kernel_ab.py --memory``: ``launch(lib)``
+    at that memory and ``launch_none(lib)`` at memory 4 in the same
+    settings (the memory-4 row kept beside each timing), each case's thread
+    blocks and chunk length."""
+    cases = []
+    for c in long_cases if long_cases is not None else aa_long_cases(dev):
+        st, st4 = aa_long_settings(c["settings"], memory), aa_long_settings(c["settings"], 4)
+        blocks = c["batch"] // 2 if c["kernel"] == "K3-warp" else c["batch"] * (
+            2 if "cluster" in c["kw"] else 1)
+        cases.append(dict(
+            label=f"{c['label']} Anderson memory {memory}", kernel=AA_LONG_KEYS[c["kernel"]],
+            placement=c["kernel"], memory=memory, n=c["n"], m=c["m"], batch=c["batch"],
+            blocks=blocks, seg=st.check_termination, reps=2, none_label="memory 4", **c["kw"],
+            launch=lambda lib, c=c, st=st: c["launch"](c["t"], st, lib=lib),
+            launch_none=lambda lib, c=c, st4=st4: c["launch"](c["t"], st4, lib=lib)))
     return cases
 
 
@@ -3123,7 +3153,7 @@ def aa_fixed_against_f64(label: str, c: dict, st, iters: int) -> dict:
     return err
 
 
-def run_anderson_long(dev, card: str, reps: int = 2) -> dict:
+def run_anderson_long(dev, card: str, phase_libs: dict, reps: int = 2) -> dict:
     """Leg G past memory 32: each Anderson kernel at memory 40
     (``aa_long_cases``, ``aa_long_settings``: chunks of 2, rho every 120)
     held against its plain version and float64 under the bars of the
@@ -3132,12 +3162,15 @@ def run_anderson_long(dev, card: str, reps: int = 2) -> dict:
     for 100 iterations, every problem past the wrap
     (``aa_fixed_against_f64``); the Gram area's and the
     ring's placement and the blocks an SM from the launcher
-    (``anderson_placement_card``) against the rule's mirror; and each
-    kernel timed at memory 40 beside memory 4 in the same settings, with
-    the plain version and the bound (``timed``: the rows by the kernel
-    line's entry)."""
+    (``anderson_placement_card``) against the rule's mirror, and for K1
+    and K3 where the chunk's system went (``solve``) and the step's split a
+    chunk from the phase-clock build of their Anderson unit (``phase_libs``,
+    ``tools/kernel_ab.py:aa_split``); and each kernel timed at memory 40
+    beside memory 4 in the same settings, with the plain version and the
+    bound (``timed``: the rows by the kernel line's entry)."""
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.tools.kernel_ab import AA_PHASES, aa_split
 
     rows, timed = [], {}
     k = AA_LONG_MEMORY
@@ -3165,8 +3198,11 @@ def run_anderson_long(dev, card: str, reps: int = 2) -> dict:
                                  f"differs from the rule's mirror {mirror} in {differ}")
         blocks = (f", blocks an SM {on_card['blocks']} with Anderson, "
                   f"{on_card['twin_blocks']} without" if "blocks" in on_card else "")
+        solve = (f", the chunk's system {on_card['solve']}" + (
+            f" ({on_card['solve_floats']} floats of shared memory a block)"
+            if on_card["solve_floats"] else "") if "solve" in on_card else "")
         log(f"  {c['label']} memory {k} (chunks of 2, rho every 120): Gram area "
-            f"{'in shared memory' if on_card['gram'] else 'in the workspace'}, ring "
+            f"{'in shared memory' if on_card['gram'] else 'in the workspace'}{solve}, ring "
             f"{'in shared memory' if on_card['ring'] else 'in the workspace'} "
             f"({on_card['smem_bytes']} bytes of shared memory a block{blocks}); iter and rho "
             f"agree with f64 on kernel {r['kernel']['agree']:.4f} / plain f32 "
@@ -3178,6 +3214,14 @@ def run_anderson_long(dev, card: str, reps: int = 2) -> dict:
         row = dict(case=c["label"], memory=k, placement=on_card, wrapped=wrapped, fixed=fixed,
                    agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
                    max_abs_err=r["kernel"]["max_err"], max_abs_err_plain=r["plain"]["max_err"])
+        if "solve" in on_card:  # K1, K3: the step's split a chunk
+            split = aa_split(phase_libs["qp_kernel_aa.cu"], aa_memory_cases(dev, k, [c])[0])
+            per = split["cycles_per_chunk"]
+            log(f"  {c['label']} memory {k}: the step {split['step_per_chunk']:.0f} cycles a "
+                "chunk a block (" + ", ".join(f"{p[2:]} {per[p]:.0f}" for p in AA_PHASES)
+                + f"), the solve {per['aasolve'] / split['step_per_chunk']:.3f} of it; the "
+                f"plain stats {per['stats']:.0f}, over {split['chunks']:.1f} chunks [{card}]")
+            row["split"] = split
         t, launch = c["t"], c["launch"]
         st4 = aa_long_settings(c["settings"], 4)
         ms, ms4 = cuda_ms(lambda: launch(t, st), reps), cuda_ms(lambda: launch(t, st4), reps)
@@ -3926,7 +3970,7 @@ def main() -> int:
     aa_run["placement"] = aa_report(dev, phase_libs, card)
     log(f"G. the Anderson kernels past memory 32: memory {AA_LONG_MEMORY}, chunks of 2, the "
         "ring filling and wrapping:")
-    aa_run["long"] = run_anderson_long(dev, card)
+    aa_run["long"] = run_anderson_long(dev, card, phase_libs)
     leg_s["G"] = time.perf_counter() - t_leg
     t_leg = time.perf_counter()
     log("H. the linear-solver backends at the JAX bench's shapes:")

@@ -387,6 +387,19 @@ struct AaArgs {
   int gram_ws;  // the Gram area at the head of the workspace slice (k > kAaGramSmemMemory)
 };
 
+// The second argument of K1's and K3's Anderson kernels whose Gram area is
+// in the workspace (the _aas instantiations; the others keep AaArgs alone,
+// as they were): where the chunk's system goes (AaSolve, aa_sys), a solve
+// area at sys_off floats of the block's shared memory, sys_stride floats a
+// scope (the area a scope) or one area the scopes take in turn, or a slice
+// of sys_ws (the workspace after the scopes' slices).
+struct AaSysArgs {
+  int solve;
+  long long sys_off;
+  int sys_stride;
+  float* sys_ws;
+};
+
 // Matrix placement: the first n_smem of the sizes go to shared memory after
 // the vectors, the rest to this problem's slice of the workspace.
 template <int K>
@@ -523,7 +536,9 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
 //            (a pair's dot products do not change while it is held; a rho
 //            change empties the ring and with it the kept entries)
 //     Ga     k x (k + 1): the chunk's normal equations [G + reg | rhs] in
-//            the ring's logical order, solved in place (aa_solve)
+//            the ring's logical order, solved in place (aa_solve); where
+//            the Gram area is in the workspace, K1 and K3 put Ga where
+//            AaSysArgs::solve says (AaSolve, aa_sys, aa_solve_sys)
 //   the ring (aa_ring_floats(k, n, m) floats), in shared memory after the
 //   Gram area where the launcher's rule puts it (only where the Gram is
 //   there too), else in the scope's slice of the device workspace, after
@@ -542,8 +557,8 @@ constexpr int kAaGroup = kRedSlots / 32;  // dot products reduced at once
 constexpr int kAaSlots = kAaGroup / 2;    // pairs a group: their Gram entry and rhs
 // Up to this memory every launch keeps the Gram area in shared memory (the
 // kernels' bound on k before the area could leave it: 2,080 floats at 32).
-// Past it, an area in the workspace costs the step more than the rest of
-// it: aa_solve's k pivots each wait on device memory (PERF.md).
+// Past it, a Gram area in the workspace made aa_solve's k pivots each wait
+// on device memory (PERF.md), so there K1 and K3 solve off the Gram area.
 constexpr int kAaGramSmemMemory = 32;
 
 __host__ __device__ constexpr int aa_gram_floats(int k) { return round4(k * k + k * (k + 1)); }
@@ -551,10 +566,35 @@ __host__ __device__ constexpr long long aa_ring_floats(int k, int n, int m) {
   return (2LL * k + 4) * (n + 2LL * m);
 }
 // A scope's workspace slice: the ring, after the Gram area where that is not
-// in shared memory (the slice has room for both either way).
+// in shared memory (the slice has room for both either way).  The launches
+// of K1 and K3 whose system goes to the workspace (kAaSolveWorkspace) put
+// it after the slices, aa_solve_floats a scope (admm_aa_floats below
+// counts it in each scope's share of the allocation).
 __host__ __device__ constexpr long long aa_floats(int k, int n, int m) {
   return aa_gram_floats(k) + aa_ring_floats(k, n, m);
 }
+
+// Where the chunk's system Ga goes when the Gram area is in the workspace
+// (AaSysArgs::solve; K1's and K3's rule, qp_kernel.cu:aa_dense_plan, picks):
+//   kAaSolveGram       beside Gk in the Gram area (every launch whose Gram
+//                      area is in shared memory, and the structured kernels)
+//   kAaSolveScope      a solve area of aa_solve_floats(k) floats a scope in
+//                      shared memory
+//   kAaSolveBlock      one solve area a block, after its lock word, which
+//                      the block's scopes take in turn (K3's warp layout)
+//   kAaSolveWorkspace  a slice of AaSysArgs::sys_ws in device memory
+// Gk stays in the workspace on the last three: a chunk reads it once.
+enum AaSolve { kAaSolveGram = 0, kAaSolveScope = 1, kAaSolveBlock = 2, kAaSolveWorkspace = 3 };
+
+// A solve area holds the system by columns: column c (c = k the right-hand
+// side, gamma after the solve) at c * aa_solve_ldc(k), its k rows padded to
+// a multiple of 8.  The stride is 4 x an odd number, so that the 16-byte
+// reads of eight lanes at one row fall on eight distinct bank groups.
+__host__ __device__ constexpr int aa_solve_ldc(int k) { return ((k + 7) & ~7) + 4; }
+__host__ __device__ constexpr int aa_solve_floats(int k) { return aa_solve_ldc(k) * (k + 1); }
+// floats before a block's solve areas: the lock word of kAaSolveBlock, and
+// the room to put the areas at a multiple of 4 floats
+constexpr int kAaSolveHead = 4;
 
 // Blocks an SM that shared memory allows at smem_bytes a block on sm_90
 // (228 KB an SM, 1 KB reserved a block): the placement rules keep the ring
@@ -583,6 +623,31 @@ __device__ __forceinline__ AaState aa_state(const AaArgs& a, float* smem, int sc
   float* g = a.gram_ws ? w : smem + a.sm_off + (size_t)scope * a.sm_stride;
   float* r = a.ring_sm ? g + aa_gram_floats(a.k) : w + (a.gram_ws ? aa_gram_floats(a.k) : 0);
   return AaState{r, g, a.k};
+}
+
+// The chunk's system of a scope that solves off the Gram area (AaSysArgs::
+// solve past kAaSolveGram): Ga by columns (aa_solve_ldc), and the right-hand
+// side (gamma after the solve) of logical pair a at gv[a]: Ga's last column
+// where the scope owns Ga, else the head of the scope's slice of sys_ws (a
+// block's solve area is the scope's only for its turn); lock: the block's
+// area's lock word, or null.
+struct AaSys {
+  float* ga;
+  float* gv;
+  int* lock;
+};
+
+__device__ __forceinline__ AaSys aa_sys(const AaSysArgs& a, int k, float* smem, int scope,
+                                        size_t slice) {
+  float* room = a.sys_ws + slice * aa_solve_floats(k);
+  const size_t last = (size_t)k * aa_solve_ldc(k);
+  if (a.solve == kAaSolveScope) {
+    float* ga = smem + a.sys_off + (size_t)scope * a.sys_stride;
+    return AaSys{ga, ga + last, nullptr};
+  }
+  if (a.solve == kAaSolveBlock)
+    return AaSys{smem + a.sys_off, room, reinterpret_cast<int*>(smem + a.sys_off - 1)};
+  return AaSys{room, room + last, nullptr};
 }
 
 // prev_ok: the previous chunk's output is in uT and f; pairs: the pairs
@@ -655,11 +720,257 @@ __device__ __noinline__ void aa_solve(const float* Gk, float* Ga, int k, int lo,
   }
 }
 
+// The same normal equations and elimination, every value of gamma with the
+// same bits, on a system off the Gram area (AaSys; Gk in the workspace), by
+// every thread of the scope S.  The system is stored by columns (column k
+// the right-hand side, gamma after the solve), each of k8 rows (k padded
+// to 8) and 4 spare floats.  At pivot i the live columns are i + 1, ..., k
+// (a column pivoted already is dead: no later pivot reads it as a factor
+// or a pivot entry, and gamma is column k, so it is left as it is).  Each
+// live column's pivot entry is scaled first, G_ic * (1 / G_ii) as the
+// serial order of aa_solve stores it, into the column's row k8 (spare);
+// after a sync the work is items of 8 rows of one live column, spread over
+// the scope's threads, two at a time with their loads in flight before
+// their stores: an item reads its rows of column i (the factor, the same
+// for every column: a broadcast), of its own column and the scaled entry,
+// writes its rows with G_rc - G_ri (G_ic / G_ii), the product the serial
+// order uses, and row i with the scaled entry (the pivot row); then a sync.
+// No item reads what another writes in that pivot.  (Rows on the lanes,
+// aa_solve, read 4 bytes a line an instruction and chain a lane's k + 1
+// updates a row: in device memory the solve waited on L2's bandwidth, in
+// shared memory on those chains; a column a lane chained k / 8 reads a
+// column.)  The fill reads Gk by rows (it is symmetric: both entries of a
+// pair hold the one dot product).  A block's solve area is taken under its
+// lock, and gamma copied to the scope's vector before the lock is let go.
+template <class S>
+__device__ __noinline__ void aa_solve_sys(const float* Gk, AaSys sys, int k, int lo, int s_lo) {
+  constexpr int T = 8;  // the trace's loads at once
+  const int rank = S::rank(), size = S::size();
+  const int k1 = k + 1, ldc = aa_solve_ldc(k), k8 = (k + 7) & ~7, nch = k8 / 8;
+  float* Ga = sys.ga;
+  if (sys.lock) {  // the block's area, in turn with its other scopes
+    if (rank == 0) {
+      while (atomicCAS(sys.lock, 0, 1) != 0) __nanosleep(64);
+      __threadfence_block();
+    }
+    S::sync();
+  }
+  auto slot = [&](int a) { return s_lo + a - lo >= k ? s_lo + a - lo - k : s_lo + a - lo; };
+  float tr = 0.f;
+#pragma unroll 1
+  for (int a0 = lo; a0 < k; a0 += T) {
+    float d[T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const int s = slot(min(a0 + j, k - 1));
+      d[j] = Gk[s * k + s];
+    }
+#pragma unroll
+    for (int j = 0; j < T; ++j)
+      if (a0 + j < k) tr += d[j];
+  }
+  const float reg = 1e-8f * (tr + 1.f);
+  // column c of G is row c of Gk at the rows' slots, 16 rows' loads in
+  // flight at once; column k the right-hand side
+#pragma unroll 1
+  for (int c = rank; c < k1; c += size) {
+    float* col = Ga + (size_t)c * ldc;
+    const float* gc = c == k ? sys.gv : Gk + (c >= lo ? slot(c) : 0) * k;
+    const bool live = c >= lo;
+#pragma unroll 1
+    for (int r0 = 0; r0 < k8; r0 += 16) {
+      float g[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int r = r0 + j;
+        g[j] = live && r >= lo && r < k ? gc[c == k ? r : slot(r)] : 0.f;
+        if (r == c) g[j] += reg + (r < lo ? 1.f : 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; j += 4)
+        if (r0 + j < k8)
+          *reinterpret_cast<float4*>(col + r0 + j) = make_float4(g[j], g[j + 1], g[j + 2], g[j + 3]);
+    }
+  }
+  S::sync();
+  // this thread's first item at every pivot: column i + 1 + c0, rows 8 ch0 on
+  const int c0 = rank / nch, ch0 = rank - c0 * nch, dc = size / nch, dch = size - dc * nch;
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) {
+    const float* fc = Ga + (size_t)i * ldc;  // the factor column
+    const float inv = 1.f / fc[i];
+    // each live column's pivot entry G_ic * 1 / G_ii into its row k8 (padding)
+    for (int c = i + 1 + rank; c < k1; c += size) {
+      float* col = Ga + (size_t)c * ldc;
+      col[k8] = col[i] * inv;
+    }
+    S::sync();
+    const int items = (k - i) * nch, ci = i >> 3;
+    int c = i + 1 + c0, ch = ch0;
+#pragma unroll 1
+    for (int q = rank; q < items; q += 2 * size) {
+      // this item and this thread's next one (c2, ch2), where there is one
+      int c2 = c + dc, ch2 = ch + dch;
+      if (ch2 >= nch) {
+        ch2 -= nch;
+        ++c2;
+      }
+      const bool two = q + size < items;
+      if (!two) c2 = c;
+      float* v = Ga + (size_t)c * ldc;
+      float* v2 = Ga + (size_t)c2 * ldc;
+      const float4* f = reinterpret_cast<const float4*>(fc + 8 * ch);
+      const float4* f2 = reinterpret_cast<const float4*>(fc + 8 * ch2);
+      float4* w = reinterpret_cast<float4*>(v + 8 * ch);
+      float4* w2 = reinterpret_cast<float4*>(v2 + 8 * ch2);
+      const float p = v[k8], p2 = v2[k8];
+      const float4 A0 = f[0], A1 = f[1], V0 = w[0], V1 = w[1];
+      const float4 B0 = f2[0], B1 = f2[1], W0 = w2[0], W1 = w2[1];
+      w[0] = make_float4(fmaf(-A0.x, p, V0.x), fmaf(-A0.y, p, V0.y), fmaf(-A0.z, p, V0.z),
+                         fmaf(-A0.w, p, V0.w));
+      w[1] = make_float4(fmaf(-A1.x, p, V1.x), fmaf(-A1.y, p, V1.y), fmaf(-A1.z, p, V1.z),
+                         fmaf(-A1.w, p, V1.w));
+      if (ch == ci) v[i] = p;  // the pivot row: its entry scaled
+      if (two) {
+        w2[0] = make_float4(fmaf(-B0.x, p2, W0.x), fmaf(-B0.y, p2, W0.y),
+                            fmaf(-B0.z, p2, W0.z), fmaf(-B0.w, p2, W0.w));
+        w2[1] = make_float4(fmaf(-B1.x, p2, W1.x), fmaf(-B1.y, p2, W1.y),
+                            fmaf(-B1.z, p2, W1.z), fmaf(-B1.w, p2, W1.w));
+        if (ch2 == ci) v2[i] = p2;
+      }
+      c = c2 + dc;  // the item after those two
+      ch = ch2 + dch;
+      if (ch >= nch) {
+        ch -= nch;
+        ++c;
+      }
+    }
+    S::sync();  // pivot i's columns, and column i + 1, to the scope
+  }
+  const float* gamma = Ga + (size_t)k * ldc;
+  if (sys.gv != gamma) {
+    for (int r = rank; r < k; r += size) sys.gv[r] = gamma[r];
+    S::sync();
+  }
+  if (sys.lock && rank == 0) {
+    __threadfence_block();
+    atomicExch(sys.lock, 0);
+  }
+}
+
 struct AaStats {
   float rp, rd, mz, mq;  // the termination residuals of the iterate kept
   int state;             // the operator's state after the step (op_state)
   AaRing ring;           // the ring's indices before (sp) and after the step
 };
+
+// The chunk's system in the Gram area (kAaSolveGram): Ga after Gk, rows
+// of k + 1.
+struct AaGramSys {
+  float* ga;
+};
+
+// The right-hand side of logical pair a into the system, by rank 0.
+__device__ __forceinline__ void aa_put_rhs(const AaGramSys& s, int a, int k, float v) {
+  s.ga[a * (k + 1) + k] = v;
+}
+__device__ __forceinline__ void aa_put_rhs(const AaSys& s, int a, int, float v) { s.gv[a] = v; }
+
+// The solve: in the Gram area by warp 0, off it by the whole scope; the
+// caller syncs the scope after it.
+template <class S>
+__device__ __forceinline__ void aa_solve_of(const float* Gk, const AaGramSys& s, int k, int lo,
+                                            int s_lo) {
+  if (S::rank() < 32) {
+    __syncwarp();  // the pushed row and the right-hand side to warp 0
+    aa_solve(Gk, s.ga, k, lo, s_lo, S::rank());
+  }
+}
+template <class S>
+__device__ __forceinline__ void aa_solve_of(const float* Gk, const AaSys& s, int k, int lo,
+                                            int s_lo) {
+  S::sync();  // the pushed row and the right-hand side to the scope
+  aa_solve_sys<S>(Gk, s, k, lo, s_lo);
+}
+
+// The candidate u_T - sum_a gamma_a dU_a, z clipped to [l, u], into the
+// iterate (cur), and u_T into ua, by each thread of the scope on its
+// entries; in the Gram area gamma read at every pair of every entry.
+template <class S, class Cur>
+__device__ __forceinline__ void aa_candidate(const AaGramSys& sys, int k, int lo, int s_lo,
+                                             int n, int m, const float* dU, float* ua,
+                                             const float* l, const float* u, Cur cur) {
+  const int D = n + 2 * m, k1 = k + 1;
+#pragma unroll 1
+  for (int e = S::rank(); e < D; e += S::size()) {
+    float acc = 0.f;
+#pragma unroll 1
+    for (int a = lo, s = s_lo; a < k; ++a, s = aa_next(s, k))
+      acc = fmaf(sys.ga[a * k1 + k], dU[(size_t)s * D + e], acc);
+    float& c = cur(e);
+    const float cand = c - acc;
+    ua[e] = c;
+    c = (e >= n && e < n + m) ? clip(cand, l[e - n], u[e - n]) : cand;
+  }
+}
+
+// Off the Gram area: each thread takes AaCand<S>::entries of its entries
+// at once (a warp's lanes hold several of D's entries each, a block's
+// threads one or two) and kAaCandPairs pairs at a time, their dU loads
+// issued before the fmafs, so that gamma is read once a pair for those
+// entries and a round trip serves several products; each entry sums its
+// pairs in the order of the loop above, so the bits are the same.
+template <class S>
+struct AaCand {
+  static constexpr int entries = 2;
+};
+template <>
+struct AaCand<WarpScope> {
+  static constexpr int entries = 4;
+};
+constexpr int kAaCandPairs = 4;
+
+template <class S, class Cur>
+__device__ __forceinline__ void aa_candidate(const AaSys& sys, int k, int lo, int s_lo, int n,
+                                             int m, const float* dU, float* ua, const float* l,
+                                             const float* u, Cur cur) {
+  constexpr int E = AaCand<S>::entries, P = kAaCandPairs;
+  const int D = n + 2 * m, stride = S::size();
+#pragma unroll 1
+  for (int e0 = S::rank(); e0 < D; e0 += E * stride) {
+    float acc[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) acc[j] = 0.f;
+#pragma unroll 1
+    for (int a0 = lo; a0 < k; a0 += P) {
+      float g[P], d[P][E];
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const int a = a0 + t, s = s_lo + a - lo >= k ? s_lo + a - lo - k : s_lo + a - lo;
+        g[t] = a < k ? sys.gv[a] : 0.f;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const int e = e0 + j * stride;
+          d[t][j] = a < k && e < D ? dU[(size_t)s * D + e] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < P; ++t)
+        if (a0 + t < k)
+#pragma unroll
+          for (int j = 0; j < E; ++j) acc[j] = fmaf(g[t], d[t][j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const int e = e0 + j * stride;
+      if (e >= D) continue;
+      float& c = cur(e);
+      const float cand = c - acc[j];
+      ua[e] = c;
+      c = (e >= n && e < n + m) ? clip(cand, l[e - n], u[e - n]) : cand;
+    }
+  }
+}
 
 // The step at a chunk's end, after the plain chunk output u_T's residuals
 // (sp, the caller's stats): (x, z, y) hold u_T on entry and the accepted
@@ -677,30 +988,31 @@ struct AaStats {
 // caller, whose loops keep their registers: fused into this out-of-line
 // step's reduction under the kernels' register caps, they ran slower
 // (K1 n = 32, K6 horizon 64 on an H100).  Rank 0 keeps the reduced values
-// in the Gram area and warp 0 solves there (aa_solve), then a sync; every
+// in the Gram area (the right-hand side in the system, Sys) and warp 0
+// solves there (aa_solve), or the whole scope where the system is off the
+// Gram area (aa_solve_sys), then a sync; every
 // thread reads the one gamma, so the candidate and the accept are the same
 // in every thread of the scope.  (A solve in registers by every warp, with
 // no barrier, at k <= kAaSlots ran no faster end to end: K1 n = 32, K3 and
 // K6/K7 at memory 4 on an H100.)  The candidate and the saved plain output
-// are one pass; the candidate's stats are the step's floor.  It takes the operator by value and stays out of line with its
-// loops kept rolled, so that the iterations around it keep their register
-// allocation.
-template <class Op>
-__device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
-                                             float eps_rel, AaStats sp, const float* q,
-                                             const float* l, const float* u, float* x, float* z,
-                                             float* y, float* tm, float* tn1, float* tn2,
-                                             float* red, float* aa, float* ag) {
+// are one pass (in tiles off the Gram area, aa_candidate); the candidate's
+// stats are the step's floor.  It runs in aa_chunk_end, which takes the
+// operator by value and stays out of line with its loops kept rolled, so
+// that the iterations around it keep their register allocation.
+template <class Op, class Sys>
+__device__ __forceinline__ AaStats aa_step(const Op& op, int k, int n, int m, float eps_abs,
+                                           float eps_rel, AaStats sp, const float* q,
+                                           const float* l, const float* u, float* x, float* z,
+                                           float* y, float* tm, float* tn1, float* tn2,
+                                           float* red, float* aa, float* Gk, const Sys& sys) {
   using S = typename OpScope<Op>::type;
-  const int D = n + 2 * m, k1 = k + 1;
+  const int D = n + 2 * m;
   float* dU = aa;
   float* dF = dU + (size_t)k * D;
   float* uTp = dF + (size_t)k * D;
   float* fp = uTp + D;
   float* u0 = fp + D;
   float* ua = u0 + D;
-  float* Gk = ag;
-  float* Ga = ag + k * k;
   const bool prev_ok = sp.ring.prev_ok != 0;
   int pairs = sp.ring.pairs, head = sp.ring.head;
   const int push = head;  // the oldest slot takes the newest pair
@@ -764,7 +1076,7 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
       for (int g = 0; g < kAaSlots && a0 + g < pairs; ++g) {
         const int sb = s_lo + a0 + g >= k ? s_lo + a0 + g - k : s_lo + a0 + g;
         Gk[push * k + sb] = Gk[sb * k + push] = v[2 * g];
-        Ga[(lo + a0 + g) * k1 + k] = v[2 * g + 1];
+        aa_put_rhs(sys, lo + a0 + g, k, v[2 * g + 1]);
       }
   }
   ADMM_PHASE_END(kPhAaDot);
@@ -772,24 +1084,11 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
   out.ring = AaRing{1, pairs, head};
   if (pairs > 0) {
     ADMM_PHASE_BEGIN(kPhAaSolve);
-    if (S::rank() < 32) {
-      __syncwarp();  // the pushed row and the right-hand side to warp 0
-      aa_solve(Gk, Ga, k, lo, s_lo, S::rank());
-    }
+    aa_solve_of<S>(Gk, sys, k, lo, s_lo);
     S::sync();  // gamma to the scope
     ADMM_PHASE_END(kPhAaSolve);
     ADMM_PHASE_BEGIN(kPhAaCand);
-#pragma unroll 1
-    for (int e = S::rank(); e < D; e += S::size()) {
-      float acc = 0.f;
-#pragma unroll 1
-      for (int a = lo, s = s_lo; a < k; ++a, s = aa_next(s, k))
-        acc = fmaf(Ga[a * k1 + k], dU[(size_t)s * D + e], acc);
-      float& c = cur(e);
-      const float cand = c - acc;
-      ua[e] = c;
-      c = (e >= n && e < n + m) ? clip(cand, l[e - n], u[e - n]) : cand;
-    }
+    aa_candidate<S>(sys, k, lo, s_lo, n, m, dU, ua, l, u, cur);
     S::sync();
     AdmmState sa;
     admm_stats(op, q, x, z, y, tm, tn1, tn2, red, n, m, sa);
@@ -816,6 +1115,30 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
   }
   out.state = op_state(op);
   return out;
+}
+
+// The step on the Gram area ag (Gk, then the system): every launch whose
+// Gram area is in shared memory, and the structured kernels'.
+template <class Op>
+__device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
+                                             float eps_rel, AaStats sp, const float* q,
+                                             const float* l, const float* u, float* x, float* z,
+                                             float* y, float* tm, float* tn1, float* tn2,
+                                             float* red, float* aa, float* ag) {
+  return aa_step(op, k, n, m, eps_abs, eps_rel, sp, q, l, u, x, z, y, tm, tn1, tn2, red, aa, ag,
+                 AaGramSys{ag + k * k});
+}
+
+// The step of K1 and K3 with the kept Gram gk in the workspace and the
+// chunk's system in sys (AaSysArgs::solve past kAaSolveGram).
+template <class Op>
+__device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
+                                             float eps_rel, AaStats sp, const float* q,
+                                             const float* l, const float* u, float* x, float* z,
+                                             float* y, float* tm, float* tn1, float* tn2,
+                                             float* red, float* aa, float* gk, AaSys sys) {
+  return aa_step(op, k, n, m, eps_abs, eps_rel, sp, q, l, u, x, z, y, tm, tn1, tn2, red, aa, gk,
+                 sys);
 }
 
 // The warm-started ADMM solve of one problem (twin of _admm_core).  The
@@ -945,12 +1268,14 @@ __device__ __forceinline__ void op_factor_mark(const DenseOp&, bool) {}
 
 }  // namespace
 
-// Floats of one scope's Anderson workspace (aa_floats) at memory k, n
-// variables and m rows; the wrappers allocate one slice a problem (a block,
-// for a K6/K7 cluster) with acceleration="anderson".  Weak, so that each
-// unit may define it and a library of any of the Anderson units has it.
+// Floats of one scope's share of the Anderson workspace at memory k, n
+// variables and m rows: its slice (aa_floats) and room for its chunk's
+// system (aa_solve_floats; K1's and K3's kAaSolveWorkspace, after the
+// slices, from a multiple of 4 floats); the wrappers allocate one share a problem (a block, for a K6/K7
+// cluster) with acceleration="anderson".  Weak, so that each unit may
+// define it and a library of any of the Anderson units has it.
 extern "C" __attribute__((weak)) long long admm_aa_floats(int k, int n, int m) {
-  return aa_floats(k, n, m);
+  return aa_floats(k, n, m) + kAaSolveHead + aa_solve_floats(k);
 }
 
 #ifdef ADMM_PHASE_CLOCKS

@@ -137,8 +137,10 @@ __device__ __forceinline__ void op_factor_mark(const DenseLaneOp<L>&, bool) {}
 // register tiles; the ADMM matvecs split each dot product over L lanes
 // (4 at 128 threads, 2 at 256) so that every thread works on short
 // chains with their loads in flight.  BFGS is the parent's.
-// The body, with (AA) or without Anderson acceleration; the kernels
-// sqp_step_kernel and sqp_step_kernel_aa (qp_kernel_aa.cu) instantiate it.
+// The body, with (AA) or without Anderson acceleration, and with SYS the
+// Anderson step off the Gram area (AaSys); the kernels sqp_step_kernel,
+// sqp_step_kernel_aa and sqp_step_kernel_aas (qp_kernel_aa.cu) instantiate
+// it.
 #define SQP_STEP_PARAMS                                                                       \
   StepParams p, const float* __restrict__ Bp, const float* __restrict__ J,                    \
       const float* __restrict__ g, const float* __restrict__ lg, const float* __restrict__ ug, \
@@ -152,8 +154,9 @@ __device__ __forceinline__ void op_factor_mark(const DenseLaneOp<L>&, bool) {}
 #define SQP_STEP_ARGS                                                                     \
   p, Bp, J, g, lg, ug, sg, dglg, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out, \
       z_out, y_out, B_out, stats, minv_out, ws
-template <int L, bool AA>
-__device__ __forceinline__ void sqp_step_body(SQP_STEP_PARAMS, AaArgs aa_args) {
+template <int L, bool AA, bool SYS = false>
+__device__ __forceinline__ void sqp_step_body(SQP_STEP_PARAMS, AaArgs aa_args,
+                                              AaSysArgs sys_args = {}) {
   extern __shared__ float smem[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -282,8 +285,13 @@ __device__ __forceinline__ void sqp_step_body(SQP_STEP_PARAMS, AaArgs aa_args) {
   const DenseLaneOp<L> op{Bn, n, A, W, Li, red, ld, n, m, p.sigma};
   if constexpr (AA) {
     const AaState aa = aa_state(aa_args, smem, 0, b, n, m);
-    admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
-                                   nullptr, red, st, aa.ring, aa.k, aa.gram);
+    if constexpr (SYS)
+      admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
+                                     nullptr, red, st, aa.ring, aa.k, aa.gram,
+                                     aa_sys(sys_args, aa.k, smem, 0, b));
+    else
+      admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
+                                     nullptr, red, st, aa.ring, aa.k, aa.gram);
   } else {
     admm_solve<DenseLaneOp<L>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, nullptr,
                                    nullptr, red, st);
@@ -327,6 +335,13 @@ template <int L>
 __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel_aa(
     SQP_STEP_PARAMS, AaArgs aa_args) {
   sqp_step_body<L, true>(SQP_STEP_ARGS, aa_args);
+}
+// The same where the Gram area is in the workspace (aa_dense_plan's
+// solve past kAaSolveGram): the step's system in a solve area (AaSys).
+template <int L>
+__global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) sqp_step_kernel_aas(
+    SQP_STEP_PARAMS, AaArgs aa_args, AaSysArgs sys_args) {
+  sqp_step_body<L, true, true>(SQP_STEP_ARGS, aa_args, sys_args);
 }
 #endif
 
@@ -518,8 +533,9 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_reuse_k
 // chunk (residuals, certificates) and by the factor, stays in device
 // memory (L1/L2 resident).  This block layout serves n > 32 or m > 64;
 // smaller problems take the warp layout (qp_solve_warp_kernel).
-// The body, with (AA) or without Anderson acceleration; the kernels
-// qp_solve_kernel and qp_solve_kernel_aa (qp_kernel_aa.cu) instantiate it.
+// The body, with (AA) or without Anderson acceleration, and with SYS the
+// step off the Gram area; the kernels qp_solve_kernel, qp_solve_kernel_aa
+// and qp_solve_kernel_aas (qp_kernel_aa.cu) instantiate it.
 #define QP_SOLVE_PARAMS                                                                       \
   StepParams p, const float* __restrict__ Pg, const float* __restrict__ Ag,                   \
       const float* __restrict__ qg, const float* __restrict__ lg, const float* __restrict__ ug, \
@@ -527,9 +543,9 @@ __global__ void __launch_bounds__(kThreads<L>, kMinBlocks<L>) polish_kkt_reuse_k
       float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,        \
       float* __restrict__ stats
 #define QP_SOLVE_ARGS p, Pg, Ag, qg, lg, ug, x0, z0, y0, x_out, z_out, y_out, stats
-template <bool AA>
+template <bool AA, bool SYS = false>
 __device__ __forceinline__ void qp_solve_body(QP_SOLVE_PARAMS, float* __restrict__ ws,
-                                              AaArgs aa_args) {
+                                              AaArgs aa_args, AaSysArgs sys_args = {}) {
   extern __shared__ float smem[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -593,8 +609,12 @@ __device__ __forceinline__ void qp_solve_body(QP_SOLVE_PARAMS, float* __restrict
   const DenseOp op{Pb, n, A, W, Li, ld, n, m, p.sigma};
   if constexpr (AA) {
     const AaState aa = aa_state(aa_args, smem, 0, b, n, m);
-    admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
-                            aa.ring, aa.k, aa.gram);
+    if constexpr (SYS)
+      admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                              aa.ring, aa.k, aa.gram, aa_sys(sys_args, aa.k, smem, 0, b));
+    else
+      admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                              aa.ring, aa.k, aa.gram);
   } else {
     admm_solve<DenseOp, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
   }
@@ -632,6 +652,12 @@ __global__ void __launch_bounds__(256, 4) qp_solve_kernel_aa(QP_SOLVE_PARAMS,
                                                              float* __restrict__ ws,
                                                              AaArgs aa_args) {
   qp_solve_body<true>(QP_SOLVE_ARGS, ws, aa_args);
+}
+__global__ void __launch_bounds__(256, 4) qp_solve_kernel_aas(QP_SOLVE_PARAMS,
+                                                              float* __restrict__ ws,
+                                                              AaArgs aa_args,
+                                                              AaSysArgs sys_args) {
+  qp_solve_body<true, true>(QP_SOLVE_ARGS, ws, aa_args, sys_args);
 }
 #endif
 
@@ -928,8 +954,9 @@ __host__ __device__ constexpr int qp_warp_floats(int n, int m) {
       float* __restrict__ x_out, float* __restrict__ z_out, float* __restrict__ y_out,         \
       float* __restrict__ stats
 #define QP_WARP_ARGS p, batch, Pg, Ag, qg, lg, ug, x0, z0, y0, x_out, z_out, y_out, stats
-template <int NM, bool AA>
-__device__ __forceinline__ void qp_solve_warp_body(QP_WARP_PARAMS, AaArgs aa_args) {
+template <int NM, bool AA, bool SYS = false>
+__device__ __forceinline__ void qp_solve_warp_body(QP_WARP_PARAMS, AaArgs aa_args,
+                                                   AaSysArgs sys_args = {}) {
   extern __shared__ float4 smem4[];
   ADMM_PHASE_BEGIN(kPhTotal);
   ADMM_PHASE_BEGIN(kPhLoad);
@@ -937,6 +964,13 @@ __device__ __forceinline__ void qp_solve_warp_body(QP_WARP_PARAMS, AaArgs aa_arg
   const int n4 = round4(n), m4 = round4(m);
   const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
   const size_t b = (size_t)blockIdx.x * kQpWarps + wp;
+  if constexpr (SYS) {  // a block's solve area starts unlocked
+    if (sys_args.solve == kAaSolveBlock) {
+      if (threadIdx.x == 0)
+        *reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) + sys_args.sys_off - 1) = 0;
+      __syncthreads();
+    }
+  }
   if (b >= (size_t)batch) return;  // no block barrier below: a warp may leave
   float* q = reinterpret_cast<float*>(smem4) + (size_t)wp * qp_warp_floats(n, m);
   float* x = q + n4;
@@ -991,9 +1025,15 @@ __device__ __forceinline__ void qp_solve_warp_body(QP_WARP_PARAMS, AaArgs aa_arg
   // the factor's column buffer: tn1 and tn2, free while it runs
   const WarpDenseOp<NM> op{Pg + b * n * n, A, W, tn1, ld4, n, m, p.sigma};
   if constexpr (AA) {
-    const AaState aa = aa_state(aa_args, reinterpret_cast<float*>(smem4), wp, b, n, m);
-    admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
-                                    nullptr, st, aa.ring, aa.k, aa.gram);
+    float* sm = reinterpret_cast<float*>(smem4);
+    const AaState aa = aa_state(aa_args, sm, wp, b, n, m);
+    if constexpr (SYS)
+      admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                      nullptr, st, aa.ring, aa.k, aa.gram,
+                                      aa_sys(sys_args, aa.k, sm, wp, b));
+    else
+      admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                      nullptr, st, aa.ring, aa.k, aa.gram);
   } else {
     admm_solve<WarpDenseOp<NM>, AA>(p, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
                                     nullptr, st);
@@ -1033,6 +1073,11 @@ template <int NM>
 __global__ void __launch_bounds__(32 * kQpWarps, 8) qp_solve_warp_kernel_aa(QP_WARP_PARAMS,
                                                                            AaArgs aa_args) {
   qp_solve_warp_body<NM, true>(QP_WARP_ARGS, aa_args);
+}
+template <int NM>
+__global__ void __launch_bounds__(32 * kQpWarps, 8) qp_solve_warp_kernel_aas(
+    QP_WARP_PARAMS, AaArgs aa_args, AaSysArgs sys_args) {
+  qp_solve_warp_body<NM, true, true>(QP_WARP_ARGS, aa_args, sys_args);
 }
 #endif
 
@@ -1622,69 +1667,108 @@ extern "C" int qp_kernel_twin_blocks(int kernel, int n, int m, int device);  // 
 namespace {
 
 // Where an Anderson launch of K1 or K3 keeps each problem's Anderson state:
-// its ring (aa_ring_floats) in shared memory where, with the ring and the
-// Gram area (aa_gram_floats), the block's shared memory still holds every
-// matrix the kernel without Anderson holds there and still allows as many
-// blocks an SM as that kernel gets (twin_blocks, qp_kernel_twin_blocks);
-// else the ring stays in the device workspace.  The Gram area is in shared
-// memory always at a memory k <= kAaGramSmemMemory, and past it where it
-// alone keeps those two (else it goes to the head of the problem's
-// workspace slice).  The block layout puts the area after its matrices in
-// shared memory (at k <= kAaGramSmemMemory a matrix the Gram leaves no
-// room for goes to the workspace: aa_workspace_floats), the warp layout
-// after its problems' slices, one area a problem.
-// ops/qp_kernel.py:anderson_placement is the rule's Python mirror.
+// up to a memory k of kAaGramSmemMemory, the Gram area (aa_gram_floats) in
+// shared memory, and the ring (aa_ring_floats) there too where, with both,
+// the block's shared memory still holds every matrix the kernel without
+// Anderson holds there and still allows as many blocks an SM as that
+// kernel gets (twin_blocks, qp_kernel_twin_blocks), else in the device
+// workspace.  Past it the ring and the Gram area go to the problem's
+// workspace slice, and the chunk's system (the k x k solve's operand,
+// every live entry read and written at each of its k pivots) to a solve
+// area in shared memory (AaSolve, aa_solve_sys): one a problem where that
+// keeps those two, else (K3's warp layout) one a block where that does,
+// else one a block wherever shared memory holds it beside the kernel's own
+// (at fewer blocks an SM; the block layout with every matrix the twin
+// holds there), and only where it does not, to the workspace.  Measured in
+// turns with each placement forced (NVIDIA H100, PERF.md section 6): a
+// solve area beat the workspace at memories 33-128 in K1 and both K3
+// layouts even at fewer blocks an SM, one a block beat one a problem on
+// K3's warp layout wherever the latter lost blocks, and a solve area beat
+// the whole Gram area on chip even where that kept the twin's blocks
+// (memory 33: K1 52.6 against 65.7 ms).  The block layout puts the
+// areas after its matrices in shared memory (at k <= kAaGramSmemMemory a
+// matrix the Gram leaves no room for goes to the workspace:
+// aa_workspace_floats), the warp layout after its problems' slices.
+// ops/qp_kernel.py:anderson_placement is the rule's Python mirror.  A
+// build with -DAA_FORCE_SOLVE=p forces past kAaGramSmemMemory the whole
+// Gram area into shared memory (p = 0) or the solve AaSolve p, where
+// shared memory holds it (tools/kernel_ab.py --parts placements).
+#ifndef AA_FORCE_SOLVE
+#define AA_FORCE_SOLVE -1
+#endif
 struct AaPlan {
   bool ring;             // the ring in shared memory
   bool gram;             // the Gram area in shared memory
+  int solve;             // AaSolve: where the chunk's system goes
   long long smem_bytes;  // the block's dynamic shared memory
   long long sm_off;      // floats before the first problem's area
   int sm_stride;         // floats of a problem's area
+  long long sys_off;     // floats before the first solve area (a multiple of 4)
+  int sys_stride;        // floats of a problem's solve area (kAaSolveScope)
+  long long sys_floats;  // floats of the block's solve areas, with their head
   int scopes;            // problems a block
   long long twin_smem;   // the kernel without Anderson's
   Layout L;              // the block layout's matrices (the warp layout: none)
 };
 
 AaPlan aa_dense_plan(int kernel, int n, int m, int k, int twin_blocks) {
-  const long long g = aa_gram_floats(k), r = aa_ring_floats(k, n, m);
-  const bool gram_always = k <= kAaGramSmemMemory;
+  const long long g = aa_gram_floats(k), r = aa_ring_floats(k, n, m), sa = aa_solve_floats(k);
+  const bool warp = kernel == kAaK3Warp;
   AaPlan P{};
-  if (kernel == kAaK3Warp) {
-    const long long slice = qp_warp_floats(n, m);
-    // the block's shared memory with `area` floats more a problem keeps
-    // the twin's blocks an SM
-    auto keeps = [&](long long area) {
-      const long long with = kQpWarps * (slice + area) * 4;
-      return with <= kMaxSmemBytes && smem_blocks_per_sm(with) >= twin_blocks;
-    };
-    P.scopes = kQpWarps;
-    P.twin_smem = kQpWarps * slice * 4;
-    P.ring = keeps(g + r);
-    P.gram = P.ring || gram_always || keeps(g);
-    P.sm_off = kQpWarps * slice;
-    P.sm_stride = (int)((P.gram ? g : 0) + (P.ring ? r : 0));
-    P.smem_bytes = (P.sm_off + (long long)kQpWarps * P.sm_stride) * 4;
-    P.L = Layout{(size_t)P.smem_bytes, 0, 0};
-    return P;
+  P.scopes = warp ? kQpWarps : 1;
+  long long base = 0, vec = 0;
+  long long mats[3] = {0, 0, 0};
+  if (warp) {
+    base = kQpWarps * (long long)qp_warp_floats(n, m);
+  } else {
+    const long long ld = n + 1;
+    mats[0] = n * ld;
+    mats[1] = m * ld;
+    mats[2] = n * ld;
+    vec = (kernel == kAaK1 ? 9LL * n : 7LL * n) + 7LL * m + kRedSlots;
   }
-  const long long ld = n + 1;
-  const long long mats[3] = {n * ld, m * ld, n * ld};
-  const long long vec = (kernel == kAaK1 ? 9LL * n : 7LL * n) + 7LL * m + kRedSlots;
-  const Layout twin = plan(vec, mats);
-  // the plan with `area` floats more keeps the twin's matrices and blocks an SM
-  auto keeps = [&](const Layout& with) {
-    return with.n_smem_mats == twin.n_smem_mats && with.smem_bytes <= (size_t)kMaxSmemBytes &&
-           smem_blocks_per_sm((long long)with.smem_bytes) >= twin_blocks;
+  // the layout with `extra` floats a block more: the warp layout's after
+  // its slices, the block layout's after its matrices
+  auto with = [&](long long extra) {
+    return warp ? Layout{(size_t)((base + extra) * 4), 0, 0} : plan(vec + extra, mats);
   };
-  const Layout with_ring = plan(vec + g + r, mats), with_gram = plan(vec + g, mats);
-  P.scopes = 1;
-  P.twin_smem = (long long)twin.smem_bytes;
-  P.ring = keeps(with_ring);
-  P.gram = P.ring || gram_always || keeps(with_gram);
-  P.L = P.ring ? with_ring : (P.gram ? with_gram : twin);
+  const Layout twin = with(0);
+  // that layout fits on the card with every matrix of the twin's in shared memory
+  auto fits = [&](long long extra) {
+    const Layout w = with(extra);
+    return w.n_smem_mats == twin.n_smem_mats && w.smem_bytes <= (size_t)kMaxSmemBytes;
+  };
+  // ... and keeps the twin's blocks an SM
+  auto keeps = [&](long long extra) {
+    return fits(extra) && smem_blocks_per_sm((long long)with(extra).smem_bytes) >= twin_blocks;
+  };
+  const long long per_scope = kAaSolveHead + P.scopes * sa, per_block = kAaSolveHead + sa;
+  const bool past = k > kAaGramSmemMemory;
+  const int force = past ? AA_FORCE_SOLVE : -1;
+  P.ring = !past && keeps(P.scopes * (g + r));
+  P.gram = !past || force == 0;
+  if (P.gram) {
+    P.solve = kAaSolveGram;
+  } else if (force > 0) {  // one problem a block: its area is the block's
+    P.solve = force == kAaSolveBlock && P.scopes == 1 ? kAaSolveScope : force;
+  } else if (keeps(per_scope)) {
+    P.solve = kAaSolveScope;
+  } else if (P.scopes > 1 && keeps(per_block)) {
+    P.solve = kAaSolveBlock;
+  } else if (fits(P.scopes > 1 ? per_block : per_scope)) {
+    P.solve = P.scopes > 1 ? kAaSolveBlock : kAaSolveScope;
+  } else {
+    P.solve = kAaSolveWorkspace;
+  }
   P.sm_stride = (int)((P.gram ? g : 0) + (P.ring ? r : 0));
+  P.sys_stride = P.solve == kAaSolveScope ? (int)sa : 0;
+  P.sys_floats = P.solve == kAaSolveScope ? per_scope : (P.solve == kAaSolveBlock ? per_block : 0);
+  P.L = with(P.scopes * (long long)P.sm_stride + P.sys_floats);
+  P.twin_smem = (long long)twin.smem_bytes;
   P.smem_bytes = (long long)P.L.smem_bytes;
-  P.sm_off = P.smem_bytes / 4 - P.sm_stride;
+  const long long sys_start = P.smem_bytes / 4 - P.sys_floats;  // after the Gram areas
+  P.sys_off = (sys_start + kAaSolveHead) & ~3LL;  // the lock word just before it
+  P.sm_off = sys_start - P.scopes * (long long)P.sm_stride;
   return P;
 }
 
@@ -1704,6 +1788,13 @@ AaArgs aa_args_of(const AaPlan& P, int k, float* ws) {
   return AaArgs{k, ws, P.sm_off, P.sm_stride, P.ring ? 1 : 0, P.gram ? 0 : 1};
 }
 
+// The _aas kernels' second argument: the slices in ws one a problem of
+// `batch`, the chunk systems of kAaSolveWorkspace after them.
+AaSysArgs sys_args_of(const AaPlan& P, int k, float* ws, int n, int m, int batch) {
+  return AaSysArgs{P.solve, P.sys_off, P.sys_stride,
+                   ws + (((size_t)batch * aa_floats(k, n, m) + 3) & ~(size_t)3)};
+}
+
 }  // namespace
 
 extern "C" {
@@ -1716,29 +1807,38 @@ long long qp_kernel_aa_workspace_floats(int kernel, int n, int m, int k) {
   return aa_dense_plan(kernel, n, m, k, 0).L.ws_floats;
 }
 
+// The kernel of an Anderson launch of `kernel` at n, m by its plan: the
+// instantiation whose step solves off the Gram area where P.solve says so.
+const void* aa_kernel_of(int kernel, int n, int m, const AaPlan& P) {
+  const bool sys = P.solve != kAaSolveGram;
+  if (kernel == kAaK1) {
+    if (threads_for(n, m) == 128)
+      return sys ? (const void*)sqp_step_kernel_aas<4> : (const void*)sqp_step_kernel_aa<4>;
+    return sys ? (const void*)sqp_step_kernel_aas<2> : (const void*)sqp_step_kernel_aa<2>;
+  }
+  if (kernel == kAaK3Block)
+    return sys ? (const void*)qp_solve_kernel_aas : (const void*)qp_solve_kernel_aa;
+  if (n <= 16)
+    return sys ? (const void*)qp_solve_warp_kernel_aas<16> : (const void*)qp_solve_warp_kernel_aa<16>;
+  return sys ? (const void*)qp_solve_warp_kernel_aas<32> : (const void*)qp_solve_warp_kernel_aa<32>;
+}
+
 // The placement of an Anderson launch of `kernel` (kAaK1, kAaK3Block,
-// kAaK3Warp) at n, m and memory k on this card, into out[10]: the ring in
+// kAaK3Warp) at n, m and memory k on this card, into out[12]: the ring in
 // shared memory (1) or in the workspace (0), the block's shared-memory
 // bytes, those of the kernel without Anderson, that kernel's blocks an SM
 // and this one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram
 // area's and the ring's floats a problem, problems a block, the workspace
-// floats a problem and the Gram area in shared memory (1) or in the
-// Anderson workspace (0) (aa_dense_plan).  Returns a CUDA error code.
+// floats a problem, the Gram area in shared memory (1) or in the Anderson
+// workspace (0), where the chunk's system goes (AaSolve) and the floats of
+// the block's solve areas in shared memory (aa_dense_plan).  Returns a
+// CUDA error code.
 int qp_kernel_aa_placement(int kernel, int n, int m, int k, int device, long long* out) {
   AaPlan P;
   int twin = 0;
   cudaError_t err = aa_dense_launch_plan(kernel, n, m, k, device, P, twin);
-  const void* fn = nullptr;
-  int threads = threads_for(n, m);
-  if (kernel == kAaK1) {
-    fn = threads == 128 ? (const void*)sqp_step_kernel_aa<4> : (const void*)sqp_step_kernel_aa<2>;
-  } else if (kernel == kAaK3Block) {
-    fn = (const void*)qp_solve_kernel_aa;
-  } else {
-    fn = n <= 16 ? (const void*)qp_solve_warp_kernel_aa<16>
-                 : (const void*)qp_solve_warp_kernel_aa<32>;
-    threads = 32 * kQpWarps;
-  }
+  const void* fn = aa_kernel_of(kernel, n, m, P);
+  const int threads = kernel == kAaK3Warp ? 32 * kQpWarps : threads_for(n, m);
   int blocks = 0;
   if (err == cudaSuccess && P.smem_bytes > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1746,10 +1846,10 @@ int qp_kernel_aa_placement(int kernel, int n, int m, int k, int device, long lon
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, P.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long v[10] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
+  const long long v[12] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
                            aa_gram_floats(k), aa_ring_floats(k, n, m), P.scopes,
-                           P.L.ws_floats, P.gram ? 1 : 0};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+                           P.L.ws_floats, P.gram ? 1 : 0, P.solve, P.sys_floats};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -1776,15 +1876,23 @@ int sqp_step_launch_aa(const float* Bp, const float* J, const float* g, const fl
   if (err != cudaSuccess) return (int)err;
   if (P.L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = threads_for(n, m);
-  auto kernel = threads == 128 ? sqp_step_kernel_aa<4> : sqp_step_kernel_aa<2>;
-  err = set_smem(kernel, P.smem_bytes);
+  const void* fn = aa_kernel_of(kAaK1, n, m, P);
+  err = set_smem(fn, P.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
                                    chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
                                    do_bfgs, 0, 0.f, 0.f, P.L);
-  kernel<<<batch, threads, P.smem_bytes, (cudaStream_t)stream>>>(
-      p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
-      z_out, y_out, B_out, stats, minv_out, ws, aa_args_of(P, aa_mem, aa_ws));
+  const AaArgs aa = aa_args_of(P, aa_mem, aa_ws);
+  if (P.solve == kAaSolveGram)
+    ((decltype(&sqp_step_kernel_aa<4>))fn)<<<batch, threads, P.smem_bytes,
+                                              (cudaStream_t)stream>>>(
+        p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
+        z_out, y_out, B_out, stats, minv_out, ws, aa);
+  else
+    ((decltype(&sqp_step_kernel_aas<4>))fn)<<<batch, threads, P.smem_bytes,
+                                               (cudaStream_t)stream>>>(
+        p, Bp, J, g, l, u, s, dgl, reset, upd, active, rho_in, minv_in, x0, z0, y0, p_out,
+        z_out, y_out, B_out, stats, minv_out, ws, aa, sys_args_of(P, aa_mem, aa_ws, n, m, batch));
   return (int)cudaGetLastError();
 }
 
@@ -1811,19 +1919,29 @@ int qp_solve_launch_aa(int layout, const float* P, const float* A, const float* 
       aa_dense_launch_plan(warp ? kAaK3Warp : kAaK3Block, n, m, aa_mem, device, pl, twin);
   if (err != cudaSuccess) return (int)err;
   if (!warp && pl.L.ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  auto warp_kernel = n <= 16 ? qp_solve_warp_kernel_aa<16> : qp_solve_warp_kernel_aa<32>;
-  err = warp ? set_smem(warp_kernel, pl.smem_bytes) : set_smem(qp_solve_kernel_aa, pl.smem_bytes);
+  const void* fn = aa_kernel_of(warp ? kAaK3Warp : kAaK3Block, n, m, pl);
+  err = set_smem(fn, pl.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const StepParams p = step_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
                                    chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance, 0,
                                    check_infeas, eps_pinf, eps_dinf, warp ? qp_layout(n, m) : pl.L);
   const AaArgs aa = aa_args_of(pl, aa_mem, aa_ws);
+  const AaSysArgs sa = sys_args_of(pl, aa_mem, aa_ws, n, m, batch);
+  const bool sys = pl.solve != kAaSolveGram;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (warp) {
-    const int blocks = (batch + kQpWarps - 1) / kQpWarps;
-    warp_kernel<<<blocks, 32 * kQpWarps, pl.smem_bytes, (cudaStream_t)stream>>>(
-        p, batch, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, aa);
+    const int blocks = (batch + kQpWarps - 1) / kQpWarps, threads = 32 * kQpWarps;
+    if (sys)
+      ((decltype(&qp_solve_warp_kernel_aas<16>))fn)<<<blocks, threads, pl.smem_bytes, st>>>(
+          p, batch, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, aa, sa);
+    else
+      ((decltype(&qp_solve_warp_kernel_aa<16>))fn)<<<blocks, threads, pl.smem_bytes, st>>>(
+          p, batch, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, aa);
+  } else if (sys) {
+    ((decltype(&qp_solve_kernel_aas))fn)<<<batch, threads_for(n, m), pl.smem_bytes, st>>>(
+        p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws, aa, sa);
   } else {
-    qp_solve_kernel_aa<<<batch, threads_for(n, m), pl.smem_bytes, (cudaStream_t)stream>>>(
+    ((decltype(&qp_solve_kernel_aa))fn)<<<batch, threads_for(n, m), pl.smem_bytes, st>>>(
         p, P, A, q, l, u, x0, z0, y0, x_out, z_out, y_out, stats, ws, aa);
   }
   return (int)cudaGetLastError();

@@ -76,6 +76,7 @@ __all__ = [
     "spd_inverse_arm_info",
     "SPD_ARMS",
     "AA_GRAM_SMEM_MEMORY",
+    "AA_SOLVES",
     "anderson_placement",
     "anderson_placement_card",
 ]
@@ -592,6 +593,19 @@ def _aa_workspace(lib, settings: QPSettings, slices: int, n: int, m: int, dev):
 # versions, take any memory >= 1.
 AA_GRAM_SMEM_MEMORY = 32
 
+# Where K1's and K3's chunk system goes past that (admm_core.cuh:AaSolve,
+# by its codes): beside the kept Gram in the Gram area, a solve area a
+# scope or a block in shared memory, or the workspace.
+AA_SOLVES = ("gram", "scope", "block", "workspace")
+_AA_SOLVE_HEAD = 4  # before a block's solve areas: the lock word, and alignment
+
+
+def _aa_solve_floats(k: int) -> int:
+    """Floats of one solve area (admm_core.cuh:aa_solve_floats): the
+    k x (k + 1) system by columns, each of the k rows padded to a multiple
+    of 8 and 4 more."""
+    return (((k + 7) & ~7) + 4) * (k + 1)
+
 # sm_90's shared memory (admm_core.cuh: kMaxSmemBytes, kAaSmemPerSm,
 # kAaSmemReserved) and the reduction slots
 _MAX_SMEM = 232448
@@ -666,9 +680,13 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
     memory first.  The Gram area (``gram_floats``: the kept k x k Gram and
     the k x (k + 1) system) is in shared memory (``gram``) at every k up to
     :data:`AA_GRAM_SMEM_MEMORY` (where it may take the room of a matrix or
-    row of A), and past it where it alone keeps those two (for the wide
-    kernel: its arrays in shared memory, and the blocks an SM shared memory
-    allows), else at the head of the scope's workspace slice.  ``kernel``:
+    row of A), and past it where it alone keeps those two (K6, K7; for the
+    wide kernel: its arrays in shared memory, and the blocks an SM shared
+    memory allows; K1 and K3: never), else at the head of the scope's
+    workspace slice; there K1's and K3's chunk system goes where ``solve``
+    says (:func:`_aa_dense_placement`:
+    a solve area a problem or a block in shared memory, ``solve_floats`` a
+    block, or the workspace; "gram" where it is in the Gram area).  ``kernel``:
     "K1", "K3-block", "K3-warp", "K6" or "K7" (the structured kernel at
     internal block ``bb`` <= 32 and ``cluster`` blocks a problem) or "wide",
     for which ``wide`` gives the layouts (:func:`qp_kernel_btd.wide_layout`'s
@@ -697,34 +715,8 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
         keeps = (reserved is not None and reserved["shared"] == plain["shared"]
                  and _smem_blocks(reserved["smem_bytes"]) >= _smem_blocks(plain["smem_bytes"]))
         return dict(out, ring=False, gram=keeps)
-    if kernel == "K3-warp":
-        if not (n <= 32 and m <= 64):
-            raise ValueError("anderson_placement: K3's warp layout takes n <= 32, m <= 64")
-        sl = _qp_warp_floats(n, m)
-
-        def keeps(area):
-            with_area = 4 * _QP_WARPS * (sl + area)
-            return with_area <= _MAX_SMEM and _smem_blocks(with_area) >= twin_blocks
-
-        ring = keeps(gram + ring_floats)
-        on = ring or always or keeps(gram)
-        smem = 4 * _QP_WARPS * (sl + (gram if on else 0) + (ring_floats if ring else 0))
-        return dict(out, ring=ring, gram=on, smem_bytes=smem, twin_smem_bytes=4 * _QP_WARPS * sl)
-    if kernel in ("K1", "K3-block"):
-        ld = n + 1
-        mats = (n * ld, m * ld, n * ld)
-        vec = (9 * n if kernel == "K1" else 7 * n) + 7 * m + _RED_SLOTS
-        twin = _plan(vec, mats)
-
-        def keeps(lay):
-            return lay[1] == twin[1] and lay[0] <= _MAX_SMEM and _smem_blocks(lay[0]) >= twin_blocks
-
-        with_ring, with_gram = _plan(vec + gram + ring_floats, mats), _plan(vec + gram, mats)
-        ring = keeps(with_ring)
-        on = ring or always or keeps(with_gram)
-        lay = with_ring if ring else (with_gram if on else twin)
-        return dict(out, ring=ring, gram=on, smem_bytes=lay[0], twin_smem_bytes=twin[0],
-                    mats=lay[1], twin_mats=twin[1], workspace_floats=lay[2])
+    if kernel in ("K1", "K3-block", "K3-warp"):
+        return dict(out, **_aa_dense_placement(kernel, n, m, k, gram, ring_floats, twin_blocks))
     cs = cluster or 1
     if bb is None or bb > 32:
         raise ValueError("anderson_placement: the structured kernel takes an internal block "
@@ -743,6 +735,67 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
     smem = 4 * (fixed + rows * (n + 1) + (gram if on else 0) + (ring_floats if ring else 0))
     return dict(out, ring=ring, gram=on, smem_bytes=smem,
                 twin_smem_bytes=4 * (fixed + twin_rows * (n + 1)), rows=rows, twin_rows=twin_rows)
+
+
+def _aa_dense_placement(kernel: str, n: int, m: int, k: int, gram: int, ring_floats: int,
+                        twin_blocks: int) -> dict:
+    """:func:`anderson_placement` of K1 and K3 (``csrc/qp_kernel.cu:
+    aa_dense_plan``): up to :data:`AA_GRAM_SMEM_MEMORY` the Gram area in
+    shared memory and the ring as for the other kernels; past it both in the
+    workspace, and the chunk's system (the
+    k x k solve's operand, ``solve``: one of :data:`AA_SOLVES`) goes to a
+    solve area of :func:`_aa_solve_floats` a problem in shared memory (after
+    a head of 4 floats) where that keeps the twin's matrices and blocks an
+    SM, else (K3's warp layout, two problems a block) to one area a block,
+    after its head and lock word, where that does, else to such an area wherever shared memory holds it
+    beside the twin's matrices (at fewer blocks an SM), else to the
+    workspace.  ``solve_floats``: the block's solve areas' floats."""
+    warp = kernel == "K3-warp"
+    if warp and not (n <= 32 and m <= 64):
+        raise ValueError("anderson_placement: K3's warp layout takes n <= 32, m <= 64")
+    scopes = _QP_WARPS if warp else 1
+    if warp:
+        base = _QP_WARPS * _qp_warp_floats(n, m)
+
+        def lay(extra):
+            return 4 * (base + extra), 0, 0
+    else:
+        ld = n + 1
+        mats = (n * ld, m * ld, n * ld)
+        vec = (9 * n if kernel == "K1" else 7 * n) + 7 * m + _RED_SLOTS
+
+        def lay(extra):
+            return _plan(vec + extra, mats)
+    twin = lay(0)
+
+    def fits(extra):
+        with_extra = lay(extra)
+        return with_extra[1] == twin[1] and with_extra[0] <= _MAX_SMEM
+
+    def keeps(extra):
+        return fits(extra) and _smem_blocks(lay(extra)[0]) >= twin_blocks
+
+    sa = _aa_solve_floats(k)
+    per_scope, per_block = _AA_SOLVE_HEAD + scopes * sa, _AA_SOLVE_HEAD + sa
+    on = k <= AA_GRAM_SMEM_MEMORY
+    ring = on and keeps(scopes * (gram + ring_floats))
+    if on:
+        solve = "gram"
+    elif keeps(per_scope):
+        solve = "scope"
+    elif scopes > 1 and keeps(per_block):
+        solve = "block"
+    elif fits(per_block if scopes > 1 else per_scope):
+        solve = "block" if scopes > 1 else "scope"
+    else:
+        solve = "workspace"
+    sys = {"scope": per_scope, "block": per_block}.get(solve, 0)
+    smem, mats_on, ws = lay(scopes * ((gram if on else 0) + (ring_floats if ring else 0)) + sys)
+    res = dict(ring=ring, gram=on, solve=solve, solve_floats=sys, smem_bytes=smem,
+               twin_smem_bytes=twin[0])
+    if not warp:
+        res.update(mats=mats_on, twin_mats=twin[1], workspace_floats=ws)
+    return res
 
 
 _AA_CODES = {"K1": 1, "K3-block": 2, "K3-warp": 3}
@@ -777,7 +830,8 @@ def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[in
     if kernel in _AA_CODES:
         rc = int(lib.qp_kernel_aa_placement(_AA_CODES[kernel], n, m, k, device, out))
         keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
-                "gram_floats", "ring_floats", "problems_per_block", "workspace_floats", "gram")
+                "gram_floats", "ring_floats", "problems_per_block", "workspace_floats", "gram",
+                "solve", "solve_floats")
     else:
         rc = int(lib.qp_btd_aa_placement(n, m, bb, cluster, k, device, out))
         keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
@@ -785,6 +839,8 @@ def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[in
     _raise_on(lib, rc, "anderson_placement_card")
     res = {key: int(v) for key, v in zip(keys, out)}
     res["ring"], res["gram"] = bool(res["ring"]), bool(res["gram"])
+    if "solve" in res:
+        res["solve"] = AA_SOLVES[res["solve"]]
     return res
 
 

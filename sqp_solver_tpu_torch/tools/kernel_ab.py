@@ -1,7 +1,7 @@
 """This checkout's kernels against another tree's, on the card.
 
     python -m sqp_solver_tpu_torch.tools.kernel_ab --parent build/parent \
-        [--parts bits,time,phases] [--kernels k3,k5]
+        [--parts bits,time,phases] [--kernels k3,k5] [--memory 40]
 
 ``--parent`` is the root of another checkout (for example the parent
 commit unpacked with ``git archive`` into ``build/parent``).  Each tree's
@@ -10,7 +10,7 @@ under ``build/kernel_ab/`` (only the sources the parts need, all nvcc
 processes started together); the Python around the kernels is this
 checkout's, which passes each library to the launchers explicitly and is
 valid as long as the C interface of the kernels compared is the same in
-both trees.  Four parts, in order (``--parts`` picks some):
+both trees.  The parts, in order (``--parts`` picks some):
 
 ``bits``    K1, K2, K5 (the wide variant too, at D = 1280 and 2048), K6 and
             K7 (the wide kernel too, at the internal blocks up to 128 of
@@ -67,6 +67,24 @@ both trees.  Four parts, in order (``--parts`` picks some):
             an Anderson unit's reader is ``admm_phase_clocks_aa``), and
             each split is also given per chunk.
 
+``--memory M`` adds leg G's cases past memory 32 (``chip_smoke.aa_memory_cases``:
+            K1, K3 in both layouts, the K6 and K7 clusters and the wide K6
+            and K7 at chunks of 2 and rho every 120) at memory M to
+            ``bits``, and gives ``time`` and ``phases`` those cases in
+            place of the memory-4 ones (each timed row with the change's
+            memory-4 launch beside it).
+
+``placements`` K1 and K3 in both layouts with Anderson at memories 33, 40, 64
+            and 128 (``--memories``; leg G's shapes and settings past 32)
+            with every placement of the chunk's system forced by a build
+            of this checkout's Anderson unit with ``-DAA_FORCE_SOLVE=p``
+            (``FORCED``: the whole Gram area on chip, a solve area a
+            problem, one a block, the workspace), in turns rule, forced
+            ..., forced reversed, rule: each forced launch bit for bit the
+            rule's (the same arithmetic), its placement as its launcher
+            reports it (a placement that shared memory cannot hold is
+            refused and listed), and the ms of each.
+
 ``k5rows``  K5 at the middle sizes (``chip_smoke.CHUNK_MID_SHAPES``,
             D = 512 and 960) through ``chip_smoke.compare_chunk`` with each
             tree of ``--trees``' library: against its plain version, the
@@ -108,6 +126,10 @@ SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
 TWINS = {"qp_kernel_aa.cu": "qp_kernel.cu", "qp_kernel_btd_aa.cu": "qp_kernel_btd.cu",
          "qp_kernel_btd_wide_aa.cu": "qp_kernel_btd_wide.cu"}
 AA_KERNELS = ("k1aa", "k3aa", "k6aa", "k7aa", "k6waa")
+# the placements of K1's and K3's chunk system past memory 32 that
+# ``placements`` forces (-DAA_FORCE_SOLVE=p: csrc/qp_kernel.cu:aa_dense_plan)
+FORCED = {0: "gram", 1: "scope", 2: "block", 3: "workspace"}
+PLACEMENT_MEMORIES = (33, 40, 64, 128)
 # the kernels that ``bits`` holds equal to the parent's, and the Anderson
 # instantiations at leg G's shapes
 BITS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7") + AA_KERNELS
@@ -166,6 +188,13 @@ def phase_library(tree: Path, label: str, source: str) -> ctypes.CDLL:
                             f"{label}-phases", flags=("-DADMM_PHASE_CLOCKS",))
 
 
+def forced_library(p: int) -> ctypes.CDLL:
+    """This checkout's Anderson unit (with the unit it includes) built with
+    its placement past memory 32 forced to ``FORCED[p]``."""
+    return _stage_and_build([_csrc(ROOT) / s for s in with_twins(["qp_kernel_aa.cu"])],
+                            _csrc(ROOT), f"force-{FORCED[p]}", flags=(f"-DAA_FORCE_SOLVE={p}",))
+
+
 def build_all(jobs: dict) -> dict:
     """Run the library builds ``{key: (fn, *args)}`` at once (each nvcc is a
     process of its own; the threads only wait on them)."""
@@ -218,7 +247,7 @@ def same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def bits(libs: dict, dev) -> list:
+def bits(libs: dict, dev, memory_cases=()) -> list:
     """K1, K2, K5 (the wide variant too), K6 and K7 (the wide kernel too, at
     internal blocks up to 128) of both trees at their ``chip_smoke.py``
     shapes,
@@ -251,7 +280,7 @@ def bits(libs: dict, dev) -> list:
     for c in cs.btd_cases(dev) + [c for c in cs.btd_wide_cases(dev) if c["bb"] <= 128]:
         cases.append((c["label"], lambda lib, c=c: cs.btd_launch(
             c["t"], c["settings"], c["check_infeas"], lib=lib)))
-    cases += [(c["label"], c["launch"]) for c in cs.aa_cases(dev)]
+    cases += [(c["label"], c["launch"]) for c in list(cs.aa_cases(dev)) + list(memory_cases)]
     rows = []
     for label, fn in cases:
         outs = {who: _tensors(fn(lib)) for who, lib in libs.items()}
@@ -380,7 +409,8 @@ def timing(libs: dict, dense: list, btd: list) -> list:
         cs.log(f"  {c['label']}: parent {mean['parent']:.3f} ms, change {mean['change']:.3f} ms, "
                f"parent / change {mean['parent'] / mean['change']:.2f}x (means of 2 turns of "
                f"{c['reps']} launches: {ms})"
-               + ("" if none is None else f"; without Anderson {none:.3f} ms"))
+               + ("" if none is None else
+                  f"; {c.get('none_label', 'without Anderson')} {none:.3f} ms"))
         rows.append(dict(case=c["label"], n=c["n"], batch=c["batch"], parent_ms=mean["parent"],
                          change_ms=mean["change"], speedup=mean["parent"] / mean["change"],
                          turns=ms, none_ms=none))
@@ -450,6 +480,55 @@ def polish_route(libs: dict, dev, runs: int = 5) -> dict:
                 change_ms=mean["change"], turns=walls)
 
 
+def placements(libs: dict, forced: dict, dev, memories=PLACEMENT_MEMORIES) -> list:
+    """K1 and K3 in both layouts with Anderson at each of ``memories``
+    (``chip_smoke.aa_memory_cases``) on the change's library (the rule) and
+    on each forced build (``forced``: {p: library}), in turns rule, forced
+    in ``FORCED``'s order, then reversed, rule: the ms of each, the
+    placement its launcher reports, and its outputs bit for bit the rule's
+    (raises where they differ).  A forced placement that shared memory
+    cannot hold is refused by its launcher and listed as refused."""
+    import torch
+
+    import chip_smoke as cs
+    from sqp_solver_tpu_torch.ops import qp_kernel as qk
+
+    long_cases = [c for c in cs.aa_long_cases(dev) if c["kernel"] in ("K1", "K3-warp",
+                                                                       "K3-block")]
+    rows = []
+    for memory in memories:
+        for c in cs.aa_memory_cases(dev, memory, long_cases):
+            where = {"rule": libs["change"], **{FORCED[p]: lib for p, lib in forced.items()}}
+            placed, ref = {}, _tensors(c["launch"](libs["change"]))
+            for who, lib in where.items():
+                try:
+                    placed[who] = qk.anderson_placement_card(c["placement"], c["n"], c["m"],
+                                                             memory, lib=lib)
+                    out = _tensors(c["launch"](lib))
+                except RuntimeError as err:  # the launcher refuses what does not fit
+                    placed[who] = f"refused: {err}"
+                    continue
+                torch.cuda.synchronize()
+                differ = [k for k, v in ref.items() if not same_bits(v, out[k])]
+                if differ:
+                    raise AssertionError(f"{c['label']}, {who}: {differ} differ from the rule's")
+            ran = [who for who in where if isinstance(placed[who], dict)]
+            ms = {who: [] for who in ran}
+            for who in ran + ran[::-1]:
+                ms[who].append(cs.cuda_ms(lambda: c["launch"](where[who]), c["reps"]))
+            mean = {who: sum(v) / len(v) for who, v in ms.items()}
+            rule = placed["rule"]["solve"]
+            cs.log(f"  {c['label']}: the rule's {rule} ({placed['rule']['blocks']} blocks an SM, "
+                   f"the twin {placed['rule']['twin_blocks']}) {mean['rule']:.3f} ms; "
+                   + ", ".join(f"{who} {mean[who]:.3f} ms ({placed[who]['solve']}, "
+                               f"{placed[who]['blocks']} blocks an SM)" if who in mean else
+                               f"{who} refused" for who in where if who != "rule")
+                   + " [bit for bit the rule's]")
+            rows.append(dict(case=c["label"], kernel=c["placement"], memory=memory, rule=rule,
+                             placements=placed, ms=mean, turns=ms))
+    return rows
+
+
 def aa_split(lib, c: dict) -> dict:
     """The phase split of one Anderson case ``c`` (``chip_smoke.aa_cases``)
     from the phase-clock build ``lib``: cycles per block, and the step's
@@ -514,6 +593,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="k3,k5")
     ap.add_argument("--trees", default="parent,change",
                     help="the trees whose phase split ``phases`` takes")
+    ap.add_argument("--memory", type=int, default=None,
+                    help="leg G's Anderson cases at this memory (past 32) for bits, time, phases")
+    ap.add_argument("--memories", default=",".join(map(str, PLACEMENT_MEMORIES)),
+                    help="the memories of ``placements``")
     args = ap.parse_args(argv)
     import torch
 
@@ -534,10 +617,16 @@ def main(argv=None) -> int:
     if {"bits", "time", "regs", "k5rows"} & set(parts):
         sources = (timed if "time" in parts else set()) | (
             {SOURCES[k] for k in BITS} if {"bits", "regs"} & set(parts) else set()) | (
-            {SOURCES["k5"]} if "k5rows" in parts else set())
+            {SOURCES["k5"]} if "k5rows" in parts else set()) | (
+            {SOURCES["k1aa"]} if "placements" in parts else set())
         for who, tree in trees.items():
             if {"bits", "time", "regs"} & set(parts) or who in split_trees:
                 jobs[who] = (kernel_library, tree, who, sources)
+    if "placements" in parts:
+        for p in FORCED:
+            jobs[("force", p)] = (forced_library, p)
+        if "change" not in jobs:
+            jobs["change"] = (kernel_library, ROOT, "change", {"qp_kernel_aa.cu"})
     if "phases" in parts:
         for src in timed:
             for who, tree in trees.items():
@@ -560,13 +649,16 @@ def main(argv=None) -> int:
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     if {"k6x", "k7x"} & set(kernels):
         btd += [c for c in cs.btd_past128_cases(dev) if c["label"][:2].lower() + "x" in kernels]
-    aa = [c for c in cs.aa_cases(dev) if c["kernel"] in kernels] if set(AA_KERNELS) & set(
-        kernels) else []
+    memory_cases = cs.aa_memory_cases(dev, args.memory) if args.memory else []
+    aa = [c for c in (memory_cases or cs.aa_cases(dev)) if c["kernel"] in kernels] if set(
+        AA_KERNELS) & set(kernels) else []
     result = dict(card=card)
     if "bits" in parts:
         cs.log("K1, K2, K3 in both layouts, K4 at n = 32, K5, K6 and K7, and the Anderson "
-               "instantiations at leg G's shapes, parent against change:")
-        result["bits"] = bits(libs, dev)
+               "instantiations at leg G's shapes"
+               + (f" and at memory {args.memory}" if args.memory else "")
+               + ", parent against change:")
+        result["bits"] = bits(libs, dev, memory_cases)
     if "regs" in parts:
         cs.log("registers, stack and local bytes a thread, parent against change:")
         result["regs"] = regs(libs)
@@ -575,6 +667,12 @@ def main(argv=None) -> int:
         result["time"] = timing(libs, dense + aa, btd)
         if "k4" in kernels:
             result["polish_route"] = polish_route(libs, dev)
+    if "placements" in parts:
+        cs.log("K1 and K3 with Anderson past memory 32, the rule's placement against each "
+               "forced one:")
+        result["placements"] = placements(
+            libs, {p: built[("force", p)] for p in FORCED}, dev,
+            [int(k) for k in args.memories.split(",")])
     if "k5rows" in parts:
         cs.log("K5 at the middle sizes, each tree's library:")
         result["k5rows"] = {who: [cs.compare_chunk(*shape, dev, reps=4, lib=libs[who])

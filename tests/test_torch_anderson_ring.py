@@ -97,17 +97,17 @@ def test_placement_rule_across_memories(k):
 # (kernel, n, m, bb, cluster, blocks an SM of the kernel without Anderson,
 # the Gram area in shared memory at memories 33, 48 and 64): past memory 32
 # the area stays on chip only where it alone keeps the twin's matrices (or
-# rows of A) and blocks an SM.  K1 and K3's block layout at n = 32 (eight
-# blocks an SM) keep it at 33 only; K3's warp layout at n = 32 never; K1 at
-# n = 128 and K7 at the NLP step's shape up to 48, where a matrix or a
-# block an SM would go next; K6 on a cluster always; K6 on one block, whose
-# A rows fill shared memory, never; K6 at n = 32, m = 24 always, with its
-# ring beside it at 33
+# rows of A) and blocks an SM (K6, K7), and for K1 and K3 never: their
+# chunk's system goes to a solve area instead, which beat the whole area on
+# chip on the card (tests/test_torch_anderson_past32.py).  K7 at the NLP step's shape
+# up to 48, where a block an SM would go next; K6 on a cluster always; K6
+# on one block, whose A rows fill shared memory, never; K6 at n = 32,
+# m = 24 always, with its ring beside it at 33
 PAST_32 = [
-    ("K1", 32, 33, None, None, 8, (True, False, False)),
-    ("K1", 128, 129, None, None, 1, (True, True, False)),
+    ("K1", 32, 33, None, None, 8, (False, False, False)),
+    ("K1", 128, 129, None, None, 1, (False, False, False)),
     ("K3-warp", 32, 33, None, None, 8, (False, False, False)),
-    ("K3-block", 32, 33, None, None, 8, (True, False, False)),
+    ("K3-block", 32, 33, None, None, 8, (False, False, False)),
     ("K6", 192, 320, 8, 2, 1, (True, True, True)),
     ("K6", 192, 320, 8, 1, 1, (False, False, False)),
     ("K7", 128, 224, 8, 2, 2, (True, True, False)),
@@ -120,9 +120,11 @@ def test_placement_rule_refuses_past_the_bound():
     kernels' bound before the Gram area could leave shared memory) every
     kernel gives a placement: at 33, 48 and 64 the Gram area stays in shared
     memory exactly where, with it, the block still holds what the kernel
-    without Anderson holds and gets as many blocks an SM, else it leaves
+    without Anderson holds and gets as many blocks an SM (K1 and K3: never,
+    PAST_32), else it leaves
     (``gram`` False, the block's shared memory that of the kernel without
-    Anderson); the ring is on chip only beside it."""
+    Anderson and, for K1 and K3, the solve areas of the chunk's system,
+    ``solve_floats``); the ring is on chip only beside it."""
     for kernel in qk.ANDERSON_KERNELS:
         with pytest.raises(ValueError, match="anderson_memory"):
             qk.anderson_placement(kernel, 32, 48, 0, twin_blocks=1, bb=8, cluster=2)
@@ -135,6 +137,7 @@ def test_placement_rule_refuses_past_the_bound():
             scopes = 2 if kernel == "K3-warp" else 1
             extra = 4 * scopes * ((p["gram_floats"] if on else 0)
                                   + (p["ring_floats"] if p["ring"] else 0))
+            extra += 4 * p.get("solve_floats", 0)
             assert p["smem_bytes"] <= 232448
             if kernel in ("K1", "K3-block"):
                 assert p["mats"] == p["twin_mats"]

@@ -1789,12 +1789,13 @@ AA_KINDS = ["K1", "K3-block", "K3-warp", "K6-cluster", "K6-block", "K7"]
 
 
 def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson", rho_every=None, eps=None,
-             batch=None):
+             batch=None, lib=None):
     """(float32 inputs, kernel launch, plain call) of one kind: each call
     takes the inputs and returns an object with x (or p), z, y, iter,
     rho_updates and done.  ``seg`` replaces the chunk length, ``rho_every``
     the rho interval (50 iterations, 40 for K1), ``eps`` the tolerances
-    (1e-5) and ``batch`` the problems (128, 64 for K6/K7)."""
+    (1e-5) and ``batch`` the problems (128, 64 for K6/K7); ``lib`` a kernel
+    library for K1's and K3's launches (the package's by default)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
@@ -1809,14 +1810,15 @@ def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson", rho_every=No
         s = dataclasses.replace(s, check_termination=seg or 10,
                                 adaptive_rho_interval=rho_every or 40)
         t = _to(step_inputs(batch or 128, 16, 17, seed=31, equality_row=False), cuda)
-        return (t, lambda t: _step(qk.sqp_step_kernel, t, s),
+        return (t, lambda t: _step(qk._sqp_step_launch, t, s, lib=lib),
                 lambda t: _step(qk.sqp_step_reference, t, s))
     if kind.startswith("K3"):
         n, m = (40, 41) if kind == "K3-block" else (16, 24)
         t = _to(qp_inputs(batch or 128, n, m, seed=n + m, loose_row=True), cuda)
         layout = kind.split("-")[1]
         assert (qk.qp_solve_problems_per_block(n, m) > 1) == (layout == "warp")
-        return (t, lambda t: _qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout), t, s),
+        return (t, lambda t: _qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout, lib=lib),
+                                     t, s),
                 lambda t: _qp_raw(qk.qp_solve_reference, t, s))
     bs = dataclasses.replace(s, linear_solver="schur_block_tridiag", block_size=8)
     if kind.startswith("K6"):
@@ -1937,6 +1939,86 @@ def test_anderson_kernels_past_memory_32_match_plain_float64(cuda, kind, memory)
     assert (ok.iter >= 2 * (memory + 2)).float().mean() >= 0.25
 
 
+@pytest.mark.parametrize("kind", ["K1", "K3-block", "K3-warp"])
+def test_anderson_k1_k3_at_memory_65_match_plain_float64(cuda, kind):
+    """K1 and K3 in each layout at memory 65, where the k x k solve takes
+    three rounds of 32 rows, in chunks of 2 with rho every 154 and eps 1e-6,
+    so that the ring fills and wraps (at 134 iterations) before a rho change
+    empties it: the kernel holds to plain float64 under the bars of
+    test_anderson_kernels_match_plain_float64, a quarter or more of the
+    problems running past the wrap.  Past 32, K1 and K3 put the chunk's
+    system where ops/qp_kernel.py:anderson_placement says (at these shapes a
+    solve area a problem or a block; the workspace one is forced in
+    test_anderson_forced_placements_are_the_rules_bit_for_bit)."""
+    ok = _aa_against_plain_float64(kind, *_aa_case(kind, 65, cuda, seg=2, rho_every=154,
+                                                   eps=1e-6, batch=4096))
+    assert (ok.iter >= 2 * (65 + 2)).float().mean() >= 0.25
+
+
+@pytest.fixture(scope="module")
+def forced_aa_libs():
+    """This checkout's Anderson unit built with each placement of K1's and
+    K3's chunk system past memory 32 forced (tools/kernel_ab.py:
+    forced_library, -DAA_FORCE_SOLVE=p), all nvcc processes at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with --noconftest -m gpu")
+    from sqp_solver_tpu_torch.tools import kernel_ab
+
+    return kernel_ab.build_all({kernel_ab.FORCED[p]: (kernel_ab.forced_library, p)
+                                for p in kernel_ab.FORCED})
+
+
+@pytest.mark.parametrize("memory", [40, 65])
+@pytest.mark.parametrize("kind", ["K1", "K3-block", "K3-warp"])
+def test_anderson_forced_placements_are_the_rules_bit_for_bit(cuda, forced_aa_libs, kind,
+                                                              memory):
+    """K1 and K3 in each layout at memories 40 and 65 (chunks of 2, rho
+    every 154, the ring wrapping) with the chunk's system in each place a
+    build can force (the whole Gram area on chip, a solve area a problem,
+    one a block, the workspace): each launch reports the forced placement
+    and gives the rule's outputs bit for bit (the same operations in the
+    same order wherever the system lives), so the same statuses and counts;
+    a placement that shared memory cannot hold beside the kernel's own is
+    refused by its launcher.  The rule's outputs are held to plain float64
+    by test_anderson_kernels_past_memory_32_match_plain_float64."""
+    t32, launch, _ = _aa_case(kind, memory, cuda, seg=2, rho_every=154, eps=1e-6, batch=512)
+    ref = launch(t32)
+    n, m = {"K1": (16, 17), "K3-block": (40, 41), "K3-warp": (16, 24)}[kind]
+    assert (ref.iter >= 2 * (memory + 2)).float().mean() >= 0.25
+    ran = []
+    for name, lib in forced_aa_libs.items():
+        try:
+            placed = qk.anderson_placement_card(kind, n, m, memory, lib=lib)
+        except RuntimeError:  # more shared memory than a block takes
+            continue
+        # one problem a block: its block's area is its own
+        assert placed["solve"] == ("scope" if name == "block" and kind != "K3-warp" else name)
+        out = _aa_case(kind, memory, cuda, seg=2, rho_every=154, eps=1e-6, batch=512,
+                       lib=lib)[1](t32)
+        torch.cuda.synchronize()
+        for key in ref._fields:
+            a, b = getattr(ref, key), getattr(out, key)
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                   b.view(torch.int32) if b.dtype == torch.float32 else b), (
+                    name, key)
+        ran.append(name)
+    assert {"scope", "workspace"} <= set(ran), ran
+
+
+@pytest.mark.parametrize("kind", AA_KINDS)
+def test_anderson_kernels_take_every_memory_through_leg_g(cuda, kind):
+    """Every memory from 1 to 40, the largest leg G runs
+    (chip_smoke.AA_LONG_MEMORY), launches without a refusal (the Gram area
+    on chip, or K1's and K3's system in a solve area or the workspace,
+    wherever the rule puts it) and gives finite iterates."""
+    for memory in range(1, 41):
+        t32, launch, _ = _aa_case(kind, memory, cuda, seg=2, batch=32)
+        out = launch(t32)
+        x = out.p if kind == "K1" else out.x
+        assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(out.y).all()), memory
+
+
 @pytest.mark.parametrize("kind", ["K3-block", "K3-warp", "K6-block", "K6-cluster"])
 def test_anderson_kernels_certificates(cuda, kind):
     """The certificate batch (feasible, primal and dual infeasible problems
@@ -1993,7 +2075,9 @@ def test_anderson_placement_is_the_rules(cuda, kernel, n, m, bb, cluster):
     area in shared memory always) and 33, 40 and 64 (the Gram area there
     only where it costs the kernel without Anderson nothing: for the wide
     kernel, given its layout without Anderson and, where the launcher kept
-    the area on chip, the one it reports)."""
+    the area on chip, the one it reports; for K1 and K3 past 32 never:
+    their chunk's system in a solve area or the workspace, ``solve``, which
+    the mirror holds too)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
     nnz = _leg_p(cuda)[1] if kernel == "wide" and bb > qb.COMPACT_ABOVE else None

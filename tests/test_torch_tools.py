@@ -108,3 +108,17 @@ def test_anderson_units_build_with_the_units_they_include():
     assert ka.with_twins(["admm_kernel.cu"]) == ["admm_kernel.cu"]
     assert PHASES[-len(ka.AA_PHASES):] == ka.AA_PHASES
     assert set(ka.AA_KERNELS) <= set(ka.BITS)
+
+
+def test_anderson_solves_follow_the_step_enum():
+    """``ops/qp_kernel.py:AA_SOLVES`` names the codes of ``csrc/admm_core.cuh:
+    AaSolve`` in order (the card's placement report gives the code), and the
+    A/B tool's forced placements (``-DAA_FORCE_SOLVE=p``) are those codes,
+    0 forcing the whole Gram area into shared memory."""
+    from sqp_solver_tpu_torch.ops.qp_kernel import AA_SOLVES
+    from sqp_solver_tpu_torch.tools import kernel_ab as ka
+
+    codes = dict(e.replace(" ", "").split("=") for e in _enum("admm_core.cuh", "AaSolve"))
+    assert [name[len("kAaSolve"):].lower() for name in codes] == list(AA_SOLVES)
+    assert [int(v) for v in codes.values()] == list(range(len(AA_SOLVES)))
+    assert ka.FORCED == dict(enumerate(AA_SOLVES))
