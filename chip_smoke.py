@@ -2611,7 +2611,7 @@ def aa_settings(s, memory: int = 4):
 
 
 def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
-                   relative: bool = False) -> dict:
+                   relative: bool = False, bars: bool = True) -> dict:
     """The kernel with Anderson and its plain version with Anderson, both
     float32, each against the plain version in float64 under ROADMAP Queue
     3's float32 bars: x, z, y at ``EPOCH_TOL`` on the problems float64
@@ -2621,8 +2621,11 @@ def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
     itself parts from float64 by more than ``EPOCH_TOL``: Anderson's
     accept test flips on rounding) the kernel's largest difference must
     instead stay within twice the plain float32 version's (plus 1e-5).
-    ``launch`` and ``plain`` take (operands, settings); ``plain_ms`` is the
-    plain float32 call's time (CUDA events, no warm-up)."""
+    Without ``bars`` (where plain float32 itself agrees with float64 on
+    too few problems for the shares to compare) the numbers are returned
+    and no bar is held.  ``launch`` and ``plain`` take (operands, settings);
+    ``plain_ms`` is the plain float32 call's time (CUDA events, no
+    warm-up)."""
     import torch
 
     t64 = {k: (v.double() if v.dtype == torch.float32 else v) for k, v in t32.items()}
@@ -2640,16 +2643,17 @@ def aa_against_f64(label: str, t32, launch, plain, settings, x: str = "x",
         e = 0.0
         for k in (x, "z", "y"):
             a, b = getattr(out, k)[cmp].double(), getattr(p64, k)[cmp]
-            if not relative and not torch.allclose(a, b, atol=EPOCH_TOL, rtol=EPOCH_TOL):
+            if bars and not relative and not torch.allclose(a, b, atol=EPOCH_TOL,
+                                                            rtol=EPOCH_TOL):
                 raise AssertionError(f"{label}: {name} {k} differs from f64 by "
                                      f"{max_err(a, b):.3e}")
             e = max(e, max_err(a, b))
         res[name] = dict(agree=float(agree.float().mean()), max_err=e)
-    if relative and not res["kernel"]["max_err"] <= 2 * res["plain"]["max_err"] + 1e-5:
+    if bars and relative and not res["kernel"]["max_err"] <= 2 * res["plain"]["max_err"] + 1e-5:
         raise AssertionError(f"{label}: the kernel differs from f64 by "
                              f"{res['kernel']['max_err']:.3e}, over twice the plain f32 "
                              f"version's {res['plain']['max_err']:.3e}")
-    if res["kernel"]["agree"] < BTD_AGREE * res["plain"]["agree"]:
+    if bars and res["kernel"]["agree"] < BTD_AGREE * res["plain"]["agree"]:
         raise AssertionError(f"{label}: the kernel agrees with f64 on {res['kernel']['agree']:.4f}, "
                              f"the plain float32 version on {res['plain']['agree']:.4f}")
     return dict(res, out=outs["kernel"], solved64=float(p64.done.float().mean()),
@@ -2881,14 +2885,15 @@ def aa_cases(dev) -> list:
             blocks=(cl or 2) * c["batch"], seg=st.check_termination, reps=5,
             launch=lambda lib, k=4, btd=btd, st=st: btd(lib, aa_settings(st, k)),
             launch_none=lambda lib, btd=btd, st=st: btd(lib, st)))
-    for c in (btd_random_case(256, 4, 64, 384, dev), btd_wide_step_case(64, 2, 64, 224, dev)):
+    for c, key in ((btd_random_case(256, 4, 64, 384, dev), "k6waa"),
+                   (btd_wide_step_case(64, 2, 64, 224, dev), "k7waa")):
         st = dataclasses.replace(c["settings"], check_termination=10)
 
         def wide(lib, st, c=c):
             return btd_launch(c["t"], st, c["check_infeas"], lib=lib)
 
         cases.append(dict(
-            label=f"{c['label']} bb=64 Anderson, chunks of 10", kernel="k6waa",
+            label=f"{c['label']} bb=64 Anderson, chunks of 10", kernel=key,
             placement="wide", memory=4, n=c["n"], m=c["m"], bb=64, batch=c["batch"], cluster=2,
             blocks=2 * c["batch"], seg=10, reps=3,
             launch=lambda lib, wide=wide, st=st: wide(lib, aa_settings(st)),
@@ -3038,21 +3043,28 @@ def aa_long_settings(s, memory: int = AA_LONG_MEMORY):
                                adaptive_rho=True, adaptive_rho_interval=120)
 
 
-def aa_long_cases(dev) -> list:
+def aa_long_cases(dev, lib=None) -> list:
     """Leg G's kernels with Anderson past memory 32, at leg G's shapes
     (``aa_cases``): K1 n = 32, B = 4096; K3 random n = 32, m = 33, B = 4096
     in its warp and block layouts; K6 on the structured MPC horizon 64,
     B = 256 and K7 on the NLP step horizon 32 (B = 1024), each on a
     cluster; the wide K6 on random bands at bb = 64 and the wide K7 at the
-    NLP's block-64 shape (B = 1024 each).  Each: its label, operands, launch
-    and plain call (each taking operands and settings), base settings, the
-    iterate's name, its placement's kernel and shape, whether it is held
-    relative to the plain float32 version (the wide K6, as at memory 4),
-    ``bound_of(out, settings)``, and ``entry``: the kernel line's entry its
-    timed row joins.  Each launch takes a kernel library (``lib``, the
-    package's by default), as ``tools/kernel_ab.py`` passes one
-    (:func:`aa_memory_cases`)."""
+    NLP's block-64 shape (B = 1024 each), and the compact route past
+    internal block 128 on random bands at bb = 256 (B = 32, the rule's
+    cluster for the nonzeros a block holds, ``nnz``).  Each: its label,
+    operands, launch and plain call (each taking operands and settings),
+    base settings, the iterate's name, its placement's kernel and shape
+    (the wide kernel's cases also their ``tools/kernel_ab.py`` key), whether
+    it is held relative to the plain float32 version (the wide K6, as at
+    memory 4) and whether by ``aa_against_f64``'s bars (``bars``; not the
+    compact route's, which the fixed-rho run holds), ``bound_of(out,
+    settings)``, and ``entry``: the kernel line's entry its timed row
+    joins.  Each launch takes a kernel library (``lib``,
+    the package's by default), as ``tools/kernel_ab.py`` passes one
+    (:func:`aa_memory_cases`); ``lib`` here gives the compact route's
+    cluster."""
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
     cases = [dict(label="K1 n=32 B=4096", kernel="K1", n=32, m=33, t=step_operands(4096, 32, dev),
                   batch=4096,
@@ -3084,40 +3096,48 @@ def aa_long_cases(dev) -> list:
             kw=dict(bb=c["bb"], cluster=2), entry=entry,
             bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"],
                                                     c["bb"])))
-    for c, entry in ((btd_random_case(1024, 4, 64, 384, dev), "qp_solve_btd_wide"),
-                     (btd_wide_step_case(1024, 2, 64, 224, dev), "btd_step_wide")):
-        ci = c["check_infeas"]
+    for c, entry, key in ((btd_random_case(1024, 4, 64, 384, dev), "qp_solve_btd_wide", "k6waa"),
+                          (btd_wide_step_case(1024, 2, 64, 224, dev), "btd_step_wide", "k7waa"),
+                          (btd_random_case(32, 2, 256, 200, dev), "qp_solve_btd_wide", "k6xaa")):
+        ci, bb, nnz = c["check_infeas"], c["bb"], btd_nnz(c)
+        cluster = qb.cluster_size(c["n"], c["m"], bb, c["batch"], lib=lib, nnz=nnz)
+        # past 128 plain float32 stops at float64's iteration on 1 of the 32
+        # problems (chunks of 2): the fixed-rho run holds the kernel there
+        bars = bb <= qb.COMPACT_ABOVE
         cases.append(dict(
-            label=f"wide {c['label']} bb=64", kernel="wide", n=c["n"], m=c["m"], t=c["t"],
-            batch=c["batch"], launch=lambda t, st, lib=None, ci=ci: btd_launch(t, st, ci, lib=lib),
+            label=f"wide {c['label']} bb={bb}", kernel="wide", key=key, n=c["n"], m=c["m"],
+            t=c["t"], batch=c["batch"],
+            launch=lambda t, st, lib=None, ci=ci: btd_launch(t, st, ci, lib=lib),
             plain=lambda t, st, ci=ci: btd_plain(t, st, ci), settings=c["settings"], x="x",
-            kw=dict(bb=64, cluster=2), relative=ci, entry=entry,
-            bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"], 64,
-                                                    A=c["t"]["J"])))
+            kw=dict(bb=bb, cluster=cluster), nnz=nnz, relative=ci, bars=bars, entry=entry,
+            bound_of=lambda out, st, c=c: btd_bound(out, st, c["batch"], c["n"], c["m"],
+                                                    c["bb"], A=c["t"]["J"])))
     return cases
 
 
-# tools/kernel_ab.py's key of each aa_long_cases kernel
-AA_LONG_KEYS = {"K1": "k1aa", "K3-warp": "k3aa", "K3-block": "k3aa", "K6": "k6aa", "K7": "k7aa",
-                "wide": "k6waa"}
+# tools/kernel_ab.py's key of each aa_long_cases kernel (the wide kernel's
+# cases name theirs: k6waa, k7waa, k6xaa)
+AA_LONG_KEYS = {"K1": "k1aa", "K3-warp": "k3aa", "K3-block": "k3aa", "K6": "k6aa", "K7": "k7aa"}
 
 
-def aa_memory_cases(dev, memory: int = AA_LONG_MEMORY, long_cases=None) -> list:
+def aa_memory_cases(dev, memory: int = AA_LONG_MEMORY, long_cases=None, lib=None) -> list:
     """Leg G's cases past memory 32 (``long_cases``, by default
     ``aa_long_cases``: chunks of 2, rho every 120) at ``memory``, in the
     form of ``aa_cases`` for ``tools/kernel_ab.py --memory``: ``launch(lib)``
     at that memory and ``launch_none(lib)`` at memory 4 in the same
     settings (the memory-4 row kept beside each timing), each case's thread
-    blocks and chunk length."""
+    blocks and chunk length (``lib``: :func:`aa_long_cases`')."""
     cases = []
-    for c in long_cases if long_cases is not None else aa_long_cases(dev):
+    for c in long_cases if long_cases is not None else aa_long_cases(dev, lib):
         st, st4 = aa_long_settings(c["settings"], memory), aa_long_settings(c["settings"], 4)
-        blocks = c["batch"] // 2 if c["kernel"] == "K3-warp" else c["batch"] * (
-            2 if "cluster" in c["kw"] else 1)
+        blocks = c["batch"] // 2 if c["kernel"] == "K3-warp" else c["batch"] * c["kw"].get(
+            "cluster", 1)
         cases.append(dict(
-            label=f"{c['label']} Anderson memory {memory}", kernel=AA_LONG_KEYS[c["kernel"]],
+            label=f"{c['label']} Anderson memory {memory}",
+            kernel=c.get("key") or AA_LONG_KEYS[c["kernel"]],
             placement=c["kernel"], memory=memory, n=c["n"], m=c["m"], batch=c["batch"],
-            blocks=blocks, seg=st.check_termination, reps=2, none_label="memory 4", **c["kw"],
+            blocks=blocks, seg=st.check_termination, reps=2, none_label="memory 4",
+            nnz=c.get("nnz"), **c["kw"],
             launch=lambda lib, c=c, st=st: c["launch"](c["t"], st, lib=lib),
             launch_none=lambda lib, c=c, st4=st4: c["launch"](c["t"], st4, lib=lib)))
     return cases
@@ -3162,33 +3182,35 @@ def run_anderson_long(dev, card: str, phase_libs: dict, reps: int = 2) -> dict:
     for 100 iterations, every problem past the wrap
     (``aa_fixed_against_f64``); the Gram area's and the
     ring's placement and the blocks an SM from the launcher
-    (``anderson_placement_card``) against the rule's mirror, and for K1
-    and K3 where the chunk's system went (``solve``) and the step's split a
-    chunk from the phase-clock build of their Anderson unit (``phase_libs``,
+    (``anderson_placement_card``) against the rule's mirror, with where
+    the chunk's system went (``solve``), and the step's split a chunk from
+    the phase-clock build of the kernel's Anderson unit (``phase_libs``,
     ``tools/kernel_ab.py:aa_split``); and each kernel timed at memory 40
     beside memory 4 in the same settings, with the plain version and the
     bound (``timed``: the rows by the kernel line's entry)."""
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
-    from sqp_solver_tpu_torch.tools.kernel_ab import AA_PHASES, aa_split
+    from sqp_solver_tpu_torch.tools.kernel_ab import AA_PHASES, SOURCES, aa_split
 
     rows, timed = [], {}
     k = AA_LONG_MEMORY
     for c in aa_long_cases(dev):
         st = aa_long_settings(c["settings"])
         r = aa_against_f64(f"{c['label']} memory {k}", c["t"], c["launch"], c["plain"], st,
-                           c["x"], c.get("relative", False))
+                           c["x"], c.get("relative", False), c.get("bars", True))
         wrapped = float((r["out"].iter >= 2 * (k + 2)).float().mean())
         if wrapped < 0.25:
             raise AssertionError(f"{c['label']} memory {k}: {wrapped:.4f} of the problems ran "
                                  f"past the ring's wrap at {2 * (k + 2)} iterations (bar 0.25)")
         fixed = aa_fixed_against_f64(f"{c['label']} memory {k}", c, st, 100)
-        on_card = qk.anderson_placement_card(c["kernel"], c["n"], c["m"], k, **c["kw"])
+        on_card = qk.anderson_placement_card(c["kernel"], c["n"], c["m"], k, nnz=c.get("nnz"),
+                                             **c["kw"])
         wide = None
-        if c["kernel"] == "wide":
-            plain = qb.wide_layout(c["n"], c["m"], c["kw"]["bb"])
-            wide = (plain, dict(plain, smem_bytes=on_card["smem_bytes"]) if on_card["gram"]
-                    else None)
+        if c["kernel"] == "wide":  # the layouts with each reserve the rule weighs
+
+            def wide(reserve, c=c):
+                return qb.wide_layout(c["n"], c["m"], c["kw"]["bb"], nnz=c.get("nnz"),
+                                      reserve=reserve)
         mirror = qk.anderson_placement(c["kernel"], c["n"], c["m"], k,
                                        twin_blocks=on_card.get("twin_blocks"), wide=wide,
                                        **c["kw"])
@@ -3198,30 +3220,33 @@ def run_anderson_long(dev, card: str, phase_libs: dict, reps: int = 2) -> dict:
                                  f"differs from the rule's mirror {mirror} in {differ}")
         blocks = (f", blocks an SM {on_card['blocks']} with Anderson, "
                   f"{on_card['twin_blocks']} without" if "blocks" in on_card else "")
-        solve = (f", the chunk's system {on_card['solve']}" + (
+        solve = f", the chunk's system {on_card['solve']}" + (
             f" ({on_card['solve_floats']} floats of shared memory a block)"
-            if on_card["solve_floats"] else "") if "solve" in on_card else "")
+            if on_card["solve_floats"] else "")
         log(f"  {c['label']} memory {k} (chunks of 2, rho every 120): Gram area "
             f"{'in shared memory' if on_card['gram'] else 'in the workspace'}{solve}, ring "
             f"{'in shared memory' if on_card['ring'] else 'in the workspace'} "
             f"({on_card['smem_bytes']} bytes of shared memory a block{blocks}); iter and rho "
             f"agree with f64 on kernel {r['kernel']['agree']:.4f} / plain f32 "
             f"{r['plain']['agree']:.4f}, max diff {r['kernel']['max_err']:.3e} / "
-            f"{r['plain']['max_err']:.3e}; {wrapped:.4f} of the problems past the ring's wrap, "
+            f"{r['plain']['max_err']:.3e}"
+            + ("" if c.get("bars", True) else " (no bar: too few agree to compare)")
+            + f"; {wrapped:.4f} of the problems past the ring's wrap, "
             f"mean ADMM iterations {float(r['out'].iter.float().mean()):.1f}; 100 iterations at "
             f"a fixed rho, relative error against plain f64 kernel {fixed['kernel']:.3e} / plain "
             f"f32 {fixed['plain']:.3e} [{card}]")
         row = dict(case=c["label"], memory=k, placement=on_card, wrapped=wrapped, fixed=fixed,
                    agree_kernel=r["kernel"]["agree"], agree_plain=r["plain"]["agree"],
                    max_abs_err=r["kernel"]["max_err"], max_abs_err_plain=r["plain"]["max_err"])
-        if "solve" in on_card:  # K1, K3: the step's split a chunk
-            split = aa_split(phase_libs["qp_kernel_aa.cu"], aa_memory_cases(dev, k, [c])[0])
-            per = split["cycles_per_chunk"]
-            log(f"  {c['label']} memory {k}: the step {split['step_per_chunk']:.0f} cycles a "
-                "chunk a block (" + ", ".join(f"{p[2:]} {per[p]:.0f}" for p in AA_PHASES)
-                + f"), the solve {per['aasolve'] / split['step_per_chunk']:.3f} of it; the "
-                f"plain stats {per['stats']:.0f}, over {split['chunks']:.1f} chunks [{card}]")
-            row["split"] = split
+        # the step's split a chunk, from the phase-clock build of its unit
+        mc = aa_memory_cases(dev, k, [c])[0]
+        split = aa_split(phase_libs[SOURCES[mc["kernel"]]], mc)
+        per = split["cycles_per_chunk"]
+        log(f"  {c['label']} memory {k}: the step {split['step_per_chunk']:.0f} cycles a "
+            "chunk a block (" + ", ".join(f"{p[2:]} {per[p]:.0f}" for p in AA_PHASES)
+            + f"), the solve {per['aasolve'] / split['step_per_chunk']:.3f} of it; the "
+            f"plain stats {per['stats']:.0f}, over {split['chunks']:.1f} chunks [{card}]")
+        row["split"] = split
         t, launch = c["t"], c["launch"]
         st4 = aa_long_settings(c["settings"], 4)
         ms, ms4 = cuda_ms(lambda: launch(t, st), reps), cuda_ms(lambda: launch(t, st4), reps)

@@ -387,12 +387,12 @@ struct AaArgs {
   int gram_ws;  // the Gram area at the head of the workspace slice (k > kAaGramSmemMemory)
 };
 
-// The second argument of K1's and K3's Anderson kernels whose Gram area is
-// in the workspace (the _aas instantiations; the others keep AaArgs alone,
-// as they were): where the chunk's system goes (AaSolve, aa_sys), a solve
-// area at sys_off floats of the block's shared memory, sys_stride floats a
-// scope (the area a scope) or one area the scopes take in turn, or a slice
-// of sys_ws (the workspace after the scopes' slices).
+// The second argument of the Anderson kernels whose step solves off the
+// Gram area (the _aas instantiations of K1, K3, K6 and K7; the others keep
+// AaArgs alone, as they were): where the chunk's system goes (AaSolve,
+// aa_sys), a solve area at sys_off floats of the block's shared memory,
+// sys_stride floats a scope (the area a scope) or one area the scopes take
+// in turn, or a slice of sys_ws (the workspace after the scopes' slices).
 struct AaSysArgs {
   int solve;
   long long sys_off;
@@ -536,8 +536,8 @@ __device__ int certificate(const StepParams& p, const Op& op, const float* q, co
 //            (a pair's dot products do not change while it is held; a rho
 //            change empties the ring and with it the kept entries)
 //     Ga     k x (k + 1): the chunk's normal equations [G + reg | rhs] in
-//            the ring's logical order, solved in place (aa_solve); where
-//            the Gram area is in the workspace, K1 and K3 put Ga where
+//            the ring's logical order, solved in place (aa_solve); past
+//            kAaGramSmemMemory every kernel puts Ga where
 //            AaSysArgs::solve says (AaSolve, aa_sys, aa_solve_sys)
 //   the ring (aa_ring_floats(k, n, m) floats), in shared memory after the
 //   Gram area where the launcher's rule puts it (only where the Gram is
@@ -558,7 +558,8 @@ constexpr int kAaSlots = kAaGroup / 2;    // pairs a group: their Gram entry and
 // Up to this memory every launch keeps the Gram area in shared memory (the
 // kernels' bound on k before the area could leave it: 2,080 floats at 32).
 // Past it, a Gram area in the workspace made aa_solve's k pivots each wait
-// on device memory (PERF.md), so there K1 and K3 solve off the Gram area.
+// on device memory, and one on chip each wait on a lane's chain (PERF.md),
+// so there every kernel solves off the Gram area.
 constexpr int kAaGramSmemMemory = 32;
 
 __host__ __device__ constexpr int aa_gram_floats(int k) { return round4(k * k + k * (k + 1)); }
@@ -567,23 +568,25 @@ __host__ __device__ constexpr long long aa_ring_floats(int k, int n, int m) {
 }
 // A scope's workspace slice: the ring, after the Gram area where that is not
 // in shared memory (the slice has room for both either way).  The launches
-// of K1 and K3 whose system goes to the workspace (kAaSolveWorkspace) put
-// it after the slices, aa_solve_floats a scope (admm_aa_floats below
-// counts it in each scope's share of the allocation).
+// whose system goes to the workspace (kAaSolveWorkspace) put it after the
+// slices, aa_solve_floats a scope (admm_aa_floats below counts it in each
+// scope's share of the allocation).
 __host__ __device__ constexpr long long aa_floats(int k, int n, int m) {
   return aa_gram_floats(k) + aa_ring_floats(k, n, m);
 }
 
-// Where the chunk's system Ga goes when the Gram area is in the workspace
-// (AaSysArgs::solve; K1's and K3's rule, qp_kernel.cu:aa_dense_plan, picks):
-//   kAaSolveGram       beside Gk in the Gram area (every launch whose Gram
-//                      area is in shared memory, and the structured kernels)
+// Where the chunk's system Ga goes (AaSysArgs::solve; the rules
+// qp_kernel.cu:aa_dense_plan, qp_kernel_btd.cu:btd_aa_plan and
+// qp_kernel_btd_wide.cu:wide_aa_plan pick past kAaGramSmemMemory):
+//   kAaSolveGram       beside Gk in the Gram area (every launch up to
+//                      kAaGramSmemMemory)
 //   kAaSolveScope      a solve area of aa_solve_floats(k) floats a scope in
 //                      shared memory
 //   kAaSolveBlock      one solve area a block, after its lock word, which
 //                      the block's scopes take in turn (K3's warp layout)
 //   kAaSolveWorkspace  a slice of AaSysArgs::sys_ws in device memory
-// Gk stays in the workspace on the last three: a chunk reads it once.
+// On the last three K1's and K3's Gk stays in the workspace (a chunk reads
+// it once); the structured kernels' stays on chip where that costs nothing.
 enum AaSolve { kAaSolveGram = 0, kAaSolveScope = 1, kAaSolveBlock = 2, kAaSolveWorkspace = 3 };
 
 // A solve area holds the system by columns: column c (c = k the right-hand
@@ -1117,8 +1120,8 @@ __device__ __forceinline__ AaStats aa_step(const Op& op, int k, int n, int m, fl
   return out;
 }
 
-// The step on the Gram area ag (Gk, then the system): every launch whose
-// Gram area is in shared memory, and the structured kernels'.
+// The step on the Gram area ag (Gk, then the system): every launch up to
+// kAaGramSmemMemory.
 template <class Op>
 __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
                                              float eps_rel, AaStats sp, const float* q,
@@ -1129,8 +1132,9 @@ __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float e
                  AaGramSys{ag + k * k});
 }
 
-// The step of K1 and K3 with the kept Gram gk in the workspace and the
-// chunk's system in sys (AaSysArgs::solve past kAaSolveGram).
+// The step with the kept Gram gk (in the workspace, or for K6/K7 in its
+// Gram area on chip) and the chunk's system in sys (AaSysArgs::solve past
+// kAaSolveGram).
 template <class Op>
 __device__ __noinline__ AaStats aa_chunk_end(Op op, int k, int n, int m, float eps_abs,
                                              float eps_rel, AaStats sp, const float* q,
@@ -1270,7 +1274,7 @@ __device__ __forceinline__ void op_factor_mark(const DenseOp&, bool) {}
 
 // Floats of one scope's share of the Anderson workspace at memory k, n
 // variables and m rows: its slice (aa_floats) and room for its chunk's
-// system (aa_solve_floats; K1's and K3's kAaSolveWorkspace, after the
+// system (aa_solve_floats; kAaSolveWorkspace, after the
 // slices, from a multiple of 4 floats); the wrappers allocate one share a problem (a block, for a K6/K7
 // cluster) with acceleration="anderson".  Weak, so that each unit may
 // define it and a library of any of the Anderson units has it.

@@ -74,7 +74,12 @@
 // includes this file with QP_KERNEL_BTD_AA_UNIT defined, so that nvcc
 // builds them in a process of their own beside this one.  The step keeps
 // its Gram area and its ring in shared memory where btd_aa_plan puts them
-// (the Gram always at a memory up to 32).
+// (the Gram always at a memory up to 32).  Past memory 32 the chunk's
+// system leaves the Gram area for a solve area by columns (in shared
+// memory where it costs the kernel without Anderson nothing, else the
+// workspace) that the whole block solves: a third instantiation,
+// qp_btd_kernel_aas, compiled in qp_kernel_btd_aas.cu (this file with
+// QP_KERNEL_BTD_AAS_UNIT too) beside the others.
 
 #include <cooperative_groups.h>
 
@@ -617,7 +622,7 @@ int btd_cluster_size(int n, int m, int bb, int batch) {
 #ifndef QP_KERNEL_BTD_AA_UNIT
 template <int BB, int CS>
 __global__ void __launch_bounds__(kThreads) qp_btd_kernel(
-#else
+#elif !defined(QP_KERNEL_BTD_AAS_UNIT)
 // With Anderson the step's registers count in the kernel's.  MINB = 2
 // caps them at the 128 a thread of the kernel without it, for the launches
 // where that kernel gets two blocks an SM (btd_aa_kernel: internal blocks
@@ -628,6 +633,14 @@ __global__ void __launch_bounds__(kThreads) qp_btd_kernel(
 // capped on an H100.
 template <int BB, int CS, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB) qp_btd_kernel_aa(
+#else
+// The same past kAaGramSmemMemory, where btd_aa_plan puts the chunk's
+// system off the Gram area (AaSysArgs: a solve area of the block's shared
+// memory or the workspace, solved by columns over the block,
+// aa_solve_sys); its registers capped as qp_btd_kernel_aa's
+// (btd_aas_kernel).
+template <int BB, int CS, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) qp_btd_kernel_aas(
 #endif
     StepParams p, int rs, int batch, const float* __restrict__ pdg,
     const float* __restrict__ peg, const float* __restrict__ Ag, const float* __restrict__ qg,
@@ -639,8 +652,11 @@ __global__ void __launch_bounds__(kThreads, MINB) qp_btd_kernel_aa(
     float* __restrict__ stats) {
   constexpr bool AA = false;
   const AaArgs aa_args{0, nullptr};
-#else
+#elif !defined(QP_KERNEL_BTD_AAS_UNIT)
     float* __restrict__ stats, AaArgs aa_args) {
+  constexpr bool AA = true;
+#else
+    float* __restrict__ stats, AaArgs aa_args, AaSysArgs sys_args) {
   constexpr bool AA = true;
 #endif
   extern __shared__ float smem[];
@@ -727,8 +743,14 @@ __global__ void __launch_bounds__(kThreads, MINB) qp_btd_kernel_aa(
   pl.m = ml;  // the ADMM core sees this block's rows
   if constexpr (AA) {  // Anderson's state: sized for m0 rows a block
     const AaState aa = aa_state(aa_args, smem, 0, blockIdx.x, n, m0);
+#ifdef QP_KERNEL_BTD_AAS_UNIT
+    admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
+                                   red, st, aa.ring, aa.k, aa.gram,
+                                   aa_sys(sys_args, aa.k, smem, 0, blockIdx.x));
+#else
     admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
                                    red, st, aa.ring, aa.k, aa.gram);
+#endif
   } else {
     admm_solve<BandOp<BB, CS>, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp,
                                    red, st);
@@ -757,29 +779,37 @@ __global__ void __launch_bounds__(kThreads, MINB) qp_btd_kernel_aa(
   if constexpr (CS > 1) cg::this_cluster().sync();
 }
 
-// One launch of this unit's kernel (with Anderson in qp_kernel_btd_aa.cu).
+// One launch of this unit's kernel (with Anderson in qp_kernel_btd_aa.cu,
+// and with the chunk's system off the Gram area in qp_kernel_btd_aas.cu).
 #ifdef QP_KERNEL_BTD_AA_UNIT
 // The Anderson kernel of a launch at (BB, CS) where the kernel without
 // Anderson gets twin_blocks blocks an SM: its registers capped to keep two
 // where that kernel gets two (internal blocks up to 16; wider ones get one).
 template <int BB, int CS>
 auto btd_aa_kernel(int twin_blocks) {
+#ifndef QP_KERNEL_BTD_AAS_UNIT
   auto kernel = qp_btd_kernel_aa<BB, CS, 1>;
   if constexpr (BB <= 16)
     if (twin_blocks >= 2) kernel = qp_btd_kernel_aa<BB, CS, 2>;
+#else
+  auto kernel = qp_btd_kernel_aas<BB, CS, 1>;
+  if constexpr (BB <= 16)
+    if (twin_blocks >= 2) kernel = qp_btd_kernel_aas<BB, CS, 2>;
+#endif
   return kernel;
 }
 #endif
 
 // twin_blocks: with Anderson, the blocks an SM of the kernel without it
-// (btd_aa_kernel); unused without.
+// (btd_aa_kernel); unused without.  sys: the chunk's system of the
+// qp_kernel_btd_aas.cu kernels; unused by the others.
 template <int BB, int CS>
 cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cudaStream_t stream,
                        const float* pd, const float* pe, const float* A, const float* q,
                        const float* l, const float* u, const uint8_t* active,
                        const float* rho_in, const float* x0, const float* z0, const float* y0,
                        float* x_out, float* z_out, float* y_out, float* stats, AaArgs aa,
-                       int twin_blocks) {
+                       int twin_blocks, const AaSysArgs& sys) {
 #ifndef QP_KERNEL_BTD_AA_UNIT
   (void)twin_blocks;
   auto kernel = qp_btd_kernel<BB, CS>;
@@ -803,11 +833,16 @@ cudaError_t launch_btd(const StepParams& p, int rs, int batch, size_t smem, cuda
   cfg.numAttrs = CS > 1 ? 1 : 0;
 #ifndef QP_KERNEL_BTD_AA_UNIT
   (void)aa;
+  (void)sys;
   return cudaLaunchKernelEx(&cfg, kernel, p, rs, batch, pd, pe, A, q, l, u, active, rho_in, x0,
                             z0, y0, x_out, z_out, y_out, stats);
-#else
+#elif !defined(QP_KERNEL_BTD_AAS_UNIT)
+  (void)sys;
   return cudaLaunchKernelEx(&cfg, kernel, p, rs, batch, pd, pe, A, q, l, u, active, rho_in, x0,
                             z0, y0, x_out, z_out, y_out, stats, aa);
+#else
+  return cudaLaunchKernelEx(&cfg, kernel, p, rs, batch, pd, pe, A, q, l, u, active, rho_in, x0,
+                            z0, y0, x_out, z_out, y_out, stats, aa, sys);
 #endif
 }
 
@@ -840,14 +875,14 @@ StepParams btd_params(int n, int m, float sigma, float alpha, float rho0, float 
 
 // One launch with cs blocks per problem (1 or 2, as BTD_INSTANCES has them)
 // of this unit's kernel and the parameters p, rs rows of A a block and smem
-// bytes of shared memory (btd_block_rows, btd_aa_plan); twin_blocks as
-// launch_btd's.
+// bytes of shared memory (btd_block_rows, btd_aa_plan); twin_blocks and sys
+// as launch_btd's.
 cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, const float* pe,
                           const float* A, const float* q, const float* l, const float* u,
                           const uint8_t* active, const float* rho_in, const float* x0,
                           const float* z0, const float* y0, float* x_out, float* z_out,
                           float* y_out, float* stats, int batch, void* stream, AaArgs aa,
-                          int rs, size_t smem, int twin_blocks);
+                          int rs, size_t smem, int twin_blocks, const AaSysArgs& sys = {});
 
 // The shared memory of a launch without Anderson: the fixed part and rs
 // rows of A.
@@ -872,7 +907,7 @@ cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, 
                           const uint8_t* active, const float* rho_in, const float* x0,
                           const float* z0, const float* y0, float* x_out, float* z_out,
                           float* y_out, float* stats, int batch, void* stream, AaArgs aa,
-                          int rs, size_t smem, int twin_blocks) {
+                          int rs, size_t smem, int twin_blocks, const AaSysArgs& sys) {
   const int n = p.n;
   if ((cs != 1 && cs != 2) || bb <= 0 || n % bb != 0 || rs < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -880,7 +915,7 @@ cudaError_t launch_btd_as(int cs, const StepParams& p, int bb, const float* pd, 
 #define X(BB_, CS_)                                                                        \
   if (bb == BB_ && cs == CS_)                                                              \
     err = launch_btd<BB_, CS_>(p, rs, batch, smem, st, pd, pe, A, q, l, u, active, rho_in, \
-                               x0, z0, y0, x_out, z_out, y_out, stats, aa, twin_blocks);
+                               x0, z0, y0, x_out, z_out, y_out, stats, aa, twin_blocks, sys);
   BTD_INSTANCES
 #undef X
   return err;
@@ -968,32 +1003,55 @@ int qp_btd_launch(const float* pd, const float* pe, const float* A, const float*
 
 }  // extern "C"
 
-#else  // QP_KERNEL_BTD_AA_UNIT: the Anderson kernels' entry point
+#else  // QP_KERNEL_BTD_AA_UNIT: the Anderson kernels' entry points
 
 extern "C" int qp_btd_twin_blocks(int n, int m, int bb, int cs, int device);  // qp_kernel_btd.cu
 
 namespace {
 
-// Where an Anderson launch keeps each block's Anderson state: its ring
-// (aa_ring_floats for m0 rows) in shared memory after A's rows and the Gram
-// area (aa_gram_floats) where, with both, the block still holds as many
-// rows of A as the kernel without Anderson and shared memory still allows
-// as many blocks an SM as that kernel gets (twin_blocks,
-// qp_btd_twin_blocks); else the ring stays in the device workspace.  The
-// Gram area is in shared memory always at a memory k <= kAaGramSmemMemory
-// (where shared memory is full of A's rows, it takes the room of the last
-// ones), and past it where it alone keeps those two (else it goes to the
-// head of the block's workspace slice).  ops/qp_kernel.py:
+// Where an Anderson launch keeps each block's Anderson state.  Up to a
+// memory k of kAaGramSmemMemory: the Gram area (aa_gram_floats: the kept
+// Gram Gk and the chunk's system) in shared memory after A's rows (where
+// shared memory is full of A's rows, it takes the room of the last ones),
+// and its ring (aa_ring_floats for m0 rows) after it where, with both, the
+// block still holds as many rows of A as the kernel without Anderson and
+// shared memory still allows as many blocks an SM as that kernel gets
+// (twin_blocks, qp_btd_twin_blocks); else the ring stays in the device
+// workspace.  Past it the chunk's system leaves the Gram area, which every
+// pivot of the k x k solve reads and writes (rows on lanes, aa_solve: the
+// step ran 3-7x the step at memory 4), for a solve area by columns that
+// the whole block solves (AaSolve, aa_solve_sys; the qp_kernel_btd_aas.cu
+// kernels), and each area goes to shared memory only where it costs the
+// kernel without Anderson no row of A and no block an SM: Gk's Gram area
+// and a solve area both where the two together keep those (with the ring
+// too, where all three do), else the solve area alone (Gk at the head of
+// the block's workspace slice), else the system to the workspace (a slice
+// of AaSysArgs::sys_ws) and the Gram area on chip where it alone keeps
+// them.  Decided by forcing every placement on an H100, in turns (PERF.md
+// section 6): a build with -DAA_FORCE_SOLVE=p forces past kAaGramSmemMemory
+// the parent's whole Gram area in shared memory (p = 0, the system in it,
+// qp_btd_kernel_aa), a solve area (1) or the workspace (3), and with
+// -DAA_FORCE_GRAM=g Gk on chip (1) or in the workspace (0)
+// (tools/kernel_ab.py --parts placements).  ops/qp_kernel.py:
 // anderson_placement is the rule's Python mirror.
+#ifndef AA_FORCE_SOLVE
+#define AA_FORCE_SOLVE -1
+#endif
+#ifndef AA_FORCE_GRAM
+#define AA_FORCE_GRAM 1
+#endif
 struct BtdAaPlan {
-  bool ring, gram;  // the ring, the Gram area in shared memory
+  bool ring, gram;  // the ring, the Gram area (Gk) in shared memory
+  int solve;        // AaSolve: kAaSolveGram, kAaSolveScope or kAaSolveWorkspace
   int rs, twin_rs;  // rows of A a block, with Anderson and without
   long long smem_bytes, twin_smem, sm_off, area;
+  long long sys_off, sys_floats;  // the solve area's offset and floats with its head
 };
 
 BtdAaPlan btd_aa_plan(int n, int m, int bb, int cs, int k, int twin_blocks) {
   const long long m0 = (m + cs - 1) / cs, fixed = btd_fixed_floats(n, m, bb, cs);
   const long long g = aa_gram_floats(k), r = aa_ring_floats(k, n, (int)m0);
+  const long long s = kAaSolveHead + aa_solve_floats(k);
   BtdAaPlan P{};
   P.twin_rs = btd_block_rows(n, m, bb, cs);
   P.twin_smem = (long long)btd_smem_bytes(n, m, bb, cs, P.twin_rs);
@@ -1003,33 +1061,71 @@ BtdAaPlan btd_aa_plan(int n, int m, int bb, int cs, int k, int twin_blocks) {
     return P.twin_rs >= 0 && btd_block_rows(n, m, bb, cs, area) == P.twin_rs &&
            with <= kMaxSmemBytes && smem_blocks_per_sm(with) >= twin_blocks;
   };
-  P.ring = keeps(g + r);
-  P.gram = P.ring || k <= kAaGramSmemMemory || keeps(g);
+  if (k <= kAaGramSmemMemory) {
+    P.ring = keeps(g + r);
+    P.gram = true;
+    P.solve = kAaSolveGram;
+  } else if (AA_FORCE_SOLVE >= 0) {
+    P.solve = AA_FORCE_SOLVE;
+    P.gram = P.solve == kAaSolveGram || AA_FORCE_GRAM == 1;
+  } else {
+    P.ring = keeps(g + r + s);
+    const bool both = P.ring || keeps(g + s), sys = both || keeps(s);
+    P.gram = both || (!sys && keeps(g));
+    P.solve = sys ? kAaSolveScope : kAaSolveWorkspace;
+  }
   P.area = (P.gram ? g : 0) + (P.ring ? r : 0);
-  P.rs = P.ring || !P.gram ? P.twin_rs : btd_block_rows(n, m, bb, cs, g);
+  P.sys_floats = P.solve == kAaSolveScope ? s : 0;
+  const long long extra = P.area + P.sys_floats;
+  P.rs = extra == 0 ? P.twin_rs : btd_block_rows(n, m, bb, cs, extra);
   P.sm_off = fixed + (long long)P.rs * (n + 1);
-  P.smem_bytes = (P.sm_off + P.area) * 4;
+  const long long sys_start = P.sm_off + P.area;  // the solve area after the Gram area
+  P.sys_off = (sys_start + kAaSolveHead) & ~3LL;
+  P.smem_bytes = (sys_start + P.sys_floats) * 4;
   return P;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The placement of an Anderson launch at n, m, internal block bb, cs blocks
-// per problem and memory k on this card, into out[10]: the ring in shared
-// memory (1) or in the workspace (0), a block's shared-memory bytes, those
-// of the kernel without Anderson, that kernel's blocks an SM and this
-// one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram area's
-// and the ring's floats a block, rows of A a block with Anderson and
-// without, and the Gram area in shared memory (1) or in the Anderson
-// workspace (0) (btd_aa_plan).  Returns a CUDA error code.
-int qp_btd_aa_placement(int n, int m, int bb, int cs, int k, int device, long long* out) {
+// The plan of a launch on this card, with the blocks an SM of the kernel
+// without Anderson (twin); a CUDA error code, or 0.
+int btd_aa_launch_plan(int n, int m, int bb, int cs, int k, int device, BtdAaPlan& P,
+                       int& twin) {
   if (k <= 0) return (int)cudaErrorInvalidValue;
-  const int twin = qp_btd_twin_blocks(n, m, bb, cs, device);
+  twin = qp_btd_twin_blocks(n, m, bb, cs, device);
   if (twin < 0) return -twin;
-  const BtdAaPlan P = btd_aa_plan(n, m, bb, cs, k, twin);
-  if (P.rs < 0) return (int)cudaErrorInvalidValue;
+  P = btd_aa_plan(n, m, bb, cs, k, twin);
+  if (P.rs < 0 || P.smem_bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// qp_btd_launch_aa's launch of this unit's kernel by the plan P: the slices
+// of aa_ws one a block of batch x cs, the chunk systems of
+// kAaSolveWorkspace after them (admm_aa_floats counts their room).
+int btd_aa_launch(const BtdAaPlan& P, int twin, int cs, const float* pd, const float* pe,
+                  const float* A, const float* q, const float* l, const float* u,
+                  const uint8_t* active, const float* rho_in, const float* x0, const float* z0,
+                  const float* y0, float* x_out, float* z_out, float* y_out, float* stats,
+                  int batch, int n, int m, int bb, float sigma, float alpha, float rho0,
+                  float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch, int seg,
+                  int adaptive_rho, float adaptive_rho_tolerance, int check_infeas,
+                  float eps_pinf, float eps_dinf, void* stream, int aa_mem, float* aa_ws) {
+  const StepParams p = btd_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
+                                  chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
+                                  check_infeas, eps_pinf, eps_dinf);
+  const int m0 = (m + cs - 1) / cs;
+  const size_t slices = (size_t)batch * cs * aa_floats(aa_mem, n, m0);
+  const AaSysArgs sys{P.solve, P.sys_off, 0, aa_ws + ((slices + 3) & ~(size_t)3)};
+  cudaError_t err = launch_btd_as(
+      cs, p, bb, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats,
+      batch, stream,
+      AaArgs{aa_mem, aa_ws, P.sm_off, (int)P.area, P.ring ? 1 : 0, P.gram ? 0 : 1}, P.rs,
+      (size_t)P.smem_bytes, twin, sys);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The Anderson kernel of this unit for a launch at (bb, cs) with twin, its
+// blocks an SM at smem_bytes into blocks; a CUDA error code.
+int btd_aa_blocks(int bb, int cs, int twin, long long smem_bytes, int* blocks) {
   const void* fn = nullptr;
 #define X(BB_, CS_) \
   if (bb == BB_ && cs == CS_) fn = (const void*)btd_aa_kernel<BB_, CS_>(twin);
@@ -1037,52 +1133,108 @@ int qp_btd_aa_placement(int n, int m, int bb, int cs, int k, int device, long lo
 #undef X
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem_bytes);
-  int blocks = 0;
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, P.smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem_bytes);
+  return (int)err;
+}
+
+}  // namespace
+
+#define QP_BTD_AA_ARGS                                                                        \
+  int cs, const float *pd, const float *pe, const float *A, const float *q, const float *l,  \
+      const float *u, const uint8_t *active, const float *rho_in, const float *x0,           \
+      const float *z0, const float *y0, float *x_out, float *z_out, float *y_out,            \
+      float *stats, int batch, int n, int m, int bb, float sigma, float alpha, float rho0,   \
+      float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch, int seg,             \
+      int adaptive_rho, float adaptive_rho_tolerance, int check_infeas, float eps_pinf,      \
+      float eps_dinf, int device, void *stream, int aa_mem, float *aa_ws
+#define QP_BTD_AA_CALL                                                                        \
+  cs, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats, batch, n, \
+      m, bb, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg,         \
+      adaptive_rho, adaptive_rho_tolerance, check_infeas, eps_pinf, eps_dinf
+
+extern "C" {
+
+#ifndef QP_KERNEL_BTD_AAS_UNIT
+// The entries of qp_kernel_btd_aas.cu, whose kernels take the launches
+// whose chunk system is off the Gram area (null in a library built
+// without that unit: such a launch is refused).
+__attribute__((weak)) int qp_btd_launch_aas(QP_BTD_AA_ARGS);
+__attribute__((weak)) int qp_btd_aas_blocks(int bb, int cs, int twin, long long smem_bytes,
+                                            int* blocks);
+
+// The placement of an Anderson launch at n, m, internal block bb, cs blocks
+// per problem and memory k on this card, into out[12]: the ring in shared
+// memory (1) or in the workspace (0), a block's shared-memory bytes, those
+// of the kernel without Anderson, that kernel's blocks an SM and this
+// one's (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the Gram area's
+// and the ring's floats a block, rows of A a block with Anderson and
+// without, the Gram area in shared memory (1) or in the Anderson workspace
+// (0), where the chunk's system goes (AaSolve) and the floats of the
+// block's solve area in shared memory (btd_aa_plan).  Returns a CUDA error
+// code.
+int qp_btd_aa_placement(int n, int m, int bb, int cs, int k, int device, long long* out) {
+  BtdAaPlan P;
+  int twin = 0, blocks = 0;
+  int err = btd_aa_launch_plan(n, m, bb, cs, k, device, P, twin);
+  if (err == 0 && P.solve == kAaSolveGram)
+    err = btd_aa_blocks(bb, cs, twin, P.smem_bytes, &blocks);
+  else if (err == 0)
+    err = qp_btd_aas_blocks ? qp_btd_aas_blocks(bb, cs, twin, P.smem_bytes, &blocks)
+                            : (int)cudaErrorInvalidDeviceFunction;
+  if (err != 0) return err;
   const long long m0 = (m + cs - 1) / cs;
-  const long long v[10] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
+  const long long v[12] = {P.ring ? 1 : 0, P.smem_bytes, P.twin_smem, twin, blocks,
                            aa_gram_floats(k), aa_ring_floats(k, n, (int)m0), P.rs, P.twin_rs,
-                           P.gram ? 1 : 0};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+                           P.gram ? 1 : 0, P.solve, P.sys_floats};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
 // qp_btd_launch_as with Anderson acceleration of any memory aa_mem > 0, cs
-// blocks per problem (1 or 2; 0: the rule's,
-// qp_btd_cluster_size), its state in shared memory and aa_ws (btd_aa_plan):
-// batch x cs slices of admm_aa_floats(aa_mem, n, ceil(m / cs)) floats, one
-// a block.
-int qp_btd_launch_aa(int cs, const float* pd, const float* pe, const float* A, const float* q,
-                     const float* l, const float* u, const uint8_t* active, const float* rho_in,
-                     const float* x0, const float* z0, const float* y0, float* x_out,
-                     float* z_out, float* y_out, float* stats, int batch, int n, int m, int bb,
-                     float sigma, float alpha, float rho0, float eps_abs, float eps_rel,
-                     int n_epochs, int chunks_per_epoch, int seg, int adaptive_rho,
-                     float adaptive_rho_tolerance, int check_infeas, float eps_pinf,
-                     float eps_dinf, int device, void* stream, int aa_mem, float* aa_ws) {
+// blocks per problem (1 or 2; 0: the rule's, qp_btd_cluster_size), its
+// state in shared memory and aa_ws (btd_aa_plan): batch x cs slices of
+// admm_aa_floats(aa_mem, n, ceil(m / cs)) floats, one a block.  A launch
+// whose chunk system is off the Gram area runs qp_kernel_btd_aas.cu's
+// kernels (qp_btd_launch_aas).
+int qp_btd_launch_aa(QP_BTD_AA_ARGS) {
   if (batch <= 0) return 0;
   if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);  // the rule reads this card's SM count
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t cerr = cudaSetDevice(device);  // the rule reads this card's SM count
+  if (cerr != cudaSuccess) return (int)cerr;
   if (cs == 0) cs = btd_cluster_size(n, m, bb, batch);
-  const int twin = qp_btd_twin_blocks(n, m, bb, cs, device);
-  if (twin < 0) return -twin;
-  const BtdAaPlan P = btd_aa_plan(n, m, bb, cs, aa_mem, twin);
-  const StepParams p = btd_params(n, m, sigma, alpha, rho0, eps_abs, eps_rel, n_epochs,
-                                  chunks_per_epoch, seg, adaptive_rho, adaptive_rho_tolerance,
-                                  check_infeas, eps_pinf, eps_dinf);
-  err = launch_btd_as(cs, p, bb, pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out,
-                      y_out, stats, batch, stream,
-                      AaArgs{aa_mem, aa_ws, P.sm_off, (int)P.area, P.ring ? 1 : 0,
-                             P.gram ? 0 : 1},
-                      P.rs,
-                      (size_t)P.smem_bytes, twin);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  BtdAaPlan P;
+  int twin = 0;
+  const int err = btd_aa_launch_plan(n, m, bb, cs, aa_mem, device, P, twin);
+  if (err != 0) return err;
+  if (P.solve != kAaSolveGram)
+    return qp_btd_launch_aas ? qp_btd_launch_aas(QP_BTD_AA_CALL, device, stream, aa_mem, aa_ws)
+                             : (int)cudaErrorInvalidDeviceFunction;
+  return btd_aa_launch(P, twin, QP_BTD_AA_CALL, stream, aa_mem, aa_ws);
 }
+#else
+// The blocks an SM of this unit's kernel at (bb, cs), twin and smem_bytes
+// (qp_btd_aa_placement's report of a launch off the Gram area).
+int qp_btd_aas_blocks(int bb, int cs, int twin, long long smem_bytes, int* blocks) {
+  return btd_aa_blocks(bb, cs, twin, smem_bytes, blocks);
+}
+
+// qp_btd_launch_aa's launches whose chunk system btd_aa_plan puts off the
+// Gram area (cs as the rule's or the caller's).
+int qp_btd_launch_aas(QP_BTD_AA_ARGS) {
+  if (batch <= 0) return 0;
+  if (aa_mem <= 0 || aa_ws == nullptr || cs <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return (int)cerr;
+  BtdAaPlan P;
+  int twin = 0;
+  const int err = btd_aa_launch_plan(n, m, bb, cs, aa_mem, device, P, twin);
+  if (err != 0) return err;
+  if (P.solve == kAaSolveGram) return (int)cudaErrorInvalidValue;
+  return btd_aa_launch(P, twin, QP_BTD_AA_CALL, stream, aa_mem, aa_ws);
+}
+#endif
 
 }  // extern "C"
 #endif  // QP_KERNEL_BTD_AA_UNIT

@@ -173,9 +173,11 @@
 // Anderson acceleration as in qp_kernel_btd.cu: a second instantiation of
 // each route's body (AA = true) in qp_kernel_btd_wide_aa.cu, which
 // includes this file with QP_KERNEL_BTD_WIDE_AA_UNIT defined; its Gram area
-// in shared memory (the layout's reserve) where wide_aa_gram_sm (or
-// xwide_aa_gram_sm) puts it, else at the head of the block's Anderson
-// workspace slice; its ring in that slice.
+// in shared memory (the layout's reserve) where wide_aa_plan puts it,
+// else at the head of the block's Anderson workspace slice; its ring in
+// that slice.  Past memory 32 the chunk's system goes to a solve area, in
+// the reserve or the workspace, that the whole block solves by columns
+// (the instantiations of qp_kernel_btd_wide_aas.cu).
 
 #include <cooperative_groups.h>
 
@@ -921,8 +923,10 @@ __device__ __forceinline__ void op_cols(const WideOp&, int, int& j0, int& j1) {
 // qp_btd_wide_kernel_aa.
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
 __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel(
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
 __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
+#else
+__global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aas(
 #endif
     StepParams p, int bb, int batch, const float* __restrict__ pdg,
     const float* __restrict__ peg, const float* __restrict__ Ag, const float* __restrict__ qg,
@@ -934,9 +938,13 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
     float* __restrict__ stats, uint8_t* __restrict__ route, float* __restrict__ ws) {
   constexpr bool AA = false;
   const AaArgs aa_args{0, nullptr};
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
     float* __restrict__ stats, uint8_t* __restrict__ route, float* __restrict__ ws,
     AaArgs aa_args) {
+  constexpr bool AA = true;
+#else
+    float* __restrict__ stats, uint8_t* __restrict__ route, float* __restrict__ ws,
+    AaArgs aa_args, AaSysArgs sys_args) {
   constexpr bool AA = true;
 #endif
   float* smem = wide_smem + kWideCtxFloats;  // after the operator's context
@@ -1143,8 +1151,14 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_wide_kernel_aa(
   // ring in that slice, one a block, sized for m0 rows (aa_state)
   if constexpr (AA) {
     const AaState aa = aa_state(aa_args, wide_smem, 0, blockIdx.x, n, m0);
+#ifdef QP_KERNEL_BTD_WIDE_AAS_UNIT
+    admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                           aa.ring, aa.k, aa.gram,
+                           aa_sys(sys_args, aa.k, wide_smem, 0, blockIdx.x));
+#else
     admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
                            aa.ring, aa.k, aa.gram);
+#endif
   } else {
     admm_solve<WideOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
   }
@@ -1952,8 +1966,10 @@ __device__ __forceinline__ void op_cols(const XOp&, int, int& j0, int& j1) {
 // column-ordered entries; the ADMM solve as qp_btd_wide_kernel's.
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
 __global__ void __launch_bounds__(kWideThreads) qp_btd_xwide_kernel(
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
 __global__ void __launch_bounds__(kWideThreads) qp_btd_xwide_kernel_aa(
+#else
+__global__ void __launch_bounds__(kWideThreads) qp_btd_xwide_kernel_aas(
 #endif
     StepParams p, int bb, int batch, long long nnz, int a_first, const float* __restrict__ pdg,
     const float* __restrict__ peg, const float* __restrict__ Ag, const float* __restrict__ qg,
@@ -1965,9 +1981,13 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_xwide_kernel_aa(
     float* __restrict__ stats, uint8_t* __restrict__ route, float* __restrict__ ws) {
   constexpr bool AA = false;
   const AaArgs aa_args{0, nullptr};
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
     float* __restrict__ stats, uint8_t* __restrict__ route, float* __restrict__ ws,
     AaArgs aa_args) {
+  constexpr bool AA = true;
+#else
+    float* __restrict__ stats, uint8_t* __restrict__ route, float* __restrict__ ws,
+    AaArgs aa_args, AaSysArgs sys_args) {
   constexpr bool AA = true;
 #endif
   float* smem = wide_smem + kWideCtxFloats;
@@ -2213,8 +2233,13 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_xwide_kernel_aa(
   ADMM_PHASE_END(kPhLoad);
   if constexpr (AA) {
     const AaState aa = aa_state(aa_args, wide_smem, 0, blockIdx.x, n, m0);
+#ifdef QP_KERNEL_BTD_WIDE_AAS_UNIT
+    admm_solve<XOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
+                        aa.ring, aa.k, aa.gram, aa_sys(sys_args, aa.k, wide_smem, 0, blockIdx.x));
+#else
     admm_solve<XOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st,
                         aa.ring, aa.k, aa.gram);
+#endif
   } else {
     admm_solve<XOp, AA>(pl, op, q, l, u, rv, x, z, y, bt, xt, tm, tn1, tn2, xp, yp, red, st);
   }
@@ -2244,17 +2269,79 @@ __global__ void __launch_bounds__(kWideThreads) qp_btd_xwide_kernel_aa(
   cl.sync();
 }
 
-// Whether an Anderson launch of memory k keeps its Gram area in shared
-// memory, at the end of the fixed part (wide_layout's reserve): always at
-// k <= kAaGramSmemMemory; past it where the layout with the reserve keeps
-// in shared memory every array that the one without it keeps there, and
-// as many blocks an SM as shared memory allows that one.
-bool wide_aa_gram_sm(int n, int m, int bb, int cs, int k) {
-  if (k <= kAaGramSmemMemory) return true;
+// Where an Anderson launch of memory k (0: none) keeps its Gram area and
+// the chunk's system, both routes.  Up to kAaGramSmemMemory the Gram area
+// (Gk and the system) in shared memory at the end of the fixed part (the
+// layout's reserve); past it the system leaves the Gram area for a solve
+// area by columns that the whole block solves (aa_solve_sys, the
+// qp_kernel_btd_wide_aas.cu kernels), and each area is reserved in shared
+// memory only where the layout with it keeps in shared memory every array
+// that the layout without it keeps there and as many blocks an SM as
+// shared memory allows that one (keeps(reserve)): Gk's Gram area and a
+// solve area both where the two together do, else the solve area alone
+// (Gk at the head of the block's Anderson workspace slice), else the
+// system to the workspace and the Gram area on chip where it alone does.
+// The ring stays in the workspace (the arrays an iteration reads take
+// shared memory first).  Decided by forcing every placement on an H100 (as
+// qp_kernel_btd.cu:btd_aa_plan's, with the same -DAA_FORCE_SOLVE and
+// -DAA_FORCE_GRAM; PERF.md section 6).
+#ifndef AA_FORCE_SOLVE
+#define AA_FORCE_SOLVE -1
+#endif
+#ifndef AA_FORCE_GRAM
+#define AA_FORCE_GRAM 1
+#endif
+struct WideAaPlan {
+  bool gram;             // the Gram area (Gk) in shared memory
+  int solve;             // AaSolve: kAaSolveGram, kAaSolveScope or kAaSolveWorkspace
+  long long reserve;     // floats at the end of the fixed part: the Gram area, the solve area
+  long long sys_floats;  // the solve area's, with its head
+};
+
+template <class Keeps>
+WideAaPlan wide_aa_plan(int k, Keeps keeps) {
+  WideAaPlan P{true, kAaSolveGram, 0, 0};
+  if (k <= 0) return P;
+  const long long g = aa_gram_floats(k), s = kAaSolveHead + aa_solve_floats(k);
+  if (k <= kAaGramSmemMemory) {
+    P.gram = true;
+  } else if (AA_FORCE_SOLVE >= 0) {
+    P.solve = AA_FORCE_SOLVE;
+    P.gram = P.solve == kAaSolveGram || AA_FORCE_GRAM == 1;
+  } else {
+    const bool both = keeps(g + s), sys = both || keeps(s);
+    P.gram = both || (!sys && keeps(g));
+    P.solve = sys ? kAaSolveScope : kAaSolveWorkspace;
+  }
+  P.sys_floats = P.solve == kAaSolveScope ? s : 0;
+  P.reserve = (P.gram ? g : 0) + P.sys_floats;
+  return P;
+}
+
+// The band route's plan (cs blocks a problem).
+WideAaPlan wide_aa_plan_band(int n, int m, int bb, int cs, int k) {
   const WideLayout L = wide_layout(n, m, bb, cs);
-  const WideLayout Lg = wide_layout(n, m, bb, cs, aa_gram_floats(k));
-  return Lg.ok && Lg.smem == L.smem &&
-         smem_blocks_per_sm(Lg.smem_bytes) >= smem_blocks_per_sm(L.smem_bytes);
+  return wide_aa_plan(k, [&](long long reserve) {
+    const WideLayout Lr = wide_layout(n, m, bb, cs, reserve);
+    return Lr.ok && Lr.smem == L.smem &&
+           smem_blocks_per_sm(Lr.smem_bytes) >= smem_blocks_per_sm(L.smem_bytes);
+  });
+}
+
+// A launch's AaArgs (aa: k and the workspace) and AaSysArgs by the plan P
+// and its layout's fixed part: the Gram area at the start of the reserve,
+// the solve area at its end, after its head; the chunk systems of
+// kAaSolveWorkspace after the batch x cs slices of aa.ws.
+AaSysArgs wide_aa_args(const WideAaPlan& P, long long fixed, AaArgs& aa, int batch, int cs,
+                       int n, int m0) {
+  aa.sm_off = fixed - P.reserve;
+  aa.sm_stride = (int)P.reserve;  // the kernels' layouts take it as their reserve
+  aa.ring_sm = 0;
+  aa.gram_ws = P.gram ? 0 : 1;
+  if (aa.ws == nullptr) return AaSysArgs{};
+  const size_t slices = (size_t)batch * cs * aa_floats(aa.k, n, m0);
+  return AaSysArgs{P.solve, fixed - P.sys_floats + kAaSolveHead, 0,
+                   aa.ws + ((slices + 3) & ~(size_t)3)};
 }
 
 // A shape the wide kernel takes: bb a multiple of 8 dividing n (its layout
@@ -2264,8 +2351,10 @@ bool wide_shape(int n, int m, int bb) {
 }
 
 // The launch of this unit's kernel on a checked shape (wide_shape), the
-// workspace given where the layout needs one; with Anderson (aa.ws), the
-// Gram area where wide_aa_gram_sm puts it.
+// workspace given where the layout needs one; with Anderson (aa.ws), its
+// areas where wide_aa_plan_band puts them: this unit's launches are those
+// whose system is (qp_kernel_btd_wide_aa.cu) or is not
+// (qp_kernel_btd_wide_aas.cu) in the Gram area.
 cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rho0,
                         float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch,
                         int seg, int adaptive_rho, float adaptive_rho_tolerance,
@@ -2277,20 +2366,20 @@ cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rh
                         float* ws, int device, void* stream, AaArgs aa) {
   if (!wide_shape(n, m, bb)) return cudaErrorInvalidValue;
   const int cs = kWideCluster;
-  const bool gram_sm = aa.ws == nullptr || wide_aa_gram_sm(n, m, bb, cs, aa.k);
-  const long long reserve = aa.ws != nullptr && gram_sm ? aa_gram_floats(aa.k) : 0;
-  const WideLayout L = wide_layout(n, m, bb, cs, reserve);
+  const WideAaPlan P = wide_aa_plan_band(n, m, bb, cs, aa.ws ? aa.k : 0);
+  const WideLayout L = wide_layout(n, m, bb, cs, P.reserve);
   if (!L.ok || (L.ws_floats > 0 && ws == nullptr)) return cudaErrorInvalidValue;
-  aa.sm_off = L.fixed - reserve;
-  aa.sm_stride = (int)reserve;
-  aa.ring_sm = 0;
-  aa.gram_ws = gram_sm ? 0 : 1;
+  const AaSysArgs sys = wide_aa_args(P, L.fixed, aa, batch, cs, n, L.m0);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
   auto kernel = qp_btd_wide_kernel;
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
+  if (P.solve != kAaSolveGram) return cudaErrorInvalidValue;
   auto kernel = qp_btd_wide_kernel_aa;
+#else
+  if (P.solve == kAaSolveGram) return cudaErrorInvalidValue;
+  auto kernel = qp_btd_wide_kernel_aas;
 #endif
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L.smem_bytes);
@@ -2328,39 +2417,40 @@ cudaError_t launch_wide(int n, int m, int bb, float sigma, float alpha, float rh
   cfg.numAttrs = 1;
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
   (void)aa;
+  (void)sys;
   err = cudaLaunchKernelEx(&cfg, kernel, p, bb, batch, pd, pe, A, q, l, u, active, rho_in, x0,
                            z0, y0, x_out, z_out, y_out, stats, route, ws);
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
+  (void)sys;
   err = cudaLaunchKernelEx(&cfg, kernel, p, bb, batch, pd, pe, A, q, l, u, active, rho_in, x0,
                            z0, y0, x_out, z_out, y_out, stats, route, ws, aa);
+#else
+  err = cudaLaunchKernelEx(&cfg, kernel, p, bb, batch, pd, pe, A, q, l, u, active, rho_in, x0,
+                           z0, y0, x_out, z_out, y_out, stats, route, ws, aa, sys);
 #endif
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Whether an Anderson launch of memory k on the compact route keeps its
-// Gram area in shared memory, by wide_aa_gram_sm's rule, in the cluster
-// and order L0 of the rule without it.
-bool xwide_aa_gram_sm(const XLayout& L0, int n, int m, int bb, int k) {
-  if (k <= kAaGramSmemMemory) return true;
-  const XLayout Lg = xwide_layout_as(n, m, bb, L0.cs, L0.nnz, L0.a_first, aa_gram_floats(k));
-  return Lg.ok && Lg.a_sm == L0.a_sm && Lg.mat_sm == L0.mat_sm && Lg.scr_sm == L0.scr_sm &&
-         smem_blocks_per_sm(Lg.smem_bytes) >= smem_blocks_per_sm(L0.smem_bytes);
-}
-
 // The compact route's layout of a launch: the rule's cluster and order,
-// with the Anderson Gram area of memory k (0: none) where
-// xwide_aa_gram_sm puts it (gram_sm).
-XLayout xwide_launch_layout(int n, int m, int bb, const long long* nnz, int k, bool& gram_sm) {
+// with the Anderson areas of memory k (0: none) where wide_aa_plan puts
+// them in that cluster and order (P).
+XLayout xwide_launch_layout(int n, int m, int bb, const long long* nnz, int k, WideAaPlan& P) {
   const XLayout L0 = xwide_rule(n, m, bb, nnz);
-  gram_sm = k <= 0 || (L0.ok && xwide_aa_gram_sm(L0, n, m, bb, k));
-  if (k <= 0 || !gram_sm) return L0;
-  return xwide_layout_as(n, m, bb, L0.cs, L0.nnz, L0.a_first, aa_gram_floats(k));
+  P = wide_aa_plan(k, [&](long long reserve) {
+    if (!L0.ok) return false;
+    const XLayout Lr = xwide_layout_as(n, m, bb, L0.cs, L0.nnz, L0.a_first, reserve);
+    return Lr.ok && Lr.a_sm == L0.a_sm && Lr.mat_sm == L0.mat_sm && Lr.scr_sm == L0.scr_sm &&
+           smem_blocks_per_sm(Lr.smem_bytes) >= smem_blocks_per_sm(L0.smem_bytes);
+  });
+  if (P.reserve == 0) return L0;
+  return xwide_layout_as(n, m, bb, L0.cs, L0.nnz, L0.a_first, P.reserve);
 }
 
 // The launch of this unit's compact-route kernel (internal blocks past
 // kWideCompactAbove) on a checked shape, in the rule's cluster for the
-// entries a block holds (nnz; null: the band rows' full count).
+// entries a block holds (nnz; null: the band rows' full count); with
+// Anderson as launch_wide's.
 cudaError_t launch_xwide(int n, int m, int bb, float sigma, float alpha, float rho0,
                          float eps_abs, float eps_rel, int n_epochs, int chunks_per_epoch,
                          int seg, int adaptive_rho, float adaptive_rho_tolerance,
@@ -2371,21 +2461,21 @@ cudaError_t launch_xwide(int n, int m, int bb, float sigma, float alpha, float r
                          float* x_out, float* z_out, float* y_out, float* stats, uint8_t* route,
                          float* ws, int device, void* stream, AaArgs aa, const long long* nnz) {
   if (!wide_shape(n, m, bb)) return cudaErrorInvalidValue;
-  bool gram_sm;
-  const XLayout L = xwide_launch_layout(n, m, bb, nnz, aa.ws ? aa.k : 0, gram_sm);
+  WideAaPlan P;
+  const XLayout L = xwide_launch_layout(n, m, bb, nnz, aa.ws ? aa.k : 0, P);
   if (!L.ok || (L.ws_floats > 0 && ws == nullptr)) return cudaErrorInvalidValue;
-  const long long reserve = aa.ws != nullptr && gram_sm ? aa_gram_floats(aa.k) : 0;
   const int cs = L.cs;
-  aa.sm_off = L.fixed - reserve;
-  aa.sm_stride = (int)reserve;
-  aa.ring_sm = 0;
-  aa.gram_ws = gram_sm ? 0 : 1;
+  const AaSysArgs sys = wide_aa_args(P, L.fixed, aa, batch, cs, n, L.m0);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
   auto kernel = qp_btd_xwide_kernel;
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
+  if (P.solve != kAaSolveGram) return cudaErrorInvalidValue;
   auto kernel = qp_btd_xwide_kernel_aa;
+#else
+  if (P.solve == kAaSolveGram) return cudaErrorInvalidValue;
+  auto kernel = qp_btd_xwide_kernel_aas;
 #endif
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L.smem_bytes);
@@ -2425,14 +2515,28 @@ cudaError_t launch_xwide(int n, int m, int bb, float sigma, float alpha, float r
   const int a_first = L.a_first ? 1 : 0;
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
   (void)aa;
+  (void)sys;
   err = cudaLaunchKernelEx(&cfg, kernel, p, bb, batch, room, a_first, pd, pe, A, q, l, u, active,
                            rho_in, x0, z0, y0, x_out, z_out, y_out, stats, route, ws);
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
+  (void)sys;
   err = cudaLaunchKernelEx(&cfg, kernel, p, bb, batch, room, a_first, pd, pe, A, q, l, u, active,
                            rho_in, x0, z0, y0, x_out, z_out, y_out, stats, route, ws, aa);
+#else
+  err = cudaLaunchKernelEx(&cfg, kernel, p, bb, batch, room, a_first, pd, pe, A, q, l, u, active,
+                           rho_in, x0, z0, y0, x_out, z_out, y_out, stats, route, ws, aa, sys);
 #endif
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The plan of an Anderson launch of memory k at this shape, on the route
+// the internal block takes (nnz as launch_xwide's).
+WideAaPlan wide_launch_plan(int n, int m, int bb, const long long* nnz, int k) {
+  if (bb <= kWideCompactAbove) return wide_aa_plan_band(n, m, bb, kWideCluster, k);
+  WideAaPlan P;
+  xwide_launch_layout(n, m, bb, nnz, k, P);
+  return P;
 }
 
 }  // namespace
@@ -2450,6 +2554,11 @@ cudaError_t launch_xwide(int n, int m, int bb, float sigma, float alpha, float r
       adaptive_rho, adaptive_rho_tolerance, check_infeas, eps_pinf, eps_dinf, batch, pd, pe, \
       A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats, route, ws, device, \
       stream
+// the C entries' own order
+#define QP_BTD_WIDE_ENTRY_CALL                                                                \
+  pd, pe, A, q, l, u, active, rho_in, x0, z0, y0, x_out, z_out, y_out, stats, batch, n, m, bb, \
+      sigma, alpha, rho0, eps_abs, eps_rel, n_epochs, chunks_per_epoch, seg, adaptive_rho,    \
+      adaptive_rho_tolerance, check_infeas, eps_pinf, eps_dinf, device, stream, ws, route
 
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
 namespace {
@@ -2490,7 +2599,7 @@ extern "C" {
 
 #ifndef QP_KERNEL_BTD_WIDE_AA_UNIT
 // The layout of one block of a launch at this shape, with Anderson of
-// memory aa_mem > 0 (0: none), into out[16].  Up to kWideCompactAbove the
+// memory aa_mem > 0 (0: none), into out[18].  Up to kWideCompactAbove the
 // band route's: the blocks a problem, shared-memory bytes, workspace
 // floats, the mask of the arrays in shared memory (bit a of L^-1, the
 // couplings G', H', A's band rows, S, F_{k-1}, F_k, pd, pe), the bytes an
@@ -2501,20 +2610,44 @@ extern "C" {
 // head of the Anderson workspace slice (0), and the route 0.  Past it the
 // compact route's (x_report), for the entries a block of the problems
 // holds at clusters of 2, 4 and 8 (nnz: xwide_rule's kXNnzArgs values;
-// null: the band rows' full count).  Returns 0, or -1 where the shape is
-// refused.
+// null: the band rows' full count).  Both routes then where the chunk's
+// system goes (AaSolve) and the floats of the block's solve area in shared
+// memory (wide_aa_plan).  Returns 0, or -1 where the shape is refused.
 int qp_btd_wide_layout_nnz(int n, int m, int bb, int aa_mem, const long long* nnz,
                            long long* out) {
   if (!wide_shape(n, m, bb) || aa_mem < 0) return -1;
-  for (int i = 0; i < 16; ++i) out[i] = 0;
+  for (int i = 0; i < 18; ++i) out[i] = 0;
+  WideAaPlan P;
+  int rc;
   if (bb > kWideCompactAbove) {
-    bool gram_sm;
-    const XLayout L = xwide_launch_layout(n, m, bb, nnz, aa_mem, gram_sm);
-    return x_report(L, gram_sm, out);
+    const XLayout L = xwide_launch_layout(n, m, bb, nnz, aa_mem, P);  // P first
+    rc = x_report(L, P.gram, out);
+  } else {
+    P = wide_aa_plan_band(n, m, bb, kWideCluster, aa_mem);
+    out[11] = P.gram ? 1 : 0;
+    rc = wide_report(wide_layout(n, m, bb, kWideCluster, P.reserve), out);
   }
-  const bool gram_sm = aa_mem == 0 || wide_aa_gram_sm(n, m, bb, kWideCluster, aa_mem);
-  out[11] = gram_sm ? 1 : 0;
-  const long long reserve = aa_mem > 0 && gram_sm ? aa_gram_floats(aa_mem) : 0;
+  out[16] = P.solve;
+  out[17] = P.sys_floats;
+  return rc;
+}
+
+// The layout of one block at this shape with `reserve` floats at the end
+// of the fixed part, as an Anderson launch reserves its areas (the layouts
+// whose arrays and blocks an SM wide_aa_plan compares), in the rule's
+// cluster and order for nnz (as qp_btd_wide_layout_nnz's), into out[18] as
+// that reports it without Anderson.  Returns 0, or -1 where the shape is
+// refused.
+int qp_btd_wide_layout_reserve(int n, int m, int bb, long long reserve, const long long* nnz,
+                               long long* out) {
+  if (!wide_shape(n, m, bb) || reserve < 0) return -1;
+  for (int i = 0; i < 18; ++i) out[i] = 0;
+  if (bb > kWideCompactAbove) {
+    const XLayout L0 = xwide_rule(n, m, bb, nnz);
+    if (!L0.ok || reserve == 0) return x_report(L0, true, out);
+    return x_report(xwide_layout_as(n, m, bb, L0.cs, L0.nnz, L0.a_first, reserve), true, out);
+  }
+  out[11] = 1;
   return wide_report(wide_layout(n, m, bb, kWideCluster, reserve), out);
 }
 
@@ -2529,15 +2662,38 @@ int qp_btd_wide_launch_nnz(QP_BTD_WIDE_ARGS, const long long* nnz) {
     return (int)launch_xwide(QP_BTD_WIDE_CALL, AaArgs{0, nullptr}, nnz);
   return (int)launch_wide(QP_BTD_WIDE_CALL, AaArgs{0, nullptr});
 }
-#else
+#elif !defined(QP_KERNEL_BTD_WIDE_AAS_UNIT)
+// qp_kernel_btd_wide_aas.cu's entry, which takes the launches whose chunk
+// system is off the Gram area (null in a library built without that unit:
+// such a launch is refused).
+__attribute__((weak)) int qp_btd_wide_launch_aas_nnz(QP_BTD_WIDE_ARGS, int aa_mem, float* aa_ws,
+                                                     const long long* nnz);
+
 // qp_btd_wide_launch_nnz with Anderson acceleration of any memory aa_mem >
 // 0: its Gram area in shared memory (the layout's reserve; ws then holds
 // qp_btd_wide_layout_nnz's workspace floats a block for aa_mem) or in
 // aa_ws, and its ring in aa_ws: one slice of admm_aa_floats(aa_mem, n,
 // ceil(m / cs)) floats a block, batch x cs of them (cs the layout's blocks
-// a problem).
+// a problem).  A launch whose chunk system wide_aa_plan puts off the Gram
+// area runs qp_kernel_btd_wide_aas.cu's kernels.
 int qp_btd_wide_launch_aa_nnz(QP_BTD_WIDE_ARGS, int aa_mem, float* aa_ws,
                               const long long* nnz) {
+  if (batch <= 0) return 0;
+  if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (!wide_shape(n, m, bb)) return (int)cudaErrorInvalidValue;
+  if (wide_launch_plan(n, m, bb, nnz, aa_mem).solve != kAaSolveGram)
+    return qp_btd_wide_launch_aas_nnz
+               ? qp_btd_wide_launch_aas_nnz(QP_BTD_WIDE_ENTRY_CALL, aa_mem, aa_ws, nnz)
+               : (int)cudaErrorInvalidDeviceFunction;
+  if (bb > kWideCompactAbove)
+    return (int)launch_xwide(QP_BTD_WIDE_CALL, AaArgs{aa_mem, aa_ws}, nnz);
+  return (int)launch_wide(QP_BTD_WIDE_CALL, AaArgs{aa_mem, aa_ws});
+}
+#else
+// qp_btd_wide_launch_aa_nnz's launches whose chunk system wide_aa_plan puts
+// off the Gram area.
+int qp_btd_wide_launch_aas_nnz(QP_BTD_WIDE_ARGS, int aa_mem, float* aa_ws,
+                               const long long* nnz) {
   if (batch <= 0) return 0;
   if (aa_mem <= 0 || aa_ws == nullptr) return (int)cudaErrorInvalidValue;
   if (bb > kWideCompactAbove)

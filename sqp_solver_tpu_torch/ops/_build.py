@@ -133,6 +133,7 @@ _SIGNATURES = {
         + [_FLOAT, _INT, _FLOAT, _FLOAT, _INT, _VOID] + [_VOID, _VOID] + [_INT, _VOID, _VOID],
     ),
     "qp_btd_wide_layout_nnz": (_INT, [_INT] * 4 + [_VOID, _VOID]),
+    "qp_btd_wide_layout_reserve": (_INT, [_INT] * 3 + [_LL, _VOID, _VOID]),
     "qp_btd_smem_rows": (_INT, [_INT] * 4),
     "qp_btd_cluster_size": (_INT, [_INT] * 4),
     "qp_kernel_error_string": (ctypes.c_char_p, [_INT]),

@@ -665,10 +665,10 @@ def _btd_block_rows(n: int, m: int, bb: int, cs: int, extra: int = 0) -> int:
 
 def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Optional[int],
                        bb: Optional[int] = None, cluster: Optional[int] = None,
-                       wide: Optional[tuple] = None) -> dict:
+                       wide=None) -> dict:
     """Where an Anderson launch keeps its state (the rule of the kernels'
     launchers: ``csrc/qp_kernel.cu:aa_dense_plan``, ``qp_kernel_btd.cu:
-    btd_aa_plan``, ``qp_kernel_btd_wide.cu:wide_aa_gram_sm``), a function
+    btd_aa_plan``, ``qp_kernel_btd_wide.cu:wide_aa_plan``), a function
     of the kernel, its shape and the memory k.  Each scope's ring
     (``ring_floats``: the difference pairs and four iterates) is in shared
     memory (``ring``) where the block's shared memory with it and the Gram
@@ -680,23 +680,30 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
     memory first.  The Gram area (``gram_floats``: the kept k x k Gram and
     the k x (k + 1) system) is in shared memory (``gram``) at every k up to
     :data:`AA_GRAM_SMEM_MEMORY` (where it may take the room of a matrix or
-    row of A), and past it where it alone keeps those two (K6, K7; for the
-    wide kernel: its arrays in shared memory, and the blocks an SM shared
-    memory allows; K1 and K3: never), else at the head of the scope's
-    workspace slice; there K1's and K3's chunk system goes where ``solve``
-    says (:func:`_aa_dense_placement`:
-    a solve area a problem or a block in shared memory, ``solve_floats`` a
-    block, or the workspace; "gram" where it is in the Gram area).  ``kernel``:
-    "K1", "K3-block", "K3-warp", "K6" or "K7" (the structured kernel at
-    internal block ``bb`` <= 32 and ``cluster`` blocks a problem) or "wide",
-    for which ``wide`` gives the layouts (:func:`qp_kernel_btd.wide_layout`'s
-    ``shared`` and ``smem_bytes``) without Anderson and with the Gram area
-    reserved, where k passes that memory.  Returns ``ring``, ``gram``,
-    ``gram_floats``, ``ring_floats``, ``twin_blocks``, and but for the wide
-    kernel ``smem_bytes`` and ``twin_smem_bytes`` (a block's) and the rows
-    of A (``rows``, ``twin_rows``; the structured kernel) or matrices
-    (``mats``, ``twin_mats``; K1, K3's block layout) in shared memory with
-    Anderson and without.  Raises a ValueError on a memory below 1."""
+    row of A).  Past it the chunk's system (``solve``: one of
+    :data:`AA_SOLVES`) leaves the Gram area: K1's and K3's for a solve area
+    a problem or a block in shared memory, or the workspace, their Gram
+    area always for the workspace (:func:`_aa_dense_placement`); the
+    structured kernels' (K6, K7 and the wide kernel, a scope a block) for a
+    solve area in shared memory ("scope") or the workspace, each area on
+    chip only where it costs the kernel without Anderson nothing (no row of
+    A, no array in shared memory, no block an SM): the Gram area (kept
+    Gram) and a solve area both where the two together do, else the solve
+    area alone, else the Gram area alone where it does, the system then in
+    the workspace (:func:`_aa_structured_placement`).  ``solve_floats``: the
+    block's solve areas' floats in shared memory.  ``kernel``: "K1",
+    "K3-block", "K3-warp", "K6" or "K7" (the structured kernel at internal
+    block ``bb`` <= 32 and ``cluster`` blocks a problem) or "wide", for
+    which ``wide`` gives the layouts (:func:`qp_kernel_btd.wide_layout`'s
+    ``shared`` and ``smem_bytes``, None where refused) where k passes that
+    memory, as a callable of the floats reserved (0: the layout without
+    Anderson).  Returns ``ring``, ``gram``,
+    ``solve``, ``solve_floats``, ``gram_floats``, ``ring_floats``,
+    ``twin_blocks``, and but for the wide kernel ``smem_bytes`` and
+    ``twin_smem_bytes`` (a block's) and the rows of A (``rows``,
+    ``twin_rows``; the structured kernel) or matrices (``mats``,
+    ``twin_mats``; K1, K3's block layout) in shared memory with Anderson
+    and without.  Raises a ValueError on a memory below 1."""
     _check_aa_memory(k)
     if kernel not in ANDERSON_KERNELS:
         raise ValueError(f"anderson_placement: kernel {kernel!r} not one of {ANDERSON_KERNELS}")
@@ -707,14 +714,18 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
     out = dict(gram_floats=gram, ring_floats=ring_floats, twin_blocks=twin_blocks)
     if kernel == "wide":
         if always:
-            return dict(out, ring=False, gram=True)
+            return dict(out, ring=False, gram=True, solve="gram", solve_floats=0)
         if wide is None:
             raise ValueError("anderson_placement: the wide kernel past memory "
-                             f"{AA_GRAM_SMEM_MEMORY} needs its two layouts (wide)")
-        plain, reserved = wide
-        keeps = (reserved is not None and reserved["shared"] == plain["shared"]
-                 and _smem_blocks(reserved["smem_bytes"]) >= _smem_blocks(plain["smem_bytes"]))
-        return dict(out, ring=False, gram=keeps)
+                             f"{AA_GRAM_SMEM_MEMORY} needs its layouts (wide)")
+        plain = wide(0)
+
+        def keeps(reserve):
+            lay = wide(reserve)
+            return (lay is not None and plain is not None and lay["shared"] == plain["shared"]
+                    and _smem_blocks(lay["smem_bytes"]) >= _smem_blocks(plain["smem_bytes"]))
+
+        return dict(out, ring=False, **_aa_structured_placement(k, gram, None, keeps))
     if kernel in ("K1", "K3-block", "K3-warp"):
         return dict(out, **_aa_dense_placement(kernel, n, m, k, gram, ring_floats, twin_blocks))
     cs = cluster or 1
@@ -729,12 +740,38 @@ def anderson_placement(kernel: str, n: int, m: int, k: int, *, twin_blocks: Opti
         return (twin_rows >= 0 and _btd_block_rows(n, m, bb, cs, area) == twin_rows
                 and with_area <= _MAX_SMEM and _smem_blocks(with_area) >= twin_blocks)
 
-    ring = keeps(gram + ring_floats)
-    on = ring or always or keeps(gram)
-    rows = twin_rows if ring or not on else _btd_block_rows(n, m, bb, cs, gram)
-    smem = 4 * (fixed + rows * (n + 1) + (gram if on else 0) + (ring_floats if ring else 0))
-    return dict(out, ring=ring, gram=on, smem_bytes=smem,
+    if always:
+        ring = keeps(gram + ring_floats)
+        place = dict(gram=True, solve="gram", solve_floats=0)
+    else:
+        place = _aa_structured_placement(k, gram, ring_floats, keeps)
+        ring = place.pop("ring")
+    extra = (gram if place["gram"] else 0) + (ring_floats if ring else 0) + place["solve_floats"]
+    rows = twin_rows if extra == 0 else _btd_block_rows(n, m, bb, cs, extra)
+    return dict(out, ring=ring, **place, smem_bytes=4 * (fixed + rows * (n + 1) + extra),
                 twin_smem_bytes=4 * (fixed + twin_rows * (n + 1)), rows=rows, twin_rows=twin_rows)
+
+
+def _aa_structured_placement(k: int, gram: int, ring_floats: Optional[int], keeps) -> dict:
+    """The structured kernels' placement past :data:`AA_GRAM_SMEM_MEMORY`
+    (``csrc/qp_kernel_btd.cu:btd_aa_plan``, ``qp_kernel_btd_wide.cu:
+    wide_aa_plan``), ``keeps(floats)`` telling whether that many floats more
+    in shared memory cost the kernel without Anderson nothing: the Gram
+    area (``gram`` floats) and a solve area (:func:`_aa_solve_floats` after
+    a head of 4) both on chip where the two together keep it (K6/K7: with
+    the ring, ``ring_floats``, too where all three do), else the solve area
+    alone ("scope"), else the system in the workspace and the Gram area on
+    chip where it alone keeps it.  ``gram``, ``solve``, ``solve_floats``
+    and, for K6/K7, ``ring``."""
+    s = _AA_SOLVE_HEAD + _aa_solve_floats(k)
+    ring = ring_floats is not None and keeps(gram + ring_floats + s)
+    both = ring or keeps(gram + s)
+    sys_on = both or keeps(s)
+    res = dict(gram=both or (not sys_on and keeps(gram)),
+               solve="scope" if sys_on else "workspace", solve_floats=s if sys_on else 0)
+    if ring_floats is not None:
+        res["ring"] = ring
+    return res
 
 
 def _aa_dense_placement(kernel: str, n: int, m: int, k: int, gram: int, ring_floats: int,
@@ -823,7 +860,8 @@ def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[in
             raise ValueError(f"anderson_placement_card: the wide kernel refuses n={n}, m={m}, "
                              f"bb={bb}, k={k}")
         gram = _round4(k * k + k * (k + 1))
-        return dict(ring=False, gram=lay["gram_shared"], smem_bytes=lay["smem_bytes"],
+        return dict(ring=False, gram=lay["gram_shared"], solve=lay["solve"],
+                    solve_floats=lay["solve_floats"], smem_bytes=lay["smem_bytes"],
                     workspace_floats=lay["workspace_floats"], gram_floats=gram,
                     ring_floats=(2 * k + 4) * (n + 2 * lay["rows_per_member"]))
     out = (ctypes.c_longlong * 12)()
@@ -835,7 +873,8 @@ def anderson_placement_card(kernel: str, n: int, m: int, k: int, bb: Optional[in
     else:
         rc = int(lib.qp_btd_aa_placement(n, m, bb, cluster, k, device, out))
         keys = ("ring", "smem_bytes", "twin_smem_bytes", "twin_blocks", "blocks",
-                "gram_floats", "ring_floats", "rows", "twin_rows", "gram")
+                "gram_floats", "ring_floats", "rows", "twin_rows", "gram", "solve",
+                "solve_floats")
     _raise_on(lib, rc, "anderson_placement_card")
     res = {key: int(v) for key, v in zip(keys, out)}
     res["ring"], res["gram"] = bool(res["ring"]), bool(res["gram"])
@@ -891,7 +930,10 @@ def _library():
 
 def _raise_on(lib, rc, name):
     if rc != 0:
-        msg = lib.qp_kernel_error_string(rc).decode()
+        # a library of the structured units alone (tools/kernel_ab.py's
+        # forced builds) has no qp_kernel.cu, whose entry names the error
+        text = getattr(lib, "qp_kernel_error_string", None)
+        msg = text(rc).decode() if text is not None else "see cudaError_t"
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 

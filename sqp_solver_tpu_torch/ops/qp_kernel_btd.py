@@ -62,6 +62,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sqp_solver_tpu_torch.ops.qp_kernel import (
+    AA_SOLVES,
     AdmmOps,
     _aa_args,
     _aa_workspace,
@@ -641,11 +642,12 @@ def _matrix_names(T: int) -> list:
 
 
 def _layout_dict(v: list, anderson: int) -> dict:
-    """A layout report (qp_btd_wide_layout_nnz's 16 values) as a dict."""
+    """A layout report (qp_btd_wide_layout_nnz's 18 values) as a dict."""
     out = dict(cluster=v[0], smem_bytes=v[1], workspace_floats=v[2], iter_bytes=v[4], T=v[5],
                rows_per_member=v[7], band_width=v[8], fixed_floats=v[10])
     if anderson:
         out["gram_shared"] = bool(v[11])
+        out["solve"], out["solve_floats"] = AA_SOLVES[v[16]], v[17]
     mask = v[3]
     if v[12] == 0:
         names = [(a, bool(mask >> i & 1)) for i, a in enumerate(WIDE_ARRAYS)]
@@ -669,7 +671,7 @@ def _nnz_args(nnz):
 
 
 def wide_layout(n: int, m: int, bb: int, nnz: Optional[tuple] = None, anderson: int = 0,
-                lib=None):
+                lib=None, reserve: int = 0):
     """The wide kernel's layout of a launch at this shape, as
     ``csrc/qp_kernel_btd_wide.cu`` computes it (``qp_btd_wide_layout_nnz``),
     with Anderson of memory ``anderson`` (0: none) and, past internal block
@@ -680,7 +682,11 @@ def wide_layout(n: int, m: int, bb: int, nnz: Optional[tuple] = None, anderson: 
     where), ``iter_bytes`` (the bytes an ADMM iteration reads from device
     memory, a problem), ``T``, ``rows_per_member``, ``band_width``,
     ``fixed_floats``, ``route`` and with Anderson ``gram_shared`` (its Gram
-    area in shared memory).  Up to 128 (``route`` "band": a cluster of two,
+    area in shared memory), ``solve`` (where the chunk's system goes, one of
+    ``qp_kernel.AA_SOLVES``) and ``solve_floats`` (its solve area's in
+    shared memory).  With ``reserve`` (and no Anderson) the layout with that
+    many floats reserved where an Anderson launch reserves its areas (the
+    layouts its placement rule compares).  Up to 128 (``route`` "band": a cluster of two,
     A in two-block band rows; pd and pe that shared memory cannot hold are
     read where they are given) the arrays are L^-1, the sweeps' couplings
     G, H, A's band rows, the Thomas scratch S, F_{k-1}, F_k, pd and pe, and
@@ -696,8 +702,15 @@ def wide_layout(n: int, m: int, bb: int, nnz: Optional[tuple] = None, anderson: 
     refused.  Needs the built library (or ``lib``); a library built before
     the compact route reports its own."""
     lib = lib or _library()
+    if reserve:
+        out = (ctypes.c_longlong * 18)()
+        if int(lib.qp_btd_wide_layout_reserve(n, m, bb, reserve, _nnz_args(nnz), out)) != 0:
+            return None
+        return _layout_dict(list(out), 0)
     if hasattr(lib, "qp_btd_wide_layout_nnz"):
-        out = (ctypes.c_longlong * 16)()
+        # 18 values; a library built before the Anderson step's solve areas
+        # writes the first 16 (its system always in the Gram area)
+        out = (ctypes.c_longlong * 18)()
         if int(lib.qp_btd_wide_layout_nnz(n, m, bb, anderson, _nnz_args(nnz), out)) != 0:
             return None
         return _layout_dict(list(out), anderson)
@@ -707,7 +720,7 @@ def wide_layout(n: int, m: int, bb: int, nnz: Optional[tuple] = None, anderson: 
         n, m, bb, out)
     if int(rc) != 0:
         return None
-    return _layout_dict(list(out) + [0] * 4, anderson if aa else 0)
+    return _layout_dict(list(out) + [0] * 6, anderson if aa else 0)
 
 
 def qp_solve_kernel_btd(qp: QuadraticProblem, settings: QPSettings = QPSettings(),

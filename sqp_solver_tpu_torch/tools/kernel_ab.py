@@ -38,8 +38,9 @@ both trees.  The parts, in order (``--parts`` picks some):
             (``REDESIGNED``), which are listed beside the parent's;
 ``time``    milliseconds of the kernels of ``--kernels`` (any of k1, k2,
             k3, k4, k5, k6, k7, and the Anderson instantiations k1aa,
-            k3aa, k6aa, k7aa and k6waa, the wide K6 and K7, at leg G's
-            shapes, and k6x, k7x, the wide K6 and K7 past internal block
+            k3aa, k6aa, k7aa, k6waa and k7waa, the wide K6 and K7, at leg
+            G's shapes, and past memory 32 k6xaa, the compact route at
+            bb = 256; k6x, k7x, the wide K6 and K7 past internal block
             128) at every ``chip_smoke.py`` shape
             (``chip_smoke.dense_cases`` for K1/K2, ``qp_cases`` for K3,
             ``spd_cases`` for K4, ``chunk_cases`` for K5 at its narrow,
@@ -83,7 +84,11 @@ both trees.  The parts, in order (``--parts`` picks some):
             ..., forced reversed, rule: each forced launch bit for bit the
             rule's (the same arithmetic), its placement as its launcher
             reports it (a placement that shared memory cannot hold is
-            refused and listed), and the ms of each.
+            refused and listed), and the ms of each.  With the structured
+            keys in ``--kernels`` (k6aa, k7aa, k6waa, k7waa, k6xaa) those
+            kernels, their units built with the kept Gram's and the
+            system's placements forced (``FORCED_BTD``, ``-DAA_FORCE_SOLVE``
+            and ``-DAA_FORCE_GRAM``).
 
 ``k5rows``  K5 at the middle sizes (``chip_smoke.CHUNK_MID_SHAPES``,
             D = 512 and 960) through ``chip_smoke.compare_chunk`` with each
@@ -119,16 +124,32 @@ SOURCES = {"k1": "qp_kernel.cu", "k2": "qp_kernel.cu", "k3": "qp_kernel.cu",
            "k4": "qp_kernel.cu", "k5": "admm_kernel.cu", "k6": "qp_kernel_btd.cu",
            "k7": "qp_kernel_btd.cu", "k1aa": "qp_kernel_aa.cu", "k3aa": "qp_kernel_aa.cu",
            "k6aa": "qp_kernel_btd_aa.cu", "k7aa": "qp_kernel_btd_aa.cu",
-           "k6waa": "qp_kernel_btd_wide_aa.cu", "k6x": "qp_kernel_btd_wide.cu",
+           "k6waa": "qp_kernel_btd_wide_aa.cu", "k7waa": "qp_kernel_btd_wide_aa.cu",
+           "k6xaa": "qp_kernel_btd_wide_aa.cu", "k6x": "qp_kernel_btd_wide.cu",
            "k7x": "qp_kernel_btd_wide.cu"}
 # the Anderson units, each with the unit it includes (whose C functions it
 # calls): a library holds both
 TWINS = {"qp_kernel_aa.cu": "qp_kernel.cu", "qp_kernel_btd_aa.cu": "qp_kernel_btd.cu",
          "qp_kernel_btd_wide_aa.cu": "qp_kernel_btd_wide.cu"}
-AA_KERNELS = ("k1aa", "k3aa", "k6aa", "k7aa", "k6waa")
+# the structured Anderson units' second units, whose kernels take the
+# launches whose chunk system is off the Gram area (past memory 32): a
+# library of a tree that has them holds them beside the Anderson unit
+SYS_UNITS = {"qp_kernel_btd_aa.cu": "qp_kernel_btd_aas.cu",
+             "qp_kernel_btd_wide_aa.cu": "qp_kernel_btd_wide_aas.cu"}
+AA_KERNELS = ("k1aa", "k3aa", "k6aa", "k7aa", "k6waa", "k7waa", "k6xaa")
+# the phase-clock readers of the Anderson units and their second units
+AA_READERS = ("admm_phase_clocks_aa", "admm_phase_clocks_aas")
 # the placements of K1's and K3's chunk system past memory 32 that
 # ``placements`` forces (-DAA_FORCE_SOLVE=p: csrc/qp_kernel.cu:aa_dense_plan)
 FORCED = {0: "gram", 1: "scope", 2: "block", 3: "workspace"}
+# the structured kernels' placements past memory 32 that ``placements``
+# forces (-DAA_FORCE_SOLVE=p -DAA_FORCE_GRAM=g: csrc/qp_kernel_btd.cu:
+# btd_aa_plan, qp_kernel_btd_wide.cu:wide_aa_plan): the parent's whole Gram
+# area on chip with the system in it (solved by rows), the kept Gram and a
+# solve area both on chip, the solve area alone, the Gram area alone (the
+# system in the workspace), and both in the workspace
+FORCED_BTD = {"gram": (0, 1), "gram+scope": (1, 1), "scope": (1, 0),
+              "gram+workspace": (3, 1), "workspace": (3, 0)}
 PLACEMENT_MEMORIES = (33, 40, 64, 128)
 # the kernels that ``bits`` holds equal to the parent's, and the Anderson
 # instantiations at leg G's shapes
@@ -160,7 +181,7 @@ def _stage_and_build(cu: list, headers: Path, label: str, flags=()):
     for h in headers.glob("*.cuh"):
         shutil.copy(h, csrc / h.name)
     lib = _build.build_library(csrc, out, flags=flags)
-    for reader in ("admm_phase_clocks", "admm_phase_clocks_aa"):
+    for reader in ("admm_phase_clocks", "admm_phase_clocks_aa", "admm_phase_clocks_aas"):
         if "-DADMM_PHASE_CLOCKS" in flags and hasattr(lib, reader):
             getattr(lib, reader).restype = ctypes.c_int
             getattr(lib, reader).argtypes = [ctypes.c_void_p]
@@ -172,11 +193,19 @@ def with_twins(sources) -> list:
     return sorted(set(sources) | {TWINS[s] for s in sources if s in TWINS})
 
 
+def tree_units(tree: Path, sources) -> list:
+    """:func:`with_twins` of ``sources`` and the second units
+    (``SYS_UNITS``) of its structured Anderson units that ``tree`` has."""
+    units = with_twins(sources)
+    return sorted(set(units) | {SYS_UNITS[s] for s in units
+                                if s in SYS_UNITS and (_csrc(tree) / SYS_UNITS[s]).exists()})
+
+
 def kernel_library(tree: Path, label: str, sources, flags=()) -> ctypes.CDLL:
     """``tree``'s kernel sources (names in its ``csrc``) with its own headers
     (and nvcc ``flags``)."""
-    return _stage_and_build([_csrc(tree) / s for s in with_twins(sources)], _csrc(tree), label,
-                            flags=flags)
+    return _stage_and_build([_csrc(tree) / s for s in tree_units(tree, sources)], _csrc(tree),
+                            label, flags=flags)
 
 
 def phase_library(tree: Path, label: str, source: str) -> ctypes.CDLL:
@@ -184,7 +213,7 @@ def phase_library(tree: Path, label: str, source: str) -> ctypes.CDLL:
     headers; an Anderson unit (with the unit it includes) against the
     tree's own, which hold the step it times."""
     headers = _csrc(tree) if source in TWINS else _csrc(ROOT)
-    return _stage_and_build([_csrc(tree) / s for s in with_twins([source])], headers,
+    return _stage_and_build([_csrc(tree) / s for s in tree_units(tree, [source])], headers,
                             f"{label}-phases", flags=("-DADMM_PHASE_CLOCKS",))
 
 
@@ -195,6 +224,16 @@ def forced_library(p: int) -> ctypes.CDLL:
                             _csrc(ROOT), f"force-{FORCED[p]}", flags=(f"-DAA_FORCE_SOLVE={p}",))
 
 
+def forced_btd_library(label: str) -> ctypes.CDLL:
+    """This checkout's structured Anderson units (with the units they
+    include and their second units) built with their placement past memory
+    32 forced to ``FORCED_BTD[label]``."""
+    p, g = FORCED_BTD[label]
+    units = tree_units(ROOT, ["qp_kernel_btd_aa.cu", "qp_kernel_btd_wide_aa.cu"])
+    return _stage_and_build([_csrc(ROOT) / s for s in units], _csrc(ROOT), f"force-btd-{label}",
+                            flags=(f"-DAA_FORCE_SOLVE={p}", f"-DAA_FORCE_GRAM={g}"))
+
+
 def build_all(jobs: dict) -> dict:
     """Run the library builds ``{key: (fn, *args)}`` at once (each nvcc is a
     process of its own; the threads only wait on them)."""
@@ -203,23 +242,29 @@ def build_all(jobs: dict) -> dict:
         return {k: f.result() for k, f in futs.items()}
 
 
-def clock_split(lib, launch, blocks: int, reader: str = "admm_phase_clocks"):
+def clock_split(lib, launch, blocks: int, reader="admm_phase_clocks"):
     """(cycles per block of each marked phase, the output) of one
     ``launch()`` after a warm-up launch, from a ``-DADMM_PHASE_CLOCKS``
     library: the sums of the unit whose reader is ``reader`` (an Anderson
-    unit's: ``admm_phase_clocks_aa``)."""
+    unit's: ``admm_phase_clocks_aa``), or of the units of a tuple of
+    readers that the library has (``AA_READERS``)."""
     import numpy as np
     import torch
 
-    read = getattr(lib, reader)
-    buf = np.zeros(len(PHASES), dtype=np.uint64)
+    names = reader if isinstance(reader, tuple) else (reader,)
+    reads = [getattr(lib, r) for r in names if hasattr(lib, r)]
+    bufs = [np.zeros(len(PHASES), dtype=np.uint64) for _ in reads]
     launch()
-    rc = read(buf.ctypes.data)
+    rc = 0
+    for read, buf in zip(reads, bufs):
+        rc = rc or read(buf.ctypes.data)
     out = launch()
     torch.cuda.synchronize()
-    rc = rc or read(buf.ctypes.data)
-    if rc:
-        raise RuntimeError(f"admm_phase_clocks failed ({rc})")
+    for read, buf in zip(reads, bufs):
+        rc = rc or read(buf.ctypes.data)
+    if rc or not reads:
+        raise RuntimeError(f"admm_phase_clocks failed ({rc}; readers {names})")
+    buf = sum(bufs)
     return {p: float(buf[i]) / blocks for i, p in enumerate(PHASES) if buf[i]}, out
 
 
@@ -480,32 +525,38 @@ def polish_route(libs: dict, dev, runs: int = 5) -> dict:
                 change_ms=mean["change"], turns=walls)
 
 
-def placements(libs: dict, forced: dict, dev, memories=PLACEMENT_MEMORIES) -> list:
-    """K1 and K3 in both layouts with Anderson at each of ``memories``
-    (``chip_smoke.aa_memory_cases``) on the change's library (the rule) and
-    on each forced build (``forced``: {p: library}), in turns rule, forced
-    in ``FORCED``'s order, then reversed, rule: the ms of each, the
-    placement its launcher reports, and its outputs bit for bit the rule's
-    (raises where they differ).  A forced placement that shared memory
-    cannot hold is refused by its launcher and listed as refused."""
+def placements(libs: dict, forced: dict, dev, memories=PLACEMENT_MEMORIES,
+               keys=("k1aa", "k3aa")) -> list:
+    """Leg G's Anderson cases past memory 32 whose ``tools/kernel_ab.py``
+    key is one of ``keys`` (K1 and K3 in both layouts by default; k6aa,
+    k7aa, k6waa, k7waa, k6xaa the structured kernels) at each of
+    ``memories`` (``chip_smoke.aa_memory_cases``) on the change's library
+    (the rule) and on each forced build (``forced``: {label: library},
+    ``FORCED``'s labels for K1 and K3, ``FORCED_BTD``'s for the structured
+    kernels), in turns rule, forced in their order, then reversed, rule:
+    the ms of each, the placement its launcher reports, and its outputs bit
+    for bit the rule's (raises where they differ).  A forced placement that
+    shared memory cannot hold is refused by its launcher and listed as
+    refused."""
     import torch
 
     import chip_smoke as cs
     from sqp_solver_tpu_torch.ops import qp_kernel as qk
 
-    long_cases = [c for c in cs.aa_long_cases(dev) if c["kernel"] in ("K1", "K3-warp",
-                                                                       "K3-block")]
+    long_cases = [c for c in cs.aa_long_cases(dev, libs["change"])
+                  if (c.get("key") or cs.AA_LONG_KEYS[c["kernel"]]) in keys]
     rows = []
     for memory in memories:
         for c in cs.aa_memory_cases(dev, memory, long_cases):
-            where = {"rule": libs["change"], **{FORCED[p]: lib for p, lib in forced.items()}}
+            where = {"rule": libs["change"], **forced}
             placed, ref = {}, _tensors(c["launch"](libs["change"]))
+            kw = dict(bb=c.get("bb"), cluster=c.get("cluster"), nnz=c.get("nnz"))
             for who, lib in where.items():
                 try:
                     placed[who] = qk.anderson_placement_card(c["placement"], c["n"], c["m"],
-                                                             memory, lib=lib)
+                                                             memory, lib=lib, **kw)
                     out = _tensors(c["launch"](lib))
-                except RuntimeError as err:  # the launcher refuses what does not fit
+                except (RuntimeError, ValueError) as err:  # the launcher refuses what does not fit
                     placed[who] = f"refused: {err}"
                     continue
                 torch.cuda.synchronize()
@@ -517,15 +568,23 @@ def placements(libs: dict, forced: dict, dev, memories=PLACEMENT_MEMORIES) -> li
             for who in ran + ran[::-1]:
                 ms[who].append(cs.cuda_ms(lambda: c["launch"](where[who]), c["reps"]))
             mean = {who: sum(v) / len(v) for who, v in ms.items()}
-            rule = placed["rule"]["solve"]
-            cs.log(f"  {c['label']}: the rule's {rule} ({placed['rule']['blocks']} blocks an SM, "
-                   f"the twin {placed['rule']['twin_blocks']}) {mean['rule']:.3f} ms; "
-                   + ", ".join(f"{who} {mean[who]:.3f} ms ({placed[who]['solve']}, "
-                               f"{placed[who]['blocks']} blocks an SM)" if who in mean else
-                               f"{who} refused" for who in where if who != "rule")
+
+            def where_is(pl):
+                return (f"{'Gram area on chip' if pl['gram'] else 'Gram area in the workspace'}, "
+                        f"system {pl['solve']}"
+                        + (f", {pl['blocks']} blocks an SM" if "blocks" in pl else ""))
+
+            rule = placed["rule"]
+            cs.log(f"  {c['label']}: the rule's ({where_is(rule)}"
+                   + (f", the twin {rule['twin_blocks']}" if "twin_blocks" in rule else "")
+                   + f") {mean['rule']:.3f} ms; "
+                   + ", ".join(f"{who} {mean[who]:.3f} ms ({where_is(placed[who])})"
+                               if who in mean else f"{who} refused"
+                               for who in where if who != "rule")
                    + " [bit for bit the rule's]")
-            rows.append(dict(case=c["label"], kernel=c["placement"], memory=memory, rule=rule,
-                             placements=placed, ms=mean, turns=ms))
+            rows.append(dict(case=c["label"], kernel=c["placement"], memory=memory,
+                             rule=rule["solve"], gram=rule["gram"], placements=placed, ms=mean,
+                             turns=ms))
     return rows
 
 
@@ -534,8 +593,7 @@ def aa_split(lib, c: dict) -> dict:
     from the phase-clock build ``lib``: cycles per block, and the step's
     parts (``AA_PHASES``) and the chunk-end stats per chunk (chunks: the
     mean iterations over the chunk length)."""
-    cyc, out = clock_split(lib, lambda: c["launch"](lib), c["blocks"],
-                           reader="admm_phase_clocks_aa")
+    cyc, out = clock_split(lib, lambda: c["launch"](lib), c["blocks"], reader=AA_READERS)
     chunks = float(out.iter.double().mean()) / c["seg"]
     per_chunk = {p: cyc.get(p, 0.0) / max(chunks, 1.0) for p in ("stats",) + AA_PHASES}
     return dict(cycles_per_block=cyc, chunks=chunks, cycles_per_chunk=per_chunk,
@@ -614,19 +672,26 @@ def main(argv=None) -> int:
     timed = {SOURCES[k] for k in kernels}
     jobs = {}
     split_trees = args.trees.split(",")
+    # the placements' cases: K1 and K3 unless --kernels names Anderson keys
+    place_keys = [k for k in kernels if k in AA_KERNELS] or ["k1aa", "k3aa"]
+    dense_keys = {"k1aa", "k3aa"} & set(place_keys)
     if {"bits", "time", "regs", "k5rows"} & set(parts):
         sources = (timed if "time" in parts else set()) | (
             {SOURCES[k] for k in BITS} if {"bits", "regs"} & set(parts) else set()) | (
             {SOURCES["k5"]} if "k5rows" in parts else set()) | (
-            {SOURCES["k1aa"]} if "placements" in parts else set())
+            {SOURCES[k] for k in place_keys} if "placements" in parts else set())
         for who, tree in trees.items():
             if {"bits", "time", "regs"} & set(parts) or who in split_trees:
                 jobs[who] = (kernel_library, tree, who, sources)
     if "placements" in parts:
-        for p in FORCED:
-            jobs[("force", p)] = (forced_library, p)
+        if dense_keys:
+            for p in FORCED:
+                jobs[("force", FORCED[p])] = (forced_library, p)
+        if set(place_keys) - dense_keys:
+            for label in FORCED_BTD:
+                jobs[("force", label)] = (forced_btd_library, label)
         if "change" not in jobs:
-            jobs["change"] = (kernel_library, ROOT, "change", {"qp_kernel_aa.cu"})
+            jobs["change"] = (kernel_library, ROOT, "change", {SOURCES[k] for k in place_keys})
     if "phases" in parts:
         for src in timed:
             for who, tree in trees.items():
@@ -649,7 +714,11 @@ def main(argv=None) -> int:
     btd = [c for c in btd if c["label"][:2].lower() in kernels]
     if {"k6x", "k7x"} & set(kernels):
         btd += [c for c in cs.btd_past128_cases(dev) if c["label"][:2].lower() + "x" in kernels]
-    memory_cases = cs.aa_memory_cases(dev, args.memory) if args.memory else []
+    # a library with the wide kernel's layout report gives the compact
+    # route's cluster (else the package's is built)
+    wide_lib = next((lib for lib in built.values() if hasattr(lib, "qp_btd_wide_layout_nnz")),
+                    None)
+    memory_cases = cs.aa_memory_cases(dev, args.memory, lib=wide_lib) if args.memory else []
     aa = [c for c in (memory_cases or cs.aa_cases(dev)) if c["kernel"] in kernels] if set(
         AA_KERNELS) & set(kernels) else []
     result = dict(card=card)
@@ -668,11 +737,21 @@ def main(argv=None) -> int:
         if "k4" in kernels:
             result["polish_route"] = polish_route(libs, dev)
     if "placements" in parts:
-        cs.log("K1 and K3 with Anderson past memory 32, the rule's placement against each "
-               "forced one:")
-        result["placements"] = placements(
-            libs, {p: built[("force", p)] for p in FORCED}, dev,
-            [int(k) for k in args.memories.split(",")])
+        cs.log(f"{', '.join(place_keys)} with Anderson past memory 32, the rule's placement "
+               "against each forced one:")
+        forced = {label: built[("force", label)] for label in
+                  ([FORCED[p] for p in FORCED] if dense_keys else [])
+                  + (list(FORCED_BTD) if set(place_keys) - dense_keys else [])}
+        memories = [int(k) for k in args.memories.split(",")]
+        result["placements"] = []
+        if dense_keys:
+            result["placements"] += placements(
+                libs, {FORCED[p]: forced[FORCED[p]] for p in FORCED}, dev, memories,
+                sorted(dense_keys))
+        if set(place_keys) - dense_keys:
+            result["placements"] += placements(
+                libs, {label: forced[label] for label in FORCED_BTD}, dev, memories,
+                sorted(set(place_keys) - dense_keys))
     if "k5rows" in parts:
         cs.log("K5 at the middle sizes, each tree's library:")
         result["k5rows"] = {who: [cs.compare_chunk(*shape, dev, reps=4, lib=libs[who])

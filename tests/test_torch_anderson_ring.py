@@ -96,13 +96,14 @@ def test_placement_rule_across_memories(k):
 
 # (kernel, n, m, bb, cluster, blocks an SM of the kernel without Anderson,
 # the Gram area in shared memory at memories 33, 48 and 64): past memory 32
-# the area stays on chip only where it alone keeps the twin's matrices (or
-# rows of A) and blocks an SM (K6, K7), and for K1 and K3 never: their
-# chunk's system goes to a solve area instead, which beat the whole area on
-# chip on the card (tests/test_torch_anderson_past32.py).  K7 at the NLP step's shape
-# up to 48, where a block an SM would go next; K6 on a cluster always; K6
-# on one block, whose A rows fill shared memory, never; K6 at n = 32,
-# m = 24 always, with its ring beside it at 33
+# every kernel's chunk system leaves the Gram area for a solve area, which
+# beat the whole area on chip on the card; K1's and K3's Gram area never
+# stays on chip (tests/test_torch_anderson_past32.py), K6's and K7's only
+# where, with a solve area beside it, it keeps the twin's rows of A and
+# blocks an SM (tests/test_torch_anderson_past32_btd.py).  K7 at the NLP
+# step's shape up to 40, where with the solve area a block an SM would go
+# next; K6 on a cluster always; K6 on one block, whose A rows fill shared
+# memory, never; K6 at n = 32, m = 24 up to 48, with its ring beside it at 33
 PAST_32 = [
     ("K1", 32, 33, None, None, 8, (False, False, False)),
     ("K1", 128, 129, None, None, 1, (False, False, False)),
@@ -110,8 +111,8 @@ PAST_32 = [
     ("K3-block", 32, 33, None, None, 8, (False, False, False)),
     ("K6", 192, 320, 8, 2, 1, (True, True, True)),
     ("K6", 192, 320, 8, 1, 1, (False, False, False)),
-    ("K7", 128, 224, 8, 2, 2, (True, True, False)),
-    ("K6", 32, 24, 8, 1, 4, (True, True, True)),
+    ("K7", 128, 224, 8, 2, 2, (True, False, False)),
+    ("K6", 32, 24, 8, 1, 4, (True, True, False)),
 ]
 
 
@@ -119,9 +120,9 @@ def test_placement_rule_refuses_past_the_bound():
     """Memory 0 raises a ValueError for every kernel; past memory 32 (the
     kernels' bound before the Gram area could leave shared memory) every
     kernel gives a placement: at 33, 48 and 64 the Gram area stays in shared
-    memory exactly where, with it, the block still holds what the kernel
-    without Anderson holds and gets as many blocks an SM (K1 and K3: never,
-    PAST_32), else it leaves
+    memory exactly where, with it (and K6's and K7's solve area), the block
+    still holds what the kernel without Anderson holds and gets as many
+    blocks an SM (K1 and K3: never, PAST_32), else it leaves
     (``gram`` False, the block's shared memory that of the kernel without
     Anderson and, for K1 and K3, the solve areas of the chunk's system,
     ``solve_floats``); the ring is on chip only beside it."""
@@ -146,20 +147,21 @@ def test_placement_rule_refuses_past_the_bound():
             assert p["smem_bytes"] == p["twin_smem_bytes"] + extra
             if on:
                 assert 233472 // (p["smem_bytes"] + 1024) >= twin
-    # the wide kernel, given its layouts without Anderson and with the area
-    # reserved: on chip where the reserve moves no array and no block an SM
+    # the wide kernel, given its layouts without Anderson and with its
+    # areas reserved (here the same whatever the reserve): on chip where the
+    # reserve moves no array and no block an SM
     plain = dict(shared=["Li", "GH", "A"], smem_bytes=150000)
     for reserved, on in ((dict(shared=["Li", "GH", "A"], smem_bytes=163000), True),
                          (dict(shared=["Li", "A"], smem_bytes=150000), False),
                          (dict(shared=["Li", "GH", "A"], smem_bytes=232000), True),
                          (None, False)):
         p = qk.anderson_placement("wide", 272, 160, 40, twin_blocks=None, bb=136,
-                                  wide=(plain, reserved))
+                                  wide=lambda r, reserved=reserved: reserved if r else plain)
         assert p["gram"] is on and p["ring"] is False
     assert qk.anderson_placement("wide", 272, 160, 32, twin_blocks=None, bb=136)["gram"]
     small = dict(shared=["Li"], smem_bytes=30000)
     p = qk.anderson_placement("wide", 512, 200, 40, twin_blocks=None, bb=256,
-                              wide=(small, dict(shared=["Li"], smem_bytes=43000)))
+                              wide=lambda r: dict(shared=["Li"], smem_bytes=43000) if r else small)
     assert p["gram"] is False  # 7 blocks an SM by shared memory would drop to 5
 
 

@@ -1786,16 +1786,24 @@ AA_QP = QPSettings(alpha=1.6, eps_abs=1e-5, eps_rel=1e-5, max_iter=300, check_te
                    adaptive_rho=True, adaptive_rho_interval=50, schedule="fixed",
                    acceleration="anderson")
 AA_KINDS = ["K1", "K3-block", "K3-warp", "K6-cluster", "K6-block", "K7"]
+# the structured kinds past memory 32: the narrow K6 and K7, the wide
+# kernel's band route (K6, K7 at internal block 40) and its compact route
+# (K6 at 136)
+AA_STRUCTURED = ["K6-cluster", "K6-block", "K7", "K6-wide", "K7-wide", "K6-compact"]
+# (n, m, internal block) of the wide kinds
+AA_WIDE_SHAPES = {"K6-wide": (80, 60, 40), "K7-wide": (80, 60, 40), "K6-compact": (272, 128, 136)}
 
 
 def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson", rho_every=None, eps=None,
-             batch=None, lib=None):
+             batch=None, lib=None, alpha=None):
     """(float32 inputs, kernel launch, plain call) of one kind: each call
     takes the inputs and returns an object with x (or p), z, y, iter,
     rho_updates and done.  ``seg`` replaces the chunk length, ``rho_every``
     the rho interval (50 iterations, 40 for K1), ``eps`` the tolerances
-    (1e-5) and ``batch`` the problems (128, 64 for K6/K7); ``lib`` a kernel
-    library for K1's and K3's launches (the package's by default)."""
+    (1e-5), ``batch`` the problems (128, 64 for K6/K7) and ``alpha`` the
+    relaxation (1.6); ``lib`` a kernel library (the package's by default).  The wide kinds (AA_WIDE_SHAPES)
+    run random band QPs at T = 2 (K7's with a carried rho on every second
+    problem and the last inactive)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
     from sqp_solver_tpu_torch.testing import btd_qp_inputs, btd_step_inputs
 
@@ -1806,6 +1814,8 @@ def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson", rho_every=No
         s = dataclasses.replace(s, adaptive_rho_interval=rho_every)
     if eps is not None:
         s = dataclasses.replace(s, eps_abs=eps, eps_rel=eps)
+    if alpha is not None:
+        s = dataclasses.replace(s, alpha=alpha)
     if kind == "K1":
         s = dataclasses.replace(s, check_termination=seg or 10,
                                 adaptive_rho_interval=rho_every or 40)
@@ -1820,18 +1830,25 @@ def _aa_case(kind, memory, cuda, seg=None, acceleration="anderson", rho_every=No
         return (t, lambda t: _qp_raw(lambda *a: qk._qp_solve_launch(*a, layout=layout, lib=lib),
                                      t, s),
                 lambda t: _qp_raw(qk.qp_solve_reference, t, s))
-    bs = dataclasses.replace(s, linear_solver="schur_block_tridiag", block_size=8)
+    n, m, bb = AA_WIDE_SHAPES.get(kind, (32, 24, 8))
+    bs = dataclasses.replace(s, linear_solver="schur_block_tridiag", block_size=bb)
     if kind.startswith("K6"):
-        a = btd_qp_inputs(batch or 64, 4, 8, 24, seed=41, loose_row=True)
-        pd, pe = qb.extract_band(torch.as_tensor(a["P"]), 8)
+        a = btd_qp_inputs(batch or 64, n // bb, bb, m, seed=41 + bb - 8, loose_row=True)
+        pd, pe = qb.extract_band(torch.as_tensor(a["P"]), bb)
         t = _to(dict(pd=pd.numpy(), pe=pe.numpy(), J=a["A"], g=a["q"], l=a["l"], u=a["u"],
                      x=a["x"], z=a["z"], y=a["y"]), cuda)
-        cluster = 2 if kind == "K6-cluster" else 1
-        assert kind == "K6-block" or qb.cluster_size(32, 24, 8, 64) == 2
+        cluster = {"K6-cluster": 2, "K6-block": 1}.get(kind)
+        assert kind != "K6-cluster" or qb.cluster_size(32, 24, 8, 64) == 2
         return (t, lambda t: _btd_raw(qb._qp_btd_launch, t, bs, active=None, rho_in=None,
-                                      check_infeas=True, name="test", cluster=cluster),
+                                      check_infeas=True, name="test", cluster=cluster, lib=lib),
                 lambda t: _btd_raw(qb.qp_btd_reference, t, bs, check_infeas=True))
-    t = _to(btd_step_inputs(batch or 64, 4, 8, 24, seed=43), cuda)
+    t = _to(btd_step_inputs(batch or 64, n // bb, bb, m, seed=43 + bb - 8), cuda)
+    if lib is not None:  # the entry takes the package's library
+        return (t, lambda t: _btd_raw(qb._qp_btd_launch, t, bs, active=t["active"],
+                                      rho_in=t["rho_in"], check_infeas=False, name="test",
+                                      lib=lib),
+                lambda t: _btd_raw(qb.qp_btd_reference, t, bs, active=t["active"],
+                                   rho_in=t["rho_in"]))
     return (t, lambda t: qb.btd_step_kernel(t["pd"], t["pe"], t["J"], t["g"], t["l"], t["u"],
                                             t["active"], t["x"], t["z"], t["y"], bs,
                                             rho_in=t["rho_in"]),
@@ -1923,7 +1940,7 @@ def test_anderson_kernels_refuse_memory_past_the_bound(cuda, kind):
 
 
 @pytest.mark.parametrize("memory", [33, 40])
-@pytest.mark.parametrize("kind", AA_KINDS)
+@pytest.mark.parametrize("kind", AA_KINDS + AA_STRUCTURED[3:])
 def test_anderson_kernels_past_memory_32_match_plain_float64(cuda, kind, memory):
     """Memories 33 and 40 with chunks of 2 iterations, rho every 120 and eps
     1e-6: an epoch's 60 chunks push 59 pairs into the ring, which fills
@@ -1933,10 +1950,28 @@ def test_anderson_kernels_past_memory_32_match_plain_float64(cuda, kind, memory)
     ring wraps.  4096 problems: with a check every 2 iterations a quarter
     or fewer of the float32 runs stop at float64's iteration, so the shares
     that do are estimates, whose spread at 128 or 512 problems passes a
-    tenth of them."""
+    tenth of them.  The structured kinds run where their launcher puts
+    the chunk's system past 32 (a solve area on chip or the workspace:
+    ops/qp_kernel.py:anderson_placement), the wide kinds too."""
     ok = _aa_against_plain_float64(kind, *_aa_case(kind, memory, cuda, seg=2, rho_every=120,
                                                    eps=1e-6, batch=4096))
     assert (ok.iter >= 2 * (memory + 2)).float().mean() >= 0.25
+
+
+@pytest.mark.parametrize("kind", AA_STRUCTURED)
+def test_anderson_structured_at_memory_65_match_plain_float64(cuda, kind):
+    """K6 (on a cluster and on one block), K7 and the wide kernel's two
+    routes at memory 65, where the k x k solve's system passes 64 rows, in
+    chunks of 2 with rho every 154, eps 1e-6 and no over-relaxation (alpha
+    1; at 1.6 K7's problems stop before the wrap, 0.215 of them past it,
+    and at eps below 1e-6 float32 stops agreeing with float64 on its
+    counts), so that the ring fills and wraps (at 134 iterations) before a
+    rho change empties it: the kernel holds to plain float64 under the bars
+    of test_anderson_kernels_match_plain_float64, a quarter or more of the
+    problems running past the wrap."""
+    ok = _aa_against_plain_float64(kind, *_aa_case(kind, 65, cuda, seg=2, rho_every=154,
+                                                   eps=1e-6, batch=4096, alpha=1.0))
+    assert (ok.iter >= 2 * (65 + 2)).float().mean() >= 0.25
 
 
 @pytest.mark.parametrize("kind", ["K1", "K3-block", "K3-warp"])
@@ -1968,6 +2003,20 @@ def forced_aa_libs():
                                 for p in kernel_ab.FORCED})
 
 
+@pytest.fixture(scope="module")
+def forced_btd_libs():
+    """This checkout's structured Anderson units built with each placement
+    of the kept Gram and the chunk's system past memory 32 forced
+    (tools/kernel_ab.py:forced_btd_library, -DAA_FORCE_SOLVE=p
+    -DAA_FORCE_GRAM=g), all nvcc processes at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with --noconftest -m gpu")
+    from sqp_solver_tpu_torch.tools import kernel_ab
+
+    return kernel_ab.build_all({label: (kernel_ab.forced_btd_library, label)
+                                for label in kernel_ab.FORCED_BTD})
+
+
 @pytest.mark.parametrize("memory", [40, 65])
 @pytest.mark.parametrize("kind", ["K1", "K3-block", "K3-warp"])
 def test_anderson_forced_placements_are_the_rules_bit_for_bit(cuda, forced_aa_libs, kind,
@@ -1995,6 +2044,52 @@ def test_anderson_forced_placements_are_the_rules_bit_for_bit(cuda, forced_aa_li
         assert placed["solve"] == ("scope" if name == "block" and kind != "K3-warp" else name)
         out = _aa_case(kind, memory, cuda, seg=2, rho_every=154, eps=1e-6, batch=512,
                        lib=lib)[1](t32)
+        torch.cuda.synchronize()
+        for key in ref._fields:
+            a, b = getattr(ref, key), getattr(out, key)
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                   b.view(torch.int32) if b.dtype == torch.float32 else b), (
+                    name, key)
+        ran.append(name)
+    assert {"scope", "workspace"} <= set(ran), ran
+
+
+@pytest.mark.parametrize("memory", [40, 65])
+@pytest.mark.parametrize("kind", AA_STRUCTURED)
+def test_anderson_structured_forced_placements_are_the_rules_bit_for_bit(
+        cuda, forced_btd_libs, kind, memory):
+    """The structured kinds at memories 40 and 65 (chunks of 2, rho every
+    154, the ring wrapping) with the kept Gram and the chunk's system in
+    each place a build can force (tools/kernel_ab.py:FORCED_BTD: the
+    parent's whole Gram area on chip with the system in it, solved by rows;
+    the Gram area and a solve area on chip; the solve area alone; the Gram
+    area alone, the system in the workspace; both in the workspace): each
+    launch reports the forced placement and gives the rule's outputs bit for
+    bit (the column solve stores every value of gamma with the bits of the
+    serial elimination), so the same statuses and counts; a placement that
+    shared memory cannot hold is refused by its launcher."""
+    from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
+    from sqp_solver_tpu_torch.tools.kernel_ab import FORCED_BTD
+
+    t32, launch, _ = _aa_case(kind, memory, cuda, seg=2, rho_every=154, eps=1e-6, batch=512)
+    ref = launch(t32)
+    n, m, bb = AA_WIDE_SHAPES.get(kind, (32, 24, 8))
+    cluster = {"K6-cluster": 2, "K6-block": 1}.get(kind, qb.cluster_size(n, m, bb, 512))
+    placement = "wide" if bb > 32 else kind[:2]
+    nnz = qb.compact_nnz(t32["J"], bb) if bb > qb.COMPACT_ABOVE else None
+    ran = []
+    for name, lib in forced_btd_libs.items():
+        try:
+            placed = qk.anderson_placement_card(placement, n, m, memory, bb=bb, cluster=cluster,
+                                                nnz=nnz, lib=lib)
+            out = _aa_case(kind, memory, cuda, seg=2, rho_every=154, eps=1e-6, batch=512,
+                           lib=lib)[1](t32)
+        except (RuntimeError, ValueError):  # more shared memory than a block takes
+            continue
+        solve, gram = FORCED_BTD[name]
+        assert (placed["solve"], placed["gram"]) == (
+            ("gram", "scope", "block", "workspace")[solve], bool(gram) or solve == 0), name
         torch.cuda.synchronize()
         for key in ref._fields:
             a, b = getattr(ref, key), getattr(out, key)
@@ -2060,7 +2155,8 @@ AA_PLACEMENTS = [("K1", 32, 33, None, None), ("K1", 128, 129, None, None),
                  ("K3-block", 40, 41, None, None), ("K3-block", 64, 900, None, None),
                  ("K6", 192, 320, 8, 2), ("K6", 192, 320, 8, 1), ("K7", 128, 224, 8, 2),
                  ("K6", 32, 24, 8, 1), ("wide", 256, 384, 64, 2), ("wide", 360, 600, 40, 2),
-                 ("wide", 128, 224, 64, 2), ("wide", 760, 1250, 152, 8)]
+                 ("wide", 128, 224, 64, 2), ("wide", 760, 1250, 152, 8),
+                 ("wide", 512, 200, 256, 8), ("wide", 80, 60, 40, 2), ("wide", 272, 128, 136, 4)]
 
 
 @pytest.mark.parametrize("kernel,n,m,bb,cluster", AA_PLACEMENTS,
@@ -2072,31 +2168,33 @@ def test_anderson_placement_is_the_rules(cuda, kernel, n, m, bb, cluster):
     mirror (ops/qp_kernel.py:anderson_placement) given the card's blocks an
     SM of the kernel without Anderson; with the ring on chip the Anderson
     kernel's blocks an SM are no fewer than those; memories 4 and 8 (the Gram
-    area in shared memory always) and 33, 40 and 64 (the Gram area there
-    only where it costs the kernel without Anderson nothing: for the wide
-    kernel, given its layout without Anderson and, where the launcher kept
-    the area on chip, the one it reports; for K1 and K3 past 32 never:
-    their chunk's system in a solve area or the workspace, ``solve``, which
-    the mirror holds too)."""
+    area in shared memory always) and 33, 40, 64, 65 and 128 (past 32 the
+    chunk's system off the Gram area, ``solve``: K1's and K3's in a solve
+    area or the workspace, their Gram area there always; the structured
+    kernels' Gram area and solve area each on chip only where it costs the
+    kernel without Anderson nothing: for the wide kernel, given its layouts
+    with each reserve the rule weighs, qp_btd_wide_layout_reserve)."""
     from sqp_solver_tpu_torch.ops import qp_kernel_btd as qb
 
-    nnz = _leg_p(cuda)[1] if kernel == "wide" and bb > qb.COMPACT_ABOVE else None
-    for k in (4, 8, 33, 40, 64):
+    nnz = (_leg_p(cuda)[1] if (n, bb) == (760, 152) else None) if kernel == "wide" else None
+    for k in (4, 8, 33, 40, 64, 65, 128):
         card = qk.anderson_placement_card(kernel, n, m, k, bb=bb, cluster=cluster, nnz=nnz)
         wide = None
         if kernel == "wide":
             plain = qb.wide_layout(n, m, bb, nnz=nnz)
-            reserved = dict(smem_bytes=card["smem_bytes"], shared=plain["shared"]) if (
-                card["gram"]) else None
-            wide = (plain, reserved)
+
+            def wide(reserve):
+                return qb.wide_layout(n, m, bb, nnz=nnz, reserve=reserve)
+
             assert card["gram"] or k > 32
-            if card["gram"] and k > 32:
+            if k > 32 and (card["gram"] or card["solve"] == "scope"):
                 assert card["workspace_floats"] == plain["workspace_floats"], card
         mirror = qk.anderson_placement(kernel, n, m, k, twin_blocks=card.get("twin_blocks"),
                                        bb=bb, cluster=cluster, wide=wide)
         assert {key: card[key] for key in mirror if key in card} == {
             key: v for key, v in mirror.items() if key in card}, (card, mirror)
-        if kernel != "wide" and (card["ring"] or (card["gram"] and k > 32)):
+        on_chip = card["gram"] or card["solve_floats"]  # past 32, K6's and K7's keep the twin's
+        if kernel != "wide" and (card["ring"] or (k > 32 and on_chip and kernel in ("K6", "K7"))):
             assert card["blocks"] >= card["twin_blocks"], card
 
 
